@@ -14,17 +14,26 @@ one JSON line per phase:
    the kernel's, the plain version's and one PyTorch library call's time
    beside the bound: the larger of the bytes the function must move over
    3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM bf16 dense
-   peak).  ``ms`` is device time per call (the summed kernel durations
-   from torch.profiler); ``call_ms`` is the time per call of back-to-back
-   calls by CUDA events, which adds the gaps the host leaves while it
-   launches.
-4. ``reference``: a tiny model through the same entry points on the card
-   (fp32, kernels) and on the CPU (plain versions): greedy codes equal and
-   wav close.
-5. ``main_path``: ``TTS.inference(..., vocoder_type="hifigan")`` and
-   ``TTS.stream`` at the shipped widths (UnifiedVoice 30 x 1024, HiFiGAN
-   defaults), random bf16 weights from seed 0, int8 decode, 200 AR steps;
-   every kernel's launch count must rise.
+   peak; 67 TFLOP/s for K7's fp32 arithmetic).  ``ms`` is device time per
+   call (the summed kernel durations from torch.profiler); ``call_ms`` is
+   the time per call of back-to-back calls by CUDA events, which adds the
+   gaps the host leaves while it launches.
+4. ``reference``: tiny models through the same entry points on the card
+   (fp32, kernels) and on the CPU (plain versions), both routes: greedy
+   codes equal, the same injected diffusion noise, wavs close.
+5. ``main_path``: the default route, ``TTS.inference(text, ref)`` (AR
+   decode, latent pass, DDIM-50 with cond-free guidance, BigVGAN) with
+   bench.py's knobs, at the shipped widths (UnifiedVoice 30 x 1024,
+   DiffusionTTS 1024 x 10 layers, BigVGAN 24 kHz/100-band), random bf16
+   weights from seed 0, int8 decode, 200 AR steps: wall seconds per stage
+   and the launches of each stage, twice (the first call builds the
+   cached unconditional integrator), then once with the diffusion and
+   vocoder stages under the profiler: their CUDA kernels by kind, which
+   must agree with the launch counts, and the device's busy share of
+   each stage; then slice 1's route,
+   ``TTS.inference(..., vocoder_type="hifigan")`` and ``TTS.stream``.
+   Each route is driven with the launch counts at 0 and read after it;
+   every kernel it runs must have launched.
 6. ``decode``: eager decode time per token and CUDA launches per token
    (from the profiler), the size a CUDA graph would capture.
 
@@ -50,7 +59,12 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 BF16_FLOPS = 989e12            # H100 SXM, dense tensor core
+FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
 AR_STEPS = 200
+DIFF_STEPS = 50
+# bench.py's workload: DDIM-50, cond-free guidance, padded geometry
+ROUTE_KW = dict(max_ar_steps=AR_STEPS, max_diffusion_steps=DIFF_STEPS,
+                diffusion_pad_multiple=32, mel_pad_multiple=128)
 TEXT = "The quick brown fox jumps over the lazy dog."
 BUCKET = 64                    # the first text bucket, which TEXT fits
 
@@ -59,8 +73,9 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS
+             ) -> tuple:
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -103,12 +118,25 @@ def device_ms(torch, fn, n: int = 30, warmup: int = 5) -> float:
 
 def timings(torch, kernel, plain, library) -> dict:
     """Device time (``*ms``) and back-to-back call time (``*call_ms``) of
-    the kernel, its plain version and the library call."""
+    the kernel, its plain version and the library call (None where no
+    PyTorch call computes the same function)."""
     out = {}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        out[key + "ms"] = device_ms(torch, fn)
-        out[key + "call_ms"] = call_ms(torch, fn)
+        out[key + "ms"] = device_ms(torch, fn) if fn else None
+        out[key + "call_ms"] = call_ms(torch, fn) if fn else None
     return out
+
+
+def bf16_err(torch, got, want, atol: float, rtol: float, name: str) -> float:
+    """Max abs error; fails where |got - want| > atol + rtol |want| (bf16
+    output: one ulp is 2^-7 of the value)."""
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs()
+    err = d.max().item()
+    assert math.isfinite(err), f"{name}: non-finite output"
+    bad = (d > atol + rtol * want.float().abs()).sum().item()
+    assert bad == 0, f"{name}: {bad} elements off, max abs err {err}"
+    return err
 
 
 def nvidia_smi() -> str:
@@ -258,6 +286,141 @@ def check_flash_decode(torch, k3, dev, slots, layers=30, report=True):
     return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t)
 
 
+def _gn_conv_inputs(torch, dev, b, c, t, m, k, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(b, c, t, generator=g, device=dev) * 2 + 0.5) \
+        .to(torch.bfloat16)
+    norm = {"scale": 1 + 0.1 * torch.randn(c, generator=g, device=dev),
+            "bias": 0.1 * torch.randn(c, generator=g, device=dev)}
+    bound = (c * k) ** -0.5
+    conv = {"w": ((torch.rand(m, c, k, generator=g, device=dev) * 2 - 1)
+                  * bound).to(torch.bfloat16),
+            "b": (torch.rand(m, generator=g, device=dev) * 2 - 1) * bound}
+    return x, norm, conv
+
+
+RESBLOCK_TOL = dict(atol=3e-2, rtol=2e-2)   # 1-2 bf16 ulps at |y| <~ 4
+
+
+def check_gn_conv(torch, k4, dev):
+    """K4 at the denoiser's shapes (T=896): the resblock in-half at B=2
+    (act, c_out=1024), the attention qkv head at B=2 (c_out=3072) and the
+    integrator's in-half at B=1.  The row sums the three."""
+    F = torch.nn.functional
+    shapes = [("resblock_in_half", 2, 1024, True),
+              ("attention_qkv_head", 2, 3072, False),
+              ("integrator_in_half_b1", 1, 1024, True)]
+    c, t, groups, eps = 1024, 896, 32, 1e-5
+    tot = dict(bytes=0.0, flops=0.0)
+    err_max = 0.0
+    for i, (name, b, m, act) in enumerate(shapes):
+        x, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, m, 1, 10 + i)
+        got = k4.gn_conv1x1(x, norm, conv, groups, act)
+        want = k4.gn_conv1x1_plain(x, norm, conv, groups, act)
+        err = bf16_err(torch, got, want, name=f"gn_conv {name}",
+                       **RESBLOCK_TOL)
+        err_max = max(err_max, err)
+        g16, b16 = (norm[n].to(torch.bfloat16) for n in ("scale", "bias"))
+        w16, bias16 = conv["w"], conv["b"].to(torch.bfloat16)
+
+        def library(_, x=x, g16=g16, b16=b16, w16=w16, bias16=bias16,
+                    act=act):
+            h = F.group_norm(x, groups, g16, b16, eps)
+            return F.conv1d(F.silu(h) if act else h, w16, bias16)
+        t_ = timings(
+            torch,
+            lambda _, x=x, n=norm, cv=conv, a=act: k4.gn_conv1x1(
+                x, n, cv, groups, a),
+            lambda _, x=x, n=norm, cv=conv, a=act: k4.gn_conv1x1_plain(
+                x, n, cv, groups, a),
+            library)
+        nbytes = 2 * b * c * t + 2 * m * c + 8 * c + 4 * m + 2 * b * m * t
+        flops = 2 * b * m * c * t
+        emit("kernel_detail", name="gn_conv", shape=name, b=b, c=c, t=t,
+             c_out=m, act=act, max_abs_err=err, tol=RESBLOCK_TOL,
+             library="F.group_norm + " + ("F.silu + " if act else "")
+             + "F.conv1d", bound_ms=bound_ms(nbytes, flops)[0], **t_)
+        for key, val in t_.items():
+            tot[key] = tot.get(key, 0.0) + val
+        tot["bytes"] += nbytes
+        tot["flops"] += flops
+    bms, by = bound_ms(tot.pop("bytes"), tot.pop("flops"))
+    emit("kernel", name="gn_conv", shape="three calls: " + ", ".join(
+        n for n, *_ in shapes), max_abs_err=err_max, tol=RESBLOCK_TOL,
+        library="F.group_norm + (F.silu) + F.conv1d, two or three calls",
+        bound_ms=bms, bound_by=by, **tot)
+    return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **tot)
+
+
+def check_ts_res_block(torch, k5, dev):
+    """K5 at the denoiser's trunk shape: B=2, C=1024, T=896."""
+    F = torch.nn.functional
+    b, c, t, groups, eps = 2, 1024, 896, 32, 1e-5
+    h, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, c, 3, 20)
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(b, c, t, generator=g, device=dev).to(torch.bfloat16)
+    emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=dev)) \
+        .to(torch.bfloat16)
+    got = k5.ts_res_block_out(h, x, emb, norm, conv, groups)
+    want = k5.ts_res_block_out_plain(h, x, emb, norm, conv, groups)
+    err = bf16_err(torch, got, want, name="ts_res_block", **RESBLOCK_TOL)
+    g16, b16 = (norm[n].to(torch.bfloat16) for n in ("scale", "bias"))
+    bias16 = conv["b"].to(torch.bfloat16)
+    t_ = timings(
+        torch, lambda _: k5.ts_res_block_out(h, x, emb, norm, conv, groups),
+        lambda _: k5.ts_res_block_out_plain(h, x, emb, norm, conv, groups),
+        lambda _: F.conv1d(F.group_norm(h, groups, g16, b16, eps),
+                           conv["w"], bias16, padding=1))
+    nbytes = 3 * 2 * b * c * t + 2 * 3 * c * c + 2 * b * 2 * c + 12 * c
+    flops = 2 * b * c * 3 * c * t
+    bms, by = bound_ms(nbytes, flops)
+    emit("kernel", name="ts_res_block", shape=[b, c, t], max_abs_err=err,
+         tol=RESBLOCK_TOL, library="F.group_norm + F.conv1d (two calls)",
+         bound_ms=bms, bound_by=by, **t_)
+    return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t_)
+
+
+def check_snake(torch, k7, dev):
+    """K7 at the first and the last BigVGAN stage of the main path (906
+    mel frames: 768 x 3624 and 24 x 231936, B=1).  The row sums the two.
+    No single PyTorch call computes it."""
+    tol = dict(atol=5e-2, rtol=2e-2)   # |y| <~ 6: one bf16 ulp <= 3.1e-2
+    tot = dict(bytes=0.0, flops=0.0)
+    err_max = 0.0
+    for i, (c, t) in enumerate(((768, 3624), (24, 231936))):
+        g = torch.Generator(device=dev).manual_seed(30 + i)
+        x = torch.randn(1, c, t, generator=g, device=dev).to(torch.bfloat16)
+        alpha = torch.exp(0.3 * torch.randn(c, generator=g, device=dev))
+        inv_beta = 1 / (torch.exp(0.3 * torch.randn(c, generator=g,
+                                                    device=dev)) + 1e-9)
+        got = k7.snake_resample2(x, alpha, inv_beta)
+        want = k7.snake_resample2_plain(x, alpha, inv_beta)
+        err = bf16_err(torch, got, want, name=f"snake {c}x{t}", **tol)
+        err_max = max(err_max, err)
+        t_ = timings(
+            torch,
+            lambda _, x=x, a=alpha, ib=inv_beta: k7.snake_resample2(x, a, ib),
+            lambda _, x=x, a=alpha, ib=inv_beta: k7.snake_resample2_plain(
+                x, a, ib),
+            None)
+        # one read and one write in bf16; per input sample the two 6-tap
+        # polyphase sums (24), two snakes (10, a sine each counted as
+        # one) and the 12-tap down sum (24)
+        nbytes, flops = 2 * 2 * c * t + 8 * c, 58 * c * t
+        emit("kernel_detail", name="snake", shape=[1, c, t],
+             max_abs_err=err, tol=tol,
+             bound_ms=bound_ms(nbytes, flops, FP32_FLOPS)[0], **t_)
+        for key, val in t_.items():
+            tot[key] = None if val is None else tot.get(key, 0.0) + val
+        tot["bytes"] += nbytes
+        tot["flops"] += flops
+    bms, by = bound_ms(tot.pop("bytes"), tot.pop("flops"), FP32_FLOPS)
+    emit("kernel", name="snake", shape="768x3624 + 24x231936, B=1",
+         max_abs_err=err_max, tol=tol, library=None, bound_ms=bms,
+         bound_by=by, **tot)
+    return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **tot)
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the port's entry points
 # ---------------------------------------------------------------------------
@@ -278,15 +441,20 @@ def reference_wav(path: Path, seconds: float = 4.0, sr: int = 22050,
 
 
 def check_reference(torch, ref: str):
-    """A tiny model (2 layers, 128 wide, head dim 64) through the same
-    entry points: on the card in fp32 through the kernels, on the CPU
-    through the plain versions.  TF32 is off for both convolutions and
-    matmuls so the two run the same fp32 arithmetic."""
-    from tortoise_tts_tpu_torch import kernels
+    """Tiny models (UnifiedVoice 2 layers x 128 wide, head dim 64; the
+    denoiser 64 channels x 2 layers, 4 heads; BigVGAN and HiFiGAN from 64
+    channels) through the same entry points, both routes: on the card in
+    fp32 through the kernels, on the CPU through the plain versions.  TF32
+    is off for both convolutions and matmuls so the two run the same fp32
+    arithmetic; the diffusion noise is drawn on the CPU and handed to
+    both."""
+    from tortoise_tts_tpu_torch import inference, kernels
     from tortoise_tts_tpu_torch.config import Config, Inference
     from tortoise_tts_tpu_torch.inference import TTS
-    from tortoise_tts_tpu_torch.models import (LoadedModel, _hifigan_random,
-                                               hifigan, unified_voice)
+    from tortoise_tts_tpu_torch.models import (LoadedModel, _bigvgan_random,
+                                               _hifigan_random, bigvgan,
+                                               diffusion, hifigan,
+                                               unified_voice)
     from tortoise_tts_tpu_torch.models.common import tree_map
     from tortoise_tts_tpu_torch.ops.sampling import SamplingConfig
     torch.backends.cudnn.allow_tf32 = False
@@ -294,43 +462,262 @@ def check_reference(torch, ref: str):
     ucfg = unified_voice.UnifiedVoiceConfig(layers=2, model_dim=128, heads=2)
     hcfg = hifigan.HifiganConfig(in_channels=128, cond_channels=128,
                                  upsample_initial_channel=64)
+    dcfg = diffusion.DiffusionConfig(model_channels=64, num_layers=2,
+                                     num_heads=4, in_latent_channels=128)
+    bcfg = bigvgan.BigVGANConfig(upsample_initial_channel=64)
     g = torch.Generator().manual_seed(5)
     params = unified_voice.init(g, ucfg)
     params["mel_head"]["w"] *= 8.0
     hparams = _hifigan_random(g, hcfg)
+    dparams = diffusion.init(g, dcfg)
+    # non-zero attention outputs, so every attention block contributes
+    for lyr in dparams["conditioning_timestep_integrator"] + \
+            dparams["layers"]:
+        w = lyr["attn"]["proj_out"]["w"]
+        w.copy_(0.1 * torch.randn(w.shape, generator=g))
+    bparams = _bigvgan_random(g, bcfg)
     cfg = Config(inference=Inference(weight_dtype="float32"))
+    draw_noise = inference._diffusion_noise
+
+    def cpu_noise(key, shape, device):
+        return draw_noise(key, shape, "cpu").to(device)
+    inference._diffusion_noise = cpu_noise
     out = {}
-    for where in ("cuda", "cpu"):
-        tts = TTS(cfg, device=where, dtype="float32")
-        move = lambda t: t.to(where)  # noqa: E731
-        tts._models = {
-            "autoregressive": LoadedModel("autoregressive", unified_voice,
-                                          ucfg, tree_map(move, params), False),
-            "hifigan": LoadedModel("hifigan", hifigan, hcfg,
-                                   tree_map(move, hparams), False)}
-        before = dict(kernels.launch_counts())
-        wav, _ = tts.inference(TEXT, ref, max_ar_steps=80,
-                               vocoder_type="hifigan", greedy=True, seed=0)
-        enc = tts.encode_audio(ref, seed=0)
-        toks = tts._bucket_text(tts.encode_text(TEXT))
-        res = unified_voice.inference_speech(
-            tts._model("autoregressive").params, enc["latent"][0],
-            torch.as_tensor(toks[None], device=where),
-            torch.tensor([len(tts.encode_text(TEXT))], device=where), None,
-            ucfg, SamplingConfig(greedy=True), 80, qgpt=tts._ar_qgpt())
-        launched = {k: v - before[k] for k, v in kernels.launch_counts().items()}
-        out[where] = (wav, res.codes.cpu().numpy(), launched)
-    torch.backends.cudnn.allow_tf32 = True
-    (wg, cg, lg), (wc, cc, lc) = out["cuda"], out["cpu"]
+    try:
+        for where in ("cuda", "cpu"):
+            tts = TTS(cfg, device=where, dtype="float32")
+            move = lambda t: t.to(where)  # noqa: E731
+            tts._models = {
+                name: LoadedModel(name, mod, c, tree_map(move, p), False)
+                for name, mod, c, p in (
+                    ("autoregressive", unified_voice, ucfg, params),
+                    ("hifigan", hifigan, hcfg, hparams),
+                    ("diffusion", diffusion, dcfg, dparams),
+                    ("bigvgan", bigvgan, bcfg, bparams))}
+            before = dict(kernels.launch_counts())
+            wav, _ = tts.inference(TEXT, ref, max_ar_steps=80,
+                                   vocoder_type="hifigan", greedy=True,
+                                   seed=0)
+            bwav, _ = tts.inference(TEXT, ref, max_ar_steps=80,
+                                    max_diffusion_steps=10, greedy=True,
+                                    seed=0)
+            enc = tts.encode_audio(ref, seed=0)
+            toks = tts._bucket_text(tts.encode_text(TEXT))
+            res = unified_voice.inference_speech(
+                tts._model("autoregressive").params, enc["latent"][0],
+                torch.as_tensor(toks[None], device=where),
+                torch.tensor([len(tts.encode_text(TEXT))], device=where),
+                None, ucfg, SamplingConfig(greedy=True), 80,
+                qgpt=tts._ar_qgpt())
+            launched = {k: v - before[k]
+                        for k, v in kernels.launch_counts().items()}
+            out[where] = (wav, bwav, res.codes.cpu().numpy(), launched)
+    finally:
+        inference._diffusion_noise = draw_noise
+        torch.backends.cudnn.allow_tf32 = True
+    (wg, bg, cg, lg), (wc, bc, cc, lc) = out["cuda"], out["cpu"]
     assert all(v > 0 for v in lg.values()), f"kernels not reached: {lg}"
     assert not any(lc.values()), f"CPU run launched kernels: {lc}"
     assert np.array_equal(cg, cc), "greedy codes differ between GPU and CPU"
     assert wg.shape == wc.shape and np.isfinite(wg).all()
+    assert bg.shape == bc.shape and np.isfinite(bg).all()
+    assert np.count_nonzero(bg) > 1000
     err = float(np.abs(wg - wc).max())
     tol = 1e-3
-    assert err <= tol, f"reference wav err {err}"
+    assert err <= tol, f"reference HiFiGAN wav err {err}"
+    # the BigVGAN route ends in 16-bit PCM: 1/32767 is one step, and the
+    # two runs may round a sample near a step's edge apart
+    berr = float(np.abs(bg - bc).max())
+    btol = 4 / 32767
+    assert berr <= btol, f"reference BigVGAN wav err {berr}"
     emit("reference", codes_equal=True, n_codes=int(cg.shape[1]),
-         wav_samples=int(wg.shape[0]), wav_max_abs_err=err, tol=tol)
+         wav_samples=int(wg.shape[0]), wav_max_abs_err=err, tol=tol,
+         wav_mean_abs=float(np.abs(wc).mean()),
+         bigvgan_wav_samples=int(bg.shape[0]), bigvgan_wav_max_abs_err=berr,
+         bigvgan_tol=btol, bigvgan_wav_mean_abs=float(np.abs(bc).mean()),
+         launches_on_card=lg)
+
+
+class Stages:
+    """Wall seconds and kernel launches per stage of ``TTS.inference``: the
+    stage functions of ``tortoise_tts_tpu_torch.inference`` are wrapped
+    here (the library does not synchronise); each wrapper synchronises
+    before and after its stage.  With ``profile`` set, the diffusion and
+    vocoder stages run under torch.profiler and their CUDA kernels are
+    counted by name."""
+
+    NAMES = (("emb_mel", "encode_from_files", "encode"),
+             ("inference", "inference_speech", "ar_decode"),
+             ("inference", "_cleanup_latents", "latent_pass"),
+             ("inference", "_uncond_integrate", "uncond_cache"),
+             ("inference", "_diffusion", "diffusion"),
+             ("inference", "_vocode", "vocoder"))
+    PROFILED = ("diffusion", "vocoder")
+
+    def __init__(self, torch):
+        from tortoise_tts_tpu_torch import inference, kernels
+        from tortoise_tts_tpu_torch.emb import mel as emb_mel
+        self.torch, self.kernels = torch, kernels
+        self.profile = False
+        self.undo = []
+        mods = {"inference": inference, "emb_mel": emb_mel}
+        for mod, attr, name in self.NAMES:
+            m = mods[mod]
+            orig = getattr(m, attr)
+            self.undo.append((m, attr, orig))
+            setattr(m, attr, self._wrap(orig, name))
+        self.reset()
+
+    def reset(self):
+        self.seconds = {name: 0.0 for *_, name in self.NAMES}
+        self.launches = {name: {} for *_, name in self.NAMES}
+        self.cuda_kernels = {}
+
+    def _wrap(self, fn, name):
+        torch, kernels = self.torch, self.kernels
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            c0 = kernels.launch_counts()
+            t0 = time.perf_counter()
+            if self.profile and name in self.PROFILED:
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    # a few small kernels first, so the trace is running
+                    # before the stage's first launch
+                    warm = torch.zeros(1, device="cuda")
+                    for _ in range(16):
+                        warm.add_(1)
+                    torch.cuda.synchronize()
+                    out = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                self.cuda_kernels[name] = _kernel_census(prof)
+            else:
+                out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0
+            for k, v in kernels.launch_counts().items():
+                if v > c0[k]:
+                    self.launches[name][k] = (self.launches[name].get(k, 0)
+                                              + v - c0[k])
+            return out
+        return timed
+
+    def close(self):
+        for m, attr, orig in self.undo:
+            setattr(m, attr, orig)
+
+
+def _kernel_census(prof) -> dict:
+    """CUDA kernels of one profiled stage: the launches and device ms of
+    the port's K4 and K5 GEMMs (the ``gemm<T, TAPS>`` of csrc/resblock.cu,
+    TAPS 1 and 3), their group statistics, K7 and all other kernels."""
+    import re
+    events = _cuda_events(prof)
+    kinds = ("gn_conv_gemm", "ts_res_block_gemm", "group_stats", "snake",
+             "other")
+    out = {k: 0 for k in kinds}
+    ms = {k: 0.0 for k in kinds}
+    for e in events:
+        # demangled "(anonymous namespace)::gemm<__nv_bfloat16, 1>(...)",
+        # or mangled "..4gemmI13__nv_bfloat16Li1EE.."
+        m = (re.search(r"::gemm<[^>]*,\s*(\d)>", e.name)
+             or re.search(r"4gemmI\w*?Li(\d)EE", e.name))
+        if m:
+            kind = "gn_conv_gemm" if m.group(1) == "1" \
+                else "ts_res_block_gemm"
+        elif "group_stats" in e.name:
+            kind = "group_stats"
+        elif "snake_resample2" in e.name:
+            kind = "snake"
+        else:
+            kind = "other"
+        out[kind] += 1
+        ms[kind] += e.device_time / 1e3
+    out["cuda_kernels"] = len(events)
+    out["device_ms"] = sum(ms.values())
+    out["device_ms_by_kind"] = ms
+    return out
+
+
+def bigvgan_route(torch, tts, ref: str):
+    """This slice's main path, the default route, at full width: a cold
+    call (it builds the cached unconditional integrator for T=896), a warm
+    one, then a profiled one.  Per-step launch counts are checked against
+    the denoiser's structure and against the profiler."""
+    from tortoise_tts_tpu_torch import kernels
+    dcfg = tts._model("diffusion").config
+    stages = Stages(torch)
+    runs = []
+    try:
+        for run in ("cold", "warm", "profiled"):
+            if run == "cold":
+                tts._voice_cache.clear()
+                tts._uncond_cache.clear()
+            stages.reset()
+            stages.profile = run == "profiled"
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            wav, sr = tts.inference(TEXT, ref, seed=0, **ROUTE_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            emit("launches", route="bigvgan", run=run, **counts)
+            missing = [k for k, v in counts.items() if v == 0]
+            assert not missing, f"BigVGAN route never launched: {missing}"
+            assert wav.ndim == 1 and wav.dtype == np.float32
+            assert wav.size > 24000 and np.isfinite(wav).all()
+            assert np.count_nonzero(wav) > 1000
+            assert float(np.abs(wav).mean()) > 1e-4
+            # 16-bit PCM, trimmed to whole 256-sample hops
+            assert np.array_equal(np.round(wav * 32767.0), wav * 32767.0)
+            assert wav.size % 256 == 0
+            audio_s = wav.size / sr
+            stage_s = dict(stages.seconds)
+            stage_s["other"] = wall - sum(stage_s.values())
+            runs.append((run, wav, counts, stage_s))
+            emit("main_path", route="bigvgan", run=run, wall_s=wall,
+                 audio_s=audio_s, rtf_x_realtime=audio_s / wall,
+                 stage_s=stage_s, stage_launches=stages.launches,
+                 diffusion_ms_per_step=stages.seconds["diffusion"] * 1e3
+                 / DIFF_STEPS,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 **({"cuda_kernels": stages.cuda_kernels}
+                    if run == "profiled" else {}))
+            # K4 per DDIM step: 13 resblock in-halves (3 integrator at B=1,
+            # 10 trunk, 3 final) + 13 attention heads (3 + 10); K5: 16
+            nl = dcfg.num_layers
+            per_k4, per_k5 = 2 * (3 + nl) + 3, 3 + nl + 3
+            dl = stages.launches["diffusion"]
+            pre = len(tts._model("diffusion").params[
+                "latent_conditioner_attn"])
+            assert dl.get("gn_conv") == pre + DIFF_STEPS * per_k4, dl
+            assert dl.get("ts_res_block") == DIFF_STEPS * per_k5, dl
+            n_up = len(tts._model("bigvgan").config.upsample_rates)
+            n_snake = n_up * 3 * 6 + 1
+            assert stages.launches["vocoder"].get("snake") == n_snake
+            if run == "profiled":
+                ck = stages.cuda_kernels
+                assert ck["diffusion"]["gn_conv_gemm"] == dl["gn_conv"], ck
+                assert ck["diffusion"]["ts_res_block_gemm"] == \
+                    dl["ts_res_block"], ck
+                assert ck["diffusion"]["group_stats"] == \
+                    dl["gn_conv"] + dl["ts_res_block"], ck
+                assert ck["vocoder"]["snake"] == n_snake, ck
+    finally:
+        stages.close()
+    # device busy share of a stage: its summed kernel time (profiled run)
+    # over its wall time in the warm run
+    warm_s = runs[1][3]
+    emit("bigvgan_counts", k4_per_ddim_step=per_k4,
+         k5_per_ddim_step=per_k5, k7_per_utterance=n_snake,
+         runs_identical=bool(np.array_equal(runs[0][1], runs[1][1])),
+         device_busy_share={
+             name: ck[name]["device_ms"] / 1e3 / warm_s[name]
+             for name in Stages.PROFILED})
+    return runs[1][2]
 
 
 def main_path(torch, ref: str):
@@ -339,16 +726,25 @@ def main_path(torch, ref: str):
     t0 = time.time()
     tts = TTS(device="cuda")
     ar = tts._model("autoregressive")
+    dm = tts._model("diffusion")
+    voc = tts._model("bigvgan")
     tts._model("hifigan")
     tts._ar_qgpt()
     torch.cuda.synchronize()
     setup_s = time.time() - t0
     cfg = ar.config
     assert (cfg.layers, cfg.model_dim, cfg.heads) == (30, 1024, 16)
+    assert (dm.config.model_channels, dm.config.num_layers,
+            dm.config.num_heads) == (1024, 10, 16)
+    assert voc.config.upsample_initial_channel == 1536
     assert tts.dtype == "bfloat16" and tts.cfg.inference.decode_quant == "int8"
-    # warm-up: cuBLAS/cuDNN handles and the voice cache
+    # warm-up: cuBLAS/cuDNN handles and the voice cache, both routes
+    tts.inference(TEXT, ref, max_ar_steps=8, max_diffusion_steps=2, seed=1)
     tts.inference(TEXT, ref, max_ar_steps=8, vocoder_type="hifigan", seed=1)
     torch.cuda.synchronize()
+    emit("setup", seconds=setup_s)
+
+    bv_counts = bigvgan_route(torch, tts, ref)
 
     kernels.reset_launches()
     t0 = time.time()
@@ -364,9 +760,10 @@ def main_path(torch, ref: str):
         chunks.append(c)
     stream_s = time.time() - t0
     counts = kernels.launch_counts()
-    emit("launches", **counts)
-    missing = [k for k, v in counts.items() if v == 0]
-    assert not missing, f"main path never launched: {missing}"
+    emit("launches", route="hifigan", **counts)
+    missing = [k for k in ("flash_attention", "qgemv", "flash_decode")
+               if counts[k] == 0]
+    assert not missing, f"HiFiGAN route never launched: {missing}"
 
     swav = np.concatenate(chunks)
     for w in (wav, swav):
@@ -374,7 +771,7 @@ def main_path(torch, ref: str):
         assert np.isfinite(w).all(), "non-finite audio"
         assert np.count_nonzero(w) > 1000 and float(np.abs(w).mean()) > 1e-4
     audio_s = wav.size / sr
-    emit("main_path", setup_s=setup_s, inference_s=inf_s, audio_s=audio_s,
+    emit("main_path", route="hifigan", inference_s=inf_s, audio_s=audio_s,
          rtf_x_realtime=audio_s / inf_s, stream_s=stream_s,
          stream_first_chunk_s=first_s, stream_chunks=len(chunks),
          stream_audio_s=swav.size / sr,
@@ -383,7 +780,7 @@ def main_path(torch, ref: str):
              float(np.abs(swav - wav).max()) if swav.size == wav.size
              else None),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return tts, counts
+    return tts, {k: bv_counts[k] + counts[k] for k in counts}
 
 
 def decode_timing(torch, tts, ref: str, steps: int = AR_STEPS):
@@ -448,7 +845,10 @@ def main() -> int:
     from tortoise_tts_tpu_torch import kernels
     from tortoise_tts_tpu_torch.kernels import flash_attention as k1
     from tortoise_tts_tpu_torch.kernels import flash_decode as k3
+    from tortoise_tts_tpu_torch.kernels import gn_conv as k4
     from tortoise_tts_tpu_torch.kernels import qgemv as k2
+    from tortoise_tts_tpu_torch.kernels import snake as k7
+    from tortoise_tts_tpu_torch.kernels import ts_res_block as k5
     from tortoise_tts_tpu_torch.tokenizer import (VoiceBpeTokenizer,
                                                   write_char_tokenizer)
 
@@ -477,6 +877,9 @@ def main() -> int:
             r3 = check_flash_decode(torch, k3, dev,
                                     slots=1 + BUCKET + 2 + 1 + AR_STEPS)
             check_flash_decode(torch, k3, dev, slots=604, report=False)
+            r4 = check_gn_conv(torch, k4, dev)
+            r5 = check_ts_res_block(torch, k5, dev)
+            r7 = check_snake(torch, k7, dev)
         torch.cuda.empty_cache()
 
         ref = reference_wav(Path(tmp) / "reference.wav")
@@ -491,6 +894,12 @@ def main() -> int:
         ("qgemv", "qgemv.cu", "tortoise_tts_tpu/ops/pallas_gemv.py:152", r2),
         ("flash_decode", "flash_decode.cu",
          "tortoise_tts_tpu/ops/pallas_decode_attn.py:100", r3),
+        ("gn_conv", "resblock.cu",
+         "tortoise_tts_tpu/ops/pallas_resblock.py:97", r4),
+        ("ts_res_block", "resblock.cu",
+         "tortoise_tts_tpu/ops/pallas_resblock.py:179", r5),
+        ("snake", "snake.cu", "tortoise_tts_tpu/ops/pallas_snake.py:217",
+         r7),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src + f, "replaces": rep,

@@ -11,7 +11,10 @@ import torch
 
 from tortoise_tts_tpu_torch.kernels import flash_attention as k1
 from tortoise_tts_tpu_torch.kernels import flash_decode as k3
+from tortoise_tts_tpu_torch.kernels import gn_conv as k4
 from tortoise_tts_tpu_torch.kernels import qgemv as k2
+from tortoise_tts_tpu_torch.kernels import snake as k7
+from tortoise_tts_tpu_torch.kernels import ts_res_block as k5
 
 
 @pytest.fixture
@@ -71,3 +74,87 @@ def test_flash_decode_kernel_cuda(cuda, pos):
     got = k3.flash_decode(q, ck, cv, pos, mask)
     torch.cuda.synchronize()
     _bf16_close(got, k3.flash_decode_plain(q, ck, cv, pos, mask), atol=2e-2)
+
+
+def _fp32_exact(monkeypatch, dtype):
+    """fp32 comparisons run the plain version in full fp32: cuDNN's
+    convolutions default to TF32."""
+    if dtype == torch.float32:
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+def _gn_conv_inputs(dev, b, c, t, m, k, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(b, c, t, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    norm = {"scale": 1 + 0.1 * torch.randn(c, generator=g, device=dev),
+            "bias": 0.1 * torch.randn(c, generator=g, device=dev)}
+    bound = (c * k) ** -0.5
+    conv = {"w": ((torch.rand(m, c, k, generator=g, device=dev) * 2 - 1)
+                  * bound).to(dtype),
+            "b": (torch.rand(m, generator=g, device=dev) * 2 - 1) * bound}
+    return x, norm, conv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t,m,act,dtype", [
+    (2, 1024, 896, 1024, True, torch.bfloat16),    # resblock in-half
+    (2, 1024, 896, 3072, False, torch.bfloat16),   # attention qkv head
+    (1, 1024, 517, 3072, False, torch.bfloat16),   # AR conditioning head
+    (1, 2048, 101, 6144, False, torch.bfloat16),   # contextual embedder
+    (2, 64, 45, 192, True, torch.float32)])        # fp32 reference runs
+def test_gn_conv_kernel_cuda(cuda, monkeypatch, b, c, t, m, act, dtype):
+    _fp32_exact(monkeypatch, dtype)
+    x, norm, conv = _gn_conv_inputs(cuda, b, c, t, m, 1, dtype, 3)
+    before = k4.KERNEL.launches
+    got = k4.gn_conv1x1(x, norm, conv, 32 if c > 64 else 16, act)
+    torch.cuda.synchronize()
+    assert k4.KERNEL.launches == before + 1
+    want = k4.gn_conv1x1_plain(x, norm, conv, 32 if c > 64 else 16, act)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        _bf16_close(got, want, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t,dtype", [(2, 1024, 896, torch.bfloat16),
+                                         (1, 1024, 896, torch.bfloat16),
+                                         (2, 64, 45, torch.float32)])
+def test_ts_res_block_kernel_cuda(cuda, monkeypatch, b, c, t, dtype):
+    _fp32_exact(monkeypatch, dtype)
+    h, norm, conv = _gn_conv_inputs(cuda, b, c, t, c, 3, dtype, 4)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
+    emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=cuda)).to(dtype)
+    groups = 32 if c > 64 else 16
+    got = k5.ts_res_block_out(h, x, emb, norm, conv, groups)
+    torch.cuda.synchronize()
+    want = k5.ts_res_block_out_plain(h, x, emb, norm, conv, groups)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        _bf16_close(got, want, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t,dtype", [(1, 768, 3624, torch.bfloat16),
+                                         (1, 24, 231936, torch.bfloat16),
+                                         (2, 5, 8, torch.float32),
+                                         (1, 3, 2049, torch.float32),
+                                         (1, 4, 3, torch.float32),
+                                         (1, 3, 1, torch.float32)])
+def test_snake_kernel_cuda(cuda, monkeypatch, b, c, t, dtype):
+    _fp32_exact(monkeypatch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
+    alpha = torch.exp(0.3 * torch.randn(c, generator=g, device=cuda))
+    inv_beta = 1 / (torch.exp(0.3 * torch.randn(c, generator=g, device=cuda))
+                    + 1e-9)
+    got = k7.snake_resample2(x, alpha, inv_beta)
+    torch.cuda.synchronize()
+    want = k7.snake_resample2_plain(x, alpha, inv_beta)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_close(got, want, atol=5e-2)

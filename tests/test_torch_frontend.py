@@ -108,3 +108,41 @@ def test_ar_conditioning_crop_and_latent_match_jax(tiny_uv):
     lat = uv.get_conditioning(tp, got[:, None], tcfg).numpy()
     jlat = np.asarray(juv.get_conditioning(jp, want[:, None], jcfg))
     np.testing.assert_allclose(lat, jlat, atol=1e-4, rtol=1e-4)
+
+
+def test_mel_diffusion_and_tacotron_norms_match_jax():
+    wav24 = np.clip(_wav(30000, seed=5, sr=24000) * 3, -1.5, 1.5)[None]
+    got = stft.mel_diffusion(torch.from_numpy(wav24))
+    want = np.asarray(jax_stft.mel_diffusion(jnp.asarray(wav24)))
+    assert got.shape == want.shape == (1, 100, 30000 // 256 + 1)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+    norm = stft.normalize_tacotron_mel(got)
+    np.testing.assert_allclose(
+        norm.numpy(), np.asarray(jax_stft.normalize_tacotron_mel(want)),
+        atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(stft.denormalize_tacotron_mel(norm).numpy(),
+                               got.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", [30000, 100000])
+def test_diffusion_conditioning_matches_jax(n):
+    """Pad (short clip) and truncate (long clip) to 102400 samples at
+    24 kHz, then the 100-bin mel."""
+    wav22 = _wav(n, seed=6)[None]
+    got = port_mel.format_diffusion_conditioning(torch.from_numpy(wav22))
+    want = np.asarray(jax_mel.format_diffusion_conditioning(wav22))
+    assert got.shape == want.shape == (1, 100, 401)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_encode_and_load_model_need_cuda_or_explicit_cpu(monkeypatch):
+    from tortoise_tts_tpu_torch.models import load_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model("hifigan")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_mel.encode(_wav(2000), 22050)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_mel.encode_from_files(["unused.wav"])
+    assert load_model("hifigan", device="cpu").params["conv_pre"]["w"] \
+        .device.type == "cpu"

@@ -1,6 +1,8 @@
-"""The port's HiFiGAN route end to end against the JAX package's TTS, on
-tiny models with the same weights: AR latent, greedy codes, and the wav
-of ``inference(..., vocoder_type="hifigan")`` and ``stream(...)``."""
+"""The port's routes end to end against the JAX package's TTS, on tiny
+models with the same weights: AR latent, greedy codes, the wav of the
+default BigVGAN route (diffusion noise injected from the JAX package's
+key) and of ``inference(..., vocoder_type="hifigan")`` and
+``stream(...)``."""
 
 import jax
 import jax.numpy as jnp
@@ -8,18 +10,23 @@ import numpy as np
 import pytest
 import torch
 
+from tortoise_tts_tpu import inference as jinf
 from tortoise_tts_tpu.config import Config as JConfig, Inference as JInference
 from tortoise_tts_tpu.inference import TTS as JTTS
 from tortoise_tts_tpu.models import (LoadedModel as JLoaded,
+                                     _bigvgan_random as jax_bigvgan_random,
                                      _hifigan_random as jax_hifigan_random,
+                                     bigvgan as jbv,
                                      diffusion as jdiff, dvae as jdvae,
                                      hifigan as jhg, unified_voice as juv)
 from tortoise_tts_tpu.ops.sampling import SamplingConfig as JSampling
 from tortoise_tts_tpu.utils.io import write_wav
 from tortoise_tts_tpu_torch import bridge
+from tortoise_tts_tpu_torch import inference as tinf
 from tortoise_tts_tpu_torch.config import Config, Inference
 from tortoise_tts_tpu_torch.inference import TTS
-from tortoise_tts_tpu_torch.models import LoadedModel, hifigan, unified_voice
+from tortoise_tts_tpu_torch.models import (LoadedModel, bigvgan, diffusion,
+                                           hifigan, unified_voice)
 from tortoise_tts_tpu_torch.ops.sampling import SamplingConfig
 from tortoise_tts_tpu_torch.tokenizer import write_char_tokenizer
 
@@ -27,6 +34,9 @@ D = 128
 UV = dict(layers=2, model_dim=D, heads=2, max_text_tokens=80,
           max_mel_tokens=140)
 HG = dict(in_channels=D, upsample_initial_channel=64, cond_channels=D)
+DIFF = dict(model_channels=64, num_layers=2, in_latent_channels=D,
+            num_heads=4)
+BV = dict(upsample_initial_channel=64)
 STEPS = 130          # three stream chunks: 60, 40, 30
 TEXT = "hello world, this is a test."
 
@@ -37,19 +47,27 @@ def pair(tmp_path_factory):
     tok = write_char_tokenizer(tmp / "tokenizer.json")
     mp = pytest.MonkeyPatch()
     mp.setenv("TORTOISE_TPU_TOKENIZER", str(tok))
-    ks = jax.random.split(jax.random.PRNGKey(0), 4)
+    ks = jax.random.split(jax.random.PRNGKey(0), 5)
     jcfg = juv.UnifiedVoiceConfig(**UV)
     jar = juv.init(ks[0], jcfg)
     jhcfg = jhg.HifiganConfig(**HG)
     jvoc = jax_hifigan_random(ks[1], jhcfg)
-    dcfg = jdiff.DiffusionConfig(model_channels=64, num_layers=2,
-                                 in_latent_channels=D, num_heads=4)
+    dcfg = jdiff.DiffusionConfig(**DIFF)
+    jdp = jdiff.init(ks[2], dcfg)
+    # non-zero attention outputs (proj_out is zero-initialised), so every
+    # attention block of the denoiser contributes
+    pk = iter(jax.random.split(ks[4], 64))
+    for lyr in jdp["conditioning_timestep_integrator"] + jdp["layers"]:
+        lyr["attn"]["proj_out"]["w"] = 0.1 * jax.random.normal(
+            next(pk), lyr["attn"]["proj_out"]["w"].shape)
+    bvcfg = jbv.BigVGANConfig(**BV)
+    jbvp = jax_bigvgan_random(ks[4], bvcfg)
     dvcfg = jdvae.DVAEConfig(num_tokens=8192, codebook_dim=32, hidden_dim=32)
     jmodels = {
         "autoregressive": JLoaded("autoregressive", juv, jcfg, jar, False),
         "hifigan": JLoaded("hifigan", jhg, jhcfg, jvoc, False),
-        "diffusion": JLoaded("diffusion", jdiff, dcfg,
-                             jdiff.init(ks[2], dcfg), False),
+        "diffusion": JLoaded("diffusion", jdiff, dcfg, jdp, False),
+        "bigvgan": JLoaded("bigvgan", jbv, bvcfg, jbvp, False),
         "dvae": JLoaded("dvae", jdvae, dvcfg, jdvae.init(ks[3], dvcfg),
                         False),
     }
@@ -72,6 +90,13 @@ def pair(tmp_path_factory):
         "hifigan": LoadedModel(
             "hifigan", hifigan, hifigan.HifiganConfig(**HG),
             bridge.hifigan_from_jax(np_tree(jvoc), dtype=torch.float32),
+            False),
+        "diffusion": LoadedModel(
+            "diffusion", diffusion, diffusion.DiffusionConfig(**DIFF),
+            bridge.diffusion_from_jax(np_tree(jdp)), False),
+        "bigvgan": LoadedModel(
+            "bigvgan", bigvgan, bigvgan.BigVGANConfig(**BV),
+            bridge.bigvgan_from_jax(np_tree(jbvp), dtype=torch.float32),
             False),
     }
     ref = tmp / "ref.wav"
@@ -134,9 +159,49 @@ def test_stream_matches_jax(pair):
         np.testing.assert_allclose(a, b, atol=1e-4)
 
 
+@pytest.mark.parametrize("cond_free", [True, False])
+def test_inference_bigvgan_matches_jax(pair, monkeypatch, cond_free):
+    """The default route (decode, cleanup, latent pass, DDIM with
+    cond-free guidance and the cached unconditional integrator, BigVGAN,
+    16-bit PCM, calm trim), and DDIM without guidance, with greedy
+    decoding and the JAX package's diffusion noise.  Tolerance: two
+    steps of the 16-bit output (fp32 order differences through the
+    denoiser and the vocoder move a few samples across a rounding
+    edge)."""
+    jtts, ttts, ref = pair
+    seed = 3
+    (sub,) = jinf._host_keys(seed * 1000003, 1)
+    k_diff = jinf._host_keys(jinf._key_int(sub), 3)[1]
+    k_noise = jax.random.split(jnp.asarray(k_diff))[0]
+    drawn = []
+
+    def jax_noise(key, shape, device):
+        drawn.append(tuple(shape))
+        return torch.from_numpy(np.array(jax.random.normal(
+            k_noise, shape, jnp.float32))).to(device)
+
+    monkeypatch.setattr(tinf, "_diffusion_noise", jax_noise)
+    kw = dict(max_ar_steps=STEPS, max_diffusion_steps=4, greedy=True,
+              seed=seed, diffusion_pad_multiple=32, mel_pad_multiple=128,
+              cond_free=cond_free)
+    jwav, _ = jtts.inference(TEXT, ref, **kw)
+    twav, sr = ttts.inference(TEXT, ref, **kw)
+    # 130 budget latents -> 565 mel frames, padded to 640
+    assert drawn == [(1, 100, 640)] and sr == 24000
+    assert twav.shape == jwav.shape and twav.dtype == np.float32
+    assert np.isfinite(twav).all() and np.count_nonzero(twav) > 1000
+    np.testing.assert_allclose(twav, jwav, rtol=0, atol=2 / 32767)
+    # 16-bit PCM, as the JAX package returns it
+    np.testing.assert_array_equal(np.round(twav * 32767.0), twav * 32767.0)
+
+
 def test_routes_not_ported_say_so(pair):
     _, ttts, ref = pair
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ttts.inference(TEXT, ref, max_ar_steps=4)
+    for kw in (dict(vocoder_type="univnet"), dict(candidates=2),
+               dict(diffusion_sampler="dpm++")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ttts.inference(TEXT, ref, max_ar_steps=4, **kw)
+    with pytest.raises(NotImplementedError, match="voiceless"):
+        ttts.inference(TEXT, None, max_ar_steps=4)
     with pytest.raises(NotImplementedError, match="voiceless"):
         ttts.inference(TEXT, None, max_ar_steps=4, vocoder_type="hifigan")

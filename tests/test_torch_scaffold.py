@@ -42,6 +42,10 @@ def test_import_leaves_jax_out():
     code = ("import sys, tortoise_tts_tpu_torch\n"
             "from tortoise_tts_tpu_torch import bridge, inference, kernels\n"
             "from tortoise_tts_tpu_torch.emb import mel\n"
+            "from tortoise_tts_tpu_torch.models import (bigvgan, diffusion, "
+            "gaussian)\n"
+            "from tortoise_tts_tpu_torch.kernels import (gn_conv, snake, "
+            "ts_res_block)\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'tortoise_tts_tpu' "
             "or m.startswith('tortoise_tts_tpu.')]\n"
@@ -102,8 +106,24 @@ def test_kernel_wrappers_on_cpu_run_plain_versions():
     ck, cv = k[:, :, :, :], v[:, :, :, :]
     assert torch.equal(k3.flash_decode(q[:, :, 3], ck, cv, 5, mask),
                        k3.flash_decode_plain(q[:, :, 3], ck, cv, 5, mask))
-    assert kernels.launch_counts() == {"flash_attention": 0, "qgemv": 0,
-                                       "flash_decode": 0}
+    from tortoise_tts_tpu_torch.kernels import gn_conv as k4
+    from tortoise_tts_tpu_torch.kernels import snake as k7
+    from tortoise_tts_tpu_torch.kernels import ts_res_block as k5
+    x = torch.randn(2, 32, 9, generator=g)
+    norm = {"scale": torch.rand(32, generator=g), "bias": torch.zeros(32)}
+    conv1 = {"w": torch.randn(96, 32, 1, generator=g), "b": torch.zeros(96)}
+    assert torch.equal(k4.gn_conv1x1(x, norm, conv1, 8, False),
+                       k4.gn_conv1x1_plain(x, norm, conv1, 8, False))
+    conv3 = {"w": torch.randn(32, 32, 3, generator=g), "b": torch.zeros(32)}
+    emb = torch.randn(2, 64, generator=g)
+    assert torch.equal(k5.ts_res_block_out(x, x, emb, norm, conv3, 8),
+                       k5.ts_res_block_out_plain(x, x, emb, norm, conv3, 8))
+    a = torch.rand(32, generator=g) + 0.5
+    assert torch.equal(k7.snake_resample2(x, a, a),
+                       k7.snake_resample2_plain(x, a, a))
+    assert kernels.launch_counts() == {
+        "flash_attention": 0, "qgemv": 0, "flash_decode": 0, "gn_conv": 0,
+        "ts_res_block": 0, "snake": 0}
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -149,6 +169,24 @@ def test_bridge_roundtrips_hifigan():
     assert _shapes(own) == _shapes(jp)
 
 
+def test_bridge_roundtrips_diffusion():
+    from tortoise_tts_tpu.models import diffusion as jdiff
+    from tortoise_tts_tpu_torch.models import diffusion as tdiff
+    kw = dict(model_channels=64, num_layers=2, num_heads=4,
+              in_latent_channels=64)
+    jp = _np(jdiff.init(jax.random.PRNGKey(2), jdiff.DiffusionConfig(**kw)))
+    tp = bridge.diffusion_from_jax(jp)
+    jax.tree_util.tree_map(np.testing.assert_array_equal,
+                           bridge.to_numpy(tp), jp)
+    own = tdiff.init(torch.Generator().manual_seed(0),
+                     tdiff.DiffusionConfig(**kw))
+    assert _shapes(own) == _shapes(jp)
+
+
 def test_bridge_rejects_foreign_trees():
     with pytest.raises(KeyError, match="UnifiedVoice"):
         bridge.unified_voice_from_jax({"gpt": {}})
+    with pytest.raises(KeyError, match="DiffusionTTS"):
+        bridge.diffusion_from_jax({"layers": []})
+    with pytest.raises(KeyError, match="BigVGAN"):
+        bridge.bigvgan_from_jax({"ups": []})

@@ -154,3 +154,22 @@ def test_sampled_decode_replays_per_row_generators(models):
     both = run([11, 12], [0, 1])
     np.testing.assert_array_equal(both[1].numpy(), run([12], [1])[0].numpy())
     np.testing.assert_array_equal(both.numpy(), run([11, 12], [0, 1]).numpy())
+
+
+def test_latent_pass_matches_jax(models):
+    """``forward(..., return_latent=True)``, the latent pass of the
+    default route: trunk attention through K1's plain version."""
+    jcfg, jp, tcfg, tp = models
+    text, lengths, cond = _inputs(2)
+    codes = np.random.RandomState(3).randint(0, 8192, (2, 15))
+    wav_lengths = np.asarray([15, 9]) * jcfg.mel_length_compression
+    want = juv.forward(jp, jnp.asarray(cond), jnp.asarray(text),
+                       jnp.asarray(lengths), jnp.asarray(codes),
+                       jnp.asarray(wav_lengths), jcfg, return_latent=True)
+    got = uv.forward(tp, torch.from_numpy(cond),
+                     torch.from_numpy(text).long(),
+                     torch.from_numpy(lengths).long(),
+                     torch.from_numpy(codes), torch.from_numpy(wav_lengths),
+                     tcfg)
+    assert got.shape == (2, 15, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -24,6 +24,15 @@ GPT_KEYS = {"ln_1", "attn_qkv", "attn_proj", "ln_2", "mlp_fc", "mlp_proj",
             "ln_f"}
 DECODE_KEYS = {"attn_qkv", "attn_proj", "mlp_fc", "mlp_proj"}
 HIFIGAN_KEYS = {"conv_pre", "cond_layer", "ups", "resblocks", "conv_post"}
+DIFFUSION_KEYS = {"inp_block", "time_embed_0", "time_embed_2",
+                  "code_embedding", "code_converter", "code_norm",
+                  "latent_conditioner_conv", "latent_conditioner_attn",
+                  "contextual_embedder_conv0", "contextual_embedder_conv1",
+                  "contextual_embedder_attn", "unconditioned_embedding",
+                  "conditioning_timestep_integrator", "integrating_conv",
+                  "mel_head", "layers", "final_res", "out_norm", "out_conv"}
+BIGVGAN_KEYS = {"conv_pre", "ups", "resblocks", "activation_post",
+                "conv_post"}
 
 
 def to_torch(tree, device=None, dtype: Optional[torch.dtype] = None):
@@ -78,4 +87,16 @@ def decode_weights_from_jax(qgpt, device=None) -> Params:
 def hifigan_from_jax(params, device=None,
                      dtype: Optional[torch.dtype] = None) -> Params:
     _check_keys(params, HIFIGAN_KEYS, "HiFiGAN params")
+    return to_torch(params, device, dtype)
+
+
+def diffusion_from_jax(params, device=None,
+                       dtype: Optional[torch.dtype] = None) -> Params:
+    _check_keys(params, DIFFUSION_KEYS, "DiffusionTTS params")
+    return to_torch(params, device, dtype)
+
+
+def bigvgan_from_jax(params, device=None,
+                     dtype: Optional[torch.dtype] = None) -> Params:
+    _check_keys(params, BIGVGAN_KEYS, "BigVGAN params")
     return to_torch(params, device, dtype)

@@ -64,11 +64,11 @@ def _start(name: str, nvcc: str):
 
 def build(names: Sequence[str]) -> Dict[str, str]:
     """Compile every named source whose library is missing, one ``nvcc``
-    per source, all started together.  Returns {name: compiler output}
+    per distinct source, all started together.  Returns {name: compiler output}
     for the sources built by this call (``-Xptxas=-v`` register and
     spill counts included).  Raises on the first failed build."""
     with _lock:
-        todo = [n for n in names if not _lib_path(n).exists()]
+        todo = [n for n in dict.fromkeys(names) if not _lib_path(n).exists()]
         if not todo:
             return {}
         nvcc = find_nvcc()

@@ -1,5 +1,5 @@
 """Model registry (port of ``tortoise_tts_tpu/models/__init__.py``, for
-the models of the HiFiGAN route).
+the models of the HiFiGAN and BigVGAN routes).
 
 ``load_model(name)`` returns a ``LoadedModel`` with random parameters
 made from a seed, as the JAX package does when it finds no weights.
@@ -26,9 +26,24 @@ _logger = logging.getLogger(__name__)
 
 WEIGHT_FILES = {
     "autoregressive": "autoregressive.pth",
+    "diffusion": "diffusion.pth",
+    "bigvgan": "bigvgan_24khz_100band.pth",
     "hifigan": "hifigan.pth",
     "mel_norms": "mel_norms.pth",
 }
+MODEL_NAMES = ("autoregressive", "diffusion", "bigvgan", "hifigan")
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` or, when it is None, the CUDA device; raises when there
+    is none, so a run meant for the card never lands on the CPU
+    unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' "
+                               "to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
 
 
 def model_dirs() -> List[Path]:
@@ -73,30 +88,37 @@ def load_mel_norms(device=None) -> Optional[torch.Tensor]:
 
 
 def _canonical(name: str) -> str:
-    for key in ("autoregressive", "unified_voice", "hifigan"):
+    for key in ("autoregressive", "unified_voice", *MODEL_NAMES[1:]):
         if key in name:
             return "autoregressive" if key == "unified_voice" else key
     return name
 
 
 def load_model(name: str, dtype: str = "float32", seed: int = 0,
-               device="cpu") -> LoadedModel:
-    """Build a model of the HiFiGAN route with random parameters from
-    ``seed`` on ``device``, floating leaves in ``dtype``."""
-    from . import hifigan, unified_voice
+               device=None) -> LoadedModel:
+    """Build a model with random parameters from ``seed``, floating
+    leaves in ``dtype``, on ``device`` (None: the CUDA device)."""
+    from . import bigvgan, diffusion, hifigan, unified_voice
+    device = resolve_device(device, "load_model")
     cname = _canonical(name)
-    if cname not in ("autoregressive", "hifigan"):
+    if cname not in MODEL_NAMES:
         raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md, slices 2-3)")
+            f"model {name!r} is not ported yet (ROADMAP.md)")
     wpath = find_weight_file(cname)
     if wpath is not None:
         raise NotImplementedError(
             f"found {wpath}: reading reference checkpoints needs the port's "
-            "models/convert.py (ROADMAP.md, slice 2)")
+            "models/convert.py (ROADMAP.md)")
     g = torch.Generator(device=device).manual_seed(seed)
     if cname == "autoregressive":
         cfg = unified_voice.UnifiedVoiceConfig()
         params, module = unified_voice.init(g, cfg), unified_voice
+    elif cname == "diffusion":
+        cfg = diffusion.DiffusionConfig()
+        params, module = diffusion.init(g, cfg), diffusion
+    elif cname == "bigvgan":
+        cfg = bigvgan.BigVGANConfig()
+        params, module = _bigvgan_random(g, cfg), bigvgan
     else:
         cfg = hifigan.HifiganConfig()
         params, module = _hifigan_random(g, cfg), hifigan
@@ -120,4 +142,31 @@ def _hifigan_random(g: torch.Generator, cfg) -> Dict[str, Any]:
                 "convs1": [conv1d_init(g, cout, cout, kk) for _ in dil],
                 "convs2": [conv1d_init(g, cout, cout, kk) for _ in dil]})
     p["conv_post"] = conv1d_init(g, cout, cfg.out_channels, 7)
+    return p
+
+
+def _bigvgan_random(g: torch.Generator, cfg) -> Dict[str, Any]:
+    """Random BigVGAN parameters with the JAX package's structure; the
+    snake parameters start at 0 (logscale) or 1."""
+    ch0 = cfg.upsample_initial_channel
+    p = {"conv_pre": conv1d_init(g, cfg.num_mels, ch0, 7),
+         "ups": [], "resblocks": []}
+
+    def snake(ch):
+        fill = torch.zeros if cfg.snake_logscale else torch.ones
+        return {"alpha": fill(ch, device=g.device),
+                "beta": fill(ch, device=g.device)}
+
+    for i, k in enumerate(cfg.upsample_kernel_sizes):
+        cin, cout = ch0 // (2 ** i), ch0 // (2 ** (i + 1))
+        p["ups"].append({"w": normal(g, (cin, cout, k), 0.02),
+                         "b": torch.zeros(cout, device=g.device)})
+        for kk, dil in zip(cfg.resblock_kernel_sizes,
+                           cfg.resblock_dilation_sizes):
+            p["resblocks"].append({
+                "convs1": [conv1d_init(g, cout, cout, kk) for _ in dil],
+                "convs2": [conv1d_init(g, cout, cout, kk) for _ in dil],
+                "activations": [snake(cout) for _ in range(2 * len(dil))]})
+    p["activation_post"] = snake(cout)
+    p["conv_post"] = conv1d_init(g, cout, 1, 7)
     return p

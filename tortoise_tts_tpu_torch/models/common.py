@@ -62,6 +62,11 @@ def norm_init(dim: int, device=None) -> Params:
             "bias": torch.zeros(dim, device=device)}
 
 
+def group_norm_init(dim: int, device=None) -> Params:
+    """GroupNorm parameters (the JAX package's ``group_norm_init``)."""
+    return norm_init(dim, device)
+
+
 def tree_map(fn, tree):
     """Apply fn to every tensor leaf of nested dicts / lists."""
     if isinstance(tree, dict):
@@ -166,3 +171,53 @@ def interpolate_linear(x: torch.Tensor, size: int,
     lo_i = lo.long().clamp(0, t - 1)
     hi_i = (lo_i + 1).clamp(0, t - 1)
     return x[..., lo_i] * (1 - frac) + x[..., hi_i] * frac
+
+
+def interpolate_nearest(x: torch.Tensor, size: int) -> torch.Tensor:
+    """torch F.interpolate(mode='nearest') along the last axis of (B, C,
+    T), with the source index computed in fp32 as the JAX package does."""
+    t = x.shape[-1]
+    ratio = torch.tensor(t / size, dtype=torch.float32)
+    idx = (torch.arange(size, dtype=torch.float32) * ratio).to(torch.long)
+    return x[..., idx.clamp(0, t - 1).to(x.device)]
+
+
+def sinusoidal_timestep_embedding(t: torch.Tensor, dim: int,
+                                  max_period: int = 10000) -> torch.Tensor:
+    """Timestep embedding [cos | sin] (reference diffusion.py:1277-1295);
+    t: (N,) -> (N, dim) fp32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def _depthwise_weight(filt, x: torch.Tensor) -> torch.Tensor:
+    """One FIR shared by every channel as a (C, 1, K) grouped-conv
+    weight."""
+    f = torch.as_tensor(filt, device=x.device).to(x.dtype)
+    return f.view(1, 1, -1).expand(x.shape[1], 1, -1).contiguous()
+
+
+def depthwise_lowpass(x: torch.Tensor, filt, stride: int, pad_left: int,
+                      pad_right: int) -> torch.Tensor:
+    """Per-channel FIR with edge padding (BigVGAN LowPassFilter1d).
+    x: (B, C, T); filt: (K,) shared across channels."""
+    x = F.pad(x, (pad_left, pad_right), mode="replicate")
+    return F.conv1d(x, _depthwise_weight(filt, x), stride=stride,
+                    groups=x.shape[1])
+
+
+def depthwise_upsample(x: torch.Tensor, filt, ratio: int, pad: int,
+                       pad_left: int, pad_right: int) -> torch.Tensor:
+    """BigVGAN UpSample1d: edge-pad, zero-stuffed transposed conv with a
+    FIR shared across channels, times ``ratio``, trimmed."""
+    x = F.pad(x, (pad, pad), mode="replicate")
+    y = ratio * F.conv_transpose1d(x, _depthwise_weight(filt, x),
+                                   stride=ratio, groups=x.shape[1])
+    return y[..., pad_left:y.shape[-1] - pad_right]

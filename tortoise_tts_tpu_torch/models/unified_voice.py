@@ -6,8 +6,8 @@ Sequence layout, as in the JAX package:
 with per-modality learned position embeddings and no trunk positions.
 
 What runs where:
-- the prefill's causal trunk attention goes through K1
-  (``kernels/flash_attention``);
+- the causal trunk attention of the prefill and of the latent pass
+  (``forward``) goes through K1 (``kernels/flash_attention``);
 - each decode step's four linears go through K2 (``kernels/qgemv``, int8
   with the LayerNorm fused) when the caller passes the int8 decode
   weights, and its attention through K3 (``kernels/flash_decode``).
@@ -127,6 +127,34 @@ def _layer(gpt: Params, li: int) -> Params:
             for name, p in gpt.items() if name != "ln_f"}
 
 
+def _gpt_layer(lp: Params, x: torch.Tensor, heads: int,
+               key_mask: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One pre-LN GPT-2 block over a whole sequence, causal attention
+    through K1.  x: (B, T, D); key_mask: (B, T) bool or None.  Returns
+    the block's output and its K, V as (B, H, T, Dh) views."""
+    b, t, d = x.shape
+    hd = d // heads
+    qkv = linear(lp["attn_qkv"], layer_norm(lp["ln_1"], x))
+    q, k, v = (z.view(b, t, heads, hd).transpose(1, 2)
+               for z in qkv.split(d, dim=-1))
+    a = flash_attention(q, k, v, key_mask=key_mask, causal=True)
+    x = x + linear(lp["attn_proj"], a.transpose(1, 2).reshape(b, t, d))
+    h = layer_norm(lp["ln_2"], x)
+    x = x + linear(lp["mlp_proj"], gelu_new(linear(lp["mlp_fc"], h)))
+    return x, k, v
+
+
+def gpt_forward(gpt: Params, emb: torch.Tensor, heads: int,
+                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence causal forward.  emb: (B, T, D) -> the ln_f'd hidden
+    states (B, T, D); key_mask: (B, T) bool, True = valid key."""
+    x = emb
+    for li in range(gpt["attn_qkv"]["w"].shape[0]):
+        x = _gpt_layer(_layer(gpt, li), x, heads, key_mask)[0]
+    return layer_norm(gpt["ln_f"], x)
+
+
 def _gpt_prefill(gpt: Params, emb: torch.Tensor, heads: int,
                  key_mask: torch.Tensor, cache_len: int
                  ) -> Tuple[torch.Tensor, KVCache]:
@@ -134,21 +162,13 @@ def _gpt_prefill(gpt: Params, emb: torch.Tensor, heads: int,
     bool.  Returns the ln_f'd hidden states (B, T, D) and a cache of
     cache_len slots whose first T hold the prefix's K/V."""
     b, t, d = emb.shape
-    hd = d // heads
     n_layers = gpt["attn_qkv"]["w"].shape[0]
-    shape = (n_layers, b, heads, cache_len, hd)
+    shape = (n_layers, b, heads, cache_len, d // heads)
     kc = torch.zeros(shape, dtype=emb.dtype, device=emb.device)
     vc = torch.zeros(shape, dtype=emb.dtype, device=emb.device)
     x = emb
     for li in range(n_layers):
-        lp = _layer(gpt, li)
-        qkv = linear(lp["attn_qkv"], layer_norm(lp["ln_1"], x))
-        q, k, v = (z.view(b, t, heads, hd).transpose(1, 2)
-                   for z in qkv.split(d, dim=-1))
-        a = flash_attention(q, k, v, key_mask=key_mask, causal=True)
-        x = x + linear(lp["attn_proj"], a.transpose(1, 2).reshape(b, t, d))
-        h = layer_norm(lp["ln_2"], x)
-        x = x + linear(lp["mlp_proj"], gelu_new(linear(lp["mlp_fc"], h)))
+        x, k, v = _gpt_layer(_layer(gpt, li), x, heads, key_mask)
         kc[li, :, :, :t] = k
         vc[li, :, :, :t] = v
     return layer_norm(gpt["ln_f"], x), KVCache(kc, vc)
@@ -259,6 +279,41 @@ def _build_text_segment(params: Params, text: torch.Tensor,
     emb = embedding(params["text_embedding"], ids)
     emb = emb + embedding(params["text_pos_embedding"], pos[0])[None]
     return emb, mask
+
+
+def forward(params: Params, cond_latent: torch.Tensor, text: torch.Tensor,
+            text_lengths: torch.Tensor, mel_codes: torch.Tensor,
+            wav_lengths: torch.Tensor,
+            cfg: UnifiedVoiceConfig = UnifiedVoiceConfig(),
+            return_latent: bool = True) -> torch.Tensor:
+    """Teacher-forced forward (reference unified_voice.py:544-612) for the
+    latent pass: the hidden states above each mel input, (B, Tm, D).
+    cond_latent: (B, D); text: (B, Tt), text_lengths: (B,); mel_codes:
+    (B, Tm); wav_lengths: (B,) in samples.  The whole sequence is
+    attended without a key mask, as the JAX package does."""
+    if not return_latent:
+        raise NotImplementedError(
+            "the training losses of UnifiedVoice.forward are not ported "
+            "yet (ROADMAP.md); pass return_latent=True")
+    b = text.shape[0]
+    tm = mel_codes.shape[1]
+    text_emb, _ = _build_text_segment(params, text, text_lengths, cfg)
+    # set_mel_padding (unified_voice.py:494-506)
+    mel_lengths = wav_lengths // cfg.mel_length_compression
+    pos_m = torch.arange(tm, device=mel_codes.device)[None]
+    codes = torch.where(pos_m >= mel_lengths[:, None] + 1,
+                        cfg.stop_mel_token, mel_codes)
+    mel_in = F.pad(codes, (1, 0), value=cfg.start_mel_token)
+    mel_in = F.pad(mel_in, (0, 1), value=cfg.stop_mel_token)
+    mel_emb = (embedding(params["mel_embedding"], mel_in)
+               + embedding(params["mel_pos_embedding"],
+                           torch.arange(tm + 2, device=mel_in.device))[None])
+    emb = torch.cat([cond_latent[:, None].to(text_emb.dtype), text_emb,
+                     mel_emb.to(text_emb.dtype)], dim=1)
+    hidden = gpt_forward(params["gpt"], emb, cfg.heads)
+    # the first position is tied to the conditioning input
+    enc = layer_norm(params["final_norm"], hidden[:, -(tm + 2):])
+    return enc[:, :tm]
 
 
 class DecodeResult(NamedTuple):

@@ -3,7 +3,10 @@
 - ``qkv_attention``: the conv-style fused-QKV attention of the
   conditioning encoder's AttentionBlock on channels-major (B, 3*H*C, T)
   tensors with the per-head [q;k;v] interleave; the 1/sqrt(sqrt(ch))
-  scale goes on both q and k.  Plain path only (no rel-pos bias kernel).
+  scale goes on both q and k, with an optional T5 relative-position
+  bias (``rel_pos_w``, or a precomputed ``bias``).  It stays plain
+  matmuls: the JAX package runs this path outside any Pallas kernel at
+  B < 8, which is where the single-utterance denoiser runs.
 - ``mha``: batched multi-head attention on (B, H, T, D) with causal and
   padding masks.  It is the plain version of the trunk and decode
   attention kernels (kernels/flash_attention.py, kernels/flash_decode.py).
@@ -17,14 +20,50 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 NEG_INF = -1e9
 
 
-def qkv_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+def t5_rel_pos_bucket(n_query: int, n_key: int, num_buckets: int = 32,
+                      max_distance: int = 64) -> np.ndarray:
+    """Non-causal T5 relative-position buckets (xtransformers.py:157-177),
+    int32 (n_query, n_key), built with numpy."""
+    rel = np.arange(n_key)[None, :] - np.arange(n_query)[:, None]
+    n = -rel
+    nb = num_buckets // 2
+    ret = (n < 0).astype(np.int64) * nb
+    n = np.abs(n)
+    max_exact = nb // 2
+    val_if_large = max_exact + (
+        np.log(np.maximum(n, 1).astype(np.float64) / max_exact)
+        / math.log(max_distance / max_exact) * (nb - max_exact)
+    ).astype(np.int64)
+    val_if_large = np.minimum(val_if_large, nb - 1)
+    ret = ret + np.where(n < max_exact, n, val_if_large)
+    return ret.astype(np.int32)
+
+
+def rel_pos_bias_from_table(emb_w: torch.Tensor, n_q: int, n_k: int,
+                            num_buckets: int = 32,
+                            max_distance: int = 64) -> torch.Tensor:
+    """(num_buckets, heads) table -> (heads, n_q, n_k) bias (unscaled), by
+    a plain gather."""
+    bucket = torch.as_tensor(
+        t5_rel_pos_bucket(n_q, n_k, num_buckets, max_distance),
+        dtype=torch.long, device=emb_w.device)
+    return emb_w[bucket].permute(2, 0, 1)
+
+
+def qkv_attention(qkv: torch.Tensor, n_heads: int,
+                  rel_pos_w: Optional[torch.Tensor] = None,
+                  rel_pos_scale: float = 1.0,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """qkv: (B, H*3*C, T) -> (B, H*C, T), non-causal, unmasked (every
-    call site of the slice passes no mask).
+    call site passes no mask).  ``bias``: a precomputed (H, T, T) bias,
+    already scaled; else ``rel_pos_w``: a (buckets, H) T5 table, scaled
+    by ``rel_pos_scale``.
 
     Scores are fp32 for fp32 inputs; for bf16 inputs they stay bf16,
     as the JAX package's reduced-precision score path does."""
@@ -33,6 +72,11 @@ def qkv_attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     q, k, v = qkv.reshape(b, n_heads, 3 * ch, t).split(ch, dim=2)
     scale = 1.0 / math.sqrt(math.sqrt(ch))
     dots = torch.einsum("bhct,bhcs->bhts", q * scale, k * scale)
+    if bias is not None:
+        dots = dots + bias[None].to(dots.dtype)
+    elif rel_pos_w is not None:
+        rel = rel_pos_bias_from_table(rel_pos_w, t, t)
+        dots = dots + rel[None].to(dots.dtype) * rel_pos_scale
     if qkv.dtype == torch.bfloat16:
         w = torch.softmax(dots, dim=-1)
     else:

@@ -5,6 +5,10 @@ Port of ``tortoise_tts_tpu/ops/stft.py``:
 - ``mel_ar``: TorchMelSpectrogram -- 22.05 kHz, n_fft 1024, hop 256,
   power-2 spectrogram, 80 HTK-scale mels with slaney area
   normalisation, log-clamped at 1e-5, divided by per-bin mel_norms.
+- ``mel_diffusion``: TacotronSTFT -- 24 kHz, n_fft 1024, hop 256,
+  magnitude spectrogram, 100 slaney mels up to 12 kHz, log-clamped at
+  1e-5; ``normalize_tacotron_mel`` / ``denormalize_tacotron_mel`` map it
+  to and from the diffusion model's [-1, 1] space.
 - ``resample``: torchaudio.functional.resample equivalent (windowed
   sinc, hann window, lowpass_filter_width=6, rolloff=0.99).
 
@@ -114,6 +118,34 @@ def mel_ar(wav: torch.Tensor, mel_norms: torch.Tensor | None = None
     if mel_norms is not None:
         mel = mel / mel_norms.to(mel.device, torch.float32)[None, :, None]
     return mel
+
+
+def mel_diffusion(wav24: torch.Tensor) -> torch.Tensor:
+    """Diffusion-conditioning mel. wav24: (B, T) at 24 kHz -> (B, 100,
+    frames); the input is clipped to [-1, 1] (arch_utils.py:692-694)."""
+    mag = stft_magnitude(torch.clamp(wav24.float(), -1.0, 1.0), 1024, 256,
+                         1024, power=1.0)
+    fb = torch.as_tensor(mel_filterbank(24000, 1024, 100, 0.0, 12000.0,
+                                        scale="slaney", norm="slaney"),
+                         device=wav24.device)
+    mel = torch.einsum("mf,bft->bmt", fb, mag)
+    return torch.log(torch.clamp(mel, min=1e-5))
+
+
+TACOTRON_MEL_MAX = 2.3143386840820312
+TACOTRON_MEL_MIN = -11.512925148010254
+
+
+def normalize_tacotron_mel(mel):
+    """arch_utils.py:540-541"""
+    return 2 * ((mel - TACOTRON_MEL_MIN)
+                / (TACOTRON_MEL_MAX - TACOTRON_MEL_MIN)) - 1
+
+
+def denormalize_tacotron_mel(norm_mel):
+    """arch_utils.py:536-537"""
+    return (((norm_mel + 1) / 2) * (TACOTRON_MEL_MAX - TACOTRON_MEL_MIN)
+            + TACOTRON_MEL_MIN)
 
 
 @lru_cache(maxsize=16)
