@@ -20,7 +20,10 @@ one JSON line per phase:
    gaps the host leaves while it launches.
 4. ``reference``: tiny models through the same entry points on the card
    (fp32, kernels) and on the CPU (plain versions), both routes: greedy
-   codes equal, the same injected diffusion noise, wavs close.
+   codes equal, the same injected diffusion noise, wavs close; then
+   ``reference_batch``: a tiny ``batch_inference`` of 4 rows (its
+   cond-free trunk batch of 8 at T=417 takes K6) and a tiny
+   ``inference(candidates=4)`` (K3's shared form), wavs within 4/32767.
 5. ``main_path``: the default route, ``TTS.inference(text, ref)`` (AR
    decode, latent pass, DDIM-50 with cond-free guidance, BigVGAN) with
    bench.py's knobs, at the shipped widths (UnifiedVoice 30 x 1024,
@@ -34,7 +37,18 @@ one JSON line per phase:
    ``TTS.inference(..., vocoder_type="hifigan")`` and ``TTS.stream``.
    Each route is driven with the launch counts at 0 and read after it;
    every kernel it runs must have launched.
-6. ``decode``: eager decode time per token and CUDA launches per token
+6. ``batch_route`` and ``candidates_route``: slice 3's entry points at
+   the same widths with bench.py's knobs, each once to warm up, once
+   warm and once profiled: ``TTS.batch_inference`` over 8 copies of the
+   text (8 rows decoded at once, the CLVP-free cleanup, the diffusion
+   bucketed by row length: one dispatch of 8 rows, cond-free trunk B=16,
+   K6 in every attention block), and ``TTS.inference(text, ref,
+   candidates=16)`` (a shared-prefix decode of 16 rows through K3's
+   shared form, the CLVP rerank, the winner's latent pass, diffusion and
+   vocoder at B=1).  Wall seconds per stage, audio seconds per wall
+   second, K6 launches per DDIM step against the profiler, the
+   diffusion's busy share, peak memory.
+7. ``decode``: eager decode time per token and CUDA launches per token
    (from the profiler), the size a CUDA graph would capture.
 
 Then the ``kernels`` summary, the card's name and power limit from
@@ -67,6 +81,10 @@ ROUTE_KW = dict(max_ar_steps=AR_STEPS, max_diffusion_steps=DIFF_STEPS,
                 diffusion_pad_multiple=32, mel_pad_multiple=128)
 TEXT = "The quick brown fox jumps over the lazy dog."
 BUCKET = 64                    # the first text bucket, which TEXT fits
+# slice 3's kernels: the batch and candidate routes launch them
+SLICE3_KERNELS = ("flash_attention_bias", "flash_decode_shared")
+BATCH_ROWS = 8
+CANDIDATES = 16
 
 
 def emit(phase: str, **kw) -> None:
@@ -284,6 +302,143 @@ def check_flash_decode(torch, k3, dev, slots, layers=30, report=True):
          library="scaled_dot_product_attention", bound_ms=bms, bound_by=by,
          **t)
     return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t)
+
+
+def check_flash_decode_shared(torch, k3, dev, c=16, sp=1 + BUCKET + 2 + 1,
+                              sd=AR_STEPS, layers=30):
+    """K3's shared form at the candidates route's last decode step: G=1
+    group of 16 candidates, a 68-slot prefix (cond, the 64-token text
+    bucket with its padded tail masked, start_mel) and a 200-slot region
+    up to pos = 199, cycling over 30 layers of cache.  No single PyTorch
+    call takes a prefix held once per group beside per-row regions; SDPA
+    over the same slots concatenated per row (built outside the timed
+    call) is printed as ``sdpa_concat_ms`` for scale."""
+    F = torch.nn.functional
+    h, dh, pos = 16, 64, sd - 1
+    g = torch.Generator(device=dev).manual_seed(4)
+    kp, vp = (torch.randn(layers, 1, h, sp, dh, generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    kd, vd = (torch.randn(layers, c, h, sd, dh, generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    qkv = torch.randn(c, 3 * h * dh, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    q = qkv[:, :h * dh].view(c, h, dh)
+    pmask = torch.ones(1, sp, dtype=torch.bool, device=dev)
+    pmask[:, 55:67] = False
+    got = k3.flash_decode_shared(q, kp[0], vp[0], pmask, kd[0], vd[0], pos)
+    want = k3.flash_decode_shared_plain(q, kp[0], vp[0], pmask, kd[0], vd[0],
+                                        pos)
+    err = bf16_err(torch, got, want, atol=5e-2, rtol=0,
+                   name="flash_decode_shared")
+    kc = torch.cat([kp[0].expand(c, -1, -1, -1), kd[0][:, :, :pos + 1]], 2)
+    vc = torch.cat([vp[0].expand(c, -1, -1, -1), vd[0][:, :, :pos + 1]], 2)
+    am = torch.cat([pmask, torch.ones(1, pos + 1, dtype=torch.bool,
+                                      device=dev)], 1)[:, None, None]
+    t = timings(
+        torch,
+        lambda i: k3.flash_decode_shared(q, kp[i % layers], vp[i % layers],
+                                         pmask, kd[i % layers],
+                                         vd[i % layers], pos),
+        lambda i: k3.flash_decode_shared_plain(
+            q, kp[i % layers], vp[i % layers], pmask, kd[i % layers],
+            vd[i % layers], pos),
+        None)
+    sdpa_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q[:, :, None], kc, vc, attn_mask=am))
+    # the prefix read once, each row's region up to pos, q and o, the mask
+    nbytes = (2 * h * sp * dh * 2 + 2 * c * h * (pos + 1) * dh * 2
+              + 2 * c * h * dh * 2 + sp)
+    flops = 4 * c * h * (sp + pos + 1) * dh
+    bms, by = bound_ms(nbytes, flops)
+    emit("kernel", name="flash_decode_shared", shape=dict(
+        g=1, c=c, h=h, sp=sp, sd=sd, pos=pos), max_abs_err=err, tol=5e-2,
+        library=None, sdpa_concat_ms=sdpa_ms, bound_ms=bms, bound_by=by,
+        **t)
+    return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t)
+
+
+def _bias_attn_inputs(torch, dev, b, h, t, dtype, seed, n_bias=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = (torch.randn(b, h * 192, t, generator=g, device=dev)
+           * 0.5).to(dtype)
+    bias = [(torch.randn(h, t, t, generator=g, device=dev) * 2).to(dtype)
+            for _ in range(n_bias)]
+    return qkv, bias
+
+
+def check_flash_attention_bias(torch, k6, dev):
+    """K6 at the batch route's shapes (T=896, H=16): the cond-free trunk
+    at B=16 and the integrator at B=8, each cycling over 4 biases (every
+    attention block has its own, 25.7 MB each); a ragged T=300 and fp32
+    (T=257, odd: the unvectorised loads) for the error only; and B=2, the
+    single route's shape, a data point beside the plain path that shape
+    takes (``route_plain_ms``).  The row sums the B=16 and B=8 calls.  The library call is
+    SDPA on the (B, H, T, 64) views of the fused qkv with the bias as a
+    float mask; the output's copy back to channels-major is inside its
+    timed call, as the kernel writes channels-major."""
+    from tortoise_tts_tpu_torch.ops import attention
+    F = torch.nn.functional
+    tol = dict(atol=3e-2, rtol=2e-2)   # |o| <~ 2: one bf16 ulp <= 1.6e-2
+
+    def sdpa(qkv, bias, h):
+        b, _, t = qkv.shape
+        q, k, v = qkv.view(b, h, 3, 64, t).transpose(-1, -2).unbind(2)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        return o.transpose(-1, -2).reshape(b, h * 64, t)
+
+    for b, h, t, dtype, seed in ((8, 16, 300, torch.bfloat16, 40),
+                                 (8, 2, 257, torch.float32, 41)):
+        qkv, (bias,) = _bias_attn_inputs(torch, dev, b, h, t, dtype, seed)
+        got = k6.flash_attention_bias(qkv, bias, h)
+        want = k6.flash_attention_bias_plain(qkv, bias, h)
+        err = bf16_err(torch, got, want, name=f"K6 T={t} {dtype}",
+                       **(dict(atol=1e-5, rtol=1e-5)
+                          if dtype == torch.float32 else tol))
+        emit("kernel_detail", name="flash_attention_bias", shape=[b, h, t],
+             dtype=str(dtype), max_abs_err=err)
+    tot = dict(bytes=0.0, flops=0.0)
+    err_max = 0.0
+    for b, role in ((16, "trunk"), (8, "integrator"), (2, "single_route")):
+        h, t = 16, 896
+        qkv, biases = _bias_attn_inputs(torch, dev, b, h, t, torch.bfloat16,
+                                        42 + b, n_bias=4)
+        got = k6.flash_attention_bias(qkv, biases[0], h)
+        want = k6.flash_attention_bias_plain(qkv, biases[0], h)
+        err = bf16_err(torch, got, want, name=f"K6 B={b}", **tol)
+        del got, want
+        t_ = timings(
+            torch, lambda i: k6.flash_attention_bias(qkv, biases[i % 4], h),
+            lambda i: k6.flash_attention_bias_plain(qkv, biases[i % 4], h),
+            lambda i: sdpa(qkv, biases[i % 4], h))
+        nbytes = 4 * b * h * 64 * t * 2 + h * t * t * 2
+        flops = 2 * 2 * b * h * t * t * 64
+        extra = {}
+        if role == "single_route":
+            # what the single route runs at this shape instead: the plain
+            # path of ops/attention.qkv_attention (bf16 scores)
+            extra["route_plain_ms"] = device_ms(
+                torch, lambda i: attention.qkv_attention(
+                    qkv, h, bias=biases[i % 4]))
+        emit("kernel_detail", name="flash_attention_bias", role=role,
+             shape=[b, h, t], max_abs_err=err, tol=tol,
+             bound_ms=bound_ms(nbytes, flops)[0],
+             bound_by=bound_ms(nbytes, flops)[1], **t_, **extra)
+        if role == "single_route":
+            continue
+        err_max = max(err_max, err)
+        for key, val in t_.items():
+            tot[key] = tot.get(key, 0.0) + val
+        tot["bytes"] += nbytes
+        tot["flops"] += flops
+        torch.cuda.empty_cache()
+    bms, by = bound_ms(tot.pop("bytes"), tot.pop("flops"))
+    emit("kernel", name="flash_attention_bias",
+         shape="two calls: (16,16,896) trunk + (8,16,896) integrator",
+         max_abs_err=err_max, tol=tol,
+         library="scaled_dot_product_attention, bias as a float mask "
+         "(views in, channels-major copy out, both timed)", bound_ms=bms,
+         bound_by=by, **tot)
+    return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **tot)
 
 
 def _gn_conv_inputs(torch, dev, b, c, t, m, k, seed):
@@ -516,7 +671,10 @@ def check_reference(torch, ref: str):
         inference._diffusion_noise = draw_noise
         torch.backends.cudnn.allow_tf32 = True
     (wg, bg, cg, lg), (wc, bc, cc, lc) = out["cuda"], out["cpu"]
-    assert all(v > 0 for v in lg.values()), f"kernels not reached: {lg}"
+    # the single routes' kernels; K6 and K3's shared form run in
+    # check_reference_batch
+    assert all(v > 0 for k, v in lg.items() if k not in SLICE3_KERNELS), \
+        f"kernels not reached: {lg}"
     assert not any(lc.values()), f"CPU run launched kernels: {lc}"
     assert np.array_equal(cg, cc), "greedy codes differ between GPU and CPU"
     assert wg.shape == wc.shape and np.isfinite(wg).all()
@@ -538,6 +696,109 @@ def check_reference(torch, ref: str):
          launches_on_card=lg)
 
 
+def check_reference_batch(torch, ref: str):
+    """Slice 3's entry points on tiny models, on the card (fp32, kernels)
+    and on the CPU (plain versions), TF32 off and the diffusion noise
+    drawn on the CPU, as in ``check_reference``: ``batch_inference`` over
+    4 texts (greedy, one shared-max dispatch: 80 budget latents -> 96 ->
+    T=417, so the cond-free trunk's batch of 8 takes K6; the denoiser is
+    128 channels x 2 heads, head dim 64) and ``inference(candidates=4)``
+    (greedy, K3's shared form and the CLVP rerank).  Every kernel must
+    launch on the card; each row's wav within 4/32767.  A random tiny
+    denoiser drives most of the mel to the sampler's clip at +-1, so the
+    wavs alone say little about the denoiser: the first DDIM step's trunk
+    output (B=8, through K6, before any clipping) is compared too, within
+    1e-3 of its largest value."""
+    from tortoise_tts_tpu_torch import inference, kernels
+    from tortoise_tts_tpu_torch.config import Config, Inference
+    from tortoise_tts_tpu_torch.inference import TTS
+    from tortoise_tts_tpu_torch.models import (LoadedModel, _bigvgan_random,
+                                               bigvgan, clvp, diffusion,
+                                               unified_voice)
+    from tortoise_tts_tpu_torch.models.common import tree_map
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ucfg = unified_voice.UnifiedVoiceConfig(layers=2, model_dim=128, heads=2)
+    dcfg = diffusion.DiffusionConfig(model_channels=128, num_layers=2,
+                                     num_heads=2, in_latent_channels=128)
+    bcfg = bigvgan.BigVGANConfig(upsample_initial_channel=64)
+    ccfg = clvp.CLVPConfig(dim_text=64, dim_speech=64, dim_latent=64,
+                           text_enc_depth=2, speech_enc_depth=2,
+                           text_heads=2, speech_heads=2, dim_head=32,
+                           rotary_dim=16)
+    g = torch.Generator().manual_seed(6)
+    params = unified_voice.init(g, ucfg)
+    params["mel_head"]["w"] *= 8.0
+    dparams = diffusion.init(g, dcfg)
+    for lyr in dparams["conditioning_timestep_integrator"] + \
+            dparams["layers"]:
+        w = lyr["attn"]["proj_out"]["w"]
+        w.copy_(0.1 * torch.randn(w.shape, generator=g))
+    models = (("autoregressive", unified_voice, ucfg, params),
+              ("diffusion", diffusion, dcfg, dparams),
+              ("bigvgan", bigvgan, bcfg, _bigvgan_random(g, bcfg)),
+              ("clvp", clvp, ccfg, clvp.init(g, ccfg)))
+    cfg = Config(inference=Inference(weight_dtype="float32"))
+    texts = [TEXT, "A second sentence, not as long.", "Third.",
+             "And the fourth one closes the batch."]
+    draw_noise = inference._diffusion_noise
+    trunk = diffusion.forward_trunk
+    first_trunk = []
+
+    def cpu_noise(key, shape, device):
+        return draw_noise(key, shape, "cpu").to(device)
+
+    def recorded_trunk(*args, **kw):
+        y = trunk(*args, **kw)
+        if not first_trunk:
+            first_trunk.append(y.float().cpu())
+        return y
+    inference._diffusion_noise = cpu_noise
+    diffusion.forward_trunk = recorded_trunk
+    out = {}
+    try:
+        for where in ("cuda", "cpu"):
+            tts = TTS(cfg, device=where, dtype="float32")
+            move = lambda t: t.to(where)  # noqa: E731
+            tts._models = {name: LoadedModel(name, mod, c, tree_map(move, p),
+                                             False)
+                           for name, mod, c, p in models}
+            kernels.reset_launches()
+            first_trunk.clear()
+            bw, _ = tts.batch_inference(texts, ref, max_ar_steps=80,
+                                        max_diffusion_steps=4, greedy=True,
+                                        seed=0, row_buckets=False)
+            y = first_trunk[0]
+            cw, _ = tts.inference(TEXT, ref, candidates=4, max_ar_steps=80,
+                                  max_diffusion_steps=4, greedy=True, seed=0)
+            out[where] = (bw + [cw], kernels.launch_counts(), y)
+    finally:
+        inference._diffusion_noise = draw_noise
+        diffusion.forward_trunk = trunk
+        torch.backends.cudnn.allow_tf32 = True
+    (wg, lg, yg), (wc, lc, yc) = out["cuda"], out["cpu"]
+    assert yg.shape == (2 * len(texts), 2 * 100, 417), yg.shape
+    y_err, y_max = float((yg - yc).abs().max()), float(yc.abs().max())
+    assert y_err <= 1e-3 * y_max, f"trunk output err {y_err} of {y_max}"
+    missing = [k for k, v in lg.items() if v == 0]
+    assert not missing, f"kernels not reached on the card: {missing}"
+    assert not any(lc.values()), f"CPU run launched kernels: {lc}"
+    tol = 4 / 32767
+    errs = []
+    for a, b in zip(wg, wc):
+        assert a.shape == b.shape and np.isfinite(a).all()
+        assert np.count_nonzero(a) > 1000
+        errs.append(float(np.abs(a - b).max()))
+    assert max(errs) <= tol, f"reference batch/candidates wav errs {errs}"
+    emit("reference_batch", rows=len(texts), wav_samples=[int(w.size)
+                                                        for w in wc],
+         trunk_shape=list(yc.shape), trunk_max_abs_err=y_err,
+         trunk_max_abs=y_max, trunk_tol=1e-3 * y_max,
+         wav_max_abs_err=errs, tol=tol,
+         wav_mean_abs=[float(np.abs(w).mean()) for w in wc],
+         launches_on_card=lg)
+
+
 class Stages:
     """Wall seconds and kernel launches per stage of ``TTS.inference``: the
     stage functions of ``tortoise_tts_tpu_torch.inference`` are wrapped
@@ -548,7 +809,9 @@ class Stages:
 
     NAMES = (("emb_mel", "encode_from_files", "encode"),
              ("inference", "inference_speech", "ar_decode"),
+             ("inference", "inference_speech_shared", "ar_decode"),
              ("inference", "_cleanup_latents", "latent_pass"),
+             ("inference", "_rerank_latents", "latent_pass"),
              ("inference", "_uncond_integrate", "uncond_cache"),
              ("inference", "_diffusion", "diffusion"),
              ("inference", "_vocode", "vocoder"))
@@ -572,11 +835,16 @@ class Stages:
         self.seconds = {name: 0.0 for *_, name in self.NAMES}
         self.launches = {name: {} for *_, name in self.NAMES}
         self.cuda_kernels = {}
+        self.diffusion_calls = []   # (rows, T) of each _diffusion call
 
     def _wrap(self, fn, name):
         torch, kernels = self.torch, self.kernels
 
         def timed(*args, **kw):
+            if name == "diffusion":   # positional: latents, ..., seq_len,
+                #                       ..., pad_seq_len
+                self.diffusion_calls.append(
+                    (args[1].shape[0], args[12] or args[7]))
             torch.cuda.synchronize()
             c0 = kernels.launch_counts()
             t0 = time.perf_counter()
@@ -592,7 +860,10 @@ class Stages:
                     torch.cuda.synchronize()
                     out = fn(*args, **kw)
                     torch.cuda.synchronize()
-                self.cuda_kernels[name] = _kernel_census(prof)
+                # a stage called more than once in a run (the batch
+                # route's length buckets) sums its calls
+                self.cuda_kernels[name] = _sum_census(
+                    self.cuda_kernels.get(name), _kernel_census(prof))
             else:
                 out = fn(*args, **kw)
             torch.cuda.synchronize()
@@ -609,14 +880,25 @@ class Stages:
             setattr(m, attr, orig)
 
 
+def _sum_census(a, b) -> dict:
+    if a is None:
+        return b
+    out = {k: a[k] + b[k] for k in a if k != "device_ms_by_kind"}
+    out["device_ms_by_kind"] = {k: a["device_ms_by_kind"][k]
+                                + b["device_ms_by_kind"][k]
+                                for k in a["device_ms_by_kind"]}
+    return out
+
+
 def _kernel_census(prof) -> dict:
     """CUDA kernels of one profiled stage: the launches and device ms of
     the port's K4 and K5 GEMMs (the ``gemm<T, TAPS>`` of csrc/resblock.cu,
-    TAPS 1 and 3), their group statistics, K7 and all other kernels."""
+    TAPS 1 and 3), their group statistics, K6 (``attn_bias<T>`` of
+    csrc/flash_attention_bias.cu), K7 and all other kernels."""
     import re
     events = _cuda_events(prof)
-    kinds = ("gn_conv_gemm", "ts_res_block_gemm", "group_stats", "snake",
-             "other")
+    kinds = ("gn_conv_gemm", "ts_res_block_gemm", "group_stats",
+             "attn_bias", "snake", "other")
     out = {k: 0 for k in kinds}
     ms = {k: 0.0 for k in kinds}
     for e in events:
@@ -629,6 +911,8 @@ def _kernel_census(prof) -> dict:
                 else "ts_res_block_gemm"
         elif "group_stats" in e.name:
             kind = "group_stats"
+        elif "attn_bias" in e.name:
+            kind = "attn_bias"
         elif "snake_resample2" in e.name:
             kind = "snake"
         else:
@@ -665,7 +949,8 @@ def bigvgan_route(torch, tts, ref: str):
             wall = time.perf_counter() - t0
             counts = kernels.launch_counts()
             emit("launches", route="bigvgan", run=run, **counts)
-            missing = [k for k, v in counts.items() if v == 0]
+            missing = [k for k, v in counts.items()
+                       if v == 0 and k not in SLICE3_KERNELS]
             assert not missing, f"BigVGAN route never launched: {missing}"
             assert wav.ndim == 1 and wav.dtype == np.float32
             assert wav.size > 24000 and np.isfinite(wav).all()
@@ -718,6 +1003,137 @@ def bigvgan_route(torch, tts, ref: str):
              name: ck[name]["device_ms"] / 1e3 / warm_s[name]
              for name in Stages.PROFILED})
     return runs[1][2]
+
+
+def _k6_expected(calls, steps: int, num_layers: int) -> int:
+    """K6 launches of the cond-free diffusion calls (rows, T): per DDIM
+    step the trunk's ``num_layers`` attention blocks at B = 2 rows and the
+    integrator's 3 at B = rows, where B >= 8 and T >= 256."""
+    return sum(steps * (num_layers * (2 * rows >= 8 and t >= 256)
+                        + 3 * (rows >= 8 and t >= 256))
+               for rows, t in calls)
+
+
+def batch_route(torch, tts, ref: str):
+    """``TTS.batch_inference`` over 8 copies of the text with bench.py's
+    batch knobs (BENCH_MODE=batch): 8 rows decoded together (K2 at M=8,
+    K3), the latent pass, the diffusion bucketed by row length (random
+    weights decode the whole budget: one dispatch of 8 rows at T=896, so
+    every attention block takes K6: 10 at B=16 and 3 at B=8 per DDIM
+    step) and BigVGAN at B=8.  A warm-up call, a warm one, a profiled
+    one; the K6 launches are checked against the dispatches and the
+    profiler."""
+    from tortoise_tts_tpu_torch import kernels
+    texts = [TEXT] * BATCH_ROWS
+    stages = Stages(torch)
+    runs = []
+    try:
+        for run in ("warmup", "warm", "profiled"):
+            stages.reset()
+            stages.profile = run == "profiled"
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            wavs, sr = tts.batch_inference(texts, ref, seed=1, top_p=0.9,
+                                           **ROUTE_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            emit("launches", route="batch", run=run, **counts)
+            missing = [k for k, v in counts.items()
+                       if v == 0 and k != "flash_decode_shared"]
+            assert not missing, f"batch route never launched: {missing}"
+            assert len(wavs) == BATCH_ROWS
+            for w in wavs:
+                assert w.ndim == 1 and w.dtype == np.float32
+                assert w.size > 24000 and np.isfinite(w).all()
+                assert float(np.abs(w).mean()) > 1e-4
+                assert np.array_equal(np.round(w * 32767.0), w * 32767.0)
+            audio_s = sum(w.size for w in wavs) / sr
+            stage_s = dict(stages.seconds)
+            stage_s["other"] = wall - sum(stage_s.values())
+            calls = list(stages.diffusion_calls)
+            dl = stages.launches["diffusion"]
+            k6 = _k6_expected(calls, DIFF_STEPS,
+                              tts._model("diffusion").config.num_layers)
+            assert dl.get("flash_attention_bias", 0) == k6, (dl, calls)
+            runs.append((run, wall, stage_s))
+            emit("batch_route", run=run, wall_s=wall, audio_s=audio_s,
+                 audio_s_per_wall_s=audio_s / wall, stage_s=stage_s,
+                 diffusion_calls=calls, stage_launches=stages.launches,
+                 k6_launches=dl.get("flash_attention_bias", 0),
+                 k6_per_ddim_step=dl.get("flash_attention_bias", 0)
+                 / (DIFF_STEPS * len(calls)),
+                 diffusion_ms_per_step=stages.seconds["diffusion"] * 1e3
+                 / DIFF_STEPS,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 **({"cuda_kernels": stages.cuda_kernels}
+                    if run == "profiled" else {}))
+            if run == "profiled":
+                ck = stages.cuda_kernels["diffusion"]
+                assert ck["attn_bias"] == k6, ck
+                assert ck["gn_conv_gemm"] == dl["gn_conv"], ck
+                assert ck["ts_res_block_gemm"] == dl["ts_res_block"], ck
+    finally:
+        stages.close()
+    warm_s = runs[1][2]
+    emit("batch_counts", k6_per_call=k6, diffusion_calls=calls,
+         device_busy_share={name: ck_["device_ms"] / 1e3 / warm_s[name]
+                            for name, ck_ in stages.cuda_kernels.items()})
+    return counts
+
+
+def candidates_route(torch, tts, ref: str):
+    """``TTS.inference(text, ref, candidates=16)`` (BENCH_MODE=candidates):
+    a shared-prefix decode of 16 rows, one prefill whose K/V every row
+    reads through K3's shared form (30 launches a token, K2 at M=16), the
+    CLVP rerank and the winner's latent pass, then the default route's
+    diffusion and BigVGAN at B=1.  A warm-up call, a warm one, a profiled
+    one."""
+    from tortoise_tts_tpu_torch import kernels
+    stages = Stages(torch)
+    runs = []
+    layers = tts._model("autoregressive").config.layers
+    try:
+        for run in ("warmup", "warm", "profiled"):
+            stages.reset()
+            stages.profile = run == "profiled"
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            wav, sr = tts.inference(TEXT, ref, candidates=CANDIDATES, seed=2,
+                                    top_p=0.9, **ROUTE_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            emit("launches", route="candidates", run=run, **counts)
+            need = ("flash_attention", "qgemv", "flash_decode_shared",
+                    "gn_conv", "ts_res_block", "snake")
+            missing = [k for k in need if counts[k] == 0]
+            assert not missing, f"candidates route never launched: {missing}"
+            assert counts["flash_decode"] == 0, counts
+            # one shared-form launch per layer and decoded token
+            assert counts["flash_decode_shared"] % layers == 0, counts
+            assert wav.ndim == 1 and wav.size > 24000
+            assert np.isfinite(wav).all() and float(np.abs(wav).mean()) > 1e-4
+            audio_s = wav.size / sr
+            stage_s = dict(stages.seconds)
+            stage_s["other"] = wall - sum(stage_s.values())
+            runs.append((run, wall, stage_s))
+            emit("candidates_route", run=run, wall_s=wall, audio_s=audio_s,
+                 rtf_x_realtime=audio_s / wall, stage_s=stage_s,
+                 stage_launches=stages.launches,
+                 decode_tokens=counts["flash_decode_shared"] // layers,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 **({"cuda_kernels": stages.cuda_kernels}
+                    if run == "profiled" else {}))
+    finally:
+        stages.close()
+    warm_s = runs[1][2]
+    emit("candidates_counts", device_busy_share={
+        name: ck["device_ms"] / 1e3 / warm_s[name]
+        for name, ck in stages.cuda_kernels.items()})
+    return counts
 
 
 def main_path(torch, ref: str):
@@ -844,6 +1260,7 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     from tortoise_tts_tpu_torch import kernels
     from tortoise_tts_tpu_torch.kernels import flash_attention as k1
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
     from tortoise_tts_tpu_torch.kernels import flash_decode as k3
     from tortoise_tts_tpu_torch.kernels import gn_conv as k4
     from tortoise_tts_tpu_torch.kernels import qgemv as k2
@@ -880,11 +1297,17 @@ def main() -> int:
             r4 = check_gn_conv(torch, k4, dev)
             r5 = check_ts_res_block(torch, k5, dev)
             r7 = check_snake(torch, k7, dev)
+            r6 = check_flash_attention_bias(torch, k6, dev)
+            r3s = check_flash_decode_shared(torch, k3, dev)
         torch.cuda.empty_cache()
 
         ref = reference_wav(Path(tmp) / "reference.wav")
         check_reference(torch, ref)
+        check_reference_batch(torch, ref)
         tts, counts = main_path(torch, ref)
+        for route in (batch_route, candidates_route):
+            c = route(torch, tts, ref)
+            counts = {k: counts[k] + c[k] for k in counts}
         decode_timing(torch, tts, ref)
 
     src = "tortoise_tts_tpu_torch/csrc/"
@@ -900,6 +1323,10 @@ def main() -> int:
          "tortoise_tts_tpu/ops/pallas_resblock.py:179", r5),
         ("snake", "snake.cu", "tortoise_tts_tpu/ops/pallas_snake.py:217",
          r7),
+        ("flash_attention_bias", "flash_attention_bias.cu",
+         "tortoise_tts_tpu/ops/pallas_attention.py:209", r6),
+        ("flash_decode_shared", "flash_decode.cu",
+         "tortoise_tts_tpu/models/unified_voice.py:311", r3s),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src + f, "replaces": rep,

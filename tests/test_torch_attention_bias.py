@@ -1,0 +1,101 @@
+"""K6, the denoiser's biased attention, against the JAX package.
+
+On the CPU the wrapper runs its plain version, which must match the JAX
+Pallas kernel in interpret mode (the head-group path at H=4, the
+per-head kernel at H=2) and the JAX XLA path at 1e-5 in fp32: the same
+math, only the summation order differs.  ``qkv_attention`` must route
+exactly the calls the JAX package routes to its kernel (bias, batch >= 8,
+T >= 256) to K6 and keep the rest on its plain path.  The CUDA kernel is
+held against the plain version on the card by ``tests/test_torch_cuda.py``
+and ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tortoise_tts_tpu.ops.attention import qkv_attention as jax_qkv_attention
+from tortoise_tts_tpu.ops.pallas_attention import flash_attention_bias_qkv_vt
+from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
+from tortoise_tts_tpu_torch.ops import attention
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _inputs(seed, b, h, t, d=64):
+    rng = np.random.RandomState(seed)
+    qkv = (rng.randn(b, h * 3 * d, t) * 0.5).astype(np.float32)
+    bias = (rng.randn(h, t, t) * 2.0).astype(np.float32)
+    return qkv, bias
+
+
+@pytest.mark.parametrize("h", [4, 2])
+def test_plain_matches_jax_pallas_interpret(h):
+    """T=200 is no multiple of the TPU kernel's 128-lane padding: its
+    padded keys are masked and the ragged end is sliced off; the port's
+    plain version (and kernel) take T as it is."""
+    qkv, bias = _inputs(h, 2, h, 200)
+    got = k6.flash_attention_bias(torch.from_numpy(qkv),
+                                  torch.from_numpy(bias), h).numpy()
+    assert got.shape == (2, h * 64, 200) and np.isfinite(got).all()
+    want = flash_attention_bias_qkv_vt(jnp.asarray(qkv), jnp.asarray(bias),
+                                       h, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_plain_matches_jax_qkv_attention():
+    qkv, bias = _inputs(7, 3, 2, 130)
+    got = k6.flash_attention_bias_plain(torch.from_numpy(qkv),
+                                        torch.from_numpy(bias), 2).numpy()
+    want = jax_qkv_attention(jnp.asarray(qkv), 2, bias=jnp.asarray(bias))
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("b,t,biased,routed", [(8, 256, True, True),
+                                               (9, 300, True, True),
+                                               (7, 256, True, False),
+                                               (8, 255, True, False),
+                                               (8, 256, False, False)])
+def test_qkv_attention_routes_k6_like_jax(monkeypatch, b, t, biased, routed):
+    """The JAX package's dispatch (ops/attention.py:103-112): a bias, no
+    mask, batch >= 8 and T >= 256 take the kernel; the rest stays plain.
+    Counted with the wrapper swapped for a counting one; the output is
+    the JAX package's at 1e-5 either way."""
+    calls = []
+    wrapper = k6.flash_attention_bias
+
+    def counting(*args):
+        calls.append(args[0].shape)
+        return wrapper(*args)
+
+    monkeypatch.setattr(k6, "flash_attention_bias", counting)
+    h = 2
+    qkv, bias = _inputs(b + t, b, h, t, d=16)
+    rel_w = np.random.RandomState(1).randn(32, h).astype(np.float32)
+    if biased:
+        got = attention.qkv_attention(torch.from_numpy(qkv), h,
+                                      bias=torch.from_numpy(bias))
+        want = jax_qkv_attention(jnp.asarray(qkv), h, bias=jnp.asarray(bias))
+    else:
+        got = attention.qkv_attention(torch.from_numpy(qkv), h,
+                                      rel_pos_w=torch.from_numpy(rel_w),
+                                      rel_pos_scale=4.0)
+        want = jax_qkv_attention(jnp.asarray(qkv), h,
+                                 rel_pos_w=jnp.asarray(rel_w),
+                                 rel_pos_scale=4.0)
+    assert calls == ([(b, h * 3 * 16, t)] if routed else [])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_plain_rounds_probabilities_like_the_tpu_kernel():
+    """bf16: the weights are rounded to bf16 before the AV product and the
+    normaliser sums the rounded weights, as the TPU kernel's ones column
+    does; the result is within a few bf16 steps of the fp32 math."""
+    qkv, bias = _inputs(3, 1, 2, 96)
+    q16, b16 = (torch.from_numpy(x).to(torch.bfloat16) for x in (qkv, bias))
+    got = k6.flash_attention_bias_plain(q16, b16, 2)
+    assert got.dtype == torch.bfloat16
+    want = k6.flash_attention_bias_plain(q16.float(), b16.float(), 2)
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)

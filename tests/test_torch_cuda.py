@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from tortoise_tts_tpu_torch.kernels import flash_attention as k1
+from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
 from tortoise_tts_tpu_torch.kernels import flash_decode as k3
 from tortoise_tts_tpu_torch.kernels import gn_conv as k4
 from tortoise_tts_tpu_torch.kernels import qgemv as k2
@@ -74,6 +75,59 @@ def test_flash_decode_kernel_cuda(cuda, pos):
     got = k3.flash_decode(q, ck, cv, pos, mask)
     torch.cuda.synchronize()
     _bf16_close(got, k3.flash_decode_plain(q, ck, cv, pos, mask), atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,c,sp,pos", [(1, 16, 68, 0), (1, 16, 68, 199),
+                                        (2, 3, 37, 64), (3, 1, 5, 31)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_shared_kernel_cuda(cuda, g, c, sp, pos, dtype):
+    """K3's shared-prefix form: G groups of C rows over a per-group prefix
+    with text-padding holes and a 200-slot region up to pos."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, h, sd = g * c, 16, 200
+    q = torch.randn(b, h, 64, generator=gen, device=cuda, dtype=dtype)
+    kp, vp = (torch.randn(g, h, sp, 64, generator=gen, device=cuda,
+                          dtype=dtype) for _ in range(2))
+    kd, vd = (torch.randn(b, h, sd, 64, generator=gen, device=cuda,
+                          dtype=dtype) for _ in range(2))
+    pmask = torch.rand(g, sp, generator=gen, device=cuda) > 0.2
+    pmask[:, 0] = True
+    before = k3.KERNEL_SHARED.launches
+    got = k3.flash_decode_shared(q, kp, vp, pmask, kd, vd, pos)
+    torch.cuda.synchronize()
+    assert k3.KERNEL_SHARED.launches == before + 1
+    want = k3.flash_decode_shared_plain(q, kp, vp, pmask, kd, vd, pos)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_close(got, want, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,dtype", [(16, 16, 896, torch.bfloat16),
+                                         (8, 16, 896, torch.bfloat16),
+                                         (8, 4, 300, torch.bfloat16),
+                                         (8, 2, 257, torch.float32),
+                                         (9, 2, 64, torch.float32)])
+def test_flash_attention_bias_kernel_cuda(cuda, monkeypatch, b, h, t, dtype):
+    """K6 at the batch route's shapes (trunk B=16, integrator B=8, T=896),
+    at ragged T (no multiple of the 64-key tile, odd T: the unvectorised
+    loads) and in fp32."""
+    _fp32_exact(monkeypatch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    qkv = (torch.randn(b, h * 192, t, generator=gen, device=cuda)
+           * 0.5).to(dtype)
+    bias = (torch.randn(h, t, t, generator=gen, device=cuda) * 2).to(dtype)
+    before = k6.KERNEL.launches
+    got = k6.flash_attention_bias(qkv, bias, h)
+    torch.cuda.synchronize()
+    assert k6.KERNEL.launches == before + 1
+    want = k6.flash_attention_bias_plain(qkv, bias, h)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_close(got, want, atol=3e-2)
 
 
 def _fp32_exact(monkeypatch, dtype):

@@ -196,12 +196,17 @@ def test_inference_bigvgan_matches_jax(pair, monkeypatch, cond_free):
 
 
 def test_routes_not_ported_say_so(pair):
+    """UnivNet, DPM++, beam search and the serving mesh still raise;
+    candidates and voiceless generation run (tests/test_torch_batch.py
+    holds their results)."""
     _, ttts, ref = pair
-    for kw in (dict(vocoder_type="univnet"), dict(candidates=2),
+    for kw in (dict(vocoder_type="univnet"), dict(beam_width=2),
                dict(diffusion_sampler="dpm++")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttts.inference(TEXT, ref, max_ar_steps=4, **kw)
-    with pytest.raises(NotImplementedError, match="voiceless"):
-        ttts.inference(TEXT, None, max_ar_steps=4)
-    with pytest.raises(NotImplementedError, match="voiceless"):
-        ttts.inference(TEXT, None, max_ar_steps=4, vocoder_type="hifigan")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttts.batch_inference([TEXT], ref, max_ar_steps=4, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttts.batch_inference([TEXT], ref, max_ar_steps=4, beam_width=2)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ttts._model("classifier")

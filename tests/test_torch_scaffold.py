@@ -42,10 +42,10 @@ def test_import_leaves_jax_out():
     code = ("import sys, tortoise_tts_tpu_torch\n"
             "from tortoise_tts_tpu_torch import bridge, inference, kernels\n"
             "from tortoise_tts_tpu_torch.emb import mel\n"
-            "from tortoise_tts_tpu_torch.models import (bigvgan, diffusion, "
-            "gaussian)\n"
-            "from tortoise_tts_tpu_torch.kernels import (gn_conv, snake, "
-            "ts_res_block)\n"
+            "from tortoise_tts_tpu_torch.models import (bigvgan, clvp, "
+            "diffusion, gaussian, rlg)\n"
+            "from tortoise_tts_tpu_torch.kernels import ("
+            "flash_attention_bias, gn_conv, snake, ts_res_block)\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'tortoise_tts_tpu' "
             "or m.startswith('tortoise_tts_tpu.')]\n"
@@ -121,9 +121,19 @@ def test_kernel_wrappers_on_cpu_run_plain_versions():
     a = torch.rand(32, generator=g) + 0.5
     assert torch.equal(k7.snake_resample2(x, a, a),
                        k7.snake_resample2_plain(x, a, a))
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
+    qkv, bias = torch.randn(2, 384, 9, generator=g), torch.randn(2, 9, 9)
+    assert torch.equal(k6.flash_attention_bias(qkv, bias, 2),
+                       k6.flash_attention_bias_plain(qkv, bias, 2))
+    kp, kd = k[:1, :, :4], k[:, :, 4:]
+    pm = mask[:, :4]
+    assert torch.equal(
+        k3.flash_decode_shared(q[:, :, 3], kp, kp, pm, kd, kd, 2),
+        k3.flash_decode_shared_plain(q[:, :, 3], kp, kp, pm, kd, kd, 2))
     assert kernels.launch_counts() == {
-        "flash_attention": 0, "qgemv": 0, "flash_decode": 0, "gn_conv": 0,
-        "ts_res_block": 0, "snake": 0}
+        "flash_attention": 0, "qgemv": 0, "flash_decode": 0,
+        "flash_decode_shared": 0, "gn_conv": 0, "ts_res_block": 0,
+        "flash_attention_bias": 0, "snake": 0}
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -181,6 +191,38 @@ def test_bridge_roundtrips_diffusion():
     own = tdiff.init(torch.Generator().manual_seed(0),
                      tdiff.DiffusionConfig(**kw))
     assert _shapes(own) == _shapes(jp)
+
+
+def test_bridge_roundtrips_clvp_and_rlg():
+    from tortoise_tts_tpu.models import clvp as jclvp, rlg as jrlg
+    from tortoise_tts_tpu_torch.models import clvp as tclvp, rlg as trlg
+    kw = dict(dim_text=32, dim_speech=32, dim_latent=32, text_enc_depth=2,
+              speech_enc_depth=1, text_heads=2, speech_heads=2, dim_head=16,
+              rotary_dim=16)
+    jp = _np(jclvp.init(jax.random.PRNGKey(3), jclvp.CLVPConfig(**kw)))
+    tp = bridge.clvp_from_jax(jp)
+    jax.tree_util.tree_map(np.testing.assert_array_equal,
+                           bridge.to_numpy(tp), jp)
+    own = tclvp.init(torch.Generator().manual_seed(0), tclvp.CLVPConfig(**kw))
+    assert _shapes(own) == _shapes(jp)
+    jr = _np(jrlg.init(jax.random.PRNGKey(4), 32))
+    jax.tree_util.tree_map(np.testing.assert_array_equal,
+                           bridge.to_numpy(bridge.rlg_from_jax(jr)), jr)
+    assert _shapes(trlg.init(torch.Generator().manual_seed(0), 32)) == \
+        _shapes(jr)
+    with pytest.raises(KeyError, match="CLVP"):
+        bridge.clvp_from_jax({"text_emb": {}})
+
+
+def test_registry_builds_the_slice3_models_from_a_seed():
+    """clvp and both random latent converters come from the registry,
+    random from a seed; a checkpoint found on disk raises, as for the
+    other models."""
+    from tortoise_tts_tpu_torch.models import load_model
+    m = load_model("rlg_diffuser", device="cpu")
+    assert m.config == 2048 and not m.from_checkpoint
+    assert m.params["final"]["w"].shape == (2048, 2048)
+    assert load_model("rlg_auto", device="cpu").config == 1024
 
 
 def test_bridge_rejects_foreign_trees():

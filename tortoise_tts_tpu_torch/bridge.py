@@ -33,6 +33,11 @@ DIFFUSION_KEYS = {"inp_block", "time_embed_0", "time_embed_2",
                   "mel_head", "layers", "final_res", "out_norm", "out_conv"}
 BIGVGAN_KEYS = {"conv_pre", "ups", "resblocks", "activation_post",
                 "conv_post"}
+CLVP_KEYS = {"text_emb", "speech_emb", "to_text_latent", "to_speech_latent",
+             "text_transformer", "speech_transformer", "temperature"}
+CLVP_LAYER_KEYS = {"attn_norm", "to_q", "to_k", "to_v", "to_out", "ff_norm",
+                   "ff_proj", "ff_out"}
+RLG_KEYS = {"equal_linears", "final"}
 
 
 def to_torch(tree, device=None, dtype: Optional[torch.dtype] = None):
@@ -99,4 +104,21 @@ def diffusion_from_jax(params, device=None,
 def bigvgan_from_jax(params, device=None,
                      dtype: Optional[torch.dtype] = None) -> Params:
     _check_keys(params, BIGVGAN_KEYS, "BigVGAN params")
+    return to_torch(params, device, dtype)
+
+
+def clvp_from_jax(params, device=None,
+                  dtype: Optional[torch.dtype] = None) -> Params:
+    _check_keys(params, CLVP_KEYS, "CLVP params")
+    for tower in ("text_transformer", "speech_transformer"):
+        _check_keys(params[tower], {"layers", "final_norm"},
+                    f"CLVP params['{tower}']")
+        for lp in params[tower]["layers"]:
+            _check_keys(lp, CLVP_LAYER_KEYS, f"CLVP {tower} layer")
+    return to_torch(params, device, dtype)
+
+
+def rlg_from_jax(params, device=None,
+                 dtype: Optional[torch.dtype] = None) -> Params:
+    _check_keys(params, RLG_KEYS, "RandomLatentConverter params")
     return to_torch(params, device, dtype)

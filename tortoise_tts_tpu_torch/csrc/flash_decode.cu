@@ -23,6 +23,15 @@
 // read, and the ragged end is masked here: the cache needs no padding.
 // Masked slots take no weight, which is what the plain version's finite
 // -1e9 gives for a row with a valid key (the slot at pos always is).
+//
+// Shared-prefix form (tts_flash_decode_shared), for the candidate fan-out
+// of the JAX package's _mha_shared (tortoise_tts_tpu/models/
+// unified_voice.py): rows b = g*C + c of G groups share one prefill,
+// whose K/V are held once per group, (G, H, Sp, 64) with a (G, Sp) key
+// mask, beside a per-row decode region (B, H, Sd, 64) valid up to pos.
+// The same split kernel takes both: the first ceil(Sp/split) blocks of a
+// row walk its group's prefix, the rest its region up to pos, and the
+// same merge kernel takes the joint softmax over [prefix | region].
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,11 +60,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One segment of cache slots: a (rows, H, S, 64) K/V pair and an optional
+// (rows, S) mask, read for row `row`.
+template <typename T>
+struct Segment {
+  const T* k;
+  const T* v;
+  const uint8_t* mask;  // null: every slot valid
+  int S;
+};
+
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
     fd_split(const T* __restrict__ q, long long qsb, long long qsh,
-             const T* __restrict__ k, const T* __restrict__ v,
-             const uint8_t* __restrict__ mask, int H, int S, int pos,
+             Segment<T> pre, int C, int npre, Segment<T> reg, int H, int pos,
              int split, float scale, float* __restrict__ part) {
   __shared__ float sm_m[WARPS], sm_l[WARPS];
   __shared__ float sm_a[WARPS][DH];
@@ -63,16 +81,23 @@ __global__ void __launch_bounds__(WARPS * 32)
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float2 qv = load2(q + b * qsb + h * qsh + 2 * lane);
-  const T* kb = k + (long long)bh * S * DH + 2 * lane;
-  const T* vb = v + (long long)bh * S * DH + 2 * lane;
-  const uint8_t* mk = mask + (long long)b * S;
+  // blocks below npre walk the group's prefix, the rest the row's region
+  const bool in_pre = (int)blockIdx.x < npre;
+  const Segment<T> sg = in_pre ? pre : reg;
+  const int row = in_pre ? b / C : b;
+  const int blk = in_pre ? blockIdx.x : blockIdx.x - npre;
+  const int end = in_pre ? sg.S : pos + 1;
+  const long long rh = (long long)row * H + h;
+  const T* kb = sg.k + rh * sg.S * DH + 2 * lane;
+  const T* vb = sg.v + rh * sg.S * DH + 2 * lane;
+  const uint8_t* mk = sg.mask ? sg.mask + (long long)row * sg.S : nullptr;
 
   float m = -INFINITY, l = 0.f, a0 = 0.f, a1 = 0.f;
   const int per_warp = split / WARPS;
-  const int j0 = blockIdx.x * split + warp * per_warp;
-  const int j1 = min(j0 + per_warp, pos + 1);
+  const int j0 = blk * split + warp * per_warp;
+  const int j1 = min(j0 + per_warp, end);
   for (int j = j0; j < j1; ++j) {
-    if (mk[j] == 0) continue;  // uniform across the warp
+    if (mk && mk[j] == 0) continue;  // uniform across the warp
     const float2 kv = load2(kb + (long long)j * DH);
     const float s = warp_sum(qv.x * kv.x + qv.y * kv.y) * scale;
     const float2 vv = load2(vb + (long long)j * DH);
@@ -134,14 +159,42 @@ __global__ void fd_merge(const float* __restrict__ part, int nsplit,
 }
 
 template <typename T>
-int run(const T* q, long long qsb, long long qsh, const T* k, const T* v,
-        const uint8_t* mask, int B, int H, int S, int pos, int split,
-        float scale, float* part, T* o, cudaStream_t st) {
-  const int ns = (pos + split) / split;  // ceil((pos + 1) / split)
+int run(const T* q, long long qsb, long long qsh, Segment<T> pre, int C,
+        Segment<T> reg, int B, int H, int pos, int split, float scale,
+        float* part, T* o, cudaStream_t st) {
+  const int npre = (pre.S + split - 1) / split;
+  const int ns = npre + (pos + split) / split;  // + ceil((pos + 1) / split)
   fd_split<T><<<dim3(ns, B * H), WARPS * 32, 0, st>>>(
-      q, qsb, qsh, k, v, mask, H, S, pos, split, scale, part);
+      q, qsb, qsh, pre, C, npre, reg, H, pos, split, scale, part);
   fd_merge<T><<<B * H, DH, 0, st>>>(part, ns, o);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, long long qsb, long long qsh, const void* kp,
+             const void* vp, const void* pmask, int Sp, int C, const void* k,
+             const void* v, const void* mask, int B, int H, int S, int pos,
+             int split, float scale, void* part, void* o, void* stream) {
+  const Segment<T> pre{static_cast<const T*>(kp), static_cast<const T*>(vp),
+                       static_cast<const uint8_t*>(pmask), Sp};
+  const Segment<T> reg{static_cast<const T*>(k), static_cast<const T*>(v),
+                       static_cast<const uint8_t*>(mask), S};
+  return run<T>(static_cast<const T*>(q), qsb, qsh, pre, C, reg, B, H, pos,
+                split, scale, static_cast<float*>(part), static_cast<T*>(o),
+                static_cast<cudaStream_t>(stream));
+}
+
+int dispatch_type(int dtype, const void* q, long long qsb, long long qsh,
+                  const void* kp, const void* vp, const void* pmask, int Sp,
+                  int C, const void* k, const void* v, const void* mask,
+                  int B, int H, int S, int pos, int split, float scale,
+                  void* part, void* o, void* stream) {
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, qsb, qsh, kp, vp, pmask, Sp, C, k, v,
+                                   mask, B, H, S, pos, split, scale, part, o,
+                                   stream);
+  return dispatch<float>(q, qsb, qsh, kp, vp, pmask, Sp, C, k, v, mask, B,
+                         H, S, pos, split, scale, part, o, stream);
 }
 
 }  // namespace
@@ -156,17 +209,21 @@ extern "C" int tts_flash_decode(const void* q, long long qsb, long long qsh,
                                 const void* mask, int B, int H, int S,
                                 int pos, int split, float scale, void* part,
                                 void* o, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* mk = static_cast<const uint8_t*>(mask);
-  float* pa = static_cast<float*>(part);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(q), qsb, qsh,
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), mk, B, H, S, pos, split,
-        scale, pa, static_cast<__nv_bfloat16*>(o), st);
-  return run<float>(static_cast<const float*>(q), qsb, qsh,
-                    static_cast<const float*>(k),
-                    static_cast<const float*>(v), mk, B, H, S, pos, split,
-                    scale, pa, static_cast<float*>(o), st);
+  return dispatch_type(dtype, q, qsb, qsh, nullptr, nullptr, nullptr, 0, 1,
+                       k, v, mask, B, H, S, pos, split, scale, part, o,
+                       stream);
+}
+
+// The shared-prefix form.  B = G*C rows, row b in group b / C.  kp, vp:
+// one layer of the prefix, (G, H, Sp, 64) contiguous; pmask: (G, Sp)
+// uint8; k, v: one layer of the region, (B, H, Sd, 64) contiguous, valid
+// up to 0 <= pos < Sd; part: fp32 scratch of (B*H, ceil(Sp/split) +
+// ceil((pos+1)/split), 66); the rest as above.
+extern "C" int tts_flash_decode_shared(
+    const void* q, long long qsb, long long qsh, const void* kp,
+    const void* vp, const void* pmask, int Sp, int C, const void* k,
+    const void* v, int B, int H, int Sd, int pos, int split, float scale,
+    void* part, void* o, int dtype, void* stream) {
+  return dispatch_type(dtype, q, qsb, qsh, kp, vp, pmask, Sp, C, k, v,
+                       nullptr, B, H, Sd, pos, split, scale, part, o, stream);
 }

@@ -1,24 +1,31 @@
 """TTS inference API (port of ``tortoise_tts_tpu/inference.py``: the
-default BigVGAN route and the HiFiGAN streaming route).
+default BigVGAN route, candidates with the CLVP rerank, voiceless
+generation, batch serving and the HiFiGAN streaming route).
 
 Per line of text, ``TTS.inference`` (``vocoder_type="bigvgan"``, the
 default): tokenize -> bucket -> UnifiedVoice prefill and sampled decode
--> stop-token cleanup and calm trim -> latent pass -> DDIM (or P)
-sampling of the denoiser with cond-free guidance -> denormalize ->
-BigVGAN -> 16-bit PCM, trimmed to the calm-trim length.  With
-``vocoder_type="hifigan"``, and in ``TTS.stream``: decode in chunks
-collecting latents -> HiFiGAN over a trailing 60-latent window per
-chunk, crossfaded at the seams.  UnivNet, candidates with the CLVP
-rerank, beam search, DPM++ and voiceless generation are not ported yet
-(ROADMAP.md).
+(``candidates`` > 1: a shared-prefix decode of that many rows) ->
+stop-token cleanup and calm trim (and, for candidates, the CLVP rerank,
+on the device) -> latent pass -> DDIM (or P) sampling of the denoiser
+with cond-free guidance -> denormalize -> BigVGAN -> 16-bit PCM, trimmed
+to the calm-trim length.  ``TTS.batch_inference`` runs the same stages
+over many texts at once, with per-row seeds and voices and the diffusion
+bucketed by row length.  With ``vocoder_type="hifigan"``, and in
+``TTS.stream``: decode in chunks collecting latents -> HiFiGAN over a
+trailing 60-latent window per chunk, crossfaded at the seams.  Without
+references the conditioning latents come from the random latent
+converters.  UnivNet, beam search, DPM++ and the serving mesh are not
+ported yet (ROADMAP.md).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 Sampled decoding draws from one ``torch.Generator`` per row, and the
-diffusion noise from one more, all seeded from ``seed`` through the JAX
-package's SeedSequence chain, so one seed gives one wav per route; the
-JAX package draws from threefry keys, so the two agree in distribution
-only (greedy decoding agrees token for token, and the tests inject the
-JAX package's diffusion noise through ``_diffusion_noise``).
+diffusion noise from one more per row, all seeded from the row's seed
+through the JAX package's SeedSequence chain (``_stage_keys``,
+``_row_keys``), so one seed gives one wav per route and a batch row
+replays as the single call with its seed.  The JAX package draws from
+threefry keys, so the two agree in distribution only (greedy decoding
+agrees token for token, and the tests inject the JAX package's diffusion
+noise through ``_diffusion_noise``).
 """
 
 from __future__ import annotations
@@ -33,10 +40,11 @@ import torch.nn.functional as F
 
 from .config import Config
 from .emb import mel as emb_mel
-from .models import bigvgan, diffusion, gaussian, hifigan, load_model
-from .models import resolve_device
+from .models import (bigvgan, clvp, diffusion, gaussian, hifigan, load_model,
+                     resolve_device, rlg)
 from .models.unified_voice import (decode_chunk, decode_start,
                                    forward as uv_forward, inference_speech,
+                                   inference_speech_shared,
                                    quantize_decode_weights)
 from .ops.sampling import SamplingConfig
 from .ops.stft import denormalize_tacotron_mel
@@ -49,6 +57,8 @@ TAIL_TOKENS = (45, 45, 248)   # inference.py:363-366
 # decode budgets at or under this size the diffusion by the budget
 # itself; larger ones read the decoded lengths once
 STATIC_BUDGET_MAX = 256
+# rows per diffusion dispatch of batch_inference (cond-free: B=16)
+BATCH_CAP_ROWS = 8
 
 
 def _sampling_from_knobs(ar_temp=0.8, top_k=0, top_p=1.0,
@@ -82,11 +92,26 @@ def _generator(key, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(_key_int(key))
 
 
+def _row_keys(key, n: int) -> List[np.ndarray]:
+    """n per-row keys from one stage key.  SeedSequence children are
+    prefix-stable (child i is the same for any n > i), so candidate c of
+    a single call and of a batch row with the same seed draw alike."""
+    return _host_keys(_key_int(key), n)
+
+
+def _stage_keys(row_seed: int) -> List[np.ndarray]:
+    """The (k_ar, k_diff, k_voc) keys of a single-line call with
+    ``seed=row_seed``: ``inference`` and ``batch_inference``'s per-row
+    seeds derive them alike, so a batch row replays as that call."""
+    (sub,) = _host_keys(row_seed * 1000003, 1)
+    return _host_keys(_key_int(sub), 3)
+
+
 def _row_generators(line_key, n: int, device) -> List[torch.Generator]:
     """Per-row decode generators for one line, from its key: the AR stage
     key, then one child per row (the JAX package's k_ar / _row_keys)."""
     k_ar = _host_keys(_key_int(line_key), 3)[0]
-    return [_generator(k, device) for k in _host_keys(_key_int(k_ar), n)]
+    return [_generator(k, device) for k in _row_keys(k_ar, n)]
 
 
 def _device_cleanup(codes: torch.Tensor, lengths: torch.Tensor, cfg):
@@ -125,6 +150,34 @@ def _cleanup_latents(params, cond, text, text_lengths, codes, lengths, cfg):
                       wav_lengths, cfg), t_lat
 
 
+def _rerank_latents(params, clvp_params, cond, text, text_lengths, codes,
+                    lengths, cfg, clvp_cfg, ncand: Optional[int] = None,
+                    n_real: Optional[int] = None):
+    """The candidates' cleanup, their CLVP scores on the calm-padded codes,
+    the best row of each group of ``ncand`` (row-major; None: one group)
+    and the latent pass on the winners only, with no host read (the JAX
+    package's ``_jit_rerank_latents``).  Rows at or past ``n_real`` are
+    padding and never win.  Returns (latents (G, N, D), t_lat (G,), best
+    (G,) row indices)."""
+    r = codes.shape[0]
+    c = r if ncand is None else ncand
+    cleaned, t_lat, lv = _device_cleanup(codes, lengths, cfg)
+    idx = torch.arange(cleaned.shape[1], device=codes.device)[None]
+    # CLVP's speech vocabulary has 8192 codes: the stop-padding past lv
+    # is scored as the calm tokens the reference's cleanup emits there
+    scores = clvp.forward(clvp_params, text,
+                          torch.where(idx < lv, cleaned, CALM_TOKEN),
+                          clvp_cfg)
+    rows = torch.arange(r, device=codes.device)
+    if n_real is not None and n_real < r:
+        scores = torch.where(rows < n_real, scores, float("-inf"))
+    best = scores.reshape(-1, c).argmax(dim=1) + rows[::c]
+    wav_lengths = torch.ones_like(best) * lv * cfg.mel_length_compression
+    latents = uv_forward(params, cond[best], text[best], text_lengths[best],
+                         cleaned[best], wav_lengths, cfg)
+    return latents, t_lat[best], best
+
+
 def _diffusion_noise(key, shape, device) -> torch.Tensor:
     """The sampler's starting noise x_T, standard normal, from ``key``."""
     return torch.randn(shape, generator=_generator(key, device),
@@ -149,16 +202,18 @@ def _uncond_integrate(dparams, dcfg, steps: int, T: int) -> torch.Tensor:
         for i in range(temb.shape[0])])
 
 
-def _diffusion(dparams, latents, diff_cond, key, dcfg, steps: int,
+def _diffusion(dparams, latents, diff_cond, keys, dcfg, steps: int,
                sampler: str, seq_len: int, cond_free: bool,
                diffusion_temp: float, n_lat: int, t_lat,
                pad_seq_len: Optional[int], uncond_h) -> torch.Tensor:
     """Latents -> denormalized mel (B, 100, T) (the JAX package's
     ``_jit_diffusion``).  ``latents`` is the latent pass's whole buffer:
     each row takes its first ``t_lat`` latents, edge-padded to ``n_lat``.
-    The code embedding is made at ``seq_len`` and edge-padded to
-    ``pad_seq_len``; with ``cond_free``, ``uncond_h`` is the cached
-    unconditional integrator (``_uncond_integrate``)."""
+    ``diff_cond``: one diffusion latent per row, or one for all.  ``keys``:
+    one (2,) key per row; row r's noise and sampler draws come from
+    ``keys[r]`` alone.  The code embedding is made at ``seq_len`` and
+    edge-padded to ``pad_seq_len``; with ``cond_free``, ``uncond_h`` is
+    the cached unconditional integrator (``_uncond_integrate``)."""
     sched = gaussian.get_schedule(steps=steps, cond_free=cond_free)
     b, dev = latents.shape[0], latents.device
     idx = torch.minimum(torch.arange(n_lat, device=dev)[None],
@@ -192,12 +247,82 @@ def _diffusion(dparams, latents, diff_cond, key, dcfg, steps: int,
             return diffusion.forward(dparams, x.to(pdt), ts, code_emb, dcfg,
                                      rel)
 
-    k_noise, k_samp = _host_keys(_key_int(key), 2)
-    noise = _diffusion_noise(k_noise, (b, dcfg.in_channels, T), dev) \
-        * diffusion_temp
-    mel = gaussian.sample_loop(model_fn, noise, _generator(k_samp, dev),
-                               sched, sampler=sampler)
+    noise, gens = [], []
+    for key in keys:
+        k_noise, k_samp = _host_keys(_key_int(key), 2)
+        noise.append(_diffusion_noise(k_noise, (1, dcfg.in_channels, T), dev))
+        gens.append(_generator(k_samp, dev))
+    mel = gaussian.sample_loop(model_fn, torch.cat(noise) * diffusion_temp,
+                               gens, sched, sampler=sampler)
     return denormalize_tacotron_mel(mel)
+
+
+def _mel_frames(n_lat: int, mel_pad_multiple: int) -> int:
+    """The denoiser's T for ``n_lat`` latents: the 22.05k -> 24k mel
+    length, padded to ``mel_pad_multiple``."""
+    t = n_lat * 4 * 24000 // 22050
+    if mel_pad_multiple > 1:
+        t += (-t) % mel_pad_multiple
+    return t
+
+
+def _row_buckets(t_lat: np.ndarray, mult: int, mel_pad_multiple: int
+                 ) -> List[Tuple[int, np.ndarray]]:
+    """The diffusion dispatches of a batch, (n_lat, rows) with at most
+    ``BATCH_CAP_ROWS`` rows each, from the rows' trim points (the JAX package's
+    ``batch_inference`` ladder): rungs at ``mult``·2^k below the longest
+    row, plus up to three refined rungs, one padded-T tile apart, just
+    under it (rows concentrate near the decode budget); a bucket of one or
+    two rows moves up a rung while each of its rows' T grows by at most
+    25% over its own rung."""
+    budget = max(int(t_lat.max()), 1)
+    rungs, n = {budget}, mult
+    while n < budget:
+        rungs.add(n)
+        n *= 2
+    if mel_pad_multiple > 1:
+        for k in range(1, 4):
+            t_r = _mel_frames(budget, mel_pad_multiple) - k * mel_pad_multiple
+            if t_r <= 0:
+                break
+            cand = min(int(t_r * 22050 // 96000) + 2, budget)
+            while cand > 0 and _mel_frames(cand, mel_pad_multiple) > t_r:
+                cand -= 1
+            if cand >= mult:
+                rungs.add(cand)
+    srungs = sorted(rungs)
+    n_lats = np.asarray([next(r for r in srungs
+                              if r >= min(max(int(t), 1), budget))
+                         for t in t_lat])
+    orig = np.asarray([_mel_frames(int(n), mel_pad_multiple) for n in n_lats])
+    occupied = sorted(set(n_lats.tolist()))
+    for here_n, nxt in zip(occupied[:-1], occupied[1:]):
+        here = n_lats == here_n
+        if (0 < int(here.sum()) < 3
+                and _mel_frames(nxt, mel_pad_multiple)
+                <= 1.25 * orig[here].min()):
+            n_lats[here] = nxt
+    chunks = []
+    for n_lat in sorted(set(n_lats.tolist())):
+        rows = np.nonzero(n_lats == n_lat)[0]
+        chunks += [(n_lat, rows[i:i + BATCH_CAP_ROWS])
+                   for i in range(0, len(rows), BATCH_CAP_ROWS)]
+    return chunks
+
+
+def _refuse_unported(vocoder_type: str, diffusion_sampler: str,
+                     beam_width: int) -> None:
+    """Raise for the options the port does not run yet."""
+    if vocoder_type not in ("bigvgan", "hifigan"):
+        raise NotImplementedError(
+            f"vocoder_type={vocoder_type!r} (UnivNet) is not ported "
+            "yet (ROADMAP.md); use 'bigvgan' or 'hifigan'")
+    if diffusion_sampler == "dpm++":
+        raise NotImplementedError(
+            "diffusion_sampler='dpm++' is not ported yet (ROADMAP.md)")
+    if beam_width > 1:
+        raise NotImplementedError(
+            "beam_width > 1 (beam search) is not ported yet (ROADMAP.md)")
 
 
 def _vocode(params, mel: torch.Tensor, cfg) -> torch.Tensor:
@@ -272,15 +397,45 @@ class TTS:
         return tokens[:buckets[-1]]
 
     def _latents(self, references, seed, conditioning_latents=None):
-        """(AR latent, diffusion latent) on the device."""
+        """(AR latent, diffusion latent) on the device: the explicit
+        latents, the references' encoding, or without references one draw
+        of the random latent converters from ``seed`` (noise from
+        generators seeded by the JAX package's ``_host_keys(seed ^
+        0x5F3C, 2)``)."""
         if conditioning_latents is not None:
             return tuple(torch.as_tensor(np.asarray(c), device=self.device)
                          for c in conditioning_latents)
         if references is None:
-            raise NotImplementedError(
-                "voiceless generation (random latent converters) is not "
-                "ported yet: pass references (ROADMAP.md)")
+            keys = _host_keys(seed ^ 0x5F3C, 2)
+            return tuple(
+                rlg.sample(m.params, _generator(k, self.device), 1, m.config)
+                for m, k in zip((self._model("rlg_auto"),
+                                 self._model("rlg_diffuser")), keys))
         return self.encode_audio(references, seed=seed)["latent"]
+
+    def _encode_voice_rows(self, references, voices, n: int,
+                           row_seeds: Sequence[int]):
+        """Conditioning latents of a batch: (AR (n, Da), diffusion (n, Dd),
+        or (1, Dd) for one shared voice), fp32.  ``references`` is one
+        voice for every row, encoded with row 0's seed; ``voices`` one
+        entry per row (None: voiceless); with neither, each row draws its
+        own voiceless latents from its own seed, so every row replays as
+        the single call with its seed."""
+        if voices is None:
+            if references is not None:
+                a, d = self._latents(references, row_seeds[0])
+                return (a.float().reshape(1, -1).expand(n, -1),
+                        d.float().reshape(1, -1))
+            voices = [None] * n
+        elif references is not None:
+            raise ValueError("pass either references (one voice) or voices "
+                             "(one entry per row), not both")
+        if len(voices) != n:
+            raise ValueError(f"voices has {len(voices)} entries for {n} "
+                             "texts")
+        rows = [self._latents(v, s) for v, s in zip(voices, row_seeds)]
+        return tuple(torch.cat([r[i].float().reshape(1, -1) for r in rows])
+                     for i in (0, 1))
 
     def _diffusion_geometry(self, n_lat_base: int,
                             diffusion_pad_multiple: int,
@@ -337,24 +492,18 @@ class TTS:
                   diffusion_pad_multiple: int = 0, mel_pad_multiple: int = 0,
                   mirostat_tau: float = 0.0, mirostat_eta: float = 0.1,
                   min_temperature: float = 0.0, greedy: bool = False,
-                  conditioning_latents: Optional[Tuple] = None
-                  ) -> Tuple[np.ndarray, int]:
+                  conditioning_latents: Optional[Tuple] = None,
+                  beam_width: int = 1) -> Tuple[np.ndarray, int]:
         """Text -> (wav float32 (T,), 24000).  The default route decodes,
         runs the diffusion and BigVGAN; ``vocoder_type="hifigan"`` runs
-        the windowed HiFiGAN route of ``stream``.
+        the windowed HiFiGAN route of ``stream``.  ``candidates`` > 1
+        decodes that many candidates from one shared prefill and keeps the
+        CLVP's best (the BigVGAN route; the HiFiGAN route decodes one, as
+        in the JAX package).  ``references`` None: voiceless, the
+        conditioning latents drawn from the random latent converters.
         ``conditioning_latents``: an explicit (ar_latent, diff_latent)
         pair in place of ``references``."""
-        if vocoder_type not in ("bigvgan", "hifigan"):
-            raise NotImplementedError(
-                f"vocoder_type={vocoder_type!r} (UnivNet) is not ported "
-                "yet (ROADMAP.md); use 'bigvgan' or 'hifigan'")
-        if candidates > 1:
-            raise NotImplementedError(
-                "candidates > 1 (CLVP rerank) is not ported yet "
-                "(ROADMAP.md, slice 3)")
-        if diffusion_sampler == "dpm++":
-            raise NotImplementedError(
-                "diffusion_sampler='dpm++' is not ported yet (ROADMAP.md)")
+        _refuse_unported(vocoder_type, diffusion_sampler, beam_width)
         seed = int(time.time()) if seed is None else seed
         ar_latent, diff_latent = self._latents(references, seed,
                                                conditioning_latents)
@@ -378,32 +527,195 @@ class TTS:
                     line, ar_latent, diff_latent, sampling, max_ar_steps,
                     max_diffusion_steps, diffusion_temp, diffusion_sampler,
                     cond_free, sub, diffusion_pad_multiple,
-                    mel_pad_multiple))
+                    mel_pad_multiple, candidates))
         wav = np.concatenate(wavs, axis=-1)
         if out_path is not None:
             write_wav(out_path, wav, SAMPLE_RATE)
         return wav, SAMPLE_RATE
 
+    @torch.inference_mode()
+    def batch_inference(self, texts: Sequence[str],
+                        references: Optional[str | Sequence] = None,
+                        voices: Optional[Sequence] = None,
+                        max_ar_steps: int = 500,
+                        max_diffusion_steps: int = 80, ar_temp: float = 0.8,
+                        diffusion_temp: float = 1.0, top_p: float = 1.0,
+                        top_k: int = 0, repetition_penalty: float = 1.0,
+                        length_penalty_factor: float = 0.0,
+                        beam_width: int = 1, typical_sampling: bool = False,
+                        typical_mass: float = 0.9,
+                        mirostat_tau: float = 0.0, mirostat_eta: float = 0.1,
+                        min_temperature: float = 0.0, greedy: bool = False,
+                        candidates: int = 1,
+                        diffusion_sampler: str = "ddim",
+                        cond_free: bool = True,
+                        vocoder_type: str = "bigvgan",
+                        seed: Optional[int] = None,
+                        seeds: Optional[Sequence[int]] = None,
+                        diffusion_pad_multiple: int = 32,
+                        mel_pad_multiple: int = 0, mesh=None,
+                        row_buckets: bool = True, fetch: str = "sync"):
+        """Many single-line texts at once -> (list of float32 wavs, 24000),
+        each stage running over the whole batch.
+
+        Row r draws everything (decode tokens, candidates, diffusion noise)
+        from its own seed, ``seeds[r]`` (default ``seed + r``), so it
+        replays as ``inference(texts[r], seed=seeds[r])`` with the same
+        voice and knobs (exactly when its diffusion runs at the same T:
+        always with ``row_buckets=False``).  ``references`` is one voice
+        for every row; ``voices`` one per row (None entries voiceless);
+        neither: every row voiceless from its own seed.  ``candidates`` > 1
+        decodes that many candidates per row from the row's shared prefill
+        and keeps the CLVP's best.
+
+        ``row_buckets``: read the rows' trim points once and run the
+        diffusion and the vocoder per length bucket (``_row_buckets``), at
+        most 8 rows per dispatch, the rows padded to a power of two;
+        otherwise one dispatch sized by the decode budget.  ``fetch=
+        "async"`` returns ``(finalize, 24000)``, where ``finalize()``
+        copies the wavs to the host.  The serving mesh and beam search are
+        not ported yet (ROADMAP.md)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "batch_inference(mesh=...): the serving mesh is not ported "
+                "yet (ROADMAP.md)")
+        if vocoder_type != "bigvgan":
+            raise NotImplementedError(
+                f"batch_inference(vocoder_type={vocoder_type!r}) is not "
+                "ported yet (ROADMAP.md); use 'bigvgan'")
+        _refuse_unported(vocoder_type, diffusion_sampler, beam_width)
+        if fetch not in ("sync", "async"):
+            raise ValueError(f"fetch must be sync|async, got {fetch!r}")
+        b = len(texts)
+        if any("\n" in t.strip() for t in texts):
+            # inference() keys each line separately: a row must be one
+            # line for the per-row replay to hold
+            raise ValueError("batch_inference rows are single utterances; "
+                             "split multi-line texts into rows")
+        if seeds is not None and len(seeds) != b:
+            raise ValueError(f"seeds has {len(seeds)} entries for {b} texts")
+        seed = int(time.time()) if seed is None else seed
+        row_seeds = ([int(s) for s in seeds] if seeds is not None
+                     else [seed + r for r in range(b)])
+        ar = self._model("autoregressive")
+        dmodel = self._model("diffusion")
+        voc = self._model("bigvgan")
+        dev = self.device
+        lat, diff_cond = self._encode_voice_rows(references, voices, b,
+                                                 row_seeds)
+        c = max(1, candidates)
+        toks = [self.encode_text(t) for t in texts]
+        bucket = self._bucket_text(max(toks, key=len)).shape[-1]
+        tokens = torch.as_tensor(np.stack(
+            [np.pad(t[:bucket], (0, bucket - len(t[:bucket]))) for t in toks]),
+            device=dev)
+        lengths = torch.tensor([min(len(t), bucket) for t in toks],
+                               device=dev)
+        sampling = _sampling_from_knobs(
+            ar_temp=ar_temp, top_k=top_k, top_p=top_p,
+            typical_sampling=typical_sampling, typical_mass=typical_mass,
+            repetition_penalty=repetition_penalty,
+            length_penalty_factor=length_penalty_factor, greedy=greedy,
+            mirostat_tau=mirostat_tau, mirostat_eta=mirostat_eta,
+            min_temperature=min_temperature)
+        # row r's (k_ar, k_diff, k_voc) are the single call's for its seed;
+        # candidate c of row r draws from child c of its k_ar
+        trips = [_stage_keys(s) for s in row_seeds]
+        gens = [_generator(k, dev) for t in trips for k in _row_keys(t[0], c)]
+        diff_keys = [t[1] for t in trips]
+
+        if c > 1:
+            res = inference_speech_shared(
+                ar.params, lat, tokens, lengths, gens, c, ar.config,
+                sampling, max_ar_steps, qgpt=self._ar_qgpt())
+            cm = self._model("clvp")
+            fan = lambda x: x.repeat_interleave(c, dim=0)  # noqa: E731
+            latents, t_lat, _ = _rerank_latents(
+                ar.params, cm.params, fan(lat), fan(tokens), fan(lengths),
+                res.codes, res.lengths, ar.config, cm.config, ncand=c)
+        else:
+            res = inference_speech(ar.params, lat, tokens, lengths, gens,
+                                   ar.config, sampling, max_ar_steps,
+                                   qgpt=self._ar_qgpt())
+            latents, t_lat = _cleanup_latents(
+                ar.params, lat, tokens, lengths, res.codes, res.lengths,
+                ar.config)
+
+        def run(rows, n_lat, seq_len, pad_seq_len, uh):
+            idx = torch.as_tensor(rows, device=dev)
+            dc = diff_cond if diff_cond.shape[0] == 1 else diff_cond[idx]
+            mel = _diffusion(dmodel.params, latents[idx], dc,
+                             [diff_keys[r] for r in rows], dmodel.config,
+                             max_diffusion_steps, diffusion_sampler, seq_len,
+                             cond_free, diffusion_temp, n_lat, t_lat[idx],
+                             pad_seq_len, uh)
+            return _vocode(voc.params, mel, voc.config)
+
+        if row_buckets:
+            t_np = t_lat.cpu().numpy()        # the one read mid-pipeline
+            pending = []
+            for n_lat, rows in _row_buckets(t_np, max(diffusion_pad_multiple,
+                                                      1), mel_pad_multiple):
+                k = len(rows)
+                rows_p = np.concatenate(
+                    [rows, np.repeat(rows[:1], (1 << (k - 1).bit_length())
+                                     - k)])
+                # n_lat is already a rung: no further rounding
+                geo = self._diffusion_geometry(n_lat, 0, mel_pad_multiple,
+                                               max_diffusion_steps, cond_free)
+                pending.append((rows, run(rows_p, *geo)))
+        else:
+            geo = self._diffusion_geometry(
+                self._decode_budget_latents(max_ar_steps, res.lengths),
+                diffusion_pad_multiple, mel_pad_multiple,
+                max_diffusion_steps, cond_free)
+            t_np = None
+            pending = [(np.arange(b), run(np.arange(b), *geo))]
+
+        def finalize() -> List[np.ndarray]:
+            tl = t_lat.cpu().numpy() if t_np is None else t_np
+            out = [None] * b
+            for rows, pcm in pending:
+                pcm = pcm[:len(rows), 0].cpu().numpy()
+                for j, r in enumerate(rows):
+                    n = int(tl[r]) * 4 * 24000 // 22050 * 256
+                    out[r] = pcm[j, :n].astype(np.float32) / 32767.0
+            return out
+
+        if fetch == "async":
+            return finalize, SAMPLE_RATE
+        return finalize(), SAMPLE_RATE
+
     def _decode_codes(self, line: str, ar_latent, sampling: SamplingConfig,
-                      max_ar_steps: int, line_key):
-        """Prefill and the whole sampled decode of one line at B=1:
-        (DecodeResult, bucketed tokens (1, Tt), text lengths (1,))."""
+                      max_ar_steps: int, line_key, candidates: int = 1):
+        """Prefill and the whole sampled decode of one line, as
+        ``candidates`` rows from one shared prefill when there are several
+        (row c draws from the line's c-th row generator): (DecodeResult,
+        bucketed tokens (R, Tt), text lengths (R,)), R = candidates."""
         ar = self._model("autoregressive")
         dev = self.device
         toks = self.encode_text(line)
         tokens = torch.as_tensor(self._bucket_text(toks)[None], device=dev)
         lengths = torch.tensor([min(len(toks), tokens.shape[1])], device=dev)
-        res = inference_speech(
-            ar.params, ar_latent.to(dev).reshape(1, -1), tokens, lengths,
-            _row_generators(line_key, 1, dev), ar.config, sampling,
-            max_ar_steps, qgpt=self._ar_qgpt())
+        lat = ar_latent.to(dev).reshape(1, -1)
+        gens = _row_generators(line_key, candidates, dev)
+        if candidates > 1:
+            res = inference_speech_shared(
+                ar.params, lat, tokens, lengths, gens, candidates, ar.config,
+                sampling, max_ar_steps, qgpt=self._ar_qgpt())
+            return (res, tokens.expand(candidates, -1),
+                    lengths.expand(candidates))
+        res = inference_speech(ar.params, lat, tokens, lengths, gens,
+                               ar.config, sampling, max_ar_steps,
+                               qgpt=self._ar_qgpt())
         return res, tokens, lengths
 
     @torch.inference_mode()
     def _infer_line(self, line, ar_latent, diff_latent, sampling,
                     max_ar_steps, max_diffusion_steps, diffusion_temp,
                     diffusion_sampler, cond_free, key,
-                    diffusion_pad_multiple, mel_pad_multiple) -> np.ndarray:
+                    diffusion_pad_multiple, mel_pad_multiple,
+                    candidates: int = 1) -> np.ndarray:
         """The BigVGAN route for one line.  The device is read twice: the
         trim point and the wav at the end (and the decoded lengths when
         the budget is over ``STATIC_BUDGET_MAX``)."""
@@ -412,10 +724,17 @@ class TTS:
         # the (k_ar, k_diff, k_voc) keys of the JAX package's _stage_keys
         k_diff = _host_keys(_key_int(key), 3)[1]
         res, tokens, text_lengths = self._decode_codes(
-            line, ar_latent, sampling, max_ar_steps, key)
-        latents, t_lat = _cleanup_latents(
-            ar.params, ar_latent.to(self.device).reshape(1, -1), tokens,
-            text_lengths, res.codes, res.lengths, ar.config)
+            line, ar_latent, sampling, max_ar_steps, key, candidates)
+        lat = ar_latent.to(self.device).reshape(1, -1)
+        if candidates > 1:
+            cm = self._model("clvp")
+            latents, t_lat, _ = _rerank_latents(
+                ar.params, cm.params, lat.expand(candidates, -1), tokens,
+                text_lengths, res.codes, res.lengths, ar.config, cm.config)
+        else:
+            latents, t_lat = _cleanup_latents(
+                ar.params, lat, tokens, text_lengths, res.codes, res.lengths,
+                ar.config)
         # a static decode budget already fixes the shape, so the latent
         # count is not rounded up when the mel length is padded anyway
         dpm = (0 if (max_ar_steps <= STATIC_BUDGET_MAX
@@ -423,7 +742,7 @@ class TTS:
         n_lat, seq_len, pad_seq_len, uh = self._diffusion_geometry(
             self._decode_budget_latents(max_ar_steps, res.lengths), dpm,
             mel_pad_multiple, max_diffusion_steps, cond_free)
-        mel = _diffusion(dmodel.params, latents, diff_latent, k_diff,
+        mel = _diffusion(dmodel.params, latents, diff_latent, [k_diff],
                          dmodel.config, max_diffusion_steps,
                          diffusion_sampler, seq_len, cond_free,
                          diffusion_temp, n_lat, t_lat, pad_seq_len, uh)

@@ -4,39 +4,43 @@
 | --- | --- | --- |
 | ``flash_attention`` | ``ops/pallas_attention.py`` ``flash_attention`` | ``csrc/flash_attention.cu`` |
 | ``qgemv`` | ``ops/pallas_gemv.py`` ``qgemv_stacked`` | ``csrc/qgemv.cu`` |
-| ``flash_decode`` | ``ops/pallas_decode_attn.py`` ``flash_decode_stacked`` | ``csrc/flash_decode.cu`` |
+| ``flash_decode`` | ``ops/pallas_decode_attn.py`` ``flash_decode_stacked``, and its shared-prefix form | ``csrc/flash_decode.cu`` |
 | ``gn_conv`` | ``ops/pallas_resblock.py`` ``fused_gn_conv1x1`` | ``csrc/resblock.cu`` |
 | ``ts_res_block`` | ``ops/pallas_resblock.py`` ``fused_ts_res_block`` | ``csrc/resblock.cu`` |
+| ``flash_attention_bias`` | ``ops/pallas_attention.py`` ``flash_attention_bias_qkv_vt`` | ``csrc/flash_attention_bias.cu`` |
 | ``snake`` | ``ops/pallas_snake.py`` ``snake_resample2`` | ``csrc/snake.cu`` |
 
 Each module holds the plain PyTorch version, the wrapper (plain version
-for CPU tensors, the kernel for CUDA tensors) and ``KERNEL``, whose
-``launches`` counts the wrapper's launches.
+for CPU tensors, the kernel for CUDA tensors) and its ``Kernel`` objects,
+whose ``launches`` count the wrapper's launches.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from . import flash_attention, flash_decode, gn_conv, qgemv, snake
-from . import ts_res_block
+from . import (flash_attention, flash_attention_bias, flash_decode, gn_conv,
+               qgemv, snake, ts_res_block)
 from ._build import build
 
-MODULES = {"flash_attention": flash_attention, "qgemv": qgemv,
-           "flash_decode": flash_decode, "gn_conv": gn_conv,
-           "ts_res_block": ts_res_block, "snake": snake}
+KERNELS = {"flash_attention": flash_attention.KERNEL, "qgemv": qgemv.KERNEL,
+           "flash_decode": flash_decode.KERNEL,
+           "flash_decode_shared": flash_decode.KERNEL_SHARED,
+           "gn_conv": gn_conv.KERNEL, "ts_res_block": ts_res_block.KERNEL,
+           "flash_attention_bias": flash_attention_bias.KERNEL,
+           "snake": snake.KERNEL}
 
 
 def build_all() -> Dict[str, str]:
     """Compile every kernel source not built yet, all at once; returns the
     compiler output of each source built by this call."""
-    return build([m.KERNEL.source for m in MODULES.values()])
+    return build([k.source for k in KERNELS.values()])
 
 
 def reset_launches() -> None:
-    for m in MODULES.values():
-        m.KERNEL.launches = 0
+    for k in KERNELS.values():
+        k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: m.KERNEL.launches for name, m in MODULES.items()}
+    return {name: k.launches for name, k in KERNELS.items()}

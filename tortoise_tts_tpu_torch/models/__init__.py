@@ -1,5 +1,5 @@
 """Model registry (port of ``tortoise_tts_tpu/models/__init__.py``, for
-the models of the HiFiGAN and BigVGAN routes).
+the models of the HiFiGAN, BigVGAN, batch and candidate routes).
 
 ``load_model(name)`` returns a ``LoadedModel`` with random parameters
 made from a seed, as the JAX package does when it finds no weights.
@@ -29,9 +29,15 @@ WEIGHT_FILES = {
     "diffusion": "diffusion.pth",
     "bigvgan": "bigvgan_24khz_100band.pth",
     "hifigan": "hifigan.pth",
+    "clvp": "clvp2.pth",
+    "rlg_auto": "rlg_auto.pth",
+    "rlg_diffuser": "rlg_diffuser.pth",
     "mel_norms": "mel_norms.pth",
 }
-MODEL_NAMES = ("autoregressive", "diffusion", "bigvgan", "hifigan")
+MODEL_NAMES = ("autoregressive", "diffusion", "bigvgan", "hifigan", "clvp",
+               "rlg_auto", "rlg_diffuser")
+# conditioning latent width of each random latent converter
+RLG_CHANNELS = {"rlg_auto": 1024, "rlg_diffuser": 2048}
 
 
 def resolve_device(device, who: str) -> torch.device:
@@ -98,7 +104,7 @@ def load_model(name: str, dtype: str = "float32", seed: int = 0,
                device=None) -> LoadedModel:
     """Build a model with random parameters from ``seed``, floating
     leaves in ``dtype``, on ``device`` (None: the CUDA device)."""
-    from . import bigvgan, diffusion, hifigan, unified_voice
+    from . import bigvgan, clvp, diffusion, hifigan, rlg, unified_voice
     device = resolve_device(device, "load_model")
     cname = _canonical(name)
     if cname not in MODEL_NAMES:
@@ -119,6 +125,13 @@ def load_model(name: str, dtype: str = "float32", seed: int = 0,
     elif cname == "bigvgan":
         cfg = bigvgan.BigVGANConfig()
         params, module = _bigvgan_random(g, cfg), bigvgan
+    elif cname == "clvp":
+        cfg = clvp.CLVPConfig()
+        params, module = clvp.init(g, cfg), clvp
+    elif cname in RLG_CHANNELS:
+        # the config is the latent width, as in the JAX package
+        cfg = RLG_CHANNELS[cname]
+        params, module = rlg.init(g, cfg), rlg
     else:
         cfg = hifigan.HifiganConfig()
         params, module = _hifigan_random(g, cfg), hifigan

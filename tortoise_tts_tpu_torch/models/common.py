@@ -121,6 +121,15 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """xtransformers RMSNorm: x / max(||x|| d^-1/2, eps) * scale, fp32
+    compute, cast back."""
+    x32 = x.float()
+    norm = torch.linalg.vector_norm(x32, dim=-1, keepdim=True) \
+        * (x.shape[-1] ** -0.5)
+    return (x32 / norm.clamp(min=eps) * p["scale"].float()).to(x.dtype)
+
+
 def group_norm(p: Params, x: torch.Tensor, groups: int,
                eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm32 over (B, C, *spatial): fp32 compute, cast back."""

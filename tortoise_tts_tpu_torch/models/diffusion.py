@@ -10,8 +10,9 @@ What runs where on the card: each timestep resblock is K4 (``act=True``,
 the GroupNorm + silu + 1x1 conv input half) then K5 (the scale-shift
 output half with the k=3 conv and the residual); each attention block's
 [GroupNorm + qkv conv] head is K4 (``act=False``).  The biased attention
-itself is plain matmuls (``ops/attention.qkv_attention``), as in the JAX
-package below batch 8.
+itself (``ops/attention.qkv_attention``) is K6 from batch 8 and T 256
+up, where the JAX package takes its Pallas kernel, and plain matmuls
+below.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -151,14 +151,15 @@ def p_mean_variance(model_fn: ModelFn, x: torch.Tensor, t: int,
 
 
 def sample_loop(model_fn: ModelFn, noise: torch.Tensor,
-                generator: Optional[torch.Generator],
+                generators: Optional[Sequence[torch.Generator]],
                 sched: DiffusionSchedule, sampler: str = "ddim"
                 ) -> torch.Tensor:
     """The full reverse process from x_T = ``noise`` (B, 100, T).
 
     sampler: 'ddim' with eta 0 (diffusion.py:646-694) or 'p' (510-554).
-    The P sampler draws its per-step noise from ``generator``; DDIM draws
-    nothing."""
+    The P sampler draws row r's per-step noise from ``generators[r]``, so
+    a row's draws depend on its own generator only (the JAX package's
+    per-row keys); DDIM draws nothing."""
     if sampler == "dpm++":
         raise NotImplementedError(
             "diffusion_sampler='dpm++' is not ported yet (ROADMAP.md)")
@@ -170,8 +171,10 @@ def sample_loop(model_fn: ModelFn, noise: torch.Tensor,
         mean, logvar, xstart = p_mean_variance(model_fn, x, t, sched)
         if sampler == "p":
             if t != 0:
-                mean = mean + torch.exp(0.5 * logvar) * torch.randn(
-                    x.shape, generator=generator, device=x.device)
+                z = torch.cat([torch.randn((1,) + x.shape[1:], generator=g,
+                                           device=x.device)
+                               for g in generators])
+                mean = mean + torch.exp(0.5 * logvar) * z
             x = mean
             continue
         eps = ((float(_tab(sched.sqrt_recip_alphas_cumprod, t)) * x - xstart)

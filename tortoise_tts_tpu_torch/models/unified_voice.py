@@ -10,7 +10,10 @@ What runs where:
   (``forward``) goes through K1 (``kernels/flash_attention``);
 - each decode step's four linears go through K2 (``kernels/qgemv``, int8
   with the LayerNorm fused) when the caller passes the int8 decode
-  weights, and its attention through K3 (``kernels/flash_decode``).
+  weights, and its attention through K3 (``kernels/flash_decode``), or
+  through K3's shared-prefix form in the candidate fan-out
+  (``inference_speech_shared``: each group's prefill K/V held once, beside
+  the rows' decode regions).
 
 The decode is eager: ``decode_start`` runs the prefill and returns a
 ``DecodeState`` whose cache and buffers ``decode_chunk`` updates in place
@@ -30,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
-from ..kernels.flash_decode import flash_decode
+from ..kernels.flash_decode import flash_decode, flash_decode_shared
 from ..kernels.qgemv import qgemv
 from ..ops.sampling import (SamplingConfig, apply_length_penalty,
                             apply_repetition_penalty, mirostat_step,
@@ -220,13 +223,15 @@ def decode_layers(gpt: Params, qgpt: Optional[Params] = None) -> List:
 
 def _gpt_decode_step(layers: List, ln_f: Params, x: torch.Tensor,
                      heads: int, cache: KVCache, pos: int,
-                     key_mask: torch.Tensor, quantized: bool
-                     ) -> torch.Tensor:
+                     key_mask: torch.Tensor, quantized: bool,
+                     prefix: Optional[KVCache] = None) -> torch.Tensor:
     """One token through the trunk.  x: (B, D); ``layers`` from
     ``decode_layers``.  Writes slot ``pos`` of every layer's cache in
     place and attends to the slots <= pos that key_mask allows.  With
-    ``quantized`` the linears go through K2 with the LayerNorms fused.
-    Returns the ln_f'd hidden state (B, D)."""
+    ``prefix`` (the shared-prefix decode) ``cache`` is the rows' decode
+    region, ``pos`` a region slot and ``key_mask`` the (G, Sp) mask of the
+    groups' prefix.  With ``quantized`` the linears go through K2 with the
+    LayerNorms fused.  Returns the ln_f'd hidden state (B, D)."""
     b, d = x.shape
     hd = d // heads
 
@@ -243,7 +248,11 @@ def _gpt_decode_step(layers: List, ln_f: Params, x: torch.Tensor,
         q, k, v = (z.view(b, heads, hd) for z in qkv.split(d, dim=-1))
         cache.k[li, :, :, pos] = k
         cache.v[li, :, :, pos] = v
-        a = flash_decode(q, cache.k[li], cache.v[li], pos, key_mask)
+        if prefix is None:
+            a = flash_decode(q, cache.k[li], cache.v[li], pos, key_mask)
+        else:
+            a = flash_decode_shared(q, prefix.k[li], prefix.v[li], key_mask,
+                                    cache.k[li], cache.v[li], pos)
         x = x + lin(lp, "attn_proj", a.reshape(b, d))
         h = gelu_new(lin(lp, "mlp_fc", x, ln="ln_2"))
         x = x + lin(lp, "mlp_proj", h)
@@ -334,7 +343,7 @@ class DecodeState:
     finished: torch.Tensor   # (B,) bool
     lengths: torch.Tensor    # (B,)
     generators: Optional[List[torch.Generator]]  # one per row
-    key_mask: torch.Tensor   # (B, cache_len) bool
+    key_mask: torch.Tensor   # (B, cache_len) bool; (G, Sp) shared prefix
     mu: torch.Tensor         # (B,) mirostat running max-surprise
 
 
@@ -342,16 +351,29 @@ def decode_start(params: Params, cond_latent: torch.Tensor,
                  text: torch.Tensor, text_lengths: torch.Tensor,
                  generators: Optional[List[torch.Generator]] = None,
                  cfg: UnifiedVoiceConfig = UnifiedVoiceConfig(),
-                 max_length: int = 500) -> DecodeState:
+                 max_length: int = 500, shared_rows: int = 0):
     """Prefill [cond, text segment, start_mel] and return the state.
-    ``generators``: one torch.Generator per row on the model's device
-    (sampled decoding draws from them; greedy needs none)."""
+    ``generators``: one torch.Generator per decode row on the model's
+    device (sampled decoding draws from them; greedy needs none).
+
+    ``shared_rows`` > 0 (candidate fan-out): the B input rows are G
+    prefill groups, each fanning out ``shared_rows`` = C decode rows,
+    group-major (row g*C + c).  Returns ``(state, prefix)``: ``state``
+    holds only the G*C rows' decode regions, and ``prefix`` the groups'
+    prefill K/V (L, G, H, Sp, Dh), held once per group and passed to
+    ``decode_chunk(prefix=...)``."""
     b, tt = text.shape
     d = cfg.model_dim
     dev = text.device
     prefix_len = 1 + tt + 2
     cache_len = prefix_len + 1 + max_length
     dtype = params["mel_embedding"]["w"].dtype
+    rows = b * shared_rows if shared_rows else b
+    if generators is not None and len(generators) != rows:
+        # the JAX package takes explicit per-row keys here unchecked
+        raise ValueError(f"{len(generators)} generators for {rows} decode "
+                         f"rows ({b} prefill rows x {shared_rows or 1}): "
+                         "pass one per decode row, group-major")
 
     text_emb, text_mask = _build_text_segment(params, text, text_lengths, cfg)
     start_emb = (params["mel_embedding"]["w"][cfg.start_mel_token]
@@ -360,23 +382,37 @@ def decode_start(params: Params, cond_latent: torch.Tensor,
                          start_emb.expand(b, 1, d)], dim=1)
     ones = torch.ones((b, 1), dtype=torch.bool, device=dev)
     prefill_mask = torch.cat([ones, text_mask, ones], dim=1)
-    hidden, cache = _gpt_prefill(params["gpt"], prefill, cfg.heads,
-                                 prefill_mask, cache_len)
-    key_mask = torch.cat(
-        [prefill_mask, torch.ones((b, cache_len - prefill.shape[1]),
-                                  dtype=torch.bool, device=dev)], dim=1)
-    counts = torch.zeros((b, cfg.number_mel_codes), dtype=torch.int32,
+    if shared_rows:
+        sp = prefill.shape[1]
+        hidden, prefix = _gpt_prefill(params["gpt"], prefill, cfg.heads,
+                                      prefill_mask, sp)
+        rshape = (cfg.layers, rows, cfg.heads, max_length, d // cfg.heads)
+        cache = KVCache(torch.zeros(rshape, dtype=prefix.k.dtype, device=dev),
+                        torch.zeros(rshape, dtype=prefix.v.dtype, device=dev))
+        key_mask = prefill_mask
+    else:
+        hidden, cache = _gpt_prefill(params["gpt"], prefill, cfg.heads,
+                                     prefill_mask, cache_len)
+        key_mask = torch.cat(
+            [prefill_mask, torch.ones((b, cache_len - prefill.shape[1]),
+                                      dtype=torch.bool, device=dev)], dim=1)
+    lat = layer_norm(params["final_norm"], hidden[:, -1])
+    if shared_rows:
+        lat = lat.repeat_interleave(shared_rows, dim=0)
+    counts = torch.zeros((rows, cfg.number_mel_codes), dtype=torch.int32,
                          device=dev)
     # start_mel counts as seen for the repetition penalty
     counts[:, cfg.start_mel_token] += 1
-    return DecodeState(
-        0, cache, layer_norm(params["final_norm"], hidden[:, -1]),
-        torch.full((b, max_length), cfg.stop_mel_token, dtype=torch.long,
+    state = DecodeState(
+        0, cache, lat,
+        torch.full((rows, max_length), cfg.stop_mel_token, dtype=torch.long,
                    device=dev),
-        counts, torch.zeros((b, max_length, d), dtype=dtype, device=dev),
-        torch.zeros(b, dtype=torch.bool, device=dev),
-        torch.full((b,), max_length, dtype=torch.long, device=dev),
-        generators, key_mask, torch.zeros(b, dtype=torch.float32, device=dev))
+        counts, torch.zeros((rows, max_length, d), dtype=dtype, device=dev),
+        torch.zeros(rows, dtype=torch.bool, device=dev),
+        torch.full((rows,), max_length, dtype=torch.long, device=dev),
+        generators, key_mask,
+        torch.zeros(rows, dtype=torch.float32, device=dev))
+    return (state, prefix) if shared_rows else state
 
 
 def decode_chunk(params: Params, state: DecodeState,
@@ -384,13 +420,16 @@ def decode_chunk(params: Params, state: DecodeState,
                  sampling: SamplingConfig = SamplingConfig(),
                  chunk: Optional[int] = None,
                  collect_latents: bool = False,
-                 qgpt: Optional[Params] = None) -> DecodeState:
+                 qgpt: Optional[Params] = None,
+                 prefix: Optional[KVCache] = None) -> DecodeState:
     """Advance the decode by up to ``chunk`` tokens (None: to the end),
     stopping early once every row has emitted the stop token.  ``qgpt``:
-    int8 decode weights from ``quantize_decode_weights``."""
+    int8 decode weights from ``quantize_decode_weights``; ``prefix``: the
+    shared prefill K/V from ``decode_start(shared_rows=...)``."""
     b, max_len = state.tokens.shape
     cache_len = state.cache.k.shape[3]
-    prefix_len = cache_len - 1 - max_len
+    # the write slot: past the prefill, or in the region of a shared prefix
+    first_slot = 0 if prefix is not None else cache_len - max_len
     limit = max_len if chunk is None else min(state.step + chunk, max_len)
     gpt = params["gpt"]
     dtype = params["mel_embedding"]["w"].dtype
@@ -434,8 +473,8 @@ def decode_chunk(params: Params, state: DecodeState,
         emb = (embedding(params["mel_embedding"], tok)
                + pos_w[min(step + pos_off, pos_w.shape[0] - 1)])
         h = _gpt_decode_step(layers, gpt["ln_f"], emb.to(dtype), cfg.heads,
-                             state.cache, prefix_len + 1 + step,
-                             state.key_mask, qgpt is not None)
+                             state.cache, first_slot + step,
+                             state.key_mask, qgpt is not None, prefix)
         state.lat = layer_norm(params["final_norm"], h)
         state.step = step + 1
         if state.step % SYNC_EVERY == 0 and bool(state.finished.all()):
@@ -457,4 +496,26 @@ def inference_speech(params: Params, cond_latent: torch.Tensor,
                          cfg, max_length)
     state = decode_chunk(params, state, cfg, sampling, chunk=None,
                          collect_latents=collect_latents, qgpt=qgpt)
+    return DecodeResult(state.tokens, state.lengths, state.latents)
+
+
+def inference_speech_shared(params: Params, cond_latent: torch.Tensor,
+                            text: torch.Tensor, text_lengths: torch.Tensor,
+                            generators: Optional[List[torch.Generator]],
+                            rows: int,
+                            cfg: UnifiedVoiceConfig = UnifiedVoiceConfig(),
+                            sampling: SamplingConfig = SamplingConfig(),
+                            max_length: int = 500,
+                            collect_latents: bool = False,
+                            qgpt: Optional[Params] = None) -> DecodeResult:
+    """Candidate fan-out decode with a shared prefix: G input rows (one per
+    text), each decoded as ``rows`` candidates (group-major, row g*rows +
+    c) from one prefill whose K/V are held once per group.  Draw for draw
+    the fan-out decode of the repeated rows with the same generators."""
+    state, prefix = decode_start(params, cond_latent, text, text_lengths,
+                                 generators, cfg, max_length,
+                                 shared_rows=rows)
+    state = decode_chunk(params, state, cfg, sampling, chunk=None,
+                         collect_latents=collect_latents, qgpt=qgpt,
+                         prefix=prefix)
     return DecodeResult(state.tokens, state.lengths, state.latents)

@@ -4,9 +4,9 @@
   conditioning encoder's AttentionBlock on channels-major (B, 3*H*C, T)
   tensors with the per-head [q;k;v] interleave; the 1/sqrt(sqrt(ch))
   scale goes on both q and k, with an optional T5 relative-position
-  bias (``rel_pos_w``, or a precomputed ``bias``).  It stays plain
-  matmuls: the JAX package runs this path outside any Pallas kernel at
-  B < 8, which is where the single-utterance denoiser runs.
+  bias (``rel_pos_w``, or a precomputed ``bias``).  Plain matmuls below
+  batch 8, where the single-utterance denoiser runs (the JAX package
+  runs that path outside any Pallas kernel too); K6 from batch 8 up.
 - ``mha``: batched multi-head attention on (B, H, T, D) with causal and
   padding masks.  It is the plain version of the trunk and decode
   attention kernels (kernels/flash_attention.py, kernels/flash_decode.py).
@@ -65,9 +65,16 @@ def qkv_attention(qkv: torch.Tensor, n_heads: int,
     already scaled; else ``rel_pos_w``: a (buckets, H) T5 table, scaled
     by ``rel_pos_scale``.
 
-    Scores are fp32 for fp32 inputs; for bf16 inputs they stay bf16,
-    as the JAX package's reduced-precision score path does."""
+    With a precomputed ``bias`` at batch >= 8 and T >= 256 the call goes
+    through K6 (``kernels/flash_attention_bias``), where the JAX package
+    takes its Pallas kernel.  Below that the scores are fp32 for fp32
+    inputs; for bf16 inputs they stay bf16, as the JAX package's
+    reduced-precision score path does."""
     b, width, t = qkv.shape
+    if bias is not None and b >= 8 and t >= 256:
+        # imported here: the kernels package imports this module
+        from ..kernels import flash_attention_bias as k6
+        return k6.flash_attention_bias(qkv, bias, n_heads)
     ch = width // (3 * n_heads)
     q, k, v = qkv.reshape(b, n_heads, 3 * ch, t).split(ch, dim=2)
     scale = 1.0 / math.sqrt(math.sqrt(ch))
