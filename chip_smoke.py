@@ -20,10 +20,15 @@ one JSON line per phase:
    gaps the host leaves while it launches.
 4. ``reference``: tiny models through the same entry points on the card
    (fp32, kernels) and on the CPU (plain versions), both routes: greedy
-   codes equal, the same injected diffusion noise, wavs close; then
+   codes equal, the same injected diffusion noise, wavs close; the W8A8
+   decode (K8) the same way, greedy codes equal, and every decode route
+   (BigVGAN, HiFiGAN, stream, batch, candidates) on the card with
+   ``decode_quant="w8a8"`` reaching K8 and never K2; then
    ``reference_batch``: a tiny ``batch_inference`` of 4 rows (its
-   cond-free trunk batch of 8 at T=417 takes K6) and a tiny
-   ``inference(candidates=4)`` (K3's shared form), wavs within 4/32767.
+   cond-free trunk batch of 8 at T=417 takes K6), a tiny
+   ``inference(candidates=4)`` (K3's shared form) and a tiny batch of 8
+   texts x 4 candidates (32 decode rows: K2 at M=32), wavs within
+   4/32767.
 5. ``main_path``: the default route, ``TTS.inference(text, ref)`` (AR
    decode, latent pass, DDIM-50 with cond-free guidance, BigVGAN) with
    bench.py's knobs, at the shipped widths (UnifiedVoice 30 x 1024,
@@ -38,18 +43,25 @@ one JSON line per phase:
    Each route is driven with the launch counts at 0 and read after it;
    every kernel it runs must have launched.
 6. ``batch_route`` and ``candidates_route``: slice 3's entry points at
-   the same widths with bench.py's knobs, each once to warm up, once
-   warm and once profiled: ``TTS.batch_inference`` over 8 copies of the
-   text (8 rows decoded at once, the CLVP-free cleanup, the diffusion
-   bucketed by row length: one dispatch of 8 rows, cond-free trunk B=16,
-   K6 in every attention block), and ``TTS.inference(text, ref,
+   the same widths with bench.py's knobs, each once warm (the voice,
+   the unconditional integrator and every kernel already cached by the
+   default route) and once profiled: ``TTS.batch_inference`` over 8
+   copies of the text (8 rows decoded at once, the CLVP-free cleanup, the
+   diffusion bucketed by row length: one dispatch of 8 rows, cond-free
+   trunk B=16, K6 in every attention block), and ``TTS.inference(text, ref,
    candidates=16)`` (a shared-prefix decode of 16 rows through K3's
    shared form, the CLVP rerank, the winner's latent pass, diffusion and
    vocoder at B=1).  Wall seconds per stage, audio seconds per wall
    second, K6 launches per DDIM step against the profiler, the
    diffusion's busy share, peak memory.
-7. ``decode``: eager decode time per token and CUDA launches per token
-   (from the profiler), the size a CUDA graph would capture.
+7. ``w8a8_route``: the default route again on the same ``TTS`` with
+   ``decode_quant="w8a8"`` (the CLI's ``--decode-quant w8a8``): stage
+   seconds, RTF, peak memory, K8's launches (4 per layer and token, K2
+   none).
+8. ``decode``: eager decode time per token and CUDA launches per token
+   (from the profiler), the size a CUDA graph would capture, and the
+   device's busy share, for the int8 and the W8A8 decode; K8's CUDA
+   kernels in the profiler must match its wrapper's launches.
 
 Then the ``kernels`` summary, the card's name and power limit from
 ``nvidia-smi``, and as the last line ``{"ok": true, "device": ...}``.
@@ -60,6 +72,7 @@ It needs one card and no network; kernels build under
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -74,6 +87,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 BF16_FLOPS = 989e12            # H100 SXM, dense tensor core
 FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
+INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor core
 AR_STEPS = 200
 DIFF_STEPS = 50
 # bench.py's workload: DDIM-50, cond-free guidance, padded geometry
@@ -83,12 +97,34 @@ TEXT = "The quick brown fox jumps over the lazy dog."
 BUCKET = 64                    # the first text bucket, which TEXT fits
 # slice 3's kernels: the batch and candidate routes launch them
 SLICE3_KERNELS = ("flash_attention_bias", "flash_decode_shared")
+# the W8A8 decode's kernel: only decode_quant="w8a8" launches it
+W8A8 = "qgemv_w8a8"
+INT8_ROUTE_IDLE = SLICE3_KERNELS + (W8A8,)
+GEMV_SHAPES = [("attn_qkv", 1024, 3072, True), ("attn_proj", 1024, 1024, False),
+               ("mlp_fc", 1024, 4096, True), ("mlp_proj", 4096, 1024, False)]
 BATCH_ROWS = 8
 CANDIDATES = 16
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``t_s`` is the script's elapsed seconds."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - T0}), flush=True)
+
+
+def profiler_warmup(torch) -> None:
+    """The start of a profiling window: the profiler on the chip machine
+    drops the kernels of the first milliseconds of a window (one to 48
+    kernels in this script's runs with 16 tiny kernels as the only
+    warm-up), so wait 50 ms, then run spin kernels, which are the ones
+    it may drop (``_cuda_events`` leaves them out), and synchronise."""
+    time.sleep(0.05)
+    for _ in range(16):
+        torch.cuda._sleep(200_000)
+    torch.cuda.synchronize()
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS
@@ -116,7 +152,8 @@ def call_ms(torch, fn, n: int = 50, warmup: int = 5) -> float:
 
 
 def _cuda_events(prof):
-    return [e for e in prof.events() if "CUDA" in str(e.device_type)]
+    return [e for e in prof.events() if "CUDA" in str(e.device_type)
+            and "spin_kernel" not in e.name]
 
 
 def device_ms(torch, fn, n: int = 30, warmup: int = 5) -> float:
@@ -128,6 +165,7 @@ def device_ms(torch, fn, n: int = 30, warmup: int = 5) -> float:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        profiler_warmup(torch)
         for i in range(n):
             fn(i)
         torch.cuda.synchronize()
@@ -207,14 +245,13 @@ def check_flash_attention(torch, k1, dev, n_text):
 
 def check_qgemv(torch, k2, dev, layers=30):
     """K2 at one decode layer's four GEMVs (M=1), each cycling over 30
-    layers of weights (378 MB of int8, > L2) as the decode does."""
+    layers of weights (378 MB of int8, > L2) as the decode does; and the
+    error at M=32 (the batch route's 8 texts x 4 candidates)."""
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(1)
-    shapes = [("attn_qkv", 1024, 3072, True), ("attn_proj", 1024, 1024, False),
-              ("mlp_fc", 1024, 4096, True), ("mlp_proj", 4096, 1024, False)]
     tot = dict(bytes=0.0, flops=0.0)
     err_max, tol = 0.0, 3e-2   # |y| <~ 1.5: 1 bf16 ulp is <= 8e-3
-    for name, kd, nd, ln in shapes:
+    for name, kd, nd, ln in GEMV_SHAPES:
         wq = torch.randint(-127, 128, (layers, kd, nd), generator=g,
                            device=dev, dtype=torch.int8)
         s = torch.rand(layers, nd, generator=g, device=dev) * 2e-4
@@ -231,7 +268,12 @@ def check_qgemv(torch, k2, dev, layers=30):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         assert math.isfinite(err) and err <= tol, f"qgemv {name} err {err}"
-        err_max = max(err_max, err)
+        x32 = torch.randn(32, kd, generator=g, device=dev).to(torch.bfloat16)
+        err32 = bf16_err(torch, k2.qgemv(x32, wq[1], s[1], bias[1],
+                                         ln=lnp(1)),
+                         k2.qgemv_plain(x32, wq[1], s[1], bias[1], ln=lnp(1)),
+                         atol=tol, rtol=0, name=f"qgemv {name} M=32")
+        err_max = max(err_max, err, err32)
         wdq = (wq.float() * s[:, None, :]).to(torch.bfloat16)
         wdq_t = wdq.transpose(1, 2).contiguous()      # (L, N, K) for linear
         del wdq
@@ -246,7 +288,7 @@ def check_qgemv(torch, k2, dev, layers=30):
         nbytes = kd * nd + kd * 2 + nd * 4 * 2 + (2 * kd * 4 if ln else 0) \
             + nd * 2
         emit("kernel_detail", name="qgemv", gemv=name, shape=[1, kd, nd],
-             ln=ln, max_abs_err=err,
+             ln=ln, max_abs_err=err, max_abs_err_m32=err32,
              bound_ms=bound_ms(nbytes, 2 * kd * nd)[0], **t)
         for key, val in t.items():
             tot[key] = tot.get(key, 0.0) + val
@@ -258,6 +300,134 @@ def check_qgemv(torch, k2, dev, layers=30):
          library="F.linear on pre-dequantized bf16 weights (2x the bytes)",
          bound_ms=bms, bound_by=by, **tot)
     return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **tot)
+
+
+def _w8a8_case(torch, k8, x, wq, s, b, ln) -> tuple:
+    """One K8 call against its plain version.  fp32 without the LN: the
+    codes, the row scales and the output bit-equal.  Otherwise the LN's
+    sums run in another order, so an activation on a rounding edge may
+    take the next int8 code: every code within one step, the output the
+    plain epilogue of the kernel's own codes bit for bit, and |y - plain|
+    within what the differing codes and scales allow (one int8 step per
+    differing code times |w| sx s, the scale's change times |acc| s) plus
+    a rounding of the output type.  Returns (max abs err, codes that
+    differ, rows with a differing code)."""
+    y, codes, sx = k8.qgemv_w8a8_codes(x, wq, s, b, ln=ln)
+    xn = x if ln is None else k8.ln_f32(x.float(), *ln).to(x.dtype)
+    pcodes, psx = k8.quantize_rowwise(xn)
+    psx = psx[:, 0]
+    want = k8.qgemv_w8a8_plain(x, wq, s, b, ln=ln)
+    torch.cuda.synchronize()
+    dq = (codes.int() - pcodes.int()).abs()
+    n_codes, n_rows = int((dq > 0).sum()), int((dq > 0).any(1).sum())
+    err = float((y.float() - want.float()).abs().max())
+    case = f"K8 {tuple(wq.shape)} M={x.shape[0]} {x.dtype} ln={ln is not None}"
+    assert math.isfinite(err), case
+    if x.dtype == torch.float32 and ln is None:
+        assert n_codes == 0 and torch.equal(sx, psx), case
+        assert torch.equal(y, want), f"{case}: err {err}"
+        return err, 0, 0
+    assert int(dq.max()) <= 1, f"{case}: a code {int(dq.max())} steps off"
+    wd = wq.double()
+    acc = codes.double() @ wd
+    own = acc.float() * sx[:, None] * s
+    if b is not None:
+        own = own + b
+    assert torch.equal(y, own.to(x.dtype)), f"{case}: epilogue differs"
+    s64, acc_p = s.double(), pcodes.double() @ wd
+    ulp = 2.0 ** -7 if x.dtype == torch.bfloat16 else 2.0 ** -22
+    bound = ((dq.double() @ wd.abs()) * psx[:, None].double() * s64
+             + acc.abs() * (sx - psx).abs()[:, None].double() * s64
+             + ulp * ((acc_p * psx[:, None].double() * s64).abs()
+                      + want.double().abs()
+                      + (0 if b is None else b.double().abs())))
+    over = int(((y.double() - want.double()).abs() > bound).sum())
+    assert over == 0, f"{case}: {over} outputs past the bound, err {err}"
+    return err, n_codes, n_rows
+
+
+def check_qgemv_w8a8(torch, k8, k2, dev, layers=30):
+    """K8 at the four decode GEMVs.  Right: at M = 1, 16 and 32, with and
+    without the fused LN, in fp32 and bf16 (``_w8a8_case``).  Time per
+    layer (4 GEMVs, the LN fused where the decode fuses it, bf16, each
+    GEMV cycling over 30 layers of int8 weights as the decode does) at
+    M=1, the main path's, and M=32, beside K2 at the same M in the same
+    run and ``torch._int_mm`` on the quantized rows at M=32 (its CUDA
+    shape rule needs more than 16 rows; at M=1 no PyTorch call computes
+    the function)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    tot = {m: dict(bytes=0.0, ops=0.0) for m in (1, 32)}
+    err_max, cases = 0.0, []
+    for name, kd, nd, ln_model in GEMV_SHAPES:
+        wq = torch.randint(-127, 128, (layers, kd, nd), generator=g,
+                           device=dev, dtype=torch.int8)
+        s = torch.rand(layers, nd, generator=g, device=dev) * 2e-4
+        bias = torch.randn(layers, nd, generator=g, device=dev) * 0.1
+        gam = 1 + 0.1 * torch.randn(layers, kd, generator=g, device=dev)
+        bet = 0.1 * torch.randn(layers, kd, generator=g, device=dev)
+        for m in (1, 16, 32):
+            for ln in (False, True):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn(m, kd, generator=g, device=dev).to(dtype)
+                    err, nc, nr = _w8a8_case(torch, k8, x, wq[0], s[0],
+                                             bias[0],
+                                             (gam[0], bet[0]) if ln else None)
+                    err_max = max(err_max, err)
+                    cases.append(dict(gemv=name, m=m, ln=ln,
+                                      dtype=str(dtype)[6:], max_abs_err=err,
+                                      codes_differ=nc, rows_differ=nr))
+
+        def lnp(li):
+            return (gam[li], bet[li]) if ln_model else None
+        for m in (1, 32):
+            x = torch.randn(m, kd, generator=g, device=dev).to(torch.bfloat16)
+            t = timings(
+                torch,
+                lambda i: k8.qgemv_w8a8(x, wq[i % layers], s[i % layers],
+                                        bias[i % layers], ln=lnp(i % layers)),
+                (lambda i: k8.qgemv_w8a8_plain(
+                    x, wq[i % layers], s[i % layers], bias[i % layers],
+                    ln=lnp(i % layers))) if m == 1 else None,
+                None)
+            t["k2_ms"] = device_ms(torch, lambda i: k2.qgemv(
+                x, wq[i % layers], s[i % layers], bias[i % layers],
+                ln=lnp(i % layers)))
+            if m == 32:
+                xq = k8.quantize_rowwise(x)[0]
+                t["library_ms"] = device_ms(
+                    torch, lambda i: torch._int_mm(xq, wq[i % layers]))
+                t["library_call_ms"] = call_ms(
+                    torch, lambda i: torch._int_mm(xq, wq[i % layers]))
+            nbytes = (kd * nd + m * kd * 2 + nd * 4 * 2
+                      + (2 * kd * 4 if ln_model else 0) + m * nd * 2)
+            emit("kernel_detail", name="qgemv_w8a8", gemv=name,
+                 shape=[m, kd, nd], ln=ln_model,
+                 bound_ms=bound_ms(nbytes, 2 * m * kd * nd, INT8_OPS)[0],
+                 **t)
+            for key, val in t.items():
+                tot[m][key] = (None if val is None
+                               else tot[m].get(key, 0.0) + val)
+            tot[m]["bytes"] += nbytes
+            tot[m]["ops"] += 2 * m * kd * nd
+        del wq
+        torch.cuda.empty_cache()
+    emit("kernel_detail", name="qgemv_w8a8", checks=cases)
+    out = {}
+    for m in (1, 32):
+        bms, by = bound_ms(tot[m].pop("bytes"), tot[m].pop("ops"), INT8_OPS)
+        emit("kernel_detail" if m > 1 else "kernel", name="qgemv_w8a8",
+             shape=f"one decode layer: 4 GEMVs, M={m}",
+             max_abs_err=err_max, checks=len(cases),
+             codes_differ=sum(c["codes_differ"] for c in cases),
+             rows_differ=sum(c["rows_differ"] for c in cases),
+             library=("torch._int_mm on the quantized rows (the integer "
+                      "product only)" if m > 1 else None),
+             bound_ms=bms, bound_by=by, **tot[m])
+        out[m] = dict(bound_ms=bms, bound_by=by, **tot[m])
+    return dict(max_abs_err=err_max, **out[1],
+                m32_ms=out[32]["ms"], m32_k2_ms=out[32]["k2_ms"],
+                m32_bound_ms=out[32]["bound_ms"],
+                m32_library_ms=out[32]["library_ms"])
 
 
 def check_flash_decode(torch, k3, dev, slots, layers=30, report=True):
@@ -595,6 +765,36 @@ def reference_wav(path: Path, seconds: float = 4.0, sr: int = 22050,
     return str(path)
 
 
+def _w8a8_tiny_routes(torch, tts, ref: str, layers: int) -> dict:
+    """Every decode route of a tiny ``TTS`` on the card with
+    ``decode_quant="w8a8"``, each with the launch counts at 0 before it:
+    K8 four times per layer and decoded token, K2 never."""
+    from tortoise_tts_tpu_torch import kernels
+    kw = dict(max_ar_steps=24, seed=1)
+    routes = {
+        "bigvgan": lambda: tts.inference(TEXT, ref, max_diffusion_steps=2,
+                                         **kw)[0],
+        "hifigan": lambda: tts.inference(TEXT, ref, vocoder_type="hifigan",
+                                         **kw)[0],
+        "stream": lambda: np.concatenate(list(tts.stream(TEXT, ref, **kw))),
+        "batch": lambda: np.concatenate(tts.batch_inference(
+            [TEXT, "A second, shorter row."], ref, max_diffusion_steps=2,
+            **kw)[0]),
+        "candidates": lambda: tts.inference(TEXT, ref, candidates=2,
+                                            max_diffusion_steps=2, **kw)[0]}
+    out = {}
+    for name, run in routes.items():
+        kernels.reset_launches()
+        wav = run()
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        assert np.isfinite(wav).all() and wav.size > 0, name
+        assert c[W8A8] > 0 and c[W8A8] % (4 * layers) == 0, (name, c)
+        assert c["qgemv"] == 0, (name, c)
+        out[name] = c[W8A8]
+    return out
+
+
 def check_reference(torch, ref: str):
     """Tiny models (UnifiedVoice 2 layers x 128 wide, head dim 64; the
     denoiser 64 channels x 2 layers, 4 heads; BigVGAN and HiFiGAN from 64
@@ -602,12 +802,16 @@ def check_reference(torch, ref: str):
     fp32 through the kernels, on the CPU through the plain versions.  TF32
     is off for both convolutions and matmuls so the two run the same fp32
     arithmetic; the diffusion noise is drawn on the CPU and handed to
-    both."""
+    both.  Then the same ``TTS`` with ``decode_quant="w8a8"`` (switched as
+    the CLI switches it): the greedy W8A8 decode on the card (K8) and on
+    the CPU (its plain version) gives the same codes, and on the card
+    every decode route (the BigVGAN and HiFiGAN ``inference``, ``stream``,
+    ``batch_inference`` and ``candidates``) launches K8 and never K2."""
     from tortoise_tts_tpu_torch import inference, kernels
     from tortoise_tts_tpu_torch.config import Config, Inference
     from tortoise_tts_tpu_torch.inference import TTS
     from tortoise_tts_tpu_torch.models import (LoadedModel, _bigvgan_random,
-                                               _hifigan_random, bigvgan,
+                                               _hifigan_random, bigvgan, clvp,
                                                diffusion, hifigan,
                                                unified_voice)
     from tortoise_tts_tpu_torch.models.common import tree_map
@@ -631,13 +835,20 @@ def check_reference(torch, ref: str):
         w = lyr["attn"]["proj_out"]["w"]
         w.copy_(0.1 * torch.randn(w.shape, generator=g))
     bparams = _bigvgan_random(g, bcfg)
+    ccfg = clvp.CLVPConfig(dim_text=64, dim_speech=64, dim_latent=64,
+                           text_enc_depth=1, speech_enc_depth=1,
+                           text_heads=2, speech_heads=2, dim_head=32,
+                           rotary_dim=16)
+    cparams = clvp.init(g, ccfg)
     cfg = Config(inference=Inference(weight_dtype="float32"))
+    w8a8 = dataclasses.replace(cfg, inference=dataclasses.replace(
+        cfg.inference, decode_quant="w8a8"))
     draw_noise = inference._diffusion_noise
 
     def cpu_noise(key, shape, device):
         return draw_noise(key, shape, "cpu").to(device)
     inference._diffusion_noise = cpu_noise
-    out = {}
+    out, routes8 = {}, None
     try:
         for where in ("cuda", "cpu"):
             tts = TTS(cfg, device=where, dtype="float32")
@@ -648,7 +859,8 @@ def check_reference(torch, ref: str):
                     ("autoregressive", unified_voice, ucfg, params),
                     ("hifigan", hifigan, hcfg, hparams),
                     ("diffusion", diffusion, dcfg, dparams),
-                    ("bigvgan", bigvgan, bcfg, bparams))}
+                    ("bigvgan", bigvgan, bcfg, bparams),
+                    ("clvp", clvp, ccfg, cparams))}
             before = dict(kernels.launch_counts())
             wav, _ = tts.inference(TEXT, ref, max_ar_steps=80,
                                    vocoder_type="hifigan", greedy=True,
@@ -666,15 +878,33 @@ def check_reference(torch, ref: str):
                 qgpt=tts._ar_qgpt())
             launched = {k: v - before[k]
                         for k, v in kernels.launch_counts().items()}
-            out[where] = (wav, bwav, res.codes.cpu().numpy(), launched)
+            tts.cfg = w8a8
+            kernels.reset_launches()
+            res8 = unified_voice.inference_speech(
+                tts._model("autoregressive").params, enc["latent"][0],
+                torch.as_tensor(toks[None], device=where),
+                torch.tensor([len(tts.encode_text(TEXT))], device=where),
+                None, ucfg, SamplingConfig(greedy=True), 80,
+                qgpt=tts._ar_qgpt(), quant_mode=tts._quant_mode)
+            launched8 = kernels.launch_counts()
+            out[where] = (wav, bwav, res.codes.cpu().numpy(), launched,
+                          res8.codes.cpu().numpy(), launched8)
+            if where == "cuda":
+                routes8 = _w8a8_tiny_routes(torch, tts, ref, ucfg.layers)
     finally:
         inference._diffusion_noise = draw_noise
         torch.backends.cudnn.allow_tf32 = True
-    (wg, bg, cg, lg), (wc, bc, cc, lc) = out["cuda"], out["cpu"]
+    (wg, bg, cg, lg, c8g, l8g), (wc, bc, cc, lc, c8c, l8c) = \
+        out["cuda"], out["cpu"]
+    assert l8g[W8A8] == 80 * 4 * ucfg.layers and l8g["qgemv"] == 0, l8g
+    assert not any(l8c.values()), f"CPU run launched kernels: {l8c}"
+    assert np.array_equal(c8g, c8c), "W8A8 greedy codes differ GPU/CPU"
+    assert len(set(c8g[0].tolist())) > 3
     # the single routes' kernels; K6 and K3's shared form run in
     # check_reference_batch
-    assert all(v > 0 for k, v in lg.items() if k not in SLICE3_KERNELS), \
+    assert all(v > 0 for k, v in lg.items() if k not in INT8_ROUTE_IDLE), \
         f"kernels not reached: {lg}"
+    assert lg[W8A8] == 0, lg
     assert not any(lc.values()), f"CPU run launched kernels: {lc}"
     assert np.array_equal(cg, cc), "greedy codes differ between GPU and CPU"
     assert wg.shape == wc.shape and np.isfinite(wg).all()
@@ -693,7 +923,10 @@ def check_reference(torch, ref: str):
          wav_mean_abs=float(np.abs(wc).mean()),
          bigvgan_wav_samples=int(bg.shape[0]), bigvgan_wav_max_abs_err=berr,
          bigvgan_tol=btol, bigvgan_wav_mean_abs=float(np.abs(bc).mean()),
-         launches_on_card=lg)
+         launches_on_card=lg, w8a8_codes_equal=True,
+         w8a8_launches_on_card=l8g,
+         w8a8_codes_differ_from_int8=int((c8g != cg).sum()),
+         w8a8_routes=routes8)
 
 
 def check_reference_batch(torch, ref: str):
@@ -708,7 +941,10 @@ def check_reference_batch(torch, ref: str):
     denoiser drives most of the mel to the sampler's clip at +-1, so the
     wavs alone say little about the denoiser: the first DDIM step's trunk
     output (B=8, through K6, before any clipping) is compared too, within
-    1e-3 of its largest value."""
+    1e-3 of its largest value.  Last, ``batch_inference`` over 8 texts x
+    ``candidates=4``: one shared-prefix decode of 32 rows, K2 at M=32 on
+    the card (more than K2 took before this slice), each wav within
+    4/32767 of the CPU's."""
     from tortoise_tts_tpu_torch import inference, kernels
     from tortoise_tts_tpu_torch.config import Config, Inference
     from tortoise_tts_tpu_torch.inference import TTS
@@ -741,6 +977,14 @@ def check_reference_batch(torch, ref: str):
     cfg = Config(inference=Inference(weight_dtype="float32"))
     texts = [TEXT, "A second sentence, not as long.", "Third.",
              "And the fourth one closes the batch."]
+    texts8 = texts + ["Five.", "Six is a little longer.", "Seven, then",
+                      "eight rows, each with four candidates."]
+    gemv_rows = []
+    qgemv = unified_voice.qgemv
+
+    def recorded_qgemv(x, *args, **kw):
+        gemv_rows.append(x.shape[0])
+        return qgemv(x, *args, **kw)
     draw_noise = inference._diffusion_noise
     trunk = diffusion.forward_trunk
     first_trunk = []
@@ -771,16 +1015,26 @@ def check_reference_batch(torch, ref: str):
             y = first_trunk[0]
             cw, _ = tts.inference(TEXT, ref, candidates=4, max_ar_steps=80,
                                   max_diffusion_steps=4, greedy=True, seed=0)
-            out[where] = (bw + [cw], kernels.launch_counts(), y)
+            counts = kernels.launch_counts()
+            gemv_rows.clear()
+            unified_voice.qgemv = recorded_qgemv
+            w32, _ = tts.batch_inference(texts8, ref, candidates=4,
+                                         max_ar_steps=24,
+                                         max_diffusion_steps=2, greedy=True,
+                                         seed=0, row_buckets=False)
+            unified_voice.qgemv = qgemv
+            assert set(gemv_rows) == {32}, set(gemv_rows)
+            out[where] = (bw + [cw] + w32, counts, y)
     finally:
         inference._diffusion_noise = draw_noise
         diffusion.forward_trunk = trunk
+        unified_voice.qgemv = qgemv
         torch.backends.cudnn.allow_tf32 = True
     (wg, lg, yg), (wc, lc, yc) = out["cuda"], out["cpu"]
     assert yg.shape == (2 * len(texts), 2 * 100, 417), yg.shape
     y_err, y_max = float((yg - yc).abs().max()), float(yc.abs().max())
     assert y_err <= 1e-3 * y_max, f"trunk output err {y_err} of {y_max}"
-    missing = [k for k, v in lg.items() if v == 0]
+    missing = [k for k, v in lg.items() if v == 0 and k != W8A8]
     assert not missing, f"kernels not reached on the card: {missing}"
     assert not any(lc.values()), f"CPU run launched kernels: {lc}"
     tol = 4 / 32767
@@ -790,8 +1044,8 @@ def check_reference_batch(torch, ref: str):
         assert np.count_nonzero(a) > 1000
         errs.append(float(np.abs(a - b).max()))
     assert max(errs) <= tol, f"reference batch/candidates wav errs {errs}"
-    emit("reference_batch", rows=len(texts), wav_samples=[int(w.size)
-                                                        for w in wc],
+    emit("reference_batch", rows=len(texts), rows_32=len(texts8) * 4,
+         wav_samples=[int(w.size) for w in wc],
          trunk_shape=list(yc.shape), trunk_max_abs_err=y_err,
          trunk_max_abs=y_max, trunk_tol=1e-3 * y_max,
          wav_max_abs_err=errs, tol=tol,
@@ -852,12 +1106,7 @@ class Stages:
                 from torch.profiler import ProfilerActivity, profile
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
-                    # a few small kernels first, so the trace is running
-                    # before the stage's first launch
-                    warm = torch.zeros(1, device="cuda")
-                    for _ in range(16):
-                        warm.add_(1)
-                    torch.cuda.synchronize()
+                    profiler_warmup(torch)
                     out = fn(*args, **kw)
                     torch.cuda.synchronize()
                 # a stage called more than once in a run (the batch
@@ -950,8 +1199,9 @@ def bigvgan_route(torch, tts, ref: str):
             counts = kernels.launch_counts()
             emit("launches", route="bigvgan", run=run, **counts)
             missing = [k for k, v in counts.items()
-                       if v == 0 and k not in SLICE3_KERNELS]
+                       if v == 0 and k not in INT8_ROUTE_IDLE]
             assert not missing, f"BigVGAN route never launched: {missing}"
+            assert counts[W8A8] == 0, counts
             assert wav.ndim == 1 and wav.dtype == np.float32
             assert wav.size > 24000 and np.isfinite(wav).all()
             assert np.count_nonzero(wav) > 1000
@@ -1020,15 +1270,14 @@ def batch_route(torch, tts, ref: str):
     K3), the latent pass, the diffusion bucketed by row length (random
     weights decode the whole budget: one dispatch of 8 rows at T=896, so
     every attention block takes K6: 10 at B=16 and 3 at B=8 per DDIM
-    step) and BigVGAN at B=8.  A warm-up call, a warm one, a profiled
-    one; the K6 launches are checked against the dispatches and the
-    profiler."""
+    step) and BigVGAN at B=8.  A warm call and a profiled one; the K6
+    launches are checked against the dispatches and the profiler."""
     from tortoise_tts_tpu_torch import kernels
     texts = [TEXT] * BATCH_ROWS
     stages = Stages(torch)
     runs = []
     try:
-        for run in ("warmup", "warm", "profiled"):
+        for run in ("warm", "profiled"):
             stages.reset()
             stages.profile = run == "profiled"
             kernels.reset_launches()
@@ -1041,8 +1290,9 @@ def batch_route(torch, tts, ref: str):
             counts = kernels.launch_counts()
             emit("launches", route="batch", run=run, **counts)
             missing = [k for k, v in counts.items()
-                       if v == 0 and k != "flash_decode_shared"]
+                       if v == 0 and k not in ("flash_decode_shared", W8A8)]
             assert not missing, f"batch route never launched: {missing}"
+            assert counts[W8A8] == 0, counts
             assert len(wavs) == BATCH_ROWS
             for w in wavs:
                 assert w.ndim == 1 and w.dtype == np.float32
@@ -1076,7 +1326,7 @@ def batch_route(torch, tts, ref: str):
                 assert ck["ts_res_block_gemm"] == dl["ts_res_block"], ck
     finally:
         stages.close()
-    warm_s = runs[1][2]
+    warm_s = runs[0][2]
     emit("batch_counts", k6_per_call=k6, diffusion_calls=calls,
          device_busy_share={name: ck_["device_ms"] / 1e3 / warm_s[name]
                             for name, ck_ in stages.cuda_kernels.items()})
@@ -1088,14 +1338,13 @@ def candidates_route(torch, tts, ref: str):
     a shared-prefix decode of 16 rows, one prefill whose K/V every row
     reads through K3's shared form (30 launches a token, K2 at M=16), the
     CLVP rerank and the winner's latent pass, then the default route's
-    diffusion and BigVGAN at B=1.  A warm-up call, a warm one, a profiled
-    one."""
+    diffusion and BigVGAN at B=1.  A warm call and a profiled one."""
     from tortoise_tts_tpu_torch import kernels
     stages = Stages(torch)
     runs = []
     layers = tts._model("autoregressive").config.layers
     try:
-        for run in ("warmup", "warm", "profiled"):
+        for run in ("warm", "profiled"):
             stages.reset()
             stages.profile = run == "profiled"
             kernels.reset_launches()
@@ -1111,7 +1360,7 @@ def candidates_route(torch, tts, ref: str):
                     "gn_conv", "ts_res_block", "snake")
             missing = [k for k in need if counts[k] == 0]
             assert not missing, f"candidates route never launched: {missing}"
-            assert counts["flash_decode"] == 0, counts
+            assert counts["flash_decode"] == 0 and counts[W8A8] == 0, counts
             # one shared-form launch per layer and decoded token
             assert counts["flash_decode_shared"] % layers == 0, counts
             assert wav.ndim == 1 and wav.size > 24000
@@ -1129,7 +1378,7 @@ def candidates_route(torch, tts, ref: str):
                     if run == "profiled" else {}))
     finally:
         stages.close()
-    warm_s = runs[1][2]
+    warm_s = runs[0][2]
     emit("candidates_counts", device_busy_share={
         name: ck["device_ms"] / 1e3 / warm_s[name]
         for name, ck in stages.cuda_kernels.items()})
@@ -1145,6 +1394,7 @@ def main_path(torch, ref: str):
     dm = tts._model("diffusion")
     voc = tts._model("bigvgan")
     tts._model("hifigan")
+    tts._model("clvp")
     tts._ar_qgpt()
     torch.cuda.synchronize()
     setup_s = time.time() - t0
@@ -1180,6 +1430,7 @@ def main_path(torch, ref: str):
     missing = [k for k in ("flash_attention", "qgemv", "flash_decode")
                if counts[k] == 0]
     assert not missing, f"HiFiGAN route never launched: {missing}"
+    assert counts[W8A8] == 0, counts
 
     swav = np.concatenate(chunks)
     for w in (wav, swav):
@@ -1199,10 +1450,63 @@ def main_path(torch, ref: str):
     return tts, {k: bv_counts[k] + counts[k] for k in counts}
 
 
-def decode_timing(torch, tts, ref: str, steps: int = AR_STEPS):
-    """Eager decode alone: ms per token at the main path's shapes, and
-    CUDA kernel launches per token from the profiler."""
+def w8a8_route(torch, tts, ref: str):
+    """The default route at the shipped widths with bench.py's single
+    knobs on the same ``TTS``, switched to ``decode_quant="w8a8"`` as the
+    CLI switches it (the cached int8 weights serve both modes): one warm
+    call with the launch counts at 0 before it.  Stage seconds, RTF, peak
+    memory; K8 four times per layer and decoded token, K2 never."""
+    from tortoise_tts_tpu_torch import kernels
+    int8_cfg = tts.cfg
+    tts.cfg = dataclasses.replace(int8_cfg, inference=dataclasses.replace(
+        int8_cfg.inference, decode_quant="w8a8"))
+    layers = tts._model("autoregressive").config.layers
+    stages = Stages(torch)
+    try:
+        for run in ("warm",):
+            stages.reset()
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            wav, sr = tts.inference(TEXT, ref, seed=0, **ROUTE_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            emit("launches", route="w8a8", run=run, **counts)
+            missing = [k for k, v in counts.items()
+                       if v == 0 and k not in SLICE3_KERNELS + ("qgemv",)]
+            assert not missing, f"W8A8 route never launched: {missing}"
+            assert counts["qgemv"] == 0, counts
+            tokens = counts["flash_decode"] // layers
+            assert stages.launches["ar_decode"].get(W8A8) == \
+                counts[W8A8] == 4 * layers * tokens, (stages.launches, counts)
+            assert wav.ndim == 1 and wav.size > 24000
+            assert np.isfinite(wav).all() and float(np.abs(wav).mean()) > 1e-4
+            audio_s = wav.size / sr
+            stage_s = dict(stages.seconds)
+            stage_s["other"] = wall - sum(stage_s.values())
+            emit("w8a8_route", run=run, wall_s=wall, audio_s=audio_s,
+                 rtf_x_realtime=audio_s / wall, stage_s=stage_s,
+                 stage_launches=stages.launches, decode_tokens=tokens,
+                 k8_per_token=counts[W8A8] / tokens,
+                 decode_ms_per_token=stage_s["ar_decode"] * 1e3 / tokens,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        stages.close()
+        tts.cfg = int8_cfg
+    return counts
+
+
+def decode_timing(torch, tts, ref: str, quant_mode: str,
+                  steps: int = AR_STEPS):
+    """Eager decode alone in ``quant_mode``: ms per token at the main
+    path's shapes (the whole budget, unprofiled), and from the profiler
+    over 8 tokens the CUDA launches and device ms per token by kernel,
+    hence the device's busy share.  The GEMV kernels that the profiler
+    counts must match the GEMV wrapper's launches (one GEMV kernel and
+    one split-K merge per call at M=1)."""
     from torch.profiler import ProfilerActivity, profile
+    from tortoise_tts_tpu_torch import kernels
     from tortoise_tts_tpu_torch.models.unified_voice import (decode_chunk,
                                                              decode_start)
     from tortoise_tts_tpu_torch.ops.sampling import SamplingConfig
@@ -1212,6 +1516,7 @@ def decode_timing(torch, tts, ref: str, steps: int = AR_STEPS):
     toks = tts.encode_text(TEXT)
     tokens = torch.as_tensor(tts._bucket_text(toks)[None], device=dev)
     lengths = torch.tensor([len(toks)], device=dev)
+    kw = dict(qgpt=tts._ar_qgpt(), quant_mode=quant_mode)
 
     def start():
         return decode_start(ar.params, enc["latent"][0], tokens, lengths,
@@ -1223,31 +1528,48 @@ def decode_timing(torch, tts, ref: str, steps: int = AR_STEPS):
         torch.cuda.synchronize()
         t0 = time.time()
         state = decode_chunk(ar.params, state, ar.config, SamplingConfig(),
-                             chunk=None, qgpt=tts._ar_qgpt())
+                             chunk=None, **kw)
         torch.cuda.synchronize()
         dt = time.time() - t0
         n_tok = state.step
         state = start()
         decode_chunk(ar.params, state, ar.config, SamplingConfig(), chunk=8,
-                     qgpt=tts._ar_qgpt())
+                     **kw)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            profiler_warmup(torch)
+            c0 = kernels.launch_counts()
             decode_chunk(ar.params, state, ar.config, SamplingConfig(),
-                         chunk=8, qgpt=tts._ar_qgpt())
+                         chunk=8, **kw)
             torch.cuda.synchronize()
+            c1 = kernels.launch_counts()
     events = _cuda_events(prof)
-    by_name = {"qgemv": ("qgemv_",), "flash_decode": ("fd_split", "fd_merge")}
+    by_name = {"qgemv": ("qgemv_kernel", "qgemv_finalize"),
+               "qgemv_w8a8": ("w8a8_kernel", "w8a8_finalize"),
+               "flash_decode": ("fd_split", "fd_merge")}
     split = {k: 0.0 for k in (*by_name, "other")}
+    n_by = {p: 0 for pre in by_name.values() for p in pre}
     for e in events:
         key = next((k for k, pre in by_name.items()
                     if any(p in e.name for p in pre)), "other")
         split[key] += e.device_time / 1e3 / 8
-    emit("decode", tokens=n_tok, ms_per_token=dt * 1e3 / n_tok,
+        for p in n_by:
+            n_by[p] += p in e.name
+    gemv = "qgemv" if quant_mode == "int8" else W8A8
+    calls = c1[gemv] - c0[gemv]
+    assert calls == 8 * 4 * ar.config.layers, (c0, c1)
+    kern, merge = by_name[gemv]
+    assert n_by[kern] == calls and n_by[merge] == calls, (n_by, calls)
+    busy = sum(split.values())
+    emit("decode", quant_mode=quant_mode, tokens=n_tok,
+         ms_per_token=dt * 1e3 / n_tok,
          cuda_launches_per_token=len(events) / 8,
-         device_busy_ms_per_token=sum(split.values()),
+         device_busy_ms_per_token=busy,
+         device_busy_share=busy / (dt * 1e3 / n_tok),
          device_ms_per_token_by_kernel=split,
-         port_kernel_calls_per_token={"qgemv": 4 * ar.config.layers,
+         gemv_cuda_kernels_per_token={p: n / 8 for p, n in n_by.items()},
+         port_kernel_calls_per_token={gemv: calls / 8,
                                       "flash_decode": ar.config.layers})
 
 
@@ -1264,6 +1586,7 @@ def main() -> int:
     from tortoise_tts_tpu_torch.kernels import flash_decode as k3
     from tortoise_tts_tpu_torch.kernels import gn_conv as k4
     from tortoise_tts_tpu_torch.kernels import qgemv as k2
+    from tortoise_tts_tpu_torch.kernels import qgemv_w8a8 as k8
     from tortoise_tts_tpu_torch.kernels import snake as k7
     from tortoise_tts_tpu_torch.kernels import ts_res_block as k5
     from tortoise_tts_tpu_torch.tokenizer import (VoiceBpeTokenizer,
@@ -1291,6 +1614,7 @@ def main() -> int:
         with torch.inference_mode():
             r1 = check_flash_attention(torch, k1, dev, n_text)
             r2 = check_qgemv(torch, k2, dev)
+            r8 = check_qgemv_w8a8(torch, k8, k2, dev)
             r3 = check_flash_decode(torch, k3, dev,
                                     slots=1 + BUCKET + 2 + 1 + AR_STEPS)
             check_flash_decode(torch, k3, dev, slots=604, report=False)
@@ -1305,10 +1629,11 @@ def main() -> int:
         check_reference(torch, ref)
         check_reference_batch(torch, ref)
         tts, counts = main_path(torch, ref)
-        for route in (batch_route, candidates_route):
+        for route in (batch_route, candidates_route, w8a8_route):
             c = route(torch, tts, ref)
             counts = {k: counts[k] + c[k] for k in counts}
-        decode_timing(torch, tts, ref)
+        decode_timing(torch, tts, ref, "int8")
+        decode_timing(torch, tts, ref, "w8a8")
 
     src = "tortoise_tts_tpu_torch/csrc/"
     rows = [
@@ -1327,6 +1652,8 @@ def main() -> int:
          "tortoise_tts_tpu/ops/pallas_attention.py:209", r6),
         ("flash_decode_shared", "flash_decode.cu",
          "tortoise_tts_tpu/models/unified_voice.py:311", r3s),
+        ("qgemv_w8a8", "qgemv_w8a8.cu",
+         "tortoise_tts_tpu/ops/pallas_gemv.py:189", r8),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src + f, "replaces": rep,

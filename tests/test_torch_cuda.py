@@ -14,6 +14,7 @@ from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
 from tortoise_tts_tpu_torch.kernels import flash_decode as k3
 from tortoise_tts_tpu_torch.kernels import gn_conv as k4
 from tortoise_tts_tpu_torch.kernels import qgemv as k2
+from tortoise_tts_tpu_torch.kernels import qgemv_w8a8 as k8
 from tortoise_tts_tpu_torch.kernels import snake as k7
 from tortoise_tts_tpu_torch.kernels import ts_res_block as k5
 
@@ -47,7 +48,9 @@ def test_flash_attention_kernel_cuda(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n,m,ln", [(1024, 3072, 1, True),
                                       (4096, 1024, 1, False),
-                                      (1024, 4096, 5, True)])
+                                      (1024, 4096, 5, True),
+                                      (1024, 3072, 32, True),
+                                      (4096, 1024, 32, False)])
 def test_qgemv_kernel_cuda(cuda, k, n, m, ln):
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
@@ -60,6 +63,57 @@ def test_qgemv_kernel_cuda(cuda, k, n, m, ln):
     got = k2.qgemv(x, wq, s, b, ln=lnp)
     torch.cuda.synchronize()
     _bf16_close(got, k2.qgemv_plain(x, wq, s, b, ln=lnp), atol=2e-2)
+
+
+DECODE_SHAPES = [(1024, 3072, True), (1024, 1024, False), (1024, 4096, True),
+                 (4096, 1024, False)]
+
+
+def _w8a8_inputs(dev, m, k, n, ln, dtype, seed=9):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    s = torch.rand(n, generator=g, device=dev) * 2e-4
+    b = torch.randn(n, generator=g, device=dev) * 0.1
+    lnp = ((1 + 0.1 * torch.randn(k, generator=g, device=dev),
+            0.1 * torch.randn(k, generator=g, device=dev)) if ln else None)
+    return x, wq, s, b, lnp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16, 32])
+@pytest.mark.parametrize("k,n,ln", DECODE_SHAPES)
+def test_qgemv_w8a8_kernel_cuda(cuda, k, n, ln, m):
+    """K8 at the four decode GEMVs.  In fp32 without the LN the codes, the
+    scales and the output are bit-equal to the plain version.  With the
+    LN (and in bf16) the row sums run in another order, so a code on a
+    rounding edge may move by one step: at most one step, on few codes,
+    and the output is the plain epilogue of the kernel's own codes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, wq, s, b, lnp = _w8a8_inputs(cuda, m, k, n, ln, dtype)
+        before = k8.KERNEL.launches
+        got = k8.qgemv_w8a8(x, wq, s, b, ln=lnp)
+        torch.cuda.synchronize()
+        assert k8.KERNEL.launches == before + 1
+        y, codes, sx = k8.qgemv_w8a8_codes(x, wq, s, b, ln=lnp)
+        assert torch.equal(y, got)
+        xn = x if lnp is None else k8.ln_f32(x.float(), *lnp).to(dtype)
+        want_codes, want_sx = k8.quantize_rowwise(xn)
+        want = k8.qgemv_w8a8_plain(x, wq, s, b, ln=lnp)
+        if lnp is None:
+            ndiff = int((codes != want_codes).sum())
+            assert ndiff == 0, f"{dtype}: {ndiff} codes differ"
+            assert torch.equal(sx, want_sx[:, 0]), dtype
+            err = float((got.float() - want.float()).abs().max())
+            assert torch.equal(got, want), f"{dtype}: max abs err {err}"
+            continue
+        step = (codes.int() - want_codes.int()).abs()
+        assert int(step.max()) <= 1 and int(step.sum()) <= m * k // 100
+        torch.testing.assert_close(sx, want_sx[:, 0], atol=0, rtol=1e-6)
+        own = ((codes.double() @ wq.double()).float() * sx[:, None] * s
+               + b).to(dtype)
+        torch.testing.assert_close(got, own, atol=0, rtol=0)
 
 
 @pytest.mark.cuda

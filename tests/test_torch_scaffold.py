@@ -45,7 +45,10 @@ def test_import_leaves_jax_out():
             "from tortoise_tts_tpu_torch.models import (bigvgan, clvp, "
             "diffusion, gaussian, rlg)\n"
             "from tortoise_tts_tpu_torch.kernels import ("
-            "flash_attention_bias, gn_conv, snake, ts_res_block)\n"
+            "flash_attention_bias, gn_conv, qgemv_w8a8, snake, "
+            "ts_res_block)\n"
+            "from tortoise_tts_tpu_torch.models import convert\n"
+            "import tortoise_tts_tpu_torch.__main__\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'tortoise_tts_tpu' "
             "or m.startswith('tortoise_tts_tpu.')]\n"
@@ -130,8 +133,11 @@ def test_kernel_wrappers_on_cpu_run_plain_versions():
     assert torch.equal(
         k3.flash_decode_shared(q[:, :, 3], kp, kp, pm, kd, kd, 2),
         k3.flash_decode_shared_plain(q[:, :, 3], kp, kp, pm, kd, kd, 2))
+    from tortoise_tts_tpu_torch.kernels import qgemv_w8a8 as k8
+    x = torch.randn(3, 64, generator=g)
+    assert torch.equal(k8.qgemv_w8a8(x, wq, s), k8.qgemv_w8a8_plain(x, wq, s))
     assert kernels.launch_counts() == {
-        "flash_attention": 0, "qgemv": 0, "flash_decode": 0,
+        "flash_attention": 0, "qgemv": 0, "qgemv_w8a8": 0, "flash_decode": 0,
         "flash_decode_shared": 0, "gn_conv": 0, "ts_res_block": 0,
         "flash_attention_bias": 0, "snake": 0}
 
@@ -216,8 +222,8 @@ def test_bridge_roundtrips_clvp_and_rlg():
 
 def test_registry_builds_the_slice3_models_from_a_seed():
     """clvp and both random latent converters come from the registry,
-    random from a seed; a checkpoint found on disk raises, as for the
-    other models."""
+    random from a seed where no checkpoint is found
+    (tests/test_torch_convert.py reads checkpoints)."""
     from tortoise_tts_tpu_torch.models import load_model
     m = load_model("rlg_diffuser", device="cpu")
     assert m.config == 2048 and not m.from_checkpoint

@@ -27,15 +27,16 @@ class Inference:
     # static text buckets: text is padded to the first bucket it fits
     text_buckets: Tuple[int, ...] = (64, 128, 256, 402)
     # AR-decode GEMV quantization: "int8" is weight-only int8 with
-    # per-output-channel scales (kernels/qgemv.py); "none" decodes with
-    # the weights at weight_dtype
+    # per-output-channel scales (kernels/qgemv.py); "w8a8" adds dynamic
+    # per-row int8 activations and integer dots (kernels/qgemv_w8a8.py);
+    # "none" decodes with the weights at weight_dtype
     decode_quant: str = "int8"
 
     def __post_init__(self):
-        if self.decode_quant not in ("none", "int8"):
+        if self.decode_quant not in ("none", "int8", "w8a8"):
             raise ValueError(
-                f"decode_quant must be none|int8, got {self.decode_quant!r}"
-                " (w8a8 is not ported yet)")
+                "decode_quant must be none|int8|w8a8, got "
+                f"{self.decode_quant!r}")
         if self.weight_dtype not in DTYPES:
             raise ValueError(f"unknown weight_dtype {self.weight_dtype!r}")
 

@@ -4,7 +4,7 @@
 // Replaces the TPU kernel tortoise_tts_tpu/ops/pallas_gemv.py
 // qgemv_stacked (_qgemv_kernel / _qgemv_ln_kernel / _gemv_body):
 //     y = (LN?(x) @ Wq) * s + b
-// x (M, K) fp32 or bf16 with M <= 16, Wq (K, N) int8 row-major (the JAX
+// x (M, K) fp32 or bf16, any M, Wq (K, N) int8 row-major (the JAX
 // package's (in, out) layout), s and b fp32 (N,).  The LayerNorm is fp32
 // with the E[x^2] - mu^2 variance and eps 1e-5 (pallas_gemv._ln_f32),
 // and the normalised row is rounded to x's type before the product, as
@@ -26,7 +26,9 @@
 // With one K slice the block applies s and b and writes y; with several,
 // each writes fp32 partial sums and a second small kernel adds them and
 // applies s and b.  The layer index is the caller's: it passes the
-// pointer to Wq[li].
+// pointer to Wq[li].  Rows go in blocks of 4 (1 at M=1), one launch of
+// the GEMV kernel per block of rows, all into one (ksplit, M, N) partial
+// buffer, so any M works.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -42,7 +42,7 @@ from .config import Config
 from .emb import mel as emb_mel
 from .models import (bigvgan, clvp, diffusion, gaussian, hifigan, load_model,
                      resolve_device, rlg)
-from .models.unified_voice import (decode_chunk, decode_start,
+from .models.unified_voice import (QUANT_MODES, decode_chunk, decode_start,
                                    forward as uv_forward, inference_speech,
                                    inference_speech_shared,
                                    quantize_decode_weights)
@@ -357,13 +357,21 @@ class TTS:
         return self._models[name]
 
     def _ar_qgpt(self):
-        """Cached int8 decode weights when decode_quant='int8'."""
-        if self.cfg.inference.decode_quant != "int8":
+        """Cached int8 decode weights when decode_quant is 'int8' (weight
+        only, K2) or 'w8a8' (per-row int8 activations too, K8): one copy
+        for both, so switching ``cfg`` between them re-quantizes
+        nothing."""
+        if self.cfg.inference.decode_quant not in QUANT_MODES:
             return None
         if self._qgpt is None:
             self._qgpt = quantize_decode_weights(
                 self._model("autoregressive").params)
         return self._qgpt
+
+    @property
+    def _quant_mode(self) -> str:
+        mode = self.cfg.inference.decode_quant
+        return mode if mode in QUANT_MODES else "int8"
 
     def encode_text(self, text: str) -> np.ndarray:
         return np.asarray(self.tokenizer.encode(text), dtype=np.int64)
@@ -627,7 +635,8 @@ class TTS:
         if c > 1:
             res = inference_speech_shared(
                 ar.params, lat, tokens, lengths, gens, c, ar.config,
-                sampling, max_ar_steps, qgpt=self._ar_qgpt())
+                sampling, max_ar_steps, qgpt=self._ar_qgpt(),
+                quant_mode=self._quant_mode)
             cm = self._model("clvp")
             fan = lambda x: x.repeat_interleave(c, dim=0)  # noqa: E731
             latents, t_lat, _ = _rerank_latents(
@@ -636,7 +645,8 @@ class TTS:
         else:
             res = inference_speech(ar.params, lat, tokens, lengths, gens,
                                    ar.config, sampling, max_ar_steps,
-                                   qgpt=self._ar_qgpt())
+                                   qgpt=self._ar_qgpt(),
+                                   quant_mode=self._quant_mode)
             latents, t_lat = _cleanup_latents(
                 ar.params, lat, tokens, lengths, res.codes, res.lengths,
                 ar.config)
@@ -702,12 +712,14 @@ class TTS:
         if candidates > 1:
             res = inference_speech_shared(
                 ar.params, lat, tokens, lengths, gens, candidates, ar.config,
-                sampling, max_ar_steps, qgpt=self._ar_qgpt())
+                sampling, max_ar_steps, qgpt=self._ar_qgpt(),
+                quant_mode=self._quant_mode)
             return (res, tokens.expand(candidates, -1),
                     lengths.expand(candidates))
         res = inference_speech(ar.params, lat, tokens, lengths, gens,
                                ar.config, sampling, max_ar_steps,
-                               qgpt=self._ar_qgpt())
+                               qgpt=self._ar_qgpt(),
+                               quant_mode=self._quant_mode)
         return res, tokens, lengths
 
     @torch.inference_mode()
@@ -823,7 +835,8 @@ class TTS:
             first = False
             state = decode_chunk(ar.params, state, ar.config, sampling,
                                  chunk=chunk, collect_latents=True,
-                                 qgpt=self._ar_qgpt())
+                                 qgpt=self._ar_qgpt(),
+                                 quant_mode=self._quant_mode)
             pos = state.step
             n = int(state.lengths[0])
             done = bool(state.finished.all()) or pos >= max_ar_steps

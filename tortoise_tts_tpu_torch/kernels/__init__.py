@@ -4,6 +4,7 @@
 | --- | --- | --- |
 | ``flash_attention`` | ``ops/pallas_attention.py`` ``flash_attention`` | ``csrc/flash_attention.cu`` |
 | ``qgemv`` | ``ops/pallas_gemv.py`` ``qgemv_stacked`` | ``csrc/qgemv.cu`` |
+| ``qgemv_w8a8`` | ``ops/pallas_gemv.py`` ``qgemv_stacked_w8a8`` | ``csrc/qgemv_w8a8.cu`` |
 | ``flash_decode`` | ``ops/pallas_decode_attn.py`` ``flash_decode_stacked``, and its shared-prefix form | ``csrc/flash_decode.cu`` |
 | ``gn_conv`` | ``ops/pallas_resblock.py`` ``fused_gn_conv1x1`` | ``csrc/resblock.cu`` |
 | ``ts_res_block`` | ``ops/pallas_resblock.py`` ``fused_ts_res_block`` | ``csrc/resblock.cu`` |
@@ -20,10 +21,11 @@ from __future__ import annotations
 from typing import Dict
 
 from . import (flash_attention, flash_attention_bias, flash_decode, gn_conv,
-               qgemv, snake, ts_res_block)
+               qgemv, qgemv_w8a8, snake, ts_res_block)
 from ._build import build
 
 KERNELS = {"flash_attention": flash_attention.KERNEL, "qgemv": qgemv.KERNEL,
+           "qgemv_w8a8": qgemv_w8a8.KERNEL,
            "flash_decode": flash_decode.KERNEL,
            "flash_decode_shared": flash_decode.KERNEL_SHARED,
            "gn_conv": gn_conv.KERNEL, "ts_res_block": ts_res_block.KERNEL,

@@ -24,7 +24,6 @@ KERNEL = Kernel("qgemv", "tts_qgemv", [P, I, I, I] + [P] * 5 + [I, P, P, I, P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LN_EPS = 1e-5
 TILE_N = 128        # output columns per block (TN in csrc/qgemv.cu)
-MAX_ROWS = 16
 
 
 def ln_f32(xf: torch.Tensor, g: torch.Tensor, b: torch.Tensor
@@ -82,9 +81,9 @@ def _launch(x, wq, s, b, ln):
                          f"weights on {x.device}, got {wq.dtype} "
                          f"{tuple(wq.shape)}")
     n = wq.shape[1]
-    if m > MAX_ROWS or n % TILE_N or wq.data_ptr() % 16:
-        raise ValueError(f"qgemv kernel takes M <= {MAX_ROWS}, N % {TILE_N} "
-                         f"== 0 and 16-byte aligned weights (M={m}, N={n})")
+    if n % TILE_N or wq.data_ptr() % 16:
+        raise ValueError(f"qgemv kernel takes N % {TILE_N} == 0 and 16-byte "
+                         f"aligned weights (N={n})")
     _check_f32("s", s, n, x.device)
     if b is not None:
         _check_f32("b", b, n, x.device)

@@ -1,15 +1,18 @@
 """Model registry (port of ``tortoise_tts_tpu/models/__init__.py``, for
 the models of the HiFiGAN, BigVGAN, batch and candidate routes).
 
-``load_model(name)`` returns a ``LoadedModel`` with random parameters
-made from a seed, as the JAX package does when it finds no weights.
-Reading the reference's ``.pth`` checkpoints needs the port's copy of
-``models/convert.py``, which is not written yet: a checkpoint found in
-the model directories raises instead of being ignored.
+``load_model(name)`` returns a ``LoadedModel``: the reference's
+checkpoint when one is found in the model directories (``.pth``, ``.sft``
+or ``.safetensors``; ``$TORTOISE_TPU_MODELS`` first), converted by
+``models/convert.py`` and cast onto the device, or else random parameters
+made from a seed, as the JAX package does.  A checkpoint that cannot be
+read or converted raises, where the JAX package logs a warning and falls
+back to random weights: a server should not speak noise unasked.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 from dataclasses import dataclass
@@ -18,6 +21,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..bridge import to_torch
 from ..config import DTYPES
 from ..utils.io import load_state_dict
 from .common import conv1d_init, normal, tree_cast
@@ -34,6 +38,8 @@ WEIGHT_FILES = {
     "rlg_diffuser": "rlg_diffuser.pth",
     "mel_norms": "mel_norms.pth",
 }
+# the sub-dict of a checkpoint that holds the weights
+STATE_DICT_KEYS = {"bigvgan": "generator"}
 MODEL_NAMES = ("autoregressive", "diffusion", "bigvgan", "hifigan", "clvp",
                "rlg_auto", "rlg_diffuser")
 # conditioning latent width of each random latent converter
@@ -100,10 +106,45 @@ def _canonical(name: str) -> str:
     return name
 
 
+def convert_torch_sd(name: str, sd, cfg) -> Dict[str, Any]:
+    """A reference torch-layout flat state dict -> the port's parameters
+    (numpy leaves), by the converters of ``models/convert.py``."""
+    from . import convert
+    c = _canonical(name)
+    if c == "autoregressive":
+        return convert.convert_unified_voice(sd, cfg.layers)
+    if c == "diffusion":
+        return convert.convert_diffusion(sd, cfg.num_layers)
+    if c == "clvp":
+        return convert.convert_clvp(sd, cfg.text_enc_depth)
+    if c == "bigvgan":
+        return convert.convert_bigvgan(sd, n_ups=len(cfg.upsample_rates),
+                                       resblock=cfg.resblock)
+    if c == "hifigan":
+        return convert.convert_hifigan(sd)
+    if c in RLG_CHANNELS:
+        return convert.convert_rlg(sd)
+    raise KeyError(f"no torch-layout converter for model: {name}")
+
+
+def _read_checkpoint(cname: str, wpath: Path) -> Dict[str, Any]:
+    try:
+        sd = load_state_dict(wpath, key=STATE_DICT_KEYS.get(cname))
+    except Exception as e:
+        raise RuntimeError(f"{cname}: cannot read the checkpoint {wpath}: "
+                           f"{e}") from e
+    if not isinstance(sd, dict) or not sd:
+        raise RuntimeError(f"{cname}: the checkpoint {wpath} holds no "
+                           "state dict")
+    return sd
+
+
 def load_model(name: str, dtype: str = "float32", seed: int = 0,
                device=None) -> LoadedModel:
-    """Build a model with random parameters from ``seed``, floating
-    leaves in ``dtype``, on ``device`` (None: the CUDA device)."""
+    """The named model with its floating leaves in ``dtype`` on ``device``
+    (None: the CUDA device): converted from the reference's checkpoint
+    when one is found, else random parameters from ``seed``.  An
+    unreadable or unconvertible checkpoint raises."""
     from . import bigvgan, clvp, diffusion, hifigan, rlg, unified_voice
     device = resolve_device(device, "load_model")
     cname = _canonical(name)
@@ -111,33 +152,41 @@ def load_model(name: str, dtype: str = "float32", seed: int = 0,
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP.md)")
     wpath = find_weight_file(cname)
-    if wpath is not None:
-        raise NotImplementedError(
-            f"found {wpath}: reading reference checkpoints needs the port's "
-            "models/convert.py (ROADMAP.md)")
+    sd = _read_checkpoint(cname, wpath) if wpath is not None else None
     g = torch.Generator(device=device).manual_seed(seed)
     if cname == "autoregressive":
-        cfg = unified_voice.UnifiedVoiceConfig()
-        params, module = unified_voice.init(g, cfg), unified_voice
+        cfg, module = unified_voice.UnifiedVoiceConfig(), unified_voice
+        init = unified_voice.init
     elif cname == "diffusion":
-        cfg = diffusion.DiffusionConfig()
-        params, module = diffusion.init(g, cfg), diffusion
+        cfg, module = diffusion.DiffusionConfig(), diffusion
+        init = diffusion.init
     elif cname == "bigvgan":
-        cfg = bigvgan.BigVGANConfig()
-        params, module = _bigvgan_random(g, cfg), bigvgan
+        jpath = wpath.with_suffix(".json") if wpath is not None else None
+        cfg = (bigvgan.BigVGANConfig.from_json(json.loads(jpath.read_text()))
+               if jpath is not None and jpath.exists()
+               else bigvgan.BigVGANConfig())
+        module, init = bigvgan, _bigvgan_random
     elif cname == "clvp":
-        cfg = clvp.CLVPConfig()
-        params, module = clvp.init(g, cfg), clvp
+        cfg, module, init = clvp.CLVPConfig(), clvp, clvp.init
     elif cname in RLG_CHANNELS:
         # the config is the latent width, as in the JAX package
-        cfg = RLG_CHANNELS[cname]
-        params, module = rlg.init(g, cfg), rlg
+        cfg, module, init = RLG_CHANNELS[cname], rlg, rlg.init
     else:
-        cfg = hifigan.HifiganConfig()
-        params, module = _hifigan_random(g, cfg), hifigan
-    params = tree_cast(params, DTYPES[dtype])
-    _logger.info("%s (%s): random init from seed %d", cname, dtype, seed)
-    return LoadedModel(cname, module, cfg, params, False)
+        cfg, module = hifigan.HifiganConfig(), hifigan
+        init = _hifigan_random
+    if sd is None:
+        params = tree_cast(init(g, cfg), DTYPES[dtype])
+        _logger.info("%s (%s): random init from seed %d", cname, dtype, seed)
+    else:
+        try:
+            tree = convert_torch_sd(cname, sd, cfg)
+        except Exception as e:
+            raise RuntimeError(f"{cname}: the checkpoint {wpath} does not "
+                               f"convert: {e!r}") from e
+        del sd
+        params = to_torch(tree, device, DTYPES[dtype])
+        _logger.info("%s (%s): loaded %s", cname, dtype, wpath)
+    return LoadedModel(cname, module, cfg, params, wpath is not None)
 
 
 def _hifigan_random(g: torch.Generator, cfg) -> Dict[str, Any]:

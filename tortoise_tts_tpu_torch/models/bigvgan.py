@@ -39,6 +39,22 @@ class BigVGANConfig:
     snake_logscale: bool = True
     hop_size: int = 256
 
+    @staticmethod
+    def from_json(d: dict) -> "BigVGANConfig":
+        """The config of a checkpoint's ``.json`` beside its weights."""
+        return BigVGANConfig(
+            num_mels=d["num_mels"],
+            upsample_rates=tuple(d["upsample_rates"]),
+            upsample_kernel_sizes=tuple(d["upsample_kernel_sizes"]),
+            upsample_initial_channel=d["upsample_initial_channel"],
+            resblock=str(d["resblock"]),
+            resblock_kernel_sizes=tuple(d["resblock_kernel_sizes"]),
+            resblock_dilation_sizes=tuple(
+                tuple(x) for x in d["resblock_dilation_sizes"]),
+            activation=d["activation"],
+            snake_logscale=bool(d["snake_logscale"]),
+            hop_size=d["hop_size"])
+
 
 @lru_cache(maxsize=16)
 def kaiser_sinc_filter(cutoff: float, half_width: float,

@@ -9,8 +9,10 @@ What runs where:
 - the causal trunk attention of the prefill and of the latent pass
   (``forward``) goes through K1 (``kernels/flash_attention``);
 - each decode step's four linears go through K2 (``kernels/qgemv``, int8
-  with the LayerNorm fused) when the caller passes the int8 decode
-  weights, and its attention through K3 (``kernels/flash_decode``), or
+  weights) or, with ``quant_mode="w8a8"``, K8 (``kernels/qgemv_w8a8``,
+  int8 weights and per-row int8 activations), the LayerNorms fused into
+  either, when the caller passes the int8 decode weights; its attention
+  goes through K3 (``kernels/flash_decode``), or
   through K3's shared-prefix form in the candidate fan-out
   (``inference_speech_shared``: each group's prefill K/V held once, beside
   the rows' decode regions).
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_decode import flash_decode, flash_decode_shared
 from ..kernels.qgemv import qgemv
+from ..kernels.qgemv_w8a8 import qgemv_w8a8
 from ..ops.sampling import (SamplingConfig, apply_length_penalty,
                             apply_repetition_penalty, mirostat_step,
                             row_uniforms, sample_token)
@@ -178,12 +181,14 @@ def _gpt_prefill(gpt: Params, emb: torch.Tensor, heads: int,
 
 
 _Q_NAMES = ("attn_qkv", "attn_proj", "mlp_fc", "mlp_proj")
+QUANT_MODES = ("int8", "w8a8")
 
 
 def quantize_decode_weights(params: Params) -> Params:
-    """Weight-only int8 copies of the four trunk linears for the decode
+    """Int8 copies of the four trunk linears for the decode
     (per-output-channel symmetric scales), as the JAX package makes them:
-    {name: {'wq': (L, in, out) int8, 's': (L, out) fp32, 'b': fp32}}."""
+    {name: {'wq': (L, in, out) int8, 's': (L, out) fp32, 'b': fp32}}.
+    Both decode modes, "int8" and "w8a8", take the same weights."""
     gpt = params["gpt"]
     out = {}
     for name in _Q_NAMES:
@@ -223,22 +228,24 @@ def decode_layers(gpt: Params, qgpt: Optional[Params] = None) -> List:
 
 def _gpt_decode_step(layers: List, ln_f: Params, x: torch.Tensor,
                      heads: int, cache: KVCache, pos: int,
-                     key_mask: torch.Tensor, quantized: bool,
+                     key_mask: torch.Tensor, quant_mode: Optional[str],
                      prefix: Optional[KVCache] = None) -> torch.Tensor:
     """One token through the trunk.  x: (B, D); ``layers`` from
     ``decode_layers``.  Writes slot ``pos`` of every layer's cache in
     place and attends to the slots <= pos that key_mask allows.  With
     ``prefix`` (the shared-prefix decode) ``cache`` is the rows' decode
     region, ``pos`` a region slot and ``key_mask`` the (G, Sp) mask of the
-    groups' prefix.  With ``quantized`` the linears go through K2 with the
+    groups' prefix.  ``quant_mode``: None for the plain weights, or the
+    int8 decode weights' mode, "int8" (K2) or "w8a8" (K8), with the
     LayerNorms fused.  Returns the ln_f'd hidden state (B, D)."""
     b, d = x.shape
     hd = d // heads
+    gemv = {"int8": qgemv, "w8a8": qgemv_w8a8}.get(quant_mode)
 
     def lin(lp, name, h, ln=None):
-        if quantized:
+        if gemv is not None:
             wq, s, bias = lp[name]
-            return qgemv(h, wq, s, bias, ln=lp[ln] if ln else None)
+            return gemv(h, wq, s, bias, ln=lp[ln] if ln else None)
         if ln is not None:
             h = layer_norm(lp[ln], h)
         return linear(lp[name], h)
@@ -421,11 +428,16 @@ def decode_chunk(params: Params, state: DecodeState,
                  chunk: Optional[int] = None,
                  collect_latents: bool = False,
                  qgpt: Optional[Params] = None,
+                 quant_mode: str = "int8",
                  prefix: Optional[KVCache] = None) -> DecodeState:
     """Advance the decode by up to ``chunk`` tokens (None: to the end),
     stopping early once every row has emitted the stop token.  ``qgpt``:
-    int8 decode weights from ``quantize_decode_weights``; ``prefix``: the
-    shared prefill K/V from ``decode_start(shared_rows=...)``."""
+    int8 decode weights from ``quantize_decode_weights``, multiplied in
+    ``quant_mode``: "int8" (weight-only, K2) or "w8a8" (per-row int8
+    activations too, K8); ``prefix``: the shared prefill K/V from
+    ``decode_start(shared_rows=...)``."""
+    if quant_mode not in QUANT_MODES:
+        raise ValueError(f"quant_mode must be int8|w8a8, got {quant_mode!r}")
     b, max_len = state.tokens.shape
     cache_len = state.cache.k.shape[3]
     # the write slot: past the prefill, or in the region of a shared prefix
@@ -474,7 +486,8 @@ def decode_chunk(params: Params, state: DecodeState,
                + pos_w[min(step + pos_off, pos_w.shape[0] - 1)])
         h = _gpt_decode_step(layers, gpt["ln_f"], emb.to(dtype), cfg.heads,
                              state.cache, first_slot + step,
-                             state.key_mask, qgpt is not None, prefix)
+                             state.key_mask,
+                             quant_mode if qgpt is not None else None, prefix)
         state.lat = layer_norm(params["final_norm"], h)
         state.step = step + 1
         if state.step % SYNC_EVERY == 0 and bool(state.finished.all()):
@@ -489,13 +502,15 @@ def inference_speech(params: Params, cond_latent: torch.Tensor,
                      sampling: SamplingConfig = SamplingConfig(),
                      max_length: int = 500,
                      collect_latents: bool = False,
-                     qgpt: Optional[Params] = None) -> DecodeResult:
+                     qgpt: Optional[Params] = None,
+                     quant_mode: str = "int8") -> DecodeResult:
     """Prefill plus the whole decode: mel codes, lengths and (with
     collect_latents) the latent that predicted each code."""
     state = decode_start(params, cond_latent, text, text_lengths, generators,
                          cfg, max_length)
     state = decode_chunk(params, state, cfg, sampling, chunk=None,
-                         collect_latents=collect_latents, qgpt=qgpt)
+                         collect_latents=collect_latents, qgpt=qgpt,
+                         quant_mode=quant_mode)
     return DecodeResult(state.tokens, state.lengths, state.latents)
 
 
@@ -507,7 +522,8 @@ def inference_speech_shared(params: Params, cond_latent: torch.Tensor,
                             sampling: SamplingConfig = SamplingConfig(),
                             max_length: int = 500,
                             collect_latents: bool = False,
-                            qgpt: Optional[Params] = None) -> DecodeResult:
+                            qgpt: Optional[Params] = None,
+                            quant_mode: str = "int8") -> DecodeResult:
     """Candidate fan-out decode with a shared prefix: G input rows (one per
     text), each decoded as ``rows`` candidates (group-major, row g*rows +
     c) from one prefill whose K/V are held once per group.  Draw for draw
@@ -517,5 +533,5 @@ def inference_speech_shared(params: Params, cond_latent: torch.Tensor,
                                  shared_rows=rows)
     state = decode_chunk(params, state, cfg, sampling, chunk=None,
                          collect_latents=collect_latents, qgpt=qgpt,
-                         prefix=prefix)
+                         quant_mode=quant_mode, prefix=prefix)
     return DecodeResult(state.tokens, state.lengths, state.latents)

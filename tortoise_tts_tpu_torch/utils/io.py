@@ -1,19 +1,69 @@
 """Checkpoint and audio IO (the port's copy of ``tortoise_tts_tpu/utils/io.py``).
 
 - ``load_state_dict``: .pth/.pt (torch pickle) or .sft/.safetensors into
-  a flat name -> tensor dict; safetensors is imported only when such a
-  file is read.
+  a flat name -> tensor dict.  The safetensors format is read here
+  (``load_safetensors``), without the ``safetensors`` package.
 - WAV read/write through the stdlib ``wave`` module.
 """
 
 from __future__ import annotations
 
+import json
+import math
+import struct
 import wave
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool}
+
+
+def load_safetensors(path: str | Path) -> Dict[str, torch.Tensor]:
+    """Read a .safetensors file into {name: CPU tensor}: an 8-byte
+    little-endian header length, a JSON header of {name: {"dtype",
+    "shape", "data_offsets": [begin, end]}} (plus an optional
+    "__metadata__"), then the raw little-endian buffers, offsets counted
+    from the end of the header.  The tensors share one buffer with the
+    file's bytes.  Raises ValueError on a file that does not hold what
+    its header says."""
+    path = Path(path)
+    buf = bytearray(path.stat().st_size)
+    with open(path, "rb") as f:
+        f.readinto(buf)
+    if len(buf) < 8:
+        raise ValueError(f"{path}: too short for a safetensors header")
+    n = struct.unpack("<Q", bytes(buf[:8]))[0]
+    base = 8 + n
+    if base > len(buf):
+        raise ValueError(f"{path}: header of {n} bytes past the end")
+    try:
+        header = json.loads(bytes(buf[8:base]))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ValueError(f"{path}: unreadable safetensors header") from e
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = SAFETENSORS_DTYPES.get(info.get("dtype"))
+        begin, end = info["data_offsets"]
+        count = math.prod(info["shape"])
+        size = torch.empty((), dtype=dtype).element_size() if dtype else 0
+        if dtype is None or end - begin != count * size \
+                or base + end > len(buf) or begin < 0:
+            raise ValueError(f"{path}: tensor {name!r} does not match its "
+                             f"header entry {info}")
+        t = (torch.frombuffer(buf, dtype=dtype, count=count,
+                              offset=base + begin)
+             if count else torch.empty(0, dtype=dtype))
+        out[name] = t.reshape(info["shape"])
+    return out
 
 
 def load_state_dict(path: str | Path, key: Optional[str] = None
@@ -23,8 +73,7 @@ def load_state_dict(path: str | Path, key: Optional[str] = None
     weights under 'model' are unwrapped."""
     path = Path(path)
     if path.suffix in (".sft", ".safetensors"):
-        from safetensors.torch import load_file
-        return load_file(str(path))
+        return load_safetensors(path)
     sd = torch.load(str(path), map_location="cpu", weights_only=False)
     if key is not None and key in sd:
         sd = sd[key]
