@@ -14,7 +14,8 @@ one JSON line per phase:
    the kernel's, the plain version's and one PyTorch library call's time
    beside the bound: the larger of the bytes the function must move over
    3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM bf16 dense
-   peak; 67 TFLOP/s for K7's fp32 arithmetic).  ``ms`` is device time per
+   peak; 67 TFLOP/s for K7's fp32 arithmetic); K9a and both entries of
+   K9b at B = 1, 2, 8 and 16 (T=896).  ``ms`` is device time per
    call (the summed kernel durations from torch.profiler); ``call_ms`` is
    the time per call of back-to-back calls by CUDA events, which adds the
    gaps the host leaves while it launches.
@@ -58,13 +59,27 @@ one JSON line per phase:
    ``decode_quant="w8a8"`` (the CLI's ``--decode-quant w8a8``): stage
    seconds, RTF, peak memory, K8's launches (4 per layer and token, K2
    none).
-8. ``decode``: eager decode time per token and CUDA launches per token
+8. ``attention_route``: slice 5's paths on the same ``TTS``, switched by
+   ``Inference.denoise_attention``: the default route with "kq" (every
+   biased attention block through K9a) cold and warm, with "flash_bias"
+   (through K9b's fused entry) cold and warm, and ``batch_inference`` over
+   8 texts with "kq" (K9a in place of K6) warm and profiled; in the cold
+   and the profiled calls the profiler's count of each kernel's
+   ``__global__`` must match the wrapper counts (650 a warm call: 13
+   blocks a DDIM step).
+   Then ``attention_compare``: each route's first DDIM step's trunk
+   output against the "auto" mode's on the same inputs (the 13 blocks'
+   ``proj_out`` randomised for the phase, so the attention reaches it).
+9. ``decode``: eager decode time per token and CUDA launches per token
    (from the profiler), the size a CUDA graph would capture, and the
    device's busy share, for the int8 and the W8A8 decode; K8's CUDA
    kernels in the profiler must match its wrapper's launches.
 
-Then the ``kernels`` summary, the card's name and power limit from
-``nvidia-smi``, and as the last line ``{"ok": true, "device": ...}``.
+Every profiled count check reads ``Stages.census``: a window whose
+kernels the profiler cut short is profiled once more, alone, and the
+phase reports ``profiler_retries``.  Then the ``kernels`` summary, the
+card's name and power limit from ``nvidia-smi``, and as the last line
+``{"ok": true, "device": ...}``.
 Any failed check raises: the script exits non-zero and prints no result.
 It needs one card and no network; kernels build under
 ``tortoise_tts_tpu_torch/_build``.
@@ -99,7 +114,17 @@ BUCKET = 64                    # the first text bucket, which TEXT fits
 SLICE3_KERNELS = ("flash_attention_bias", "flash_decode_shared")
 # the W8A8 decode's kernel: only decode_quant="w8a8" launches it
 W8A8 = "qgemv_w8a8"
-INT8_ROUTE_IDLE = SLICE3_KERNELS + (W8A8,)
+# slice 5's kernels, by the denoise_attention mode that launches them
+MODE_KERNEL = {"kq": "flash_attention_bias_kq",
+               "flash_bias": "flash_attention_bias_cm"}
+SLICE5_KERNELS = tuple(MODE_KERNEL.values())
+INT8_ROUTE_IDLE = SLICE3_KERNELS + (W8A8,) + SLICE5_KERNELS
+# the modes' first trunk output against "auto", relative to its largest
+# value: "auto" runs the single route's attention (and every route's
+# unconditional integrator) with bf16 scores, the kernels with fp32 ones;
+# the biases reach |24|, where a bf16 step is 0.125, so a weight may move
+# by 6% (1.6% of the largest value measured on an H100)
+ATTN_ROUTE_TOL = 0.05
 GEMV_SHAPES = [("attn_qkv", 1024, 3072, True), ("attn_proj", 1024, 1024, False),
                ("mlp_fc", 1024, 4096, True), ("mlp_proj", 4096, 1024, False)]
 BATCH_ROWS = 8
@@ -536,6 +561,16 @@ def _bias_attn_inputs(torch, dev, b, h, t, dtype, seed, n_bias=1):
     return qkv, bias
 
 
+def _sdpa_cm(F, q, k, v, mask):
+    """SDPA on channels-major (B, H, 64, T) views, the bias as a float
+    mask; the output copied back to channels-major (B, H*64, T)."""
+    b, h, _, t = q.shape
+    o = F.scaled_dot_product_attention(q.transpose(-1, -2),
+                                       k.transpose(-1, -2),
+                                       v.transpose(-1, -2), attn_mask=mask)
+    return o.transpose(-1, -2).reshape(b, h * 64, t)
+
+
 def check_flash_attention_bias(torch, k6, dev):
     """K6 at the batch route's shapes (T=896, H=16): the cond-free trunk
     at B=16 and the integrator at B=8, each cycling over 4 biases (every
@@ -552,9 +587,7 @@ def check_flash_attention_bias(torch, k6, dev):
 
     def sdpa(qkv, bias, h):
         b, _, t = qkv.shape
-        q, k, v = qkv.view(b, h, 3, 64, t).transpose(-1, -2).unbind(2)
-        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-        return o.transpose(-1, -2).reshape(b, h * 64, t)
+        return _sdpa_cm(F, *qkv.view(b, h, 3, 64, t).unbind(2), bias)
 
     for b, h, t, dtype, seed in ((8, 16, 300, torch.bfloat16, 40),
                                  (8, 2, 257, torch.float32, 41)):
@@ -609,6 +642,106 @@ def check_flash_attention_bias(torch, k6, dev):
          "(views in, channels-major copy out, both timed)", bound_ms=bms,
          bound_by=by, **tot)
     return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **tot)
+
+
+def check_flash_attention_bias_k9(torch, k9a, k9b, dev):
+    """K9a and both entries of K9b against their plain versions at the
+    full width (H=16, T=896, bf16): B=1 and 2, the single route's
+    integrator and trunk under ``denoise_attention="kq"`` (K9a) and
+    ``"flash_bias"`` (K9b's fused entry), and B=8 and 16, the batch
+    route's under "kq"; a ragged T=300 and fp32 at odd T=257 (the
+    unvectorised loads) for the error only.  Each biased attention block
+    has its own (H, T, T) bias (25.7 MB), so the timed calls cycle over 4.
+    The library call is SDPA on the (B, H, T, 64) views with the bias as a
+    float mask (K9a: the view of its transpose), the output's copy back to
+    channels-major inside its timed call.  The rows sum the single route's
+    two calls, B=2 and B=1; K9b's split entry has no route and is timed
+    at B=2 as a detail."""
+    F = torch.nn.functional
+    tol = dict(atol=3e-2, rtol=2e-2)   # |o| <~ 2: one bf16 ulp <= 1.6e-2
+
+    def entries(qkv, biases, h):
+        """{entry: (kernel, plain, library)}, each a function of the call
+        index, on one set of inputs."""
+        b, _, t = qkv.shape
+        bts = [x.transpose(1, 2).contiguous() for x in biases]
+        q, k, v = (x.contiguous() for x in qkv.view(b, h, 3, 64, t).unbind(2))
+        qv, kv, vv = qkv.view(b, h, 3, 64, t).unbind(2)
+        n = len(biases)
+        return {
+            "kq": (lambda i: k9a.flash_attention_bias_kq(qkv, bts[i % n], h),
+                   lambda i: k9a.flash_attention_bias_kq_plain(
+                       qkv, bts[i % n], h),
+                   lambda i: _sdpa_cm(F, qv, kv, vv,
+                                      bts[i % n].transpose(1, 2))),
+            "qkv": (lambda i: k9b.flash_attention_bias_qkv(
+                        qkv, biases[i % n], h),
+                    lambda i: k9b.flash_attention_bias_qkv_plain(
+                        qkv, biases[i % n], h),
+                    lambda i: _sdpa_cm(F, qv, kv, vv, biases[i % n])),
+            "cm": (lambda i: k9b.flash_attention_bias_cm(
+                       q, k, v, biases[i % n]).view(b, h * 64, t),
+                   lambda i: k9b.flash_attention_bias_cm_plain(
+                       q, k, v, biases[i % n]).view(b, h * 64, t),
+                   lambda i: _sdpa_cm(F, qv, kv, vv, biases[i % n]))}
+
+    errs = {"kq": 0.0, "qkv": 0.0, "cm": 0.0}
+    checks = []
+    for b, h, t, dtype, seed in ((2, 16, 300, torch.bfloat16, 50),
+                                 (3, 2, 257, torch.float32, 51)):
+        qkv, bias = _bias_attn_inputs(torch, dev, b, h, t, dtype, seed)
+        for name, (kern, plain, _) in entries(qkv, bias, h).items():
+            err = bf16_err(torch, kern(0), plain(0), name=f"K9 {name} T={t} "
+                           f"{dtype}", **(dict(atol=1e-5, rtol=1e-5)
+                                          if dtype == torch.float32 else tol))
+            checks.append(dict(entry=name, shape=[b, h, t],
+                               dtype=str(dtype)[6:], max_abs_err=err))
+            errs[name] = max(errs[name], err)
+    tot = {"kq": dict(bytes=0.0, flops=0.0), "qkv": dict(bytes=0.0, flops=0.0)}
+    timed = {1: ("kq", "qkv"), 2: ("kq", "qkv", "cm"), 8: ("kq",),
+             16: ("kq",)}
+    for b in (1, 2, 8, 16):
+        h, t = 16, 896
+        qkv, biases = _bias_attn_inputs(torch, dev, b, h, t, torch.bfloat16,
+                                        52 + b, n_bias=4)
+        nbytes = 4 * b * h * 64 * t * 2 + h * t * t * 2
+        flops = 2 * 2 * b * h * t * t * 64
+        bms, by = bound_ms(nbytes, flops)
+        for name, (kern, plain, library) in entries(qkv, biases, h).items():
+            err = bf16_err(torch, kern(0), plain(0), name=f"K9 {name} B={b}",
+                           **tol)
+            checks.append(dict(entry=name, shape=[b, h, t], dtype="bfloat16",
+                               max_abs_err=err))
+            errs[name] = max(errs[name], err)
+            if name not in timed[b]:
+                continue
+            t_ = timings(torch, kern, plain, library)
+            emit("kernel_detail", name=MODE_KERNEL["kq"] if name == "kq"
+                 else MODE_KERNEL["flash_bias"], entry=name, shape=[b, h, t],
+                 max_abs_err=err, tol=tol, bound_ms=bms, bound_by=by, **t_)
+            if b <= 2 and name in tot:
+                for key, val in t_.items():
+                    tot[name][key] = tot[name].get(key, 0.0) + val
+                tot[name]["bytes"] += nbytes
+                tot[name]["flops"] += flops
+        del qkv, biases
+        torch.cuda.empty_cache()
+    emit("kernel_detail", name="k9_checks", checks=checks)
+    out = {}
+    for name, kname in (("kq", MODE_KERNEL["kq"]),
+                        ("qkv", MODE_KERNEL["flash_bias"])):
+        bms, by = bound_ms(tot[name].pop("bytes"), tot[name].pop("flops"))
+        err = errs[name] if name == "kq" else max(errs["qkv"], errs["cm"])
+        emit("kernel", name=kname,
+             shape="two calls: (2,16,896) trunk + (1,16,896) integrator"
+             + ("" if name == "kq" else ", fused entry"),
+             max_abs_err=err, tol=tol, checks=len(checks),
+             library="scaled_dot_product_attention, bias as a float mask "
+             "(views in, channels-major copy out, both timed)", bound_ms=bms,
+             bound_by=by, **tot[name])
+        out[kname] = dict(max_abs_err=err, bound_ms=bms, bound_by=by,
+                          **tot[name])
+    return out
 
 
 def _gn_conv_inputs(torch, dev, b, c, t, m, k, seed):
@@ -1034,7 +1167,8 @@ def check_reference_batch(torch, ref: str):
     assert yg.shape == (2 * len(texts), 2 * 100, 417), yg.shape
     y_err, y_max = float((yg - yc).abs().max()), float(yc.abs().max())
     assert y_err <= 1e-3 * y_max, f"trunk output err {y_err} of {y_max}"
-    missing = [k for k, v in lg.items() if v == 0 and k != W8A8]
+    missing = [k for k, v in lg.items()
+               if v == 0 and k not in (W8A8,) + SLICE5_KERNELS]
     assert not missing, f"kernels not reached on the card: {missing}"
     assert not any(lc.values()), f"CPU run launched kernels: {lc}"
     tol = 4 / 32767
@@ -1059,7 +1193,7 @@ class Stages:
     here (the library does not synchronise); each wrapper synchronises
     before and after its stage.  With ``profile`` set, the diffusion and
     vocoder stages run under torch.profiler and their CUDA kernels are
-    counted by name."""
+    counted by name; ``census`` reads them."""
 
     NAMES = (("emb_mel", "encode_from_files", "encode"),
              ("inference", "inference_speech", "ar_decode"),
@@ -1076,13 +1210,14 @@ class Stages:
         from tortoise_tts_tpu_torch.emb import mel as emb_mel
         self.torch, self.kernels = torch, kernels
         self.profile = False
-        self.undo = []
+        self.undo, self.timed = [], {}
         mods = {"inference": inference, "emb_mel": emb_mel}
         for mod, attr, name in self.NAMES:
             m = mods[mod]
             orig = getattr(m, attr)
             self.undo.append((m, attr, orig))
-            setattr(m, attr, self._wrap(orig, name))
+            self.timed[name] = self._wrap(orig, name)
+            setattr(m, attr, self.timed[name])
         self.reset()
 
     def reset(self):
@@ -1090,11 +1225,33 @@ class Stages:
         self.launches = {name: {} for *_, name in self.NAMES}
         self.cuda_kernels = {}
         self.diffusion_calls = []   # (rows, T) of each _diffusion call
+        self.calls = {name: [] for name in self.PROFILED}   # (args, kw)
+
+    def census(self, stage: str, ok):
+        """The profiled ``stage``'s CUDA kernels and wrapper launches in
+        this run, once ``ok(census, launches)`` holds.  The profiler on the
+        chip machine can lose a share of a long window (about half of every
+        kind of kernel in one diffusion window of 20000): if ``ok`` fails,
+        the stage's calls of this run are profiled once more, alone.
+        Returns (census, launches, retries)."""
+        if ok(self.cuda_kernels[stage], self.launches[stage]):
+            return self.cuda_kernels[stage], self.launches[stage], 0
+        calls, self.calls[stage] = self.calls[stage], []
+        del self.cuda_kernels[stage]
+        self.launches[stage] = {}
+        profile, self.profile = self.profile, True
+        with self.torch.inference_mode():
+            for args, kw in calls:
+                self.timed[stage](*args, **kw)
+        self.profile = profile
+        return self.cuda_kernels[stage], self.launches[stage], 1
 
     def _wrap(self, fn, name):
         torch, kernels = self.torch, self.kernels
 
         def timed(*args, **kw):
+            if name in self.PROFILED:
+                self.calls[name].append((args, kw))
             if name == "diffusion":   # positional: latents, ..., seq_len,
                 #                       ..., pad_seq_len
                 self.diffusion_calls.append(
@@ -1143,11 +1300,12 @@ def _kernel_census(prof) -> dict:
     """CUDA kernels of one profiled stage: the launches and device ms of
     the port's K4 and K5 GEMMs (the ``gemm<T, TAPS>`` of csrc/resblock.cu,
     TAPS 1 and 3), their group statistics, K6 (``attn_bias<T>`` of
-    csrc/flash_attention_bias.cu), K7 and all other kernels."""
+    csrc/flash_attention_bias.cu), K9a (``attn_bias_kq<T>``), K9b
+    (``attn_bias_cm<T>``), K7 and all other kernels."""
     import re
     events = _cuda_events(prof)
     kinds = ("gn_conv_gemm", "ts_res_block_gemm", "group_stats",
-             "attn_bias", "snake", "other")
+             "attn_bias", "attn_bias_kq", "attn_bias_cm", "snake", "other")
     out = {k: 0 for k in kinds}
     ms = {k: 0.0 for k in kinds}
     for e in events:
@@ -1160,6 +1318,10 @@ def _kernel_census(prof) -> dict:
                 else "ts_res_block_gemm"
         elif "group_stats" in e.name:
             kind = "group_stats"
+        elif "attn_bias_kq" in e.name:
+            kind = "attn_bias_kq"
+        elif "attn_bias_cm" in e.name:
+            kind = "attn_bias_cm"
         elif "attn_bias" in e.name:
             kind = "attn_bias"
         elif "snake_resample2" in e.name:
@@ -1202,6 +1364,7 @@ def bigvgan_route(torch, tts, ref: str):
                        if v == 0 and k not in INT8_ROUTE_IDLE]
             assert not missing, f"BigVGAN route never launched: {missing}"
             assert counts[W8A8] == 0, counts
+            assert not any(counts[k] for k in SLICE5_KERNELS), counts
             assert wav.ndim == 1 and wav.dtype == np.float32
             assert wav.size > 24000 and np.isfinite(wav).all()
             assert np.count_nonzero(wav) > 1000
@@ -1234,13 +1397,19 @@ def bigvgan_route(torch, tts, ref: str):
             n_snake = n_up * 3 * 6 + 1
             assert stages.launches["vocoder"].get("snake") == n_snake
             if run == "profiled":
+                def diffusion_ok(c, launched):
+                    k4, k5 = launched.get("gn_conv"), launched.get(
+                        "ts_res_block")
+                    return (c["gn_conv_gemm"] == k4
+                            and c["ts_res_block_gemm"] == k5
+                            and c["group_stats"] == k4 + k5)
+                ckd, dl, retries = stages.census("diffusion", diffusion_ok)
+                assert diffusion_ok(ckd, dl), (ckd, dl)
+                ckv, _, rv = stages.census(
+                    "vocoder", lambda c, _: c["snake"] == n_snake)
+                assert ckv["snake"] == n_snake, ckv
+                retries += rv
                 ck = stages.cuda_kernels
-                assert ck["diffusion"]["gn_conv_gemm"] == dl["gn_conv"], ck
-                assert ck["diffusion"]["ts_res_block_gemm"] == \
-                    dl["ts_res_block"], ck
-                assert ck["diffusion"]["group_stats"] == \
-                    dl["gn_conv"] + dl["ts_res_block"], ck
-                assert ck["vocoder"]["snake"] == n_snake, ck
     finally:
         stages.close()
     # device busy share of a stage: its summed kernel time (profiled run)
@@ -1248,6 +1417,7 @@ def bigvgan_route(torch, tts, ref: str):
     warm_s = runs[1][3]
     emit("bigvgan_counts", k4_per_ddim_step=per_k4,
          k5_per_ddim_step=per_k5, k7_per_utterance=n_snake,
+         profiler_retries=retries,
          runs_identical=bool(np.array_equal(runs[0][1], runs[1][1])),
          device_busy_share={
              name: ck[name]["device_ms"] / 1e3 / warm_s[name]
@@ -1290,9 +1460,11 @@ def batch_route(torch, tts, ref: str):
             counts = kernels.launch_counts()
             emit("launches", route="batch", run=run, **counts)
             missing = [k for k, v in counts.items()
-                       if v == 0 and k not in ("flash_decode_shared", W8A8)]
+                       if v == 0 and k not in ("flash_decode_shared", W8A8)
+                       + SLICE5_KERNELS]
             assert not missing, f"batch route never launched: {missing}"
             assert counts[W8A8] == 0, counts
+            assert not any(counts[k] for k in SLICE5_KERNELS), counts
             assert len(wavs) == BATCH_ROWS
             for w in wavs:
                 assert w.ndim == 1 and w.dtype == np.float32
@@ -1320,14 +1492,18 @@ def batch_route(torch, tts, ref: str):
                  **({"cuda_kernels": stages.cuda_kernels}
                     if run == "profiled" else {}))
             if run == "profiled":
-                ck = stages.cuda_kernels["diffusion"]
-                assert ck["attn_bias"] == k6, ck
-                assert ck["gn_conv_gemm"] == dl["gn_conv"], ck
-                assert ck["ts_res_block_gemm"] == dl["ts_res_block"], ck
+                def diffusion_ok(c, launched):
+                    return (c["attn_bias"] == k6
+                            and c["gn_conv_gemm"] == launched.get("gn_conv")
+                            and c["ts_res_block_gemm"]
+                            == launched.get("ts_res_block"))
+                ck, dl, retries = stages.census("diffusion", diffusion_ok)
+                assert diffusion_ok(ck, dl), (ck, dl)
     finally:
         stages.close()
     warm_s = runs[0][2]
     emit("batch_counts", k6_per_call=k6, diffusion_calls=calls,
+         profiler_retries=retries,
          device_busy_share={name: ck_["device_ms"] / 1e3 / warm_s[name]
                             for name, ck_ in stages.cuda_kernels.items()})
     return counts
@@ -1361,6 +1537,7 @@ def candidates_route(torch, tts, ref: str):
             missing = [k for k in need if counts[k] == 0]
             assert not missing, f"candidates route never launched: {missing}"
             assert counts["flash_decode"] == 0 and counts[W8A8] == 0, counts
+            assert not any(counts[k] for k in SLICE5_KERNELS), counts
             # one shared-form launch per layer and decoded token
             assert counts["flash_decode_shared"] % layers == 0, counts
             assert wav.ndim == 1 and wav.size > 24000
@@ -1431,6 +1608,7 @@ def main_path(torch, ref: str):
                if counts[k] == 0]
     assert not missing, f"HiFiGAN route never launched: {missing}"
     assert counts[W8A8] == 0, counts
+    assert not any(counts[k] for k in SLICE5_KERNELS), counts
 
     swav = np.concatenate(chunks)
     for w in (wav, swav):
@@ -1474,9 +1652,11 @@ def w8a8_route(torch, tts, ref: str):
             counts = kernels.launch_counts()
             emit("launches", route="w8a8", run=run, **counts)
             missing = [k for k, v in counts.items()
-                       if v == 0 and k not in SLICE3_KERNELS + ("qgemv",)]
+                       if v == 0 and k not in SLICE3_KERNELS + ("qgemv",)
+                       + SLICE5_KERNELS]
             assert not missing, f"W8A8 route never launched: {missing}"
             assert counts["qgemv"] == 0, counts
+            assert not any(counts[k] for k in SLICE5_KERNELS), counts
             tokens = counts["flash_decode"] // layers
             assert stages.launches["ar_decode"].get(W8A8) == \
                 counts[W8A8] == 4 * layers * tokens, (stages.launches, counts)
@@ -1495,6 +1675,211 @@ def w8a8_route(torch, tts, ref: str):
         stages.close()
         tts.cfg = int8_cfg
     return counts
+
+
+class _FirstStep(Exception):
+    """Ends a replayed diffusion after its first trunk call."""
+
+
+def _with_attention(cfg, mode: str):
+    return dataclasses.replace(cfg, inference=dataclasses.replace(
+        cfg.inference, denoise_attention=mode))
+
+
+def denoise_attention_routes(torch, tts, ref: str):
+    """Slice 5's paths on the same ``TTS``, switched by
+    ``Inference.denoise_attention``: the default route with "kq" (every
+    biased attention block through K9a: per DDIM step 3 integrator blocks
+    at B=1 and 10 trunk blocks at B=2) cold and warm, the default route
+    with "flash_bias" (the same 13 blocks through K9b's fused entry) cold
+    and warm, and ``batch_inference`` over 8 copies of the text with "kq"
+    (the trunk at B=16 and the integrator at B=8 through K9a, none through
+    K6), warm and profiled.  A cold call also builds the mode's cached
+    unconditional integrator (3 blocks at B=1 a step) and runs under the
+    profiler: in each profiled call the wrapper counts and the profiler's
+    count of each kernel's own ``__global__`` must agree.
+
+    The random denoiser zeroes every attention block's ``proj_out``, as
+    the reference initialises it, so its attention adds nothing to the
+    output; for this phase the 13 biased blocks' ``proj_out`` get random
+    weights (std 1/sqrt(C)), restored after.  Each route's first DDIM
+    step's trunk output, before the sampler's clip, is held against the
+    "auto" mode's on the same inputs: the recorded ``_diffusion`` call
+    replayed with "auto" and an "auto" unconditional integrator of the
+    same weights, stopped after its first trunk call."""
+    from tortoise_tts_tpu_torch import inference, kernels
+    from tortoise_tts_tpu_torch.models import diffusion
+    dm = tts._model("diffusion")
+    per_step = 3 + dm.config.num_layers
+    blocks = (dm.params["conditioning_timestep_integrator"]
+              + dm.params["layers"])
+    g = torch.Generator(device=tts.device).manual_seed(60)
+    saved = []
+    with torch.inference_mode():
+        for blk in blocks:
+            w = blk["attn"]["proj_out"]["w"]
+            saved.append(w.clone())
+            w.copy_(torch.randn(w.shape, generator=g, device=w.device)
+                    * w.shape[1] ** -0.5)
+    auto_cfg = tts.cfg
+    plain_diffusion, trunk = inference._diffusion, diffusion.forward_trunk
+    stages = Stages(torch)
+    staged_diffusion = inference._diffusion
+    calls, firsts, want, stop = [], [], [False], [False]
+
+    def recorded_trunk(*a, **k):
+        y = trunk(*a, **k)
+        if want[0]:
+            firsts.append(y.float())
+            want[0] = False
+            if stop[0]:
+                raise _FirstStep
+        return y
+
+    def recorded_diffusion(*a, **k):
+        calls.append((a, k))
+        return staged_diffusion(*a, **k)
+
+    auto_uh = {}
+
+    def auto_first_trunk(a):
+        """The first trunk output of the recorded call ``a`` in "auto"."""
+        T = a[12] or a[7]
+        with torch.inference_mode():
+            if T not in auto_uh:
+                auto_uh[T] = inference._uncond_integrate(
+                    dm.params, dm.config, DIFF_STEPS, T, "auto")
+            want[0], stop[0] = True, True
+            try:
+                plain_diffusion(*a[:13], auto_uh[T], attention="auto")
+            except _FirstStep:
+                pass
+            finally:
+                stop[0] = False
+        return firsts.pop()
+
+    plan = (("single", "kq", "cold"), ("single", "kq", "warm"),
+            ("single", "flash_bias", "cold"), ("single", "flash_bias", "warm"),
+            ("batch", "kq", "warm"), ("batch", "kq", "profiled"))
+    total, compare, ys, census, walls = None, {}, {}, {}, {}
+    inference._diffusion = recorded_diffusion
+    diffusion.forward_trunk = recorded_trunk
+    try:
+        for route, mode, run in plan:
+            kname = MODE_KERNEL[mode]
+            profiled = run != "warm"
+            tts.cfg = _with_attention(auto_cfg, mode)
+            stages.reset()
+            stages.profile = profiled
+            kernels.reset_launches()
+            calls.clear()
+            want[0] = True
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if route == "single":
+                wavs = [tts.inference(TEXT, ref, seed=0, **ROUTE_KW)[0]]
+            else:
+                wavs = tts.batch_inference([TEXT] * BATCH_ROWS, ref, seed=1,
+                                           top_p=0.9, **ROUTE_KW)[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            emit("launches", route=f"{route}_{mode}", run=run, **counts)
+            for w in wavs:
+                assert w.ndim == 1 and w.size > 24000
+                assert np.isfinite(w).all() and float(np.abs(w).mean()) > 1e-4
+            dl, ul = stages.launches["diffusion"], stages.launches[
+                "uncond_cache"]
+            n_calls = len(stages.diffusion_calls)
+            want_diff = DIFF_STEPS * per_step * n_calls
+            want_uncond = DIFF_STEPS * 3 if run == "cold" else 0
+            assert dl.get(kname) == want_diff, (dl, stages.diffusion_calls)
+            assert ul.get(kname, 0) == want_uncond, ul
+            assert counts[kname] == want_diff + want_uncond, counts
+            idle = ["flash_attention_bias", W8A8] + [
+                k for k in SLICE5_KERNELS if k != kname]
+            assert not any(counts[k] for k in idle), counts
+            y = firsts.pop()
+            audio_s = sum(w.size for w in wavs) / 24000
+            stage_s = dict(stages.seconds)
+            stage_s["other"] = wall - sum(stage_s.values())
+            run_launches = stages.launches
+            diffusion_calls = list(stages.diffusion_calls)
+            prof = {}
+            if profiled:
+                kind = "attn_bias_kq" if mode == "kq" else "attn_bias_cm"
+                other = {"attn_bias", "attn_bias_kq", "attn_bias_cm"} - {kind}
+
+                def diffusion_ok(c, launched):
+                    # the mode's kernel and K4's GEMM as often as their
+                    # wrappers launched, no other biased attention
+                    return (c[kind] == launched.get(kname)
+                            and c["gn_conv_gemm"] == launched.get("gn_conv")
+                            and not any(c[k] for k in other))
+                ck, launched, prof["profiler_retries"] = stages.census(
+                    "diffusion", diffusion_ok)
+                assert diffusion_ok(ck, launched), (ck, launched)
+                prof["cuda_kernels"] = stages.cuda_kernels
+                census[f"{route}_{mode}"] = stages.cuda_kernels
+                # the mode's first trunk output against "auto" on the same
+                # inputs (once per route and mode)
+                y_auto = auto_first_trunk(calls[0][0])
+                ys[(route, mode)] = (y, y_auto)
+            emit("attention_route", route=route, mode=mode, run=run,
+                 wall_s=wall, audio_s=audio_s,
+                 rtf_x_realtime=audio_s / wall, stage_s=stage_s,
+                 stage_launches=run_launches,
+                 diffusion_calls=diffusion_calls,
+                 kernel_launches=counts[kname],
+                 per_ddim_step=dl[kname] / (DIFF_STEPS * n_calls),
+                 diffusion_ms_per_step=stage_s["diffusion"] * 1e3
+                 / DIFF_STEPS,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 **prof)
+            if run == "warm":   # one run of each path, as the other routes
+                walls[f"{route}_{mode}"] = stage_s
+                total = counts if total is None else {
+                    k: total[k] + counts[k] for k in counts}
+    finally:
+        inference._diffusion = staged_diffusion
+        diffusion.forward_trunk = trunk
+        stages.close()
+        tts.cfg = auto_cfg
+        with torch.inference_mode():
+            for blk, w in zip(blocks, saved):
+                blk["attn"]["proj_out"]["w"].copy_(w)
+        # the modes' cached integrators were built with the random proj_out
+        for key in [k for k in tts._uncond_cache if k[2] != "auto"]:
+            del tts._uncond_cache[key]
+    for (route, mode), (y, y_auto) in ys.items():
+        d = (y - y_auto).abs()
+        scale = float(y_auto.abs().max())
+        compare[f"{route}_{mode}"] = dict(
+            shape=list(y.shape), max_abs_err=float(d.max()),
+            mean_abs_err=float(d.mean()), max_abs=scale,
+            mean_abs=float(y_auto.abs().mean()),
+            rel_max_err=float(d.max()) / scale)
+    ykq, yfb = ys[("single", "kq")][0], ys[("single", "flash_bias")][0]
+    yb, yba = ys[("batch", "kq")]
+    rows = yb.shape[0] // 2     # cond rows first, then the guidance rows
+    extra = dict(single_kq_equals_flash_bias=bool(torch.equal(ykq, yfb)),
+                 single_kq_vs_flash_bias_max_abs=float(
+                     (ykq - yfb).abs().max()),
+                 batch_cond_rows_equal_auto=bool(torch.equal(
+                     yb[:rows], yba[:rows])))
+    # a stage's device busy share: its kernel time in the profiled run over
+    # its wall time in the warm one
+    busy = {name: {st: c["device_ms"] / 1e3 / walls[name][st]
+                   for st, c in ck.items()} for name, ck in census.items()}
+    emit("attention_compare", trunk_vs_auto=compare, tol=ATTN_ROUTE_TOL,
+         device_busy_share=busy, **extra)
+    for name, c in compare.items():
+        assert math.isfinite(c["max_abs_err"]), name
+        assert c["rel_max_err"] <= ATTN_ROUTE_TOL, (name, c)
+    # K9a, K9b and K6 share one body and read the same bias values
+    assert extra["single_kq_equals_flash_bias"], extra
+    assert extra["batch_cond_rows_equal_auto"], extra
+    return total
 
 
 def decode_timing(torch, tts, ref: str, quant_mode: str,
@@ -1583,6 +1968,8 @@ def main() -> int:
     from tortoise_tts_tpu_torch import kernels
     from tortoise_tts_tpu_torch.kernels import flash_attention as k1
     from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias_cm as k9b
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias_kq as k9a
     from tortoise_tts_tpu_torch.kernels import flash_decode as k3
     from tortoise_tts_tpu_torch.kernels import gn_conv as k4
     from tortoise_tts_tpu_torch.kernels import qgemv as k2
@@ -1600,8 +1987,10 @@ def main() -> int:
 
     t0 = time.time()
     logs = kernels.build_all()
+    # each kernel's (mangled) name, then its registers and spills
     regs = {n: [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln
+                or "Function properties for" in ln]
             for n, log in logs.items()}
     emit("build", seconds=time.time() - t0, built=sorted(logs),
          ptxas=regs)
@@ -1622,6 +2011,7 @@ def main() -> int:
             r5 = check_ts_res_block(torch, k5, dev)
             r7 = check_snake(torch, k7, dev)
             r6 = check_flash_attention_bias(torch, k6, dev)
+            r9 = check_flash_attention_bias_k9(torch, k9a, k9b, dev)
             r3s = check_flash_decode_shared(torch, k3, dev)
         torch.cuda.empty_cache()
 
@@ -1629,7 +2019,8 @@ def main() -> int:
         check_reference(torch, ref)
         check_reference_batch(torch, ref)
         tts, counts = main_path(torch, ref)
-        for route in (batch_route, candidates_route, w8a8_route):
+        for route in (batch_route, candidates_route, w8a8_route,
+                      denoise_attention_routes):
             c = route(torch, tts, ref)
             counts = {k: counts[k] + c[k] for k in counts}
         decode_timing(torch, tts, ref, "int8")
@@ -1654,6 +2045,12 @@ def main() -> int:
          "tortoise_tts_tpu/models/unified_voice.py:311", r3s),
         ("qgemv_w8a8", "qgemv_w8a8.cu",
          "tortoise_tts_tpu/ops/pallas_gemv.py:189", r8),
+        ("flash_attention_bias_kq", "flash_attention_bias_kq.cu",
+         "tortoise_tts_tpu/ops/pallas_attention.py:507",
+         r9["flash_attention_bias_kq"]),
+        ("flash_attention_bias_cm", "flash_attention_bias_cm.cu",
+         "tortoise_tts_tpu/ops/pallas_attention.py:73",
+         r9["flash_attention_bias_cm"]),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src + f, "replaces": rep,

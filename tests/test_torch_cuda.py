@@ -11,6 +11,8 @@ import torch
 
 from tortoise_tts_tpu_torch.kernels import flash_attention as k1
 from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
+from tortoise_tts_tpu_torch.kernels import flash_attention_bias_cm as k9b
+from tortoise_tts_tpu_torch.kernels import flash_attention_bias_kq as k9a
 from tortoise_tts_tpu_torch.kernels import flash_decode as k3
 from tortoise_tts_tpu_torch.kernels import gn_conv as k4
 from tortoise_tts_tpu_torch.kernels import qgemv as k2
@@ -182,6 +184,64 @@ def test_flash_attention_bias_kernel_cuda(cuda, monkeypatch, b, h, t, dtype):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     else:
         _bf16_close(got, want, atol=3e-2)
+
+
+K9_CASES = [(2, 16, 896, torch.bfloat16), (8, 16, 896, torch.bfloat16),
+            (16, 16, 896, torch.bfloat16), (2, 16, 300, torch.bfloat16),
+            (3, 2, 257, torch.float32), (2, 2, 64, torch.float32)]
+
+
+def _k9_inputs(dev, b, h, t, dtype):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    qkv = (torch.randn(b, h * 192, t, generator=gen, device=dev)
+           * 0.5).to(dtype)
+    bias = (torch.randn(h, t, t, generator=gen, device=dev) * 2).to(dtype)
+    return qkv, bias
+
+
+def _k9_close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_close(got, want, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,dtype", K9_CASES)
+def test_flash_attention_bias_kq_kernel_cuda(cuda, monkeypatch, b, h, t,
+                                             dtype):
+    """K9a at the single route's trunk (B=2) and the batch route's shapes
+    (B=8, 16) at T=896, at ragged T (T=300; odd T=257: the unvectorised
+    loads) and in fp32; the bias transposed, (H, S, Tq), read in place."""
+    _fp32_exact(monkeypatch, dtype)
+    qkv, bias = _k9_inputs(cuda, b, h, t, dtype)
+    bias_t = bias.transpose(1, 2).contiguous()
+    before = k9a.KERNEL.launches
+    got = k9a.flash_attention_bias_kq(qkv, bias_t, h)
+    torch.cuda.synchronize()
+    assert k9a.KERNEL.launches == before + 1
+    _k9_close(got, k9a.flash_attention_bias_kq_plain(qkv, bias_t, h), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,dtype", K9_CASES)
+def test_flash_attention_bias_cm_kernel_cuda(cuda, monkeypatch, b, h, t,
+                                             dtype):
+    """K9b's two entries, fused qkv and split q, k, v, at the same shapes;
+    both add to one launch count."""
+    _fp32_exact(monkeypatch, dtype)
+    qkv, bias = _k9_inputs(cuda, b, h, t, dtype)
+    before = k9b.KERNEL.launches
+    got = k9b.flash_attention_bias_qkv(qkv, bias, h)
+    torch.cuda.synchronize()
+    assert k9b.KERNEL.launches == before + 1
+    _k9_close(got, k9b.flash_attention_bias_qkv_plain(qkv, bias, h), dtype)
+    q, k, v = (x.contiguous() for x in
+               qkv.view(b, h, 3, 64, t).unbind(2))
+    got = k9b.flash_attention_bias_cm(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert k9b.KERNEL.launches == before + 2
+    _k9_close(got, k9b.flash_attention_bias_cm_plain(q, k, v, bias), dtype)
 
 
 def _fp32_exact(monkeypatch, dtype):

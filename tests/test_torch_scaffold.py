@@ -45,7 +45,8 @@ def test_import_leaves_jax_out():
             "from tortoise_tts_tpu_torch.models import (bigvgan, clvp, "
             "diffusion, gaussian, rlg)\n"
             "from tortoise_tts_tpu_torch.kernels import ("
-            "flash_attention_bias, gn_conv, qgemv_w8a8, snake, "
+            "flash_attention_bias, flash_attention_bias_cm, "
+            "flash_attention_bias_kq, gn_conv, qgemv_w8a8, snake, "
             "ts_res_block)\n"
             "from tortoise_tts_tpu_torch.models import convert\n"
             "import tortoise_tts_tpu_torch.__main__\n"
@@ -136,10 +137,23 @@ def test_kernel_wrappers_on_cpu_run_plain_versions():
     from tortoise_tts_tpu_torch.kernels import qgemv_w8a8 as k8
     x = torch.randn(3, 64, generator=g)
     assert torch.equal(k8.qgemv_w8a8(x, wq, s), k8.qgemv_w8a8_plain(x, wq, s))
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias_cm as k9b
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias_kq as k9a
+    assert torch.equal(k9a.flash_attention_bias_kq(qkv, bias, 2),
+                       k9a.flash_attention_bias_kq_plain(qkv, bias, 2))
+    assert torch.equal(k9b.flash_attention_bias_qkv(qkv, bias, 2),
+                       k9b.flash_attention_bias_qkv_plain(qkv, bias, 2))
+    q3 = qkv.view(2, 2, 3, 64, 9)
+    assert torch.equal(
+        k9b.flash_attention_bias_cm(q3[:, :, 0], q3[:, :, 1], q3[:, :, 2],
+                                    bias),
+        k9b.flash_attention_bias_cm_plain(q3[:, :, 0], q3[:, :, 1],
+                                          q3[:, :, 2], bias))
     assert kernels.launch_counts() == {
         "flash_attention": 0, "qgemv": 0, "qgemv_w8a8": 0, "flash_decode": 0,
         "flash_decode_shared": 0, "gn_conv": 0, "ts_res_block": 0,
-        "flash_attention_bias": 0, "snake": 0}
+        "flash_attention_bias": 0, "snake": 0, "flash_attention_bias_kq": 0,
+        "flash_attention_bias_cm": 0}
 
 
 def test_kernel_wrappers_refuse_other_devices():

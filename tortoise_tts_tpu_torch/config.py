@@ -19,6 +19,7 @@ _logger = logging.getLogger(__name__)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
+DENOISE_ATTENTION = ("auto", "kq", "flash_bias")
 
 
 @dataclass(frozen=True)
@@ -31,12 +32,22 @@ class Inference:
     # per-row int8 activations and integer dots (kernels/qgemv_w8a8.py);
     # "none" decodes with the weights at weight_dtype
     decode_quant: str = "int8"
+    # the denoiser's biased attention at T >= 256 (models/diffusion.py):
+    # "auto" runs K6 from batch 8 up and plain matmuls below; "kq" builds
+    # the biases transposed and runs K9a at any batch (the JAX package's
+    # TTS_DENOISE_KQ=1); "flash_bias" runs K9b below batch 8 (its
+    # TTS_FLASH_BIAS=1)
+    denoise_attention: str = "auto"
 
     def __post_init__(self):
         if self.decode_quant not in ("none", "int8", "w8a8"):
             raise ValueError(
                 "decode_quant must be none|int8|w8a8, got "
                 f"{self.decode_quant!r}")
+        if self.denoise_attention not in DENOISE_ATTENTION:
+            raise ValueError(
+                "denoise_attention must be auto|kq|flash_bias, got "
+                f"{self.denoise_attention!r}")
         if self.weight_dtype not in DTYPES:
             raise ValueError(f"unknown weight_dtype {self.weight_dtype!r}")
 

@@ -14,8 +14,10 @@ bucketed by row length.  With ``vocoder_type="hifigan"``, and in
 ``TTS.stream``: decode in chunks collecting latents -> HiFiGAN over a
 trailing 60-latent window per chunk, crossfaded at the seams.  Without
 references the conditioning latents come from the random latent
-converters.  UnivNet, beam search, DPM++ and the serving mesh are not
-ported yet (ROADMAP.md).
+converters.  ``Inference.denoise_attention`` picks the kernels of the
+denoiser's biased attention on every diffusion route, the cached
+unconditional integrator included (``models/diffusion.py``).  UnivNet,
+beam search, DPM++ and the serving mesh are not ported yet (ROADMAP.md).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 Sampled decoding draws from one ``torch.Generator`` per row, and the
@@ -184,15 +186,25 @@ def _diffusion_noise(key, shape, device) -> torch.Tensor:
                        device=device)
 
 
-def _uncond_integrate(dparams, dcfg, steps: int, T: int) -> torch.Tensor:
+def _rel_biases(dparams, T: int, dcfg, dtype, attention: str):
+    """The denoiser's rel-pos biases, built for ``attention``
+    (``Inference.denoise_attention``): transposed for "kq"."""
+    return diffusion.precompute_rel_biases(
+        dparams, T, dcfg, dtype, transposed=attention == "kq",
+        flash_bias=attention == "flash_bias")
+
+
+def _uncond_integrate(dparams, dcfg, steps: int, T: int,
+                      attention: str = "auto") -> torch.Tensor:
     """Per-step integrator outputs of the unconditional guidance branch,
     (S, 1, C, T): a function of the weights, T and the schedule's
     timesteps only, so ``TTS`` caches it and each step runs the integrator
-    for the conditional row alone."""
+    for the conditional row alone.  ``attention``: the denoiser's
+    attention mode, as in ``_diffusion``."""
     sched = gaussian.get_schedule(steps=steps)
     pdt = dparams["inp_block"]["w"].dtype
     dev = dparams["inp_block"]["w"].device
-    rel = diffusion.precompute_rel_biases(dparams, T, dcfg, pdt)
+    rel = _rel_biases(dparams, T, dcfg, pdt, attention)
     uncond = diffusion.unconditioned_embedding(dparams, 1, T).to(pdt)
     temb = diffusion.embed_time(
         dparams, torch.as_tensor(sched.timestep_map, device=dev), dcfg, pdt)
@@ -205,7 +217,8 @@ def _uncond_integrate(dparams, dcfg, steps: int, T: int) -> torch.Tensor:
 def _diffusion(dparams, latents, diff_cond, keys, dcfg, steps: int,
                sampler: str, seq_len: int, cond_free: bool,
                diffusion_temp: float, n_lat: int, t_lat,
-               pad_seq_len: Optional[int], uncond_h) -> torch.Tensor:
+               pad_seq_len: Optional[int], uncond_h,
+               attention: str = "auto") -> torch.Tensor:
     """Latents -> denormalized mel (B, 100, T) (the JAX package's
     ``_jit_diffusion``).  ``latents`` is the latent pass's whole buffer:
     each row takes its first ``t_lat`` latents, edge-padded to ``n_lat``.
@@ -213,7 +226,9 @@ def _diffusion(dparams, latents, diff_cond, keys, dcfg, steps: int,
     one (2,) key per row; row r's noise and sampler draws come from
     ``keys[r]`` alone.  The code embedding is made at ``seq_len`` and
     edge-padded to ``pad_seq_len``; with ``cond_free``, ``uncond_h`` is
-    the cached unconditional integrator (``_uncond_integrate``)."""
+    the cached unconditional integrator (``_uncond_integrate``).
+    ``attention``: ``Inference.denoise_attention``, the kernel choice of
+    the biased attention blocks (``models/diffusion.py``)."""
     sched = gaussian.get_schedule(steps=steps, cond_free=cond_free)
     b, dev = latents.shape[0], latents.device
     idx = torch.minimum(torch.arange(n_lat, device=dev)[None],
@@ -231,7 +246,7 @@ def _diffusion(dparams, latents, diff_cond, keys, dcfg, steps: int,
     # sampler math in fp32
     pdt = dparams["inp_block"]["w"].dtype
     code_emb = pre.to(pdt)
-    rel = diffusion.precompute_rel_biases(dparams, T, dcfg, pdt)
+    rel = _rel_biases(dparams, T, dcfg, pdt, attention)
     if cond_free:
         uh = uncond_h.to(pdt)
 
@@ -474,15 +489,17 @@ class TTS:
 
     @torch.inference_mode()
     def _uncond_integrated(self, steps: int, T: int):
-        """The cached unconditional integrator for (steps, T), at most
-        four shapes (about 90 MB each at the shipped widths in bf16)."""
-        key = (steps, T)
+        """The cached unconditional integrator for (steps, T) and the
+        attention mode, at most four entries (about 90 MB each at the
+        shipped widths in bf16)."""
+        attention = self.cfg.inference.denoise_attention
+        key = (steps, T, attention)
         if key not in self._uncond_cache:
             if len(self._uncond_cache) >= 4:
                 self._uncond_cache.pop(next(iter(self._uncond_cache)))
             d = self._model("diffusion")
             self._uncond_cache[key] = _uncond_integrate(
-                d.params, d.config, steps, T)
+                d.params, d.config, steps, T, attention)
         return self._uncond_cache[key]
 
     def inference(self, text: str,
@@ -658,7 +675,8 @@ class TTS:
                              [diff_keys[r] for r in rows], dmodel.config,
                              max_diffusion_steps, diffusion_sampler, seq_len,
                              cond_free, diffusion_temp, n_lat, t_lat[idx],
-                             pad_seq_len, uh)
+                             pad_seq_len, uh,
+                             attention=self.cfg.inference.denoise_attention)
             return _vocode(voc.params, mel, voc.config)
 
         if row_buckets:
@@ -757,7 +775,8 @@ class TTS:
         mel = _diffusion(dmodel.params, latents, diff_latent, [k_diff],
                          dmodel.config, max_diffusion_steps,
                          diffusion_sampler, seq_len, cond_free,
-                         diffusion_temp, n_lat, t_lat, pad_seq_len, uh)
+                         diffusion_temp, n_lat, t_lat, pad_seq_len, uh,
+                         attention=self.cfg.inference.denoise_attention)
         voc = self._model("bigvgan")
         pcm = _vocode(voc.params, mel, voc.config)
         exact_seq_len = int(t_lat[0]) * 4 * 24000 // 22050

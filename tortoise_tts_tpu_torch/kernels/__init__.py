@@ -9,19 +9,23 @@
 | ``gn_conv`` | ``ops/pallas_resblock.py`` ``fused_gn_conv1x1`` | ``csrc/resblock.cu`` |
 | ``ts_res_block`` | ``ops/pallas_resblock.py`` ``fused_ts_res_block`` | ``csrc/resblock.cu`` |
 | ``flash_attention_bias`` | ``ops/pallas_attention.py`` ``flash_attention_bias_qkv_vt`` | ``csrc/flash_attention_bias.cu`` |
+| ``flash_attention_bias_kq`` | ``ops/pallas_attention.py`` ``flash_attention_bias_qkv_kq`` | ``csrc/flash_attention_bias_kq.cu`` |
+| ``flash_attention_bias_cm`` | ``ops/pallas_attention.py`` ``flash_attention_bias_cm`` and ``flash_attention_bias_qkv`` | ``csrc/flash_attention_bias_cm.cu`` |
 | ``snake`` | ``ops/pallas_snake.py`` ``snake_resample2`` | ``csrc/snake.cu`` |
 
 Each module holds the plain PyTorch version, the wrapper (plain version
 for CPU tensors, the kernel for CUDA tensors) and its ``Kernel`` objects,
-whose ``launches`` count the wrapper's launches.
+whose ``launches`` count the wrapper's launches.  The three biased
+attention kernels share their device code (``csrc/attention_bias.cuh``).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from . import (flash_attention, flash_attention_bias, flash_decode, gn_conv,
-               qgemv, qgemv_w8a8, snake, ts_res_block)
+from . import (flash_attention, flash_attention_bias, flash_attention_bias_cm,
+               flash_attention_bias_kq, flash_decode, gn_conv, qgemv,
+               qgemv_w8a8, snake, ts_res_block)
 from ._build import build
 
 KERNELS = {"flash_attention": flash_attention.KERNEL, "qgemv": qgemv.KERNEL,
@@ -30,7 +34,9 @@ KERNELS = {"flash_attention": flash_attention.KERNEL, "qgemv": qgemv.KERNEL,
            "flash_decode_shared": flash_decode.KERNEL_SHARED,
            "gn_conv": gn_conv.KERNEL, "ts_res_block": ts_res_block.KERNEL,
            "flash_attention_bias": flash_attention_bias.KERNEL,
-           "snake": snake.KERNEL}
+           "snake": snake.KERNEL,
+           "flash_attention_bias_kq": flash_attention_bias_kq.KERNEL,
+           "flash_attention_bias_cm": flash_attention_bias_cm.KERNEL}
 
 
 def build_all() -> Dict[str, str]:

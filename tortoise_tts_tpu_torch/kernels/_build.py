@@ -7,10 +7,11 @@ use by ``nvcc`` into its own shared library, loaded with ``ctypes``:
          -Xcompiler -fPIC -Xptxas=-v -o lib<name>.so csrc/<name>.cu
 
 Libraries go to ``tortoise_tts_tpu_torch/_build/<hash>/``, keyed by a hash
-of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  ``build_all`` starts one ``nvcc`` per source,
-all at once.  Nothing here runs at import: the CPU tests import every
-module of the package on a machine without ``nvcc``.
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.
+``build_all`` starts one ``nvcc`` per source, all at once.  Nothing here
+runs at import: the CPU tests import every module of the package on a
+machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
@@ -45,7 +46,9 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's hash
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_ROOT / h / f"lib{name}.so"
 
@@ -91,32 +94,35 @@ def build(names: Sequence[str]) -> Dict[str, str]:
 class Kernel:
     """One CUDA source bound through ctypes, plus its launch count.
 
-    ``fn`` is the C entry point named ``symbol`` with ``argtypes``; it
-    returns ``cudaGetLastError()`` after its launches.  The wrapper that
-    launches it calls ``launch``, which raises on a non-zero code and
-    adds one to ``launches``."""
+    ``entries`` maps each C entry point of the source to its ``argtypes``;
+    the first is the default.  Each returns ``cudaGetLastError()`` after
+    its launches.  The wrapper that launches one calls ``launch``, which
+    raises on a non-zero code and adds one to ``launches``: a kernel with
+    several entries (K9b's split and fused inputs) has one count."""
 
-    def __init__(self, source: str, symbol: str, argtypes: List):
+    def __init__(self, source: str, symbol: str, argtypes: List,
+                 **more_entries: List):
         self.source = source
         self.symbol = symbol
-        self.argtypes = argtypes
+        self.entries = {symbol: argtypes, **more_entries}
         self.launches = 0
-        self._fn = None
+        self._fns: Dict[str, object] = {}
 
-    def _load(self):
-        if self._fn is None:
+    def _load(self, symbol: str):
+        if symbol not in self._fns:
             build([self.source])
             lib = ctypes.CDLL(str(_lib_path(self.source)))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
+            fn = getattr(lib, symbol)
+            fn.argtypes = self.entries[symbol]
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._fns[symbol] = fn
+        return self._fns[symbol]
 
-    def launch(self, *args) -> None:
-        rc = self._load()(*args)
+    def launch(self, *args, entry: Optional[str] = None) -> None:
+        symbol = entry or self.symbol
+        rc = self._load(symbol)(*args)
         if rc != 0:
-            raise RuntimeError(f"{self.symbol}: CUDA error {rc} at launch")
+            raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
         self.launches += 1
 
 

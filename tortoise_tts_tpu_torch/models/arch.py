@@ -49,14 +49,20 @@ def conditioning_encoder_init(g: torch.Generator, spec_dim: int,
 
 
 def attention_block(p: Params, x: torch.Tensor, num_heads: int,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bias: Optional[torch.Tensor] = None,
+                    bias_kq: Optional[torch.Tensor] = None,
+                    flash_bias: bool = False) -> torch.Tensor:
     """x: (B, C, T) -> (B, C, T).  ``bias``: a precomputed (H, T, T)
-    rel-pos bias, already scaled (``diffusion.precompute_rel_biases``);
-    without it a block that has a rel-pos table builds its bias here."""
+    rel-pos bias, already scaled (``diffusion.precompute_rel_biases``),
+    or ``bias_kq``: the same transposed, (H, S, Tq); without either a
+    block that has a rel-pos table builds its bias here.  ``flash_bias``
+    lets a small batch take K9b (``ops/attention.qkv_attention``)."""
     c = x.shape[1]
     qkv = gn_conv1x1(x, p["norm"], p["qkv"], norm_groups(c), act=False)
-    if bias is not None:
-        a = qkv_attention(qkv, num_heads, bias=bias)
+    if bias_kq is not None:
+        a = qkv_attention(qkv, num_heads, bias_kq=bias_kq)
+    elif bias is not None:
+        a = qkv_attention(qkv, num_heads, bias=bias, flash_bias=flash_bias)
     else:
         rel_w = p.get("rel_pos", {}).get("w")
         # the reference scales the rel-pos embedding by sqrt(head_dim)

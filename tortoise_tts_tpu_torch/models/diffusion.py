@@ -10,16 +10,25 @@ What runs where on the card: each timestep resblock is K4 (``act=True``,
 the GroupNorm + silu + 1x1 conv input half) then K5 (the scale-shift
 output half with the k=3 conv and the residual); each attention block's
 [GroupNorm + qkv conv] head is K4 (``act=False``).  The biased attention
-itself (``ops/attention.qkv_attention``) is K6 from batch 8 and T 256
-up, where the JAX package takes its Pallas kernel, and plain matmuls
-below.
+of the integrator's and the trunk's blocks (``ops/attention.qkv_attention``)
+takes one of three kernels at T >= 256, by the mode that
+``precompute_rel_biases`` builds its biases for
+(``Inference.denoise_attention``):
+- "auto" (the default): K6 from batch 8 up, plain matmuls below (the
+  single route's trunk at B=2 and integrator at B=1);
+- "kq" (``transposed=True``, the JAX package's ``TTS_DENOISE_KQ=1``): the
+  biases built transposed, (H, S, Tq), and every block through K9a at any
+  batch;
+- "flash_bias" (``flash_bias=True``, the JAX package's
+  ``TTS_FLASH_BIAS=1``): K6 from batch 8 up, K9b's fused entry below.
+Below T 256 every mode takes plain matmuls.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -78,10 +87,15 @@ def _diffusion_layer_init(g: torch.Generator, channels: int,
 
 
 def _diffusion_layer(p: Params, x: torch.Tensor, time_emb: torch.Tensor,
-                     num_heads: int, bias: Optional[torch.Tensor] = None
+                     num_heads: int, bias: Optional[torch.Tensor] = None,
+                     bias_kq: bool = False, flash_bias: bool = False
                      ) -> torch.Tensor:
+    """``bias_kq``: ``bias`` is transposed, (H, S, Tq)."""
     y = _ts_res_block(p["resblk"], x, time_emb)
-    return attention_block(p["attn"], y, num_heads, bias=bias)
+    if bias_kq:
+        return attention_block(p["attn"], y, num_heads, bias_kq=bias)
+    return attention_block(p["attn"], y, num_heads, bias=bias,
+                           flash_bias=flash_bias)
 
 
 def init(g: torch.Generator, cfg: DiffusionConfig = DiffusionConfig()
@@ -171,26 +185,46 @@ def unconditioned_embedding(p: Params, batch: int, seq_len: int
 
 def precompute_rel_biases(p: Params, t: int,
                           cfg: DiffusionConfig = DiffusionConfig(),
-                          dtype: Optional[torch.dtype] = None
-                          ) -> Dict[str, List[torch.Tensor]]:
+                          dtype: Optional[torch.dtype] = None,
+                          transposed: bool = False,
+                          flash_bias: bool = False) -> Dict[str, Any]:
     """The timestep-invariant (H, T, T) rel-pos biases of the integrator
     and trunk attention blocks, built once per sampling loop by a plain
     gather of each table at the shared bucket matrix, scaled by
     sqrt(head_dim) in fp32 and cast to ``dtype``, as the JAX package's
-    one-hot build computes them."""
+    one-hot build computes them.
+
+    ``transposed``: gather at the transposed bucket matrix, so each bias
+    is (H, S, Tq) and every block takes K9a; ``flash_bias``: the blocks
+    below batch 8 take K9b.  The result carries the mode as the flags
+    ``kq`` and ``flash_bias``, as the JAX package's ``RelBiases`` carries
+    ``kq``."""
+    if transposed and flash_bias:
+        raise ValueError("transposed and flash_bias are two modes; pass one")
     C, H = cfg.model_channels, cfg.num_heads
     blocks = list(p["conditioning_timestep_integrator"]) + list(p["layers"])
-    dev = blocks[0]["attn"]["rel_pos"]["w"].device
-    bucket = torch.as_tensor(
-        t5_rel_pos_bucket(t, t, blocks[0]["attn"]["rel_pos"]["w"].shape[0]),
-        dtype=torch.long, device=dev)
+    w0 = blocks[0]["attn"]["rel_pos"]["w"]
+    bucket = t5_rel_pos_bucket(t, t, w0.shape[0])
+    if transposed:
+        # (key, query): transposing the static bucket matrix is free
+        bucket = bucket.T
+    bucket = torch.as_tensor(bucket, dtype=torch.long, device=w0.device)
     cdt = dtype or torch.float32
     per = []
     for blk in blocks:
         w = blk["attn"]["rel_pos"]["w"]
         vals = w.to(cdt)[bucket].float() * math.sqrt(C // H)
         per.append(vals.permute(2, 0, 1).to(cdt).contiguous())
-    return {"integrator": per[:3], "layers": per[3:]}
+    return {"integrator": per[:3], "layers": per[3:], "kq": transposed,
+            "flash_bias": flash_bias}
+
+
+def _attention_mode(rel_biases) -> Dict[str, bool]:
+    """The ``_diffusion_layer`` flags of ``precompute_rel_biases``'s mode."""
+    if not rel_biases:
+        return {}
+    return {"bias_kq": rel_biases["kq"],
+            "flash_bias": rel_biases["flash_bias"]}
 
 
 # denoiser forward
@@ -212,9 +246,11 @@ def integrate_conditioning(p: Params, code_emb: torch.Tensor,
     """The conditioning_timestep_integrator (diffusion.py:1449-1453): 3
     DiffusionLayers over code_emb, conditioned on the time embedding."""
     bi = rel_biases["integrator"] if rel_biases else [None] * 3
+    mode = _attention_mode(rel_biases)
     h = code_emb
     for lyr, bias in zip(p["conditioning_timestep_integrator"], bi):
-        h = _diffusion_layer(lyr, h, time_emb, cfg.num_heads, bias=bias)
+        h = _diffusion_layer(lyr, h, time_emb, cfg.num_heads, bias=bias,
+                             **mode)
     return h
 
 
@@ -224,11 +260,13 @@ def forward_trunk(p: Params, x: torch.Tensor, time_emb: torch.Tensor,
     """The denoiser after the integrator: x (B, 100, T), time_emb (B, C),
     h (B, C, T) -> (B, 200, T) [eps | variance values], fp32."""
     bl = rel_biases["layers"] if rel_biases else [None] * len(p["layers"])
+    mode = _attention_mode(rel_biases)
     xh = conv1d(p["inp_block"], x, padding=1)
     xh = torch.cat([xh, h.to(xh.dtype)], dim=1)
     xh = conv1d(p["integrating_conv"], xh)
     for lyr, bias in zip(p["layers"], bl):
-        xh = _diffusion_layer(lyr, xh, time_emb, cfg.num_heads, bias=bias)
+        xh = _diffusion_layer(lyr, xh, time_emb, cfg.num_heads, bias=bias,
+                              **mode)
     for rb in p["final_res"]:
         xh = _ts_res_block(rb, xh, time_emb)
     out = group_norm(p["out_norm"], xh.float(),

@@ -4,9 +4,17 @@
   conditioning encoder's AttentionBlock on channels-major (B, 3*H*C, T)
   tensors with the per-head [q;k;v] interleave; the 1/sqrt(sqrt(ch))
   scale goes on both q and k, with an optional T5 relative-position
-  bias (``rel_pos_w``, or a precomputed ``bias``).  Plain matmuls below
-  batch 8, where the single-utterance denoiser runs (the JAX package
-  runs that path outside any Pallas kernel too); K6 from batch 8 up.
+  bias (``rel_pos_w``, a precomputed ``bias``, or the same transposed,
+  ``bias_kq``).  A precomputed bias at T >= 256 takes one of three
+  kernels, chosen as the JAX package chooses its Pallas kernels, by the
+  denoiser's ``Inference.denoise_attention`` mode
+  (``diffusion.precompute_rel_biases``): K6
+  (``kernels/flash_attention_bias``) from batch 8 up in every mode; K9a
+  (``kernels/flash_attention_bias_kq``) for a transposed bias ("kq") at
+  any batch; K9b's fused entry (``kernels/flash_attention_bias_cm``)
+  below batch 8 with ``flash_bias`` ("flash_bias").  Everything else,
+  the single-utterance denoiser in the default "auto" mode included,
+  takes plain matmuls.
 - ``mha``: batched multi-head attention on (B, H, T, D) with causal and
   padding masks.  It is the plain version of the trunk and decode
   attention kernels (kernels/flash_attention.py, kernels/flash_decode.py).
@@ -59,22 +67,35 @@ def rel_pos_bias_from_table(emb_w: torch.Tensor, n_q: int, n_k: int,
 def qkv_attention(qkv: torch.Tensor, n_heads: int,
                   rel_pos_w: Optional[torch.Tensor] = None,
                   rel_pos_scale: float = 1.0,
-                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  bias: Optional[torch.Tensor] = None,
+                  bias_kq: Optional[torch.Tensor] = None,
+                  flash_bias: bool = False) -> torch.Tensor:
     """qkv: (B, H*3*C, T) -> (B, H*C, T), non-causal, unmasked (every
     call site passes no mask).  ``bias``: a precomputed (H, T, T) bias,
-    already scaled; else ``rel_pos_w``: a (buckets, H) T5 table, scaled
-    by ``rel_pos_scale``.
+    already scaled; ``bias_kq``: the same transposed, (H, S, Tq); else
+    ``rel_pos_w``: a (buckets, H) T5 table, scaled by ``rel_pos_scale``.
 
-    With a precomputed ``bias`` at batch >= 8 and T >= 256 the call goes
-    through K6 (``kernels/flash_attention_bias``), where the JAX package
-    takes its Pallas kernel.  Below that the scores are fp32 for fp32
-    inputs; for bf16 inputs they stay bf16, as the JAX package's
-    reduced-precision score path does."""
+    The JAX package's dispatch (``ops/attention.py:85-119``), kernel for
+    kernel: ``bias_kq`` at T >= 256 goes through K9a, below that it is
+    transposed back and takes the path of ``bias``; ``bias`` at T >= 256
+    goes through K6 from batch 8 up and, with ``flash_bias``, through
+    K9b's fused entry below batch 8.  The rest takes plain matmuls:
+    fp32 scores for fp32 inputs, bf16 scores for bf16 inputs, as the JAX
+    package's reduced-precision score path does."""
     b, width, t = qkv.shape
-    if bias is not None and b >= 8 and t >= 256:
-        # imported here: the kernels package imports this module
-        from ..kernels import flash_attention_bias as k6
-        return k6.flash_attention_bias(qkv, bias, n_heads)
+    # imported here: the kernels package imports this module
+    if bias_kq is not None:
+        if t >= 256:
+            from ..kernels import flash_attention_bias_kq as k9a
+            return k9a.flash_attention_bias_kq(qkv, bias_kq, n_heads)
+        bias = bias_kq.transpose(1, 2)
+    if bias is not None and t >= 256:
+        if b >= 8:
+            from ..kernels import flash_attention_bias as k6
+            return k6.flash_attention_bias(qkv, bias, n_heads)
+        if flash_bias:
+            from ..kernels import flash_attention_bias_cm as k9b
+            return k9b.flash_attention_bias_qkv(qkv, bias, n_heads)
     ch = width // (3 * n_heads)
     q, k, v = qkv.reshape(b, n_heads, 3 * ch, t).split(ch, dim=2)
     scale = 1.0 / math.sqrt(math.sqrt(ch))
