@@ -760,82 +760,153 @@ def _gn_conv_inputs(torch, dev, b, c, t, m, k, seed):
 RESBLOCK_TOL = dict(atol=3e-2, rtol=2e-2)   # 1-2 bf16 ulps at |y| <~ 4
 
 
+def _normalise_bits(torch, k4, x, norm, groups, act, emb=None) -> int:
+    """Elements where the bf16 path's normalise kernel and its plain
+    version (given the kernel's statistics) differ: 0, bit for bit."""
+    y, stats = k4.group_norm_act(x, norm["scale"], norm["bias"], groups, act,
+                                 emb=emb)
+    c = x.shape[1]
+    scale, shift = (None, None) if emb is None else (emb[:, :c].float(),
+                                                     emb[:, c:].float())
+    want = k4.group_norm_act_plain(x, norm["scale"], norm["bias"], groups,
+                                   act, scale=scale, shift=shift,
+                                   stats=stats)
+    diff = int((y.view(torch.int16) != want.view(torch.int16)).sum())
+    assert diff == 0, f"normalise kernel: {diff} elements differ"
+    return diff
+
+
+def _gn_conv_case(torch, k4, dev, name, b, c, t, m, act, seed, plain=True):
+    """One K4 shape: the kernel against its plain version, its time, the
+    library's and the bound; one ``kernel_detail`` line."""
+    F = torch.nn.functional
+    groups, eps = 32, 1e-5
+    x, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, m, 1, seed)
+    got = k4.gn_conv1x1(x, norm, conv, groups, act)
+    want = k4.gn_conv1x1_plain(x, norm, conv, groups, act)
+    err = bf16_err(torch, got, want, name=f"gn_conv {name}", **RESBLOCK_TOL)
+    del got, want
+    g16, b16 = (norm[n].to(torch.bfloat16) for n in ("scale", "bias"))
+    w16, bias16 = conv["w"], conv["b"].to(torch.bfloat16)
+
+    def library(_):
+        h = F.group_norm(x, groups, g16, b16, eps)
+        return F.conv1d(F.silu(h) if act else h, w16, bias16)
+    t_ = timings(
+        torch, lambda _: k4.gn_conv1x1(x, norm, conv, groups, act),
+        (lambda _: k4.gn_conv1x1_plain(x, norm, conv, groups, act))
+        if plain else None, library)
+    nbytes = 2 * b * c * t + 2 * m * c + 8 * c + 4 * m + 2 * b * m * t
+    flops = 2 * b * m * c * t
+    emit("kernel_detail", name="gn_conv", shape=name, b=b, c=c, t=t,
+         c_out=m, act=act, max_abs_err=err, tol=RESBLOCK_TOL,
+         library="F.group_norm + " + ("F.silu + " if act else "")
+         + "F.conv1d", bound_ms=bound_ms(nbytes, flops)[0],
+         gemm_tile_t=k4.plan(b, c, t, m, groups, x.dtype), **t_)
+    return err, t_, nbytes, flops
+
+
 def check_gn_conv(torch, k4, dev):
     """K4 at the denoiser's shapes (T=896): the resblock in-half at B=2
     (act, c_out=1024), the attention qkv head at B=2 (c_out=3072) and the
-    integrator's in-half at B=1.  The row sums the three."""
-    F = torch.nn.functional
+    integrator's in-half at B=1; the row sums the three.  Then detail lines
+    at the batch route's shapes (trunk B=16, integrator B=8) and the ragged
+    heads (the AR conditioning encoder's at T=517, the contextual
+    embedder's at C=2048, T=101), and the normalise kernel's Y against its
+    plain version, bit for bit."""
     shapes = [("resblock_in_half", 2, 1024, True),
               ("attention_qkv_head", 2, 3072, False),
               ("integrator_in_half_b1", 1, 1024, True)]
-    c, t, groups, eps = 1024, 896, 32, 1e-5
     tot = dict(bytes=0.0, flops=0.0)
     err_max = 0.0
     for i, (name, b, m, act) in enumerate(shapes):
-        x, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, m, 1, 10 + i)
-        got = k4.gn_conv1x1(x, norm, conv, groups, act)
-        want = k4.gn_conv1x1_plain(x, norm, conv, groups, act)
-        err = bf16_err(torch, got, want, name=f"gn_conv {name}",
-                       **RESBLOCK_TOL)
+        err, t_, nbytes, flops = _gn_conv_case(torch, k4, dev, name, b, 1024,
+                                               896, m, act, 10 + i)
         err_max = max(err_max, err)
-        g16, b16 = (norm[n].to(torch.bfloat16) for n in ("scale", "bias"))
-        w16, bias16 = conv["w"], conv["b"].to(torch.bfloat16)
-
-        def library(_, x=x, g16=g16, b16=b16, w16=w16, bias16=bias16,
-                    act=act):
-            h = F.group_norm(x, groups, g16, b16, eps)
-            return F.conv1d(F.silu(h) if act else h, w16, bias16)
-        t_ = timings(
-            torch,
-            lambda _, x=x, n=norm, cv=conv, a=act: k4.gn_conv1x1(
-                x, n, cv, groups, a),
-            lambda _, x=x, n=norm, cv=conv, a=act: k4.gn_conv1x1_plain(
-                x, n, cv, groups, a),
-            library)
-        nbytes = 2 * b * c * t + 2 * m * c + 8 * c + 4 * m + 2 * b * m * t
-        flops = 2 * b * m * c * t
-        emit("kernel_detail", name="gn_conv", shape=name, b=b, c=c, t=t,
-             c_out=m, act=act, max_abs_err=err, tol=RESBLOCK_TOL,
-             library="F.group_norm + " + ("F.silu + " if act else "")
-             + "F.conv1d", bound_ms=bound_ms(nbytes, flops)[0], **t_)
         for key, val in t_.items():
             tot[key] = tot.get(key, 0.0) + val
         tot["bytes"] += nbytes
         tot["flops"] += flops
+    for i, (name, b, c, t, m, act) in enumerate((
+            ("trunk_in_half_b16", 16, 1024, 896, 1024, True),
+            ("trunk_qkv_head_b16", 16, 1024, 896, 3072, False),
+            ("integrator_in_half_b8", 8, 1024, 896, 1024, True),
+            ("integrator_qkv_head_b8", 8, 1024, 896, 3072, False),
+            ("ar_conditioning_head_t517", 1, 1024, 517, 3072, False),
+            ("contextual_embedder_head_t101", 1, 2048, 101, 6144, False))):
+        err_max = max(err_max, _gn_conv_case(torch, k4, dev, name, b, c, t,
+                                              m, act, 40 + i, plain=False)[0])
+        torch.cuda.empty_cache()
+    x, norm, _ = _gn_conv_inputs(torch, dev, 2, 1024, 896, 8, 1, 13)
+    bits = _normalise_bits(torch, k4, x, norm, 32, True)
     bms, by = bound_ms(tot.pop("bytes"), tot.pop("flops"))
     emit("kernel", name="gn_conv", shape="three calls: " + ", ".join(
         n for n, *_ in shapes), max_abs_err=err_max, tol=RESBLOCK_TOL,
         library="F.group_norm + (F.silu) + F.conv1d, two or three calls",
-        bound_ms=bms, bound_by=by, **tot)
+        bound_ms=bms, bound_by=by, normalise_bits_differ=bits, **tot)
     return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **tot)
 
 
-def check_ts_res_block(torch, k5, dev):
-    """K5 at the denoiser's trunk shape: B=2, C=1024, T=896."""
+def _ts_res_block_case(torch, k5, dev, b, seed, plain=True):
+    """K5 at (b, 1024, 896): the kernel (on the weight prepared once)
+    against its plain version, its time, the library's and the bound."""
+    from tortoise_tts_tpu_torch.kernels import gn_conv as k4
     F = torch.nn.functional
-    b, c, t, groups, eps = 2, 1024, 896, 32, 1e-5
-    h, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, c, 3, 20)
-    g = torch.Generator(device=dev).manual_seed(21)
+    c, t, groups, eps = 1024, 896, 32, 1e-5
+    h, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, c, 3, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
     x = torch.randn(b, c, t, generator=g, device=dev).to(torch.bfloat16)
     emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=dev)) \
         .to(torch.bfloat16)
-    got = k5.ts_res_block_out(h, x, emb, norm, conv, groups)
+    prepared = k5.prepare_conv(conv)
+    got = k5.ts_res_block_out(h, x, emb, norm, prepared, groups)
     want = k5.ts_res_block_out_plain(h, x, emb, norm, conv, groups)
-    err = bf16_err(torch, got, want, name="ts_res_block", **RESBLOCK_TOL)
+    err = bf16_err(torch, got, want, name=f"ts_res_block B={b}",
+                   **RESBLOCK_TOL)
+    del got, want
     g16, b16 = (norm[n].to(torch.bfloat16) for n in ("scale", "bias"))
     bias16 = conv["b"].to(torch.bfloat16)
     t_ = timings(
-        torch, lambda _: k5.ts_res_block_out(h, x, emb, norm, conv, groups),
-        lambda _: k5.ts_res_block_out_plain(h, x, emb, norm, conv, groups),
+        torch, lambda _: k5.ts_res_block_out(h, x, emb, norm, prepared,
+                                             groups),
+        (lambda _: k5.ts_res_block_out_plain(h, x, emb, norm, conv, groups))
+        if plain else None,
         lambda _: F.conv1d(F.group_norm(h, groups, g16, b16, eps),
                            conv["w"], bias16, padding=1))
     nbytes = 3 * 2 * b * c * t + 2 * 3 * c * c + 2 * b * 2 * c + 12 * c
     flops = 2 * b * c * 3 * c * t
+    extra = {}
+    if plain:
+        # the one-off reorder of the weight to tap-major (once per weight
+        # when the denoiser's params are first used), by CUDA events
+        extra["prepare_ms"] = call_ms(torch, lambda _: k5.prepare_conv(conv))
+        extra["normalise_bits_differ"] = _normalise_bits(
+            torch, k4, h, norm, groups, True, emb)
+    return err, t_, nbytes, flops, extra
+
+
+def check_ts_res_block(torch, k5, dev):
+    """K5 at the denoiser's trunk shape, B=2, C=1024, T=896, with the
+    one-off weight reorder timed on its own; detail lines at the batch
+    route's trunk (B=16) and integrator (B=8)."""
+    b = 2
+    err, t_, nbytes, flops, extra = _ts_res_block_case(torch, k5, dev, b, 20)
     bms, by = bound_ms(nbytes, flops)
-    emit("kernel", name="ts_res_block", shape=[b, c, t], max_abs_err=err,
-         tol=RESBLOCK_TOL, library="F.group_norm + F.conv1d (two calls)",
-         bound_ms=bms, bound_by=by, **t_)
-    return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t_)
+    emit("kernel", name="ts_res_block", shape=[b, 1024, 896],
+         max_abs_err=err, tol=RESBLOCK_TOL,
+         library="F.group_norm + F.conv1d (two calls)", bound_ms=bms,
+         bound_by=by, **extra, **t_)
+    err_max = err
+    for i, bb in enumerate((16, 8)):
+        e, td, nb, fl, _ = _ts_res_block_case(torch, k5, dev, bb, 50 + 2 * i,
+                                              plain=False)
+        err_max = max(err_max, e)
+        emit("kernel_detail", name="ts_res_block", shape=[bb, 1024, 896],
+             max_abs_err=e, tol=RESBLOCK_TOL,
+             library="F.group_norm + F.conv1d (two calls)",
+             bound_ms=bound_ms(nb, fl)[0], **td)
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **t_)
 
 
 def check_snake(torch, k7, dev):
@@ -1298,26 +1369,25 @@ def _sum_census(a, b) -> dict:
 
 def _kernel_census(prof) -> dict:
     """CUDA kernels of one profiled stage: the launches and device ms of
-    the port's K4 and K5 GEMMs (the ``gemm<T, TAPS>`` of csrc/resblock.cu,
-    TAPS 1 and 3), their group statistics, K6 (``attn_bias<T>`` of
-    csrc/flash_attention_bias.cu), K9a (``attn_bias_kq<T>``), K9b
-    (``attn_bias_cm<T>``), K7 and all other kernels."""
-    import re
+    the port's K4 and K5 GEMMs (csrc/resblock.cu: ``gn_conv_wgmma<BN>``
+    and ``ts_res_block_wgmma<BN>`` in bf16, ``gn_conv_f32`` and
+    ``ts_res_block_f32`` in fp32), the normalise kernel before each of
+    them (``group_norm_act<CACHED>`` in bf16, ``group_stats_f32`` in
+    fp32), K6 (``attn_bias<T>`` of csrc/flash_attention_bias.cu), K9a
+    (``attn_bias_kq<T>``), K9b (``attn_bias_cm<T>``), K7 and all other
+    kernels.  The names match demangled and mangled alike."""
     events = _cuda_events(prof)
-    kinds = ("gn_conv_gemm", "ts_res_block_gemm", "group_stats",
+    kinds = ("gn_conv_gemm", "ts_res_block_gemm", "normalise",
              "attn_bias", "attn_bias_kq", "attn_bias_cm", "snake", "other")
     out = {k: 0 for k in kinds}
     ms = {k: 0.0 for k in kinds}
     for e in events:
-        # demangled "(anonymous namespace)::gemm<__nv_bfloat16, 1>(...)",
-        # or mangled "..4gemmI13__nv_bfloat16Li1EE.."
-        m = (re.search(r"::gemm<[^>]*,\s*(\d)>", e.name)
-             or re.search(r"4gemmI\w*?Li(\d)EE", e.name))
-        if m:
-            kind = "gn_conv_gemm" if m.group(1) == "1" \
-                else "ts_res_block_gemm"
-        elif "group_stats" in e.name:
-            kind = "group_stats"
+        if "gn_conv_wgmma" in e.name or "gn_conv_f32" in e.name:
+            kind = "gn_conv_gemm"
+        elif "ts_res_block_wgmma" in e.name or "ts_res_block_f32" in e.name:
+            kind = "ts_res_block_gemm"
+        elif "group_norm_act" in e.name or "group_stats_f32" in e.name:
+            kind = "normalise"
         elif "attn_bias_kq" in e.name:
             kind = "attn_bias_kq"
         elif "attn_bias_cm" in e.name:
@@ -1334,6 +1404,13 @@ def _kernel_census(prof) -> dict:
     out["device_ms"] = sum(ms.values())
     out["device_ms_by_kind"] = ms
     return out
+
+
+def _resblock_ok(c, launched) -> bool:
+    """Each K4 and K5 call ran one normalise kernel and one GEMM."""
+    k4, k5 = launched.get("gn_conv", 0), launched.get("ts_res_block", 0)
+    return (c["gn_conv_gemm"] == k4 and c["ts_res_block_gemm"] == k5
+            and c["normalise"] == k4 + k5)
 
 
 def bigvgan_route(torch, tts, ref: str):
@@ -1397,14 +1474,8 @@ def bigvgan_route(torch, tts, ref: str):
             n_snake = n_up * 3 * 6 + 1
             assert stages.launches["vocoder"].get("snake") == n_snake
             if run == "profiled":
-                def diffusion_ok(c, launched):
-                    k4, k5 = launched.get("gn_conv"), launched.get(
-                        "ts_res_block")
-                    return (c["gn_conv_gemm"] == k4
-                            and c["ts_res_block_gemm"] == k5
-                            and c["group_stats"] == k4 + k5)
-                ckd, dl, retries = stages.census("diffusion", diffusion_ok)
-                assert diffusion_ok(ckd, dl), (ckd, dl)
+                ckd, dl, retries = stages.census("diffusion", _resblock_ok)
+                assert _resblock_ok(ckd, dl), (ckd, dl)
                 ckv, _, rv = stages.census(
                     "vocoder", lambda c, _: c["snake"] == n_snake)
                 assert ckv["snake"] == n_snake, ckv
@@ -1493,10 +1564,7 @@ def batch_route(torch, tts, ref: str):
                     if run == "profiled" else {}))
             if run == "profiled":
                 def diffusion_ok(c, launched):
-                    return (c["attn_bias"] == k6
-                            and c["gn_conv_gemm"] == launched.get("gn_conv")
-                            and c["ts_res_block_gemm"]
-                            == launched.get("ts_res_block"))
+                    return c["attn_bias"] == k6 and _resblock_ok(c, launched)
                 ck, dl, retries = stages.census("diffusion", diffusion_ok)
                 assert diffusion_ok(ck, dl), (ck, dl)
     finally:
@@ -1748,7 +1816,7 @@ def denoise_attention_routes(torch, tts, ref: str):
         with torch.inference_mode():
             if T not in auto_uh:
                 auto_uh[T] = inference._uncond_integrate(
-                    dm.params, dm.config, DIFF_STEPS, T, "auto")
+                    tts._denoiser_params(), dm.config, DIFF_STEPS, T, "auto")
             want[0], stop[0] = True, True
             try:
                 plain_diffusion(*a[:13], auto_uh[T], attention="auto")
@@ -1811,10 +1879,10 @@ def denoise_attention_routes(torch, tts, ref: str):
                 other = {"attn_bias", "attn_bias_kq", "attn_bias_cm"} - {kind}
 
                 def diffusion_ok(c, launched):
-                    # the mode's kernel and K4's GEMM as often as their
-                    # wrappers launched, no other biased attention
+                    # the mode's kernel, K4's and K5's kernels as often as
+                    # their wrappers launched, no other biased attention
                     return (c[kind] == launched.get(kname)
-                            and c["gn_conv_gemm"] == launched.get("gn_conv")
+                            and _resblock_ok(c, launched)
                             and not any(c[k] for k in other))
                 ck, launched, prof["profiler_retries"] = stages.census(
                     "diffusion", diffusion_ok)

@@ -265,20 +265,26 @@ def _gn_conv_inputs(dev, b, c, t, m, k, dtype, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,t,m,act,dtype", [
-    (2, 1024, 896, 1024, True, torch.bfloat16),    # resblock in-half
-    (2, 1024, 896, 3072, False, torch.bfloat16),   # attention qkv head
-    (1, 1024, 517, 3072, False, torch.bfloat16),   # AR conditioning head
-    (1, 2048, 101, 6144, False, torch.bfloat16),   # contextual embedder
-    (2, 64, 45, 192, True, torch.float32)])        # fp32 reference runs
-def test_gn_conv_kernel_cuda(cuda, monkeypatch, b, c, t, m, act, dtype):
+@pytest.mark.parametrize("b,c,t,m,act,dtype,groups", [
+    (2, 1024, 896, 1024, True, torch.bfloat16, 32),    # resblock in-half
+    (2, 1024, 896, 3072, False, torch.bfloat16, 32),   # attention qkv head
+    (1, 1024, 517, 3072, False, torch.bfloat16, 32),   # AR conditioning head
+    (1, 2048, 101, 6144, False, torch.bfloat16, 32),   # contextual embedder
+    # ragged T, M and K (136 = 2 x 64 + 8) at B = 16; 17 channels a group
+    (16, 136, 1, 192, True, torch.bfloat16, 8),
+    (16, 136, 7, 192, False, torch.bfloat16, 8),
+    (16, 136, 45, 192, True, torch.bfloat16, 8),
+    (16, 136, 517, 192, False, torch.bfloat16, 8),
+    (2, 64, 45, 192, True, torch.float32, 16)])        # fp32 reference runs
+def test_gn_conv_kernel_cuda(cuda, monkeypatch, b, c, t, m, act, dtype,
+                             groups):
     _fp32_exact(monkeypatch, dtype)
     x, norm, conv = _gn_conv_inputs(cuda, b, c, t, m, 1, dtype, 3)
     before = k4.KERNEL.launches
-    got = k4.gn_conv1x1(x, norm, conv, 32 if c > 64 else 16, act)
+    got = k4.gn_conv1x1(x, norm, conv, groups, act)
     torch.cuda.synchronize()
     assert k4.KERNEL.launches == before + 1
-    want = k4.gn_conv1x1_plain(x, norm, conv, 32 if c > 64 else 16, act)
+    want = k4.gn_conv1x1_plain(x, norm, conv, groups, act)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     else:
@@ -286,23 +292,70 @@ def test_gn_conv_kernel_cuda(cuda, monkeypatch, b, c, t, m, act, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,t,dtype", [(2, 1024, 896, torch.bfloat16),
-                                         (1, 1024, 896, torch.bfloat16),
-                                         (2, 64, 45, torch.float32)])
-def test_ts_res_block_kernel_cuda(cuda, monkeypatch, b, c, t, dtype):
+@pytest.mark.parametrize("b,c,t,dtype,groups", [
+    (2, 1024, 896, torch.bfloat16, 32), (1, 1024, 896, torch.bfloat16, 32),
+    (16, 1024, 896, torch.bfloat16, 32), (8, 1024, 896, torch.bfloat16, 32),
+    (2, 1024, 517, torch.bfloat16, 32), (3, 136, 1, torch.bfloat16, 8),
+    (16, 136, 45, torch.bfloat16, 8), (2, 64, 45, torch.float32, 16)])
+def test_ts_res_block_kernel_cuda(cuda, monkeypatch, b, c, t, dtype, groups):
     _fp32_exact(monkeypatch, dtype)
     h, norm, conv = _gn_conv_inputs(cuda, b, c, t, c, 3, dtype, 4)
     g = torch.Generator(device=cuda).manual_seed(5)
     x = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
     emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=cuda)).to(dtype)
-    groups = 32 if c > 64 else 16
-    got = k5.ts_res_block_out(h, x, emb, norm, conv, groups)
+    before = k5.KERNEL.launches
+    got = k5.ts_res_block_out(h, x, emb, norm, k5.prepare_conv(conv), groups)
     torch.cuda.synchronize()
+    assert k5.KERNEL.launches == before + 1
     want = k5.ts_res_block_out_plain(h, x, emb, norm, conv, groups)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     else:
         _bf16_close(got, want, atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_ts_res_block_prepared_weight_cuda(cuda):
+    """The tap-major weight is the (C, C, 3) weight's taps, exactly; a CUDA
+    call without it raises and launches nothing."""
+    h, norm, conv = _gn_conv_inputs(cuda, 2, 128, 33, 128, 3, torch.bfloat16,
+                                    6)
+    prepared = k5.prepare_conv(conv)
+    assert prepared["w"] is conv["w"]
+    for s in range(3):
+        assert torch.equal(prepared["w_taps"][s], conv["w"][:, :, s])
+    emb = torch.zeros(2, 256, device=cuda, dtype=torch.bfloat16)
+    before = k5.KERNEL.launches
+    with pytest.raises(ValueError, match="prepare_conv"):
+        k5.ts_res_block_out(h, h, emb, norm, conv, 32)
+    assert k5.KERNEL.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t,groups,act,film", [
+    (2, 1024, 896, 32, True, False), (2, 1024, 896, 32, False, False),
+    (2, 1024, 896, 32, True, True), (3, 136, 45, 8, True, True),
+    (1, 128, 1, 32, True, True),
+    (1, 64, 4000, 2, True, False)])    # 256 KB a group: read twice
+def test_group_norm_act_kernel_cuda(cuda, b, c, t, groups, act, film):
+    """The normalise kernel's Y is bit-equal to its plain version given the
+    kernel's statistics (every fp32 step rounded on its own, the same
+    sigmoid); the statistics agree with the plain two-pass ones in fp32."""
+    x, norm, _ = _gn_conv_inputs(cuda, b, c, t, 8, 1, torch.bfloat16, 7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=cuda)).to(
+        torch.bfloat16) if film else None
+    y, stats = k4.group_norm_act(x, norm["scale"], norm["bias"], groups, act,
+                                 emb=emb)
+    torch.cuda.synchronize()
+    for got, want in zip(stats, k4.group_stats_plain(x, groups)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    scale, shift = (emb[:, :c].float(), emb[:, c:].float()) if film \
+        else (None, None)
+    want = k4.group_norm_act_plain(x, norm["scale"], norm["bias"], groups,
+                                   act, scale=scale, shift=shift,
+                                   stats=stats)
+    assert y.shape == want.shape and torch.equal(y, want)
 
 
 @pytest.mark.cuda

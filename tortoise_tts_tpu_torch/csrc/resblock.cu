@@ -12,67 +12,71 @@
 // operations (about 3.8 us at 989 TFLOP/s bf16) and so are the qkv head
 // (c_out=3072, 11.3 GFLOP) and K5 (K = 3C, 11.3 GFLOP).
 //
-// Design: two kernels per call.
-//   1. group_stats: one block per (batch, group).  The group's (C/G)*T
-//      elements are contiguous; the block reads them twice, for the mean
-//      and then the mean of squared deviations (the two-pass variance of
-//      jnp.var and F.group_norm, not the TPU kernel's E[x^2]-mu^2, which
-//      loses digits when |mean| >> std).
-//   2. gemm: out[b] = W (M x K) * Y (K x T) with Y made on load.  Each
-//      block owns a 128 x 64 output tile (8 warps, 32 x 32 each) and
-//      walks K in steps of 32.  The weight tile is copied with 16-byte
-//      loads; the activation tile is computed element by element from x
-//      as it is stored to shared memory: normalise with the group's mean
-//      and rstd and the channel's gamma/beta in fp32, (K5: times
-//      1 + scale, plus shift), round to the storage type, then silu as the
-//      TPU kernel does it (fp32 sigmoid rounded to the storage type, the
-//      product rounded again).  For K5 the K axis is the weight's own
-//      (c, tap) order, kk = 3c + s, so the (C, C, 3) weight is used as a
-//      (C, 3C) matrix without a copy and tap s reads x at t + s - 1, zero
-//      outside [0, T): the k=3 convolution as one implicit GEMM.
-//      bf16: WMMA 16x16x16 tensor-core tiles with fp32 accumulators.
-//      fp32: CUDA-core FMAs (8 x 4 outputs a thread), for the fp32
-//      reference runs.  The epilogue adds the bias (fp32) and, for K5, the
-//      residual x in fp32, and rounds once.  T, M and K are masked at the
-//      tile edges, so no shape needs padding; K must be a multiple of 8
-//      (16-byte weight loads).
+// Design (bf16), two kernels a call:
+//   1. group_norm_act: one cluster of 1 or 2 blocks per (batch, group),
+//      each block a slice of the group's channels (two where the groups
+//      are too few to fill the SMs: 64 at B=2).  The slice's
+//      elements are contiguous; the block reads them once into shared
+//      memory (a second time from global memory where they do not fit),
+//      and the cluster takes the two-pass statistics, each sum reduced
+//      across its blocks through distributed shared memory (the variance
+//      of jnp.var and F.group_norm, not the TPU kernel's E[x^2]-mu^2,
+//      which loses digits when |mean| >> std).  Each block then writes
+//      Y = act(GroupNorm(x)) once per element of its slice: normalise
+//      with the channel's gamma/beta in fp32, (K5: times 1 + scale, plus
+//      shift), round to bf16, then silu as the TPU kernel does it (fp32
+//      sigmoid rounded to bf16, the product rounded again).  Every fp32
+//      step is rounded on its own (no fused multiply-add), so a plain
+//      PyTorch version given the same statistics makes the same bits.  Y goes to a time-major (B, T, C) scratch:
+//      TMA reads a box from any outer coordinate but only from innermost
+//      coordinates on 16 bytes (an H100 raises an illegal instruction at
+//      an odd time step), and the k=3 taps below shift by one step.
+//   2. gemm: out[b] (M x T) = W (M x K) * Y_b (K x T) + bias (+ x) with
+//      wgmma.  A block owns a 128 x BN output tile (BN = 64 or 128, the
+//      wrapper's choice by grid size) and walks K in 64-deep steps through
+//      a ring of 4 shared-memory stages guarded by mbarriers: one producer
+//      thread issues TMA loads (the weight box, 128 rows x 64 channels;
+//      the Y box, BN steps x 64 channels), both K-major with the 128-byte
+//      swizzle; two consumer warpgroups each run m64nBNk16 wgmma on 64 of
+//      the rows, keeping one group of products in flight while the next
+//      stage lands.  K5's k=3 convolution is three tap-shifted
+//      accumulations over a tap-major (3, C, C) weight, the TPU kernel's
+//      [W(-1) | W(0) | W(+1)] (made once per weight by the caller): tap s
+//      loads its Y box at time t0 + s - 1, and TMA's zero fill outside
+//      [0, T) is the convolution's padding.  Ragged M, K and T arrive as
+//      zeros; the epilogue stages the tile in shared memory, adds the
+//      fp32 bias (K5: and the residual x in fp32), rounds once and stores
+//      whole rows in 16-byte pieces, masked at the ragged edges.
+// fp32 (the parity runs only): group_stats_f32 and a CUDA-core GEMM with
+// the prologue made on load (8 x 4 outputs a thread), kernels of their own.
+// K must be a multiple of 8 (16-byte weight rows), for both.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int BM = 128;   // output channels per block
-constexpr int BN = 64;    // time steps per block
-constexpr int BK = 32;    // reduction step
-constexpr int THREADS = 256;
-constexpr int APAD = 8, BPAD = 8, CPAD = 4;
-constexpr int NCH = BK + 2;   // channels one K step can touch
-constexpr int STAT_THREADS = 512;
-constexpr int SMEM_BYTES = BM * (BN + CPAD) * 4;   // >= the A and B tiles
+// The per-channel vectors as the caller stores them, fp32 or bf16, so no
+// call converts them first: gamma, beta (C) and bias (M) in one type
+// (bf = 1: bf16), emb (B, 2C) = [scale | shift] (K5) or null in its own.
+struct Vecs {
+  const void* gamma;
+  const void* beta;
+  const void* bias;
+  const void* emb;
+  int bf, emb_bf;
+};
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// round to the storage type and back
-template <typename T>
-__device__ __forceinline__ float rnd(float x) {
-  return to_f(from_f<T>(x));
+__device__ __forceinline__ float ld(const void* p, long long i, int bf) {
+  return bf ? __bfloat162float(static_cast<const bf16*>(p)[i])
+            : static_cast<const float*>(p)[i];
 }
 
 __device__ float block_sum(float v, float* red) {
@@ -86,18 +90,429 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(STAT_THREADS)
-    group_stats(const T* __restrict__ x, float* __restrict__ mu,
-                float* __restrict__ rstd, long long n, float eps) {
-  __shared__ float red[STAT_THREADS / 32];
-  const T* p = x + (long long)blockIdx.x * n;
+// ---------------------------------------------------------------------------
+// bf16: the normalise kernel
+// ---------------------------------------------------------------------------
+
+constexpr int NORM_THREADS = 512;
+constexpr int NORM_CACHE_MAX = 160 * 1024;   // bytes of one slice kept
+
+struct NormArgs {
+  const bf16* x;   // (B, C, T)
+  bf16* y;         // (B, T, C): time-major
+  float* stats;    // mu (B*G), then rstd (B*G), or null
+  Vecs v;          // gamma, beta; emb (K5) or null
+  int B, C, G, T, act;
+  float eps;
+};
+
+// The sum of v over the block, then over the cluster's blocks in rank
+// order (every block of the cluster gets the same value).  slot: this
+// reduction's own shared float, read by the other blocks through
+// distributed shared memory.
+__device__ float cluster_sum(float v, float* red, float* slot) {
+  namespace cg = cooperative_groups;
+  const float s = block_sum(v, red);
+  if (threadIdx.x == 0) *slot = s;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  float total = 0.f;
+  for (unsigned r = 0; r < cluster.num_blocks(); ++r)
+    total += *cluster.map_shared_rank(slot, r);
+  return total;
+}
+
+// One cluster of blocks per (batch, group); block `rank` of the cluster
+// normalises `ps` = (C/G)/cluster of the group's channels, which are
+// contiguous in x.  Dynamic shared memory: the slice's channel parameters
+// (4 floats a channel: gamma, beta, 1 + scale, shift), then the cached
+// slice.
+template <bool CACHED>
+__global__ void __launch_bounds__(NORM_THREADS)
+    group_norm_act(NormArgs a) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char norm_smem[];
+  __shared__ float red[NORM_THREADS / 32];
+  __shared__ float slots[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int bg = blockIdx.x / cl, b = bg / a.G, g = bg % a.G;
+  const int per = a.C / a.G, ps = per / cl, T = a.T;
+  const int c0 = g * per + rank * ps;   // the slice's first channel
+  const int n = ps * T;
+  float* prm = reinterpret_cast<float*>(norm_smem);
+  bf16* cache = reinterpret_cast<bf16*>(prm + 4 * ((ps + 3) & ~3));
+  const bf16* p = a.x + ((long long)b * a.C + c0) * T;
+  const int tid = threadIdx.x;
+  const bool film = a.v.emb != nullptr;
+  for (int r = tid; r < ps; r += NORM_THREADS) {
+    const int c = c0 + r;
+    const long long e = 2LL * b * a.C + c;
+    prm[4 * r] = ld(a.v.gamma, c, a.v.bf);
+    prm[4 * r + 1] = ld(a.v.beta, c, a.v.bf);
+    prm[4 * r + 2] = film ? __fadd_rn(1.f, ld(a.v.emb, e, a.v.emb_bf)) : 1.f;
+    prm[4 * r + 3] = film ? ld(a.v.emb, e + a.C, a.v.emb_bf) : 0.f;
+  }
+
   float s = 0.f;
-  for (long long i = threadIdx.x; i < n; i += blockDim.x) s += to_f(p[i]);
+  if (((reinterpret_cast<uintptr_t>(p) & 15) | (n & 7)) == 0) {
+    // four 16-byte loads in flight a thread before any is used
+    constexpr int U = 4;
+    const int4* p4 = reinterpret_cast<const int4*>(p);
+    for (int i0 = tid; i0 < n / 8; i0 += U * NORM_THREADS) {
+      int4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i0 + u * NORM_THREADS < n / 8) v[u] = p4[i0 + u * NORM_THREADS];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * NORM_THREADS;
+        if (i < n / 8) {
+          if (CACHED) reinterpret_cast<int4*>(cache)[i] = v[u];
+          const bf16* e = reinterpret_cast<const bf16*>(&v[u]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) s += __bfloat162float(e[j]);
+        }
+      }
+    }
+  } else {
+    for (int i = tid; i < n; i += NORM_THREADS) {
+      const bf16 v = p[i];
+      if (CACHED) cache[i] = v;
+      s += __bfloat162float(v);
+    }
+  }
+  const bf16* src = CACHED ? cache : p;
+  const float cnt = (float)per * (float)T;
+  const float mu = cluster_sum(s, red, &slots[0]) / cnt;
+  float q = 0.f;
+  for (int i = tid; i < n; i += NORM_THREADS) {
+    const float d = __bfloat162float(src[i]) - mu;
+    q = fmaf(d, d, q);
+  }
+  const float rs = rsqrtf(cluster_sum(q, red, &slots[1]) / cnt + a.eps);
+  if (a.stats != nullptr && tid == 0 && rank == 0) {
+    a.stats[bg] = mu;
+    a.stats[a.B * a.G + bg] = rs;
+  }
+  // Y, time-major: a thread makes one time step of a run of 8 channels and
+  // stores it as 16 bytes where the slice's channel count allows; the runs
+  // of a step go to consecutive threads, so a step's ps channels leave as
+  // one contiguous piece (whole 32-byte sectors when ps % 16 == 0: a
+  // sector written in halves costs the H100 several times as much)
+  const int runs = (ps + 7) / 8;
+  const bool vec_out = ps % 8 == 0;
+  bf16* yb = a.y + (long long)b * T * a.C + c0;
+  for (int i = tid; i < runs * T; i += NORM_THREADS) {
+    const int t = i / runs, r0 = 8 * (i - t * runs);
+    const int nr = min(8, ps - r0);
+    __nv_bfloat162 v2[4];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float y = 0.f;
+      if (k < nr) {
+        const float* q4 = prm + 4 * (r0 + k);
+        float yn = __fadd_rn(
+            __fmul_rn(__fmul_rn(
+                __fsub_rn(__bfloat162float(src[(r0 + k) * T + t]), mu),
+                rs), q4[0]),
+            q4[1]);
+        if (film) yn = __fadd_rn(__fmul_rn(yn, q4[2]), q4[3]);
+        y = __bfloat162float(__float2bfloat16(yn));
+        if (a.act) {
+          const float sg =
+              __bfloat162float(__float2bfloat16(1.f / (1.f + expf(-y))));
+          y = __fmul_rn(y, sg);
+        }
+      }
+      if (k % 2 == 0)
+        v2[k / 2].x = __float2bfloat16(y);
+      else
+        v2[k / 2].y = __float2bfloat16(y);
+    }
+    bf16* dst = yb + (long long)t * a.C + r0;
+    if (vec_out) {
+      *reinterpret_cast<int4*>(dst) = make_int4(
+          *reinterpret_cast<const int*>(&v2[0]),
+          *reinterpret_cast<const int*>(&v2[1]),
+          *reinterpret_cast<const int*>(&v2[2]),
+          *reinterpret_cast<const int*>(&v2[3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k < nr) dst[k] = k % 2 ? v2[k / 2].y : v2[k / 2].x;
+    }
+  }
+  cluster.sync();   // the other blocks have read this block's slots
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the wgmma GEMM
+// ---------------------------------------------------------------------------
+
+constexpr int BM = 128;         // output channels a block (two warpgroups)
+constexpr int BK = 64;          // reduction step: one 128-byte swizzle row
+constexpr int STAGES = 4;
+constexpr int GEMM_THREADS = 384;   // consumers 0-255, producer 256-383
+constexpr int A_BYTES = BM * BK * 2;
+
+template <int BN>
+struct Ring {
+  static constexpr int B_BYTES = BK * BN * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;   // a multiple of 1024
+  static constexpr int BARS = STAGES * STAGE;       // full[], then empty[]
+  static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;   // + alignment
+  static_assert(BM * (BN + 8) * 4 <= BARS, "the epilogue tile fits the ring");
+};
+
+// a barrier of the two consumer warpgroups alone (the producer has left)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// out[b] = W * Y_b + bias (+ res[b]).  TAPS = 1: K = C; TAPS = 3: tap s of
+// the (3, M, C) weight against Y shifted by s - 1 steps.
+template <int TAPS, int BN>
+__device__ __forceinline__ void conv_gemm(const CUtensorMap* wmap,
+                                          const CUtensorMap* ymap,
+                                          const void* bias, int bias_bf,
+                                          const bf16* __restrict__ res,
+                                          bf16* __restrict__ out, int M,
+                                          int C, int T) {
+  using L = Ring<BN>;
+  extern __shared__ unsigned char gemm_smem[];
+  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  const uint32_t full0 = base + L::BARS, empty0 = full0 + STAGES * 8;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, b = blockIdx.z;
+  const int kc = (C + BK - 1) / BK, kt = TAPS * kc;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);   // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {   // producer: one thread keeps the ring full
+    if (tid == 256) {
+      for (int it = 0; it < kt; ++it) {
+        const int s = it % STAGES;
+        const uint32_t ph = (it / STAGES) & 1;
+        mbar_wait(empty0 + 8 * s, ph ^ 1);
+        mbar_expect_tx(full0 + 8 * s, L::STAGE);
+        const int tap = it / kc, c0 = (it - tap * kc) * BK;
+        const uint32_t sa = base + s * L::STAGE;
+        tma_load_3d(sa, wmap, full0 + 8 * s, c0, m0, tap);
+        tma_load_3d(sa + A_BYTES, ymap, full0 + 8 * s, c0,
+                    n0 + (TAPS == 3 ? tap - 1 : 0), b);
+      }
+    }
+    return;
+  }
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  int prev = 0;
+  for (int it = 0; it < kt; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+    const uint32_t sa = base + s * L::STAGE + wg * 64 * 128;
+    const uint32_t sb = base + s * L::STAGE + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_bf16<BN>(acc, desc_sw128(sa + kk * 32, 16, 1024),
+                     desc_sw128(sb + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous step's products are done
+    if (it > 0 && tid % 128 == 0) mbar_arrive(empty0 + 8 * prev);
+    prev = s;
+  }
+  wgmma_wait<0>();
+
+  // Epilogue through shared memory: the accumulators go to an fp32 tile
+  // over the ring (every load in it consumed, both warpgroups done reading
+  // it), then whole output rows leave in 16-byte pieces, the residual read
+  // the same way; bias and residual added in fp32, rounded once.
+  constexpr int TS = BN + 8;   // tile row stride in floats (2-way stores)
+  float* tile =
+      reinterpret_cast<float*>(gemm_smem + (base - smem_u32(gemm_smem)));
+  consumers_sync();
+  {
+    const int w = (tid % 128) / 32, lane = tid % 32;
+    const int r0 = wg * 64 + w * 16 + lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        *reinterpret_cast<float2*>(tile + (r0 + 8 * h) * TS + 8 * j +
+                                   2 * (lane % 4)) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  consumers_sync();
+  const bool vec = T % 8 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(res) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  for (int i = tid; i < BM * (BN / 8); i += 256) {
+    const int r = i / (BN / 8), c8 = (i % (BN / 8)) * 8;
+    const int m = m0 + r, t = n0 + c8;
+    if (m >= M || t >= T) continue;
+    const float bm = ld(bias, m, bias_bf);
+    const float4 lo = *reinterpret_cast<const float4*>(tile + r * TS + c8);
+    const float4 hi = *reinterpret_cast<const float4*>(tile + r * TS + c8 + 4);
+    float v[8] = {lo.x + bm, lo.y + bm, lo.z + bm, lo.w + bm,
+                  hi.x + bm, hi.y + bm, hi.z + bm, hi.w + bm};
+    const long long o = ((long long)b * M + m) * T + t;
+    if (vec && t + 8 <= T) {
+      if (res) {
+        const int4 rv = *reinterpret_cast<const int4*>(res + o);
+        const bf16* re = reinterpret_cast<const bf16*>(&rv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] += __bfloat162float(re[k]);
+      }
+      __nv_bfloat162 p[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        p[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+      *reinterpret_cast<int4*>(out + o) =
+          make_int4(*reinterpret_cast<const int*>(&p[0]),
+                    *reinterpret_cast<const int*>(&p[1]),
+                    *reinterpret_cast<const int*>(&p[2]),
+                    *reinterpret_cast<const int*>(&p[3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (t + k < T) {
+          const float vk = res ? v[k] + __bfloat162float(res[o + k]) : v[k];
+          out[o + k] = __float2bfloat16(vk);
+        }
+      }
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    gn_conv_wgmma(const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap ymap, const void* bias,
+                  int bias_bf, bf16* __restrict__ out, int M, int C, int T) {
+  conv_gemm<1, BN>(&wmap, &ymap, bias, bias_bf, nullptr, out, M, C, T);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    ts_res_block_wgmma(const __grid_constant__ CUtensorMap wmap,
+                       const __grid_constant__ CUtensorMap ymap,
+                       const void* bias, int bias_bf,
+                       const bf16* __restrict__ res, bf16* __restrict__ out,
+                       int C, int T) {
+  conv_gemm<3, BN>(&wmap, &ymap, bias, bias_bf, res, out, C, C, T);
+}
+
+// lets Kernel take `bytes` of dynamic shared memory (set once for the
+// largest size asked so far; the port drives one card)
+template <auto Kernel>
+int allow_smem(int bytes) {
+  static int allowed = 0;
+  if (bytes <= allowed) return 0;
+  const int rc = static_cast<int>(cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (rc == 0) allowed = bytes;
+  return rc;
+}
+
+// the normalise kernel into y (B, T, C): a cluster of two blocks a
+// (batch, group) where the groups are too few for two blocks an SM and
+// the halves stay multiples of 16 channels (whole sectors of Y)
+int run_norm(const NormArgs& a, cudaStream_t st) {
+  const int per = a.C / a.G, groups = a.B * a.G;
+  const int cl = groups < 2 * 132 && per % 32 == 0 ? 2 : 1;
+  const int ps = per / cl;
+  const long long prm = 16LL * ((ps + 3) & ~3);
+  const long long cached = prm + 2LL * ps * a.T;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * cl);
+  cfg.blockDim = dim3(NORM_THREADS);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int rc;
+  if (cached <= NORM_CACHE_MAX) {
+    cfg.dynamicSmemBytes = cached;
+    rc = allow_smem<group_norm_act<true>>((int)cached);
+    if (!rc) rc = cudaLaunchKernelEx(&cfg, group_norm_act<true>, a);
+  } else {
+    cfg.dynamicSmemBytes = prm;
+    rc = allow_smem<group_norm_act<false>>((int)prm);
+    if (!rc) rc = cudaLaunchKernelEx(&cfg, group_norm_act<false>, a);
+  }
+  return rc ? rc : static_cast<int>(cudaGetLastError());
+}
+
+// the GEMM over y (B, T, C): w is (taps, M, C), out (B, M, T), res null or
+// (B, M, T)
+int run_gemm(const bf16* w, const bf16* y, const void* bias, int bias_bf,
+             const bf16* res, bf16* out, int B, int C, int T, int M, int taps,
+             int bn, cudaStream_t st) {
+  CUtensorMap wmap, ymap;
+  if (int rc = tensor_map_3d(&wmap, w, C, M, taps, 2ull * C, 2ull * C * M,
+                             BK, BM))
+    return rc;
+  if (int rc = tensor_map_3d(&ymap, y, C, T, B, 2ull * C, 2ull * C * T, BK,
+                             bn))
+    return rc;
+  const dim3 grid((T + bn - 1) / bn, (M + BM - 1) / BM, B);
+  int rc = 0;
+#define TTS_LAUNCH(BN_)                                                     \
+  if (taps == 3) {                                                          \
+    rc = allow_smem<ts_res_block_wgmma<BN_>>(Ring<BN_>::SMEM);              \
+    if (!rc)                                                                \
+      ts_res_block_wgmma<BN_><<<grid, GEMM_THREADS, Ring<BN_>::SMEM, st>>>( \
+          wmap, ymap, bias, bias_bf, res, out, C, T);                       \
+  } else {                                                                  \
+    rc = allow_smem<gn_conv_wgmma<BN_>>(Ring<BN_>::SMEM);                   \
+    if (!rc)                                                                \
+      gn_conv_wgmma<BN_><<<grid, GEMM_THREADS, Ring<BN_>::SMEM, st>>>(      \
+          wmap, ymap, bias, bias_bf, out, M, C, T);                         \
+  }
+  if (bn == 64) {
+    TTS_LAUNCH(64)
+  } else {
+    TTS_LAUNCH(128)
+  }
+#undef TTS_LAUNCH
+  return rc ? rc : static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// fp32: group statistics and a CUDA-core GEMM with the prologue on load
+// ---------------------------------------------------------------------------
+
+constexpr int F_BN = 64;    // time steps a block
+constexpr int F_BK = 32;    // channels a K step
+constexpr int F_THREADS = 256;
+constexpr int STAT_THREADS = 512;
+
+__global__ void __launch_bounds__(STAT_THREADS)
+    group_stats_f32(const float* __restrict__ x, float* __restrict__ mu,
+                    float* __restrict__ rstd, long long n, float eps) {
+  __shared__ float red[STAT_THREADS / 32];
+  const float* p = x + (long long)blockIdx.x * n;
+  float s = 0.f;
+  for (long long i = threadIdx.x; i < n; i += blockDim.x) s += p[i];
   const float m = block_sum(s, red) / (float)n;
   float q = 0.f;
   for (long long i = threadIdx.x; i < n; i += blockDim.x) {
-    const float d = to_f(p[i]) - m;
+    const float d = p[i] - m;
     q = fmaf(d, d, q);
   }
   const float var = block_sum(q, red) / (float)n;
@@ -108,233 +523,204 @@ __global__ void __launch_bounds__(STAT_THREADS)
 }
 
 struct Prologue {
-  const float* mu;      // (B*G) group means of the normalised input
-  const float* rstd;    // (B*G)
-  const float* gamma;   // (C)
-  const float* beta;    // (C)
-  const float* scale;   // (B, C) or null
-  const float* shift;   // (B, C) or null
+  const float* mu;     // (B*G) group means of the normalised input
+  const float* rstd;   // (B*G)
+  Vecs v;              // gamma, beta, bias; emb (K5) or null
   int C, G, T, act;
 };
 
-// C[b] (M x T) = W (M x K) * Y_b (K x T) + bias (+ res[b]); Y made from x
-// on load (see the header).  TAPS = 1: K = C; TAPS = 3: K = 3C, kk = 3c+s.
-template <typename T, int TAPS>
-__global__ void __launch_bounds__(THREADS)
-    gemm(const T* __restrict__ w, const T* __restrict__ x,
-         const float* __restrict__ bias, const T* __restrict__ res,
-         T* __restrict__ out, int M, Prologue pro) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  __shared__ float pmu[NCH], prs[NCH], pga[NCH], pbe[NCH], psc[NCH],
-      psh[NCH];
-  T* As = reinterpret_cast<T*>(smem);                    // [BM][BK+APAD]
-  T* Bs = As + BM * (BK + APAD);                         // [BK][BN+BPAD]
-  float* Cs = reinterpret_cast<float*>(smem);            // [BM][BN+CPAD]
-
-  const int C = pro.C, Tn = pro.T, K = C * TAPS;
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
+// out[b] (M x T) = sum over taps s of W_s (M x C) * Y_b shifted by s - 1
+// (TAPS = 3) + bias (+ res[b]); Y made from x on load.  w: (TAPS, M, C).
+template <int TAPS>
+__device__ __forceinline__ void gemm_f32(const float* __restrict__ w,
+                                         const float* __restrict__ x,
+                                         const float* __restrict__ res,
+                                         float* __restrict__ out, int M,
+                                         const Prologue& pro) {
+  __shared__ __align__(16) float As[BM][F_BK + 4];
+  __shared__ float Bs[F_BK][F_BN + 4];
+  __shared__ float pmu[F_BK], prs[F_BK], pga[F_BK], pbe[F_BK], psc[F_BK],
+      psh[F_BK];
+  const int C = pro.C, Tn = pro.T;
+  const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * F_BN;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int per = C / pro.G;
-  const T* xb = x + (long long)b * C * Tn;
+  const float* xb = x + (long long)b * C * Tn;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  // bf16: 2 x 2 WMMA accumulators per warp; fp32: 8 x 4 outputs a thread
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  float facc[8][4];
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) facc[i][j] = 0.f;
-  }
-  const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const int c_lo = k0 / TAPS;
-    __syncthreads();   // the previous step's tiles are consumed
-    if (tid < NCH) {
-      const int c = c_lo + tid;
-      if (c < C) {
-        const int g = b * pro.G + c / per;
-        pmu[tid] = pro.mu[g];
-        prs[tid] = pro.rstd[g];
-        pga[tid] = pro.gamma[c];
-        pbe[tid] = pro.beta[c];
-        psc[tid] = pro.scale ? pro.scale[b * C + c] : 0.f;
-        psh[tid] = pro.shift ? pro.shift[b * C + c] : 0.f;
-      }
-    }
-    // weight tile, 16-byte vectors (K % 8 == 0, so a vector never
-    // straddles the end of a row)
-    constexpr int VEC = 16 / sizeof(T);
-    for (int idx = tid; idx < BM * BK / VEC; idx += THREADS) {
-      const int r = idx / (BK / VEC), cv = (idx % (BK / VEC)) * VEC;
-      const int m = m0 + r, kk = k0 + cv;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m < M && kk < K)
-        v = *reinterpret_cast<const int4*>(w + (long long)m * K + kk);
-      *reinterpret_cast<int4*>(As + r * (BK + APAD) + cv) = v;
-    }
-    __syncthreads();   // channel parameters are in shared memory
-    // activation tile, made on load
-    for (int idx = tid; idx < BK * BN; idx += THREADS) {
-      const int r = idx / BN, n = idx % BN;
-      const int kk = k0 + r;
-      const int c = kk / TAPS;
-      const int t = n0 + n + (TAPS == 3 ? kk % 3 - 1 : 0);
-      float y = 0.f;
-      if (kk < K && t >= 0 && t < Tn) {
-        const int j = c - c_lo;
-        const float v = to_f(xb[(long long)c * Tn + t]);
-        float yn = (v - pmu[j]) * prs[j] * pga[j] + pbe[j];
-        if (TAPS == 3) yn = yn * (1.f + psc[j]) + psh[j];
-        y = rnd<T>(yn);
-        if (pro.act) {
-          const float sg = rnd<T>(1.f / (1.f + expf(-y)));
-          y = rnd<T>(y * sg);
+  for (int tap = 0; tap < TAPS; ++tap) {
+    const float* ws = w + (long long)tap * M * C;
+    const int dt = TAPS == 3 ? tap - 1 : 0;
+    for (int c0 = 0; c0 < C; c0 += F_BK) {
+      __syncthreads();   // the previous step's tiles are consumed
+      if (tid < F_BK) {
+        const int c = c0 + tid;
+        if (c < C) {
+          const int g = b * pro.G + c / per;
+          pmu[tid] = pro.mu[g];
+          prs[tid] = pro.rstd[g];
+          const long long e = 2LL * b * C + c;
+          pga[tid] = ld(pro.v.gamma, c, pro.v.bf);
+          pbe[tid] = ld(pro.v.beta, c, pro.v.bf);
+          psc[tid] = pro.v.emb ? ld(pro.v.emb, e, pro.v.emb_bf) : 0.f;
+          psh[tid] = pro.v.emb ? ld(pro.v.emb, e + C, pro.v.emb_bf) : 0.f;
         }
       }
-      Bs[r * (BN + BPAD) + n] = from_f<T>(y);
-    }
-    __syncthreads();
-    if constexpr (sizeof(T) == 2) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(
-              af[i],
-              reinterpret_cast<const __nv_bfloat16*>(As) +
-                  (wm * 32 + i * 16) * (BK + APAD) + kk,
-              BK + APAD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(
-              bf[j],
-              reinterpret_cast<const __nv_bfloat16*>(Bs) +
-                  kk * (BN + BPAD) + wn * 32 + j * 16,
-              BN + BPAD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+      // weight tile, 16-byte vectors (C % 8 == 0: a vector never straddles
+      // the end of a row)
+      for (int idx = tid; idx < BM * F_BK / 4; idx += F_THREADS) {
+        const int r = idx / (F_BK / 4), cv = (idx % (F_BK / 4)) * 4;
+        const int m = m0 + r, c = c0 + cv;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (m < M && c < C)
+          v = *reinterpret_cast<const float4*>(ws + (long long)m * C + c);
+        *reinterpret_cast<float4*>(&As[r][cv]) = v;
       }
-    } else {
-      const int ty = tid / 16, tx = tid % 16;
+      __syncthreads();   // channel parameters are in shared memory
+      for (int idx = tid; idx < F_BK * F_BN; idx += F_THREADS) {
+        const int r = idx / F_BN, n = idx % F_BN;
+        const int c = c0 + r, t = n0 + n + dt;
+        float y = 0.f;
+        if (c < C && t >= 0 && t < Tn) {
+          float yn = (xb[(long long)c * Tn + t] - pmu[r]) * prs[r] * pga[r]
+                     + pbe[r];
+          if (TAPS == 3) yn = yn * (1.f + psc[r]) + psh[r];
+          y = yn;
+          if (pro.act) y = y * (1.f / (1.f + expf(-y)));
+        }
+        Bs[r][n] = y;
+      }
+      __syncthreads();
 #pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
+      for (int kk = 0; kk < F_BK; ++kk) {
         float a[8], bv[4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          a[i] = to_f(As[(ty * 8 + i) * (BK + APAD) + kk]);
+        for (int i = 0; i < 8; ++i) a[i] = As[ty * 8 + i][kk];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          bv[j] = to_f(Bs[kk * (BN + BPAD) + tx * 4 + j]);
+        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) facc[i][j] = fmaf(a[i], bv[j], facc[i][j]);
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
       }
     }
   }
-  __syncthreads();   // Cs overlays the A and B tiles
-  if constexpr (sizeof(T) == 2) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty * 8 + i;
+    if (m >= M) continue;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(
-            Cs + (wm * 32 + i * 16) * (BN + CPAD) + wn * 32 + j * 16,
-            acc[i][j], BN + CPAD, wmma::mem_row_major);
-  } else {
-    const int ty = tid / 16, tx = tid % 16;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Cs[(ty * 8 + i) * (BN + CPAD) + tx * 4 + j] = facc[i][j];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += THREADS) {
-    const int r = idx / BN, n = idx % BN;
-    const int m = m0 + r, t = n0 + n;
-    if (m < M && t < Tn) {
-      const long long o = ((long long)b * M + m) * Tn + t;
-      float v = Cs[r * (BN + CPAD) + n] + bias[m];
-      if (res) v += to_f(res[o]);
-      out[o] = from_f<T>(v);
+    for (int j = 0; j < 4; ++j) {
+      const int t = n0 + tx * 4 + j;
+      if (t < Tn) {
+        const long long o = ((long long)b * M + m) * Tn + t;
+        float v = acc[i][j] + ld(pro.v.bias, m, pro.v.bf);
+        if (res) v += res[o];
+        out[o] = v;
+      }
     }
   }
 }
 
-template <typename T>
-int run(const void* w, const void* x, const void* stat_src,
-        const float* bias, const void* res, void* out, float* stats, int B,
-        int C, int T_len, int M, int G, int act, float eps,
-        const float* gamma, const float* beta, const float* scale,
-        const float* shift, int taps, cudaStream_t st) {
+__global__ void __launch_bounds__(F_THREADS)
+    gn_conv_f32(const float* __restrict__ w, const float* __restrict__ x,
+                float* __restrict__ out, int M, Prologue pro) {
+  gemm_f32<1>(w, x, nullptr, out, M, pro);
+}
+
+__global__ void __launch_bounds__(F_THREADS)
+    ts_res_block_f32(const float* __restrict__ w, const float* __restrict__ x,
+                     const float* __restrict__ res, float* __restrict__ out,
+                     Prologue pro) {
+  gemm_f32<3>(w, x, res, out, pro.C, pro);
+}
+
+int run_f32(const float* w, const float* x, const float* res, float* out,
+            float* stats, int B, int C, int T, int M, int G, int act,
+            float eps, const Vecs& v, int taps, cudaStream_t st) {
   float* mu = stats;
   float* rstd = stats + B * G;
-  group_stats<T><<<B * G, STAT_THREADS, 0, st>>>(
-      static_cast<const T*>(stat_src), mu, rstd,
-      (long long)(C / G) * T_len, eps);
-  Prologue pro{mu, rstd, gamma, beta, scale, shift, C, G, T_len, act};
-  dim3 grid((T_len + BN - 1) / BN, (M + BM - 1) / BM, B);
+  group_stats_f32<<<B * G, STAT_THREADS, 0, st>>>(
+      x, mu, rstd, (long long)(C / G) * T, eps);
+  const Prologue pro{mu, rstd, v, C, G, T, act};
+  const dim3 grid((T + F_BN - 1) / F_BN, (M + BM - 1) / BM, B);
   if (taps == 3)
-    gemm<T, 3><<<grid, THREADS, 0, st>>>(
-        static_cast<const T*>(w), static_cast<const T*>(x), bias,
-        static_cast<const T*>(res), static_cast<T*>(out), M, pro);
+    ts_res_block_f32<<<grid, F_THREADS, 0, st>>>(w, x, res, out, pro);
   else
-    gemm<T, 1><<<grid, THREADS, 0, st>>>(
-        static_cast<const T*>(w), static_cast<const T*>(x), bias,
-        static_cast<const T*>(res), static_cast<T*>(out), M, pro);
+    gn_conv_f32<<<grid, F_THREADS, 0, st>>>(w, x, out, M, pro);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K4.  x: (B, C, T) contiguous; w: (M, C) contiguous in x's type; gamma,
-// beta: (C) fp32; bias: (M) fp32; out: (B, M, T); stats: 2*B*G fp32
-// scratch.  dtype: 0 = float32, 1 = bfloat16.  C % 8 == 0, C % G == 0.
-extern "C" int tts_gn_conv1x1(const void* x, const float* gamma,
-                              const float* beta, const void* w,
-                              const float* bias, void* out, float* stats,
-                              int B, int C, int T, int M, int G, int act,
-                              float eps, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(w, x, x, bias, nullptr, out, stats, B, C, T,
-                              M, G, act, eps, gamma, beta, nullptr, nullptr,
-                              1, st);
-  return run<float>(w, x, x, bias, nullptr, out, stats, B, C, T, M, G, act,
-                    eps, gamma, beta, nullptr, nullptr, 1, st);
+// The normalise kernel alone (the bf16 path's first kernel, for checks):
+// x (B, C, T) bf16 -> y (B, T, C) bf16, stats 2*B*G fp32 (mu, then rstd).
+// gamma, beta: (C), bf16 if vec_bf else fp32; emb: (B, 2C) [scale | shift]
+// (bf16 if emb_bf else fp32) or null.
+extern "C" int tts_group_norm_act(const void* x, const void* gamma,
+                                  const void* beta, const void* emb, void* y,
+                                  float* stats, int B, int C, int T, int G,
+                                  int act, float eps, int vec_bf, int emb_bf,
+                                  void* stream) {
+  const NormArgs a{static_cast<const bf16*>(x), static_cast<bf16*>(y), stats,
+                   Vecs{gamma, beta, nullptr, emb, vec_bf, emb_bf}, B, C, G,
+                   T, act, eps};
+  return run_norm(a, static_cast<cudaStream_t>(stream));
 }
 
-// K5.  h, x, out: (B, C, T) contiguous; scale, shift: (B, C) fp32; w: the
-// (C, C, 3) conv weight, contiguous, in h's type; gamma, beta, bias: (C)
-// fp32; stats: 2*B*G fp32 scratch.  C % 8 == 0, C % G == 0.
-extern "C" int tts_ts_res_block_out(const void* h, const void* x,
-                                    const float* gamma, const float* beta,
-                                    const float* scale, const float* shift,
-                                    const void* w, const float* bias,
-                                    void* out, float* stats, int B, int C,
-                                    int T, int G, float eps, int dtype,
-                                    void* stream) {
+// K4.  x: (B, C, T) contiguous; w: (M, C) contiguous in x's type, 16-byte
+// aligned; gamma, beta: (C) and bias: (M), all bf16 if vec_bf else fp32;
+// out: (B, M, T); stats: 2*B*G fp32 scratch (fp32; bf16: null, or where
+// the statistics go); ybuf: (B, T, C) scratch in x's type (bf16 only).  dtype: 0 = float32, 1 = bfloat16; bn: 64 or 128
+// time steps a GEMM block (bf16).  C % 8 == 0, C % G == 0.
+extern "C" int tts_gn_conv1x1(const void* x, const void* gamma,
+                              const void* beta, const void* w,
+                              const void* bias, void* out, float* stats,
+                              void* ybuf, int B, int C, int T, int M, int G,
+                              int act, float eps, int dtype, int vec_bf,
+                              int bn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(w, h, h, bias, x, out, stats, B, C, T, C, G,
-                              1, eps, gamma, beta, scale, shift, 3, st);
-  return run<float>(w, h, h, bias, x, out, stats, B, C, T, C, G, 1, eps,
-                    gamma, beta, scale, shift, 3, st);
+  const Vecs v{gamma, beta, bias, nullptr, vec_bf, 0};
+  if (dtype == 0)
+    return run_f32(static_cast<const float*>(w),
+                   static_cast<const float*>(x), nullptr,
+                   static_cast<float*>(out), stats, B, C, T, M, G, act, eps,
+                   v, 1, st);
+  const NormArgs a{static_cast<const bf16*>(x), static_cast<bf16*>(ybuf),
+                   stats, v, B, C, G, T, act, eps};
+  if (int rc = run_norm(a, st)) return rc;
+  return run_gemm(static_cast<const bf16*>(w), static_cast<bf16*>(ybuf), bias,
+                  vec_bf, nullptr, static_cast<bf16*>(out), B, C, T, M, 1,
+                  bn, st);
+}
+
+// K5.  h, x, out: (B, C, T) contiguous; emb: (B, 2C) [scale | shift], bf16
+// if emb_bf else fp32; w: the tap-major (3, C, C) conv weight (w[s] =
+// W[:, :, s]), contiguous, in h's type, 16-byte aligned; gamma, beta,
+// bias: (C), bf16 if vec_bf else fp32; stats: 2*B*G fp32 scratch (as for
+// K4); ybuf: (B, T, C) scratch (bf16 only).  C % 8 == 0, C % G == 0.
+extern "C" int tts_ts_res_block_out(const void* h, const void* x,
+                                    const void* gamma, const void* beta,
+                                    const void* emb, const void* w,
+                                    const void* bias, void* out, float* stats,
+                                    void* ybuf, int B, int C, int T, int G,
+                                    float eps, int dtype, int vec_bf,
+                                    int emb_bf, int bn, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Vecs v{gamma, beta, bias, emb, vec_bf, emb_bf};
+  if (dtype == 0)
+    return run_f32(static_cast<const float*>(w),
+                   static_cast<const float*>(h),
+                   static_cast<const float*>(x), static_cast<float*>(out),
+                   stats, B, C, T, C, G, 1, eps, v, 3, st);
+  const NormArgs a{static_cast<const bf16*>(h), static_cast<bf16*>(ybuf),
+                   stats, v, B, C, G, T, 1, eps};
+  if (int rc = run_norm(a, st)) return rc;
+  return run_gemm(static_cast<const bf16*>(w), static_cast<bf16*>(ybuf), bias,
+                  vec_bf, static_cast<const bf16*>(x),
+                  static_cast<bf16*>(out), B, C, T, C, 3, bn, st);
 }

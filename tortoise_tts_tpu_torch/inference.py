@@ -364,6 +364,7 @@ class TTS:
         self._voice_cache = {}
         self._uncond_cache = {}
         self._qgpt = None
+        self._dparams = (None, None)
 
     def _model(self, name: str):
         if name not in self._models:
@@ -382,6 +383,15 @@ class TTS:
             self._qgpt = quantize_decode_weights(
                 self._model("autoregressive").params)
         return self._qgpt
+
+    def _denoiser_params(self):
+        """The denoiser's params with K5's weights tap-major
+        (``diffusion.prepare``), made once per loaded model, as
+        ``_ar_qgpt`` keeps the decode's int8 weights."""
+        params = self._model("diffusion").params
+        if self._dparams[0] is not params:
+            self._dparams = (params, diffusion.prepare(params))
+        return self._dparams[1]
 
     @property
     def _quant_mode(self) -> str:
@@ -499,7 +509,7 @@ class TTS:
                 self._uncond_cache.pop(next(iter(self._uncond_cache)))
             d = self._model("diffusion")
             self._uncond_cache[key] = _uncond_integrate(
-                d.params, d.config, steps, T, attention)
+                self._denoiser_params(), d.config, steps, T, attention)
         return self._uncond_cache[key]
 
     def inference(self, text: str,
@@ -671,7 +681,7 @@ class TTS:
         def run(rows, n_lat, seq_len, pad_seq_len, uh):
             idx = torch.as_tensor(rows, device=dev)
             dc = diff_cond if diff_cond.shape[0] == 1 else diff_cond[idx]
-            mel = _diffusion(dmodel.params, latents[idx], dc,
+            mel = _diffusion(self._denoiser_params(), latents[idx], dc,
                              [diff_keys[r] for r in rows], dmodel.config,
                              max_diffusion_steps, diffusion_sampler, seq_len,
                              cond_free, diffusion_temp, n_lat, t_lat[idx],
@@ -772,8 +782,8 @@ class TTS:
         n_lat, seq_len, pad_seq_len, uh = self._diffusion_geometry(
             self._decode_budget_latents(max_ar_steps, res.lengths), dpm,
             mel_pad_multiple, max_diffusion_steps, cond_free)
-        mel = _diffusion(dmodel.params, latents, diff_latent, [k_diff],
-                         dmodel.config, max_diffusion_steps,
+        mel = _diffusion(self._denoiser_params(), latents, diff_latent,
+                         [k_diff], dmodel.config, max_diffusion_steps,
                          diffusion_sampler, seq_len, cond_free,
                          diffusion_temp, n_lat, t_lat, pad_seq_len, uh,
                          attention=self.cfg.inference.denoise_attention)

@@ -4,8 +4,17 @@ x + conv3(silu(GroupNorm(h) * (1 + scale) + shift)) + b, with h from K4.
 Replaces the TPU kernel ``tortoise_tts_tpu/ops/pallas_resblock.py``
 ``fused_ts_res_block`` (``_rb_out_kernel``).  The CUDA source is
 ``csrc/resblock.cu`` (shared with K4); its header gives the bound on an
-H100 and the design.  The TPU kernel's ``b <= 2 and t <= 1024`` envelope
-was a VMEM limit and does not apply: the CUDA kernel takes any B and T.
+H100 and the design: in bf16 the normalise kernel writes Y once, then the
+``wgmma`` GEMM takes the k=3 convolution as three tap-shifted
+accumulations.  The TPU kernel's ``b <= 2 and t <= 1024`` envelope was a
+VMEM limit and does not apply: the CUDA kernels take any B and T.
+
+The kernels read the weight tap-major, (3, C, C) with ``w_taps[s] =
+w[:, :, s]``: the TPU kernel's ``[W(-1) | W(0) | W(+1)]`` blocks.
+``prepare_conv`` adds that copy to a conv's params once (the denoiser's
+params are prepared once per ``TTS``, ``models.diffusion.prepare``); the
+plain version, the CPU path and the backward keep the (C, C, 3) ``w``.
+A CUDA call without ``w_taps`` raises.
 
 ``ts_res_block_out`` runs the plain PyTorch version for CPU tensors and
 the kernel for CUDA tensors (it raises on what the kernel does not take).
@@ -17,13 +26,15 @@ recomputes the plain version, as the JAX package's ``custom_vjp`` does
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as Fn
 
 from ..models.common import Params, conv1d, group_norm, silu
 from ._build import F, I, P, Kernel
-from .gn_conv import _DTYPES, _check
+from .gn_conv import (_DTYPES, _aligned, _scratch, _stream, _vectors,
+                      group_norm_act_plain, plan)
 
 KERNEL = Kernel("resblock", "tts_ts_res_block_out",
-                [P] * 10 + [I] * 4 + [F, I, P])
+                [P] * 10 + [I] * 4 + [F, I, I, I, I, P])
 
 
 def ts_res_block_out_plain(h: torch.Tensor, x: torch.Tensor,
@@ -37,34 +48,64 @@ def ts_res_block_out_plain(h: torch.Tensor, x: torch.Tensor,
     return x + conv1d(conv, silu(hn), padding=1)
 
 
-def _launch(h, x, scale, shift, gamma, beta, w, bias, groups, eps):
+def taps(w: torch.Tensor) -> torch.Tensor:
+    """The (C, C, 3) conv weight tap-major: (3, C, C), ``[s] = w[:, :, s]``."""
+    return w.permute(2, 0, 1).contiguous()
+
+
+def prepare_conv(conv: Params) -> Params:
+    """conv with its weight also in the kernels' tap-major layout
+    (``w_taps``); made once per weight, not per call."""
+    return {**conv, "w_taps": taps(conv["w"])}
+
+
+def ts_res_block_out_taps_plain(h: torch.Tensor, x: torch.Tensor,
+                                emb_out: torch.Tensor, norm: Params,
+                                w_taps: torch.Tensor, bias: torch.Tensor,
+                                groups: int, eps: float = 1e-5
+                                ) -> torch.Tensor:
+    """The kernels' decomposition in plain PyTorch: Y the normalise step
+    (``group_norm_act_plain`` with the scale-shift and silu), then x +
+    sum over taps s of w_taps[s] @ Y shifted by s - 1 (zeros outside
+    [0, T)) + b, summed in fp32 and rounded once."""
+    c, t = h.shape[1], h.shape[2]
+    y = group_norm_act_plain(h, norm["scale"], norm["bias"], groups, True,
+                             eps, emb_out[:, :c], emb_out[:, c:])
+    yp = Fn.pad(y.float(), (1, 1))
+    acc = sum(torch.matmul(w_taps[s].float(), yp[..., s:s + t])
+              for s in range(3))
+    return (acc + bias.float()[:, None] + x.float()).to(h.dtype)
+
+
+def _launch(h, x, emb_out, gamma, beta, w_taps, bias, groups, eps):
     b, c, t = h.shape
-    _check(h, c, groups, "ts_res_block_out")
-    if x.shape != h.shape or x.dtype != h.dtype or w.shape != (c, c, 3):
+    bn = plan(b, c, t, c, groups, h.dtype, "ts_res_block_out")
+    if x.shape != h.shape or x.dtype != h.dtype or w_taps.shape != (3, c, c):
         raise ValueError(f"ts_res_block_out: x {tuple(x.shape)} {x.dtype} "
-                         f"and weight {tuple(w.shape)} must match h "
-                         f"{tuple(h.shape)} {h.dtype} and ({c}, {c}, 3)")
+                         f"and the tap-major weight {tuple(w_taps.shape)} "
+                         f"must match h {tuple(h.shape)} {h.dtype} and "
+                         f"(3, {c}, {c})")
     h, x = h.contiguous(), x.contiguous()
-    w = w.to(h.dtype).contiguous()
+    w_taps = _aligned(w_taps.to(h.dtype))
     out = torch.empty_like(h)
-    stats = torch.empty(2 * b * groups, dtype=torch.float32, device=h.device)
+    scratch, (stats, ybuf) = _scratch(h, groups)
+    (gamma, beta, bias), vec_bf = _vectors(gamma, beta, bias)
+    (emb_out,), emb_bf = _vectors(emb_out)
     KERNEL.launch(h.data_ptr(), x.data_ptr(), gamma.data_ptr(),
-                  beta.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                  w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                  stats.data_ptr(), b, c, t, groups, eps, _DTYPES[h.dtype],
-                  torch.cuda.current_stream(h.device).cuda_stream)
+                  beta.data_ptr(), emb_out.data_ptr(), w_taps.data_ptr(),
+                  bias.data_ptr(), out.data_ptr(), stats, ybuf, b, c, t,
+                  groups, eps, _DTYPES[h.dtype], vec_bf, emb_bf, bn,
+                  _stream(h))
     return out
 
 
 class _TsResBlockOut(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, x, emb_out, gamma, beta, w, bias, groups, eps):
+    def forward(ctx, h, x, emb_out, gamma, beta, w, w_taps, bias, groups,
+                eps):
         ctx.save_for_backward(h, x, emb_out, gamma, beta, w, bias)
         ctx.cfg = (groups, eps)
-        c = h.shape[1]
-        scale = emb_out[:, :c].float().contiguous()
-        shift = emb_out[:, c:].float().contiguous()
-        return _launch(h, x, scale, shift, gamma, beta, w, bias, groups, eps)
+        return _launch(h, x, emb_out, gamma, beta, w_taps, bias, groups, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -75,7 +116,8 @@ class _TsResBlockOut(torch.autograd.Function):
                 h, x, emb_out, {"scale": gamma, "bias": beta},
                 {"w": w, "b": bias}, *ctx.cfg)
         grads = torch.autograd.grad(out, ins, g, allow_unused=True)
-        return (*grads, None, None)
+        gh, gx, gemb, gga, gbe, gw, gb = grads
+        return gh, gx, gemb, gga, gbe, gw, None, gb, None, None
 
 
 def ts_res_block_out(h: torch.Tensor, x: torch.Tensor, emb_out: torch.Tensor,
@@ -83,13 +125,18 @@ def ts_res_block_out(h: torch.Tensor, x: torch.Tensor, emb_out: torch.Tensor,
                      eps: float = 1e-5) -> torch.Tensor:
     """x + conv3(silu(GroupNorm(h) * (1 + scale) + shift)) + b.  h, x:
     (B, C, T); emb_out: (B, 2C) [scale | shift]; norm: {'scale', 'bias'}
-    (C,); conv: {'w' (C, C, 3), 'b' (C,)} -> (B, C, T) in h's type."""
+    (C,); conv: {'w' (C, C, 3), 'b' (C,)}, and on CUDA also 'w_taps'
+    (3, C, C) from ``prepare_conv`` -> (B, C, T) in h's type."""
     if h.device.type == "cpu":
         return ts_res_block_out_plain(h, x, emb_out, norm, conv, groups, eps)
     if h.device.type != "cuda":
         raise ValueError(f"ts_res_block_out: no kernel for {h.device}")
+    if "w_taps" not in conv:
+        raise ValueError("ts_res_block_out: the CUDA kernel reads the weight "
+                         "tap-major; add it once with "
+                         "ts_res_block.prepare_conv(conv) (the denoiser: "
+                         "models.diffusion.prepare(params))")
     c = h.shape[1]
     bias = conv["b"] if "b" in conv else torch.zeros(c, device=h.device)
-    return _TsResBlockOut.apply(h, x, emb_out, norm["scale"].float(),
-                                norm["bias"].float(), conv["w"],
-                                bias.float(), groups, eps)
+    return _TsResBlockOut.apply(h, x, emb_out, norm["scale"], norm["bias"],
+                                conv["w"], conv["w_taps"], bias, groups, eps)

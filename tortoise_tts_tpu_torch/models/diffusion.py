@@ -8,8 +8,10 @@ and the classifier-free ``unconditioned_embedding``.
 
 What runs where on the card: each timestep resblock is K4 (``act=True``,
 the GroupNorm + silu + 1x1 conv input half) then K5 (the scale-shift
-output half with the k=3 conv and the residual); each attention block's
-[GroupNorm + qkv conv] head is K4 (``act=False``).  The biased attention
+output half with the k=3 conv and the residual), which reads its weight
+tap-major, so a forward on the card takes ``prepare(params)`` (``TTS``
+prepares once per model); each attention block's [GroupNorm + qkv conv]
+head is K4 (``act=False``).  The biased attention
 of the integrator's and the trunk's blocks (``ops/attention.qkv_attention``)
 takes one of three kernels at T >= 256, by the mode that
 ``precompute_rel_biases`` builds its biases for
@@ -33,7 +35,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..kernels.gn_conv import gn_conv1x1
-from ..kernels.ts_res_block import ts_res_block_out
+from ..kernels.ts_res_block import prepare_conv, ts_res_block_out
 from ..ops.attention import t5_rel_pos_bucket
 from .arch import attention_block, attention_block_init
 from .common import (conv1d, conv1d_init, embedding, embedding_init,
@@ -130,6 +132,23 @@ def init(g: torch.Generator, cfg: DiffusionConfig = DiffusionConfig()
         "out_norm": group_norm_init(C, g.device),
         "out_conv": conv1d_init(g, C, cfg.out_channels, 3),
     }
+
+
+def prepare(params: Params) -> Params:
+    """The params with every timestep resblock's k=3 ``out_conv`` also in
+    K5's tap-major layout (``ts_res_block.prepare_conv``), as a CUDA call
+    of K5 needs it: made once per weight (``TTS`` keeps the prepared
+    params); every other leaf is shared."""
+    def resblock(p):
+        return {**p, "out_conv": prepare_conv(p["out_conv"])}
+
+    def layer(p):
+        return {**p, "resblk": resblock(p["resblk"])}
+    return {**params,
+            "conditioning_timestep_integrator": [
+                layer(p) for p in params["conditioning_timestep_integrator"]],
+            "layers": [layer(p) for p in params["layers"]],
+            "final_res": [resblock(p) for p in params["final_res"]]}
 
 
 # conditioning paths
