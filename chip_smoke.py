@@ -10,7 +10,8 @@ one JSON line per phase:
 2. ``build``: builds every CUDA kernel from ``tortoise_tts_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and its build seconds.
 3. ``kernel``: each kernel against its plain PyTorch version in bf16 at
-   the main path's shapes (max abs error against a stated tolerance), and
+   the main path's shapes (K2 and K8 at the decode's M = 1, 8, 16 and
+   32; max abs error against a stated tolerance), and
    the kernel's, the plain version's and one PyTorch library call's time
    beside the bound: the larger of the bytes the function must move over
    3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM bf16 dense
@@ -72,8 +73,12 @@ one JSON line per phase:
    ``proj_out`` randomised for the phase, so the attention reaches it).
 9. ``decode``: eager decode time per token and CUDA launches per token
    (from the profiler), the size a CUDA graph would capture, and the
-   device's busy share, for the int8 and the W8A8 decode; K8's CUDA
-   kernels in the profiler must match its wrapper's launches.
+   device's busy share, for the int8 and the W8A8 decode, each at the
+   single route's shape (M=1), the batch's (8 rows) and the candidates'
+   (16 rows through the shared prefix); K2's and K8's CUDA kernels in
+   the profiler must match their wrappers' launches (one GEMM a call,
+   and the row kernel where the GEMM does not do its work: at most two
+   kernels a call).
 
 Every profiled count check reads ``Stages.census``: a window whose
 kernels the profiler cut short is profiled once more, alone, and the
@@ -129,6 +134,13 @@ GEMV_SHAPES = [("attn_qkv", 1024, 3072, True), ("attn_proj", 1024, 1024, False),
                ("mlp_fc", 1024, 4096, True), ("mlp_proj", 4096, 1024, False)]
 BATCH_ROWS = 8
 CANDIDATES = 16
+# the decode GEMVs' row counts: the single routes, the batch, candidates,
+# and the batch with 4 candidates a text
+GEMV_ROWS = (1, BATCH_ROWS, CANDIDATES, 32)
+# the CUDA kernels of each port kernel's wrapper on the decode, by name
+DECODE_KERNELS = {"qgemv": ("qgemv_gemm", "qgemv_ln_rows"),
+                  "qgemv_w8a8": ("w8a8_gemm", "w8a8_quantize"),
+                  "flash_decode": ("fd_split", "fd_merge")}
 
 
 T0 = time.perf_counter()
@@ -268,63 +280,98 @@ def check_flash_attention(torch, k1, dev, n_text):
     return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t)
 
 
+def _gemv_weights(torch, g, dev, layers, kd, nd):
+    wq = torch.randint(-127, 128, (layers, kd, nd), generator=g, device=dev,
+                       dtype=torch.int8)
+    s = torch.rand(layers, nd, generator=g, device=dev) * 2e-4
+    bias = torch.randn(layers, nd, generator=g, device=dev) * 0.1
+    gam = 1 + 0.1 * torch.randn(layers, kd, generator=g, device=dev)
+    bet = 0.1 * torch.randn(layers, kd, generator=g, device=dev)
+    return wq, s, bias, gam, bet
+
+
+def _gemv_bytes(m, kd, nd, ln) -> int:
+    """Bytes a decode GEMV must move: the int8 weights, bf16 rows in and
+    out, fp32 scales and biases (and LN parameters)."""
+    return (kd * nd + m * kd * 2 + nd * 4 * 2 + (2 * kd * 4 if ln else 0)
+            + m * nd * 2)
+
+
+def _layer_lines(name, tot, peak, **kw) -> dict:
+    """One line a row count for a decode layer's four GEMVs (M=1 the
+    ``kernel`` line); returns {m: totals with the bound}."""
+    out = {}
+    for m, t in tot.items():
+        bms, by = bound_ms(t.pop("bytes"), t.pop("ops"), peak)
+        emit("kernel" if m == 1 else "kernel_detail", name=name,
+             shape=f"one decode layer: 4 GEMVs, M={m}", bound_ms=bms,
+             bound_by=by, **kw, **t)
+        out[m] = dict(bound_ms=bms, bound_by=by, **t)
+    return out
+
+
 def check_qgemv(torch, k2, dev, layers=30):
-    """K2 at one decode layer's four GEMVs (M=1), each cycling over 30
-    layers of weights (378 MB of int8, > L2) as the decode does; and the
-    error at M=32 (the batch route's 8 texts x 4 candidates)."""
+    """K2 at one decode layer's four GEMVs, each cycling over 30 layers of
+    weights (378 MB of int8, > L2) as the decode does, at the decode's row
+    counts (``GEMV_ROWS``): the error against the plain version at each M;
+    the device time of a layer beside ``F.linear`` on pre-dequantized bf16
+    weights at the same M (one PyTorch call of the same product; it
+    streams twice the bytes), and the plain version's at M=1.  For the
+    two GEMVs with the LN, at M <= 16 both forms of the LN: in the GEMM's
+    prologue (one kernel) and the row kernel + GEMM."""
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(1)
-    tot = dict(bytes=0.0, flops=0.0)
+    tot = {m: dict(bytes=0.0, ops=0.0) for m in GEMV_ROWS}
     err_max, tol = 0.0, 3e-2   # |y| <~ 1.5: 1 bf16 ulp is <= 8e-3
     for name, kd, nd, ln in GEMV_SHAPES:
-        wq = torch.randint(-127, 128, (layers, kd, nd), generator=g,
-                           device=dev, dtype=torch.int8)
-        s = torch.rand(layers, nd, generator=g, device=dev) * 2e-4
-        bias = torch.randn(layers, nd, generator=g, device=dev) * 0.1
+        wq, s, bias, gam, bet = _gemv_weights(torch, g, dev, layers, kd, nd)
         bias16 = bias.to(torch.bfloat16)
-        gam = 1 + 0.1 * torch.randn(layers, kd, generator=g, device=dev)
-        bet = 0.1 * torch.randn(layers, kd, generator=g, device=dev)
-        x = torch.randn(1, kd, generator=g, device=dev).to(torch.bfloat16)
+        wdq_t = (wq.float() * s[:, None, :]).to(torch.bfloat16) \
+            .transpose(1, 2).contiguous()      # (L, N, K) for F.linear
 
         def lnp(li):
             return (gam[li], bet[li]) if ln else None
-        got = k2.qgemv(x, wq[0], s[0], bias[0], ln=lnp(0))
-        want = k2.qgemv_plain(x, wq[0], s[0], bias[0], ln=lnp(0))
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        assert math.isfinite(err) and err <= tol, f"qgemv {name} err {err}"
-        x32 = torch.randn(32, kd, generator=g, device=dev).to(torch.bfloat16)
-        err32 = bf16_err(torch, k2.qgemv(x32, wq[1], s[1], bias[1],
-                                         ln=lnp(1)),
-                         k2.qgemv_plain(x32, wq[1], s[1], bias[1], ln=lnp(1)),
-                         atol=tol, rtol=0, name=f"qgemv {name} M=32")
-        err_max = max(err_max, err, err32)
-        wdq = (wq.float() * s[:, None, :]).to(torch.bfloat16)
-        wdq_t = wdq.transpose(1, 2).contiguous()      # (L, N, K) for linear
-        del wdq
-        t = timings(
-            torch,
-            lambda i: k2.qgemv(x, wq[i % layers], s[i % layers],
-                               bias[i % layers], ln=lnp(i % layers)),
-            lambda i: k2.qgemv_plain(x, wq[i % layers], s[i % layers],
-                                     bias[i % layers], ln=lnp(i % layers)),
-            lambda i: F.linear(x, wdq_t[i % layers], bias16[i % layers]))
-        del wdq_t
-        nbytes = kd * nd + kd * 2 + nd * 4 * 2 + (2 * kd * 4 if ln else 0) \
-            + nd * 2
-        emit("kernel_detail", name="qgemv", gemv=name, shape=[1, kd, nd],
-             ln=ln, max_abs_err=err, max_abs_err_m32=err32,
-             bound_ms=bound_ms(nbytes, 2 * kd * nd)[0], **t)
-        for key, val in t.items():
-            tot[key] = tot.get(key, 0.0) + val
-        tot["bytes"] += nbytes
-        tot["flops"] += 2 * kd * nd
-    bms, by = bound_ms(tot.pop("bytes"), tot.pop("flops"))
-    emit("kernel", name="qgemv", shape="one decode layer: 4 GEMVs, M=1",
-         max_abs_err=err_max, tol=tol,
-         library="F.linear on pre-dequantized bf16 weights (2x the bytes)",
-         bound_ms=bms, bound_by=by, **tot)
-    return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **tot)
+        for m in GEMV_ROWS:
+            x = torch.randn(m, kd, generator=g, device=dev).to(torch.bfloat16)
+            err = bf16_err(torch, k2.qgemv(x, wq[0], s[0], bias[0],
+                                           ln=lnp(0)),
+                           k2.qgemv_plain(x, wq[0], s[0], bias[0], ln=lnp(0)),
+                           atol=tol, rtol=0, name=f"qgemv {name} M={m}")
+            err_max = max(err_max, err)
+            t = timings(
+                torch,
+                lambda i: k2.qgemv(x, wq[i % layers], s[i % layers],
+                                   bias[i % layers], ln=lnp(i % layers)),
+                (lambda i: k2.qgemv_plain(
+                    x, wq[i % layers], s[i % layers], bias[i % layers],
+                    ln=lnp(i % layers))) if m == 1 else None,
+                lambda i: F.linear(x, wdq_t[i % layers], bias16[i % layers]))
+            if ln and m <= k2.FUSED_ROWS:
+                for key, fused in (("ln_fused_ms", True),
+                                   ("ln_row_kernel_ms", False)):
+                    t[key] = device_ms(torch, lambda i: k2._launch(
+                        x, wq[i % layers], s[i % layers], bias[i % layers],
+                        lnp(i % layers), ln_fused=fused))
+            nbytes = _gemv_bytes(m, kd, nd, ln)
+            emit("kernel_detail", name="qgemv", gemv=name, shape=[m, kd, nd],
+                 ln=ln, max_abs_err=err, ksplit=k2.ksplit(kd, nd, m),
+                 ln_fused=ln and m <= k2.LN_FUSED_MAX_M,
+                 bound_ms=bound_ms(nbytes, 2 * m * kd * nd)[0], **t)
+            for key, val in t.items():
+                if not key.startswith("ln_"):
+                    tot[m][key] = (None if val is None
+                                   else tot[m].get(key, 0.0) + val)
+            tot[m]["bytes"] += nbytes
+            tot[m]["ops"] += 2 * m * kd * nd
+        del wq, wdq_t
+        torch.cuda.empty_cache()
+    out = _layer_lines(
+        "qgemv", tot, BF16_FLOPS, max_abs_err=err_max, tol=tol,
+        library="F.linear on pre-dequantized bf16 weights (2x the bytes)")
+    return dict(max_abs_err=err_max, **out[1],
+                ms_by_m={m: out[m]["ms"] for m in GEMV_ROWS},
+                library_ms_by_m={m: out[m]["library_ms"] for m in GEMV_ROWS},
+                bound_ms_by_m={m: out[m]["bound_ms"] for m in GEMV_ROWS})
 
 
 def _w8a8_case(torch, k8, x, wq, s, b, ln) -> tuple:
@@ -372,25 +419,21 @@ def _w8a8_case(torch, k8, x, wq, s, b, ln) -> tuple:
 
 
 def check_qgemv_w8a8(torch, k8, k2, dev, layers=30):
-    """K8 at the four decode GEMVs.  Right: at M = 1, 16 and 32, with and
-    without the fused LN, in fp32 and bf16 (``_w8a8_case``).  Time per
+    """K8 at the four decode GEMVs.  Right: at M = 1, 8, 16 and 32, with
+    and without the fused LN, in fp32 and bf16 (``_w8a8_case``).  Time per
     layer (4 GEMVs, the LN fused where the decode fuses it, bf16, each
-    GEMV cycling over 30 layers of int8 weights as the decode does) at
-    M=1, the main path's, and M=32, beside K2 at the same M in the same
-    run and ``torch._int_mm`` on the quantized rows at M=32 (its CUDA
-    shape rule needs more than 16 rows; at M=1 no PyTorch call computes
-    the function)."""
+    GEMV cycling over 30 layers of int8 weights as the decode does) at the
+    decode's row counts (``GEMV_ROWS``), beside K2 at the same M in the
+    same run and ``torch._int_mm`` on the quantized rows at M=32 (its CUDA
+    shape rule needs more than 16 rows; at M <= 16 no PyTorch call
+    computes the function).  At M <= 16 both forms of the quantizer: in
+    the GEMM's prologue (one kernel) and the quantize kernel + GEMM."""
     g = torch.Generator(device=dev).manual_seed(3)
-    tot = {m: dict(bytes=0.0, ops=0.0) for m in (1, 32)}
+    tot = {m: dict(bytes=0.0, ops=0.0) for m in GEMV_ROWS}
     err_max, cases = 0.0, []
     for name, kd, nd, ln_model in GEMV_SHAPES:
-        wq = torch.randint(-127, 128, (layers, kd, nd), generator=g,
-                           device=dev, dtype=torch.int8)
-        s = torch.rand(layers, nd, generator=g, device=dev) * 2e-4
-        bias = torch.randn(layers, nd, generator=g, device=dev) * 0.1
-        gam = 1 + 0.1 * torch.randn(layers, kd, generator=g, device=dev)
-        bet = 0.1 * torch.randn(layers, kd, generator=g, device=dev)
-        for m in (1, 16, 32):
+        wq, s, bias, gam, bet = _gemv_weights(torch, g, dev, layers, kd, nd)
+        for m in GEMV_ROWS:
             for ln in (False, True):
                 for dtype in (torch.float32, torch.bfloat16):
                     x = torch.randn(m, kd, generator=g, device=dev).to(dtype)
@@ -404,7 +447,7 @@ def check_qgemv_w8a8(torch, k8, k2, dev, layers=30):
 
         def lnp(li):
             return (gam[li], bet[li]) if ln_model else None
-        for m in (1, 32):
+        for m in GEMV_ROWS:
             x = torch.randn(m, kd, generator=g, device=dev).to(torch.bfloat16)
             t = timings(
                 torch,
@@ -417,41 +460,44 @@ def check_qgemv_w8a8(torch, k8, k2, dev, layers=30):
             t["k2_ms"] = device_ms(torch, lambda i: k2.qgemv(
                 x, wq[i % layers], s[i % layers], bias[i % layers],
                 ln=lnp(i % layers)))
-            if m == 32:
+            if m > 16:
                 xq = k8.quantize_rowwise(x)[0]
                 t["library_ms"] = device_ms(
                     torch, lambda i: torch._int_mm(xq, wq[i % layers]))
                 t["library_call_ms"] = call_ms(
                     torch, lambda i: torch._int_mm(xq, wq[i % layers]))
-            nbytes = (kd * nd + m * kd * 2 + nd * 4 * 2
-                      + (2 * kd * 4 if ln_model else 0) + m * nd * 2)
+            if m <= k8.FUSED_ROWS:
+                for key, fused in (("fused_ms", True),
+                                   ("quantize_kernel_ms", False)):
+                    t[key] = device_ms(torch, lambda i: k8._launch(
+                        x, wq[i % layers], s[i % layers], bias[i % layers],
+                        lnp(i % layers), fused=fused))
+            nbytes = _gemv_bytes(m, kd, nd, ln_model)
             emit("kernel_detail", name="qgemv_w8a8", gemv=name,
                  shape=[m, kd, nd], ln=ln_model,
+                 ksplit=k2.ksplit(kd, nd, m),
+                 fused=m <= k8.QUANT_FUSED_MAX_M,
                  bound_ms=bound_ms(nbytes, 2 * m * kd * nd, INT8_OPS)[0],
                  **t)
             for key, val in t.items():
-                tot[m][key] = (None if val is None
-                               else tot[m].get(key, 0.0) + val)
+                if key not in ("fused_ms", "quantize_kernel_ms"):
+                    tot[m][key] = (None if val is None
+                                   else tot[m].get(key, 0.0) + val)
             tot[m]["bytes"] += nbytes
             tot[m]["ops"] += 2 * m * kd * nd
         del wq
         torch.cuda.empty_cache()
     emit("kernel_detail", name="qgemv_w8a8", checks=cases)
-    out = {}
-    for m in (1, 32):
-        bms, by = bound_ms(tot[m].pop("bytes"), tot[m].pop("ops"), INT8_OPS)
-        emit("kernel_detail" if m > 1 else "kernel", name="qgemv_w8a8",
-             shape=f"one decode layer: 4 GEMVs, M={m}",
-             max_abs_err=err_max, checks=len(cases),
-             codes_differ=sum(c["codes_differ"] for c in cases),
-             rows_differ=sum(c["rows_differ"] for c in cases),
-             library=("torch._int_mm on the quantized rows (the integer "
-                      "product only)" if m > 1 else None),
-             bound_ms=bms, bound_by=by, **tot[m])
-        out[m] = dict(bound_ms=bms, bound_by=by, **tot[m])
+    out = _layer_lines(
+        "qgemv_w8a8", tot, INT8_OPS, max_abs_err=err_max, checks=len(cases),
+        codes_differ=sum(c["codes_differ"] for c in cases),
+        rows_differ=sum(c["rows_differ"] for c in cases),
+        library="torch._int_mm on the quantized rows (the integer product "
+                "only; M > 16)")
     return dict(max_abs_err=err_max, **out[1],
-                m32_ms=out[32]["ms"], m32_k2_ms=out[32]["k2_ms"],
-                m32_bound_ms=out[32]["bound_ms"],
+                ms_by_m={m: out[m]["ms"] for m in GEMV_ROWS},
+                k2_ms_by_m={m: out[m]["k2_ms"] for m in GEMV_ROWS},
+                bound_ms_by_m={m: out[m]["bound_ms"] for m in GEMV_ROWS},
                 m32_library_ms=out[32]["library_ms"])
 
 
@@ -1374,11 +1420,13 @@ def _kernel_census(prof) -> dict:
     ``ts_res_block_f32`` in fp32), the normalise kernel before each of
     them (``group_norm_act<CACHED>`` in bf16, ``group_stats_f32`` in
     fp32), K6 (``attn_bias<T>`` of csrc/flash_attention_bias.cu), K9a
-    (``attn_bias_kq<T>``), K9b (``attn_bias_cm<T>``), K7 and all other
-    kernels.  The names match demangled and mangled alike."""
+    (``attn_bias_kq<T>``), K9b (``attn_bias_cm<T>``), K7, K2 and K8 (their
+    GEMM and row kernels, ``DECODE_KERNELS``) and all other kernels.  The
+    names match demangled and mangled alike."""
     events = _cuda_events(prof)
     kinds = ("gn_conv_gemm", "ts_res_block_gemm", "normalise",
-             "attn_bias", "attn_bias_kq", "attn_bias_cm", "snake", "other")
+             "attn_bias", "attn_bias_kq", "attn_bias_cm", "snake", "qgemv",
+             "qgemv_w8a8", "other")
     out = {k: 0 for k in kinds}
     ms = {k: 0.0 for k in kinds}
     for e in events:
@@ -1396,6 +1444,10 @@ def _kernel_census(prof) -> dict:
             kind = "attn_bias"
         elif "snake_resample2" in e.name:
             kind = "snake"
+        elif any(p in e.name for p in DECODE_KERNELS["qgemv"]):
+            kind = "qgemv"
+        elif any(p in e.name for p in DECODE_KERNELS[W8A8]):
+            kind = "qgemv_w8a8"
         else:
             kind = "other"
         out[kind] += 1
@@ -1950,16 +2002,22 @@ def denoise_attention_routes(torch, tts, ref: str):
     return total
 
 
-def decode_timing(torch, tts, ref: str, quant_mode: str,
-                  steps: int = AR_STEPS):
-    """Eager decode alone in ``quant_mode``: ms per token at the main
-    path's shapes (the whole budget, unprofiled), and from the profiler
-    over 8 tokens the CUDA launches and device ms per token by kernel,
-    hence the device's busy share.  The GEMV kernels that the profiler
-    counts must match the GEMV wrapper's launches (one GEMV kernel and
-    one split-K merge per call at M=1)."""
+def decode_timing(torch, tts, ref: str, quant_mode: str, rows: int = 1,
+                  fan_out: int = 0, steps: int = AR_STEPS):
+    """Eager decode alone in ``quant_mode`` of ``rows`` copies of the text
+    (the single route at 1, the batch's decode at 8) or, with ``fan_out``,
+    one text fanned out to that many candidates through the shared prefix
+    (the candidates route's): ms per token at the main path's shapes (the
+    whole budget, unprofiled), and from the profiler over 8 tokens the
+    CUDA launches and device ms per token by kernel, hence the device's
+    busy share.  The GEMV kernels that the profiler counts must match the
+    GEMV wrapper's launches: one GEMM a call, and a row kernel (K2's LN
+    rows, K8's quantize) only where the GEMM does not do its work at this
+    M; so at most two CUDA kernels a call."""
     from torch.profiler import ProfilerActivity, profile
     from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.kernels import qgemv as k2
+    from tortoise_tts_tpu_torch.kernels import qgemv_w8a8 as k8
     from tortoise_tts_tpu_torch.models.unified_voice import (decode_chunk,
                                                              decode_start)
     from tortoise_tts_tpu_torch.ops.sampling import SamplingConfig
@@ -1967,63 +2025,75 @@ def decode_timing(torch, tts, ref: str, quant_mode: str,
     dev = tts.device
     enc = tts.encode_audio(ref, seed=0)
     toks = tts.encode_text(TEXT)
-    tokens = torch.as_tensor(tts._bucket_text(toks)[None], device=dev)
-    lengths = torch.tensor([len(toks)], device=dev)
+    tokens = torch.as_tensor(tts._bucket_text(toks)[None], device=dev) \
+        .repeat(rows, 1)
+    lengths = torch.tensor([len(toks)] * rows, device=dev)
+    lat = enc["latent"][0].reshape(1, -1).repeat(rows, 1)
+    m = fan_out or rows
     kw = dict(qgpt=tts._ar_qgpt(), quant_mode=quant_mode)
 
     def start():
-        return decode_start(ar.params, enc["latent"][0], tokens, lengths,
-                            [torch.Generator(device=dev).manual_seed(0)],
-                            ar.config, steps)
+        gens = [torch.Generator(device=dev).manual_seed(i) for i in range(m)]
+        out = decode_start(ar.params, lat, tokens, lengths, gens, ar.config,
+                           steps, shared_rows=fan_out)
+        return out if fan_out else (out, None)
+
+    def chunk(state, prefix, n):
+        return decode_chunk(ar.params, state, ar.config, SamplingConfig(),
+                            chunk=n, prefix=prefix, **kw)
 
     with torch.inference_mode():
-        state = start()
+        state, prefix = start()
         torch.cuda.synchronize()
         t0 = time.time()
-        state = decode_chunk(ar.params, state, ar.config, SamplingConfig(),
-                             chunk=None, **kw)
+        state = chunk(state, prefix, None)
         torch.cuda.synchronize()
         dt = time.time() - t0
         n_tok = state.step
-        state = start()
-        decode_chunk(ar.params, state, ar.config, SamplingConfig(), chunk=8,
-                     **kw)
+        state, prefix = start()
+        chunk(state, prefix, 8)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             profiler_warmup(torch)
             c0 = kernels.launch_counts()
-            decode_chunk(ar.params, state, ar.config, SamplingConfig(),
-                         chunk=8, **kw)
+            chunk(state, prefix, 8)
             torch.cuda.synchronize()
             c1 = kernels.launch_counts()
     events = _cuda_events(prof)
-    by_name = {"qgemv": ("qgemv_kernel", "qgemv_finalize"),
-               "qgemv_w8a8": ("w8a8_kernel", "w8a8_finalize"),
-               "flash_decode": ("fd_split", "fd_merge")}
-    split = {k: 0.0 for k in (*by_name, "other")}
-    n_by = {p: 0 for pre in by_name.values() for p in pre}
+    split = {k: 0.0 for k in (*DECODE_KERNELS, "other")}
+    n_by = {p: 0 for pre in DECODE_KERNELS.values() for p in pre}
     for e in events:
-        key = next((k for k, pre in by_name.items()
+        key = next((k for k, pre in DECODE_KERNELS.items()
                     if any(p in e.name for p in pre)), "other")
         split[key] += e.device_time / 1e3 / 8
         for p in n_by:
             n_by[p] += p in e.name
     gemv = "qgemv" if quant_mode == "int8" else W8A8
+    layers = ar.config.layers
     calls = c1[gemv] - c0[gemv]
-    assert calls == 8 * 4 * ar.config.layers, (c0, c1)
-    kern, merge = by_name[gemv]
-    assert n_by[kern] == calls and n_by[merge] == calls, (n_by, calls)
+    assert calls == 8 * 4 * layers, (c0, c1)
+    gemm, row = DECODE_KERNELS[gemv]
+    if gemv == "qgemv":   # the LN rows: 2 of the 4 GEMVs carry the LN
+        want_rows = 0 if m <= k2.LN_FUSED_MAX_M else 8 * 2 * layers
+    else:
+        want_rows = 0 if m <= k8.QUANT_FUSED_MAX_M else calls
+    assert n_by[gemm] == calls and n_by[row] == want_rows, \
+        (n_by, calls, want_rows)
+    attn = "flash_decode_shared" if fan_out else "flash_decode"
     busy = sum(split.values())
-    emit("decode", quant_mode=quant_mode, tokens=n_tok,
-         ms_per_token=dt * 1e3 / n_tok,
+    emit("decode", quant_mode=quant_mode, rows=m,
+         route=("candidates" if fan_out else
+                "batch" if rows > 1 else "single"),
+         tokens=n_tok, ms_per_token=dt * 1e3 / n_tok,
          cuda_launches_per_token=len(events) / 8,
          device_busy_ms_per_token=busy,
          device_busy_share=busy / (dt * 1e3 / n_tok),
          device_ms_per_token_by_kernel=split,
          gemv_cuda_kernels_per_token={p: n / 8 for p, n in n_by.items()},
+         gemv_cuda_kernels_per_call=(n_by[gemm] + n_by[row]) / calls,
          port_kernel_calls_per_token={gemv: calls / 8,
-                                      "flash_decode": ar.config.layers})
+                                      attn: (c1[attn] - c0[attn]) / 8})
 
 
 def main() -> int:
@@ -2091,8 +2161,10 @@ def main() -> int:
                       denoise_attention_routes):
             c = route(torch, tts, ref)
             counts = {k: counts[k] + c[k] for k in counts}
-        decode_timing(torch, tts, ref, "int8")
-        decode_timing(torch, tts, ref, "w8a8")
+        for mode in ("int8", "w8a8"):
+            decode_timing(torch, tts, ref, mode)
+            decode_timing(torch, tts, ref, mode, rows=BATCH_ROWS)
+            decode_timing(torch, tts, ref, mode, fan_out=CANDIDATES)
 
     src = "tortoise_tts_tpu_torch/csrc/"
     rows = [

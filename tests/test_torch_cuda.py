@@ -83,39 +83,161 @@ def _w8a8_inputs(dev, m, k, n, ln, dtype, seed=9):
     return x, wq, s, b, lnp
 
 
+def _check_w8a8(x, wq, s, b, lnp, **launch):
+    """One K8 call (through ``_launch`` with ``launch``'s options if
+    given) against its plain version.  In fp32 without the LN the
+    codes, the scales and the output are bit-equal to the plain version.
+    With the LN (and in bf16) the row sums run in another order, so a code
+    on a rounding edge may move by one step: at most one step, on few
+    codes, and the output is the plain epilogue of the kernel's own
+    codes."""
+    m, k = x.shape
+    dtype = x.dtype
+    before = k8.KERNEL.launches
+    if launch:
+        got = k8._launch(x, wq, s, b, lnp, **launch)[0]
+    else:
+        got = k8.qgemv_w8a8(x, wq, s, b, ln=lnp)
+    torch.cuda.synchronize()
+    assert k8.KERNEL.launches == before + 1
+    y, codes, sx = (k8._launch(x, wq, s, b, lnp, **launch) if launch
+                    else k8.qgemv_w8a8_codes(x, wq, s, b, ln=lnp))
+    assert torch.equal(y, got)
+    xn = x if lnp is None else k8.ln_f32(x.float(), *lnp).to(dtype)
+    want_codes, want_sx = k8.quantize_rowwise(xn)
+    want = k8.qgemv_w8a8_plain(x, wq, s, b, ln=lnp)
+    if lnp is None:
+        ndiff = int((codes != want_codes).sum())
+        assert ndiff == 0, f"{dtype}: {ndiff} codes differ"
+        assert torch.equal(sx, want_sx[:, 0]), dtype
+        err = float((got.float() - want.float()).abs().max())
+        assert torch.equal(got, want), f"{dtype}: max abs err {err}"
+        return
+    step = (codes.int() - want_codes.int()).abs()
+    assert int(step.max()) <= 1 and int(step.sum()) <= m * k // 100
+    torch.testing.assert_close(sx, want_sx[:, 0], atol=0, rtol=1e-6)
+    own = ((codes.double() @ wq.double()).float() * sx[:, None] * s
+           + b).to(dtype)
+    torch.testing.assert_close(got, own, atol=0, rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 16, 32])
 @pytest.mark.parametrize("k,n,ln", DECODE_SHAPES)
 def test_qgemv_w8a8_kernel_cuda(cuda, k, n, ln, m):
-    """K8 at the four decode GEMVs.  In fp32 without the LN the codes, the
-    scales and the output are bit-equal to the plain version.  With the
-    LN (and in bf16) the row sums run in another order, so a code on a
-    rounding edge may move by one step: at most one step, on few codes,
-    and the output is the plain epilogue of the kernel's own codes."""
+    """K8 at the four decode GEMVs, in fp32 and bf16 (``_check_w8a8``)."""
     for dtype in (torch.float32, torch.bfloat16):
-        x, wq, s, b, lnp = _w8a8_inputs(cuda, m, k, n, ln, dtype)
-        before = k8.KERNEL.launches
-        got = k8.qgemv_w8a8(x, wq, s, b, ln=lnp)
+        _check_w8a8(*_w8a8_inputs(cuda, m, k, n, ln, dtype))
+
+
+# M across the kernels' 16-row tiles and 64-row blocks
+ROW_COUNTS = [1, 3, 16, 17, 32, 33]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", ROW_COUNTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ln", [False, True])
+def test_qgemv_w8a8_rows_cuda(cuda, m, dtype, ln):
+    """K8 at row counts that cross its tiles, as ``_check_w8a8`` holds it
+    (fp32 without the LN bit-equal); up to 16 rows both forms, the
+    quantize kernel first and the quantizer in the GEMM."""
+    inputs = _w8a8_inputs(cuda, m, 1024, 3072, ln, dtype, seed=m)
+    _check_w8a8(*inputs)
+    if m <= k8.FUSED_ROWS:
+        for fused in (False, True):
+            _check_w8a8(*inputs, fused=fused)
+
+
+def _qgemv_close(got, want):
+    if got.dtype == torch.float32:
+        # fp32 on both sides: only the order of the sums differs
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        _bf16_close(got, want, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", ROW_COUNTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ln", [False, True])
+def test_qgemv_rows_cuda(cuda, m, dtype, ln):
+    """K2 at row counts that cross its tiles; in bf16 with the LN both of
+    its forms (in the GEMM's prologue and in the row kernel)."""
+    x, wq, s, b, lnp = _w8a8_inputs(cuda, m, 1024, 3072, ln, dtype,
+                                    seed=100 + m)
+    s = s * 5
+    want = k2.qgemv_plain(x, wq, s, b, ln=lnp)
+    before = k2.KERNEL.launches
+    _qgemv_close(k2.qgemv(x, wq, s, b, ln=lnp), want)
+    assert k2.KERNEL.launches == before + 1
+    if ln and dtype == torch.bfloat16 and m <= k2.FUSED_ROWS:
+        for fused in (False, True):
+            _qgemv_close(k2._launch(x, wq, s, b, lnp, ln_fused=fused), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_qgemv_split_k_counters_cuda(cuda):
+    """The split-K arrival counters: successive calls of different shapes
+    and splits on one stream, and a call after one that raised at launch
+    (a K slice too large for shared memory), all right."""
+    cases = [(32, 1024, 4096, True), (1, 4096, 1024, False),
+             (17, 1024, 1024, False), (33, 4096, 1024, True),
+             (1, 1024, 3072, True)]
+    inputs = [_w8a8_inputs(cuda, m, k, n, ln, torch.bfloat16, seed=i)
+              for i, (m, k, n, ln) in enumerate(cases)]
+    for _ in range(2):
+        for x, wq, s, b, lnp in inputs:
+            _bf16_close(k2.qgemv(x, wq, s, b, ln=lnp),
+                        k2.qgemv_plain(x, wq, s, b, ln=lnp), atol=2e-2)
+            _check_w8a8(x, wq, s, b, lnp)
+    x, wq, s, b, lnp = _w8a8_inputs(cuda, 64, 4096, 1024, False,
+                                    torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        k2._launch(x, wq, s, b, None, ks=1)     # 530 KB of shared memory
+    for ks in (4, 8, 16):   # splits of this shape after the failure
+        _bf16_close(k2._launch(x, wq, s, b, None, ks=ks),
+                    k2.qgemv_plain(x, wq, s, b), atol=2e-2)
+    for x, wq, s, b, lnp in inputs:
+        _check_w8a8(x, wq, s, b, lnp)
+
+
+def _cuda_kernel_names(fn):
+    """The CUDA kernels one call of fn launches, by torch.profiler (after
+    a pause and spin kernels: the profiler can drop a window's first
+    kernels)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(16):
+            torch.cuda._sleep(200_000)
         torch.cuda.synchronize()
-        assert k8.KERNEL.launches == before + 1
-        y, codes, sx = k8.qgemv_w8a8_codes(x, wq, s, b, ln=lnp)
-        assert torch.equal(y, got)
-        xn = x if lnp is None else k8.ln_f32(x.float(), *lnp).to(dtype)
-        want_codes, want_sx = k8.quantize_rowwise(xn)
-        want = k8.qgemv_w8a8_plain(x, wq, s, b, ln=lnp)
-        if lnp is None:
-            ndiff = int((codes != want_codes).sum())
-            assert ndiff == 0, f"{dtype}: {ndiff} codes differ"
-            assert torch.equal(sx, want_sx[:, 0]), dtype
-            err = float((got.float() - want.float()).abs().max())
-            assert torch.equal(got, want), f"{dtype}: max abs err {err}"
-            continue
-        step = (codes.int() - want_codes.int()).abs()
-        assert int(step.max()) <= 1 and int(step.sum()) <= m * k // 100
-        torch.testing.assert_close(sx, want_sx[:, 0], atol=0, rtol=1e-6)
-        own = ((codes.double() @ wq.double()).float() * sx[:, None] * s
-               + b).to(dtype)
-        torch.testing.assert_close(got, own, atol=0, rtol=0)
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if "CUDA" in str(e.device_type) and "spin_kernel" not in e.name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16, 32, 33])
+@pytest.mark.parametrize("k,n,ln", DECODE_SHAPES)
+def test_qgemv_kernels_per_call_cuda(cuda, m, k, n, ln):
+    """One K2 or K8 call is at most two CUDA kernels at every M: one GEMM
+    for all rows (no merge kernel), and a row kernel (K2's LN rows, K8's
+    quantize) unless the GEMM does its work."""
+    x, wq, s, b, lnp = _w8a8_inputs(cuda, m, k, n, ln, torch.bfloat16)
+    names = _cuda_kernel_names(lambda: k2.qgemv(x, wq, s, b, ln=lnp))
+    assert len(names) <= 2 and sum("qgemv_gemm" in n for n in names) == 1, \
+        names
+    names = _cuda_kernel_names(lambda: k8.qgemv_w8a8(x, wq, s, b, ln=lnp))
+    quantize = 0 if m <= k8.QUANT_FUSED_MAX_M else 1
+    assert len(names) <= 2 and sum("w8a8_gemm" in n for n in names) == 1 \
+        and sum("w8a8_quantize" in n for n in names) == quantize, names
 
 
 @pytest.mark.cuda

@@ -85,14 +85,23 @@ def test_qgemv_plain_matches_jax(ln, bias):
         np.testing.assert_allclose(got, np.asarray(xla), **TOL)
 
 
+@pytest.mark.parametrize("m", [1, 32])
 @pytest.mark.parametrize("k,n", [(1024, 3072), (1024, 1024), (1024, 4096),
                                  (4096, 1024)])
-def test_qgemv_ksplit_at_main_path_shapes(k, n):
-    """The kernel's K slices divide K and hold 64..1024 rows each; the
-    grid has about one block per SM of an H100 (132) or more."""
-    ks = k2.ksplit(k, n)
-    assert k % ks == 0 and 64 <= k // ks <= 1024
-    assert (n // k2.TILE_N) * ks >= 128
+def test_qgemv_ksplit_at_main_path_shapes(k, n, m):
+    """The K split of K2 and K8 (one rule): slices of a multiple of the
+    ring's 32-row stage, KC_MIN..KC_MAX rows each, at most KS_MAX of them;
+    at M=1 the grid has a block per SM of an H100 (132) or more, unless
+    the slices reached KC_MIN rows;
+    the split-K partials (ks x M x N fp32/int32) never outweigh the int8
+    weights."""
+    ks = k2.ksplit(k, n, m)
+    kc = k // ks
+    assert k % ks == 0 and kc % k2.KSTG == 0
+    assert k2.KC_MIN <= kc <= k2.KC_MAX and ks <= k2.KS_MAX
+    if m == 1:
+        assert (n // k2.TILE_N) * ks >= 128 or kc == k2.KC_MIN
+    assert ks == 1 or ks * m * n * 4 <= k * n
 
 
 def _cache(rng, B, H, S, L=2, Dh=64):

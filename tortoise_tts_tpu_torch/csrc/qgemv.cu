@@ -1,5 +1,5 @@
-// K2: weight-only int8 GEMV with an optional fused LayerNorm, for the
-// UnifiedVoice decode step.
+// K2: weight-only int8 GEMM of a few rows (the decode's GEMVs) with an
+// optional fused LayerNorm, for the UnifiedVoice decode step.
 //
 // Replaces the TPU kernel tortoise_tts_tpu/ops/pallas_gemv.py
 // qgemv_stacked (_qgemv_kernel / _qgemv_ln_kernel / _gemv_body):
@@ -10,237 +10,260 @@
 // and the normalised row is rounded to x's type before the product, as
 // the TPU kernel does.  Output in x's type.
 //
-// Bound on an H100: bytes.  At M=1 the weights are all the traffic:
-// 1024x3072 + 1024x1024 + 1024x4096 + 4096x1024 int8 per layer, 377.5 MB
-// per token over 30 layers, 0.113 ms per token at 3.35 TB/s.  There is
-// no reuse to exploit, so the design only has to keep enough loads in
-// flight on every SM.
+// Bound on an H100: bytes.  The int8 weights are all but all the traffic,
+// at M = 1 as at M = 64: 1024x3072 + 1024x1024 + 1024x4096 + 4096x1024
+// bytes a layer, 12.58 MB, 3.76 us at 3.35 TB/s; the bf16 products at
+// M = 32 take 0.8 us at 989 TFLOP/s.  So every row must come out of one
+// pass over the weights, with enough bytes in flight on every SM.
 //
-// Design: a block of 256 threads owns a tile of 128 output columns and a
-// slice of K (split-K over grid.y; the wrapper sizes it so the grid has
-// about two blocks per SM).  Each thread streams 16 int8 weights of one
-// row with one 16-byte load, dequantises in registers and accumulates in
-// fp32; 32 rows are in flight per block per step.  The block's activations (LN applied
-// once per block from the full row) sit in shared memory.  Rows of the
-// tile reduce by warp shuffles, then across the 8 warps in shared memory.
-// With one K slice the block applies s and b and writes y; with several,
-// each writes fp32 partial sums and a second small kernel adds them and
-// applies s and b.  The layer index is the caller's: it passes the
-// pointer to Wq[li].  Rows go in blocks of 4 (1 at M=1), one launch of
-// the GEMV kernel per block of rows, all into one (ksplit, M, N) partial
-// buffer, so any M works.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design (csrc/small_m_gemm.cuh): one launch for all rows.  A block owns
+// 128 output columns and a K slice for up to 64 rows; the weight slice
+// streams once through a 4-stage cp.async ring.
+// - bf16: mma.sync m16n8k16 bf16 on the tensor cores; the int8 weights
+//   become bf16 in registers (exact), the rows past M are zeros, s and b
+//   are applied in the epilogue.
+// - fp32: CUDA-core FMAs (TF32 would round the fp32 activations), 16 rows
+//   a block (grid.z above 16): a thread owns 4 columns, the 4 warps split
+//   the stage's rows and add their sums in warp order.
+// - The LayerNorm: either a row kernel (qgemv_ln_rows, one block a row)
+//   writes LN(x) in x's type and the GEMM reads it, or (bf16, ln_fused,
+//   M <= 16) each GEMM block takes its rows' statistics over the whole row
+//   and applies the LN while staging its slice: one kernel, but every
+//   block reads the whole rows.  The wrapper picks by M.
+// - Split-K: the last block of a column tile to arrive adds the slices'
+//   partial sums in slice order and applies the epilogue.
+// So a call is at most two kernels (the LN row kernel, then the GEMM).
+#include "small_m_gemm.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TN = 128;    // output columns per block
-constexpr int VEC = 16;    // int8 weights per 16-byte load
-constexpr int GROUPS = TN / VEC;          // 8 column groups
-constexpr int KROWS = THREADS / GROUPS;   // 32 rows in flight
-constexpr int WARPS = THREADS / 32;
-constexpr float LN_EPS = 1e-5f;
+using small_m::from_f;
+using small_m::to_f;
+using small_m::THREADS;
+using small_m::TN;
+using small_m::KSTG;
+using small_m::STAGES;
+using small_m::STAGE_BYTES;
+using small_m::CT_STRIDE;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int LN_THREADS = 256;
+constexpr int F32_ROWS = 16;   // rows a block of the fp32 kernel at most
+
+// LN(x) rounded to x's type, one block a row (fp32 statistics:
+// thread-strided sums, then the warps' sums added in warp order)
 template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
+__global__ void __launch_bounds__(LN_THREADS)
+    qgemv_ln_rows(const T* __restrict__ x, int K,
+                  const float* __restrict__ gamma,
+                  const float* __restrict__ beta, T* __restrict__ xn) {
+  __shared__ float part[LN_THREADS / 32][2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* xr = x + (long long)blockIdx.x * K;
+  float s1 = 0.f, s2 = 0.f;
+  for (int k = tid; k < K; k += LN_THREADS) {
+    const float v = to_f(xr[k]);
+    s1 += v;
+    s2 = fmaf(v, v, s2);
+  }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  if (lane == 0) {
+    part[warp][0] = s1;
+    part[warp][1] = s2;
+  }
+  __syncthreads();
+  float a = 0.f, b2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_THREADS / 32; ++i) {
+    a += part[i][0];
+    b2 += part[i][1];
+  }
+  const float mu = a / K;
+  const float rstd = rsqrtf(b2 / K - mu * mu + small_m::LN_EPS);
+  T* yr = xn + (long long)blockIdx.x * K;
+  for (int k = tid; k < K; k += LN_THREADS)
+    yr[k] = from_f<T>((to_f(xr[k]) - mu) * rstd * gamma[k] + beta[k]);
 }
 
-__device__ __forceinline__ float i8(uint32_t word, int i) {
-  return static_cast<float>(static_cast<int32_t>(word << (24 - 8 * i)) >> 24);
-}
+// y = acc * s + b (b = 0 without a bias)
+struct Epi {
+  __device__ __forceinline__ float operator()(float v, int, float s_n,
+                                              float b_n) const {
+    return v * s_n + b_n;
+  }
+};
 
-// grid: (N / TN, ksplit); rows m0 .. m0+MB-1 of x.
-template <typename T, int MB>
+// grid: (N / TN, ksplit, ceil(M / 64)); LN: the LayerNorm in the prologue
+template <int MT, bool LN>
 __global__ void __launch_bounds__(THREADS)
-    qgemv_kernel(const T* __restrict__ x, int M, int K, int N,
-                 const int8_t* __restrict__ w, const float* __restrict__ s,
-                 const float* __restrict__ bias,
-                 const float* __restrict__ gamma,
-                 const float* __restrict__ beta, int kc,
-                 float* __restrict__ partial, T* __restrict__ out, int m0) {
-  extern __shared__ float xs[];  // (MB, kc)
-  __shared__ float red[WARPS][MB][TN];
-  __shared__ float stats[WARPS][MB][2];
-  __shared__ float mu_s[MB], rstd_s[MB];
+    qgemv_gemm_bf16(const __nv_bfloat16* __restrict__ x, int M, int K, int N,
+                    const int8_t* __restrict__ w, const float* __restrict__ s,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ gamma,
+                    const float* __restrict__ beta, int kc,
+                    float* __restrict__ partial, int* __restrict__ counters,
+                    __nv_bfloat16* __restrict__ out) {
+  using small_m::AKind;
+  if constexpr (LN)
+    small_m::gemm_body<AKind::BF16, MT>(
+        M, N, w, s, bias, kc, partial, counters, out,
+        small_m::LnBf16A{x, K, gamma, beta}, Epi{});
+  else
+    small_m::gemm_body<AKind::BF16, MT>(M, N, w, s, bias, kc, partial,
+                                        counters, out,
+                                        small_m::CopyA<2>{x, K}, Epi{});
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int kbase = blockIdx.y * kc;
+inline size_t f32_smem(int mb, int kc) {
+  const size_t main = (size_t)mb * kc * 4 + (size_t)STAGES * STAGE_BYTES;
+  const size_t tail = (size_t)4 * mb * TN * 4 + (size_t)mb * CT_STRIDE * 4;
+  return main > tail ? main : tail;
+}
 
-  if (gamma != nullptr) {
-    // LayerNorm statistics over the whole row, once per block
-    float sum[MB], sq[MB];
+// grid: (N / TN, ksplit, ceil(M / MB)).  Thread (warp, lane) owns columns
+// 4 lane .. 4 lane + 3 of the tile and the stage rows warp, warp + 4, ...
+template <int MB>
+__global__ void __launch_bounds__(THREADS)
+    qgemv_gemm_f32(const float* __restrict__ x, int M, int K, int N,
+                   const int8_t* __restrict__ w, const float* __restrict__ s,
+                   const float* __restrict__ bias, int kc,
+                   float* __restrict__ partial, int* __restrict__ counters,
+                   float* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* xs = reinterpret_cast<float*>(smem);            // (MB, kc)
+  uint8_t* ring = smem + (size_t)MB * kc * 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * TN, kbase = blockIdx.y * kc;
+  const int row0 = blockIdx.z * MB;
+  const int rows = min(MB, M - row0);
+  const int nst = kc / KSTG;
+  __shared__ __align__(16) float cols[2 * TN];
+
 #pragma unroll
-    for (int m = 0; m < MB; ++m) {
-      sum[m] = 0.f;
-      sq[m] = 0.f;
-      if (m0 + m < M) {
-        const T* xr = x + (long long)(m0 + m) * K;
-        for (int k = tid; k < K; k += THREADS) {
-          const float v = to_f(xr[k]);
-          sum[m] += v;
-          sq[m] = fmaf(v, v, sq[m]);
-        }
-      }
-      sum[m] = warp_sum(sum[m]);
-      sq[m] = warp_sum(sq[m]);
-      if (lane == 0) {
-        stats[warp][m][0] = sum[m];
-        stats[warp][m][1] = sq[m];
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nst)
+      small_m::load_stage<2>(ring + st * STAGE_BYTES, w, N, kbase, n0, st);
+    if (st == 0) {
+      small_m::copy_cols(cols, s, bias, n0);
+      const int chunks = kc / 4;
+      for (int i = tid; i < MB * chunks; i += THREADS) {
+        const int m = i / chunks, c = i % chunks;
+        const bool in = m < rows;
+        small_m::cp_async16(
+            xs + m * kc + c * 4,
+            x + (long long)(row0 + (in ? m : 0)) * K + kbase + c * 4,
+            in ? 16 : 0);
       }
     }
-    __syncthreads();
-    if (tid < MB) {
-      float a = 0.f, b2 = 0.f;
-      for (int i = 0; i < WARPS; ++i) {
-        a += stats[i][tid][0];
-        b2 += stats[i][tid][1];
-      }
-      const float mu = a / K;
-      const float var = b2 / K - mu * mu;
-      mu_s[tid] = mu;
-      rstd_s[tid] = rsqrtf(var + LN_EPS);
-    }
-    __syncthreads();
+    small_m::cp_async_commit();
   }
-  for (int i = tid; i < MB * kc; i += THREADS) {
-    const int m = i / kc, kk = i % kc;
-    float v = 0.f;
-    if (m0 + m < M) {
-      const int k = kbase + kk;
-      v = to_f(x[(long long)(m0 + m) * K + k]);
-      if (gamma != nullptr) {
-        v = (v - mu_s[m]) * rstd_s[m] * gamma[k] + beta[k];
-        v = to_f(from_f<T>(v));  // the TPU kernel rounds LN(x) to x's type
-      }
-    }
-    xs[i] = v;
-  }
-  __syncthreads();
 
-  const int cg = tid % GROUPS, kr = tid / GROUPS;
-  const int n0 = blockIdx.x * TN + cg * VEC;
-  float acc[MB][VEC];
+  float acc[MB][4];
 #pragma unroll
   for (int m = 0; m < MB; ++m)
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[m][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
 
-  const int8_t* wp = w + (long long)kbase * N + n0;
-#pragma unroll 4
-  for (int kk = kr; kk < kc; kk += KROWS) {
-    const uint4 q = *reinterpret_cast<const uint4*>(wp + (long long)kk * N);
-    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
-    float wf[VEC];
+  for (int st = 0; st < nst; ++st) {
+    small_m::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (st + STAGES - 1 < nst)
+      small_m::load_stage<2>(
+          ring + ((st + STAGES - 1) % STAGES) * STAGE_BYTES, w, N, kbase, n0,
+          st + STAGES - 1);
+    small_m::cp_async_commit();
+    const uint8_t* sb = ring + (st % STAGES) * STAGE_BYTES;
+#pragma unroll 2
+    for (int r = warp; r < KSTG; r += THREADS / 32) {
+      const uint32_t wd = small_m::w_word<2>(sb, r, lane) ^ 0x80808080u;
+      float wf[4];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) wf[j] = i8(words[j / 4], j % 4);
+      for (int j = 0; j < 4; ++j) wf[j] = small_m::i8_at(wd, j);
+      const float* xk = xs + st * KSTG + r;
 #pragma unroll
-    for (int m = 0; m < MB; ++m) {
-      const float xv = xs[m * kc + kk];
+      for (int m = 0; m < MB; ++m) {
+        const float xv = xk[m * kc];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[m][j] = fmaf(xv, wf[j], acc[m][j]);
+        for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xv, wf[j], acc[m][j]);
+      }
     }
   }
+  small_m::cp_async_wait<0>();
+  __syncthreads();   // the ring and xs are free
 
-  // lanes that share a column group differ in bits 3 and 4 of the lane
+  float* red = reinterpret_cast<float*>(smem);           // (4, MB, TN)
+  float* ctile = red + 4 * MB * TN;                      // (MB, CT_STRIDE)
 #pragma unroll
   for (int m = 0; m < MB; ++m)
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      float v = acc[m][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (lane < GROUPS) red[warp][m][cg * VEC + j] = v;
-    }
+    *reinterpret_cast<float4*>(red + (warp * MB + m) * TN + 4 * lane) =
+        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
   __syncthreads();
-
   for (int i = tid; i < MB * TN; i += THREADS) {
     const int m = i / TN, c = i % TN;
-    if (m0 + m >= M) continue;
-    float v = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < WARPS; ++wi) v += red[wi][m][c];
-    const int n = blockIdx.x * TN + c;
-    if (gridDim.y == 1) {
-      v = v * s[n] + (bias != nullptr ? bias[n] : 0.f);
-      out[(long long)(m0 + m) * N + n] = from_f<T>(v);
-    } else {
-      partial[((long long)blockIdx.y * M + m0 + m) * N + n] = v;
-    }
+    ctile[m * CT_STRIDE + c] = ((red[m * TN + c] + red[(MB + m) * TN + c]) +
+                                red[(2 * MB + m) * TN + c]) +
+                               red[(3 * MB + m) * TN + c];
   }
+  __syncthreads();
+  small_m::finish_tile<float, float>(
+      ctile, rows, row0, M, N, n0, partial,
+      counters + blockIdx.z * gridDim.x + blockIdx.x, cols, out, Epi{});
 }
 
-template <typename T>
-__global__ void qgemv_finalize(const float* __restrict__ partial, int ksplit,
-                               int M, int N, const float* __restrict__ s,
-                               const float* __restrict__ bias,
-                               T* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)M * N;
-  if (i >= total) return;
-  const int n = static_cast<int>(i % N);
-  float v = 0.f;
-  for (int k = 0; k < ksplit; ++k) v += partial[k * total + i];
-  v = v * s[n] + (bias != nullptr ? bias[n] : 0.f);
-  out[i] = from_f<T>(v);
-}
-
-template <typename T, int MB>
-void launch_rows(const T* x, int M, int K, int N, const int8_t* w,
-                 const float* s, const float* b, const float* g,
-                 const float* be, int ks, float* partial, T* out,
-                 cudaStream_t st) {
+template <int MT, bool LN>
+int launch_bf16(const __nv_bfloat16* x, int M, int K, int N, const int8_t* w,
+                const float* s, const float* b, const float* g,
+                const float* be, int ks, float* partial, int* counters,
+                __nv_bfloat16* out, cudaStream_t st) {
   const int kc = K / ks;
-  const dim3 grid(N / TN, ks);
-  const size_t smem = sizeof(float) * MB * kc;
-  for (int m0 = 0; m0 < M; m0 += MB)
-    qgemv_kernel<T, MB><<<grid, THREADS, smem, st>>>(
-        x, M, K, N, w, s, b, g, be, kc, partial, out, m0);
+  const size_t smem = small_m::smem_bytes<small_m::AKind::BF16>(MT, kc);
+  const int rc = small_m::allow_smem(qgemv_gemm_bf16<MT, LN>, smem);
+  if (rc != 0) return rc;
+  const dim3 grid(N / TN, ks, (M + 63) / 64);
+  qgemv_gemm_bf16<MT, LN><<<grid, THREADS, smem, st>>>(
+      x, M, K, N, w, s, b, g, be, kc, partial, counters, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MB>
+int launch_f32(const float* x, int M, int K, int N, const int8_t* w,
+               const float* s, const float* b, int ks, float* partial,
+               int* counters, float* out, cudaStream_t st) {
+  const int kc = K / ks;
+  const size_t smem = f32_smem(MB, kc);
+  const int rc = small_m::allow_smem(qgemv_gemm_f32<MB>, smem);
+  if (rc != 0) return rc;
+  const dim3 grid(N / TN, ks, (M + MB - 1) / MB);
+  qgemv_gemm_f32<MB><<<grid, THREADS, smem, st>>>(x, M, K, N, w, s, b, kc,
+                                                  partial, counters, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int run(const T* x, int M, int K, int N, const int8_t* w, const float* s,
-        const float* b, const float* g, const float* be, int ks,
-        float* partial, T* out, cudaStream_t st) {
-  if (M == 1)
-    launch_rows<T, 1>(x, M, K, N, w, s, b, g, be, ks, partial, out, st);
-  else
-    launch_rows<T, 4>(x, M, K, N, w, s, b, g, be, ks, partial, out, st);
-  if (ks > 1) {
-    const long long total = (long long)M * N;
-    qgemv_finalize<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        partial, ks, M, N, s, b, out);
-  }
+int ln_rows(const T* x, int M, int K, const float* g, const float* be,
+            T* xn, cudaStream_t st) {
+  qgemv_ln_rows<T><<<M, LN_THREADS, 0, st>>>(x, K, g, be, xn);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and out).  w: (K, N) int8,
-// 16-byte aligned; N % 128 == 0.  bias, gamma, beta may be null (gamma
-// and beta together).  ksplit divides K into slices of at most 1024 rows;
-// above 1, partial is fp32 scratch of (ksplit, M, N).
+// dtype: 0 = float32, 1 = bfloat16 (x and out).  x, xn and out rows and
+// w: 16-byte aligned; N % 128 == 0; ksplit divides K into slices of a
+// multiple of 32 rows.  bias, gamma, beta may be null (gamma and beta
+// together).  With gamma: ln_fused = 1 (bf16, M <= 16) applies the LN
+// inside the GEMM; otherwise the row kernel writes LN(x) into xn, (M, K)
+// in x's type.  Above one slice, partial is (ksplit, M, N) fp32 scratch and
+// counters holds ceil(M / rows a block) x N / 128 zeros, which the kernel
+// leaves at zero.
 extern "C" int tts_qgemv(const void* x, int M, int K, int N, const void* w,
                          const void* s, const void* bias, const void* gamma,
-                         const void* beta, int ksplit, void* partial,
-                         void* out, int dtype, void* stream) {
+                         const void* beta, int ksplit, int ln_fused, void* xn,
+                         void* partial, void* counters, void* out, int dtype,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* wq = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(s);
@@ -248,10 +271,44 @@ extern "C" int tts_qgemv(const void* x, int M, int K, int N, const void* w,
   const float* g = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
   float* pa = static_cast<float*>(partial);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), M, K, N,
-                              wq, sc, bi, g, be, ksplit, pa,
-                              static_cast<__nv_bfloat16*>(out), st);
-  return run<float>(static_cast<const float*>(x), M, K, N, wq, sc, bi, g, be,
-                    ksplit, pa, static_cast<float*>(out), st);
+  int* cn = static_cast<int*>(counters);
+  if (dtype == 1) {
+    using bf = __nv_bfloat16;
+    const bf* a = static_cast<const bf*>(x);
+    bf* o = static_cast<bf*>(out);
+    if (g != nullptr && ln_fused) {
+      if (M > 16) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_bf16<1, true>(a, M, K, N, wq, sc, bi, g, be, ksplit, pa,
+                                  cn, o, st);
+    }
+    if (g != nullptr) {
+      const int rc = ln_rows(a, M, K, g, be, static_cast<bf*>(xn), st);
+      if (rc != 0) return rc;
+      a = static_cast<const bf*>(xn);
+    }
+    const int mt = ((M >= 64 ? 64 : M) + 15) / 16;
+    if (mt == 1)
+      return launch_bf16<1, false>(a, M, K, N, wq, sc, bi, g, be, ksplit, pa,
+                                   cn, o, st);
+    if (mt == 2)
+      return launch_bf16<2, false>(a, M, K, N, wq, sc, bi, g, be, ksplit, pa,
+                                   cn, o, st);
+    if (mt == 3)
+      return launch_bf16<3, false>(a, M, K, N, wq, sc, bi, g, be, ksplit, pa,
+                                   cn, o, st);
+    return launch_bf16<4, false>(a, M, K, N, wq, sc, bi, g, be, ksplit, pa,
+                                 cn, o, st);
+  }
+  const float* a = static_cast<const float*>(x);
+  if (g != nullptr) {
+    const int rc = ln_rows(a, M, K, g, be, static_cast<float*>(xn), st);
+    if (rc != 0) return rc;
+    a = static_cast<const float*>(xn);
+  }
+  float* o = static_cast<float*>(out);
+  if (M == 1)
+    return launch_f32<1>(a, M, K, N, wq, sc, bi, ksplit, pa, cn, o, st);
+  if (M <= 4)
+    return launch_f32<4>(a, M, K, N, wq, sc, bi, ksplit, pa, cn, o, st);
+  return launch_f32<F32_ROWS>(a, M, K, N, wq, sc, bi, ksplit, pa, cn, o, st);
 }

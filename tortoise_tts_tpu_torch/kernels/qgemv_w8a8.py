@@ -14,6 +14,13 @@ rounds LN(x) to x's type before quantizing; its Pallas kernel quantizes
 the fp32 LN output.  The plain version and the kernel here both follow the
 off-TPU branch, as K2 does; in fp32 the two branches agree.
 
+A CUDA call is at most two kernels at any M: one block a row quantizes
+(``w8a8_quantize``: LN, absmax, codes, scales), then one int8 tensor-core
+GEMM for all rows merges its split-K partials itself.  Up to
+``QUANT_FUSED_MAX_M`` rows the GEMM quantizes its rows in its prologue
+instead, one kernel.  The K split and the counters are K2's
+(``kernels/qgemv.py``).
+
 ``qgemv_w8a8`` runs the plain PyTorch version for CPU tensors and the
 kernel for CUDA tensors (it raises on what the kernel does not take).
 """
@@ -25,10 +32,15 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import I, P, Kernel
-from .qgemv import TILE_N, _check_f32, ksplit, ln_f32
+from .qgemv import FUSED_ROWS, check_operands, ksplit, ln_f32, scratch
 
 KERNEL = Kernel("qgemv_w8a8", "tts_qgemv_w8a8",
-                [P, I, I, I] + [P] * 5 + [I] + [P] * 4 + [I, P])
+                [P, I, I, I] + [P] * 5 + [I, I] + [P] * 5 + [I, P])
+# up to this many rows the GEMM quantizes the rows itself (one kernel a
+# call); above it the quantize kernel runs first (fused is faster at M=1,
+# twice as slow at M=8: chip_smoke's fused_ms / quantize_kernel_ms on an
+# H100)
+QUANT_FUSED_MAX_M = 1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -67,33 +79,16 @@ def qgemv_w8a8_plain(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
     return y.to(x.dtype)
 
 
-def _launch(x, wq, s, b, ln, codes: bool):
-    if x.dim() != 2 or x.dtype not in _DTYPES or not x.is_contiguous():
-        raise ValueError("qgemv_w8a8 kernel takes contiguous float32 or "
-                         f"bfloat16 (M, K) activations, got {x.dtype} "
-                         f"{tuple(x.shape)}")
-    m, k = x.shape
-    if wq.dtype != torch.int8 or wq.dim() != 2 or wq.shape[0] != k \
-            or not wq.is_contiguous() or wq.device != x.device:
-        raise ValueError(f"qgemv_w8a8 kernel takes contiguous int8 ({k}, N) "
-                         f"weights on {x.device}, got {wq.dtype} "
-                         f"{tuple(wq.shape)}")
-    n = wq.shape[1]
-    if n % TILE_N or wq.data_ptr() % 16:
-        raise ValueError(f"qgemv_w8a8 kernel takes N % {TILE_N} == 0 and "
-                         f"16-byte aligned weights (N={n})")
-    _check_f32("s", s, n, x.device)
-    if b is not None:
-        _check_f32("b", b, n, x.device)
-    if ln is not None:
-        _check_f32("ln gamma", ln[0], k, x.device)
-        _check_f32("ln beta", ln[1], k, x.device)
-    ks = ksplit(k, n)
-    partial = (torch.empty((ks, m, n), dtype=torch.int32, device=x.device)
-               if ks > 1 else None)
+def _launch(x, wq, s, b, ln, ks=None, fused=None):
+    m, k, n = check_operands("qgemv_w8a8", x, wq, s, b, ln)
+    ks = ksplit(k, n, m) if ks is None else ks
+    fused = m <= QUANT_FUSED_MAX_M if fused is None else bool(fused)
+    if fused and m > FUSED_ROWS:
+        raise ValueError(f"qgemv_w8a8: the fused quantizer takes at most "
+                         f"{FUSED_ROWS} rows, got {m}")
+    partial, cnt, stream = scratch(x, m, k, n, torch.int32, ks)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
-    xq = (torch.empty((m, k), dtype=torch.int8, device=x.device)
-          if codes else None)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
 
     def ptr(t):
@@ -101,9 +96,9 @@ def _launch(x, wq, s, b, ln, codes: bool):
 
     KERNEL.launch(x.data_ptr(), m, k, n, wq.data_ptr(), s.data_ptr(), ptr(b),
                   ptr(ln[0]) if ln else None, ptr(ln[1]) if ln else None,
-                  ks, ptr(partial), sx.data_ptr(), ptr(xq), out.data_ptr(),
-                  _DTYPES[x.dtype],
-                  torch.cuda.current_stream(x.device).cuda_stream)
+                  ks, int(fused), ptr(partial), cnt.data_ptr(), sx.data_ptr(),
+                  xq.data_ptr(), out.data_ptr(), _DTYPES[x.dtype],
+                  stream.cuda_stream)
     return out, xq, sx
 
 
@@ -117,7 +112,7 @@ def qgemv_w8a8(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
         return qgemv_w8a8_plain(x, wq, s, b, ln)
     if x.device.type != "cuda":
         raise ValueError(f"qgemv_w8a8: no kernel for {x.device}")
-    return _launch(x, wq, s, b, ln, codes=False)[0]
+    return _launch(x, wq, s, b, ln)[0]
 
 
 def qgemv_w8a8_codes(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
@@ -128,4 +123,4 @@ def qgemv_w8a8_codes(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor,
     codes (M, K) it multiplied, its fp32 row scales (M,))."""
     if x.device.type != "cuda":
         raise ValueError(f"qgemv_w8a8_codes: no kernel for {x.device}")
-    return _launch(x, wq, s, b, ln, codes=True)
+    return _launch(x, wq, s, b, ln)
