@@ -16,7 +16,11 @@ one JSON line per phase:
    beside the bound: the larger of the bytes the function must move over
    3.35 TB/s and its operations over 989 TFLOP/s (H100 SXM bf16 dense
    peak; 67 TFLOP/s for K7's fp32 arithmetic); K9a and both entries of
-   K9b at B = 1, 2, 8 and 16 (T=896).  ``ms`` is device time per
+   K9b at B = 1, 2, 8 and 16 (T=896); K1 also at the batch's prefill
+   (B=8) and, after the main path, at the latent pass's S read off the
+   route, K3 also at 604 slots and at the batch's 8 rows (detail lines).
+   Each K1 and K3 call is one CUDA kernel, and K3 with ``pos`` in device
+   memory gives the int's output bit for bit.  ``ms`` is device time per
    call (the summed kernel durations from torch.profiler); ``call_ms`` is
    the time per call of back-to-back calls by CUDA events, which adds the
    gaps the host leaves while it launches.
@@ -78,7 +82,7 @@ one JSON line per phase:
    (16 rows through the shared prefix); K2's and K8's CUDA kernels in
    the profiler must match their wrappers' launches (one GEMM a call,
    and the row kernel where the GEMM does not do its work: at most two
-   kernels a call).
+   kernels a call), and K3's one kernel a call.
 
 Every profiled count check reads ``Stages.census``: a window whose
 kernels the profiler cut short is profiled once more, alone, and the
@@ -140,7 +144,12 @@ GEMV_ROWS = (1, BATCH_ROWS, CANDIDATES, 32)
 # the CUDA kernels of each port kernel's wrapper on the decode, by name
 DECODE_KERNELS = {"qgemv": ("qgemv_gemm", "qgemv_ln_rows"),
                   "qgemv_w8a8": ("w8a8_gemm", "w8a8_quantize"),
-                  "flash_decode": ("fd_split", "fd_merge")}
+                  "flash_decode": ("fd_cluster",)}
+# K1's CUDA kernel in bf16 (tensor cores)
+K1_KERNELS = ("flash_attn_mma",)
+# the latent pass's S: cond, the text bucket with its start and stop
+# tokens, the mel codes of the whole budget with theirs
+LATENT_S = 1 + BUCKET + 2 + AR_STEPS + 2
 
 
 T0 = time.perf_counter()
@@ -209,6 +218,26 @@ def device_ms(torch, fn, n: int = 30, warmup: int = 5) -> float:
     return sum(e.device_time for e in _cuda_events(prof)) / 1e3 / n
 
 
+def one_kernel(torch, fn, names) -> str:
+    """fn(0) is one CUDA kernel (by the profiler) whose name holds one of
+    ``names``; returns that name.  A window in which the profiler saw no
+    kernel at all (it loses some) is profiled again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            profiler_warmup(torch)
+            fn(0)
+            torch.cuda.synchronize()
+        got = [e.name for e in _cuda_events(prof)]
+        if got:
+            break
+    assert len(got) == 1 and any(n in got[0] for n in names), got
+    return next(n for n in names if n in got[0])
+
+
 def timings(torch, kernel, plain, library) -> dict:
     """Device time (``*ms``) and back-to-back call time (``*call_ms``) of
     the kernel, its plain version and the library call (None where no
@@ -244,39 +273,49 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
-def check_flash_attention(torch, k1, dev, n_text):
-    """K1 at the prefill of the main path: B=1, H=16, D=64, S = 1 + (64+2)
-    + 1 for the 64-token text bucket, the text's padded tail masked; q/k/v
-    are views of one fused qkv projection, as _gpt_prefill passes them."""
+def check_flash_attention(torch, k1, dev, n_text, b=1, s=1 + BUCKET + 2 + 1,
+                          masked=True, report=True):
+    """K1 at a trunk shape of the main paths: B=1 or 8, H=16, D=64; the
+    prefill (S = 1 + (64+2) + 1 for the 64-token text bucket, the text's
+    padded tail masked) or the latent pass (S = LATENT_S, no key mask,
+    as ``unified_voice.forward`` attends); q/k/v are views of one fused
+    qkv projection, as _gpt_prefill passes them.  One CUDA kernel a call
+    (``flash_attn_mma``)."""
     F = torch.nn.functional
-    b, h, d = 1, 16, 64
-    s = 1 + BUCKET + 2 + 1
+    h, d = 16, 64
     g = torch.Generator(device=dev).manual_seed(0)
     qkv = torch.randn(b, s, 3 * h * d, generator=g, device=dev,
                       dtype=torch.bfloat16)
     q, k, v = (z.view(b, s, h, d).transpose(1, 2)
                for z in qkv.split(h * d, dim=-1))
-    mask = torch.ones(b, s, dtype=torch.bool, device=dev)
-    mask[:, 1 + n_text + 2:s - 1] = False
+    mask = None
+    allowed = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    if masked:
+        mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+        mask[:, 1 + n_text + 2:s - 1] = False
+        allowed = mask[:, None, None, :] & allowed
     got = k1.flash_attention(q, k, v, mask)
     want = k1.flash_attention_plain(q, k, v, mask)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = 5e-2      # a few bf16 ulps at |o| <= 4; the plain version
-    #                 rounds the softmax weights to bf16, the kernel not
+    #                 rounds the softmax weights to bf16, the kernel the
+    #                 unnormalised ones
     assert math.isfinite(err) and err <= tol, f"flash_attention err {err}"
-    allowed = mask[:, None, None, :] & torch.ones(
-        s, s, dtype=torch.bool, device=dev).tril()
+    kernel = one_kernel(torch, lambda i: k1.flash_attention(q, k, v, mask),
+                        K1_KERNELS)
     t = timings(torch, lambda i: k1.flash_attention(q, k, v, mask),
                 lambda i: k1.flash_attention_plain(q, k, v, mask),
                 lambda i: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=allowed))
-    nbytes = 4 * b * h * s * d * 2 + b * s
+    nbytes = 4 * b * h * s * d * 2 + (b * s if mask is not None else 0)
     flops = 2 * 2 * b * h * d * s * (s + 1) / 2
     bms, by = bound_ms(nbytes, flops)
-    emit("kernel", name="flash_attention", shape=[b, h, s, d],
-         max_abs_err=err, tol=tol, library="scaled_dot_product_attention",
-         bound_ms=bms, bound_by=by, **t)
+    emit("kernel" if report else "kernel_detail", name="flash_attention",
+         shape=[b, h, s, d], key_mask=mask is not None, max_abs_err=err,
+         tol=tol, cuda_kernel=kernel, plan=k1.plan(b, h, s),
+         library="scaled_dot_product_attention", bound_ms=bms, bound_by=by,
+         **t)
     return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t)
 
 
@@ -501,12 +540,14 @@ def check_qgemv_w8a8(torch, k8, k2, dev, layers=30):
                 m32_library_ms=out[32]["library_ms"])
 
 
-def check_flash_decode(torch, k3, dev, slots, layers=30, report=True):
+def check_flash_decode(torch, k3, dev, slots, b=1, layers=30, report=True):
     """K3 at the last step of a decode with a cache of ``slots`` slots
-    (B=1, H=16, Dh=64), cycling over 30 layers of cache as the decode
-    does; a padded text tail in the prefix."""
+    (B=1 or the batch's 8 rows, H=16, Dh=64), cycling over 30 layers of
+    cache as the decode does; a padded text tail in the prefix.  One CUDA
+    kernel a call (``fd_cluster``); ``pos`` from device memory gives the
+    int's output bit for bit."""
     F = torch.nn.functional
-    b, h, dh = 1, 16, 64
+    h, dh = 16, 64
     pos = slots - 1
     g = torch.Generator(device=dev).manual_seed(2)
     ck = torch.randn(layers, b, h, slots, dh, generator=g, device=dev,
@@ -520,10 +561,16 @@ def check_flash_decode(torch, k3, dev, slots, layers=30, report=True):
     mask[:, 55:67] = False
     got = k3.flash_decode(q, ck[0], cv[0], pos, mask)
     want = k3.flash_decode_plain(q, ck[0], cv[0], pos, mask)
+    dpos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    got_dev = k3.flash_decode(q, ck[0], cv[0], dpos, mask)
     torch.cuda.synchronize()
+    assert torch.equal(got, got_dev), "flash_decode: device pos differs"
     err = (got.float() - want.float()).abs().max().item()
     tol = 5e-2      # as for flash_attention
     assert math.isfinite(err) and err <= tol, f"flash_decode err {err}"
+    kernel = one_kernel(torch, lambda i: k3.flash_decode(q, ck[0], cv[0],
+                                                         pos, mask),
+                        DECODE_KERNELS["flash_decode"])
     q4 = q[:, :, None]
     am = mask[:, None, None, :pos + 1]
     t = timings(
@@ -535,13 +582,15 @@ def check_flash_decode(torch, k3, dev, slots, layers=30, report=True):
         lambda i: F.scaled_dot_product_attention(
             q4, ck[i % layers][:, :, :pos + 1],
             cv[i % layers][:, :, :pos + 1], attn_mask=am))
-    nbytes = 2 * b * h * (pos + 1) * dh * 2 + 2 * b * h * dh * 2 + (pos + 1)
+    nbytes = 2 * b * h * (pos + 1) * dh * 2 + 2 * b * h * dh * 2 \
+        + b * (pos + 1)
     flops = 4 * b * h * (pos + 1) * dh
     bms, by = bound_ms(nbytes, flops)
     emit("kernel" if report else "kernel_detail", name="flash_decode",
          shape=[b, h, slots, dh], pos=pos, max_abs_err=err, tol=tol,
-         library="scaled_dot_product_attention", bound_ms=bms, bound_by=by,
-         **t)
+         device_pos_bit_equal=True, cuda_kernel=kernel,
+         plan=k3.plan(b, h, slots), library="scaled_dot_product_attention",
+         bound_ms=bms, bound_by=by, **t)
     return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t)
 
 
@@ -553,7 +602,9 @@ def check_flash_decode_shared(torch, k3, dev, c=16, sp=1 + BUCKET + 2 + 1,
     up to pos = 199, cycling over 30 layers of cache.  No single PyTorch
     call takes a prefix held once per group beside per-row regions; SDPA
     over the same slots concatenated per row (built outside the timed
-    call) is printed as ``sdpa_concat_ms`` for scale."""
+    call) is printed as ``sdpa_concat_ms`` for scale.  One CUDA kernel a
+    call; ``pos`` from device memory gives the int's output bit for
+    bit."""
     F = torch.nn.functional
     h, dh, pos = 16, 64, sd - 1
     g = torch.Generator(device=dev).manual_seed(4)
@@ -569,8 +620,16 @@ def check_flash_decode_shared(torch, k3, dev, c=16, sp=1 + BUCKET + 2 + 1,
     got = k3.flash_decode_shared(q, kp[0], vp[0], pmask, kd[0], vd[0], pos)
     want = k3.flash_decode_shared_plain(q, kp[0], vp[0], pmask, kd[0], vd[0],
                                         pos)
+    dpos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    got_dev = k3.flash_decode_shared(q, kp[0], vp[0], pmask, kd[0], vd[0],
+                                     dpos)
     err = bf16_err(torch, got, want, atol=5e-2, rtol=0,
                    name="flash_decode_shared")
+    assert torch.equal(got, got_dev), "flash_decode_shared: device pos differs"
+    kernel = one_kernel(
+        torch, lambda i: k3.flash_decode_shared(q, kp[0], vp[0], pmask,
+                                                kd[0], vd[0], pos),
+        DECODE_KERNELS["flash_decode"])
     kc = torch.cat([kp[0].expand(c, -1, -1, -1), kd[0][:, :, :pos + 1]], 2)
     vc = torch.cat([vp[0].expand(c, -1, -1, -1), vd[0][:, :, :pos + 1]], 2)
     am = torch.cat([pmask, torch.ones(1, pos + 1, dtype=torch.bool,
@@ -593,8 +652,9 @@ def check_flash_decode_shared(torch, k3, dev, c=16, sp=1 + BUCKET + 2 + 1,
     bms, by = bound_ms(nbytes, flops)
     emit("kernel", name="flash_decode_shared", shape=dict(
         g=1, c=c, h=h, sp=sp, sd=sd, pos=pos), max_abs_err=err, tol=5e-2,
-        library=None, sdpa_concat_ms=sdpa_ms, bound_ms=bms, bound_by=by,
-        **t)
+        device_pos_bit_equal=True, cuda_kernel=kernel,
+        plan=k3.plan(c, h, sp + sd), library=None, sdpa_concat_ms=sdpa_ms,
+        bound_ms=bms, bound_by=by, bound_share=bms / t["ms"], **t)
     return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t)
 
 
@@ -1707,14 +1767,28 @@ def main_path(torch, ref: str):
     torch.cuda.synchronize()
     emit("setup", seconds=setup_s)
 
-    bv_counts = bigvgan_route(torch, tts, ref)
+    # K1's shapes, read off the routes: the prefill with its key mask, the
+    # latent pass (the default route's) without, at S = LATENT_S when the
+    # whole budget decodes
+    from tortoise_tts_tpu_torch.models import unified_voice
+    trunk, k1_shapes = unified_voice.flash_attention, set()
 
-    kernels.reset_launches()
-    t0 = time.time()
-    wav, sr = tts.inference(TEXT, ref, max_ar_steps=AR_STEPS,
-                            vocoder_type="hifigan", seed=0)
-    torch.cuda.synchronize()
-    inf_s = time.time() - t0
+    def recorded_k1(q, *a, **kw):
+        k1_shapes.add((q.shape[0], q.shape[2], kw.get("key_mask") is not None))
+        return trunk(q, *a, **kw)
+    unified_voice.flash_attention = recorded_k1
+    try:
+        bv_counts = bigvgan_route(torch, tts, ref)
+        kernels.reset_launches()
+        t0 = time.time()
+        wav, sr = tts.inference(TEXT, ref, max_ar_steps=AR_STEPS,
+                                vocoder_type="hifigan", seed=0)
+        torch.cuda.synchronize()
+        inf_s = time.time() - t0
+    finally:
+        unified_voice.flash_attention = trunk
+    emit("k1_shapes", routes=["bigvgan", "hifigan"],
+         shapes=sorted(k1_shapes), latent_s_full_budget=LATENT_S)
     t0 = time.time()
     first_s, chunks = None, []
     for c in tts.stream(TEXT, ref, max_ar_steps=AR_STEPS, seed=0):
@@ -1745,7 +1819,7 @@ def main_path(torch, ref: str):
              float(np.abs(swav - wav).max()) if swav.size == wav.size
              else None),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return tts, {k: bv_counts[k] + counts[k] for k in counts}
+    return tts, {k: bv_counts[k] + counts[k] for k in counts}, k1_shapes
 
 
 def w8a8_route(torch, tts, ref: str):
@@ -2081,6 +2155,10 @@ def decode_timing(torch, tts, ref: str, quant_mode: str, rows: int = 1,
     assert n_by[gemm] == calls and n_by[row] == want_rows, \
         (n_by, calls, want_rows)
     attn = "flash_decode_shared" if fan_out else "flash_decode"
+    attn_calls = c1[attn] - c0[attn]
+    assert attn_calls == 8 * layers, (c0, c1)
+    assert sum(n_by[p] for p in DECODE_KERNELS["flash_decode"]) \
+        == attn_calls, (n_by, attn_calls)
     busy = sum(split.values())
     emit("decode", quant_mode=quant_mode, rows=m,
          route=("candidates" if fan_out else
@@ -2093,7 +2171,7 @@ def decode_timing(torch, tts, ref: str, quant_mode: str, rows: int = 1,
          gemv_cuda_kernels_per_token={p: n / 8 for p, n in n_by.items()},
          gemv_cuda_kernels_per_call=(n_by[gemm] + n_by[row]) / calls,
          port_kernel_calls_per_token={gemv: calls / 8,
-                                      attn: (c1[attn] - c0[attn]) / 8})
+                                      attn: attn_calls / 8})
 
 
 def main() -> int:
@@ -2142,9 +2220,14 @@ def main() -> int:
             r1 = check_flash_attention(torch, k1, dev, n_text)
             r2 = check_qgemv(torch, k2, dev)
             r8 = check_qgemv_w8a8(torch, k8, k2, dev)
+            check_flash_attention(torch, k1, dev, n_text, b=BATCH_ROWS,
+                                  report=False)
             r3 = check_flash_decode(torch, k3, dev,
                                     slots=1 + BUCKET + 2 + 1 + AR_STEPS)
             check_flash_decode(torch, k3, dev, slots=604, report=False)
+            check_flash_decode(torch, k3, dev,
+                               slots=1 + BUCKET + 2 + 1 + AR_STEPS,
+                               b=BATCH_ROWS, report=False)
             r4 = check_gn_conv(torch, k4, dev)
             r5 = check_ts_res_block(torch, k5, dev)
             r7 = check_snake(torch, k7, dev)
@@ -2156,7 +2239,12 @@ def main() -> int:
         ref = reference_wav(Path(tmp) / "reference.wav")
         check_reference(torch, ref)
         check_reference_batch(torch, ref)
-        tts, counts = main_path(torch, ref)
+        tts, counts, k1_shapes = main_path(torch, ref)
+        latent = [(b, s) for b, s, masked in k1_shapes if not masked]
+        assert len(latent) == 1 and latent[0][0] == 1, k1_shapes
+        with torch.inference_mode():
+            check_flash_attention(torch, k1, dev, n_text, s=latent[0][1],
+                                  masked=False, report=False)
         for route in (batch_route, candidates_route, w8a8_route,
                       denoise_attention_routes):
             c = route(torch, tts, ref)

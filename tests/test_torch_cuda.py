@@ -33,18 +33,59 @@ def _bf16_close(got, want, atol, rtol=2e-2):
                                rtol=rtol)
 
 
-@pytest.mark.cuda
-def test_flash_attention_kernel_cuda(cuda):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(1, 16, 131, 64, generator=g, device=cuda,
-                           dtype=torch.bfloat16) for _ in range(3))
-    mask = torch.rand(1, 131, generator=g, device=cuda) > 0.2
+def _fused_qkv(dev, b, h, s, dtype, seed):
+    """q, k, v as views of one fused qkv projection (as _gpt_prefill passes
+    them) and a key mask with text-padding holes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * h * 64, generator=g, device=dev, dtype=dtype)
+    q, k, v = (z.view(b, s, h, 64).transpose(1, 2)
+               for z in qkv.split(h * 64, dim=-1))
+    mask = torch.rand(b, s, generator=g, device=dev) > 0.2
     mask[:, 0] = True
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 63, 65, 68, 269])
+def test_flash_attention_kernel_cuda(cuda, s, b, dtype, causal):
+    """K1 with and without the key mask, ragged S around the 16-query and
+    64-key tiles, the prefill (68) and the latent pass (269): one launch
+    and one CUDA kernel a call (tensor cores in bf16, CUDA cores in
+    fp32)."""
+    q, k, v, mask = _fused_qkv(cuda, b, 16, s, dtype, seed=s)
+    for km in (mask, None):
+        before = k1.KERNEL.launches
+        got = k1.flash_attention(q, k, v, km, causal)
+        torch.cuda.synchronize()
+        assert k1.KERNEL.launches == before + 1
+        want = k1.flash_attention_plain(q, k, v, km, causal)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        else:
+            _bf16_close(got, want, atol=2e-2)
+    names = _cuda_kernel_names(
+        lambda: k1.flash_attention(q, k, v, mask, causal))
+    kernel = "flash_attn_mma" if dtype == torch.bfloat16 else "flash_attn_f32"
+    assert len(names) == 1 and kernel in names[0], names
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_misaligned_cuda(cuda):
+    """No fallback: bf16 q/k/v rows off the 16 bytes the kernel's copies
+    need raise."""
+    b, h, s = 1, 16, 68
+    buf = torch.randn(b * s * 3 * h * 64 + 1, device=cuda,
+                      dtype=torch.bfloat16)
+    qkv = buf[1:].view(b, s, 3 * h * 64)
+    q, k, v = (z.view(b, s, h, 64).transpose(1, 2)
+               for z in qkv.split(h * 64, dim=-1))
     before = k1.KERNEL.launches
-    got = k1.flash_attention(q, k, v, mask)
-    torch.cuda.synchronize()
-    assert k1.KERNEL.launches == before + 1
-    _bf16_close(got, k1.flash_attention_plain(q, k, v, mask), atol=2e-2)
+    with pytest.raises(ValueError, match="aligned"):
+        k1.flash_attention(q, k, v, None)
+    assert k1.KERNEL.launches == before
 
 
 @pytest.mark.cuda
@@ -206,21 +247,26 @@ def test_qgemv_split_k_counters_cuda(cuda):
 def _cuda_kernel_names(fn):
     """The CUDA kernels one call of fn launches, by torch.profiler (after
     a pause and spin kernels: the profiler can drop a window's first
-    kernels)."""
+    kernels; a window in which it saw none is profiled again, up to three
+    times)."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)
-        for _ in range(16):
-            torch.cuda._sleep(200_000)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if "CUDA" in str(e.device_type) and "spin_kernel" not in e.name]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(16):
+                torch.cuda._sleep(200_000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if "CUDA" in str(e.device_type)
+                 and "spin_kernel" not in e.name]
+        if names:
+            return names
+    return names
 
 
 @pytest.mark.cuda
@@ -240,28 +286,73 @@ def test_qgemv_kernels_per_call_cuda(cuda, m, k, n, ln):
         and sum("w8a8_quantize" in n for n in names) == quantize, names
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("pos", [0, 31, 32, 599])
-def test_flash_decode_kernel_cuda(cuda, pos):
-    g = torch.Generator(device=cuda).manual_seed(2)
-    ck, cv = (torch.randn(1, 16, 600, 64, generator=g, device=cuda,
-                          dtype=torch.bfloat16) for _ in range(2))
-    q = torch.randn(1, 16, 64, generator=g, device=cuda,
-                    dtype=torch.bfloat16)
-    mask = torch.ones(1, 600, dtype=torch.bool, device=cuda)
+def _decode_inputs(dev, b, s, dtype, seed=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ck, cv = (torch.randn(b, 16, s, 64, generator=g, device=dev, dtype=dtype)
+              for _ in range(2))
+    qkv = torch.randn(b, 3 * 16 * 64, generator=g, device=dev, dtype=dtype)
+    q = qkv[:, :16 * 64].view(b, 16, 64)
+    mask = torch.ones(b, s, dtype=torch.bool, device=dev)
     mask[:, 3:7] = False
+    return q, ck, cv, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 16])
+@pytest.mark.parametrize("pos", [0, 31, 32, 267, 599])
+def test_flash_decode_kernel_cuda(cuda, pos, b):
+    """K3 over 268 slots (the decode's last step at pos 267) or 600, with
+    key-mask holes: pos from device memory gives the int's result bit for
+    bit; one launch and one CUDA kernel a call."""
+    s = 268 if pos == 267 else 600
+    q, ck, cv, mask = _decode_inputs(cuda, b, s, torch.bfloat16)
+    dpos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = k3.KERNEL.launches
     got = k3.flash_decode(q, ck, cv, pos, mask)
+    got_dev = k3.flash_decode(q, ck, cv, dpos, mask)
     torch.cuda.synchronize()
+    assert k3.KERNEL.launches == before + 2
+    assert torch.equal(got, got_dev)
     _bf16_close(got, k3.flash_decode_plain(q, ck, cv, pos, mask), atol=2e-2)
+    names = _cuda_kernel_names(
+        lambda: k3.flash_decode(q, ck, cv, dpos, mask))
+    assert len(names) == 1 and "fd_cluster" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 32, 267])
+def test_flash_decode_kernel_fp32_cuda(cuda, pos):
+    """The fp32 entry keeps fp32 arithmetic: within 1e-5 of the plain
+    version."""
+    q, ck, cv, mask = _decode_inputs(cuda, 1, 268, torch.float32)
+    got = k3.flash_decode(q, ck, cv, pos, mask)
+    torch.testing.assert_close(got, k3.flash_decode_plain(q, ck, cv, pos,
+                                                          mask),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_refuses_bad_pos_cuda(cuda):
+    """No fallback: a pos the kernel cannot take raises before a launch."""
+    q, ck, cv, mask = _decode_inputs(cuda, 1, 64, torch.bfloat16)
+    before = k3.KERNEL.launches
+    for pos in (64, -1, torch.tensor(3, device=cuda),
+                torch.tensor([3], dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError):
+            k3.flash_decode(q, ck, cv, pos, mask)
+    assert k3.KERNEL.launches == before
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("g,c,sp,pos", [(1, 16, 68, 0), (1, 16, 68, 199),
-                                        (2, 3, 37, 64), (3, 1, 5, 31)])
+                                        (2, 16, 68, 199), (2, 3, 37, 64),
+                                        (3, 1, 5, 31)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_decode_shared_kernel_cuda(cuda, g, c, sp, pos, dtype):
     """K3's shared-prefix form: G groups of C rows over a per-group prefix
-    with text-padding holes and a 200-slot region up to pos."""
+    with text-padding holes and a 200-slot region up to pos; pos from
+    device memory bit-equal to the int; one launch and one CUDA kernel a
+    call."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     b, h, sd = g * c, 16, 200
     q = torch.randn(b, h, 64, generator=gen, device=cuda, dtype=dtype)
@@ -271,15 +362,21 @@ def test_flash_decode_shared_kernel_cuda(cuda, g, c, sp, pos, dtype):
                           dtype=dtype) for _ in range(2))
     pmask = torch.rand(g, sp, generator=gen, device=cuda) > 0.2
     pmask[:, 0] = True
+    dpos = torch.tensor(pos, dtype=torch.int32, device=cuda)
     before = k3.KERNEL_SHARED.launches
     got = k3.flash_decode_shared(q, kp, vp, pmask, kd, vd, pos)
+    got_dev = k3.flash_decode_shared(q, kp, vp, pmask, kd, vd, dpos)
     torch.cuda.synchronize()
-    assert k3.KERNEL_SHARED.launches == before + 1
+    assert k3.KERNEL_SHARED.launches == before + 2
+    assert torch.equal(got, got_dev)
     want = k3.flash_decode_shared_plain(q, kp, vp, pmask, kd, vd, pos)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     else:
         _bf16_close(got, want, atol=2e-2)
+    names = _cuda_kernel_names(
+        lambda: k3.flash_decode_shared(q, kp, vp, pmask, kd, vd, dpos))
+    assert len(names) == 1 and "fd_cluster" in names[0], names
 
 
 @pytest.mark.cuda

@@ -12,8 +12,8 @@ the shared prefix; the batch with 4 candidates a text, 32 rows), in the
 int8 (K2) and the W8A8 (K8) decode, and prints one JSON line each: wall ms
 a token over 32 tokens, then from torch.profiler over 8 tokens the CUDA
 launches a token, the device ms a token, the GEMV kernels' share of it
-(every kernel whose name holds ``qgemv`` or ``w8a8``) and the device's
-busy share.  Then the card's name and power limit.
+(every kernel whose name holds ``qgemv`` or ``w8a8``), K3's (``fd_``)
+and the device's busy share.  Then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -122,12 +122,19 @@ def main() -> int:
             gemv = sum(e.device_time for e in ev
                        if "qgemv" in e.name or "w8a8" in e.name) / 1e3 / 8
             n_gemv = sum("qgemv" in e.name or "w8a8" in e.name for e in ev)
+            # K3's kernels: fd_cluster, or the two-kernel design's fd_split
+            # and fd_merge in older checkouts
+            attn = sum(e.device_time for e in ev
+                       if "fd_" in e.name) / 1e3 / 8
+            n_attn = sum("fd_" in e.name for e in ev)
             row = dict(repo=args.repo, quant_mode=mode, rows=m,
                        fan_out=fan, ms_per_token=ms_tok,
                        cuda_launches_per_token=len(ev) / 8,
                        device_ms_per_token=busy,
                        gemv_device_ms_per_token=gemv,
                        gemv_kernels_per_token=n_gemv / 8,
+                       attn_device_ms_per_token=attn,
+                       attn_kernels_per_token=n_attn / 8,
                        device_busy_share=busy / ms_tok)
             line = json.dumps(row)
             print(line, flush=True)
