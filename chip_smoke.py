@@ -8,7 +8,8 @@ one JSON line per phase:
 
 1. ``env``: torch and CUDA versions, the card.
 2. ``build``: builds every CUDA kernel from ``tortoise_tts_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once) and its build seconds.
+   (one ``nvcc`` per source, all at once) and its build seconds; fails if
+   ``ptxas`` spilled in the biased attention kernels (K6, K9a, K9b).
 3. ``kernel``: each kernel against its plain PyTorch version in bf16 at
    the main path's shapes (K2 and K8 at the decode's M = 1, 8, 16 and
    32; max abs error against a stated tolerance), and
@@ -59,7 +60,8 @@ one JSON line per phase:
    shared form, the CLVP rerank, the winner's latent pass, diffusion and
    vocoder at B=1).  Wall seconds per stage, audio seconds per wall
    second, K6 launches per DDIM step against the profiler, the
-   diffusion's busy share, peak memory.
+   diffusion's busy share, its device ms a DDIM step and K6's share of
+   them, peak memory.
 7. ``w8a8_route``: the default route again on the same ``TTS`` with
    ``decode_quant="w8a8"`` (the CLI's ``--decode-quant w8a8``): stage
    seconds, RTF, peak memory, K8's launches (4 per layer and token, K2
@@ -127,6 +129,13 @@ W8A8 = "qgemv_w8a8"
 MODE_KERNEL = {"kq": "flash_attention_bias_kq",
                "flash_bias": "flash_attention_bias_cm"}
 SLICE5_KERNELS = tuple(MODE_KERNEL.values())
+# the biased attention kernels' sources (K6, K9a, K9b): no ptxas spill, and
+# each call one CUDA kernel, by name in bf16 (tensor cores)
+BIAS_SOURCES = ("flash_attention_bias", "flash_attention_bias_kq",
+                "flash_attention_bias_cm")
+BIAS_CUDA_KERNELS = {"flash_attention_bias": "attn_bias_tc",
+                     "flash_attention_bias_kq": "attn_bias_kq_tc",
+                     "flash_attention_bias_cm": "attn_bias_cm_tc"}
 INT8_ROUTE_IDLE = SLICE3_KERNELS + (W8A8,) + SLICE5_KERNELS
 # the modes' first trunk output against "auto", relative to its largest
 # value: "auto" runs the single route's attention (and every route's
@@ -259,6 +268,20 @@ def bf16_err(torch, got, want, atol: float, rtol: float, name: str) -> float:
     bad = (d > atol + rtol * want.float().abs()).sum().item()
     assert bad == 0, f"{name}: {bad} elements off, max abs err {err}"
     return err
+
+
+def no_spills(sources) -> None:
+    """Fails where ``ptxas -v`` reported a spill for a kernel of these
+    sources (read from the build log kept beside each library)."""
+    import re
+    from tortoise_tts_tpu_torch.kernels import _build
+    for name in sources:
+        log = _build._lib_path(name).with_suffix(".log").read_text()
+        counts = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", log)
+        assert counts, f"{name}: no ptxas report in its build log"
+        assert all(a == b == "0" for a, b in counts), \
+            f"{name}: ptxas spilled: {counts}"
 
 
 def nvidia_smi() -> str:
@@ -680,13 +703,15 @@ def _sdpa_cm(F, q, k, v, mask):
 def check_flash_attention_bias(torch, k6, dev):
     """K6 at the batch route's shapes (T=896, H=16): the cond-free trunk
     at B=16 and the integrator at B=8, each cycling over 4 biases (every
-    attention block has its own, 25.7 MB each); a ragged T=300 and fp32
-    (T=257, odd: the unvectorised loads) for the error only; and B=2, the
-    single route's shape, a data point beside the plain path that shape
-    takes (``route_plain_ms``).  The row sums the B=16 and B=8 calls.  The library call is
-    SDPA on the (B, H, T, 64) views of the fused qkv with the bias as a
-    float mask; the output's copy back to channels-major is inside its
-    timed call, as the kernel writes channels-major."""
+    attention block has its own, 25.7 MB each); a ragged T=300 (rows off
+    16 bytes: warp 0's element copies) and fp32 (T=257, the CUDA-core
+    kernel) for the error only; and B=2, the single route's shape, a data
+    point beside the plain path that shape takes (``route_plain_ms``).
+    Every shape's call is one CUDA kernel (``cuda_kernel``, with the
+    launch ``plan``).  The row sums the B=16 and B=8 calls.  The library
+    call is SDPA on the (B, H, T, 64) views of the fused qkv with the bias
+    as a float mask; the output's copy back to channels-major is inside
+    its timed call, as the kernel writes channels-major."""
     from tortoise_tts_tpu_torch.ops import attention
     F = torch.nn.functional
     tol = dict(atol=3e-2, rtol=2e-2)   # |o| <~ 2: one bf16 ulp <= 1.6e-2
@@ -703,8 +728,13 @@ def check_flash_attention_bias(torch, k6, dev):
         err = bf16_err(torch, got, want, name=f"K6 T={t} {dtype}",
                        **(dict(atol=1e-5, rtol=1e-5)
                           if dtype == torch.float32 else tol))
+        kernel = one_kernel(
+            torch, lambda i: k6.flash_attention_bias(qkv, bias, h),
+            ("attn_bias_f32",) if dtype == torch.float32
+            else (BIAS_CUDA_KERNELS["flash_attention_bias"],))
         emit("kernel_detail", name="flash_attention_bias", shape=[b, h, t],
-             dtype=str(dtype), max_abs_err=err)
+             dtype=str(dtype), max_abs_err=err, cuda_kernel=kernel,
+             plan=list(k6.plan(b, h, t)))
     tot = dict(bytes=0.0, flops=0.0)
     err_max = 0.0
     for b, role in ((16, "trunk"), (8, "integrator"), (2, "single_route")):
@@ -715,6 +745,9 @@ def check_flash_attention_bias(torch, k6, dev):
         want = k6.flash_attention_bias_plain(qkv, biases[0], h)
         err = bf16_err(torch, got, want, name=f"K6 B={b}", **tol)
         del got, want
+        kernel = one_kernel(
+            torch, lambda i: k6.flash_attention_bias(qkv, biases[0], h),
+            (BIAS_CUDA_KERNELS["flash_attention_bias"],))
         t_ = timings(
             torch, lambda i: k6.flash_attention_bias(qkv, biases[i % 4], h),
             lambda i: k6.flash_attention_bias_plain(qkv, biases[i % 4], h),
@@ -729,7 +762,8 @@ def check_flash_attention_bias(torch, k6, dev):
                 torch, lambda i: attention.qkv_attention(
                     qkv, h, bias=biases[i % 4]))
         emit("kernel_detail", name="flash_attention_bias", role=role,
-             shape=[b, h, t], max_abs_err=err, tol=tol,
+             shape=[b, h, t], max_abs_err=err, tol=tol, cuda_kernel=kernel,
+             plan=list(k6.plan(b, h, t)),
              bound_ms=bound_ms(nbytes, flops)[0],
              bound_by=bound_ms(nbytes, flops)[1], **t_, **extra)
         if role == "single_route":
@@ -755,8 +789,9 @@ def check_flash_attention_bias_k9(torch, k9a, k9b, dev):
     full width (H=16, T=896, bf16): B=1 and 2, the single route's
     integrator and trunk under ``denoise_attention="kq"`` (K9a) and
     ``"flash_bias"`` (K9b's fused entry), and B=8 and 16, the batch
-    route's under "kq"; a ragged T=300 and fp32 at odd T=257 (the
-    unvectorised loads) for the error only.  Each biased attention block
+    route's under "kq"; a ragged T=300 (warp 0's element copies) and
+    fp32 at T=257 for the error only; each entry's call at T=896 is one
+    CUDA kernel.  Each biased attention block
     has its own (H, T, T) bias (25.7 MB), so the timed calls cycle over 4.
     The library call is SDPA on the (B, H, T, 64) views with the bias as a
     float mask (K9a: the view of its transpose), the output's copy back to
@@ -816,8 +851,11 @@ def check_flash_attention_bias_k9(torch, k9a, k9b, dev):
         for name, (kern, plain, library) in entries(qkv, biases, h).items():
             err = bf16_err(torch, kern(0), plain(0), name=f"K9 {name} B={b}",
                            **tol)
+            kname = MODE_KERNEL["kq"] if name == "kq" else MODE_KERNEL[
+                "flash_bias"]
             checks.append(dict(entry=name, shape=[b, h, t], dtype="bfloat16",
-                               max_abs_err=err))
+                               max_abs_err=err, cuda_kernel=one_kernel(
+                                   torch, kern, (BIAS_CUDA_KERNELS[kname],))))
             errs[name] = max(errs[name], err)
             if name not in timed[b]:
                 continue
@@ -1479,8 +1517,9 @@ def _kernel_census(prof) -> dict:
     and ``ts_res_block_wgmma<BN>`` in bf16, ``gn_conv_f32`` and
     ``ts_res_block_f32`` in fp32), the normalise kernel before each of
     them (``group_norm_act<CACHED>`` in bf16, ``group_stats_f32`` in
-    fp32), K6 (``attn_bias<T>`` of csrc/flash_attention_bias.cu), K9a
-    (``attn_bias_kq<T>``), K9b (``attn_bias_cm<T>``), K7, K2 and K8 (their
+    fp32), K6 (``attn_bias_tc<NB, NQ>`` of csrc/flash_attention_bias.cu in
+    bf16, ``attn_bias_f32`` in fp32), K9a (``attn_bias_kq_*``), K9b
+    (``attn_bias_cm_*``), K7, K2 and K8 (their
     GEMM and row kernels, ``DECODE_KERNELS``) and all other kernels.  The
     names match demangled and mangled alike."""
     events = _cuda_events(prof)
@@ -1682,8 +1721,15 @@ def batch_route(torch, tts, ref: str):
     finally:
         stages.close()
     warm_s = runs[0][2]
+    # the profiled diffusion's device time a DDIM step, and K6's share
+    steps = DIFF_STEPS * len(calls)
     emit("batch_counts", k6_per_call=k6, diffusion_calls=calls,
          profiler_retries=retries,
+         diffusion_device_ms_per_ddim_step=ck["device_ms"] / steps,
+         k6_device_ms_per_ddim_step=ck["device_ms_by_kind"]["attn_bias"]
+         / steps,
+         k6_share_of_diffusion_device=ck["device_ms_by_kind"]["attn_bias"]
+         / ck["device_ms"],
          device_busy_share={name: ck_["device_ms"] / 1e3 / warm_s[name]
                             for name, ck_ in stages.cuda_kernels.items()})
     return counts
@@ -2210,6 +2256,7 @@ def main() -> int:
             for n, log in logs.items()}
     emit("build", seconds=time.time() - t0, built=sorted(logs),
          ptxas=regs)
+    no_spills(BIAS_SOURCES)
 
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["TORTOISE_TPU_TOKENIZER"] = str(

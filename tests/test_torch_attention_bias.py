@@ -19,6 +19,8 @@ import jax.numpy as jnp
 from tortoise_tts_tpu.ops.attention import qkv_attention as jax_qkv_attention
 from tortoise_tts_tpu.ops.pallas_attention import flash_attention_bias_qkv_vt
 from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
+from tortoise_tts_tpu_torch.kernels import flash_attention_bias_cm as k9b
+from tortoise_tts_tpu_torch.kernels import flash_attention_bias_kq as k9a
 from tortoise_tts_tpu_torch.ops import attention
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -99,3 +101,50 @@ def test_plain_rounds_probabilities_like_the_tpu_kernel():
     assert got.dtype == torch.bfloat16
     want = k6.flash_attention_bias_plain(q16.float(), b16.float(), 2)
     torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+
+
+# Every shape the routes give the three biased kernels (H=16: the trunk's
+# and the integrator's batches on the default route, 1 and 2, and on the
+# batch route, 8 and 16, at T=896 and the denoiser's other padded lengths)
+# and the ragged ones of the card tests.
+PLAN_SHAPES = ([(b, 16, t) for b in (1, 2, 8, 16) for t in (256, 416, 896)]
+               + [(b, 4, t) for b in (3, 9) for t in (64, 257, 300)])
+SMEM_MAX = 232448    # an H100 block's shared memory (227 KB)
+SM_SHARED = 233472   # an H100 SM's (228 KB), 1 KB of it kept a block
+
+
+@pytest.mark.parametrize("b,h,t", PLAN_SHAPES)
+def test_plan_fits_every_shape(b, h, t):
+    """plan(b, h, t): the kernel's one shape (one warpgroup for one batch
+    row and one query tile, G = 1, two stages); the grid's blocks cover
+    the batch and the query tiles with no block left empty; the ring fits
+    a block's shared memory and four blocks an SM (the kernel's
+    __launch_bounds__); T's rows off 16 bytes (T = 257, 300) take warp 0's
+    element copies, the others TMA."""
+    p = k6.plan(b, h, t)
+    assert (p.nb, p.nq, p.stages) == (1, 1, 2)
+    tiles = -(-t // 64)
+    grid_b, grid_q = -(-b // p.nb), -(-tiles // p.nq)
+    assert (grid_b - 1) * p.nb < b <= grid_b * p.nb
+    assert (grid_q - 1) * p.nq < tiles <= grid_q * p.nq
+    assert k6.smem_bytes(p) == 2 * (3 * 8192 + 1024) + 32 + 1024
+    assert k6.smem_bytes(p) <= SMEM_MAX
+    assert SM_SHARED // (k6.smem_bytes(p) + 1024) >= 4
+    assert p.tma == (t % 8 == 0)
+
+
+@pytest.mark.parametrize("b,t", [(1, 64), (3, 130), (9, 257)])
+def test_plain_versions_agree(b, t):
+    """The three plain versions compute one function: K6's, K9a's on the
+    transposed bias and both of K9b's agree at 1e-5 in fp32 (where the
+    weights' rounding to the input type is exact)."""
+    h = 2
+    qkv, bias = (torch.from_numpy(x) for x in _inputs(b * t, b, h, t))
+    want = k6.flash_attention_bias_plain(qkv, bias, h)
+    q, k, v = qkv.view(b, h, 3, 64, t).unbind(2)
+    for got in (k9a.flash_attention_bias_kq_plain(
+                    qkv, bias.transpose(1, 2).contiguous(), h),
+                k9b.flash_attention_bias_qkv_plain(qkv, bias, h),
+                k9b.flash_attention_bias_cm_plain(q, k, v, bias).reshape(
+                    b, h * 64, t)):
+        torch.testing.assert_close(got, want, **TOL)

@@ -379,88 +379,140 @@ def test_flash_decode_shared_kernel_cuda(cuda, g, c, sp, pos, dtype):
     assert len(names) == 1 and "fd_cluster" in names[0], names
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,h,t,dtype", [(16, 16, 896, torch.bfloat16),
-                                         (8, 16, 896, torch.bfloat16),
-                                         (8, 4, 300, torch.bfloat16),
-                                         (8, 2, 257, torch.float32),
-                                         (9, 2, 64, torch.float32)])
-def test_flash_attention_bias_kernel_cuda(cuda, monkeypatch, b, h, t, dtype):
-    """K6 at the batch route's shapes (trunk B=16, integrator B=8, T=896),
-    at ragged T (no multiple of the 64-key tile, odd T: the unvectorised
-    loads) and in fp32."""
-    _fp32_exact(monkeypatch, dtype)
-    gen = torch.Generator(device=cuda).manual_seed(8)
-    qkv = (torch.randn(b, h * 192, t, generator=gen, device=cuda)
+# The biased attention kernels (K6, K9a, K9b) at B = 1 and 2 (the default
+# route's integrator and trunk), 8 and 16 (the batch route's), 3 and 9
+# (odd), T = 64 (one tile), 257 and 300 (ragged, rows off 16 bytes: warp
+# 0's element copies) and 896 (the routes, at H=16; the others at H=4),
+# in bf16 and fp32.
+BIAS_B = [1, 2, 3, 8, 9, 16]
+BIAS_T = [64, 257, 300, 896]
+BIAS_DTYPES = [torch.bfloat16, torch.float32]
+# each kernel's CUDA kernel in bf16 (tensor cores) and fp32 (CUDA cores)
+BIAS_KERNELS = {"k6": ("attn_bias_tc", "attn_bias_f32"),
+                "k9a": ("attn_bias_kq_tc", "attn_bias_kq_f32"),
+                "k9b": ("attn_bias_cm_tc", "attn_bias_cm_f32")}
+
+
+def _bias_inputs(dev, b, t, dtype, seed=9):
+    h = 16 if t == 896 else 4
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = (torch.randn(b, h * 192, t, generator=gen, device=dev)
            * 0.5).to(dtype)
-    bias = (torch.randn(h, t, t, generator=gen, device=cuda) * 2).to(dtype)
+    bias = (torch.randn(h, t, t, generator=gen, device=dev) * 2).to(dtype)
+    return qkv, bias, h
+
+
+def _bias_close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        _bf16_close(got, want, atol=3e-2)
+
+
+def _one_bias_kernel(fn, kernel, dtype):
+    """fn() is one CUDA kernel, the named kernel's bf16 or fp32 one."""
+    names = _cuda_kernel_names(fn)
+    want = BIAS_KERNELS[kernel][dtype == torch.float32]
+    assert len(names) == 1 and want in names[0], names
+    if kernel == "k6":   # "attn_bias_tc" is no part of the others' names
+        assert "_kq_" not in names[0] and "_cm_" not in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BIAS_DTYPES)
+@pytest.mark.parametrize("t", BIAS_T)
+@pytest.mark.parametrize("b", BIAS_B)
+def test_flash_attention_bias_kernel_cuda(cuda, monkeypatch, b, t, dtype):
+    """K6 against its plain version: one launch and one CUDA kernel a
+    call."""
+    _fp32_exact(monkeypatch, dtype)
+    qkv, bias, h = _bias_inputs(cuda, b, t, dtype, seed=8)
     before = k6.KERNEL.launches
     got = k6.flash_attention_bias(qkv, bias, h)
     torch.cuda.synchronize()
     assert k6.KERNEL.launches == before + 1
-    want = k6.flash_attention_bias_plain(qkv, bias, h)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    else:
-        _bf16_close(got, want, atol=3e-2)
-
-
-K9_CASES = [(2, 16, 896, torch.bfloat16), (8, 16, 896, torch.bfloat16),
-            (16, 16, 896, torch.bfloat16), (2, 16, 300, torch.bfloat16),
-            (3, 2, 257, torch.float32), (2, 2, 64, torch.float32)]
-
-
-def _k9_inputs(dev, b, h, t, dtype):
-    gen = torch.Generator(device=dev).manual_seed(9)
-    qkv = (torch.randn(b, h * 192, t, generator=gen, device=dev)
-           * 0.5).to(dtype)
-    bias = (torch.randn(h, t, t, generator=gen, device=dev) * 2).to(dtype)
-    return qkv, bias
-
-
-def _k9_close(got, want, dtype):
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    else:
-        _bf16_close(got, want, atol=3e-2)
+    _bias_close(got, k6.flash_attention_bias_plain(qkv, bias, h), dtype)
+    _one_bias_kernel(lambda: k6.flash_attention_bias(qkv, bias, h), "k6",
+                     dtype)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,t,dtype", K9_CASES)
-def test_flash_attention_bias_kq_kernel_cuda(cuda, monkeypatch, b, h, t,
-                                             dtype):
-    """K9a at the single route's trunk (B=2) and the batch route's shapes
-    (B=8, 16) at T=896, at ragged T (T=300; odd T=257: the unvectorised
-    loads) and in fp32; the bias transposed, (H, S, Tq), read in place."""
+@pytest.mark.parametrize("dtype", BIAS_DTYPES)
+@pytest.mark.parametrize("t", BIAS_T)
+@pytest.mark.parametrize("b", BIAS_B)
+def test_flash_attention_bias_kq_kernel_cuda(cuda, monkeypatch, b, t, dtype):
+    """K9a against its plain version, the bias transposed, (H, S, Tq),
+    read in place: one launch and one CUDA kernel a call."""
     _fp32_exact(monkeypatch, dtype)
-    qkv, bias = _k9_inputs(cuda, b, h, t, dtype)
+    qkv, bias, h = _bias_inputs(cuda, b, t, dtype)
     bias_t = bias.transpose(1, 2).contiguous()
     before = k9a.KERNEL.launches
     got = k9a.flash_attention_bias_kq(qkv, bias_t, h)
     torch.cuda.synchronize()
     assert k9a.KERNEL.launches == before + 1
-    _k9_close(got, k9a.flash_attention_bias_kq_plain(qkv, bias_t, h), dtype)
+    _bias_close(got, k9a.flash_attention_bias_kq_plain(qkv, bias_t, h),
+                dtype)
+    _one_bias_kernel(lambda: k9a.flash_attention_bias_kq(qkv, bias_t, h),
+                     "k9a", dtype)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,t,dtype", K9_CASES)
-def test_flash_attention_bias_cm_kernel_cuda(cuda, monkeypatch, b, h, t,
-                                             dtype):
-    """K9b's two entries, fused qkv and split q, k, v, at the same shapes;
-    both add to one launch count."""
+@pytest.mark.parametrize("dtype", BIAS_DTYPES)
+@pytest.mark.parametrize("t", BIAS_T)
+@pytest.mark.parametrize("b", BIAS_B)
+def test_flash_attention_bias_cm_kernel_cuda(cuda, monkeypatch, b, t, dtype):
+    """K9b's two entries, fused qkv and split q, k, v, against their plain
+    versions; both add to one launch count, each call one CUDA kernel."""
     _fp32_exact(monkeypatch, dtype)
-    qkv, bias = _k9_inputs(cuda, b, h, t, dtype)
+    qkv, bias, h = _bias_inputs(cuda, b, t, dtype)
     before = k9b.KERNEL.launches
     got = k9b.flash_attention_bias_qkv(qkv, bias, h)
     torch.cuda.synchronize()
     assert k9b.KERNEL.launches == before + 1
-    _k9_close(got, k9b.flash_attention_bias_qkv_plain(qkv, bias, h), dtype)
+    _bias_close(got, k9b.flash_attention_bias_qkv_plain(qkv, bias, h), dtype)
     q, k, v = (x.contiguous() for x in
                qkv.view(b, h, 3, 64, t).unbind(2))
     got = k9b.flash_attention_bias_cm(q, k, v, bias)
     torch.cuda.synchronize()
     assert k9b.KERNEL.launches == before + 2
-    _k9_close(got, k9b.flash_attention_bias_cm_plain(q, k, v, bias), dtype)
+    _bias_close(got, k9b.flash_attention_bias_cm_plain(q, k, v, bias), dtype)
+    _one_bias_kernel(lambda: k9b.flash_attention_bias_qkv(qkv, bias, h),
+                     "k9b", dtype)
+    _one_bias_kernel(lambda: k9b.flash_attention_bias_cm(q, k, v, bias),
+                     "k9b", dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bias_refuses_other_plans_cuda(cuda):
+    """The C entries take the wrapper's launch plan and refuse one their
+    kernel was not built for: no silent fallback to another shape."""
+    qkv, bias, h = _bias_inputs(cuda, 2, 896, torch.bfloat16)
+    bias_t = bias.transpose(1, 2).contiguous()
+    for p in (k6.Plan(2, 1, 2, True), k6.Plan(1, 2, 2, True),
+              k6.Plan(1, 1, 3, True)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            k6._launch(qkv, bias, h, plan_=p)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            k9a._launch(qkv, bias_t, h, plan_=p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [300, 896])
+@pytest.mark.parametrize("b", BIAS_B)
+def test_flash_attention_bias_entries_bit_equal_cuda(cuda, b, t):
+    """K6, K9a (given the transposed bias) and both entries of K9b run one
+    body (csrc/attention_bias.cuh): on the same bf16 data their outputs
+    are equal bit for bit, by TMA (T=896) and by warp 0's element copies
+    (T=300)."""
+    qkv, bias, h = _bias_inputs(cuda, b, t, torch.bfloat16, seed=10)
+    want = k6.flash_attention_bias(qkv, bias, h)
+    q, k, v = (x.contiguous() for x in qkv.view(b, h, 3, 64, t).unbind(2))
+    for got in (k9a.flash_attention_bias_kq(
+                    qkv, bias.transpose(1, 2).contiguous(), h),
+                k9b.flash_attention_bias_qkv(qkv, bias, h),
+                k9b.flash_attention_bias_cm(q, k, v, bias).view(b, h * 64,
+                                                                 t)):
+        assert torch.equal(got, want)
 
 
 def _fp32_exact(monkeypatch, dtype):

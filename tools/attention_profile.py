@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time K1 (trunk flash attention) and K3 (decode attention, both entries)
-of a checkout at the main paths' shapes on a CUDA card.
+"""Time K1 (trunk flash attention), K3 (decode attention, both entries)
+and the denoiser's biased attention (K6, K9a, K9b's fused entry) of a
+checkout at the main paths' shapes on a CUDA card.
 
     python3 tools/attention_profile.py [--repo DIR] [--out FILE]
+                                       [--which all|k1k3|bias]
 
 Imports ``tortoise_tts_tpu_torch`` from ``--repo`` (default: this
 checkout), so one call can time two checkouts of the port on one card in
@@ -15,7 +17,12 @@ checkout takes.  Prints one JSON line a shape, in bf16:
 - K3: the decode's last step over 268 slots at B=1 and 8 and over 604
   slots at B=1, cycling over 30 layers of cache;
 - K3's shared form: 16 candidates over a 68-slot prefix and a 200-slot
-  region, 30 layers.
+  region, 30 layers;
+- K6, K9a (on the transposed bias) and K9b's fused entry at H=16, T=896
+  and B = 1, 2 (the default route's integrator and trunk), 8 and 16 (the
+  batch route's), cycling over 4 biases (every attention block has its
+  own, 25.7 MB), beside SDPA with the bias as a float mask (views in,
+  channels-major copy out, as chip_smoke times it).
 
 Each line: the kernel's device ms a call and its CUDA kernels a call
 (torch.profiler over 30 calls, as ``chip_smoke.device_ms``), SDPA's device
@@ -131,10 +138,41 @@ def k3_cases(k3, dev):
                bound_ms=bound, bound_by=by, bound_share=bound / ms)
 
 
+def bias_cases(k6, k9a, k9b, dev):
+    F = torch.nn.functional
+    h, t = H, 896
+    for b in (1, 2, 8, 16):
+        g = torch.Generator(device=dev).manual_seed(6 + b)
+        qkv = (torch.randn(b, h * 3 * D, t, generator=g, device=dev)
+               * 0.5).to(torch.bfloat16)
+        biases = [(torch.randn(h, t, t, generator=g, device=dev) * 2).to(
+            torch.bfloat16) for _ in range(4)]
+        bts = [x.transpose(1, 2).contiguous() for x in biases]
+        qv, kv, vv = qkv.view(b, h, 3, D, t).unbind(2)
+        nbytes = 4 * b * h * D * t * 2 + h * t * t * 2
+        bound, by = cs.bound_ms(nbytes, 4 * b * h * t * t * D)
+        row = dict(name="biased_attention", b=b, h=h, t=t, bound_ms=bound,
+                   bound_by=by)
+        fns = {"k6": lambda i: k6.flash_attention_bias(qkv, biases[i % 4], h),
+               "k9a": lambda i: k9a.flash_attention_bias_kq(qkv, bts[i % 4],
+                                                            h),
+               "k9b_qkv": lambda i: k9b.flash_attention_bias_qkv(
+                   qkv, biases[i % 4], h),
+               "sdpa": lambda i: cs._sdpa_cm(F, qv, kv, vv, biases[i % 4])}
+        for key, fn in fns.items():
+            ms, n = profiled(fn)
+            row[key + "_ms"] = ms
+            row[key + "_cuda_kernels_per_call"] = n
+        yield row
+        del qkv, biases, bts
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=str(HERE))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--which", default="all", choices=("all", "k1k3", "bias"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attention_profile: no CUDA device", file=sys.stderr)
@@ -142,14 +180,22 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.repo).resolve()))
     from tortoise_tts_tpu_torch import kernels
     from tortoise_tts_tpu_torch.kernels import flash_attention as k1
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias_cm as k9b
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias_kq as k9a
     from tortoise_tts_tpu_torch.kernels import flash_decode as k3
     assert Path(k1.__file__).resolve().is_relative_to(
         Path(args.repo).resolve()), k1.__file__
-    kernels.build([k1.KERNEL.source, k3.KERNEL.source])
+    kernels.build([k.KERNEL.source for k in (k1, k3, k6, k9a, k9b)])
     dev = torch.device("cuda")
     out = open(args.out, "a") if args.out else None
+    cases = []
+    if args.which in ("all", "k1k3"):
+        cases += [k1_cases(k1, dev), k3_cases(k3, dev)]
+    if args.which in ("all", "bias"):
+        cases.append(bias_cases(k6, k9a, k9b, dev))
     with torch.inference_mode():
-        for row in (*k1_cases(k1, dev), *k3_cases(k3, dev)):
+        for row in (r for gen in cases for r in gen):
             line = json.dumps(dict(repo=args.repo, **row))
             print(line, flush=True)
             if out:

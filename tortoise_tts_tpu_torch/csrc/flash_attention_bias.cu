@@ -6,63 +6,76 @@
 // form _attn_bias_vt_hg_kernel):
 //     o[b, h] = softmax(q k^T / sqrt(64) + bias[h]) v
 // on the fused channels-major qkv (B, H*3*64, T) with the per-head [q;k;v]
-// channel interleave, bias (H, T, T) shared across the batch, output
-// (B, H*64, T) channels-major.  Scores, the softmax statistics and the
-// accumulator are fp32; the probabilities are rounded to the input type
+// channel interleave, bias (H, T, T) (query, key) shared across the batch,
+// output (B, H*64, T) channels-major.  Scores, the softmax statistics and
+// the accumulator are fp32; the probabilities are rounded to the input type
 // before the AV product, as the TPU kernel does (its p.astype(v.dtype)).
+// The TPU kernel padded T to a multiple of 128 and pre-transposed V; here
+// the ragged end is masked and V is read channels-major, as it lies.  Its
+// ones column for the normaliser has a counterpart: 8 rows of ones behind
+// each V tile in shared memory, so the PV product also sums P's rows.
 //
-// Bound on an H100: bytes.  At B=16, H=16, T=896 a call must read 88 MB of
-// qkv and 25.7 MB of bias and write 29 MB (43 us at 3.35 TB/s) for 13.2
-// GFLOP (13 us at the bf16 tensor-core peak).
+// Bound on an H100: operations.  At B=16, H=16, T=896 (the batch route's
+// cond-free trunk) a call does 4 B H T^2 64 = 52.6 GFLOP (53 us at 989
+// TFLOP/s) and must read 88 MB of qkv and 25.7 MB of bias and write 29 MB
+// (43 us at 3.35 TB/s); at B=8 (its integrator) 26.3 GFLOP (27 us) against
+// 25 us of bytes.  At head dim 64 the exponentials weigh about as much as
+// the products: B H T^2 = 205 M ex2 at B=16, about 50 us on the special
+// function units, so softmax and products have to overlap.
 //
-// Design (the shared body in attention_bias.cuh): one block of 4 warps per
-// (batch, 64-query tile, head), with the batch innermost in the grid so the
-// blocks that read one bias tile run together and the tile stays in L2.
-// q, k and v tiles (64 channels x 64 times) are copied straight from the
-// channels-major layout, where T is contiguous: coalesced 16-byte loads when
-// T is a multiple of 8, no split and no transpose.  Per 64-key tile the two
-// products run on WMMA 16x16x16 (bf16 in, fp32 out) and the online softmax
-// in registers; the bias is read row-major from (H, T, T).  Keys at or past
-// T score -inf and take no weight, so any T works unpadded (the TPU kernel
-// padded T to a multiple of 128).  fp32 inputs (the reference runs) use
-// CUDA-core FMAs for the two products.
+// Design: the shared tensor-core body (attention_bias.cuh,
+// attn_bias_tc_block, the bias tile read by ldmatrix): a block of one
+// warpgroup per (batch row, 64-query tile, head) keeps a ring of
+// TMA-copied (bias, K, V) tiles two steps deep, runs both products on
+// wgmma with S and P in registers and the softmax in between, and the
+// four blocks on an SM overlap one's softmax with another's products.
+// fp32 inputs (the reference runs) use attn_bias_f32 (CUDA cores).
 #include "attention_bias.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    attn_bias(const T* __restrict__ qkv, const T* __restrict__ bias,
-              T* __restrict__ out, int H, int Tn, float scale, int vec) {
-  const int b = blockIdx.x, h = blockIdx.z;
-  const T* base = qkv + ((long long)(b * H + h) * 3 * D) * Tn;
-  attn_bias_block<T, false>(base, base + (long long)D * Tn,
-                            base + 2LL * D * Tn,
-                            bias + (long long)h * Tn * Tn, out, Tn, scale,
-                            vec);
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    attn_bias_tc(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap bmap,
+                const __grid_constant__ BiasArgs a) {
+  attn_bias_tc_block<false>(&qmap, &kmap, &vmap, &bmap, a);
 }
 
-template <typename T>
-int run(const void* qkv, const void* bias, void* out, int B, int H, int Tn,
-        float scale, int vec, cudaStream_t st) {
-  return launch_attn<T, false>(attn_bias<T>, B, H, Tn, st,
-                               static_cast<const T*>(qkv),
-                               static_cast<const T*>(bias),
-                               static_cast<T*>(out), H, Tn, scale, vec);
+__global__ void __launch_bounds__(F_THREADS)
+    attn_bias_f32(const float* __restrict__ qkv,
+                  const float* __restrict__ bias, float* __restrict__ out,
+                  int H, int Tn, float scale) {
+  const long long bh = (long long)blockIdx.x * H + blockIdx.z;
+  const float* base = qkv + bh * 3 * D * Tn;
+  attn_bias_f32_block<false>(base, base + (long long)D * Tn,
+                             base + 2LL * D * Tn,
+                             bias + (long long)blockIdx.z * Tn * Tn,
+                             out + bh * D * Tn, Tn, scale);
 }
 
 }  // namespace
 
 // qkv: (B, H*3*64, T) contiguous, per-head [q;k;v] channel blocks; bias:
 // (H, T, T) contiguous, the same type; out: (B, H*64, T) contiguous.
-// dtype: 0 = float32, 1 = bfloat16.  vec: 1 when T is a multiple of 8
-// (bf16) or 4 (fp32) and all three pointers are 16-byte aligned.
+// dtype: 0 = float32, 1 = bfloat16.  bf16 only: tma = 1 when T is a
+// multiple of 8 and all three pointers are 16-byte aligned; (nb, nq,
+// stages) the launch plan.
 extern "C" int tts_flash_attention_bias(const void* qkv, const void* bias,
                                         void* out, int B, int H, int T,
-                                        float scale, int vec, int dtype,
+                                        float scale, int tma, int dtype,
+                                        int nb, int nq, int stages,
                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(qkv, bias, out, B, H, T, scale, vec, st);
-  return run<float>(qkv, bias, out, B, H, T, scale, vec, st);
+  if (dtype != 1)
+    return launch_f32(attn_bias_f32, B, H, T, st,
+                      static_cast<const float*>(qkv),
+                      static_cast<const float*>(bias),
+                      static_cast<float*>(out), H, T, scale);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const BiasArgs a{q, q + (long long)D * T, q + 2LL * D * T, 3LL * D * T,
+                   static_cast<const bf16*>(bias), static_cast<bf16*>(out),
+                   B, H, T, scale, tma};
+  return launch_tc<attn_bias_tc>(a, nb, nq, stages, st);
 }

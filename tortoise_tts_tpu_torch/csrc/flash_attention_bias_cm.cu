@@ -23,72 +23,79 @@
 // must read 11 MB of q, k and v and 25.7 MB of bias and write 3.7 MB (12 us
 // at 3.35 TB/s) for 6.6 GFLOP (6.7 us at the bf16 tensor-core peak): bytes.
 //
-// Design: K6's kernel (attention_bias.cuh) with the q, k and v base pointers
-// and the (batch, head) stride as arguments; the bias is read row-major.
-// The batch is innermost in the grid so the blocks that read one bias tile
-// run together and the tile stays in L2.  Keys at or past T score -inf and
-// take no weight, so any T works unpadded (the TPU kernel padded T to a
-// multiple of 128).
+// Design: K6's body (attention_bias.cuh, attn_bias_tc_block, the bias read
+// by ldmatrix) with the q, k and v base pointers and the (batch, head)
+// stride as arguments: the fused entry computes what K6 computes, bit for
+// bit.  fp32 inputs use attn_bias_cm_f32 (CUDA cores).
 #include "attention_bias.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    attn_bias_cm(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, long long bh_stride,
-                 const T* __restrict__ bias, T* __restrict__ out, int H,
-                 int Tn, float scale, int vec) {
-  const int b = blockIdx.x, h = blockIdx.z;
-  const long long off = (long long)(b * H + h) * bh_stride;
-  attn_bias_block<T, false>(q + off, k + off, v + off,
-                            bias + (long long)h * Tn * Tn, out, Tn, scale,
-                            vec);
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    attn_bias_cm_tc(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap bmap,
+                   const __grid_constant__ BiasArgs a) {
+  attn_bias_tc_block<false>(&qmap, &kmap, &vmap, &bmap, a);
 }
 
-template <typename T>
-int run(const void* q, const void* k, const void* v, long long bh_stride,
-        const void* bias, void* out, int B, int H, int Tn, float scale,
-        int vec, cudaStream_t st) {
-  return launch_attn<T, false>(
-      attn_bias_cm<T>, B, H, Tn, st, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), bh_stride,
-      static_cast<const T*>(bias), static_cast<T*>(out), H, Tn, scale, vec);
+__global__ void __launch_bounds__(F_THREADS)
+    attn_bias_cm_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, long long bh_stride,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int H, int Tn, float scale) {
+  const long long bh = (long long)blockIdx.x * H + blockIdx.z;
+  const long long off = bh * bh_stride;
+  attn_bias_f32_block<false>(q + off, k + off, v + off,
+                             bias + (long long)blockIdx.z * Tn * Tn,
+                             out + bh * D * Tn, Tn, scale);
 }
 
 int dispatch(const void* q, const void* k, const void* v, long long bh_stride,
              const void* bias, void* out, int B, int H, int T, float scale,
-             int vec, int dtype, void* stream) {
+             int tma, int dtype, int nb, int nq, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(q, k, v, bh_stride, bias, out, B, H, T, scale,
-                              vec, st);
-  return run<float>(q, k, v, bh_stride, bias, out, B, H, T, scale, vec, st);
+  if (dtype != 1)
+    return launch_f32(attn_bias_cm_f32, B, H, T, st,
+                      static_cast<const float*>(q),
+                      static_cast<const float*>(k),
+                      static_cast<const float*>(v), bh_stride,
+                      static_cast<const float*>(bias),
+                      static_cast<float*>(out), H, T, scale);
+  const BiasArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v), bh_stride,
+                   static_cast<const bf16*>(bias), static_cast<bf16*>(out),
+                   B, H, T, scale, tma};
+  return launch_tc<attn_bias_cm_tc>(a, nb, nq, stages, st);
 }
 
 }  // namespace
 
 // q, k, v: (B, H, 64, T) contiguous each; bias: (H, T, T) contiguous,
 // (query, key) per head, the same type; out: (B, H, 64, T) contiguous.
-// dtype: 0 = float32, 1 = bfloat16.  vec: 1 when T is a multiple of 8
-// (bf16) or 4 (fp32) and all five pointers are 16-byte aligned.
+// dtype: 0 = float32, 1 = bfloat16.  bf16 only: tma = 1 when T is a
+// multiple of 8 and all five pointers are 16-byte aligned; (nb, nq,
+// stages) the launch plan.
 extern "C" int tts_flash_attention_bias_cm(const void* q, const void* k,
                                            const void* v, const void* bias,
                                            void* out, int B, int H, int T,
-                                           float scale, int vec, int dtype,
+                                           float scale, int tma, int dtype,
+                                           int nb, int nq, int stages,
                                            void* stream) {
-  return dispatch(q, k, v, (long long)D * T, bias, out, B, H, T, scale, vec,
-                  dtype, stream);
+  return dispatch(q, k, v, (long long)D * T, bias, out, B, H, T, scale, tma,
+                  dtype, nb, nq, stages, stream);
 }
 
 // qkv: (B, H*3*64, T) contiguous, per-head [q;k;v] channel blocks; bias and
 // the other arguments as above; out: (B, H*64, T) contiguous.
 extern "C" int tts_flash_attention_bias_qkv(const void* qkv, const void* bias,
                                             void* out, int B, int H, int T,
-                                            float scale, int vec, int dtype,
+                                            float scale, int tma, int dtype,
+                                            int nb, int nq, int stages,
                                             void* stream) {
   const char* base = static_cast<const char*>(qkv);
   const size_t plane = (size_t)D * T * (dtype == 1 ? 2 : 4);
   return dispatch(base, base + plane, base + 2 * plane, 3LL * D * T, bias,
-                  out, B, H, T, scale, vec, dtype, stream);
+                  out, B, H, T, scale, tma, dtype, nb, nq, stages, stream);
 }

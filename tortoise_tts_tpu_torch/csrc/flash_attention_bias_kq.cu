@@ -20,53 +20,59 @@
 // 3.35 TB/s) for 6.6 GFLOP (6.7 us at the bf16 tensor-core peak): bytes; at
 // B=16 the operations (53 us against 43 us).
 //
-// Design: K6's kernel (attention_bias.cuh) with the bias read in place in
-// its transposed layout: per 64-key tile the 64 x 64 bias tile is copied
-// along the query axis, where rows of bias_t are contiguous, into shared
-// memory with coalesced 16-byte loads, and each thread reads its query row
-// down the tile's columns, skewed so the read has no bank conflict.  No
-// transposed copy of the (H, T, T) bias is made.  The batch is innermost in
-// the grid so the blocks that read one bias tile run together.  Keys at or
-// past T score -inf and take no weight, so any T works unpadded (the TPU
-// kernel padded T to a multiple of 128).
+// Design: K6's body (attention_bias.cuh, attn_bias_tc_block with BIAS_T).
+// The (key, query) bias tile is copied whole by TMA, along its rows as they
+// lie in memory, into swizzled shared memory, and read into the score
+// accumulators by ldmatrix.trans: an 8 x 8 block of the transposed tile
+// lands in the same threads and elements as K6's by ldmatrix, so the
+// transposed bias costs what K6's does and no transposed copy of the
+// (H, T, T) bias is made.  fp32 inputs use attn_bias_kq_f32 (CUDA cores).
 #include "attention_bias.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    attn_bias_kq(const T* __restrict__ qkv, const T* __restrict__ bias_t,
-                 T* __restrict__ out, int H, int Tn, float scale, int vec) {
-  const int b = blockIdx.x, h = blockIdx.z;
-  const T* base = qkv + ((long long)(b * H + h) * 3 * D) * Tn;
-  attn_bias_block<T, true>(base, base + (long long)D * Tn,
-                           base + 2LL * D * Tn,
-                           bias_t + (long long)h * Tn * Tn, out, Tn, scale,
-                           vec);
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    attn_bias_kq_tc(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap bmap,
+                   const __grid_constant__ BiasArgs a) {
+  attn_bias_tc_block<true>(&qmap, &kmap, &vmap, &bmap, a);
 }
 
-template <typename T>
-int run(const void* qkv, const void* bias_t, void* out, int B, int H, int Tn,
-        float scale, int vec, cudaStream_t st) {
-  return launch_attn<T, true>(attn_bias_kq<T>, B, H, Tn, st,
-                              static_cast<const T*>(qkv),
-                              static_cast<const T*>(bias_t),
-                              static_cast<T*>(out), H, Tn, scale, vec);
+__global__ void __launch_bounds__(F_THREADS)
+    attn_bias_kq_f32(const float* __restrict__ qkv,
+                     const float* __restrict__ bias_t,
+                     float* __restrict__ out, int H, int Tn, float scale) {
+  const long long bh = (long long)blockIdx.x * H + blockIdx.z;
+  const float* base = qkv + bh * 3 * D * Tn;
+  attn_bias_f32_block<true>(base, base + (long long)D * Tn,
+                            base + 2LL * D * Tn,
+                            bias_t + (long long)blockIdx.z * Tn * Tn,
+                            out + bh * D * Tn, Tn, scale);
 }
 
 }  // namespace
 
 // qkv: (B, H*3*64, T) contiguous, per-head [q;k;v] channel blocks; bias_t:
-// (H, T, T) contiguous, (key, query) per head, the same type; out: (B, H*64,
-// T) contiguous.  dtype: 0 = float32, 1 = bfloat16.  vec: 1 when T is a
-// multiple of 8 (bf16) or 4 (fp32) and all three pointers are 16-byte
-// aligned.
+// (H, T, T) contiguous, (key, query) per head, the same type; out: (B,
+// H*64, T) contiguous.  dtype: 0 = float32, 1 = bfloat16.  bf16 only: tma
+// = 1 when T is a multiple of 8 and all three pointers are 16-byte
+// aligned; (nb, nq, stages) the launch plan.
 extern "C" int tts_flash_attention_bias_kq(const void* qkv,
                                            const void* bias_t, void* out,
                                            int B, int H, int T, float scale,
-                                           int vec, int dtype, void* stream) {
+                                           int tma, int dtype, int nb, int nq,
+                                           int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(qkv, bias_t, out, B, H, T, scale, vec, st);
-  return run<float>(qkv, bias_t, out, B, H, T, scale, vec, st);
+  if (dtype != 1)
+    return launch_f32(attn_bias_kq_f32, B, H, T, st,
+                      static_cast<const float*>(qkv),
+                      static_cast<const float*>(bias_t),
+                      static_cast<float*>(out), H, T, scale);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const BiasArgs a{q, q + (long long)D * T, q + 2LL * D * T, 3LL * D * T,
+                   static_cast<const bf16*>(bias_t), static_cast<bf16*>(out),
+                   B, H, T, scale, tma};
+  return launch_tc<attn_bias_kq_tc>(a, nb, nq, stages, st);
 }

@@ -177,6 +177,96 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
     wgmma_n128(d, da, db);
 }
 
+// D (64 x 64, fp32) = A (64 x 16, bf16, registers) * B (16 x 64, bf16,
+// shared memory) (+ D where ACC; without, D is written only).  Thread t of
+// the warpgroup holds A's rows r = 16 (t / 32) + (t % 32) / 4 and r + 8:
+// a[0] = (r, k 2 (t % 4) + {0, 1}), a[1] the same at r + 8, a[2] and a[3]
+// at k + 8, each a bf16 pair, low half first: two n8 blocks of a D-layout
+// accumulator, rounded, are one A slice.  D's layout is wgmma_n64's.
+// B is MN-major (the transpose bit set): 16 rows of K, each 64
+// N-contiguous elements, with the 128-byte swizzle, descriptor
+// desc_sw128(addr, lbo, 1024) (sbo the bytes between groups of 8 K rows;
+// lbo, the stride between 64-element N atoms, is unused at N = 64), the
+// k-th slice 2048 k bytes in.
+#define TTS_WGMMA_N64_RS(OUT, ACC)                                           \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                    \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
+      : OUT(d[0]), OUT(d[1]), OUT(d[2]), OUT(d[3]), OUT(d[4]), OUT(d[5]),    \
+        OUT(d[6]), OUT(d[7]), OUT(d[8]), OUT(d[9]), OUT(d[10]), OUT(d[11]),  \
+        OUT(d[12]), OUT(d[13]), OUT(d[14]), OUT(d[15]), OUT(d[16]),          \
+        OUT(d[17]), OUT(d[18]), OUT(d[19]), OUT(d[20]), OUT(d[21]),          \
+        OUT(d[22]), OUT(d[23]), OUT(d[24]), OUT(d[25]), OUT(d[26]),          \
+        OUT(d[27]), OUT(d[28]), OUT(d[29]), OUT(d[30]), OUT(d[31])           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(ACC))
+
+template <bool ACC>
+__device__ __forceinline__ void wgmma_n64_rs_mn(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  if constexpr (ACC)
+    TTS_WGMMA_N64_RS("+f", 1);
+  else
+    TTS_WGMMA_N64_RS("=f", 0);
+}
+#undef TTS_WGMMA_N64_RS
+
+// D (64 x 72, fp32) += A (64 x 16, bf16, registers, as wgmma_n64_rs_mn's)
+// B (16 x 72, bf16, K-major in shared memory, as wgmma_n64's B, rows 64-71
+// at 8192 bytes past its base): D's layout is wgmma_n64's with a ninth n8
+// block, d[32..35].
+__device__ __forceinline__ void wgmma_n72_rs(float (&d)[36],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35"
+      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Orders the compiler's reads and writes of wgmma accumulators against the
+// asynchronous instructions: after wgmma_wait, before reading them; before
+// the issue, after writing them.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// keeps a register A operand live (and unmoved) until after the wait for
+// the product that reads it
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma, TMA) before the barrier that publishes them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- tensor maps (host) ----------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

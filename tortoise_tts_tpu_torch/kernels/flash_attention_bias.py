@@ -5,28 +5,77 @@ Replaces the TPU kernel ``tortoise_tts_tpu/ops/pallas_attention.py``
 ``flash_attention_bias_qkv_vt`` (``_attn_bias_vt_kernel``, and the
 head-group ``_attn_bias_vt_hg_kernel`` its default path takes).  The CUDA
 source is ``csrc/flash_attention_bias.cu``; its header gives the bound on
-an H100 and the design.  The TPU kernel padded T to a multiple of 128,
-pre-transposed V and appended a ones column for the softmax normaliser;
-the CUDA kernel reads the fused channels-major qkv as it is, masks the
-ragged end and keeps the normaliser in registers, so none of that is
-ported.
+an H100 and the design.  The TPU kernel padded T to a multiple of 128
+and pre-transposed V; the CUDA kernel reads the fused channels-major qkv
+as it is and masks the ragged end.  Its ones column for the softmax
+normaliser survives as 8 rows of ones behind each V tile in shared
+memory.
 
 ``flash_attention_bias`` runs the plain PyTorch version for CPU tensors
 and the kernel for CUDA tensors (it raises on what the kernel does not
 take).  The JAX function has no gradient, and neither has this one.
+
+The module also holds what the three biased attention wrappers (K6, K9a,
+K9b) share: the bf16 launch plan (``plan``) and the launch itself.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from ._build import F, I, P, Kernel
 
+# q/k/v/bias/out pointers, B, H, T, scale, tma, dtype, nb, nq, stages, stream
 KERNEL = Kernel("flash_attention_bias", "tts_flash_attention_bias",
-                [P, P, P, I, I, I, F, I, I, P])
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+                [P, P, P, I, I, I, F, I, I, I, I, I, P])
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+TILE_BYTES = 64 * 64 * 2   # one bf16 tile: 64 channels x 64 steps
+
+
+class Plan(NamedTuple):
+    """A bf16 launch of the shared body (``csrc/attention_bias.cuh``):
+    ``nb`` batch rows x ``nq`` 64-query tiles a block, ``stages`` key steps
+    in flight; ``tma``: T's rows are 16-byte aligned, so TMA copies the
+    tiles (else warp 0's element copies).  The C entry takes the plan and
+    refuses one its kernel is not: one warpgroup for one row and one query
+    tile (so G = 1: a block that shares a bias tile across rows measured
+    slower), two stages, four blocks an SM."""
+    nb: int
+    nq: int
+    stages: int
+    tma: bool
+
+
+def plan(b: int, h: int, t: int) -> Plan:
+    """The launch plan of a bf16 call at (B, H, T)."""
+    return Plan(1, 1, 2, t % 8 == 0)
+
+
+def smem_bytes(p: Plan) -> int:
+    """Dynamic shared memory of a launch (``SMEM``): the ring of bias, K and
+    V tiles (each V tile followed by 1 KB of ones, which make the PV
+    product's row sums; the Q tile arrives in its last stage), its barriers
+    and 1024 bytes of alignment slack."""
+    stage = (p.nq + 2 * p.nb) * TILE_BYTES + p.nb * 1024
+    return p.stages * stage + 16 * p.stages + 1024
+
+
+def launch(kernel: Kernel, ptrs, tensors, b: int, h: int, t: int, dtype,
+           entry=None, plan_: Plan = None) -> None:
+    """One launch of a biased attention kernel: ``ptrs`` the C entry's
+    pointer arguments, ``tensors`` every tensor the kernel reads or writes
+    (TMA needs each 16-byte aligned).  ``plan_`` overrides ``plan`` (the
+    tests pin that the kernel refuses a plan it was not built for)."""
+    p = plan_ or plan(b, h, t)
+    tma = int(p.tma and all(x.data_ptr() % 16 == 0 for x in tensors))
+    kernel.launch(*ptrs, b, h, t, 1.0 / math.sqrt(64), tma, DTYPES[dtype],
+                  p.nb, p.nq, p.stages,
+                  torch.cuda.current_stream(tensors[0].device).cuda_stream,
+                  entry=entry)
 
 
 def flash_attention_bias_plain(qkv: torch.Tensor, bias: torch.Tensor,
@@ -47,12 +96,13 @@ def flash_attention_bias_plain(qkv: torch.Tensor, bias: torch.Tensor,
     return out.to(qkv.dtype).reshape(b, n_heads * d, t)
 
 
-def _launch(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int):
+def _launch(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int,
+            plan_: Plan = None):
     b, width, t = qkv.shape
     if width % (3 * n_heads) or width // (3 * n_heads) != 64:
         raise ValueError("flash_attention_bias kernel takes head dim 64, got "
                          f"width {width} for {n_heads} heads")
-    if qkv.dtype not in _DTYPES or bias.dtype != qkv.dtype:
+    if qkv.dtype not in DTYPES or bias.dtype != qkv.dtype:
         raise TypeError("flash_attention_bias kernel takes float32 or "
                         f"bfloat16 qkv and bias of one type, got "
                         f"{qkv.dtype}/{bias.dtype}")
@@ -63,12 +113,8 @@ def _launch(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int):
         raise ValueError("flash_attention_bias kernel takes contiguous qkv "
                          "and bias")
     out = torch.empty((b, width // 3, t), dtype=qkv.dtype, device=qkv.device)
-    per16 = 16 // qkv.element_size()
-    vec = int(t % per16 == 0 and all(
-        x.data_ptr() % 16 == 0 for x in (qkv, bias, out)))
-    KERNEL.launch(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
-                  n_heads, t, 1.0 / math.sqrt(64), vec, _DTYPES[qkv.dtype],
-                  torch.cuda.current_stream(qkv.device).cuda_stream)
+    launch(KERNEL, (qkv.data_ptr(), bias.data_ptr(), out.data_ptr()),
+           (qkv, bias, out), b, n_heads, t, qkv.dtype, plan_=plan_)
     return out
 
 

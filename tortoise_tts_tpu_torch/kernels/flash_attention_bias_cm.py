@@ -8,7 +8,8 @@ Replaces the TPU kernel ``tortoise_tts_tpu/ops/pallas_attention.py``
 entries, split q, k, v (each (B, H, D, T)) or the fused (B, H*3*D, T)
 qkv, each read in place by base pointer and (batch, head) stride.  The
 CUDA source is ``csrc/flash_attention_bias_cm.cu`` (K6's body in
-``csrc/attention_bias.cuh``); its header gives the bound on an H100 and
+``csrc/attention_bias.cuh``: the fused entry computes K6's function bit for
+bit); its header gives the bound on an H100 and
 the design.  The TPU kernel padded T to a multiple of 128; the CUDA
 kernel masks the ragged end, so that is not ported.
 
@@ -25,12 +26,13 @@ import math
 import torch
 
 from ._build import F, I, P, Kernel
-from .flash_attention_bias_kq import DTYPES
+from .flash_attention_bias import DTYPES, launch
 
 # one kernel, one launch count, two entries: split q, k, v and fused qkv
 KERNEL = Kernel("flash_attention_bias_cm", "tts_flash_attention_bias_cm",
-                [P, P, P, P, P, I, I, I, F, I, I, P],
-                tts_flash_attention_bias_qkv=[P, P, P, I, I, I, F, I, I, P])
+                [P, P, P, P, P, I, I, I, F, I, I, I, I, I, P],
+                tts_flash_attention_bias_qkv=[P, P, P, I, I, I, F, I, I, I, I,
+                                              I, P])
 
 
 def flash_attention_bias_cm_plain(q: torch.Tensor, k: torch.Tensor,
@@ -69,12 +71,6 @@ def _check(x: torch.Tensor, bias: torch.Tensor, h: int, t: int, d: int,
                          f"{tuple(bias.shape)}")
 
 
-def _vec(t: int, tensors) -> int:
-    per16 = 16 // tensors[0].element_size()
-    return int(t % per16 == 0 and all(x.data_ptr() % 16 == 0
-                                      for x in tensors))
-
-
 def flash_attention_bias_cm(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bias: torch.Tensor
                             ) -> torch.Tensor:
@@ -94,10 +90,9 @@ def flash_attention_bias_cm(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash_attention_bias_cm kernel takes contiguous "
                          "q, k, v and bias")
     out = torch.empty_like(q)
-    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                  out.data_ptr(), b, h, t, 1.0 / math.sqrt(64),
-                  _vec(t, (q, k, v, bias, out)), DTYPES[q.dtype],
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    launch(KERNEL, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    bias.data_ptr(), out.data_ptr()),
+           (q, k, v, bias, out), b, h, t, q.dtype)
     return out
 
 
@@ -119,9 +114,7 @@ def flash_attention_bias_qkv(qkv: torch.Tensor, bias: torch.Tensor,
         raise ValueError("flash_attention_bias_qkv kernel takes contiguous "
                          "qkv and bias")
     out = torch.empty((b, width // 3, t), dtype=qkv.dtype, device=qkv.device)
-    KERNEL.launch(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
-                  n_heads, t, 1.0 / math.sqrt(64), _vec(t, (qkv, bias, out)),
-                  DTYPES[qkv.dtype],
-                  torch.cuda.current_stream(qkv.device).cuda_stream,
-                  entry="tts_flash_attention_bias_qkv")
+    launch(KERNEL, (qkv.data_ptr(), bias.data_ptr(), out.data_ptr()),
+           (qkv, bias, out), b, n_heads, t, qkv.dtype,
+           entry="tts_flash_attention_bias_qkv")
     return out

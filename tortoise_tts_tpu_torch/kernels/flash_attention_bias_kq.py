@@ -6,8 +6,8 @@ Replaces the TPU kernel ``tortoise_tts_tpu/ops/pallas_attention.py``
 ``flash_attention_bias_qkv_kq`` (``_attn_bias_kq_kernel``), whose bias is
 ``bias_t`` (H, S, Tq): ``bias_t[h, s, t]`` is the bias of query t and key
 s.  The CUDA source is ``csrc/flash_attention_bias_kq.cu`` (K6's body in
-``csrc/attention_bias.cuh`` with the bias tile read in place, transposed
-through shared memory); its header gives the bound on an H100 and the
+``csrc/attention_bias.cuh``, the bias tile read in place by
+``ldmatrix.trans``); its header gives the bound on an H100 and the
 design.  The TPU kernel padded T to a multiple of 128; the CUDA kernel
 masks the ragged end, so that is not ported.
 
@@ -24,10 +24,10 @@ import math
 import torch
 
 from ._build import F, I, P, Kernel
+from .flash_attention_bias import DTYPES, Plan, launch
 
 KERNEL = Kernel("flash_attention_bias_kq", "tts_flash_attention_bias_kq",
-                [P, P, P, I, I, I, F, I, I, P])
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+                [P, P, P, I, I, I, F, I, I, I, I, I, P])
 
 
 def flash_attention_bias_kq_plain(qkv: torch.Tensor, bias_t: torch.Tensor,
@@ -48,7 +48,8 @@ def flash_attention_bias_kq_plain(qkv: torch.Tensor, bias_t: torch.Tensor,
     return out.to(qkv.dtype).reshape(b, n_heads * d, t)
 
 
-def _launch(qkv: torch.Tensor, bias_t: torch.Tensor, n_heads: int):
+def _launch(qkv: torch.Tensor, bias_t: torch.Tensor, n_heads: int,
+            plan_: Plan = None):
     b, width, t = qkv.shape
     if width % (3 * n_heads) or width // (3 * n_heads) != 64:
         raise ValueError("flash_attention_bias_kq kernel takes head dim 64, "
@@ -64,12 +65,8 @@ def _launch(qkv: torch.Tensor, bias_t: torch.Tensor, n_heads: int):
         raise ValueError("flash_attention_bias_kq kernel takes contiguous "
                          "qkv and bias_t")
     out = torch.empty((b, width // 3, t), dtype=qkv.dtype, device=qkv.device)
-    per16 = 16 // qkv.element_size()
-    vec = int(t % per16 == 0 and all(
-        x.data_ptr() % 16 == 0 for x in (qkv, bias_t, out)))
-    KERNEL.launch(qkv.data_ptr(), bias_t.data_ptr(), out.data_ptr(), b,
-                  n_heads, t, 1.0 / math.sqrt(64), vec, DTYPES[qkv.dtype],
-                  torch.cuda.current_stream(qkv.device).cuda_stream)
+    launch(KERNEL, (qkv.data_ptr(), bias_t.data_ptr(), out.data_ptr()),
+           (qkv, bias_t, out), b, n_heads, t, qkv.dtype, plan_=plan_)
     return out
 
 
