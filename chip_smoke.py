@@ -19,7 +19,8 @@ one JSON line per phase:
    peak; 67 TFLOP/s for K7's fp32 arithmetic); K9a and both entries of
    K9b at B = 1, 2, 8 and 16 (T=896); K1 also at the batch's prefill
    (B=8) and, after the main path, at the latent pass's S read off the
-   route, K3 also at 604 slots and at the batch's 8 rows (detail lines).
+   route, K3 also at 604 slots and at the batch's 8 rows, K7 also at the
+   batch's first BigVGAN stage (B=8) (detail lines).
    Each K1 and K3 call is one CUDA kernel, and K3 with ``pos`` in device
    memory gives the int's output bit for bit.  ``ms`` is device time per
    call (the summed kernel durations from torch.profiler); ``call_ms`` is
@@ -1055,21 +1056,24 @@ def check_ts_res_block(torch, k5, dev):
 
 def check_snake(torch, k7, dev):
     """K7 at the first and the last BigVGAN stage of the main path (906
-    mel frames: 768 x 3624 and 24 x 231936, B=1).  The row sums the two.
-    No single PyTorch call computes it."""
+    mel frames: 768 x 3624 and 24 x 231936, B=1); the row sums the two.
+    A detail line at the batch route's first stage (B=8, 768 x 3624), not
+    in the sum.  No single PyTorch call computes it."""
     tol = dict(atol=5e-2, rtol=2e-2)   # |y| <~ 6: one bf16 ulp <= 3.1e-2
     tot = dict(bytes=0.0, flops=0.0)
     err_max = 0.0
-    for i, (c, t) in enumerate(((768, 3624), (24, 231936))):
+    for i, (b, c, t) in enumerate(((1, 768, 3624), (1, 24, 231936),
+                                   (8, 768, 3624))):
         g = torch.Generator(device=dev).manual_seed(30 + i)
-        x = torch.randn(1, c, t, generator=g, device=dev).to(torch.bfloat16)
+        x = torch.randn(b, c, t, generator=g, device=dev).to(torch.bfloat16)
         alpha = torch.exp(0.3 * torch.randn(c, generator=g, device=dev))
         inv_beta = 1 / (torch.exp(0.3 * torch.randn(c, generator=g,
                                                     device=dev)) + 1e-9)
         got = k7.snake_resample2(x, alpha, inv_beta)
         want = k7.snake_resample2_plain(x, alpha, inv_beta)
-        err = bf16_err(torch, got, want, name=f"snake {c}x{t}", **tol)
+        err = bf16_err(torch, got, want, name=f"snake {b}x{c}x{t}", **tol)
         err_max = max(err_max, err)
+        del got, want
         t_ = timings(
             torch,
             lambda _, x=x, a=alpha, ib=inv_beta: k7.snake_resample2(x, a, ib),
@@ -1079,10 +1083,12 @@ def check_snake(torch, k7, dev):
         # one read and one write in bf16; per input sample the two 6-tap
         # polyphase sums (24), two snakes (10, a sine each counted as
         # one) and the 12-tap down sum (24)
-        nbytes, flops = 2 * 2 * c * t + 8 * c, 58 * c * t
-        emit("kernel_detail", name="snake", shape=[1, c, t],
+        nbytes, flops = 2 * 2 * b * c * t + 8 * c, 58 * b * c * t
+        emit("kernel_detail", name="snake", shape=[b, c, t],
              max_abs_err=err, tol=tol,
              bound_ms=bound_ms(nbytes, flops, FP32_FLOPS)[0], **t_)
+        if b > 1:
+            continue
         for key, val in t_.items():
             tot[key] = None if val is None else tot.get(key, 0.0) + val
         tot["bytes"] += nbytes
@@ -1091,6 +1097,7 @@ def check_snake(torch, k7, dev):
     emit("kernel", name="snake", shape="768x3624 + 24x231936, B=1",
          max_abs_err=err_max, tol=tol, library=None, bound_ms=bms,
          bound_by=by, **tot)
+    torch.cuda.empty_cache()
     return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **tot)
 
 

@@ -56,6 +56,66 @@ def test_snake_plain_matches_pallas_interpret(b, c, t):
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
+
+# K7's call shapes at 906 mel frames, (C, T) by stage; activation_post
+# repeats the last
+_STAGES = [(768, 3624), (384, 14496), (192, 28992), (96, 57984),
+           (48, 115968), (24, 231936)]
+
+
+@pytest.mark.parametrize("b,c,t", [(b, c, t) for b in (1, 8)
+                                   for c, t in _STAGES]
+                         + [(2, 3, t) for t in (1, 3, 5, 7, 9, 255, 257,
+                                                2049)]
+                         + [(1, 1, 8), (3, 7, 3620), (8, 768, 3620),
+                            (4096, 3, 341), (93207, 3, 15)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_snake_plan_covers_every_run(b, c, t, dtype):
+    """The CUDA kernel's launch geometry (``kernels/snake.plan``): blocks
+    of 128 runs cover every run of every row, a row's runs cover T, and
+    the multiply-shift division the kernel does on the flat run index
+    (by the runs a row) and on the row (by C) is exact for every index
+    the grid reaches, as the kernel's 32-bit arithmetic computes it."""
+    p = k7.plan(b * c, c, t, dtype)
+    v = p.run
+    if dtype == torch.float32:
+        assert v == 4
+    else:   # runs of 16 outputs but for the small calls: stage 0 at B=1
+        assert v == (16 if b * c * t >= k7.BIG_CALL else 8)
+        assert v == 8 or (b, c, t) != (1, 768, 3624)
+    runs = b * c * p.per_row
+    assert (p.per_row - 1) * v < t <= p.per_row * v
+    assert (p.tiles - 1) * k7.THREADS < runs <= p.tiles * k7.THREADS
+
+    def div(n, ml):
+        m, l = ml
+        assert 0 <= m < 2 ** 32 and l < 32
+        t_hi = (n * np.uint64(m)) >> np.uint64(32)
+        q = (t_hi + n) >> np.uint64(l)
+        assert int((t_hi + n).max()) < 2 ** 32     # no 32-bit overflow
+        return q
+
+    g = np.arange(runs, dtype=np.uint64)
+    row = div(g, p.per_row_div)
+    assert np.array_equal(row, g // np.uint64(p.per_row))
+    rows = np.arange(b * c, dtype=np.uint64)
+    assert np.array_equal(div(rows, p.channel_div), rows // np.uint64(c))
+
+
+def test_snake_kernel_taps_are_the_filter():
+    """The CUDA kernel's taps, constants in ``csrc/snake.cu`` (``F(i)``,
+    i = 0..5, mirrored), are kaiser_sinc_filter(0.25, 0.3, 12) bit for
+    bit, which is symmetric."""
+    import re
+    from pathlib import Path
+    src = (Path(k7.__file__).parent.parent / "csrc" / "snake.cu").read_text()
+    body = src[src.index("constexpr float F(int i)"):]
+    body = body[:body.index("}")]
+    lits = re.findall(r"(-?0x[0-9a-f.]+p[-+]?\d+)f", body)
+    f = tbv.kaiser_sinc_filter(0.25, 0.3, 12)
+    assert len(lits) == 6 and np.array_equal(f, f[::-1])
+    assert [np.float32(float.fromhex(s)) for s in lits] == list(f[:6])
+
 def test_resamplers_match_jax():
     assert np.array_equal(tbv.kaiser_sinc_filter(0.25, 0.3, 12),
                           jbv.kaiser_sinc_filter(0.25, 0.3, 12))

@@ -629,24 +629,68 @@ def test_group_norm_act_kernel_cuda(cuda, b, c, t, groups, act, film):
     assert y.shape == want.shape and torch.equal(y, want)
 
 
+# BigVGAN's six stage shapes at 906 mel frames (activation_post repeats the
+# last), each (C, T)
+SNAKE_STAGES = [(768, 3624), (384, 14496), (192, 28992), (96, 57984),
+                (48, 115968), (24, 231936)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,t,dtype", [(1, 768, 3624, torch.bfloat16),
-                                         (1, 24, 231936, torch.bfloat16),
-                                         (2, 5, 8, torch.float32),
-                                         (1, 3, 2049, torch.float32),
-                                         (1, 4, 3, torch.float32),
-                                         (1, 3, 1, torch.float32)])
+@pytest.mark.parametrize(
+    "b,c,t,dtype",
+    [(1, c, t, torch.bfloat16) for c, t in SNAKE_STAGES]
+    + [(8, 768, 3624, torch.bfloat16),
+       (2, 5, 8, torch.float32),
+       (1, 3, 2049, torch.float32),
+       (1, 3, 2049, torch.bfloat16),
+       (1, 4, 3, torch.float32),
+       (1, 3, 1, torch.float32)]
+    # T around a run and a warp of 32 runs: runs of 8 (small bf16 calls),
+    # of 16 (bf16 calls of k7.BIG_CALL samples or more) and of 4 (fp32)
+    + [(2, 3, t, torch.bfloat16) for t in (7, 9, 255, 257)]
+    + [(-(-k7.BIG_CALL // (3 * t)), 3, t, torch.bfloat16)
+       for t in (15, 17, 511, 513)]
+    + [(2, 3, t, torch.float32) for t in (3, 5, 255, 257)])
 def test_snake_kernel_cuda(cuda, monkeypatch, b, c, t, dtype):
+    """K7 at every BigVGAN stage shape (B=1 and, at the first, B=8, so row
+    % C wraps across the batch), ragged T around a run and a warp at each
+    run length, rows off 16 bytes, and T below a run.  fp32 within 1e-5 (sinf, fp32 FIRs: only the
+    summation order differs); bf16 within atol 5e-2, rtol 2e-2 (|y| <~ 6:
+    one bf16 ulp is at most 3.1e-2; the reduced sine is within 1e-6)."""
     _fp32_exact(monkeypatch, dtype)
     g = torch.Generator(device=cuda).manual_seed(6)
     x = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
     alpha = torch.exp(0.3 * torch.randn(c, generator=g, device=cuda))
     inv_beta = 1 / (torch.exp(0.3 * torch.randn(c, generator=g, device=cuda))
                     + 1e-9)
+    before = k7.KERNEL.launches
     got = k7.snake_resample2(x, alpha, inv_beta)
     torch.cuda.synchronize()
+    assert k7.KERNEL.launches == before + 1
     want = k7.snake_resample2_plain(x, alpha, inv_beta)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     else:
         _bf16_close(got, want, atol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,t", [(768, 3624), (24, 231936)])
+def test_snake_kernel_large_argument_cuda(cuda, c, t):
+    """bf16 K7 with alpha near 300, so |alpha v| reaches about 1000: the
+    kernel's sine reduced by pi against torch.sin in the plain version,
+    within the bf16 tolerance (the kernel's and the plain version's fp32
+    products alpha v differ by about |alpha v| 2^-23, 1.2e-4 at 1000).
+    One CUDA kernel a call."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(1, c, t, generator=g, device=cuda).to(torch.bfloat16)
+    alpha = 300 * torch.exp(0.3 * torch.randn(c, generator=g, device=cuda))
+    inv_beta = 1 / (torch.exp(0.3 * torch.randn(c, generator=g, device=cuda))
+                    + 1e-9)
+    got = k7.snake_resample2(x, alpha, inv_beta)
+    torch.cuda.synchronize()
+    want = k7.snake_resample2_plain(x, alpha, inv_beta)
+    assert float((alpha[:, None] * x[0].float()).abs().max()) > 900
+    _bf16_close(got, want, atol=5e-2)
+    names = _cuda_kernel_names(lambda: k7.snake_resample2(x, alpha, inv_beta))
+    assert len(names) == 1 and "snake_resample2" in names[0], names

@@ -128,5 +128,6 @@ class Kernel:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 LL = ctypes.c_longlong
 F = ctypes.c_float
