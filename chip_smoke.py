@@ -78,14 +78,30 @@ one JSON line per phase:
    Then ``attention_compare``: each route's first DDIM step's trunk
    output against the "auto" mode's on the same inputs (the 13 blocks'
    ``proj_out`` randomised for the phase, so the attention reaches it).
-9. ``decode``: eager decode time per token and CUDA launches per token
-   (from the profiler), the size a CUDA graph would capture, and the
-   device's busy share, for the int8 and the W8A8 decode, each at the
-   single route's shape (M=1), the batch's (8 rows) and the candidates'
-   (16 rows through the shared prefix); K2's and K8's CUDA kernels in
+9. ``diffusion_pair``: ``inference._diffusion`` at the default route's
+   geometry, B=1 (the denoiser at 2 rows) and B=8 (16), under each
+   ``denoise_attention`` mode, its sampler loop eager (the step run 50
+   times) and captured (``gaussian.sample_loop``: one CUDA graph,
+   replayed): ms and device ms a DDIM step, capture seconds, and the two
+   mels, equal bit for bit.
+10. ``decode``: the decode alone, eager (its step run by
+   ``unified_voice.advance``) and captured (``decode_chunk``: one CUDA
+   graph a decode, replayed a token) from the same generator seeds: ms a
+   token, CUDA kernels a token (from the profiler: a replay is one host
+   call, so the captured run counts the graph's kernels), device ms a
+   token, busy share and capture seconds, for the int8 and the W8A8
+   decode, each at the single route's shape (M=1), the batch's (8 rows)
+   and the candidates' (16 rows through the shared prefix).  The two runs
+   must give the same tokens and lengths; K2's and K8's CUDA kernels in
    the profiler must match their wrappers' launches (one GEMM a call,
    and the row kernel where the GEMM does not do its work: at most two
    kernels a call), and K3's one kernel a call.
+
+Every route runs its decode and its sampler loop as CUDA graphs
+(``utils/graphs.StepGraph``): each route phase asserts one capture a
+decode and a diffusion call and a replay for every other token and DDIM
+step (``stage_graphs``), and its kernel launches, replays counted, are
+what the eager path launches.
 
 Every profiled count check reads ``Stages.census``: a window whose
 kernels the profiler cut short is profiled once more, alone, and the
@@ -1448,6 +1464,10 @@ class Stages:
         self.cuda_kernels = {}
         self.diffusion_calls = []   # (rows, T) of each _diffusion call
         self.calls = {name: [] for name in self.PROFILED}   # (args, kw)
+        # CUDA graphs captured and replayed in each stage, and the seconds
+        # their captures took (``utils/graphs.STATS``)
+        self.graphs = {name: dict(captures=0, replays=0, capture_s=0.0)
+                       for *_, name in self.NAMES}
 
     def census(self, stage: str, ok):
         """The profiled ``stage``'s CUDA kernels and wrapper launches in
@@ -1461,6 +1481,7 @@ class Stages:
         calls, self.calls[stage] = self.calls[stage], []
         del self.cuda_kernels[stage]
         self.launches[stage] = {}
+        self.graphs[stage] = dict(captures=0, replays=0, capture_s=0.0)
         profile, self.profile = self.profile, True
         with self.torch.inference_mode():
             for args, kw in calls:
@@ -1469,6 +1490,7 @@ class Stages:
         return self.cuda_kernels[stage], self.launches[stage], 1
 
     def _wrap(self, fn, name):
+        from tortoise_tts_tpu_torch.utils.graphs import STATS
         torch, kernels = self.torch, self.kernels
 
         def timed(*args, **kw):
@@ -1480,6 +1502,7 @@ class Stages:
                     (args[1].shape[0], args[12] or args[7]))
             torch.cuda.synchronize()
             c0 = kernels.launch_counts()
+            g0 = dataclasses.replace(STATS)
             t0 = time.perf_counter()
             if self.profile and name in self.PROFILED:
                 from torch.profiler import ProfilerActivity, profile
@@ -1500,8 +1523,24 @@ class Stages:
                 if v > c0[k]:
                     self.launches[name][k] = (self.launches[name].get(k, 0)
                                               + v - c0[k])
+            gr = self.graphs[name]
+            gr["captures"] += STATS.captures - g0.captures
+            gr["replays"] += STATS.replays - g0.replays
+            gr["capture_s"] += STATS.capture_s - g0.capture_s
             return out
         return timed
+
+    def assert_captured(self, decode_calls: int, tokens: int,
+                        diffusion_calls: int) -> None:
+        """Every decode and sampler loop of the run went through a CUDA
+        graph: one capture a call (its warm-up the first step), a replay
+        for every other decode token and DDIM step."""
+        d, f = self.graphs["ar_decode"], self.graphs["diffusion"]
+        assert d["captures"] == decode_calls, self.graphs
+        assert d["replays"] == tokens - decode_calls, (self.graphs, tokens)
+        assert f["captures"] == diffusion_calls, self.graphs
+        assert f["replays"] == diffusion_calls * (DIFF_STEPS - 1), \
+            self.graphs
 
     def close(self):
         for m, attr, orig in self.undo:
@@ -1578,6 +1617,7 @@ def bigvgan_route(torch, tts, ref: str):
     the denoiser's structure and against the profiler."""
     from tortoise_tts_tpu_torch import kernels
     dcfg = tts._model("diffusion").config
+    layers = tts._model("autoregressive").config.layers
     stages = Stages(torch)
     runs = []
     try:
@@ -1611,9 +1651,11 @@ def bigvgan_route(torch, tts, ref: str):
             stage_s = dict(stages.seconds)
             stage_s["other"] = wall - sum(stage_s.values())
             runs.append((run, wav, counts, stage_s))
+            stages.assert_captured(1, counts["flash_decode"] // layers, 1)
             emit("main_path", route="bigvgan", run=run, wall_s=wall,
                  audio_s=audio_s, rtf_x_realtime=audio_s / wall,
                  stage_s=stage_s, stage_launches=stages.launches,
+                 stage_graphs=stages.graphs,
                  diffusion_ms_per_step=stages.seconds["diffusion"] * 1e3
                  / DIFF_STEPS,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -1673,6 +1715,7 @@ def batch_route(torch, tts, ref: str):
     launches are checked against the dispatches and the profiler."""
     from tortoise_tts_tpu_torch import kernels
     texts = [TEXT] * BATCH_ROWS
+    layers = tts._model("autoregressive").config.layers
     stages = Stages(torch)
     runs = []
     try:
@@ -1708,10 +1751,13 @@ def batch_route(torch, tts, ref: str):
             k6 = _k6_expected(calls, DIFF_STEPS,
                               tts._model("diffusion").config.num_layers)
             assert dl.get("flash_attention_bias", 0) == k6, (dl, calls)
+            stages.assert_captured(1, counts["flash_decode"] // layers,
+                                   len(calls))
             runs.append((run, wall, stage_s))
             emit("batch_route", run=run, wall_s=wall, audio_s=audio_s,
                  audio_s_per_wall_s=audio_s / wall, stage_s=stage_s,
                  diffusion_calls=calls, stage_launches=stages.launches,
+                 stage_graphs=stages.graphs,
                  k6_launches=dl.get("flash_attention_bias", 0),
                  k6_per_ddim_step=dl.get("flash_attention_bias", 0)
                  / (DIFF_STEPS * len(calls)),
@@ -1778,10 +1824,12 @@ def candidates_route(torch, tts, ref: str):
             audio_s = wav.size / sr
             stage_s = dict(stages.seconds)
             stage_s["other"] = wall - sum(stage_s.values())
+            stages.assert_captured(
+                1, counts["flash_decode_shared"] // layers, 1)
             runs.append((run, wall, stage_s))
             emit("candidates_route", run=run, wall_s=wall, audio_s=audio_s,
                  rtf_x_realtime=audio_s / wall, stage_s=stage_s,
-                 stage_launches=stages.launches,
+                 stage_launches=stages.launches, stage_graphs=stages.graphs,
                  decode_tokens=counts["flash_decode_shared"] // layers,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  **({"cuda_kernels": stages.cuda_kernels}
@@ -1798,6 +1846,7 @@ def candidates_route(torch, tts, ref: str):
 def main_path(torch, ref: str):
     from tortoise_tts_tpu_torch import kernels
     from tortoise_tts_tpu_torch.inference import TTS
+    from tortoise_tts_tpu_torch.utils.graphs import STATS
     t0 = time.time()
     tts = TTS(device="cuda")
     ar = tts._model("autoregressive")
@@ -1830,18 +1879,34 @@ def main_path(torch, ref: str):
         k1_shapes.add((q.shape[0], q.shape[2], kw.get("key_mask") is not None))
         return trunk(q, *a, **kw)
     unified_voice.flash_attention = recorded_k1
+    layers = cfg.layers
+    graphs = {}
+
+    def captured_decode(name, g0, c0):
+        """The route's decode ran as one capture and a replay a token."""
+        tokens = (kernels.launch_counts()["flash_decode"]
+                  - c0["flash_decode"]) // layers
+        graphs[name] = dict(captures=STATS.captures - g0.captures,
+                            replays=STATS.replays - g0.replays,
+                            capture_s=STATS.capture_s - g0.capture_s,
+                            tokens=tokens)
+        assert graphs[name]["captures"] == 1, graphs
+        assert graphs[name]["replays"] == tokens - 1, graphs
     try:
         bv_counts = bigvgan_route(torch, tts, ref)
         kernels.reset_launches()
+        g0, c0 = dataclasses.replace(STATS), kernels.launch_counts()
         t0 = time.time()
         wav, sr = tts.inference(TEXT, ref, max_ar_steps=AR_STEPS,
                                 vocoder_type="hifigan", seed=0)
         torch.cuda.synchronize()
         inf_s = time.time() - t0
+        captured_decode("hifigan", g0, c0)
     finally:
         unified_voice.flash_attention = trunk
     emit("k1_shapes", routes=["bigvgan", "hifigan"],
          shapes=sorted(k1_shapes), latent_s_full_budget=LATENT_S)
+    g0, c0 = dataclasses.replace(STATS), kernels.launch_counts()
     t0 = time.time()
     first_s, chunks = None, []
     for c in tts.stream(TEXT, ref, max_ar_steps=AR_STEPS, seed=0):
@@ -1849,6 +1914,7 @@ def main_path(torch, ref: str):
             first_s = time.time() - t0
         chunks.append(c)
     stream_s = time.time() - t0
+    captured_decode("stream", g0, c0)
     counts = kernels.launch_counts()
     emit("launches", route="hifigan", **counts)
     missing = [k for k in ("flash_attention", "qgemv", "flash_decode")
@@ -1871,6 +1937,7 @@ def main_path(torch, ref: str):
          stream_vs_inference_max_abs=(
              float(np.abs(swav - wav).max()) if swav.size == wav.size
              else None),
+         graphs=graphs,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return tts, {k: bv_counts[k] + counts[k] for k in counts}, k1_shapes
 
@@ -1912,9 +1979,11 @@ def w8a8_route(torch, tts, ref: str):
             audio_s = wav.size / sr
             stage_s = dict(stages.seconds)
             stage_s["other"] = wall - sum(stage_s.values())
+            stages.assert_captured(1, tokens, 1)
             emit("w8a8_route", run=run, wall_s=wall, audio_s=audio_s,
                  rtf_x_realtime=audio_s / wall, stage_s=stage_s,
-                 stage_launches=stages.launches, decode_tokens=tokens,
+                 stage_launches=stages.launches, stage_graphs=stages.graphs,
+                 decode_tokens=tokens,
                  k8_per_token=counts[W8A8] / tokens,
                  decode_ms_per_token=stage_s["ar_decode"] * 1e3 / tokens,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1926,6 +1995,33 @@ def w8a8_route(torch, tts, ref: str):
 
 class _FirstStep(Exception):
     """Ends a replayed diffusion after its first trunk call."""
+
+
+def _random_proj_out(torch, tts, seed: int):
+    """Give the 13 biased attention blocks' ``proj_out`` random weights
+    (std 1/sqrt(C)): the random denoiser zeroes them, as the reference
+    initialises them, so its attention adds nothing to the output.
+    Returns the function that restores them and drops the cached
+    unconditional integrators of the other modes, built meanwhile."""
+    dm = tts._model("diffusion")
+    blocks = (dm.params["conditioning_timestep_integrator"]
+              + dm.params["layers"])
+    g = torch.Generator(device=tts.device).manual_seed(seed)
+    saved = []
+    with torch.inference_mode():
+        for blk in blocks:
+            w = blk["attn"]["proj_out"]["w"]
+            saved.append(w.clone())
+            w.copy_(torch.randn(w.shape, generator=g, device=w.device)
+                    * w.shape[1] ** -0.5)
+
+    def restore():
+        with torch.inference_mode():
+            for blk, w in zip(blocks, saved):
+                blk["attn"]["proj_out"]["w"].copy_(w)
+        for key in [k for k in tts._uncond_cache if k[2] != "auto"]:
+            del tts._uncond_cache[key]
+    return restore
 
 
 def _with_attention(cfg, mode: str):
@@ -1958,16 +2054,7 @@ def denoise_attention_routes(torch, tts, ref: str):
     from tortoise_tts_tpu_torch.models import diffusion
     dm = tts._model("diffusion")
     per_step = 3 + dm.config.num_layers
-    blocks = (dm.params["conditioning_timestep_integrator"]
-              + dm.params["layers"])
-    g = torch.Generator(device=tts.device).manual_seed(60)
-    saved = []
-    with torch.inference_mode():
-        for blk in blocks:
-            w = blk["attn"]["proj_out"]["w"]
-            saved.append(w.clone())
-            w.copy_(torch.randn(w.shape, generator=g, device=w.device)
-                    * w.shape[1] ** -0.5)
+    restore = _random_proj_out(torch, tts, 60)
     auto_cfg = tts.cfg
     plain_diffusion, trunk = inference._diffusion, diffusion.forward_trunk
     stages = Stages(torch)
@@ -2047,6 +2134,9 @@ def denoise_attention_routes(torch, tts, ref: str):
                 k for k in SLICE5_KERNELS if k != kname]
             assert not any(counts[k] for k in idle), counts
             y = firsts.pop()
+            stages.assert_captured(
+                1, counts["flash_decode"]
+                // tts._model("autoregressive").config.layers, n_calls)
             audio_s = sum(w.size for w in wavs) / 24000
             stage_s = dict(stages.seconds)
             stage_s["other"] = wall - sum(stage_s.values())
@@ -2075,7 +2165,7 @@ def denoise_attention_routes(torch, tts, ref: str):
             emit("attention_route", route=route, mode=mode, run=run,
                  wall_s=wall, audio_s=audio_s,
                  rtf_x_realtime=audio_s / wall, stage_s=stage_s,
-                 stage_launches=run_launches,
+                 stage_launches=run_launches, stage_graphs=stages.graphs,
                  diffusion_calls=diffusion_calls,
                  kernel_launches=counts[kname],
                  per_ddim_step=dl[kname] / (DIFF_STEPS * n_calls),
@@ -2092,12 +2182,7 @@ def denoise_attention_routes(torch, tts, ref: str):
         diffusion.forward_trunk = trunk
         stages.close()
         tts.cfg = auto_cfg
-        with torch.inference_mode():
-            for blk, w in zip(blocks, saved):
-                blk["attn"]["proj_out"]["w"].copy_(w)
-        # the modes' cached integrators were built with the random proj_out
-        for key in [k for k in tts._uncond_cache if k[2] != "auto"]:
-            del tts._uncond_cache[key]
+        restore()
     for (route, mode), (y, y_auto) in ys.items():
         d = (y - y_auto).abs()
         scale = float(y_auto.abs().max())
@@ -2129,25 +2214,66 @@ def denoise_attention_routes(torch, tts, ref: str):
     return total
 
 
-def decode_timing(torch, tts, ref: str, quant_mode: str, rows: int = 1,
-                  fan_out: int = 0, steps: int = AR_STEPS):
-    """Eager decode alone in ``quant_mode`` of ``rows`` copies of the text
-    (the single route at 1, the batch's decode at 8) or, with ``fan_out``,
-    one text fanned out to that many candidates through the shared prefix
-    (the candidates route's): ms per token at the main path's shapes (the
-    whole budget, unprofiled), and from the profiler over 8 tokens the
-    CUDA launches and device ms per token by kernel, hence the device's
-    busy share.  The GEMV kernels that the profiler counts must match the
-    GEMV wrapper's launches: one GEMM a call, and a row kernel (K2's LN
-    rows, K8's quantize) only where the GEMM does not do its work at this
-    M; so at most two CUDA kernels a call."""
-    from torch.profiler import ProfilerActivity, profile
-    from tortoise_tts_tpu_torch import kernels
+def _decode_census(torch, events, c0, c1, quant_mode, m, layers):
+    """Per-token split of 8 profiled tokens' CUDA kernels by port kernel,
+    checked against the wrappers' launches: one GEMM a GEMV call, and a
+    row kernel (K2's LN rows, K8's quantize) only where the GEMM does not
+    do its work at this M; K3 one kernel a call."""
     from tortoise_tts_tpu_torch.kernels import qgemv as k2
     from tortoise_tts_tpu_torch.kernels import qgemv_w8a8 as k8
-    from tortoise_tts_tpu_torch.models.unified_voice import (decode_chunk,
-                                                             decode_start)
+    split = {k: 0.0 for k in (*DECODE_KERNELS, "other")}
+    n_by = {p: 0 for pre in DECODE_KERNELS.values() for p in pre}
+    for e in events:
+        key = next((k for k, pre in DECODE_KERNELS.items()
+                    if any(p in e.name for p in pre)), "other")
+        split[key] += e.device_time / 1e3 / 8
+        for p in n_by:
+            n_by[p] += p in e.name
+    gemv = "qgemv" if quant_mode == "int8" else W8A8
+    calls = c1[gemv] - c0[gemv]
+    assert calls == 8 * 4 * layers, (c0, c1)
+    gemm, row = DECODE_KERNELS[gemv]
+    if gemv == "qgemv":   # the LN rows: 2 of the 4 GEMVs carry the LN
+        want_rows = 0 if m <= k2.LN_FUSED_MAX_M else 8 * 2 * layers
+    else:
+        want_rows = 0 if m <= k8.QUANT_FUSED_MAX_M else calls
+    assert n_by[gemm] == calls and n_by[row] == want_rows, \
+        (n_by, calls, want_rows)
+    attn = next(k for k in ("flash_decode", "flash_decode_shared")
+                if c1[k] > c0[k])
+    attn_calls = c1[attn] - c0[attn]
+    assert attn_calls == 8 * layers, (c0, c1)
+    assert sum(n_by[p] for p in DECODE_KERNELS["flash_decode"]) \
+        == attn_calls, (n_by, attn_calls)
+    return dict(device_ms_per_token_by_kernel=split,
+                gemv_cuda_kernels_per_token={p: n / 8
+                                             for p, n in n_by.items()},
+                gemv_cuda_kernels_per_call=(n_by[gemm] + n_by[row]) / calls,
+                port_kernel_calls_per_token={gemv: calls / 8,
+                                             attn: attn_calls / 8})
+
+
+def decode_timing(torch, tts, ref: str, quant_mode: str, rows: int = 1,
+                  fan_out: int = 0, steps: int = AR_STEPS):
+    """The decode alone in ``quant_mode`` of ``rows`` copies of the text
+    (the single route at 1, the batch's decode at 8) or, with ``fan_out``,
+    one text fanned out to that many candidates through the shared prefix
+    (the candidates route's), twice from the same generator seeds: eager
+    (``decode_step_fn`` run by ``advance``, the step the graph captures)
+    and captured (``decode_chunk``, which captures the step at the first
+    token and replays it).  For each: ms per token over the whole budget
+    (unprofiled; the captured run's capture included, and its seconds
+    apart), and from the profiler over 8 tokens the CUDA kernels and
+    device ms per token by kernel, hence the device's busy share.  A
+    replay is one host call, so the captured run's "kernels a token"
+    counts the graph's kernels, not host launches.  Both runs must give
+    the same tokens and lengths; the GEMV kernels the profiler counts
+    must match the wrappers' launches in both."""
+    from torch.profiler import ProfilerActivity, profile
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.models import unified_voice as uv
     from tortoise_tts_tpu_torch.ops.sampling import SamplingConfig
+    from tortoise_tts_tpu_torch.utils.graphs import STATS
     ar = tts._model("autoregressive")
     dev = tts.device
     enc = tts.encode_audio(ref, seed=0)
@@ -2158,73 +2284,189 @@ def decode_timing(torch, tts, ref: str, quant_mode: str, rows: int = 1,
     lat = enc["latent"][0].reshape(1, -1).repeat(rows, 1)
     m = fan_out or rows
     kw = dict(qgpt=tts._ar_qgpt(), quant_mode=quant_mode)
+    sampling = SamplingConfig()
 
     def start():
         gens = [torch.Generator(device=dev).manual_seed(i) for i in range(m)]
-        out = decode_start(ar.params, lat, tokens, lengths, gens, ar.config,
-                           steps, shared_rows=fan_out)
+        out = uv.decode_start(ar.params, lat, tokens, lengths, gens,
+                              ar.config, steps, shared_rows=fan_out)
         return out if fan_out else (out, None)
 
-    def chunk(state, prefix, n):
-        return decode_chunk(ar.params, state, ar.config, SamplingConfig(),
-                            chunk=n, prefix=prefix, **kw)
+    def chunk(captured, state, prefix, n):
+        if captured:
+            return uv.decode_chunk(ar.params, state, ar.config, sampling,
+                                   chunk=n, prefix=prefix, **kw)
+        limit = steps if n is None else min(state.step + n, steps)
+        return uv.advance(state, limit, uv.decode_step_fn(
+            ar.params, state, ar.config, sampling, prefix=prefix, **kw))
 
+    runs, out = {}, {}
     with torch.inference_mode():
-        state, prefix = start()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        state = chunk(state, prefix, None)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        n_tok = state.step
-        state, prefix = start()
-        chunk(state, prefix, 8)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            profiler_warmup(torch)
-            c0 = kernels.launch_counts()
-            chunk(state, prefix, 8)
+        for mode in ("eager", "captured"):
+            captured = mode == "captured"
+            state, prefix = start()
             torch.cuda.synchronize()
-            c1 = kernels.launch_counts()
-    events = _cuda_events(prof)
-    split = {k: 0.0 for k in (*DECODE_KERNELS, "other")}
-    n_by = {p: 0 for pre in DECODE_KERNELS.values() for p in pre}
-    for e in events:
-        key = next((k for k, pre in DECODE_KERNELS.items()
-                    if any(p in e.name for p in pre)), "other")
-        split[key] += e.device_time / 1e3 / 8
-        for p in n_by:
-            n_by[p] += p in e.name
-    gemv = "qgemv" if quant_mode == "int8" else W8A8
-    layers = ar.config.layers
-    calls = c1[gemv] - c0[gemv]
-    assert calls == 8 * 4 * layers, (c0, c1)
-    gemm, row = DECODE_KERNELS[gemv]
-    if gemv == "qgemv":   # the LN rows: 2 of the 4 GEMVs carry the LN
-        want_rows = 0 if m <= k2.LN_FUSED_MAX_M else 8 * 2 * layers
-    else:
-        want_rows = 0 if m <= k8.QUANT_FUSED_MAX_M else calls
-    assert n_by[gemm] == calls and n_by[row] == want_rows, \
-        (n_by, calls, want_rows)
-    attn = "flash_decode_shared" if fan_out else "flash_decode"
-    attn_calls = c1[attn] - c0[attn]
-    assert attn_calls == 8 * layers, (c0, c1)
-    assert sum(n_by[p] for p in DECODE_KERNELS["flash_decode"]) \
-        == attn_calls, (n_by, attn_calls)
-    busy = sum(split.values())
+            s0 = dataclasses.replace(STATS)
+            t0 = time.time()
+            chunk(captured, state, prefix, None)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            n_tok = state.step
+            out[mode] = (state.tokens.clone(), state.lengths.clone())
+            graphs = dict(captures=STATS.captures - s0.captures,
+                          replays=STATS.replays - s0.replays,
+                          capture_s=STATS.capture_s - s0.capture_s)
+            if captured:    # one capture; its warm-up is the first token
+                assert graphs["captures"] == 1, graphs
+                assert graphs["replays"] == n_tok - 1, (graphs, n_tok)
+            else:
+                assert graphs["captures"] == graphs["replays"] == 0, graphs
+            del state
+            state, prefix = start()
+            chunk(captured, state, prefix, 8)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                profiler_warmup(torch)
+                c0 = kernels.launch_counts()
+                chunk(captured, state, prefix, 8)
+                torch.cuda.synchronize()
+                c1 = kernels.launch_counts()
+            del state
+            events = _cuda_events(prof)
+            busy = sum(e.device_time for e in events) / 1e3 / 8
+            ms = dt * 1e3 / n_tok
+            runs[mode] = dict(
+                tokens=n_tok, ms_per_token=ms,
+                cuda_kernels_per_token=len(events) / 8,
+                device_busy_ms_per_token=busy, device_busy_share=busy / ms,
+                graphs=graphs,
+                **_decode_census(torch, events, c0, c1, quant_mode, m,
+                                 ar.config.layers))
+    same = (torch.equal(out["eager"][0], out["captured"][0])
+            and torch.equal(out["eager"][1], out["captured"][1]))
     emit("decode", quant_mode=quant_mode, rows=m,
          route=("candidates" if fan_out else
                 "batch" if rows > 1 else "single"),
-         tokens=n_tok, ms_per_token=dt * 1e3 / n_tok,
-         cuda_launches_per_token=len(events) / 8,
-         device_busy_ms_per_token=busy,
-         device_busy_share=busy / (dt * 1e3 / n_tok),
-         device_ms_per_token_by_kernel=split,
-         gemv_cuda_kernels_per_token={p: n / 8 for p, n in n_by.items()},
-         gemv_cuda_kernels_per_call=(n_by[gemm] + n_by[row]) / calls,
-         port_kernel_calls_per_token={gemv: calls / 8,
-                                      attn: attn_calls / 8})
+         eager=runs["eager"], captured=runs["captured"],
+         captured_equals_eager=same,
+         speedup=runs["eager"]["ms_per_token"]
+         / runs["captured"]["ms_per_token"])
+    assert same, "captured decode differs from the eager decode"
+
+
+def _eager_sample_loop(model_fn, noise, generators, sched, sampler="ddim"):
+    """``gaussian.sample_loop`` with its step run eagerly every time: the
+    reference the captured loop is held against."""
+    import torch
+    from tortoise_tts_tpu_torch.models import gaussian
+    x = noise.float().clone()
+    t = torch.tensor([sched.num_timesteps - 1], device=x.device)
+    step = gaussian.sampler_step_fn(model_fn, x, t,
+                                    gaussian.step_tables(sched, x.device),
+                                    generators, sched, sampler)
+    for _ in range(sched.num_timesteps):
+        step()
+    return x
+
+
+def diffusion_pairs(torch, tts, ref: str):
+    """``inference._diffusion`` at the default route's geometry (DDIM-50,
+    cond-free, T=896) at B=1 (the denoiser at 2 rows) and B=8 (16), under
+    each ``denoise_attention`` mode, with the sampler loop eager
+    (``_eager_sample_loop``) and captured (``gaussian.sample_loop``) on
+    the same inputs and keys: each loop's ms a DDIM step (the captured
+    one's capture included, its seconds apart, and its replays alone),
+    device ms a step from the profiler (a second call of each), and the
+    mels, which must be equal bit for bit: the graph replays the eager
+    step's kernels on the same data, and no kernel of the step sums in a
+    run-dependent order."""
+    from torch.profiler import ProfilerActivity, profile
+    from tortoise_tts_tpu_torch import inference
+    from tortoise_tts_tpu_torch.models import gaussian
+    from tortoise_tts_tpu_torch.utils.graphs import STATS
+    dm = tts._model("diffusion")
+    dev = tts.device
+    diff_cond = tts.encode_audio(ref, seed=0)["latent"][1]
+    captured_loop = gaussian.sample_loop
+    auto_cfg = tts.cfg
+    g = torch.Generator(device=dev).manual_seed(70)
+    restore = _random_proj_out(torch, tts, 71)
+    loop_s, profiled = [0.0], [None]
+
+    def timed(loop):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if profiled[0] is None:
+                x = loop(*a, **k)
+            else:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    profiler_warmup(torch)
+                    x = loop(*a, **k)
+                    torch.cuda.synchronize()
+                profiled[0] = prof
+            torch.cuda.synchronize()
+            loop_s[0] = time.perf_counter() - t0
+            return x
+        return run
+
+    results = []
+    try:
+        for mode in ("auto", "kq", "flash_bias"):
+            tts.cfg = _with_attention(auto_cfg, mode)
+            n_lat, seq_len, pad_seq_len, uh = tts._diffusion_geometry(
+                AR_STEPS, 0, ROUTE_KW["mel_pad_multiple"], DIFF_STEPS, True)
+            for b in (1, BATCH_ROWS):
+                latents = torch.randn(b, n_lat, 1024, generator=g,
+                                      device=dev).to(torch.bfloat16)
+                t_lat = torch.full((b,), n_lat, device=dev)
+                keys = [np.asarray([7, r], np.uint32) for r in range(b)]
+                args = (tts._denoiser_params(), latents, diff_cond, keys,
+                        dm.config, DIFF_STEPS, "ddim", seq_len, True, 1.0,
+                        n_lat, t_lat, pad_seq_len, uh)
+                pair, mels = {}, {}
+                for name, loop in (("eager", _eager_sample_loop),
+                                   ("captured", captured_loop)):
+                    gaussian.sample_loop = timed(loop)
+                    with torch.inference_mode():
+                        s0 = dataclasses.replace(STATS)
+                        profiled[0] = None
+                        mels[name] = inference._diffusion(*args,
+                                                          attention=mode)
+                        wall = loop_s[0]
+                        cap = STATS.capture_s - s0.capture_s
+                        reps = STATS.replays - s0.replays
+                        profiled[0] = True
+                        inference._diffusion(*args, attention=mode)
+                        events = _cuda_events(profiled[0])
+                    assert reps == (DIFF_STEPS - 1 if name == "captured"
+                                    else 0), reps
+                    dev_ms = sum(e.device_time for e in events) / 1e3
+                    pair[name] = dict(
+                        ms_per_step=wall * 1e3 / DIFF_STEPS,
+                        device_ms_per_step=dev_ms / DIFF_STEPS,
+                        device_busy_share=dev_ms / (wall * 1e3),
+                        cuda_kernels_per_step=len(events) / DIFF_STEPS,
+                        capture_s=cap, replays=reps,
+                        **({"replay_ms_per_step": (wall - cap) * 1e3
+                            / (DIFF_STEPS - 1)} if reps else {}))
+                same = torch.equal(mels["eager"], mels["captured"])
+                err = float((mels["eager"] - mels["captured"]).abs().max())
+                emit("diffusion_pair", mode=mode, rows=b, model_rows=2 * b,
+                     T=pad_seq_len, eager=pair["eager"],
+                     captured=pair["captured"], mels_equal=same,
+                     max_abs_diff=err,
+                     speedup=pair["eager"]["ms_per_step"]
+                     / pair["captured"]["ms_per_step"])
+                results.append(same)
+                assert same, (mode, b, err)
+    finally:
+        gaussian.sample_loop = captured_loop
+        tts.cfg = auto_cfg
+        restore()
+    return results
 
 
 def main() -> int:
@@ -2303,6 +2545,7 @@ def main() -> int:
                       denoise_attention_routes):
             c = route(torch, tts, ref)
             counts = {k: counts[k] + c[k] for k in counts}
+        diffusion_pairs(torch, tts, ref)
         for mode in ("int8", "w8a8"):
             decode_timing(torch, tts, ref, mode)
             decode_timing(torch, tts, ref, mode, rows=BATCH_ROWS)

@@ -694,3 +694,323 @@ def test_snake_kernel_large_argument_cuda(cuda, c, t):
     _bf16_close(got, want, atol=5e-2)
     names = _cuda_kernel_names(lambda: k7.snake_resample2(x, alpha, inv_beta))
     assert len(names) == 1 and "snake_resample2" in names[0], names
+
+
+# CUDA graphs (``utils/graphs.StepGraph``): each kernel entry captured
+# alone and replayed, then the decode and sampler loops captured against
+# their eager steps.  Replays run the captured kernels on the same inputs,
+# so every comparison is bit for bit.
+
+GRAPH_CASES = ["flash_attention", "qgemv", "qgemv_w8a8", "flash_decode",
+               "flash_decode_shared", "gn_conv", "ts_res_block",
+               "flash_attention_bias", "flash_attention_bias_kq",
+               "flash_attention_bias_cm", "flash_attention_bias_cm_split",
+               "snake"]
+
+
+def _graph_case(dev, case):
+    """(the KERNELS name the call counts under, a call of that entry at a
+    main-path shape in bf16 that returns its output)."""
+    bf = torch.bfloat16
+    if case == "flash_attention":
+        q, k, v, mask = _fused_qkv(dev, 1, 16, 68, bf, seed=3)
+        return case, lambda: k1.flash_attention(q, k, v, mask, True)
+    if case in ("qgemv", "qgemv_w8a8"):
+        x, wq, s, b, lnp = _w8a8_inputs(dev, 1, 1024, 3072, True, bf)
+        fn = k2.qgemv if case == "qgemv" else k8.qgemv_w8a8
+        return case, lambda: fn(x, wq, s, b, ln=lnp)
+    if case == "flash_decode":
+        q, ck, cv, mask = _decode_inputs(dev, 1, 268, bf)
+        pos = torch.tensor(200, dtype=torch.int32, device=dev)
+        return case, lambda: k3.flash_decode(q, ck, cv, pos, mask)
+    if case == "flash_decode_shared":
+        g = torch.Generator(device=dev).manual_seed(7)
+        q = torch.randn(16, 16, 64, generator=g, device=dev, dtype=bf)
+        kp, vp = (torch.randn(1, 16, 68, 64, generator=g, device=dev,
+                              dtype=bf) for _ in range(2))
+        kd, vd = (torch.randn(16, 16, 200, 64, generator=g, device=dev,
+                              dtype=bf) for _ in range(2))
+        pmask = torch.rand(1, 68, generator=g, device=dev) > 0.2
+        pos = torch.tensor(150, dtype=torch.int32, device=dev)
+        return case, lambda: k3.flash_decode_shared(q, kp, vp, pmask, kd, vd,
+                                                    pos)
+    if case == "gn_conv":
+        x, norm, conv = _gn_conv_inputs(dev, 2, 1024, 896, 1024, 1, bf, 3)
+        return case, lambda: k4.gn_conv1x1(x, norm, conv, 32, True)
+    if case == "ts_res_block":
+        h, norm, conv = _gn_conv_inputs(dev, 2, 1024, 896, 1024, 3, bf, 4)
+        g = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(2, 1024, 896, generator=g, device=dev).to(bf)
+        emb = (0.3 * torch.randn(2, 2048, generator=g, device=dev)).to(bf)
+        conv = k5.prepare_conv(conv)
+        return case, lambda: k5.ts_res_block_out(h, x, emb, norm, conv, 32)
+    qkv, bias, h = _bias_inputs(dev, 8 if case == "flash_attention_bias"
+                                else 2, 896, bf)
+    if case == "flash_attention_bias":
+        return case, lambda: k6.flash_attention_bias(qkv, bias, h)
+    if case == "flash_attention_bias_kq":
+        bias_t = bias.transpose(1, 2).contiguous()
+        return case, lambda: k9a.flash_attention_bias_kq(qkv, bias_t, h)
+    if case == "flash_attention_bias_cm":
+        return case, lambda: k9b.flash_attention_bias_qkv(qkv, bias, h)
+    if case == "flash_attention_bias_cm_split":
+        q, k, v = (x.contiguous() for x in
+                   qkv.view(2, h, 3, 64, 896).unbind(2))
+        return ("flash_attention_bias_cm",
+                lambda: k9b.flash_attention_bias_cm(q, k, v, bias))
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(1, 768, 3624, generator=g, device=dev).to(bf)
+    alpha = torch.exp(0.3 * torch.randn(768, generator=g, device=dev))
+    inv_beta = 1 / torch.exp(0.3 * torch.randn(768, generator=g, device=dev))
+    return "snake", lambda: k7.snake_resample2(x, alpha, inv_beta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_kernel_captured_alone_cuda(cuda, case):
+    """Each kernel entry captured alone in a graph (after its warm-up
+    call, which the capture helper makes) and replayed: every replay
+    writes the eager call's output bit for bit, and ``launch_counts()``
+    counts one launch a replay and none for the capture."""
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.utils.graphs import STATS, StepGraph
+    name, fn = _graph_case(cuda, case)
+    want = fn()
+    torch.cuda.synchronize()
+    out = torch.empty_like(want)
+    before = kernels.launch_counts()
+    replays = STATS.replays
+    graph = StepGraph(lambda: out.copy_(fn()), cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)       # the warm-up, an eager call
+    for n in range(1, 4):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), f"replay {n}"
+    after = kernels.launch_counts()
+    assert after[name] - before[name] == 1 + 3, (before, after)
+    assert all(after[k] == before[k] for k in after if k != name)
+    assert STATS.replays == replays + 3
+    # K2/K8: every launch, replays included, leaves the split-K counters
+    # at zero for the next
+    assert not any(bool(t.any()) for t in k2._COUNTERS.values())
+
+
+@pytest.mark.cuda
+def test_split_k_counters_refuse_allocation_under_capture(cuda):
+    """The split-K counters of a stream come from its warm-up; a K2 call
+    captured on a stream without them raises (no counters from the
+    graph's pool, which replays would share with nothing)."""
+    x, wq, s, b, lnp = _w8a8_inputs(cuda, 1, 1024, 3072, True,
+                                    torch.bfloat16)
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="counters"):
+                k2.qgemv(x, wq, s, b, ln=lnp)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+
+
+@pytest.mark.cuda
+def test_step_graph_refuses_cpu_and_raises_on_failed_capture(cuda):
+    """No fallback: a CPU step is refused, and a step that cannot be
+    captured (a host read) raises."""
+    from tortoise_tts_tpu_torch.utils.graphs import StepGraph
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        StepGraph(lambda: None, torch.device("cpu"))
+    with pytest.raises(RuntimeError):
+        StepGraph(lambda: x.add_(float(x.sum())), cuda)
+    torch.cuda.synchronize()
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.cuda
+def test_step_graph_orders_the_current_stream_after_a_failed_step(cuda):
+    """The warm-up runs on the capture stream; what it wrote before a step
+    raised is read on the current stream in order (the current stream
+    waits for the capture stream whatever happens)."""
+    from tortoise_tts_tpu_torch.utils.graphs import StepGraph
+    g = torch.Generator(device=cuda).manual_seed(3)
+    big = torch.randn(4096, 4096, generator=g, device=cuda)
+    out = torch.zeros_like(big)
+
+    def failing():
+        for _ in range(4):
+            torch.matmul(big, big, out=out)
+        raise _Stop
+    with pytest.raises(_Stop):
+        StepGraph(failing, cuda)
+    assert torch.equal(out, big @ big)
+
+
+def _tiny_decode(dev, quant):
+    """A 2-layer, 128-wide UnifiedVoice in bf16 on the card (head dim 64,
+    the decode kernels' shapes), its int8 decode weights and its config;
+    the mel head scaled up so sampled and greedy paths vary."""
+    from tortoise_tts_tpu_torch.models import unified_voice as uv
+    from tortoise_tts_tpu_torch.models.common import tree_cast
+    cfg = uv.UnifiedVoiceConfig(layers=2, model_dim=128, heads=2,
+                                max_text_tokens=40, max_mel_tokens=160)
+    params = uv.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    params["mel_head"]["w"] *= 8.0
+    params = tree_cast(params, torch.bfloat16)
+    return cfg, params, uv.quantize_decode_weights(params)
+
+
+DECODE_SAMPLING = {
+    "greedy": dict(greedy=True, repetition_penalty=1.3),
+    "sampled": dict(temperature=0.9, top_p=0.9, repetition_penalty=1.2),
+    "length_penalty": dict(temperature=0.9, top_k=50,
+                           length_penalty_factor=1.5),
+    "mirostat": dict(mirostat_tau=3.0, mirostat_eta=0.2)}
+
+
+def _decode_pair(dev, route, quant, sampling, chunks=(None,), max_len=48):
+    """The same decode twice from the same generator seeds: eager (the
+    step function run by ``advance``) and through ``decode_chunk``
+    (captured on CUDA).  route: "single" (B=1), "batch" (M=8) or "shared"
+    (one prefill fanned out to 16 rows through K3's shared form)."""
+    from tortoise_tts_tpu_torch.models import unified_voice as uv
+    from tortoise_tts_tpu_torch.ops.sampling import SamplingConfig
+    from tortoise_tts_tpu_torch.utils.graphs import STATS
+    cfg, params, qgpt = _tiny_decode(dev, quant)
+    sampling = SamplingConfig(**DECODE_SAMPLING[sampling])
+    rows = {"single": 1, "batch": 8, "shared": 1}[route]
+    fan = 16 if route == "shared" else 0
+    g = torch.Generator(device=dev).manual_seed(1)
+    text = torch.randint(1, 200, (rows, 12), generator=g, device=dev)
+    lengths = torch.tensor([12 - r % 5 for r in range(rows)], device=dev)
+    cond = torch.randn(rows, 128, generator=g, device=dev).to(torch.bfloat16)
+    kw = dict(collect_latents=True, qgpt=qgpt, quant_mode=quant)
+    out = []
+    for captured in (False, True):
+        gens = [torch.Generator(device=dev).manual_seed(100 + r)
+                for r in range(fan or rows)]
+        st = uv.decode_start(params, cond, text, lengths, gens, cfg, max_len,
+                             shared_rows=fan)
+        state, prefix = st if fan else (st, None)
+        replays = STATS.replays
+        for chunk in chunks:
+            if captured:
+                uv.decode_chunk(params, state, cfg, sampling, chunk=chunk,
+                                prefix=prefix, **kw)
+            else:
+                limit = max_len if chunk is None else min(state.step + chunk,
+                                                          max_len)
+                uv.advance(state, limit, uv.decode_step_fn(
+                    params, state, cfg, sampling, prefix=prefix, **kw))
+        torch.cuda.synchronize()
+        if captured:    # one capture, whose warm-up was the first step
+            assert state.graph is not None
+            assert STATS.replays - replays == state.step - 1
+        out.append(state)
+    return out
+
+
+def _same_decode(eager, captured):
+    assert eager.step == captured.step
+    assert int(captured.step_dev) == captured.step
+    assert torch.equal(eager.tokens, captured.tokens)
+    assert torch.equal(eager.lengths, captured.lengths)
+    assert torch.equal(eager.finished, captured.finished)
+    assert torch.equal(eager.latents, captured.latents)
+    assert torch.equal(eager.counts, captured.counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["greedy", "sampled"])
+@pytest.mark.parametrize("quant", ["int8", "w8a8"])
+@pytest.mark.parametrize("route", ["single", "batch", "shared"])
+def test_captured_decode_equals_eager_cuda(cuda, route, quant, sampling):
+    """The captured decode against the eager step on the card, token for
+    token with the lengths and latents, from the same per-row generator
+    seeds: B=1, M=8, the shared prefix at M=16, K2 and K8."""
+    _same_decode(*_decode_pair(cuda, route, quant, sampling))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["sampled", "length_penalty",
+                                      "mirostat"])
+def test_captured_decode_chunks_and_processors_cuda(cuda, sampling):
+    """The stream route's chunks (60 tokens, then 40s that replay the
+    state's graph), the length penalty on the device step and Mirostat's
+    first-step branch, captured against eager."""
+    _same_decode(*_decode_pair(cuda, "single", "int8", sampling,
+                               chunks=(60, 40, 40, None), max_len=150))
+
+
+def _tiny_denoiser(dev, mode):
+    """A 2-layer, 128-channel DiffusionTTS (2 heads of 64) in bf16 on the
+    card, prepared for K5, with random attention outputs so the biased
+    attention reaches the result, and its rel-pos biases at T=256 (the
+    kernels' T) for ``mode``."""
+    from tortoise_tts_tpu_torch.models import diffusion
+    from tortoise_tts_tpu_torch.models.common import tree_cast
+    cfg = diffusion.DiffusionConfig(model_channels=128, num_layers=2,
+                                    num_heads=2, in_latent_channels=128)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = diffusion.init(g, cfg)
+    for blk in params["conditioning_timestep_integrator"] + params["layers"]:
+        w = blk["attn"]["proj_out"]["w"]
+        w.copy_(torch.randn(w.shape, generator=g, device=dev) * 0.1)
+    params = diffusion.prepare(tree_cast(params, torch.bfloat16))
+    rel = diffusion.precompute_rel_biases(
+        params, 256, cfg, torch.bfloat16, transposed=mode == "kq",
+        flash_bias=mode == "flash_bias")
+    return cfg, params, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["ddim", "p"])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("mode", ["auto", "kq", "flash_bias"])
+def test_captured_sample_loop_equals_eager_cuda(cuda, mode, b, sampler):
+    """The captured sampler loop against the eager step on the card, bit
+    for bit, cond-free (the denoiser at 2B rows), under each
+    ``denoise_attention`` mode, DDIM and the P sampler (its per-row
+    generators registered with the graph)."""
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.models import diffusion, gaussian
+    from tortoise_tts_tpu_torch.utils.graphs import STATS
+    cfg, params, rel = _tiny_denoiser(cuda, mode)
+    sched = gaussian.get_schedule(steps=6)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    code = torch.randn(2 * b, 128, 256, generator=g, device=cuda).to(
+        torch.bfloat16)
+    noise = torch.randn(b, 100, 256, generator=g, device=cuda)
+
+    def model_fn(x, ts, _):
+        return diffusion.forward(params, x.to(torch.bfloat16), ts, code, cfg,
+                                 rel)
+
+    def gens():
+        return [torch.Generator(device=cuda).manual_seed(50 + r)
+                for r in range(b)]
+
+    kernels.reset_launches()
+    x = noise.clone()
+    t = torch.tensor([sched.num_timesteps - 1], device=cuda)
+    step = gaussian.sampler_step_fn(model_fn, x, t,
+                                    gaussian.step_tables(sched, cuda),
+                                    gens(), sched, sampler)
+    for _ in range(sched.num_timesteps):
+        step()
+    eager_counts = kernels.launch_counts()
+    kernels.reset_launches()
+    replays = STATS.replays
+    got = gaussian.sample_loop(model_fn, noise, gens(), sched, sampler)
+    torch.cuda.synchronize()
+    assert STATS.replays - replays == sched.num_timesteps - 1
+    assert torch.equal(got, x)
+    assert kernels.launch_counts() == eager_counts
+    assert eager_counts["gn_conv"] and eager_counts["ts_res_block"]

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Profile the eager AR decode at every decode shape on a CUDA card.
+"""Profile the AR decode (``decode_chunk``, which runs it as a CUDA graph
+on the card where the checkout captures it) at every decode shape.
 
     python3 tools/decode_profile.py [--repo DIR] [--out FILE]
 
@@ -11,7 +12,8 @@ row; the batch, 8 rows; candidates, 1 text fanned out to 16 rows through
 the shared prefix; the batch with 4 candidates a text, 32 rows), in the
 int8 (K2) and the W8A8 (K8) decode, and prints one JSON line each: wall ms
 a token over 32 tokens, then from torch.profiler over 8 tokens the CUDA
-launches a token, the device ms a token, the GEMV kernels' share of it
+kernels a token (a graph's replay launches them all from one host call),
+the device ms a token, the GEMV kernels' share of it
 (every kernel whose name holds ``qgemv`` or ``w8a8``), K3's (``fd_``)
 and the device's busy share.  Then the card's name and power limit.
 """

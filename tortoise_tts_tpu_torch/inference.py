@@ -251,10 +251,11 @@ def _diffusion(dparams, latents, diff_cond, keys, dcfg, steps: int,
         uh = uncond_h.to(pdt)
 
         def model_fn(x, ts, t_idx):
+            # t_idx: the sampler's respaced step, a (1,) device tensor
             te = diffusion.embed_time(dparams, ts, dcfg, pdt)
             h_c = diffusion.integrate_conditioning(dparams, code_emb, te[:b],
                                                    dcfg, rel)
-            h = torch.cat([h_c, uh[t_idx].expand_as(h_c)])
+            h = torch.cat([h_c, uh.index_select(0, t_idx)[0].expand_as(h_c)])
             return diffusion.forward_trunk(dparams, x.to(pdt), te, h, dcfg,
                                            rel)
     else:
@@ -352,7 +353,12 @@ class TTS:
     """User-facing inference API."""
 
     def __init__(self, config: Optional[Config | str | Path] = None,
-                 device=None, dtype: Optional[str] = None):
+                 device=None, amp=None, dtype: Optional[str] = None,
+                 attention=None):
+        """``amp`` and ``attention`` are accepted and ignored, as the JAX
+        package and the reference accept them (the precision follows
+        ``dtype``; the denoiser's attention, ``denoise_attention``)."""
+        del amp, attention
         if isinstance(config, (str, Path)):
             config = Config.load(config)
         self.cfg = config or Config()

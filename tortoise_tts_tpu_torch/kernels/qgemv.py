@@ -95,10 +95,17 @@ def counters(dev: torch.device, stream, n: int) -> torch.Tensor:
     """The split-K arrival counters of the device and stream: int32 zeros,
     one a column tile and row block, allocated once (again only for a
     larger call) and left at zero by every kernel that uses them.  Calls on
-    one stream run in order, so K2 and K8 share them."""
+    one stream run in order, so K2 and K8 share them.  A CUDA graph's
+    replays reuse the counters of its capture stream, so they must exist
+    before the capture (``utils/graphs.StepGraph`` warms the step up on
+    that stream): allocating them while the stream captures raises."""
     key = (dev.index, stream.cuda_stream)
     t = _COUNTERS.get(key)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("qgemv: split-K counters allocated during a "
+                               "CUDA graph capture; run the step once on "
+                               "the capture stream first")
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
         _COUNTERS[key] = t
     return t

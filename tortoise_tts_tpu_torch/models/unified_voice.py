@@ -17,19 +17,28 @@ What runs where:
   (``inference_speech_shared``: each group's prefill K/V held once, beside
   the rows' decode regions).
 
-The decode is eager: ``decode_start`` runs the prefill and returns a
-``DecodeState`` whose cache and buffers ``decode_chunk`` updates in place
-(one KV cache, (L, B, H, S, Dh), no padding).  The step counter is a
-host int, so positions never need a device read; whether every row has
-stopped is read once per ``SYNC_EVERY`` steps and at chunk boundaries.
-A row that stopped emits stop tokens, so the few extra steps change no
+``decode_start`` runs the prefill and returns a ``DecodeState`` whose
+cache and buffers every decode step updates in place (one KV cache, (L,
+B, H, S, Dh), no padding).  A step (``decode_step_fn``) reads no host
+value: the step counter lives on the device (``DecodeState.step_dev``, a
+0-d int32 tensor, from which K3's slot is made) and indexes the cache
+write, the position embedding, the token and latent buffers and the
+length penalty.
+On CUDA tensors ``decode_chunk`` captures the step once per state as a
+CUDA graph (``utils/graphs.StepGraph``) and replays it per token, as the
+JAX package runs its decode as one ``lax.while_loop``; on CPU tensors it
+runs the same step eagerly.  ``DecodeState.step`` mirrors the counter on
+the host for the loop's limit and the callers.  Whether every row has
+stopped is read once per ``SYNC_EVERY`` steps and at chunk boundaries; a
+row that stopped emits stop tokens, so the few extra steps change no
 token, length or latent a caller reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +50,7 @@ from ..kernels.qgemv_w8a8 import qgemv_w8a8
 from ..ops.sampling import (SamplingConfig, apply_length_penalty,
                             apply_repetition_penalty, mirostat_step,
                             row_uniforms, sample_token)
+from ..utils.graphs import StepGraph
 from .arch import conditioning_encoder, conditioning_encoder_init
 from .common import (embedding, embedding_init, gelu_new, layer_norm,
                      linear, linear_init, normal, norm_init)
@@ -227,12 +237,13 @@ def decode_layers(gpt: Params, qgpt: Optional[Params] = None) -> List:
 
 
 def _gpt_decode_step(layers: List, ln_f: Params, x: torch.Tensor,
-                     heads: int, cache: KVCache, pos: int,
+                     heads: int, cache: KVCache, pos: torch.Tensor,
                      key_mask: torch.Tensor, quant_mode: Optional[str],
                      prefix: Optional[KVCache] = None) -> torch.Tensor:
     """One token through the trunk.  x: (B, D); ``layers`` from
-    ``decode_layers``.  Writes slot ``pos`` of every layer's cache in
-    place and attends to the slots <= pos that key_mask allows.  With
+    ``decode_layers``; ``pos``: the slot, a 0-d int32 tensor on x's
+    device.  Writes slot ``pos`` of every layer's cache in place and
+    attends to the slots <= pos that key_mask allows.  With
     ``prefix`` (the shared-prefix decode) ``cache`` is the rows' decode
     region, ``pos`` a region slot and ``key_mask`` the (G, Sp) mask of the
     groups' prefix.  ``quant_mode``: None for the plain weights, or the
@@ -241,6 +252,7 @@ def _gpt_decode_step(layers: List, ln_f: Params, x: torch.Tensor,
     b, d = x.shape
     hd = d // heads
     gemv = {"int8": qgemv, "w8a8": qgemv_w8a8}.get(quant_mode)
+    slot = pos.long().view(1)
 
     def lin(lp, name, h, ln=None):
         if gemv is not None:
@@ -253,8 +265,8 @@ def _gpt_decode_step(layers: List, ln_f: Params, x: torch.Tensor,
     for li, lp in enumerate(layers):
         qkv = lin(lp, "attn_qkv", x, ln="ln_1")
         q, k, v = (z.view(b, heads, hd) for z in qkv.split(d, dim=-1))
-        cache.k[li, :, :, pos] = k
-        cache.v[li, :, :, pos] = v
+        cache.k[li].index_copy_(2, slot, k[:, :, None])
+        cache.v[li].index_copy_(2, slot, v[:, :, None])
         if prefix is None:
             a = flash_decode(q, cache.k[li], cache.v[li], pos, key_mask)
         else:
@@ -340,8 +352,12 @@ class DecodeResult(NamedTuple):
 
 @dataclass
 class DecodeState:
-    """Resumable decode state; ``decode_chunk`` advances it in place."""
+    """Resumable decode state; ``decode_chunk`` advances it in place.
+    ``step`` is the host's mirror of ``step_dev``, the device's step
+    counter; ``graph`` is the captured decode step on CUDA (kept for the
+    state's later chunks while ``graph_key`` matches the call)."""
     step: int
+    step_dev: torch.Tensor   # () int32, the step on the device
     cache: KVCache
     lat: torch.Tensor        # (B, D) latent that gives this step's logits
     tokens: torch.Tensor     # (B, max_len)
@@ -352,6 +368,8 @@ class DecodeState:
     generators: Optional[List[torch.Generator]]  # one per row
     key_mask: torch.Tensor   # (B, cache_len) bool; (G, Sp) shared prefix
     mu: torch.Tensor         # (B,) mirostat running max-surprise
+    graph: Optional[StepGraph] = None
+    graph_key: Optional[tuple] = None
 
 
 def decode_start(params: Params, cond_latent: torch.Tensor,
@@ -411,7 +429,7 @@ def decode_start(params: Params, cond_latent: torch.Tensor,
     # start_mel counts as seen for the repetition penalty
     counts[:, cfg.start_mel_token] += 1
     state = DecodeState(
-        0, cache, lat,
+        0, torch.zeros((), dtype=torch.int32, device=dev), cache, lat,
         torch.full((rows, max_length), cfg.stop_mel_token, dtype=torch.long,
                    device=dev),
         counts, torch.zeros((rows, max_length, d), dtype=dtype, device=dev),
@@ -420,6 +438,94 @@ def decode_start(params: Params, cond_latent: torch.Tensor,
         generators, key_mask,
         torch.zeros(rows, dtype=torch.float32, device=dev))
     return (state, prefix) if shared_rows else state
+
+
+def decode_step_fn(params: Params, state: DecodeState,
+                   cfg: UnifiedVoiceConfig = UnifiedVoiceConfig(),
+                   sampling: SamplingConfig = SamplingConfig(),
+                   collect_latents: bool = False,
+                   qgpt: Optional[Params] = None,
+                   quant_mode: str = "int8",
+                   prefix: Optional[KVCache] = None) -> Callable[[], None]:
+    """One decode step over ``state``'s buffers, as a function of no
+    arguments (the body of the JAX package's ``decode_chunk`` loop): the
+    next token of every row from ``state.lat``, written with its length,
+    count and latent at the device step, then that token through the
+    trunk into the cache and ``state.lat``, and the device step advanced.
+    It reads no host value and writes every result in place, so it can be
+    captured and replayed (``decode_chunk``); the host's ``state.step``
+    is the caller's to advance.  Arguments as ``decode_chunk``'s."""
+    if quant_mode not in QUANT_MODES:
+        raise ValueError(f"quant_mode must be int8|w8a8, got {quant_mode!r}")
+    draw = not sampling.greedy or sampling.mirostat_tau > 0
+    if draw and state.generators is None:
+        raise ValueError("sampled decoding needs one generator per row")
+    b, max_len = state.tokens.shape
+    cache_len = state.cache.k.shape[3]
+    # the write slot: past the prefill, or in the region of a shared prefix
+    first_slot = 0 if prefix is not None else cache_len - max_len
+    gpt = params["gpt"]
+    dtype = params["mel_embedding"]["w"].dtype
+    stop = cfg.stop_mel_token
+    pos_off = 2 if cfg.hf_decode_positions else 1
+    pos_w = params["mel_pos_embedding"]["w"]
+    layers = decode_layers(gpt, qgpt)
+    mode = quant_mode if qgpt is not None else None
+    # the buffers alone: a captured step keeps them, and no graph
+    st = dataclasses.replace(state, graph=None, graph_key=None)
+
+    def step() -> None:
+        t = st.step_dev
+        idx = t.long().view(1)
+        logits = linear(params["mel_head"], st.lat).float()
+        if sampling.length_penalty_factor != 0.0:
+            logits[:, stop] = apply_length_penalty(
+                logits[:, stop], t, sampling.length_penalty_factor)
+        u = (row_uniforms(st.generators, logits.shape[-1], logits.device)
+             if draw else None)
+        if sampling.mirostat_tau > 0:
+            x = apply_repetition_penalty(logits, st.counts,
+                                         sampling.repetition_penalty)
+            mu0 = torch.where(t == 0, 2.0 * sampling.mirostat_tau, st.mu)
+            tok, mu = mirostat_step(x, mu0, u, sampling.mirostat_tau,
+                                    sampling.mirostat_eta)
+            st.mu.copy_(mu)
+        else:
+            tok = sample_token(logits, sampling, st.counts, u)
+        tok = torch.where(st.finished, stop, tok)
+        now_stop = (tok == stop) & ~st.finished
+        st.lengths.copy_(torch.where(now_stop, idx, st.lengths))
+        st.finished.logical_or_(tok == stop)
+        st.tokens.index_copy_(1, idx, tok[:, None])
+        rows = torch.arange(b, device=tok.device)
+        st.counts[rows, tok] += 1
+        if collect_latents:
+            st.latents.index_copy_(1, idx,
+                                   st.lat[:, None].to(st.latents.dtype))
+        row = (idx + pos_off).clamp(max=pos_w.shape[0] - 1)
+        emb = (embedding(params["mel_embedding"], tok)
+               + pos_w.index_select(0, row))
+        h = _gpt_decode_step(layers, gpt["ln_f"], emb.to(dtype), cfg.heads,
+                             st.cache, t + first_slot, st.key_mask, mode,
+                             prefix)
+        st.lat.copy_(layer_norm(params["final_norm"], h))
+        st.step_dev.add_(1)
+    return step
+
+
+def advance(state: DecodeState, limit: int, step: Callable[[], None]
+            ) -> DecodeState:
+    """Run ``step`` (one decode step of ``state``) until the host step
+    reaches ``limit`` or, read every ``SYNC_EVERY`` steps, every row has
+    stopped; nothing when every row has stopped already."""
+    if state.step < limit and bool(state.finished.all()):
+        return state
+    while state.step < limit:
+        step()
+        state.step += 1
+        if state.step % SYNC_EVERY == 0 and bool(state.finished.all()):
+            break
+    return state
 
 
 def decode_chunk(params: Params, state: DecodeState,
@@ -435,64 +541,37 @@ def decode_chunk(params: Params, state: DecodeState,
     int8 decode weights from ``quantize_decode_weights``, multiplied in
     ``quant_mode``: "int8" (weight-only, K2) or "w8a8" (per-row int8
     activations too, K8); ``prefix``: the shared prefill K/V from
-    ``decode_start(shared_rows=...)``."""
-    if quant_mode not in QUANT_MODES:
-        raise ValueError(f"quant_mode must be int8|w8a8, got {quant_mode!r}")
-    b, max_len = state.tokens.shape
-    cache_len = state.cache.k.shape[3]
-    # the write slot: past the prefill, or in the region of a shared prefix
-    first_slot = 0 if prefix is not None else cache_len - max_len
+    ``decode_start(shared_rows=...)``.
+
+    CPU tensors run ``decode_step_fn``'s step eagerly.  CUDA tensors run
+    it as a CUDA graph, captured at the first step run with these
+    arguments (that step runs eagerly, as the capture's warm-up) and
+    replayed per token; the graph stays with the state, so a later chunk
+    with the same arguments replays it, and other sampling,
+    ``collect_latents``, quantization, config, weights or prefix capture
+    anew."""
+    max_len = state.tokens.shape[1]
     limit = max_len if chunk is None else min(state.step + chunk, max_len)
-    gpt = params["gpt"]
-    dtype = params["mel_embedding"]["w"].dtype
-    stop = cfg.stop_mel_token
-    pos_off = 2 if cfg.hf_decode_positions else 1
-    pos_w = params["mel_pos_embedding"]["w"]
-    rows = torch.arange(b, device=state.tokens.device)
-    layers = decode_layers(gpt, qgpt)
+    dev = state.tokens.device
+    key = (cfg, sampling, collect_latents,
+           quant_mode if qgpt is not None else None,
+           id(params), id(qgpt), id(prefix))
+    if dev.type == "cuda" and state.graph_key == key:
+        return advance(state, limit, state.graph.replay)
+    step = decode_step_fn(params, state, cfg, sampling, collect_latents,
+                          qgpt, quant_mode, prefix)
+    if dev.type != "cuda":
+        return advance(state, limit, step)
     draw = not sampling.greedy or sampling.mirostat_tau > 0
-    if draw and state.generators is None:
-        raise ValueError("sampled decoding needs one generator per row")
 
-    if state.step < limit and bool(state.finished.all()):
-        return state
-    while state.step < limit:
-        step = state.step
-        logits = linear(params["mel_head"], state.lat).float()
-        if sampling.length_penalty_factor != 0.0:
-            logits[:, stop] = apply_length_penalty(
-                logits[:, stop], step, sampling.length_penalty_factor)
-        u = (row_uniforms(state.generators, logits.shape[-1], logits.device)
-             if draw else None)
-        if sampling.mirostat_tau > 0:
-            x = apply_repetition_penalty(logits, state.counts,
-                                         sampling.repetition_penalty)
-            mu0 = (torch.full_like(state.mu, 2.0 * sampling.mirostat_tau)
-                   if step == 0 else state.mu)
-            tok, state.mu = mirostat_step(x, mu0, u, sampling.mirostat_tau,
-                                          sampling.mirostat_eta)
-        else:
-            tok = sample_token(logits, sampling, state.counts, u)
-        tok = torch.where(state.finished, stop, tok)
-        now_stop = (tok == stop) & ~state.finished
-        state.lengths = torch.where(now_stop, step, state.lengths)
-        state.finished = state.finished | (tok == stop)
-        state.tokens[:, step] = tok
-        state.counts[rows, tok] += 1
-        if collect_latents:
-            state.latents[:, step] = state.lat.to(state.latents.dtype)
-
-        emb = (embedding(params["mel_embedding"], tok)
-               + pos_w[min(step + pos_off, pos_w.shape[0] - 1)])
-        h = _gpt_decode_step(layers, gpt["ln_f"], emb.to(dtype), cfg.heads,
-                             state.cache, first_slot + step,
-                             state.key_mask,
-                             quant_mode if qgpt is not None else None, prefix)
-        state.lat = layer_norm(params["final_norm"], h)
-        state.step = step + 1
-        if state.step % SYNC_EVERY == 0 and bool(state.finished.all()):
-            break
-    return state
+    def run() -> None:
+        if state.graph_key == key:
+            state.graph.replay()
+            return
+        state.graph = None      # the old graph's pool goes first
+        state.graph = StepGraph(step, dev, state.generators if draw else ())
+        state.graph_key = key
+    return advance(state, limit, run)
 
 
 def inference_speech(params: Params, cond_latent: torch.Tensor,

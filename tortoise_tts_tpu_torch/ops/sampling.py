@@ -115,12 +115,15 @@ def apply_dynamic_temperature(logits: torch.Tensor, temperature: float,
     return logits / t.clamp(min=1e-5)
 
 
-def apply_length_penalty(stop_logit: torch.Tensor, length: int,
+def apply_length_penalty(stop_logit: torch.Tensor, length: torch.Tensor,
                          factor: float) -> torch.Tensor:
-    """stop_logit /= length**factor (reference samplers.py:35-40)."""
+    """stop_logit /= max(length, 1)**factor (reference samplers.py:35-40),
+    in fp32 on the device as the JAX package computes it; ``length`` is
+    the decode's 0-d step tensor, read by no host."""
     if factor == 0.0:
         return stop_logit
-    return stop_logit / (max(float(length), 1.0) ** factor)
+    scale = torch.pow(length.float().clamp(min=1.0), factor)
+    return stop_logit / scale
 
 
 def warp_logits(logits: torch.Tensor, cfg: SamplingConfig,
