@@ -96,6 +96,28 @@ one JSON line per phase:
    the profiler must match their wrappers' launches (one GEMM a call,
    and the row kernel where the GEMM does not do its work: at most two
    kernels a call), and K3's one kernel a call.
+Phases 11-15 (slice 12's routes) run after phase 8, before 9 and 10:
+11. ``dpmpp_route``: the default route with ``diffusion_sampler="dpm++"``
+   warm (stage seconds, RTF, ms a step, one capture and a replay a
+   step), then ``diffusion_pair`` for DPM++ at B=1 and B=8: captured and
+   eager mels equal bit for bit.
+12. ``univnet_route``: ``inference(vocoder_type="vocoder")`` cold and warm
+   and ``batch_inference`` of 8 texts through UnivNet (wall, RTF, audio
+   seconds per wall second); ``univnet_reference``: UnivNet at its
+   widths on the card against the CPU, the same injected noise, fp32
+   with TF32 off within 1e-4 (the difference with the card's default
+   TF32 convolutions, as the route runs, reported).
+13. ``beam_route``: ``inference(beam_width=4)`` at the 200-token budget,
+   greedy and sampled; ``beam_decode``: the beam alone, eager and
+   captured from the same seed (equal tokens, lengths and launches: K2 4
+   and K3 1 a layer and step), the CUDA kernels and device ms a step
+   over 8 replays, and the cache gather timed alone with its share.
+14. ``stream_growing``: ``stream(mode="growing")``, first-chunk latency
+   and the chunks.
+15. ``lora_route``: a random rank-16 adapter merged into the full-width
+   AR model on the card (``enable_lora``) against the CPU's fp32 merge;
+   a decode captured with it, ``disable_lora``, the same state's next
+   chunk captured again with the base weights, equal to the eager step.
 
 Every route runs its decode and its sampler loop as CUDA graphs
 (``utils/graphs.StepGraph``): each route phase asserts one capture a
@@ -119,6 +141,7 @@ import dataclasses
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1436,11 +1459,13 @@ class Stages:
     NAMES = (("emb_mel", "encode_from_files", "encode"),
              ("inference", "inference_speech", "ar_decode"),
              ("inference", "inference_speech_shared", "ar_decode"),
+             ("inference", "inference_speech_beam", "ar_decode"),
              ("inference", "_cleanup_latents", "latent_pass"),
              ("inference", "_rerank_latents", "latent_pass"),
              ("inference", "_uncond_integrate", "uncond_cache"),
              ("inference", "_diffusion", "diffusion"),
-             ("inference", "_vocode", "vocoder"))
+             ("inference", "_vocode", "vocoder"),
+             ("inference", "_univnet", "univnet"))
     PROFILED = ("diffusion", "vocoder")
 
     def __init__(self, torch):
@@ -2370,10 +2395,12 @@ def _eager_sample_loop(model_fn, noise, generators, sched, sampler="ddim"):
     return x
 
 
-def diffusion_pairs(torch, tts, ref: str):
-    """``inference._diffusion`` at the default route's geometry (DDIM-50,
-    cond-free, T=896) at B=1 (the denoiser at 2 rows) and B=8 (16), under
-    each ``denoise_attention`` mode, with the sampler loop eager
+def diffusion_pairs(torch, tts, ref: str, sampler: str = "ddim",
+                    modes=("auto", "kq", "flash_bias")):
+    """``inference._diffusion`` at the default route's geometry (``sampler``
+    with 50 steps, cond-free, T=896) at B=1 (the denoiser at 2 rows) and
+    B=8 (16), under each of ``modes`` (``denoise_attention``), with the
+    sampler loop eager
     (``_eager_sample_loop``) and captured (``gaussian.sample_loop``) on
     the same inputs and keys: each loop's ms a DDIM step (the captured
     one's capture included, its seconds apart, and its replays alone),
@@ -2414,7 +2441,7 @@ def diffusion_pairs(torch, tts, ref: str):
 
     results = []
     try:
-        for mode in ("auto", "kq", "flash_bias"):
+        for mode in modes:
             tts.cfg = _with_attention(auto_cfg, mode)
             n_lat, seq_len, pad_seq_len, uh = tts._diffusion_geometry(
                 AR_STEPS, 0, ROUTE_KW["mel_pad_multiple"], DIFF_STEPS, True)
@@ -2424,7 +2451,7 @@ def diffusion_pairs(torch, tts, ref: str):
                 t_lat = torch.full((b,), n_lat, device=dev)
                 keys = [np.asarray([7, r], np.uint32) for r in range(b)]
                 args = (tts._denoiser_params(), latents, diff_cond, keys,
-                        dm.config, DIFF_STEPS, "ddim", seq_len, True, 1.0,
+                        dm.config, DIFF_STEPS, sampler, seq_len, True, 1.0,
                         n_lat, t_lat, pad_seq_len, uh)
                 pair, mels = {}, {}
                 for name, loop in (("eager", _eager_sample_loop),
@@ -2454,19 +2481,459 @@ def diffusion_pairs(torch, tts, ref: str):
                             / (DIFF_STEPS - 1)} if reps else {}))
                 same = torch.equal(mels["eager"], mels["captured"])
                 err = float((mels["eager"] - mels["captured"]).abs().max())
-                emit("diffusion_pair", mode=mode, rows=b, model_rows=2 * b,
+                emit("diffusion_pair", sampler=sampler, mode=mode, rows=b,
+                     model_rows=2 * b,
                      T=pad_seq_len, eager=pair["eager"],
                      captured=pair["captured"], mels_equal=same,
                      max_abs_diff=err,
                      speedup=pair["eager"]["ms_per_step"]
                      / pair["captured"]["ms_per_step"])
                 results.append(same)
-                assert same, (mode, b, err)
+                assert same, (sampler, mode, b, err)
     finally:
         gaussian.sample_loop = captured_loop
         tts.cfg = auto_cfg
         restore()
     return results
+
+
+# ---------------------------------------------------------------------------
+# slice 12: DPM++, UnivNet, beam search, the growing stream and LoRA
+# ---------------------------------------------------------------------------
+
+
+def _route_run(torch, stages, route: str, call):
+    """One route call with the launch counts at 0 just before it and read
+    just after: (its result, wall seconds, launch counts, stage seconds
+    with the rest as "other")."""
+    from tortoise_tts_tpu_torch import kernels
+    stages.reset()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    emit("launches", route=route, **counts)
+    stage_s = dict(stages.seconds)
+    stage_s["other"] = wall - sum(stage_s.values())
+    return out, wall, counts, stage_s
+
+
+def _check_wav(w, min_samples: int = 24000) -> None:
+    """A float32 wav of at least ``min_samples``, finite and not silent."""
+    assert w.ndim == 1 and w.dtype == np.float32
+    assert w.size >= min_samples, w.size
+    assert np.isfinite(w).all(), "non-finite audio"
+    assert np.count_nonzero(w) > min(1000, w.size // 4)
+    assert float(np.abs(w).mean()) > 1e-4
+
+
+def _graphs_since(s0) -> dict:
+    """CUDA graphs captured and replayed since ``s0``, a copy of
+    ``utils.graphs.STATS``."""
+    from tortoise_tts_tpu_torch.utils.graphs import STATS
+    return dict(captures=STATS.captures - s0.captures,
+                replays=STATS.replays - s0.replays,
+                capture_s=STATS.capture_s - s0.capture_s)
+
+
+def _assert_graphs(graphs, captures: int, replays: int) -> None:
+    assert (graphs["captures"], graphs["replays"]) == (captures, replays), \
+        (graphs, captures, replays)
+
+
+def _launched(counts, need, route: str) -> None:
+    missing = [k for k in need if counts[k] == 0]
+    assert not missing, f"{route} route never launched: {missing}"
+
+
+# the kernels of the default route's stages, which the new routes share
+DEFAULT_ROUTE_KERNELS = ("flash_attention", "qgemv", "flash_decode",
+                         "gn_conv", "ts_res_block")
+
+
+def dpmpp_route(torch, tts, ref: str):
+    """The default route with ``diffusion_sampler="dpm++"``
+    (DPM-Solver++(2M), 50 steps, cond-free guidance), warm: stage seconds,
+    RTF, ms a step (the stage's, capture included) and its capture
+    seconds, one capture a call and a replay a step; then its sampler loop
+    captured against the eager step at B=1 and B=8 (``diffusion_pairs``),
+    mels equal bit for bit."""
+    layers = tts._model("autoregressive").config.layers
+    stages = Stages(torch)
+    try:
+        (wav, sr), wall, counts, stage_s = _route_run(
+            torch, stages, "dpmpp", lambda: tts.inference(
+                TEXT, ref, seed=0, diffusion_sampler="dpm++", **ROUTE_KW))
+        _launched(counts, DEFAULT_ROUTE_KERNELS + ("snake",), "DPM++")
+        _check_wav(wav)
+        stages.assert_captured(1, counts["flash_decode"] // layers, 1)
+        graph = stages.graphs["diffusion"]
+        audio_s = wav.size / sr
+        emit("dpmpp_route", card=nvidia_smi(), wall_s=wall, audio_s=audio_s,
+             rtf_x_realtime=audio_s / wall, stage_s=stage_s,
+             stage_launches=stages.launches, stage_graphs=stages.graphs,
+             diffusion_ms_per_step=stage_s["diffusion"] * 1e3 / DIFF_STEPS,
+             diffusion_capture_s=graph["capture_s"],
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        stages.close()
+    diffusion_pairs(torch, tts, ref, sampler="dpm++", modes=("auto",))
+    return counts
+
+
+def _univnet_reference(torch) -> tuple:
+    """UnivNet at its shipped widths (random weights) on the card against
+    the CPU, 64 frames of two rows, the same injected noise, in fp32 (the
+    route's type): with TF32 off, within 1e-4 (the same fp32 arithmetic
+    in another order); and with the card's default convolutions, as the
+    route runs them (TF32), reported.  Returns both max abs errors."""
+    from tortoise_tts_tpu_torch.models import _univnet_random, univnet
+    from tortoise_tts_tpu_torch.models.common import tree_map
+    cfg = univnet.UnivNetConfig()
+    params = _univnet_random(torch.Generator().manual_seed(3), cfg)
+    g = torch.Generator().manual_seed(4)
+    mel = torch.randn(2, 100, 64, generator=g) * 2 - 5
+    noise = torch.randn(2, *univnet.noise_shape(64, cfg), generator=g)
+    want = univnet.inference(params, mel, noise=noise, cfg=cfg)
+    on_card = tree_map(lambda t: t.cuda(), params)
+    backends = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    saved = [b.allow_tf32 for b in backends]
+    try:
+        for b in backends:
+            b.allow_tf32 = False
+        strict = univnet.inference(on_card, mel.cuda(), noise=noise.cuda(),
+                                   cfg=cfg)
+    finally:
+        for b, v in zip(backends, saved):
+            b.allow_tf32 = v
+    route = univnet.inference(on_card, mel.cuda(), noise=noise.cuda(),
+                              cfg=cfg)
+    err = bf16_err(torch, strict.cpu(), want, atol=1e-4, rtol=1e-4,
+                   name="univnet fp32")
+    return err, float((route.cpu() - want).abs().max())
+
+
+def univnet_route(torch, tts, ref: str):
+    """``TTS.inference(vocoder_type="vocoder")`` (the JAX package's host
+    path: the codes read once, cleaned and trimmed on the host, the
+    diffusion sized by the trim point, UnivNet in fp32 with the line's
+    k_voc noise) cold (its diffusion length builds an unconditional
+    integrator) and warm, and ``batch_inference`` of 8 texts through
+    UnivNet warm: wall, RTF or audio seconds per wall second, stage
+    seconds, graphs; then UnivNet at its widths on the card against the
+    CPU."""
+    layers = tts._model("autoregressive").config.layers
+    stages = Stages(torch)
+    total = None
+    try:
+        for run in ("cold", "warm", "batch"):
+            if run == "batch":
+                call = lambda: tts.batch_inference(  # noqa: E731
+                    [TEXT] * BATCH_ROWS, ref, seed=1, top_p=0.9,
+                    vocoder_type="vocoder", **ROUTE_KW)
+            else:
+                call = lambda: tts.inference(  # noqa: E731
+                    TEXT, ref, seed=0, vocoder_type="vocoder", **ROUTE_KW)
+            (out, sr), wall, counts, stage_s = _route_run(
+                torch, stages, "univnet", call)
+            wavs = out if run == "batch" else [out]
+            for w in wavs:
+                _check_wav(w)
+            _launched(counts, DEFAULT_ROUTE_KERNELS, "UnivNet")
+            assert counts["snake"] == 0, counts
+            assert stages.launches["univnet"] == {}, stages.launches
+            stages.assert_captured(1, counts["flash_decode"] // layers,
+                                   len(stages.diffusion_calls))
+            audio_s = sum(w.size for w in wavs) / sr
+            emit("univnet_route", card=nvidia_smi(), run=run,
+                 rows=len(wavs), wall_s=wall, audio_s=audio_s,
+                 rtf_x_realtime=audio_s / wall, stage_s=stage_s,
+                 diffusion_calls=list(stages.diffusion_calls),
+                 stage_launches=stages.launches, stage_graphs=stages.graphs,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if run != "cold":
+                total = counts if total is None else {
+                    k: total[k] + counts[k] for k in counts}
+    finally:
+        stages.close()
+    err, tf32_err = _univnet_reference(torch)
+    emit("univnet_reference", card=nvidia_smi(), max_abs_err=err,
+         tol="1e-4 + 1e-4 |x| (TF32 off)", tf32_max_abs_err=tf32_err)
+    return total
+
+
+def _beam_inputs(torch, tts, ref: str):
+    enc = tts.encode_audio(ref, seed=0)
+    toks = tts.encode_text(TEXT)
+    dev = tts.device
+    tokens = torch.as_tensor(tts._bucket_text(toks)[None], device=dev)
+    lengths = torch.tensor([len(toks)], device=dev)
+    return enc["latent"][0].reshape(1, -1), tokens, lengths
+
+
+def beam_route(torch, tts, ref: str, width: int = 4):
+    """``TTS.inference(beam_width=4)`` at the 200-token budget, greedy and
+    sampled (HF ``beam_sample``), warm: stage seconds, ms a token, one
+    capture a call.  Then the beam decode alone at the route's shape,
+    eager (``beam_step_fn`` run by ``advance``) and captured
+    (``inference_speech_beam``) from the same generator seed: equal
+    tokens and lengths and equal launches (K2 4 a layer and step, K3 one);
+    from the profiler over 8 replayed steps the CUDA kernels and device ms
+    a step; and the cache gather of a step (the decode region's K and V
+    gathered by beam into the scratch and copied back) timed alone, with
+    its share of the step's device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.models import unified_voice as uv
+    from tortoise_tts_tpu_torch.ops.sampling import SamplingConfig
+    from tortoise_tts_tpu_torch.utils.graphs import STATS, StepGraph
+    ar = tts._model("autoregressive")
+    layers, dev = ar.config.layers, tts.device
+    stages = Stages(torch)
+    total = None
+    try:
+        for greedy in (True, False):
+            (wav, sr), wall, counts, stage_s = _route_run(
+                torch, stages, "beam", lambda: tts.inference(
+                    TEXT, ref, seed=0, beam_width=width, greedy=greedy,
+                    top_p=0.9, **ROUTE_KW))
+            # random weights give every code about the same log-prob, so
+            # the sampled beam's stop continuations, which join every
+            # step's candidates, end its beams early: a short wav
+            _check_wav(wav, 24000 if greedy else 1)
+            _launched(counts, DEFAULT_ROUTE_KERNELS + ("snake",), "beam")
+            steps = counts["flash_decode"] // layers
+            assert stages.launches["ar_decode"]["qgemv"] == \
+                4 * layers * steps, stages.launches
+            stages.assert_captured(1, steps, 1)
+            audio_s = wav.size / sr
+            emit("beam_route", card=nvidia_smi(), width=width,
+                 sampled=not greedy, wall_s=wall, audio_s=audio_s,
+                 rtf_x_realtime=audio_s / wall, stage_s=stage_s,
+                 decode_steps=steps,
+                 decode_ms_per_step=stage_s["ar_decode"] * 1e3 / steps,
+                 stage_launches=stages.launches, stage_graphs=stages.graphs,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            total = counts if total is None else {
+                k: total[k] + counts[k] for k in counts}
+    finally:
+        stages.close()
+
+    lat, tokens, lengths = _beam_inputs(torch, tts, ref)
+    qgpt = tts._ar_qgpt()
+    args = (ar.params, lat, tokens, lengths)
+    for greedy in (True, False):
+        sampling = SamplingConfig(greedy=greedy, top_p=0.9)
+
+        def gen():
+            return torch.Generator(device=dev).manual_seed(5)
+        runs = {}
+        with torch.inference_mode():
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = uv.beam_start(*args, width, ar.config, AR_STEPS, gen())
+            uv.advance(state, AR_STEPS, uv.beam_step_fn(
+                ar.params, state, ar.config, sampling, not greedy, qgpt))
+            eager = uv.beam_result(state, sampling.length_penalty)
+            torch.cuda.synchronize()
+            runs["eager"] = (time.perf_counter() - t0, state.step,
+                             kernels.launch_counts())
+            kernels.reset_launches()
+            s0 = dataclasses.replace(STATS)
+            t0 = time.perf_counter()
+            got = uv.inference_speech_beam(*args, ar.config, width, AR_STEPS,
+                                           sampling, gen(), not greedy, qgpt)
+            torch.cuda.synchronize()
+            runs["captured"] = (time.perf_counter() - t0, state.step,
+                                kernels.launch_counts())
+            graphs = _graphs_since(s0)
+            same = (torch.equal(got.codes, eager.codes)
+                    and torch.equal(got.lengths, eager.lengths))
+            assert same, "captured beam differs from the eager step"
+            _assert_graphs(graphs, 1, state.step - 1)
+            assert runs["captured"][2] == runs["eager"][2], runs
+            c = runs["eager"][2]
+            assert c["qgemv"] == 4 * layers * state.step, c
+            assert c["flash_decode"] == layers * state.step, c
+            # the captured step alone: 8 replays profiled
+            st = uv.beam_start(*args, width, ar.config, AR_STEPS, gen())
+            step = uv.beam_step_fn(ar.params, st, ar.config, sampling,
+                                   not greedy, qgpt)
+            graph = StepGraph(step, dev, [] if greedy else [st.generator])
+            for _ in range(8):
+                graph.replay()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                profiler_warmup(torch)
+                for _ in range(8):
+                    graph.replay()
+                torch.cuda.synchronize()
+            events = _cuda_events(prof)
+            step_ms = sum(e.device_time for e in events) / 1e3 / 8
+            sel = torch.arange(width - 1, -1, -1, device=dev)
+            gather_ms = device_ms(torch, lambda _: uv.gather_beams(st, sel))
+            # the decode region's K and V, each read and written twice
+            cache_mb = 2 * st.scratch.numel() * st.scratch.element_size() / 1e6
+            del graph, st
+        emit("beam_decode", card=nvidia_smi(), width=width,
+             sampled=not greedy, steps=state.step,
+             eager_ms_per_step=runs["eager"][0] * 1e3 / state.step,
+             captured_ms_per_step=runs["captured"][0] * 1e3 / state.step,
+             captured=graphs, captured_equals_eager=same,
+             port_kernel_calls_per_step={
+                 k: v / state.step for k, v in runs["eager"][2].items()
+                 if v},
+             cuda_kernels_per_step=len(events) / 8,
+             device_ms_per_step=step_ms,
+             gather_device_ms=gather_ms, gather_region_mb=cache_mb,
+             gather_share_of_step_device=gather_ms / step_ms)
+    return total
+
+
+def stream_growing(torch, tts, ref: str):
+    """``TTS.stream(mode="growing")`` at the 200-token budget: each chunk
+    re-vocodes the whole prefix with HiFiGAN.  First-chunk latency, the
+    chunks, wall; one decode capture a call and a replay a token."""
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.utils.graphs import STATS
+    layers = tts._model("autoregressive").config.layers
+    kernels.reset_launches()
+    s0 = dataclasses.replace(STATS)
+    chunks, first_s = [], None
+    t0 = time.perf_counter()
+    for c in tts.stream(TEXT, ref, max_ar_steps=AR_STEPS, seed=0,
+                        mode="growing"):
+        if first_s is None:
+            first_s = time.perf_counter() - t0
+        chunks.append(c)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    emit("launches", route="stream_growing", **counts)
+    _launched(counts, ("flash_attention", "qgemv", "flash_decode"),
+              "growing stream")
+    tokens = counts["flash_decode"] // layers
+    graphs = _graphs_since(s0)
+    _assert_graphs(graphs, 1, tokens - 1)
+    wav = np.concatenate(chunks)
+    _check_wav(wav)
+    emit("stream_growing", card=nvidia_smi(), first_chunk_s=first_s,
+         chunks=len(chunks), chunk_samples=[c.size for c in chunks],
+         wall_s=wall, audio_s=wav.size / 24000,
+         rtf_x_realtime=wav.size / 24000 / wall, decode_tokens=tokens,
+         graphs=graphs)
+    return counts
+
+
+def _write_safetensors(path: Path, tensors) -> None:
+    """{name: tensor} as a float32 .safetensors file."""
+    header, blobs, off = {}, [], 0
+    for name, t in tensors.items():
+        b = t.detach().float().cpu().contiguous().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [off, off + len(b)]}
+        blobs.append(b)
+        off += len(b)
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h + b"".join(blobs))
+
+
+def lora_route(torch, tts, ref: str, tmp: str):
+    """LoRA on the full-width AR model: a random rank-16 adapter over the
+    trunk's four linears written to disk, merged on the card by
+    ``enable_lora`` (``cfg.loras``) and held against the same merge on the
+    CPU in fp32; then 8 greedy tokens of a decode captured with the merged
+    weights, ``disable_lora``, and 8 more of the same state with the base
+    weights, which must capture again (the int8 decode weights made
+    again), token for token as the eager step with the same switch."""
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.config import LoRAConfig
+    from tortoise_tts_tpu_torch.models import lora
+    from tortoise_tts_tpu_torch.models import unified_voice as uv
+    from tortoise_tts_tpu_torch.ops.sampling import SamplingConfig
+    from tortoise_tts_tpu_torch.utils.graphs import STATS
+    base = tts._ar_base()
+    cfg = base.config
+    rank, alpha = 16, 32
+    g = torch.Generator().manual_seed(9)
+    adapter = {}
+    for name in lora.GPT_TARGETS:
+        n_layers, d_in, d_out = base.params["gpt"][name]["w"].shape
+        adapter[name] = {
+            "a": (torch.rand(n_layers, d_in, rank, generator=g) * 2 - 1)
+            / d_in ** 0.5,
+            "b": 0.02 * torch.randn(n_layers, rank, d_out, generator=g)}
+    path = Path(tmp) / "lora.sft"
+    _write_safetensors(path, {f"gpt/{n}/{k}": t for n, ab in adapter.items()
+                              for k, t in ab.items()})
+    cfg0 = tts.cfg
+    tts.cfg = dataclasses.replace(cfg0, loras=(LoRAConfig(
+        path=str(path), rank=rank, alpha=alpha, training=False),))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts.enable_lora()
+        merged = tts._model("autoregressive")
+        torch.cuda.synchronize()
+        merge_s = time.perf_counter() - t0
+        assert tts._qgpt is None and merged.from_checkpoint
+        cpu = lora.merge_lora(
+            {"gpt": {n: {"w": base.params["gpt"][n]["w"].float().cpu()}
+                     for n in lora.GPT_TARGETS}},
+            {"gpt": adapter}, alpha, rank)
+        err = max(bf16_err(torch, merged.params["gpt"][n]["w"].cpu(),
+                           cpu["gpt"][n]["w"], atol=1e-4, rtol=2 ** -7,
+                           name=f"lora {n}") for n in lora.GPT_TARGETS)
+        lat, tokens, lengths = _beam_inputs(torch, tts, ref)
+        sampling = SamplingConfig(greedy=True)
+        out = {}
+        with torch.inference_mode():
+            q_merged = tts._ar_qgpt()
+            for mode in ("eager", "captured"):
+                tts.enable_lora()
+                weights = [(merged.params, q_merged)]
+                state = uv.decode_start(merged.params, lat, tokens, lengths,
+                                        None, cfg, 32)
+                s0 = dataclasses.replace(STATS)
+                kernels.reset_launches()
+                for i in range(2):
+                    params, qgpt = weights[i]
+                    if mode == "captured":
+                        uv.decode_chunk(params, state, cfg, sampling,
+                                        chunk=8, qgpt=qgpt)
+                    else:
+                        uv.advance(state, state.step + 8, uv.decode_step_fn(
+                            params, state, cfg, sampling, qgpt=qgpt))
+                    if i == 0:
+                        tts.disable_lora()
+                        assert tts._qgpt is None
+                        assert tts._model("autoregressive") is base
+                        weights.append((base.params, tts._ar_qgpt()))
+                        assert weights[1][1] is not q_merged
+                torch.cuda.synchronize()
+                out[mode] = (state.tokens[:, :16].clone(), _graphs_since(s0),
+                             kernels.launch_counts())
+        # a capture (its warm-up the first token) and 7 replays a chunk
+        _assert_graphs(out["captured"][1], 2, 14)
+        _assert_graphs(out["eager"][1], 0, 0)
+        same = torch.equal(out["eager"][0], out["captured"][0])
+        assert same, "LoRA-toggled captured decode differs from eager"
+    finally:
+        tts.cfg = cfg0
+        tts.disable_lora()
+    emit("lora_route", card=nvidia_smi(), rank=rank, alpha=alpha,
+         layers=cfg.layers, merge_s=merge_s, merge_max_abs_err=err,
+         tol="1e-4 + 2^-7 |w|", graphs=out["captured"][1],
+         captured_equals_eager=same,
+         tokens_with_lora=out["captured"][0][0, :8].tolist(),
+         tokens_after_disable=out["captured"][0][0, 8:].tolist())
+    return out["captured"][2]
 
 
 def main() -> int:
@@ -2542,9 +3009,12 @@ def main() -> int:
             check_flash_attention(torch, k1, dev, n_text, s=latent[0][1],
                                   masked=False, report=False)
         for route in (batch_route, candidates_route, w8a8_route,
-                      denoise_attention_routes):
+                      denoise_attention_routes, dpmpp_route, univnet_route,
+                      beam_route, stream_growing):
             c = route(torch, tts, ref)
             counts = {k: counts[k] + c[k] for k in counts}
+        c = lora_route(torch, tts, ref, tmp)
+        counts = {k: counts[k] + c[k] for k in counts}
         diffusion_pairs(torch, tts, ref)
         for mode in ("int8", "w8a8"):
             decode_timing(torch, tts, ref, mode)

@@ -29,8 +29,9 @@ from tortoise_tts_tpu_torch import inference as tinf
 from tortoise_tts_tpu_torch.config import Config, Inference
 from tortoise_tts_tpu_torch.inference import TTS
 from tortoise_tts_tpu_torch.models import (LoadedModel, _bigvgan_random,
-                                           bigvgan, clvp, diffusion, rlg,
-                                           unified_voice)
+                                           _univnet_random, bigvgan, clvp,
+                                           diffusion, rlg, unified_voice,
+                                           univnet)
 from tortoise_tts_tpu_torch.tokenizer import write_char_tokenizer
 
 D = 64
@@ -101,6 +102,11 @@ def pair(tmp_path_factory):
                device="cpu", dtype="float32")
     ttts._models = {n: LoadedModel(n, m, c, tparams[n], False)
                     for n, (m, _, c, _) in port.items()}
+    # port-only: the refusal test's UnivNet batch
+    ucfg = univnet.UnivNetConfig(channel_size=8)
+    ttts._models["vocoder"] = LoadedModel(
+        "vocoder", univnet, ucfg,
+        _univnet_random(torch.Generator().manual_seed(1), ucfg), False)
     ref = tmp / "ref.wav"
     t = np.arange(22050) / 22050.0
     write_wav(ref, (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32),
@@ -194,12 +200,16 @@ def test_batch_async_fetch_and_refusals(pair):
     wavs = finalize()
     assert sr == 24000 and len(wavs) == 2
     assert all(w.dtype == np.float32 and w.size > 0 for w in wavs)
+    # beam search and a vocoder other than BigVGAN (UnivNet, as in the
+    # JAX package) raised before they were ported; they run now
+    # (tests/test_torch_beam.py and test_torch_univnet.py hold them)
+    for kw in (dict(beam_width=2), dict(vocoder_type="hifigan")):
+        wavs, _ = ttts.batch_inference(["a", "b"], max_ar_steps=8,
+                                       max_diffusion_steps=2, greedy=True,
+                                       **kw)
+        assert len(wavs) == 2 and all(np.isfinite(w).all() for w in wavs)
     for kw, exc, match in ((dict(mesh=object()), NotImplementedError,
                             "ROADMAP"),
-                           (dict(beam_width=2), NotImplementedError,
-                            "ROADMAP"),
-                           (dict(vocoder_type="hifigan"),
-                            NotImplementedError, "ROADMAP"),
                            (dict(seeds=[1]), ValueError, "seeds"),
                            (dict(voices=[None, None], references="x.wav"),
                             ValueError, "not both")):

@@ -1,7 +1,7 @@
 """``python -m tortoise_tts_tpu_torch``: the JAX package's arguments, a
 wav written on the CPU with tiny models (``--device cpu``), the W8A8
-decode through ``--decode-quant``, the CUDA device by default, and the
-options the port does not run yet refused."""
+decode through ``--decode-quant``, beam search, UnivNet and DPM++, and the
+CUDA device by default."""
 
 import os
 import subprocess
@@ -71,11 +71,16 @@ def test_cli_writes_a_wav(cli, capsys, extra, gemv):
 @pytest.mark.parametrize("extra", [["--beam-width", "2"],
                                    ["--vocoder", "vocoder"],
                                    ["--diffusion-sampler", "dpm++"]])
-def test_cli_refuses_unported_options(cli, extra):
+def test_cli_refuses_unported_options(cli, capsys, extra):
+    """The options the port refused before it ran them (beam search with
+    its length penalty, UnivNet, DPM++) now write a wav."""
     tmp, ref, _ = cli
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["hello", ref, "--out-path", str(tmp / "o.wav"), *ARGS, *extra])
-    assert not (tmp / "o.wav").exists()
+    out = tmp / "o.wav"
+    main(["hello", ref, "--out-path", str(out), *ARGS, *extra,
+          "--length-penalty", "2.0"])
+    wav, sr = read_wav(out)
+    assert sr == 24000 and wav.size > 1000 and np.isfinite(wav).all()
+    assert f"wrote {out}" in capsys.readouterr().out
 
 
 def test_cli_defaults_to_cuda(cli, monkeypatch):

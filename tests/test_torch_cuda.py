@@ -971,14 +971,15 @@ def _tiny_denoiser(dev, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sampler", ["ddim", "p"])
+@pytest.mark.parametrize("sampler", ["ddim", "p", "dpm++"])
 @pytest.mark.parametrize("b", [1, 8])
 @pytest.mark.parametrize("mode", ["auto", "kq", "flash_bias"])
 def test_captured_sample_loop_equals_eager_cuda(cuda, mode, b, sampler):
     """The captured sampler loop against the eager step on the card, bit
     for bit, cond-free (the denoiser at 2B rows), under each
-    ``denoise_attention`` mode, DDIM and the P sampler (its per-row
-    generators registered with the graph)."""
+    ``denoise_attention`` mode, DDIM, the P sampler (its per-row
+    generators registered with the graph) and DPM++ (its last x_0 and step
+    carried in device buffers)."""
     from tortoise_tts_tpu_torch import kernels
     from tortoise_tts_tpu_torch.models import diffusion, gaussian
     from tortoise_tts_tpu_torch.utils.graphs import STATS
@@ -1014,3 +1015,116 @@ def test_captured_sample_loop_equals_eager_cuda(cuda, mode, b, sampler):
     assert torch.equal(got, x)
     assert kernels.launch_counts() == eager_counts
     assert eager_counts["gn_conv"] and eager_counts["ts_res_block"]
+
+
+BEAM_SAMPLING = {
+    "greedy": dict(greedy=True, repetition_penalty=1.3, typical_mass=0.9,
+                   length_penalty=2.0, length_penalty_factor=-0.5),
+    "sampled": dict(temperature=0.9, top_p=0.9, repetition_penalty=1.2,
+                    length_penalty=1.5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["greedy", "sampled"])
+@pytest.mark.parametrize("quant", ["int8", "w8a8"])
+def test_captured_beam_equals_eager_cuda(cuda, quant, sampling):
+    """Beam search (B=2 rows of W=3 beams) captured against its step run
+    eagerly on the card, from the same generator seed: the same beams,
+    tokens and lengths, one capture and a replay a step, and the same
+    kernel launches (K2 or K8, then K3, at M = 6)."""
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.models import unified_voice as uv
+    from tortoise_tts_tpu_torch.ops.sampling import SamplingConfig
+    from tortoise_tts_tpu_torch.utils.graphs import STATS
+    cfg, params, qgpt = _tiny_decode(cuda, quant)
+    params["mel_head"]["b"][cfg.stop_mel_token] = 3.0
+    knobs = SamplingConfig(**BEAM_SAMPLING[sampling])
+    do_sample = sampling == "sampled"
+    g = torch.Generator(device=cuda).manual_seed(1)
+    text = torch.randint(1, 200, (2, 12), generator=g, device=cuda)
+    lengths = torch.tensor([12, 9], device=cuda)
+    cond = torch.randn(2, 128, generator=g, device=cuda).to(torch.bfloat16)
+    max_len = 48
+
+    def gen():
+        return torch.Generator(device=cuda).manual_seed(7)
+    kernels.reset_launches()
+    state = uv.beam_start(params, cond, text, lengths, 3, cfg, max_len,
+                          gen())
+    uv.advance(state, max_len, uv.beam_step_fn(
+        params, state, cfg, knobs, do_sample, qgpt, quant))
+    eager = uv.beam_result(state, knobs.length_penalty)
+    eager_counts = kernels.launch_counts()
+    kernels.reset_launches()
+    captures, replays = STATS.captures, STATS.replays
+    got = uv.inference_speech_beam(params, cond, text, lengths, cfg, 3,
+                                   max_len, knobs, gen(), do_sample, qgpt,
+                                   quant)
+    torch.cuda.synchronize()
+    assert STATS.captures - captures == 1
+    assert STATS.replays - replays == state.step - 1
+    assert torch.equal(got.codes, eager.codes)
+    assert torch.equal(got.lengths, eager.lengths)
+    gemv = "qgemv" if quant == "int8" else "qgemv_w8a8"
+    assert kernels.launch_counts() == eager_counts
+    assert eager_counts[gemv] == 4 * cfg.layers * (state.step + 0)
+    assert eager_counts["flash_decode"] == cfg.layers * state.step
+
+
+@pytest.mark.cuda
+def test_univnet_cuda_matches_cpu(cuda, monkeypatch):
+    """UnivNet (fp32, the route's type) on the card against the CPU, the
+    same injected noise, TF32 off."""
+    from tortoise_tts_tpu_torch.models import _univnet_random, univnet
+    from tortoise_tts_tpu_torch.models.common import tree_map
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = univnet.UnivNetConfig(channel_size=16, kpnet_hidden=32)
+    params = _univnet_random(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(1)
+    mel = torch.randn(2, 100, 40, generator=g) * 2 - 5
+    noise = torch.randn(2, *univnet.noise_shape(40, cfg), generator=g)
+    want = univnet.inference(params, mel, noise=noise, cfg=cfg)
+    got = univnet.inference(tree_map(lambda t: t.to(cuda), params),
+                            mel.to(cuda), noise=noise.to(cuda), cfg=cfg)
+    assert got.shape == (2, 1, 40 * 256)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lora_toggle_recaptures_decode_cuda(cuda):
+    """A decode captured with LoRA-merged weights is captured again when a
+    later chunk of the same state runs with the base weights (the graph is
+    keyed by the weights), and its tokens are the eager step's with the
+    same weight switch."""
+    from tortoise_tts_tpu_torch.models import lora
+    from tortoise_tts_tpu_torch.models import unified_voice as uv
+    from tortoise_tts_tpu_torch.ops.sampling import SamplingConfig
+    from tortoise_tts_tpu_torch.utils.graphs import STATS
+    cfg, base, _ = _tiny_decode(cuda, "int8")
+    g = torch.Generator(device=cuda).manual_seed(4)
+    adapter = lora.init_lora(g, base, rank=8)
+    for ab in adapter["gpt"].values():
+        ab["b"].normal_(0.0, 0.05, generator=g)
+    merged = lora.merge_lora(base, adapter, alpha=16, rank=8)
+    weights = [(merged, uv.quantize_decode_weights(merged)),
+               (base, uv.quantize_decode_weights(base))]
+    text = torch.randint(1, 200, (1, 12), generator=g, device=cuda)
+    lengths = torch.tensor([12], device=cuda)
+    cond = torch.randn(1, 128, generator=g, device=cuda).to(torch.bfloat16)
+    sampling = SamplingConfig(greedy=True)
+    out = []
+    for captured in (False, True):
+        state = uv.decode_start(merged, cond, text, lengths, None, cfg, 24)
+        captures = STATS.captures
+        for params, qgpt in weights:
+            if captured:
+                uv.decode_chunk(params, state, cfg, sampling, chunk=8,
+                                qgpt=qgpt)
+            else:
+                uv.advance(state, state.step + 8, uv.decode_step_fn(
+                    params, state, cfg, sampling, qgpt=qgpt))
+        if captured:
+            assert STATS.captures - captures == 2
+        out.append(state.tokens[:, :16].clone())
+    assert torch.equal(out[0], out[1])

@@ -240,8 +240,12 @@ def test_ddim_sample_loop_matches_jax(models):
                               jax.random.PRNGKey(0), js)
     got = tgauss.sample_loop(tfn, _t(noise), None, ts)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgauss.sample_loop(tfn, _t(noise), None, ts, sampler="dpm++")
+    # DPM++ raised before it was ported; it runs now
+    # (tests/test_torch_dpmpp.py holds it against the JAX package)
+    dpm = tgauss.sample_loop(tfn, _t(noise), None, ts, sampler="dpm++")
+    assert dpm.shape == got.shape and torch.isfinite(dpm).all()
+    with pytest.raises(ValueError, match="unknown sampler"):
+        tgauss.sample_loop(tfn, _t(noise), None, ts, sampler="euler")
 
 
 @pytest.mark.parametrize("t", [0, 2])

@@ -25,8 +25,9 @@ from tortoise_tts_tpu_torch import bridge
 from tortoise_tts_tpu_torch import inference as tinf
 from tortoise_tts_tpu_torch.config import Config, Inference
 from tortoise_tts_tpu_torch.inference import TTS
-from tortoise_tts_tpu_torch.models import (LoadedModel, bigvgan, diffusion,
-                                           hifigan, unified_voice)
+from tortoise_tts_tpu_torch.models import (LoadedModel, _univnet_random,
+                                           bigvgan, diffusion, hifigan,
+                                           unified_voice, univnet)
 from tortoise_tts_tpu_torch.ops.sampling import SamplingConfig
 from tortoise_tts_tpu_torch.tokenizer import write_char_tokenizer
 
@@ -98,6 +99,11 @@ def pair(tmp_path_factory):
             "bigvgan", bigvgan, bigvgan.BigVGANConfig(**BV),
             bridge.bigvgan_from_jax(np_tree(jbvp), dtype=torch.float32),
             False),
+        # port-only: test_routes_not_ported_say_so runs the UnivNet route
+        "vocoder": LoadedModel(
+            "vocoder", univnet, univnet.UnivNetConfig(channel_size=8),
+            _univnet_random(torch.Generator().manual_seed(0),
+                            univnet.UnivNetConfig(channel_size=8)), False),
     }
     ref = tmp / "ref.wav"
     t = np.arange(22050) / 22050.0
@@ -196,17 +202,25 @@ def test_inference_bigvgan_matches_jax(pair, monkeypatch, cond_free):
 
 
 def test_routes_not_ported_say_so(pair):
-    """UnivNet, DPM++, beam search and the serving mesh still raise;
-    candidates and voiceless generation run (tests/test_torch_batch.py
-    holds their results)."""
+    """The serving mesh and the classifier still raise; UnivNet, DPM++ and
+    beam search, which raised before they were ported, now run
+    (tests/test_torch_univnet.py, test_torch_dpmpp.py and
+    test_torch_beam.py hold their results against the JAX package), and
+    so do candidates and voiceless generation (tests/test_torch_batch.py)."""
     _, ttts, ref = pair
     for kw in (dict(vocoder_type="univnet"), dict(beam_width=2),
                dict(diffusion_sampler="dpm++")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttts.inference(TEXT, ref, max_ar_steps=4, **kw)
+        wav, sr = ttts.inference(TEXT, ref, max_ar_steps=8,
+                                 max_diffusion_steps=2, greedy=True, seed=1,
+                                 **kw)
+        assert sr == 24000 and wav.size > 0 and np.isfinite(wav).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttts.batch_inference([TEXT], ref, max_ar_steps=4, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttts.batch_inference([TEXT], ref, max_ar_steps=4, beam_width=2)
+        TTS(Config(), mesh=object(), device="cpu")
+    wavs, _ = ttts.batch_inference([TEXT], ref, max_ar_steps=8,
+                                   max_diffusion_steps=2, greedy=True,
+                                   beam_width=2)
+    assert wavs[0].size > 0 and np.isfinite(wavs[0]).all()
     with pytest.raises(NotImplementedError, match="not ported"):
         ttts._model("classifier")

@@ -5,9 +5,11 @@
         --out-path out.wav [--yaml config.yaml] [--decode-quant w8a8] ...
 
 It runs on the CUDA device, and raises where there is none, unless given
-``--device cpu``.  Options the port does not run yet raise
-``NotImplementedError``: ``--beam-width`` above 1, ``--vocoder vocoder``
-(UnivNet) and ``--diffusion-sampler dpm++``.
+``--device cpu``.  ``--beam-width`` above 1 decodes by beam search (its
+best beam chosen by ``--length-penalty``), ``--vocoder vocoder`` runs
+UnivNet and ``--diffusion-sampler dpm++`` DPM-Solver++(2M).  Without
+``--yaml``, ``TORTOISE_YAML``, ``TORTOISE_MODEL`` and ``TORTOISE_LORA``
+configure it (``Config.from_cli``).
 """
 
 import argparse
@@ -31,8 +33,7 @@ def main(argv=None):
     parser.add_argument("--top-k", type=int, default=0)
     parser.add_argument("--repetition-penalty", type=float, default=1.0)
     parser.add_argument("--length-penalty", type=float, default=1.0,
-                        help="beam-selection length penalty (HF semantics; "
-                             "beam search is not ported yet)")
+                        help="beam-selection length penalty (HF semantics)")
     parser.add_argument("--length-penalty-factor", type=float, default=0.0,
                         help="stop-logit length penalty for the sampled "
                              "path: stop /= length**factor (>0 = longer)")
@@ -74,6 +75,7 @@ def main(argv=None):
         ar_temp=args.ar_temp, diffusion_temp=args.diffusion_temp,
         top_p=args.top_p, top_k=args.top_k,
         repetition_penalty=args.repetition_penalty,
+        length_penalty=args.length_penalty,
         length_penalty_factor=args.length_penalty_factor,
         beam_width=args.beam_width,
         diffusion_sampler=args.diffusion_sampler, cond_free=args.cond_free,

@@ -38,6 +38,8 @@ CLVP_KEYS = {"text_emb", "speech_emb", "to_text_latent", "to_speech_latent",
 CLVP_LAYER_KEYS = {"attn_norm", "to_q", "to_k", "to_v", "to_out", "ff_norm",
                    "ff_proj", "ff_out"}
 RLG_KEYS = {"equal_linears", "final"}
+UNIVNET_KEYS = {"conv_pre", "conv_post", "res_stack"}
+UNIVNET_BLOCK_KEYS = {"kernel_predictor", "convt_pre", "conv_blocks"}
 
 
 def to_torch(tree, device=None, dtype: Optional[torch.dtype] = None):
@@ -121,4 +123,12 @@ def clvp_from_jax(params, device=None,
 def rlg_from_jax(params, device=None,
                  dtype: Optional[torch.dtype] = None) -> Params:
     _check_keys(params, RLG_KEYS, "RandomLatentConverter params")
+    return to_torch(params, device, dtype)
+
+
+def univnet_from_jax(params, device=None,
+                     dtype: Optional[torch.dtype] = None) -> Params:
+    _check_keys(params, UNIVNET_KEYS, "UnivNet params")
+    for blk in params["res_stack"]:
+        _check_keys(blk, UNIVNET_BLOCK_KEYS, "UnivNet res_stack block")
     return to_torch(params, device, dtype)

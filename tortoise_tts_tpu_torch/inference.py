@@ -1,37 +1,49 @@
-"""TTS inference API (port of ``tortoise_tts_tpu/inference.py``: the
-default BigVGAN route, candidates with the CLVP rerank, voiceless
-generation, batch serving and the HiFiGAN streaming route).
+"""TTS inference API (port of ``tortoise_tts_tpu/inference.py``: every
+route of the JAX package's ``TTS`` but the serving mesh).
 
 Per line of text, ``TTS.inference`` (``vocoder_type="bigvgan"``, the
 default): tokenize -> bucket -> UnifiedVoice prefill and sampled decode
-(``candidates`` > 1: a shared-prefix decode of that many rows) ->
+(``candidates`` > 1: a shared-prefix decode of that many rows;
+``beam_width`` > 1: beam search, ``models/unified_voice.py``) ->
 stop-token cleanup and calm trim (and, for candidates, the CLVP rerank,
-on the device) -> latent pass -> DDIM (or P) sampling of the denoiser
-with cond-free guidance -> denormalize -> BigVGAN -> 16-bit PCM, trimmed
-to the calm-trim length.  ``TTS.batch_inference`` runs the same stages
-over many texts at once, with per-row seeds and voices and the diffusion
-bucketed by row length.  With ``vocoder_type="hifigan"``, and in
-``TTS.stream``: decode in chunks collecting latents -> HiFiGAN over a
-trailing 60-latent window per chunk, crossfaded at the seams.  Without
+on the device) -> latent pass -> DDIM, P or DPM++ sampling of the
+denoiser with cond-free guidance -> denormalize -> BigVGAN -> 16-bit PCM,
+trimmed to the calm-trim length.  ``vocoder_type="vocoder"`` (any other
+name but "hifigan", as in the JAX package) runs UnivNet after the JAX
+package's host path: the codes read once, cleaned and trimmed on the host
+(``cleanup_codes``, ``calm_trim_point``), the diffusion sized by the trim
+point, the vocoder's noise drawn from the line's third stage key.
+``TTS.batch_inference`` runs the same stages over many texts at once,
+with per-row seeds and voices and the diffusion bucketed by row length,
+and vocodes with BigVGAN or UnivNet.  With ``vocoder_type="hifigan"``,
+and in ``TTS.stream``: decode in chunks collecting latents -> HiFiGAN
+over a trailing 60-latent window per chunk (``mode="growing"``: over the
+whole prefix, as the reference does), crossfaded at the seams.  Without
 references the conditioning latents come from the random latent
 converters.  ``Inference.denoise_attention`` picks the kernels of the
 denoiser's biased attention on every diffusion route, the cached
-unconditional integrator included (``models/diffusion.py``).  UnivNet,
-beam search, DPM++ and the serving mesh are not ported yet (ROADMAP.md).
+unconditional integrator included (``models/diffusion.py``).  A LoRA
+adapter (``TTS(lora=...)``, ``Config.loras``) is merged into the AR
+model's weights when it loads (``models/lora.py``).  The serving mesh is
+not ported (ROADMAP.md).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 Sampled decoding draws from one ``torch.Generator`` per row, and the
 diffusion noise from one more per row, all seeded from the row's seed
 through the JAX package's SeedSequence chain (``_stage_keys``,
 ``_row_keys``), so one seed gives one wav per route and a batch row
-replays as the single call with its seed.  The JAX package draws from
-threefry keys, so the two agree in distribution only (greedy decoding
-agrees token for token, and the tests inject the JAX package's diffusion
-noise through ``_diffusion_noise``).
+replays as the single call with its seed (the sampled beam, as in the
+JAX package, draws a whole batch's frontier from row 0's key).  The JAX
+package draws from threefry keys, so the two agree in distribution only
+(greedy decoding agrees token for token, and the tests inject the JAX
+package's noise through ``_diffusion_noise`` and ``_vocoder_noise``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import os
 import time
 from pathlib import Path
 from typing import Iterator, List, Optional, Sequence, Tuple
@@ -40,18 +52,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .config import Config
+from .config import Config, LoRAConfig
 from .emb import mel as emb_mel
-from .models import (bigvgan, clvp, diffusion, gaussian, hifigan, load_model,
-                     resolve_device, rlg)
+from .models import (LoadedModel, bigvgan, clvp, diffusion, gaussian,
+                     hifigan, load_model, resolve_device, rlg, univnet)
+from .models.lora import init_lora, merge_lora
 from .models.unified_voice import (QUANT_MODES, decode_chunk, decode_start,
                                    forward as uv_forward, inference_speech,
+                                   inference_speech_beam,
                                    inference_speech_shared,
                                    quantize_decode_weights)
 from .ops.sampling import SamplingConfig
 from .ops.stft import denormalize_tacotron_mel
 from .tokenizer import VoiceBpeTokenizer
-from .utils.io import write_wav
+from .utils.io import load_state_dict, pick_path, write_wav
+from .utils.state import unflatten_like
+
+_logger = logging.getLogger(__name__)
 
 SAMPLE_RATE = 24_000
 CALM_TOKEN = 83               # inference.py:231
@@ -65,14 +82,16 @@ BATCH_CAP_ROWS = 8
 
 def _sampling_from_knobs(ar_temp=0.8, top_k=0, top_p=1.0,
                          typical_sampling=False, typical_mass=0.9,
-                         repetition_penalty=1.0, length_penalty_factor=0.0,
-                         greedy=False, mirostat_tau=0.0, mirostat_eta=0.1,
+                         repetition_penalty=1.0, length_penalty=1.0,
+                         length_penalty_factor=0.0, greedy=False,
+                         mirostat_tau=0.0, mirostat_eta=0.1,
                          min_temperature=0.0) -> SamplingConfig:
-    """One SamplingConfig builder for inference() and stream()."""
+    """The SamplingConfig of inference(), batch_inference() and stream(),
+    made in one place."""
     return SamplingConfig(
         temperature=ar_temp, top_k=top_k, top_p=top_p,
         typical_mass=typical_mass if typical_sampling else 0.0,
-        repetition_penalty=repetition_penalty,
+        repetition_penalty=repetition_penalty, length_penalty=length_penalty,
         length_penalty_factor=length_penalty_factor, greedy=greedy,
         mirostat_tau=mirostat_tau, mirostat_eta=mirostat_eta,
         min_temperature=min_temperature)
@@ -326,19 +345,19 @@ def _row_buckets(t_lat: np.ndarray, mult: int, mel_pad_multiple: int
     return chunks
 
 
-def _refuse_unported(vocoder_type: str, diffusion_sampler: str,
-                     beam_width: int) -> None:
-    """Raise for the options the port does not run yet."""
-    if vocoder_type not in ("bigvgan", "hifigan"):
-        raise NotImplementedError(
-            f"vocoder_type={vocoder_type!r} (UnivNet) is not ported "
-            "yet (ROADMAP.md); use 'bigvgan' or 'hifigan'")
-    if diffusion_sampler == "dpm++":
-        raise NotImplementedError(
-            "diffusion_sampler='dpm++' is not ported yet (ROADMAP.md)")
-    if beam_width > 1:
-        raise NotImplementedError(
-            "beam_width > 1 (beam search) is not ported yet (ROADMAP.md)")
+def _vocoder_noise(key, shape, device) -> torch.Tensor:
+    """UnivNet's noise for one row, standard normal, from ``key``."""
+    return torch.randn(shape, generator=_generator(key, device),
+                       device=device)
+
+
+def _univnet(params, mel: torch.Tensor, keys, cfg) -> torch.Tensor:
+    """UnivNet over the denormalized mel (B, 100, T) at its type (fp32), as
+    the JAX package's ``_jit_univnet`` runs it: row r's noise from
+    ``keys[r]`` (``_vocoder_noise``).  Returns the wav (B, 1, T * 256)."""
+    shape = univnet.noise_shape(mel.shape[2], cfg)
+    noise = torch.stack([_vocoder_noise(k, shape, mel.device) for k in keys])
+    return univnet.inference(params, mel.float(), noise=noise, cfg=cfg)
 
 
 def _vocode(params, mel: torch.Tensor, cfg) -> torch.Tensor:
@@ -353,20 +372,38 @@ class TTS:
     """User-facing inference API."""
 
     def __init__(self, config: Optional[Config | str | Path] = None,
-                 device=None, amp=None, dtype: Optional[str] = None,
-                 attention=None):
-        """``amp`` and ``attention`` are accepted and ignored, as the JAX
-        package and the reference accept them (the precision follows
-        ``dtype``; the denoiser's attention, ``denoise_attention``)."""
+                 lora=None, device=None, amp=None, dtype: Optional[str] = None,
+                 attention=None, mesh=None):
+        """``config``: a ``Config``, a YAML or .sft path, or None (then
+        ``Config.from_cli([])`` when ``TORTOISE_YAML``, ``TORTOISE_MODEL``
+        or ``TORTOISE_LORA`` is set, else the defaults).  ``lora``: an
+        adapter file or a ``LoRAConfig``, in place of ``Config.loras``
+        (the JAX package keeps the argument and reads only
+        ``Config.loras``).  ``amp`` and ``attention`` are accepted and
+        ignored, as the JAX package and the reference accept them (the
+        precision follows ``dtype``; the denoiser's attention,
+        ``denoise_attention``).  ``mesh``: the serving mesh, not ported."""
         del amp, attention
+        if mesh is not None:
+            raise NotImplementedError(
+                "TTS(mesh=...): the serving mesh is not ported yet "
+                "(ROADMAP.md)")
+        if config is None and any(os.environ.get(v) for v in (
+                "TORTOISE_YAML", "TORTOISE_MODEL", "TORTOISE_LORA")):
+            config = Config.from_cli([])
         if isinstance(config, (str, Path)):
             config = Config.load(config)
         self.cfg = config or Config()
+        if lora is not None:
+            if not isinstance(lora, LoRAConfig):
+                lora = LoRAConfig(path=str(lora), training=False)
+            self.cfg = dataclasses.replace(self.cfg, loras=(lora,))
         self.device = resolve_device(device, "TTS")
         self.dtype = dtype or self.cfg.inference.weight_dtype
         self.tokenizer = VoiceBpeTokenizer()
         self.cache_voice = True
         self._models = {}
+        self._ar_plain = None
         self._voice_cache = {}
         self._uncond_cache = {}
         self._qgpt = None
@@ -374,9 +411,62 @@ class TTS:
 
     def _model(self, name: str):
         if name not in self._models:
-            self._models[name] = load_model(name, self.dtype,
-                                            device=self.device)
+            if name == "autoregressive":
+                self._models[name] = self._maybe_apply_lora(self._ar_base())
+            else:
+                self._models[name] = load_model(name, self.dtype,
+                                                device=self.device)
         return self._models[name]
+
+    def _ar_base(self):
+        """The AR model without an adapter, loaded once."""
+        if self._ar_plain is None:
+            self._ar_plain = load_model("autoregressive", self.dtype,
+                                        device=self.device)
+        return self._ar_plain
+
+    def _maybe_apply_lora(self, m):
+        """The AR model with ``cfg.lora`` merged into its trunk (reference
+        inference.py:205-216): the adapter file at ``lora.path``, else at
+        ``<ckpt_dir>/<full_name>/lora.<weights_format>`` (.sft or
+        .safetensors), where a missing file means no adapter, as in the JAX
+        package.  A ``lora.path`` that does not exist raises."""
+        lcfg = self.cfg.lora
+        if lcfg is None:
+            return m
+        if lcfg.path:
+            path = Path(lcfg.path)
+            if not path.exists():
+                raise FileNotFoundError(f"LoRA adapter {path} not found")
+        else:
+            path = pick_path(self.cfg.ckpt_dir / lcfg.full_name
+                             / f"lora.{self.cfg.weights_format}",
+                             ".sft", ".safetensors")
+            if not path.exists():
+                return m
+        g = torch.Generator(device=self.device).manual_seed(0)
+        lora = init_lora(g, m.params, rank=lcfg.rank)
+        lora = unflatten_like(lora, load_state_dict(path), strict=False)
+        merged = merge_lora(m.params, lora, lcfg.alpha, lcfg.rank)
+        _logger.info("merged LoRA %s into autoregressive", path)
+        return LoadedModel(m.name, m.module, m.config, merged, True)
+
+    def enable_lora(self, enabled: bool = True):
+        """Serve with (or without) the ``cfg.lora`` adapter merged
+        (reference inference.py:99-104).  The int8 decode weights follow
+        the AR weights, so they are dropped and made again from the new
+        ones; a decode's captured step is keyed by the weights it was
+        captured with (``DecodeState.graph_key``), so no graph of the old
+        weights replays."""
+        self._models.pop("autoregressive", None)
+        self._qgpt = None
+        if enabled:
+            self._model("autoregressive")
+        else:
+            self._models["autoregressive"] = self._ar_base()
+
+    def disable_lora(self):
+        return self.enable_lora(False)
 
     def _ar_qgpt(self):
         """Cached int8 decode weights when decode_quant is 'int8' (weight
@@ -524,7 +614,8 @@ class TTS:
                   ar_temp: float = 0.8, diffusion_temp: float = 1.0,
                   top_p: float = 1.0, top_k: int = 0,
                   repetition_penalty: float = 1.0,
-                  length_penalty_factor: float = 0.0,
+                  length_penalty: float = 1.0,
+                  length_penalty_factor: float = 0.0, beam_width: int = 1,
                   typical_sampling: bool = False, typical_mass: float = 0.9,
                   diffusion_sampler: str = "ddim", cond_free: bool = True,
                   vocoder_type: str = "bigvgan", candidates: int = 1,
@@ -533,18 +624,20 @@ class TTS:
                   diffusion_pad_multiple: int = 0, mel_pad_multiple: int = 0,
                   mirostat_tau: float = 0.0, mirostat_eta: float = 0.1,
                   min_temperature: float = 0.0, greedy: bool = False,
-                  conditioning_latents: Optional[Tuple] = None,
-                  beam_width: int = 1) -> Tuple[np.ndarray, int]:
+                  conditioning_latents: Optional[Tuple] = None
+                  ) -> Tuple[np.ndarray, int]:
         """Text -> (wav float32 (T,), 24000).  The default route decodes,
         runs the diffusion and BigVGAN; ``vocoder_type="hifigan"`` runs
-        the windowed HiFiGAN route of ``stream``.  ``candidates`` > 1
-        decodes that many candidates from one shared prefill and keeps the
-        CLVP's best (the BigVGAN route; the HiFiGAN route decodes one, as
-        in the JAX package).  ``references`` None: voiceless, the
+        the windowed HiFiGAN route of ``stream``; any other vocoder name
+        runs UnivNet (``_infer_line_univnet``).  ``candidates`` > 1 decodes
+        that many candidates and keeps the CLVP's best (the HiFiGAN route
+        decodes one, as in the JAX package).  ``beam_width`` > 1 decodes by
+        beam search (sampled, HF ``beam_sample``, unless ``greedy``), each
+        row's best beam chosen by ``length_penalty``.  ``diffusion_sampler``:
+        "ddim", "p" or "dpm++".  ``references`` None: voiceless, the
         conditioning latents drawn from the random latent converters.
         ``conditioning_latents``: an explicit (ar_latent, diff_latent)
         pair in place of ``references``."""
-        _refuse_unported(vocoder_type, diffusion_sampler, beam_width)
         seed = int(time.time()) if seed is None else seed
         ar_latent, diff_latent = self._latents(references, seed,
                                                conditioning_latents)
@@ -552,6 +645,7 @@ class TTS:
             ar_temp=ar_temp, top_k=top_k, top_p=top_p,
             typical_sampling=typical_sampling, typical_mass=typical_mass,
             repetition_penalty=repetition_penalty,
+            length_penalty=length_penalty,
             length_penalty_factor=length_penalty_factor, greedy=greedy,
             mirostat_tau=mirostat_tau, mirostat_eta=mirostat_eta,
             min_temperature=min_temperature)
@@ -563,12 +657,14 @@ class TTS:
             if vocoder_type == "hifigan":
                 wavs.append(np.concatenate(list(self._stream_line_windowed(
                     line, ar_latent, sampling, max_ar_steps, sub)), axis=-1))
-            else:
-                wavs.append(self._infer_line(
-                    line, ar_latent, diff_latent, sampling, max_ar_steps,
-                    max_diffusion_steps, diffusion_temp, diffusion_sampler,
-                    cond_free, sub, diffusion_pad_multiple,
-                    mel_pad_multiple, candidates))
+                continue
+            infer = (self._infer_line if vocoder_type == "bigvgan"
+                     else self._infer_line_univnet)
+            wavs.append(infer(
+                line, ar_latent, diff_latent, sampling, max_ar_steps,
+                max_diffusion_steps, diffusion_temp, diffusion_sampler,
+                cond_free, sub, diffusion_pad_multiple, mel_pad_multiple,
+                candidates, beam_width))
         wav = np.concatenate(wavs, axis=-1)
         if out_path is not None:
             write_wav(out_path, wav, SAMPLE_RATE)
@@ -582,6 +678,7 @@ class TTS:
                         max_diffusion_steps: int = 80, ar_temp: float = 0.8,
                         diffusion_temp: float = 1.0, top_p: float = 1.0,
                         top_k: int = 0, repetition_penalty: float = 1.0,
+                        length_penalty: float = 1.0,
                         length_penalty_factor: float = 0.0,
                         beam_width: int = 1, typical_sampling: bool = False,
                         typical_mass: float = 0.9,
@@ -599,32 +696,31 @@ class TTS:
         """Many single-line texts at once -> (list of float32 wavs, 24000),
         each stage running over the whole batch.
 
-        Row r draws everything (decode tokens, candidates, diffusion noise)
-        from its own seed, ``seeds[r]`` (default ``seed + r``), so it
-        replays as ``inference(texts[r], seed=seeds[r])`` with the same
-        voice and knobs (exactly when its diffusion runs at the same T:
-        always with ``row_buckets=False``).  ``references`` is one voice
-        for every row; ``voices`` one per row (None entries voiceless);
-        neither: every row voiceless from its own seed.  ``candidates`` > 1
-        decodes that many candidates per row from the row's shared prefill
-        and keeps the CLVP's best.
+        Row r draws everything (decode tokens, candidates, diffusion and
+        vocoder noise) from its own seed, ``seeds[r]`` (default ``seed +
+        r``), so it replays as ``inference(texts[r], seed=seeds[r])`` with
+        the same voice and knobs (exactly when its diffusion runs at the
+        same T: always with ``row_buckets=False``).  ``beam_width`` > 1
+        decodes every row by beam search (then ``candidates`` is ignored),
+        the sampled beam drawing the whole batch's frontier from row 0's
+        key, as the JAX package does.  ``vocoder_type``: "bigvgan", or any
+        other name for UnivNet, as in the JAX package.  ``references`` is
+        one voice for every row; ``voices`` one per row (None entries
+        voiceless); neither: every row voiceless from its own seed.
+        ``candidates`` > 1 decodes that many candidates per row from the
+        row's shared prefill and keeps the CLVP's best.
 
         ``row_buckets``: read the rows' trim points once and run the
         diffusion and the vocoder per length bucket (``_row_buckets``), at
         most 8 rows per dispatch, the rows padded to a power of two;
         otherwise one dispatch sized by the decode budget.  ``fetch=
         "async"`` returns ``(finalize, 24000)``, where ``finalize()``
-        copies the wavs to the host.  The serving mesh and beam search are
-        not ported yet (ROADMAP.md)."""
+        copies the wavs to the host.  The serving mesh is not ported
+        (ROADMAP.md)."""
         if mesh is not None:
             raise NotImplementedError(
                 "batch_inference(mesh=...): the serving mesh is not ported "
                 "yet (ROADMAP.md)")
-        if vocoder_type != "bigvgan":
-            raise NotImplementedError(
-                f"batch_inference(vocoder_type={vocoder_type!r}) is not "
-                "ported yet (ROADMAP.md); use 'bigvgan'")
-        _refuse_unported(vocoder_type, diffusion_sampler, beam_width)
         if fetch not in ("sync", "async"):
             raise ValueError(f"fetch must be sync|async, got {fetch!r}")
         b = len(texts)
@@ -640,11 +736,12 @@ class TTS:
                      else [seed + r for r in range(b)])
         ar = self._model("autoregressive")
         dmodel = self._model("diffusion")
-        voc = self._model("bigvgan")
+        voc = self._model("bigvgan" if vocoder_type == "bigvgan"
+                          else "vocoder")
         dev = self.device
         lat, diff_cond = self._encode_voice_rows(references, voices, b,
                                                  row_seeds)
-        c = max(1, candidates)
+        c = max(1, candidates) if beam_width <= 1 else 1
         toks = [self.encode_text(t) for t in texts]
         bucket = self._bucket_text(max(toks, key=len)).shape[-1]
         tokens = torch.as_tensor(np.stack(
@@ -656,6 +753,7 @@ class TTS:
             ar_temp=ar_temp, top_k=top_k, top_p=top_p,
             typical_sampling=typical_sampling, typical_mass=typical_mass,
             repetition_penalty=repetition_penalty,
+            length_penalty=length_penalty,
             length_penalty_factor=length_penalty_factor, greedy=greedy,
             mirostat_tau=mirostat_tau, mirostat_eta=mirostat_eta,
             min_temperature=min_temperature)
@@ -664,8 +762,15 @@ class TTS:
         trips = [_stage_keys(s) for s in row_seeds]
         gens = [_generator(k, dev) for t in trips for k in _row_keys(t[0], c)]
         diff_keys = [t[1] for t in trips]
+        voc_keys = [t[2] for t in trips]
 
-        if c > 1:
+        if beam_width > 1:
+            res = self._beam(lat, tokens, lengths, sampling, max_ar_steps,
+                             beam_width, trips[0][0])
+            latents, t_lat = _cleanup_latents(
+                ar.params, lat, tokens, lengths, res.codes, res.lengths,
+                ar.config)
+        elif c > 1:
             res = inference_speech_shared(
                 ar.params, lat, tokens, lengths, gens, c, ar.config,
                 sampling, max_ar_steps, qgpt=self._ar_qgpt(),
@@ -693,7 +798,10 @@ class TTS:
                              cond_free, diffusion_temp, n_lat, t_lat[idx],
                              pad_seq_len, uh,
                              attention=self.cfg.inference.denoise_attention)
-            return _vocode(voc.params, mel, voc.config)
+            if vocoder_type == "bigvgan":
+                return _vocode(voc.params, mel, voc.config)
+            return _univnet(voc.params, mel, [voc_keys[r] for r in rows],
+                            voc.config)
 
         if row_buckets:
             t_np = t_lat.cpu().numpy()        # the one read mid-pipeline
@@ -721,27 +829,53 @@ class TTS:
             out = [None] * b
             for rows, pcm in pending:
                 pcm = pcm[:len(rows), 0].cpu().numpy()
+                # BigVGAN's 16-bit PCM, or UnivNet's float wav
+                scale = 32767.0 if pcm.dtype == np.int16 else 1.0
                 for j, r in enumerate(rows):
                     n = int(tl[r]) * 4 * 24000 // 22050 * 256
-                    out[r] = pcm[j, :n].astype(np.float32) / 32767.0
+                    out[r] = pcm[j, :n].astype(np.float32) / scale
             return out
 
         if fetch == "async":
             return finalize, SAMPLE_RATE
         return finalize(), SAMPLE_RATE
 
+    def _beam(self, lat, tokens, lengths, sampling: SamplingConfig,
+              max_ar_steps: int, beam_width: int, key):
+        """Beam search over the rows (K2 or K8 by ``decode_quant``, then
+        K3): sampled unless ``sampling.greedy``, the frontier drawn from
+        one generator seeded from ``key``."""
+        ar = self._model("autoregressive")
+        do_sample = not sampling.greedy
+        return inference_speech_beam(
+            ar.params, lat, tokens, lengths, ar.config, beam_width,
+            max_ar_steps, sampling,
+            generator=_generator(key, self.device) if do_sample else None,
+            do_sample=do_sample, qgpt=self._ar_qgpt(),
+            quant_mode=self._quant_mode)
+
     def _decode_codes(self, line: str, ar_latent, sampling: SamplingConfig,
-                      max_ar_steps: int, line_key, candidates: int = 1):
-        """Prefill and the whole sampled decode of one line, as
-        ``candidates`` rows from one shared prefill when there are several
-        (row c draws from the line's c-th row generator): (DecodeResult,
-        bucketed tokens (R, Tt), text lengths (R,)), R = candidates."""
+                      max_ar_steps: int, line_key, candidates: int = 1,
+                      beam_width: int = 1):
+        """Prefill and the whole decode of one line, as ``candidates`` rows
+        (from one shared prefill when there are several; row c draws from
+        the line's c-th row generator) or, with ``beam_width`` > 1, as many
+        rows of beam search, drawn from the line's AR stage key:
+        (DecodeResult, bucketed tokens (R, Tt), text lengths (R,)), R =
+        candidates."""
         ar = self._model("autoregressive")
         dev = self.device
         toks = self.encode_text(line)
         tokens = torch.as_tensor(self._bucket_text(toks)[None], device=dev)
         lengths = torch.tensor([min(len(toks), tokens.shape[1])], device=dev)
         lat = ar_latent.to(dev).reshape(1, -1)
+        if beam_width > 1:
+            rows = (candidates, -1)
+            k_ar = _host_keys(_key_int(line_key), 3)[0]
+            res = self._beam(lat.expand(rows), tokens.expand(rows),
+                             lengths.expand(candidates), sampling,
+                             max_ar_steps, beam_width, k_ar)
+            return res, tokens.expand(rows), lengths.expand(candidates)
         gens = _row_generators(line_key, candidates, dev)
         if candidates > 1:
             res = inference_speech_shared(
@@ -761,7 +895,7 @@ class TTS:
                     max_ar_steps, max_diffusion_steps, diffusion_temp,
                     diffusion_sampler, cond_free, key,
                     diffusion_pad_multiple, mel_pad_multiple,
-                    candidates: int = 1) -> np.ndarray:
+                    candidates: int = 1, beam_width: int = 1) -> np.ndarray:
         """The BigVGAN route for one line.  The device is read twice: the
         trim point and the wav at the end (and the decoded lengths when
         the budget is over ``STATIC_BUDGET_MAX``)."""
@@ -770,7 +904,8 @@ class TTS:
         # the (k_ar, k_diff, k_voc) keys of the JAX package's _stage_keys
         k_diff = _host_keys(_key_int(key), 3)[1]
         res, tokens, text_lengths = self._decode_codes(
-            line, ar_latent, sampling, max_ar_steps, key, candidates)
+            line, ar_latent, sampling, max_ar_steps, key, candidates,
+            beam_width)
         lat = ar_latent.to(self.device).reshape(1, -1)
         if candidates > 1:
             cm = self._model("clvp")
@@ -799,6 +934,103 @@ class TTS:
         pcm = pcm[0, 0, :exact_seq_len * 256].cpu().numpy()
         return pcm.astype(np.float32) / 32767.0
 
+    @torch.inference_mode()
+    def _infer_line_univnet(self, line, ar_latent, diff_latent, sampling,
+                            max_ar_steps, max_diffusion_steps,
+                            diffusion_temp, diffusion_sampler, cond_free, key,
+                            diffusion_pad_multiple, mel_pad_multiple,
+                            candidates: int = 1,
+                            beam_width: int = 1) -> np.ndarray:
+        """The UnivNet route for one line, as the JAX package's host path
+        (``_infer_line``, inference.py:1516-1583): the codes read once,
+        cleaned on the host (``cleanup_codes``); with candidates, the
+        CLVP's scores of the cleaned codes pick one; the latent pass over
+        it; the calm-trim point from its codes (``calm_trim_point``), which
+        sizes the diffusion; UnivNet with its noise from the line's k_voc;
+        the wav cut to the trim point."""
+        ar = self._model("autoregressive")
+        dmodel = self._model("diffusion")
+        dev = self.device
+        _, k_diff, k_voc = _host_keys(_key_int(key), 3)
+        res, tokens, text_lengths = self._decode_codes(
+            line, ar_latent, sampling, max_ar_steps, key, candidates,
+            beam_width)
+        stop = ar.config.stop_mel_token
+        codes = self.cleanup_codes(res.codes.cpu().numpy(),
+                                   res.lengths.cpu().numpy(), stop)
+        n_codes = codes.shape[1]
+        if candidates > 1:
+            cm = self._model("clvp")
+            scores = clvp.forward(cm.params, tokens,
+                                  torch.as_tensor(codes, device=dev),
+                                  cm.config)
+            best = int(scores[:candidates].argmax())
+            codes = codes[best:best + 1]
+            tokens = tokens[best:best + 1]
+            text_lengths = text_lengths[best:best + 1]
+        pad_codes = np.pad(codes, ((0, 0), (0, max_ar_steps - n_codes)),
+                           constant_values=stop)
+        wav_lengths = torch.full(
+            (1,), n_codes * ar.config.mel_length_compression, device=dev)
+        latents = uv_forward(ar.params, ar_latent.to(dev).reshape(1, -1),
+                             tokens, text_lengths,
+                             torch.as_tensor(pad_codes, device=dev),
+                             wav_lengths, ar.config)
+        t_lat = self.calm_trim_point(codes[0], upto=n_codes)
+        n_lat, seq_len, pad_seq_len, uh = self._diffusion_geometry(
+            t_lat, diffusion_pad_multiple, mel_pad_multiple,
+            max_diffusion_steps, cond_free)
+        mel = _diffusion(self._denoiser_params(), latents, diff_latent,
+                         [k_diff], dmodel.config, max_diffusion_steps,
+                         diffusion_sampler, seq_len, cond_free,
+                         diffusion_temp, n_lat,
+                         torch.tensor([t_lat], device=dev), pad_seq_len, uh,
+                         attention=self.cfg.inference.denoise_attention)
+        voc = self._model("vocoder")
+        wav = _univnet(voc.params, mel, [k_voc], voc.config)
+        exact_seq_len = t_lat * 4 * 24000 // 22050
+        return wav[0, 0, :exact_seq_len * 256].float().cpu().numpy()
+
+    @staticmethod
+    def cleanup_codes(codes: np.ndarray, lengths: np.ndarray,
+                      stop_token: int = 8193) -> np.ndarray:
+        """Stop-token cleanup (reference inference.py:353-366) of the codes
+        up to the longest row's stop: stops and everything past a row's
+        first stop -> the calm token, its last 3 codes -> the fixed
+        tail."""
+        n = min(int(lengths.max()) + 1, codes.shape[1])
+        codes = np.array(codes[:, :n])
+        for row in codes:
+            stops = np.nonzero(row == stop_token)[0]
+            if len(stops) == 0:
+                continue
+            row[stops.min():] = CALM_TOKEN
+            # rows shorter than the tail take what fits
+            t = min(3, codes.shape[1])
+            row[-t:] = np.asarray(TAIL_TOKENS)[3 - t:]
+        return codes
+
+    @staticmethod
+    def trim_latents_at_calm(codes_row: np.ndarray, latents: np.ndarray,
+                             breathing_room: int = 8) -> np.ndarray:
+        """The latents (B, N, D) cut where more than ``breathing_room``
+        consecutive calm tokens begin (reference inference.py:381-389)."""
+        k = TTS.calm_trim_point(codes_row, latents.shape[1], breathing_room)
+        return latents[:, :k]
+
+    @staticmethod
+    def calm_trim_point(codes_row: np.ndarray, upto: int,
+                        breathing_room: int = 8) -> int:
+        """The first index where more than ``breathing_room`` consecutive
+        calm tokens begin (reference inference.py:381-389), else
+        ``upto``."""
+        calm = 0
+        for k in range(min(codes_row.shape[-1], upto)):
+            calm = calm + 1 if int(codes_row[k]) == CALM_TOKEN else 0
+            if calm > breathing_room:
+                return k
+        return upto
+
     @staticmethod
     def _latents_to_samples(n: int) -> int:
         """HiFiGAN sample count for n latents (n -> int(4n) ->
@@ -812,6 +1044,7 @@ class TTS:
                max_ar_steps: int = 500, ar_temp: float = 0.8,
                top_p: float = 1.0, top_k: int = 0,
                repetition_penalty: float = 1.0,
+               length_penalty: float = 1.0,
                length_penalty_factor: float = 0.0,
                typical_sampling: bool = False, typical_mass: float = 0.9,
                mirostat_tau: float = 0.0, mirostat_eta: float = 0.1,
@@ -819,28 +1052,91 @@ class TTS:
                seed: Optional[int] = None, mode: str = "windowed",
                stream_chunk_size: int = 40,
                first_buffer: int = 60) -> Iterator[np.ndarray]:
-        """Yield 24 kHz float32 chunks as the decode advances: each chunk
-        vocodes a fixed ``first_buffer``-latent window ending at the
-        decode position."""
-        if mode != "windowed":
-            raise NotImplementedError(
-                f"stream mode {mode!r}: only 'windowed' is ported")
+        """Yield 24 kHz float32 chunks as the decode advances.
+        ``mode="windowed"``: each chunk vocodes a fixed
+        ``first_buffer``-latent window ending at the decode position;
+        ``"growing"``: each chunk vocodes the whole prefix again, the
+        reference's exact behaviour (its work grows with the square of the
+        length).  Both decode alike, from the same keys."""
+        if mode not in ("windowed", "growing"):
+            raise ValueError(f"stream mode must be windowed|growing, got "
+                             f"{mode!r}")
         seed = int(time.time()) if seed is None else seed
         ar_latent = self._latents(references, seed)[0]
         sampling = _sampling_from_knobs(
             ar_temp=ar_temp, top_k=top_k, top_p=top_p,
             typical_sampling=typical_sampling, typical_mass=typical_mass,
             repetition_penalty=repetition_penalty,
+            length_penalty=length_penalty,
             length_penalty_factor=length_penalty_factor, greedy=greedy,
             mirostat_tau=mirostat_tau, mirostat_eta=mirostat_eta,
             min_temperature=min_temperature)
+        line_stream = (self._stream_line_windowed if mode == "windowed"
+                       else self._stream_line_growing)
         for i, line in enumerate(text.split("\n")):
             if not line.strip():
                 continue
             (sub,) = _host_keys(seed * 1000003 + i, 1)
-            yield from self._stream_line_windowed(
-                line, ar_latent, sampling, max_ar_steps, sub,
-                stream_chunk_size=stream_chunk_size, window=first_buffer)
+            yield from line_stream(line, ar_latent, sampling, max_ar_steps,
+                                   sub, stream_chunk_size, first_buffer)
+
+    def _stream_start(self, line, ar_latent, max_ar_steps, key):
+        """The stream's prefill of one line: (AR model, HiFiGAN, decode
+        state, the speaker latent for HiFiGAN (1, D) fp32), the decode
+        keyed as the BigVGAN route's."""
+        ar = self._model("autoregressive")
+        dev = self.device
+        toks = self.encode_text(line)
+        tokens = torch.as_tensor(self._bucket_text(toks)[None], device=dev)
+        lengths = torch.tensor([min(len(toks), tokens.shape[1])], device=dev)
+        lat = ar_latent.to(dev).reshape(1, -1)
+        state = decode_start(ar.params, lat, tokens, lengths,
+                             _row_generators(key, 1, dev), ar.config,
+                             max_ar_steps)
+        return ar, self._model("hifigan"), state, lat.float()
+
+    def _stream_chunk(self, ar, state, sampling, chunk: int, max_ar_steps):
+        """Decode up to ``chunk`` more tokens: (done, the latents to
+        vocode up to)."""
+        decode_chunk(ar.params, state, ar.config, sampling, chunk=chunk,
+                     collect_latents=True, qgpt=self._ar_qgpt(),
+                     quant_mode=self._quant_mode)
+        pos = state.step
+        done = bool(state.finished.all()) or pos >= max_ar_steps
+        return done, (min(pos, int(state.lengths[0])) if done else pos)
+
+    @torch.inference_mode()
+    def _stream_line_growing(self, line, ar_latent, sampling, max_ar_steps,
+                             key, stream_chunk_size: int = 40,
+                             first_buffer: int = 60,
+                             overlap_wav_len: int = 1024
+                             ) -> Iterator[np.ndarray]:
+        """After each chunk vocode every latent so far, and emit the
+        samples past the last chunk's with a linear crossfade at each seam
+        (the JAX package's ``_stream_line(mode="growing")``)."""
+        ar, voc, state, g = self._stream_start(line, ar_latent,
+                                               max_ar_steps, key)
+        prev_len, wav_overlap = None, None
+        chunk = max(stream_chunk_size, first_buffer)
+        while True:
+            done, upto = self._stream_chunk(ar, state, sampling, chunk,
+                                            max_ar_steps)
+            chunk = stream_chunk_size
+            lat = state.latents[:, :max(upto, 1)].float()
+            wav_gen = hifigan.inference(voc.params, lat, g, voc.config)
+            wav_gen = wav_gen[0, 0].float().cpu().numpy()
+            start = 0 if prev_len is None else prev_len - overlap_wav_len
+            piece = np.array(wav_gen[start:-overlap_wav_len])
+            if wav_overlap is not None and len(piece) >= overlap_wav_len:
+                ramp = np.linspace(0.0, 1.0, overlap_wav_len,
+                                   dtype=np.float32)
+                piece[:overlap_wav_len] = (wav_overlap * ramp[::-1]
+                                           + piece[:overlap_wav_len] * ramp)
+            wav_overlap = wav_gen[-overlap_wav_len:]
+            prev_len = wav_gen.shape[0]
+            yield piece
+            if done:
+                break
 
     @torch.inference_mode()
     def _stream_line_windowed(self, line, ar_latent, sampling, max_ar_steps,
@@ -851,31 +1147,16 @@ class TTS:
         chunk vocode the trailing ``window`` latents (left context warms
         the vocoder) and emit the new samples with a linear crossfade at
         each seam."""
-        ar = self._model("autoregressive")
-        voc = self._model("hifigan")
+        ar, voc, state, g = self._stream_start(line, ar_latent,
+                                               max_ar_steps, key)
         dev = self.device
-        toks = self.encode_text(line)
-        tokens = torch.as_tensor(self._bucket_text(toks)[None], device=dev)
-        lengths = torch.tensor([min(len(toks), tokens.shape[1])], device=dev)
-        lat = ar_latent.to(dev).reshape(1, -1)
-        g = lat.float()
-        state = decode_start(ar.params, lat, tokens, lengths,
-                             _row_generators(key, 1, dev), ar.config,
-                             max_ar_steps)
         emitted = 0          # latents already emitted as audio
         wav_overlap = None
-        first = True
+        chunk = window
         while True:
-            chunk = window if first else stream_chunk_size
-            first = False
-            state = decode_chunk(ar.params, state, ar.config, sampling,
-                                 chunk=chunk, collect_latents=True,
-                                 qgpt=self._ar_qgpt(),
-                                 quant_mode=self._quant_mode)
-            pos = state.step
-            n = int(state.lengths[0])
-            done = bool(state.finished.all()) or pos >= max_ar_steps
-            upto = min(pos, n) if done else pos
+            done, upto = self._stream_chunk(ar, state, sampling, chunk,
+                                            max_ar_steps)
+            chunk = stream_chunk_size
             if upto <= emitted:
                 if done:
                     break

@@ -1,5 +1,6 @@
 """Model registry (port of ``tortoise_tts_tpu/models/__init__.py``, for
-the models of the HiFiGAN, BigVGAN, batch and candidate routes).
+the models of the serving routes: the AR model, the denoiser, the three
+vocoders, CLVP and the random latent converters).
 
 ``load_model(name)`` returns a ``LoadedModel``: the reference's
 checkpoint when one is found in the model directories (``.pth``, ``.sft``
@@ -33,15 +34,16 @@ WEIGHT_FILES = {
     "diffusion": "diffusion.pth",
     "bigvgan": "bigvgan_24khz_100band.pth",
     "hifigan": "hifigan.pth",
+    "vocoder": "vocoder.pth",
     "clvp": "clvp2.pth",
     "rlg_auto": "rlg_auto.pth",
     "rlg_diffuser": "rlg_diffuser.pth",
     "mel_norms": "mel_norms.pth",
 }
 # the sub-dict of a checkpoint that holds the weights
-STATE_DICT_KEYS = {"bigvgan": "generator"}
+STATE_DICT_KEYS = {"bigvgan": "generator", "vocoder": "model_g"}
 MODEL_NAMES = ("autoregressive", "diffusion", "bigvgan", "hifigan", "clvp",
-               "rlg_auto", "rlg_diffuser")
+               "rlg_auto", "rlg_diffuser", "vocoder")
 # conditioning latent width of each random latent converter
 RLG_CHANNELS = {"rlg_auto": 1024, "rlg_diffuser": 2048}
 
@@ -122,6 +124,8 @@ def convert_torch_sd(name: str, sd, cfg) -> Dict[str, Any]:
                                        resblock=cfg.resblock)
     if c == "hifigan":
         return convert.convert_hifigan(sd)
+    if c == "vocoder":
+        return convert.convert_univnet(sd)
     if c in RLG_CHANNELS:
         return convert.convert_rlg(sd)
     raise KeyError(f"no torch-layout converter for model: {name}")
@@ -145,7 +149,8 @@ def load_model(name: str, dtype: str = "float32", seed: int = 0,
     (None: the CUDA device): converted from the reference's checkpoint
     when one is found, else random parameters from ``seed``.  An
     unreadable or unconvertible checkpoint raises."""
-    from . import bigvgan, clvp, diffusion, hifigan, rlg, unified_voice
+    from . import (bigvgan, clvp, diffusion, hifigan, rlg, unified_voice,
+                   univnet)
     device = resolve_device(device, "load_model")
     cname = _canonical(name)
     if cname not in MODEL_NAMES:
@@ -171,6 +176,8 @@ def load_model(name: str, dtype: str = "float32", seed: int = 0,
     elif cname in RLG_CHANNELS:
         # the config is the latent width, as in the JAX package
         cfg, module, init = RLG_CHANNELS[cname], rlg, rlg.init
+    elif cname == "vocoder":
+        cfg, module, init = univnet.UnivNetConfig(), univnet, _univnet_random
     else:
         cfg, module = hifigan.HifiganConfig(), hifigan
         init = _hifigan_random
@@ -231,4 +238,32 @@ def _bigvgan_random(g: torch.Generator, cfg) -> Dict[str, Any]:
                 "activations": [snake(cout) for _ in range(2 * len(dil))]})
     p["activation_post"] = snake(cout)
     p["conv_post"] = conv1d_init(g, cout, 1, 7)
+    return p
+
+
+def _univnet_random(g: torch.Generator, cfg) -> Dict[str, Any]:
+    """Random UnivNet parameters with the JAX package's structure."""
+    cs, hid = cfg.channel_size, cfg.kpnet_hidden
+    layers = len(cfg.dilations)
+
+    def kp():
+        return {
+            "input_conv": conv1d_init(g, cfg.n_mel_channels, hid, 5),
+            "residual_convs": [{"c1": conv1d_init(g, hid, hid, 3),
+                                "c2": conv1d_init(g, hid, hid, 3)}
+                               for _ in range(3)],
+            "kernel_conv": conv1d_init(
+                g, hid, cs * 2 * cs * cfg.conv_kernel_size * layers, 3),
+            "bias_conv": conv1d_init(g, hid, 2 * cs * layers, 3),
+        }
+
+    p = {"conv_pre": conv1d_init(g, cfg.noise_dim, cs, 7),
+         "conv_post": conv1d_init(g, cs, 1, 7), "res_stack": []}
+    for stride in cfg.strides:
+        p["res_stack"].append({
+            "kernel_predictor": kp(),
+            "convt_pre": {"w": normal(g, (cs, cs, 2 * stride), 0.02),
+                          "b": torch.zeros(cs, device=g.device)},
+            "conv_blocks": [conv1d_init(g, cs, cs, cfg.conv_kernel_size)
+                            for _ in cfg.dilations]})
     return p

@@ -1,14 +1,13 @@
 """Checkpoint ingestion: reference PyTorch state dicts -> the port's
 parameter trees (the port's own copy of ``tortoise_tts_tpu/models/
 convert.py``, for the models the port has: UnifiedVoice, DiffusionTTS,
-CLVP, BigVGAN, HiFiGAN and the random latent converters).
+CLVP, BigVGAN, HiFiGAN, UnivNet and the random latent converters).
 
 The reference ships jbetker's original tortoise-tts-v2 weights; this
 module maps those state dicts (``utils/io.load_state_dict``) onto the
 functional parameter layout the port shares with the JAX package, as
 numpy arrays: ``models.load_model`` casts them onto the device.  The
-UnivNet, DVAE and classifier converters wait for their models
-(ROADMAP.md).  Conventions (models/common.py):
+DVAE and classifier converters wait for their models (ROADMAP.md).  Conventions (models/common.py):
 
 - torch nn.Linear.weight (out,in)   -> ours (in,out)  [transpose]
 - HF  Conv1D.weight      (in,out)   -> ours (in,out)  [as-is]
@@ -171,6 +170,35 @@ def convert_bigvgan(sd: StateDict, n_ups: int = 6, n_kernels: int = 3,
             }
         p["resblocks"].append(blk)
     return p
+
+
+def convert_univnet(sd: StateDict, n_blocks: int = 3,
+                    n_dilations: int = 4) -> Dict[str, Any]:
+    """UnivNet (reference vocoder.py:227-267 layout), weight norm
+    folded."""
+    sd = fold_weight_norm(sd)
+
+    def kp(prefix: str) -> Dict[str, Any]:
+        return {
+            "input_conv": _conv(sd, prefix + ".input_conv.0"),
+            "residual_convs": [
+                {"c1": _conv(sd, f"{prefix}.residual_convs.{j}.1"),
+                 "c2": _conv(sd, f"{prefix}.residual_convs.{j}.3")}
+                for j in range(3)],
+            "kernel_conv": _conv(sd, prefix + ".kernel_conv"),
+            "bias_conv": _conv(sd, prefix + ".bias_conv"),
+        }
+
+    return {
+        "conv_pre": _conv(sd, "conv_pre"),
+        "conv_post": _conv(sd, "conv_post.1"),
+        "res_stack": [{
+            "kernel_predictor": kp(f"res_stack.{i}.kernel_predictor"),
+            "convt_pre": _conv(sd, f"res_stack.{i}.convt_pre.1"),
+            "conv_blocks": [_conv(sd, f"res_stack.{i}.conv_blocks.{j}.1")
+                            for j in range(n_dilations)],
+        } for i in range(n_blocks)],
+    }
 
 
 # ---------------------------------------------------------------------------

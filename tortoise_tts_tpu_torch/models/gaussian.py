@@ -5,8 +5,9 @@
   the JAX package gathers them; ``step_tables`` puts every per-step
   number a sampler step reads (made on the host in numpy, as the eager
   loop made them) into device tables indexed by the step on the device;
-- ``sample_loop`` runs DDIM (eta 0, as the inference route calls it) or
-  the ancestral P sampler, with conditioning-free guidance (the
+- ``sample_loop`` runs DDIM (eta 0, as the inference route calls it),
+  the ancestral P sampler or DPM-Solver++(2M) (``"dpm++"``, the JAX
+  package's ``_dpmpp_2m_loop``), with conditioning-free guidance (the
   reference's ramped k) batched into one model call: one step
   (``sampler_step_fn``) reads no host value, and on CUDA tensors it is
   captured once as a CUDA graph (``utils/graphs.StepGraph``) and replayed
@@ -15,8 +16,8 @@
 - semantics of get_diffuser(trained_diffusion_steps=4000, linear betas,
   epsilon prediction, learned_range variance), diffusion.py:1576-1590.
 
-DPM++, DDIM with eta > 0, the cosine schedule and the training losses
-are not ported yet (ROADMAP.md).
+DDIM with eta > 0, the cosine schedule and the training losses are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -130,7 +131,8 @@ def step_tables(sched: DiffusionSchedule, device) -> Dict[str, torch.Tensor]:
     with ``_tab``, made on the host in numpy (PyTorch on CUDA multiplies
     by the reciprocal where a division has a Python number for divisor, so
     nothing here is recomputed on the device).  ``timestep_map`` is int64,
-    the rest float32."""
+    the rest float32; DPM++'s ``alpha``, ``sigma`` and ``lambda`` have one
+    more entry, index n, for the clean state past t = 0."""
     n = sched.num_timesteps
     ts = range(n)
     # the ramped guidance strength, in float32
@@ -152,6 +154,14 @@ def step_tables(sched: DiffusionSchedule, device) -> Dict[str, torch.Tensor]:
                                      for a in abar_prev],
         "nonzero": [np.float32(t != 0) for t in ts],
     }
+    # DPM++'s alpha, sigma and lambda, with the extra index n for "t < 0"
+    # (a clean state), in float64 and read as float32, as the JAX package
+    # builds them
+    abar = np.concatenate([sched.alphas_cumprod, [1.0 - 1e-8]])
+    alpha = np.sqrt(abar)
+    sigma = np.sqrt(np.maximum(1.0 - abar, 1e-12))
+    cols.update(alpha=alpha, sigma=sigma,
+                **{"lambda": np.log(alpha) - np.log(sigma)})
     out = {k: torch.as_tensor(np.asarray(v, dtype=np.float32), device=device)
            for k, v in cols.items()}
     out["timestep_map"] = torch.as_tensor(
@@ -206,22 +216,44 @@ def sampler_step_fn(model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor,
     device tensor, both updated in place (t counts down).  It reads no
     host value, so it can be captured and replayed.  The P sampler draws
     row r's noise from ``generators[r]`` at every step and adds it where
-    t != 0, as the JAX package's ``p_step`` does."""
+    t != 0, as the JAX package's ``p_step`` does.  DPM++ carries the last
+    step's x_0 and log-SNR step h in device buffers of its own (h starts at
+    1), and takes its second-order update where it has a last step and t >
+    0, as ``_dpmpp_2m_loop`` does."""
+    n = sched.num_timesteps
+    if sampler == "dpm++":
+        x0_prev = torch.zeros_like(x)
+        h_prev = torch.ones(1, device=x.device)
+
+    def tab(name, i):
+        return tabs[name].index_select(0, i)
+
+    def dpmpp(xstart) -> None:
+        # the target index: t - 1, or the clean state n past t = 0
+        tm = torch.where(t - 1 < 0, n, t - 1)
+        h = tab("lambda", tm) - tab("lambda", t)
+        r = h_prev / torch.clamp(h, min=1e-8)
+        use_2m = (t < n - 1) & (t > 0)
+        inv = 1 / (2 * torch.clamp(r, min=1e-8))
+        d = torch.where(use_2m, (1 + inv) * xstart - inv * x0_prev, xstart)
+        x.copy_((tab("sigma", tm) / tab("sigma", t)) * x
+                - tab("alpha", tm) * torch.expm1(-h) * d)
+        x0_prev.copy_(xstart)
+        h_prev.copy_(h)
+
     def step() -> None:
         mean, logvar, xstart = p_mean_variance(model_fn, x, t, sched, tabs)
         if sampler == "p":
             z = torch.cat([torch.randn((1,) + x.shape[1:], generator=g,
                                        device=x.device)
                            for g in generators])
-            nz = tabs["nonzero"].index_select(0, t)
-            x.copy_(mean + nz * torch.exp(0.5 * logvar) * z)
+            x.copy_(mean + tab("nonzero", t) * torch.exp(0.5 * logvar) * z)
+        elif sampler == "dpm++":
+            dpmpp(xstart)
         else:
-            recip = tabs["recip"].index_select(0, t)
-            recipm1 = tabs["recipm1"].index_select(0, t)
-            eps = (recip * x - xstart) / recipm1
-            x.copy_(xstart * tabs["sqrt_abar_prev"].index_select(0, t)
-                    + tabs["sqrt_one_minus_abar_prev"].index_select(0, t)
-                    * eps)
+            eps = (tab("recip", t) * x - xstart) / tab("recipm1", t)
+            x.copy_(xstart * tab("sqrt_abar_prev", t)
+                    + tab("sqrt_one_minus_abar_prev", t) * eps)
         t.sub_(1)
     return step
 
@@ -232,16 +264,14 @@ def sample_loop(model_fn: ModelFn, noise: torch.Tensor,
                 ) -> torch.Tensor:
     """The full reverse process from x_T = ``noise`` (B, 100, T).
 
-    sampler: 'ddim' with eta 0 (diffusion.py:646-694) or 'p' (510-554).
+    sampler: 'ddim' with eta 0 (diffusion.py:646-694), 'p' (510-554) or
+    'dpm++' (DPM-Solver++(2M), arXiv:2211.01095, in x_0-prediction form).
     The P sampler draws row r's per-step noise from ``generators[r]``, so
     a row's draws depend on its own generator only (the JAX package's
-    per-row keys); DDIM draws nothing.  On CUDA tensors the step is
+    per-row keys); DDIM and DPM++ draw nothing.  On CUDA tensors the step is
     captured as a CUDA graph at the first step (which runs eagerly, as the
     capture's warm-up) and replayed for the others."""
-    if sampler == "dpm++":
-        raise NotImplementedError(
-            "diffusion_sampler='dpm++' is not ported yet (ROADMAP.md)")
-    if sampler not in ("ddim", "p"):
+    if sampler not in ("ddim", "p", "dpm++"):
         raise ValueError(f"unknown sampler {sampler!r}")
 
     dev = noise.device

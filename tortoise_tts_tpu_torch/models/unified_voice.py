@@ -15,7 +15,9 @@ What runs where:
   goes through K3 (``kernels/flash_decode``), or
   through K3's shared-prefix form in the candidate fan-out
   (``inference_speech_shared``: each group's prefill K/V held once, beside
-  the rows' decode regions).
+  the rows' decode regions);
+- beam search (``inference_speech_beam``) runs the same decode step over
+  B x W beams, with the cache's decode region gathered by beam each step.
 
 ``decode_start`` runs the prefill and returns a ``DecodeState`` whose
 cache and buffers every decode step updates in place (one KV cache, (L,
@@ -48,8 +50,9 @@ from ..kernels.flash_decode import flash_decode, flash_decode_shared
 from ..kernels.qgemv import qgemv
 from ..kernels.qgemv_w8a8 import qgemv_w8a8
 from ..ops.sampling import (SamplingConfig, apply_length_penalty,
-                            apply_repetition_penalty, mirostat_step,
-                            row_uniforms, sample_token)
+                            apply_repetition_penalty, apply_temperature,
+                            apply_top_k, apply_top_p, apply_typical, gumbel,
+                            mirostat_step, row_uniforms, sample_token)
 from ..utils.graphs import StepGraph
 from .arch import conditioning_encoder, conditioning_encoder_init
 from .common import (embedding, embedding_init, gelu_new, layer_norm,
@@ -614,3 +617,235 @@ def inference_speech_shared(params: Params, cond_latent: torch.Tensor,
                          collect_latents=collect_latents, qgpt=qgpt,
                          quant_mode=quant_mode, prefix=prefix)
     return DecodeResult(state.tokens, state.lengths, state.latents)
+
+
+# ---------------------------------------------------------------------------
+# beam search (the JAX package's inference_speech_beam)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BeamState:
+    """A beam decode's buffers, every one updated in place by the step:
+    B rows of W beams, the beams in the batch dimension of the trunk's
+    cache (row-major, row b's beams at b*W .. b*W + W - 1).  ``scratch``
+    holds the gathered decode region of the cache, one of K and V at a
+    time; ``gumbel`` is an injected (max_len, B, W*V) noise table
+    (tests), else the sampled beam draws from ``generator``."""
+    step: int
+    step_dev: torch.Tensor   # () int32
+    cache: KVCache           # (L, B*W, H, S, Dh)
+    scratch: torch.Tensor    # (L, B*W, H, max_len, Dh)
+    lat: torch.Tensor        # (B*W, D)
+    tokens: torch.Tensor     # (B, W, max_len)
+    scores: torch.Tensor     # (B, W) summed log-probs
+    finished: torch.Tensor   # (B, W) bool
+    lengths: torch.Tensor    # (B, W)
+    counts: torch.Tensor     # (B, W, V) tokens seen, per beam
+    key_mask: torch.Tensor   # (B*W, S)
+    generator: Optional[torch.Generator]
+    gumbel: Optional[torch.Tensor]
+
+
+def beam_start(params: Params, cond_latent: torch.Tensor, text: torch.Tensor,
+               text_lengths: torch.Tensor, num_beams: int,
+               cfg: UnifiedVoiceConfig = UnifiedVoiceConfig(),
+               max_length: int = 500,
+               generator: Optional[torch.Generator] = None,
+               gumbel: Optional[torch.Tensor] = None) -> BeamState:
+    """The prefill of every row repeated ``num_beams`` times, and the beam
+    state: beam 0 of each row at score 0, the others at -1e9, so the first
+    step expands beam 0 alone."""
+    b, w = text.shape[0], num_beams
+
+    def rep(x):
+        return x.repeat_interleave(w, dim=0)
+    st = decode_start(params, rep(cond_latent), rep(text), rep(text_lengths),
+                      None, cfg, max_length)
+    dev = text.device
+    k = st.cache.k
+    scratch = torch.empty(k.shape[:3] + (max_length, k.shape[4]),
+                          dtype=k.dtype, device=dev)
+    scores = torch.full((b, w), -1e9, device=dev)
+    scores[:, 0] = 0.0
+    return BeamState(
+        0, st.step_dev, st.cache, scratch, st.lat,
+        st.tokens.view(b, w, max_length), scores,
+        torch.zeros((b, w), dtype=torch.bool, device=dev),
+        st.lengths.view(b, w), st.counts.view(b, w, -1), st.key_mask,
+        generator, gumbel)
+
+
+def gather_beams(state: BeamState, sel: torch.Tensor) -> None:
+    """Reorder the cache's decode region by beam, in place: trunk row i
+    takes row ``sel[i]``'s K and V (the prefix, the same in a row's beams,
+    stays).  One gather into the scratch and one copy back for each of K
+    and V, on 16-byte elements: ``index_select`` moves one element a
+    thread, so the cache viewed as complex128 moves 8 bf16 values at a
+    time (PERF.md, section 6)."""
+    first = state.cache.k.shape[3] - state.tokens.shape[2]
+    scratch = state.scratch.view(torch.complex128)
+    for z in state.cache:
+        region = z[:, :, :, first:].view(torch.complex128)
+        torch.index_select(region, 1, sel, out=scratch)
+        region.copy_(scratch)
+
+
+def beam_step_fn(params: Params, state: BeamState,
+                 cfg: UnifiedVoiceConfig = UnifiedVoiceConfig(),
+                 sampling: SamplingConfig = SamplingConfig(),
+                 do_sample: bool = False, qgpt: Optional[Params] = None,
+                 quant_mode: str = "int8") -> Callable[[], None]:
+    """One beam step as a function of no arguments (the body of the JAX
+    package's beam ``lax.while_loop``), reading no host value:
+
+    1. the stop logit's length penalty on the raw logits, then
+       ``log_softmax``, then the repetition penalty (per-beam counts) and
+       the typical warper on the log-probs (HF's beam order);
+    2. a finished beam may only continue with the stop token, at 0 added
+       score;
+    3. greedy: the top W of the (B, W*V) totals.  Sampled (HF
+       ``beam_sample``): temperature, top-k and top-p warp the totals, a
+       Gumbel top-2W draws candidates, the W stop continuations join them,
+       and the W best by warped score go on;
+    4. the decode region of the cache, the tokens, counts, ``finished`` and
+       lengths are gathered by beam, and the new tokens go through the
+       trunk (K2 or K8 with ``qgpt``, then K3) into the cache and ``lat``.
+
+    Once every beam has stopped the step changes no score, token, length
+    or beam order (the JAX loop has ended there), so the steps run before
+    the host reads "all stopped" change nothing."""
+    if quant_mode not in QUANT_MODES:
+        raise ValueError(f"quant_mode must be int8|w8a8, got {quant_mode!r}")
+    if do_sample and state.generator is None and state.gumbel is None:
+        raise ValueError("the sampled beam needs a generator")
+    b, w, max_len = state.tokens.shape
+    v = state.counts.shape[-1]
+    dev = state.tokens.device
+    stop = cfg.stop_mel_token
+    cache_len = state.cache.k.shape[3]
+    first_slot = cache_len - max_len
+    gpt = params["gpt"]
+    dtype = params["mel_embedding"]["w"].dtype
+    pos_off = 2 if cfg.hf_decode_positions else 1
+    pos_w = params["mel_pos_embedding"]["w"]
+    layers = decode_layers(gpt, qgpt)
+    mode = quant_mode if qgpt is not None else None
+    st = state
+    stop_only = torch.full((v,), float("-inf"), device=dev)
+    stop_only[stop] = 0.0
+    stop_cand = (torch.arange(w, device=dev) * v + stop)[None].expand(b, w)
+    beams = torch.arange(w, device=dev)[None].expand(b, w)
+    row0 = (torch.arange(b, device=dev) * w)[:, None]
+    rows = torch.arange(b, device=dev)[:, None].expand(b, w)
+
+    def step() -> None:
+        t = st.step_dev
+        idx = t.long().view(1)
+        x = linear(params["mel_head"], st.lat).float()
+        if sampling.length_penalty_factor != 0.0:
+            x[:, stop] = apply_length_penalty(x[:, stop], t,
+                                              sampling.length_penalty_factor)
+        logp = torch.log_softmax(x, dim=-1)
+        logp = apply_repetition_penalty(logp, st.counts.view(b * w, v),
+                                        sampling.repetition_penalty)
+        logp = apply_typical(logp, sampling.typical_mass).view(b, w, v)
+        logp = torch.where(st.finished[..., None], stop_only, logp)
+        total = st.scores[..., None] + logp
+        if do_sample:
+            warped = apply_temperature(total.view(b * w, v),
+                                       sampling.temperature)
+            warped = apply_top_p(apply_top_k(warped, sampling.top_k),
+                                 sampling.top_p)
+            flat = warped.view(b, w * v)
+            if st.gumbel is not None:
+                noise = st.gumbel.index_select(0, idx)[0]
+            else:
+                noise = gumbel(torch.rand((b, w * v), generator=st.generator,
+                                          device=dev))
+            cand = torch.topk(torch.where(torch.isfinite(flat), flat + noise,
+                                          float("-inf")), 2 * w).indices
+            cand = torch.cat([cand, stop_cand], dim=1)
+            top_scores, order = torch.topk(torch.gather(flat, 1, cand), w)
+            top_idx = torch.gather(cand, 1, order)
+        else:
+            top_scores, top_idx = torch.topk(total.view(b, w * v), w)
+        go = ~st.finished.all()
+        beam = torch.where(go, top_idx // v, beams)
+        tok = torch.where(go, top_idx % v, stop)
+        top_scores = torch.where(go, top_scores, st.scores)
+        gather_beams(st, (row0 + beam).view(-1))
+        st.tokens.copy_(torch.gather(
+            st.tokens, 1, beam[..., None].expand(b, w, max_len)))
+        st.tokens.index_copy_(2, idx, tok[..., None])
+        st.counts.copy_(torch.gather(st.counts, 1,
+                                     beam[..., None].expand(b, w, v)))
+        st.counts[rows, beams, tok] += 1
+        finished = torch.gather(st.finished, 1, beam)
+        lengths = torch.gather(st.lengths, 1, beam)
+        st.lengths.copy_(torch.where((tok == stop) & ~finished, idx, lengths))
+        st.finished.copy_(finished | (tok == stop))
+        st.scores.copy_(top_scores)
+        row = (idx + pos_off).clamp(max=pos_w.shape[0] - 1)
+        emb = (embedding(params["mel_embedding"], tok.view(-1))
+               + pos_w.index_select(0, row))
+        h = _gpt_decode_step(layers, gpt["ln_f"], emb.to(dtype), cfg.heads,
+                             st.cache, t + first_slot, st.key_mask, mode)
+        st.lat.copy_(layer_norm(params["final_norm"], h))
+        st.step_dev.add_(1)
+    return step
+
+
+def beam_result(state: BeamState, length_penalty: float) -> DecodeResult:
+    """Each row's best beam by score / max(length, 1)**length_penalty.
+    The latents come back as zeros, as the JAX package returns them: a
+    route's latent pass recomputes them."""
+    b, _, max_len = state.tokens.shape
+    norm = state.scores / torch.pow(state.lengths.clamp(min=1).float(),
+                                    length_penalty)
+    best = norm.argmax(dim=1)
+    rows = torch.arange(b, device=best.device)
+    return DecodeResult(
+        state.tokens[rows, best], state.lengths[rows, best],
+        torch.zeros((b, max_len, state.lat.shape[-1]),
+                    dtype=state.lat.dtype, device=best.device))
+
+
+def inference_speech_beam(params: Params, cond_latent: torch.Tensor,
+                          text: torch.Tensor, text_lengths: torch.Tensor,
+                          cfg: UnifiedVoiceConfig = UnifiedVoiceConfig(),
+                          num_beams: int = 4, max_length: int = 500,
+                          sampling: SamplingConfig = SamplingConfig(),
+                          generator: Optional[torch.Generator] = None,
+                          do_sample: bool = False,
+                          qgpt: Optional[Params] = None,
+                          quant_mode: str = "int8",
+                          gumbel: Optional[torch.Tensor] = None
+                          ) -> DecodeResult:
+    """Beam search over B rows of ``num_beams`` beams with the HF
+    processor stack (``beam_step_fn``), then each row's best beam by
+    ``sampling.length_penalty``.  ``do_sample``: HF ``beam_sample``,
+    drawing from ``generator`` (one for the whole batch, as the JAX
+    package keys the whole frontier with one key) or from the injected
+    ``gumbel`` table.  CPU tensors run the step eagerly; CUDA tensors
+    capture it once a call (the first step runs eagerly, as the capture's
+    warm-up) and replay it a token.  "Every beam stopped" is read every
+    ``SYNC_EVERY`` steps."""
+    state = beam_start(params, cond_latent, text, text_lengths, num_beams,
+                       cfg, max_length, generator, gumbel)
+    step = beam_step_fn(params, state, cfg, sampling, do_sample, qgpt,
+                        quant_mode)
+    dev = text.device
+    if dev.type != "cuda":
+        advance(state, max_length, step)
+    else:
+        graph: List[StepGraph] = []
+        draws = ([generator] if do_sample and gumbel is None else [])
+
+        def run() -> None:
+            if graph:
+                graph[0].replay()
+            else:
+                graph.append(StepGraph(step, dev, draws))
+        advance(state, max_length, run)
+    return beam_result(state, sampling.length_penalty)

@@ -30,6 +30,9 @@ class SamplingConfig:
     top_p: float = 1.0        # 1.0 = disabled
     typical_mass: float = 0.0  # 0 = disabled
     repetition_penalty: float = 1.0
+    # beam search's final choice: score / length**length_penalty (HF
+    # semantics); the sampled path ignores it, as HF generate() does
+    length_penalty: float = 1.0
     # stop-logit length penalty of the sampled path (stop /= len**factor)
     length_penalty_factor: float = 0.0
     greedy: bool = False
@@ -153,6 +156,14 @@ def categorical_rows(logits: torch.Tensor, uniforms: torch.Tensor
     """Gumbel-max draw: argmax(logits - log(-log u)) per row."""
     gumbel = -torch.log(-torch.log(uniforms))
     return (logits + gumbel).argmax(-1)
+
+
+def gumbel(uniforms: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise -log(-log u) from uniforms in [0, 1), clamped below at
+    float32's smallest normal number, as ``jax.random.gumbel`` draws its
+    uniforms: injected JAX uniforms give its noise."""
+    u = uniforms.clamp(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
 
 
 def sample_token(logits: torch.Tensor, cfg: SamplingConfig,

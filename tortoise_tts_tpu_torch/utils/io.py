@@ -13,7 +13,7 @@ import math
 import struct
 import wave
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -64,6 +64,33 @@ def load_safetensors(path: str | Path) -> Dict[str, torch.Tensor]:
              if count else torch.empty(0, dtype=dtype))
         out[name] = t.reshape(info["shape"])
     return out
+
+
+def load_metadata(path: str | Path) -> Dict[str, Any]:
+    """The "__metadata__" of a safetensors header, each value read as JSON
+    where it is JSON."""
+    with open(path, "rb") as f:
+        n = struct.unpack("<Q", f.read(8))[0]
+        meta = json.loads(f.read(n)).get("__metadata__", {})
+    out = {}
+    for k, v in meta.items():
+        try:
+            out[k] = json.loads(v)
+        except (json.JSONDecodeError, TypeError):
+            out[k] = v
+    return out
+
+
+def pick_path(path: Path, *extensions: str) -> Path:
+    """``path`` if it exists, else its first sibling with one of the
+    extensions that exists, else ``path``."""
+    if path.exists():
+        return path
+    for ext in extensions:
+        p = path.with_suffix(ext)
+        if p.exists():
+            return p
+    return path
 
 
 def load_state_dict(path: str | Path, key: Optional[str] = None
