@@ -119,6 +119,38 @@ Phases 11-15 (slice 12's routes) run after phase 8, before 9 and 10:
    a decode captured with it, ``disable_lora``, the same state's next
    chunk captured again with the base weights, equal to the eager step.
 
+Phases 16-18 (training) run last, after the serving models
+leave the card:
+16. ``train_grads``: K1 at the AR train steps' shapes ((16, 16, 773, 64),
+   the README yaml's, and (8, 16, 389, 64), train_bench's: the ring
+   path), K4 (the resblock in-half and the attention qkv head) and K5 at
+   the diffusion step's (16, 1024, 2240), in bf16: the kernel's autograd
+   path (kernel forward, plain recompute backward; K5's tap-major weight
+   made from the live weight in the graph) against the plain version's
+   autograd, the output and every input's gradient within 2% of the
+   plain one's largest value, and fwd+bwd device ms beside the library's
+   (SDPA causal; F.group_norm + F.silu + F.conv1d) and the bound.
+17. ``train_tiny``: one step of a tiny AR, diffusion and DVAE model, fp32
+   with TF32 off, on the card (K1, K4, K5) and on the CPU from the same
+   params, batch, t and noise: loss and every gradient leaf within 1e-3
+   of the leaf's largest value, the params after one SGD update within
+   1e-6 + 1e-5 |p|, and the launches the code implies.
+18. ``train_route``: ``train.main(cfg=...)`` at full width on fabricated
+   3-5 s artifacts with the ``store_mels`` targets: the AR finetune at
+   train_bench's shape (batch 8, buckets 128/256, AdamW without warmup on
+   one fixed batch: the loss must fall), a checkpoint at its last step
+   that a new ``load_engines`` resumes (its next step against the
+   uninterrupted one's), one profiled step (device ms, busy share, device
+   ms by kernel group) and one ``run_eval`` sample (a wav); the README
+   yaml (AR + diffusion co-trained, batch 16, buckets 256/512, the batch
+   halved until it fits; never an OOM-skipped step), profiled too; a
+   rank-128 LoRA run; one DVAE step.  Each prints ms a micro-step per
+   engine over the steady window, tokens a second, peak memory and
+   checks finite losses, no skipped step and K1, K4 and K5's launches a
+   micro-step against the count the code implies (``train_launches``);
+   the AR finetune also the checkpoint's stall and write seconds.
+The training launches join the ``kernels`` line's counts.
+
 Every route runs its decode and its sampler loop as CUDA graphs
 (``utils/graphs.StepGraph``): each route phase asserts one capture a
 decode and a diffusion call and a replay for every other token and DDIM
@@ -2936,6 +2968,777 @@ def lora_route(torch, tts, ref: str, tmp: str):
     return out["captured"][2]
 
 
+# ---------------------------------------------------------------------------
+# phases 16-18: training
+# ---------------------------------------------------------------------------
+
+# a kernel's output and its gradients against the plain version's, row by
+# row (``_rows``): a row's error norm within rtol of the row's norm plus
+# one bf16 ulp (2^-7) of the tensor's RMS an element.  A row of K1's
+# output averages up to S values and shrinks like sqrt(e/S), so a bound
+# on the tensor's largest |value| would pass a lost key tile.  The
+# gradients take one fixed upstream gradient for every version: through
+# the bf16 plain backward, an upstream gradient that moves by an ulp moves
+# some rows of K1's dq by more than this bound (the plain version's own dq
+# is off fp32 by more; PERF.md, PR 13)
+TRAIN_GRAD_TOL = dict(rtol=2e-2, rms_ulp=2.0 ** -7)
+# the tiny fp32 step, card (kernels, TF32 off) against the CPU (plain
+# versions): loss and gradient leaves relative to the leaf's largest
+# |value|; the parameters after one SGD update
+TINY_REL_TOL = 1e-3
+TINY_PARAM_TOL = dict(atol=1e-6, rtol=1e-5)
+# the resumed step against the uninterrupted one: one bf16 rounding of a
+# parameter (2^-8 of it) plus what the backward's atomics reorder
+RESUME_PARAM_RTOL = 2.0 ** -7
+# K1 at the AR train steps' shapes: the README yaml's (B=16, S = 1 + 258
+# + 514) and train_bench's (B=8, S = 1 + 130 + 258)
+K1_TRAIN_SHAPES = ((16, 16, 773, 64), (8, 16, 389, 64))
+# K4 and K5 at the diffusion step's (the README yaml's) shapes: T =
+# mel_bucket 512 x 4 frames x 24000/22050, rounded up to 64
+DIFF_TRAIN_T = 2240
+DIFF_TRAIN_B = 16
+TRAIN_KERNELS = ("flash_attention", "gn_conv", "ts_res_block")
+
+
+def train_launches(ar: int = 0, diffusion: int = 0, feeder: int = 0,
+                   remat: bool = True) -> dict:
+    """K1, K4 and K5 launches a micro-step: K1 a layer of an ``ar``-layer
+    AR step, again in its remat recompute, and a layer of the diffusion
+    feeder's ``feeder``-layer latent pass; in a ``diffusion``-layer
+    diffusion step K4 in the latent conditioner's 4 attention heads, the
+    integrator's 3 and the trunk's layers (a resblock in-half and an
+    attention head each) and the 3 final resblocks, K5 in every resblock.
+    The backwards recompute the plain versions and launch nothing."""
+    return {"flash_attention": ar * (2 if remat else 1) + feeder,
+            "gn_conv": 4 + 3 * 2 + 2 * diffusion + 3 if diffusion else 0,
+            "ts_res_block": 3 + diffusion + 3 if diffusion else 0}
+
+
+def _fwd_bwd(torch, fn, inputs, upstream):
+    """fn(*inputs) and the gradients of <fn(*inputs), upstream>."""
+    xs = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+    out = fn(*xs)
+    grads = torch.autograd.grad(out, [x for x in xs if x.requires_grad],
+                                upstream)
+    return out.detach(), grads
+
+
+def _rel_err(got, want, name, tol):
+    d = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert math.isfinite(d), f"{name}: non-finite"
+    assert d <= tol * scale + 1e-6, f"{name}: {d} > {tol} x {scale}"
+    return d / max(scale, 1e-30)
+
+
+def _rows(t):
+    """t as rows: trailing dimensions folded in until a row holds 64
+    elements or more (K1's head dim, K4's and K5's time axis, a weight's
+    output channel; a vector is one row)."""
+    n, i = 1, t.dim()
+    while i > 0 and n < 64:
+        i -= 1
+        n *= t.shape[i]
+    return t.reshape(-1, n)
+
+
+def _row_err(got, want) -> dict:
+    """``row``: the worst row's error norm over its TRAIN_GRAD_TOL bound
+    (above 1 fails); ``global``: the largest |error| over the largest
+    |want|, the tensor-wide reading, for comparison."""
+    g, w = _rows(got.float()), _rows(want.float())
+    d = g - w
+    ulp = TRAIN_GRAD_TOL["rms_ulp"] * float(w.pow(2).mean().sqrt())
+    bound = (TRAIN_GRAD_TOL["rtol"] * w.norm(dim=1)
+             + ulp * math.sqrt(w.shape[1]))
+    return {"row": float((d.norm(dim=1) / bound).max()),
+            "global": float(d.abs().max() / w.abs().max().clamp_min(1e-30))}
+
+
+def _held(name, out_k, g_k, out_p, g_p, names) -> dict:
+    """_row_err of the output and of every gradient, by tensor name, and
+    whether the gradient is the plain one bit for bit."""
+    errs = {"out": _row_err(out_k, out_p)}
+    for nm, a, b in zip(names, g_k, g_p):
+        errs["d" + nm] = dict(_row_err(a, b), exact=bool((a == b).all()))
+    for nm, e in errs.items():
+        assert math.isfinite(e["row"]), f"{name} {nm}: non-finite"
+    return errs
+
+
+def _grad_case(torch, name, shape, kernel, plain, library, inputs, names,
+               nbytes, flops, fault=None, n=10):
+    """One kernel's forward and every input's gradient against its plain
+    version (TRAIN_GRAD_TOL, row by row), then fwd+bwd device ms of the
+    kernel path, the plain version and the library's call; one
+    ``train_grads`` line.  Every version's backward takes one upstream
+    gradient, random from a seed.  ``fault``, a planted error (the plain
+    version with one key tile dropped), must fail the same check."""
+    with torch.no_grad():
+        shape_out = kernel(*inputs).shape
+    g = torch.Generator(device=inputs[0].device).manual_seed(7)
+    up = torch.randn(shape_out, generator=g, device=inputs[0].device
+                     ).to(inputs[0].dtype)
+    out_k, g_k = _fwd_bwd(torch, kernel, inputs, up)
+    out_p, g_p = _fwd_bwd(torch, plain, inputs, up)
+    errs = _held(name, out_k, g_k, out_p, g_p, names)
+    for nm, e in errs.items():
+        assert e["row"] <= 1, f"{name} {nm}: {e} off TRAIN_GRAD_TOL"
+    for nm, a in zip(names, g_k):
+        assert float(a.float().abs().max()) > 0, f"{name}: d{nm} is zero"
+    del out_k, g_k
+    planted = {}
+    if fault is not None:
+        out_f, g_f = _fwd_bwd(torch, fault, inputs, up)
+        planted = _held(name, out_f, g_f, out_p, g_p, names)
+        assert max(e["row"] for e in planted.values()) > 1, \
+            f"{name}: the check passes a dropped key tile: {planted}"
+        del out_f, g_f
+    del out_p, g_p
+    t_ = {key: device_ms(torch, lambda _, f=fn: _fwd_bwd(torch, f, inputs,
+                                                        up),
+                         n=n, warmup=2)
+          for key, fn in (("fwd_bwd_ms", kernel), ("plain_fwd_bwd_ms", plain),
+                          ("library_fwd_bwd_ms", library))}
+    bms, by = bound_ms(nbytes, flops)
+    emit("train_grads", name=name, shape=list(shape), err=errs,
+         tol=TRAIN_GRAD_TOL, **({"planted_fault": planted} if planted
+                                else {}),
+         bound_ms=bms, bound_by=by, **t_)
+    torch.cuda.empty_cache()
+    return dict(row_err=max(e["row"] for e in errs.values()), bound_ms=bms,
+                **t_)
+
+
+def train_grads(torch, dev):
+    """Phase 16: K1, K4 and K5 differentiated on the card at the training
+    shapes, in bf16: the kernel's autograd path (kernel forward, plain
+    recompute backward) against the plain version's autograd, output and
+    every input's gradient, and fwd+bwd device ms beside the library's
+    (SDPA; F.group_norm + F.silu + F.conv1d) and the bound."""
+    from tortoise_tts_tpu_torch.kernels import flash_attention as k1
+    from tortoise_tts_tpu_torch.kernels import gn_conv as k4
+    from tortoise_tts_tpu_torch.kernels import ts_res_block as k5
+    F = torch.nn.functional
+    out = {}
+    for i, (b, h, s, d) in enumerate(K1_TRAIN_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(70 + i)
+        q, k, v = (torch.randn(b, h, s, d, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        # the planted fault: the last full key tile before the diagonal
+        # one dropped for every query (a ring-buffer slot lost at S=773)
+        drop = torch.ones(b, s, dtype=torch.bool, device=dev)
+        lo = ((s - 1) // k1.KEY_TILE - 1) * k1.KEY_TILE
+        drop[:, lo:lo + k1.KEY_TILE] = False
+        # causal: every matmul does half its square
+        out[("flash_attention", b)] = _grad_case(
+            torch, "flash_attention", (b, h, s, d),
+            lambda q, k, v: k1.flash_attention(q, k, v, causal=True),
+            lambda q, k, v: k1.flash_attention_plain(q, k, v, causal=True),
+            lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True),
+            (q, k, v), ("q", "k", "v"), 8 * b * h * s * d * 2,
+            7 * b * h * s * s * d,
+            fault=lambda q, k, v: k1.flash_attention_plain(q, k, v, drop,
+                                                           causal=True))
+    b, c, t, groups = DIFF_TRAIN_B, 1024, DIFF_TRAIN_T, 32
+    for i, (name, m, act) in enumerate((("resblock_in_half", c, True),
+                                        ("attention_qkv_head", 3 * c,
+                                         False))):
+        x, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, m, 1, 80 + i)
+        inputs = (x, norm["scale"], norm["bias"], conv["w"], conv["b"])
+
+        def kernel(x, ga, be, w, bi, act=act):
+            return k4.gn_conv1x1(x, {"scale": ga, "bias": be},
+                                 {"w": w, "b": bi}, groups, act)
+
+        def plain(x, ga, be, w, bi, act=act):
+            return k4.gn_conv1x1_plain(x, {"scale": ga, "bias": be},
+                                       {"w": w, "b": bi}, groups, act)
+
+        def library(x, ga, be, w, bi, act=act):
+            y = F.group_norm(x, groups, ga.to(x.dtype), be.to(x.dtype))
+            return F.conv1d(F.silu(y) if act else y, w, bi.to(x.dtype))
+        out[("gn_conv", name)] = _grad_case(
+            torch, "gn_conv", (b, c, t, m), kernel, plain, library, inputs,
+            ("x", "gamma", "beta", "w", "b"),
+            2 * (3 * b * c * t + 3 * b * m * t) + 2 * 2 * m * c,
+            6 * b * m * c * t)
+    h, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, c, 3, 90)
+    g = torch.Generator(device=dev).manual_seed(91)
+    x = torch.randn(b, c, t, generator=g, device=dev).to(torch.bfloat16)
+    emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=dev)
+           ).to(torch.bfloat16)
+
+    def k5_kernel(h, x, emb, ga, be, w, bi):
+        # the train step's way: the tap-major weight made from the live
+        # weight inside the graph
+        return k5.ts_res_block_out(h, x, emb, {"scale": ga, "bias": be},
+                                   k5.prepare_conv({"w": w, "b": bi}),
+                                   groups)
+
+    def k5_plain(h, x, emb, ga, be, w, bi):
+        return k5.ts_res_block_out_plain(h, x, emb, {"scale": ga,
+                                                     "bias": be},
+                                         {"w": w, "b": bi}, groups)
+
+    def k5_library(h, x, emb, ga, be, w, bi):
+        sc, sh = emb[..., None].chunk(2, dim=1)
+        y = F.group_norm(h, groups, ga.to(h.dtype), be.to(h.dtype))
+        return x + F.conv1d(F.silu(y * (1 + sc) + sh), w, bi.to(h.dtype),
+                            padding=1)
+    out[("ts_res_block", b)] = _grad_case(
+        torch, "ts_res_block", (b, c, t), k5_kernel, k5_plain, k5_library,
+        (h, x, emb, norm["scale"], norm["bias"], conv["w"], conv["b"]),
+        ("h", "x", "emb", "gamma", "beta", "w", "b"),
+        2 * 7 * b * c * t + 2 * 2 * 3 * c * c, 6 * b * c * 3 * c * t)
+    return out
+
+
+def _tiny_train_models(torch):
+    """Tiny fp32 AR (head dim 64, K1's), diffusion and DVAE models, random
+    from seeds on the CPU."""
+    from tortoise_tts_tpu_torch.models import diffusion, dvae, unified_voice
+    cfgs = {"autoregressive": unified_voice.UnifiedVoiceConfig(
+                layers=2, model_dim=128, heads=2, max_text_tokens=40,
+                max_mel_tokens=48),
+            "diffusion": diffusion.DiffusionConfig(
+                model_channels=64, num_layers=2, in_latent_channels=128,
+                num_heads=2),
+            "dvae": dvae.DVAEConfig(codebook_dim=32, hidden_dim=32,
+                                    num_tokens=256)}
+    mods = {"autoregressive": unified_voice, "diffusion": diffusion,
+            "dvae": dvae}
+    params = {n: mods[n].init(torch.Generator().manual_seed(30 + i), cfgs[n])
+              for i, n in enumerate(cfgs)}
+    # zero-initialised proj_out would hide the attention from the loss
+    g = torch.Generator().manual_seed(40)
+    for blk in (params["diffusion"]["latent_conditioner_attn"]
+                + [l["attn"] for l in params["diffusion"]["layers"]]):
+        blk["proj_out"]["w"] = 0.05 * torch.randn(
+            blk["proj_out"]["w"].shape, generator=g)
+    return cfgs, params
+
+
+def _tiny_batches(torch):
+    rng = np.random.RandomState(5)
+    lens = np.asarray([25, 11], np.int32)
+    text = np.zeros((2, 40), np.int32)
+    for i, n in enumerate(lens):
+        text[i, :n] = rng.randint(3, 255, n)
+    ar = {"latents": rng.randn(2, 128).astype(np.float32), "text": text,
+          "text_lengths": lens,
+          "codes": rng.randint(0, 8192, (2, 48)).astype(np.int32),
+          "wav_lengths": np.asarray([40, 23], np.int32) * 1024}
+    diff = {"mel": np.clip(rng.randn(2, 100, 64) * 0.3, -1, 1
+                           ).astype(np.float32),
+            "latents": rng.randn(2, 12, 128).astype(np.float32),
+            "conditioning_latents": rng.randn(2, 128).astype(np.float32)}
+    dv = {"mel": (rng.randn(2, 80, 64) * 0.5).astype(np.float32)}
+    t = torch.as_tensor([17, 3210])
+    noise = torch.as_tensor(rng.randn(2, 100, 64).astype(np.float32))
+    return {"autoregressive": ar, "diffusion": diff, "dvae": dv}, (t, noise)
+
+
+def train_tiny(torch, dev):
+    """Phase 17: one train step of a tiny AR, diffusion and DVAE model,
+    fp32 with TF32 off, on the card (K1, K4, K5) and on the CPU (their
+    plain versions) from the same params, batch and (for the diffusion)
+    the same t and noise: the loss and every gradient leaf within
+    TINY_REL_TOL of the leaf's largest |value|, the params after one SGD
+    update within TINY_PARAM_TOL, and the launches the code implies."""
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.config import Hyperparameters
+    from tortoise_tts_tpu_torch.engine import optim, train_step as ts
+    from tortoise_tts_tpu_torch.engine.state import (flatten_tree,
+                                                     init_state)
+    from tortoise_tts_tpu_torch.models import gaussian
+    from tortoise_tts_tpu_torch.models.common import tree_map
+
+    class Recording(optim.Optimizer):
+        def step(self, params, grads, state, norm=None):
+            self.grads = [g.detach().cpu() for g in grads]
+            return super().step(params, grads, state, norm)
+
+    cfgs, params = _tiny_train_models(torch)
+    batches, (t_fix, noise_fix) = _tiny_batches(torch)
+    draws = ts.diffusion_draws
+    ts.diffusion_draws = lambda seed, step, b, shape, n, device: (
+        t_fix.to(device), noise_fix.to(device))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hp = Hyperparameters(optimizer="SGD", learning_rate=1e-2,
+                         warmup_steps=0, gradient_accumulation_steps=1,
+                         gradient_clipping=1.0)
+    sched = gaussian.get_schedule(steps=4000, cond_free=False)
+    expect = {"autoregressive": train_launches(
+                  ar=cfgs["autoregressive"].layers),
+              "diffusion": train_launches(
+                  diffusion=cfgs["diffusion"].num_layers),
+              "dvae": train_launches()}
+    report = {}
+    try:
+        for name in ("autoregressive", "diffusion", "dvae"):
+            runs = []
+            for device in (dev, torch.device("cpu")):
+                tx = Recording("sgd", hp.learning_rate, hp.gradient_clipping,
+                               1)
+                if name == "autoregressive":
+                    step = ts.make_ar_train_step(cfgs[name], tx, remat=True)
+                elif name == "diffusion":
+                    step = ts.make_diffusion_train_step(cfgs[name], tx, sched)
+                else:
+                    step = ts.make_dvae_train_step(cfgs[name], tx)
+                p = tree_map(lambda x: x.clone().to(device), params[name])
+                state = init_state(p, tx)
+                kernels.reset_launches()
+                state, m = step(state, ts.to_device(batches[name], device))
+                runs.append((
+                    {k: float(v) for k, v in m.items()}, tx.grads,
+                    {k: v.detach().cpu()
+                     for k, v in flatten_tree(state.params).items()},
+                    kernels.launch_counts()))
+            (mk, gk, pk, ck), (mc, gc, pc, _) = runs
+            launched = {k: ck[k] for k in TRAIN_KERNELS}
+            assert launched == expect[name], (name, launched, expect[name])
+            loss_err = abs(mk["loss"] - mc["loss"]) / abs(mc["loss"])
+            assert loss_err <= TINY_REL_TOL, (name, mk, mc)
+            grad_err = max(_rel_err(a, b, f"{name} grad", TINY_REL_TOL)
+                           for a, b in zip(gk, gc)
+                           if float(b.abs().max()) > 0)
+            param_err = 0.0
+            for k in pc:
+                d = (pk[k] - pc[k]).abs()
+                bad = int((d > TINY_PARAM_TOL["atol"]
+                           + TINY_PARAM_TOL["rtol"] * pc[k].abs()).sum())
+                assert bad == 0, (name, k, float(d.max()))
+                param_err = max(param_err, float(d.max()))
+            report[name] = dict(loss_card=mk["loss"], loss_cpu=mc["loss"],
+                                loss_rel_err=loss_err, grad_rel_err=grad_err,
+                                param_max_abs_err=param_err,
+                                launches=launched)
+    finally:
+        ts.diffusion_draws = draws
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    emit("train_tiny", tol=dict(rel=TINY_REL_TOL, params=TINY_PARAM_TOL),
+         optimizer="SGD momentum 0.9, lr 1e-2, clip 1.0", **report)
+
+
+def _train_artifacts(root: Path, n: int, seed: int, dim=None) -> Path:
+    """n reference-format .mel artifacts of one speaker, 3-5 s each, with
+    the AR and diffusion conditioning latents at the AR model's width
+    ``dim`` (the shipped one by default) and the ``store_mels`` targets
+    (80-bin mel, 100-bin diffusion mel)."""
+    from tortoise_tts_tpu_torch.models.unified_voice import \
+        UnifiedVoiceConfig
+    dim = dim or UnifiedVoiceConfig().model_dim
+    rng = np.random.RandomState(seed)
+    d = root / "data" / "train" / "speaker"
+    d.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        dur = 3.0 + 2.0 * i / max(1, n - 1)
+        nc = int(dur * 22050 / 1024)
+        frames = nc * 4
+        art = {
+            "codes": rng.randint(0, 8192, (nc,)).astype(np.uint16),
+            "conds": (rng.randn(1, 1, 80, 100).astype(np.float32),
+                      rng.randn(1, 1, 100, 100).astype(np.float32)),
+            "latent": (rng.randn(1, dim).astype(np.float32),
+                       rng.randn(1, 2 * dim).astype(np.float32)),
+            "text": rng.randint(3, 255, (int(12 * dur),)).astype(np.uint8),
+            "mel": (rng.randn(80, frames) * 0.5 - 1).astype(np.float16),
+            "mel_diff": np.clip(rng.randn(100, int(frames * 24000 / 22050))
+                                * 0.3, -1, 1).astype(np.float16),
+            "metadata": {"original_length": nc * 1024,
+                         "sample_rate": 22050, "duration": nc * 1024 / 22050,
+                         "text": "training sample"}}
+        with open(d / f"utt{i:03d}.mel", "wb") as f:
+            np.save(f, art)
+    return d.parent.parent
+
+
+def _train_cfg(root: Path, data: Path, models, batch: int, iters: int,
+               **over):
+    from tortoise_tts_tpu_torch.config import Config
+    raw = {"models": models,
+           "hyperparameters": {"batch_size": batch, "optimizer": "AdamW",
+                               "learning_rate": 1e-4},
+           "trainer": {"iterations": iters, "log_frequency": 1,
+                       "export_on_save": False, "keep_last_checkpoints": 1,
+                       "weight_dtype": "bfloat16", "async_checkpoint": True,
+                       "gradient_checkpointing": True},
+           "evaluation": {"frequency": 0, "kwargs": {"max_steps": 48}},
+           "dataset": {"training": [str(data)], "validate": False,
+                       "load_mels": True}}
+    for group, kw in over.items():
+        if isinstance(kw, dict):
+            raw.setdefault(group, {}).update(kw)
+        else:
+            raw[group] = kw
+    return Config.from_dict(raw, yaml_path=str(root / "cfg.yaml"))
+
+
+def _counted(torch, fn):
+    """fn() and the kernel launches it made."""
+    from tortoise_tts_tpu_torch import kernels
+    torch.cuda.synchronize()
+    c0 = kernels.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    c1 = kernels.launch_counts()
+    return out, {k: c1[k] - c0[k] for k in c1}
+
+
+def _fingerprint(torch, engines) -> dict:
+    """Each engine's parameter sums, a leaf each (fp32 accumulation): two
+    that differ say the parameters moved in between."""
+    from tortoise_tts_tpu_torch.engine.state import flatten_tree
+    return {n: torch.stack([p.sum(dtype=torch.float32) for p in
+                            flatten_tree(engines[n].params).values()]).cpu()
+            for n in engines.names()}
+
+
+def _run_train(torch, cfg, dev):
+    """``train.main(cfg=...)`` with every ``Engines.step`` timed: (the
+    engines, per-step records of wall seconds, launches, metrics, tokens
+    and which engines' parameters the step moved, the peak memory in
+    GB)."""
+    from tortoise_tts_tpu_torch import train
+    from tortoise_tts_tpu_torch.engine import engines as eng_mod
+    from tortoise_tts_tpu_torch.engine.factory import tokens_of
+    orig = eng_mod.Engines.step
+    steps = []
+
+    def timed(self, batch, fetch_metrics=True):
+        before = _fingerprint(torch, self)
+        t0 = time.perf_counter()
+        m, launches = _counted(torch, lambda: orig(self, batch,
+                                                   fetch_metrics=True))
+        s = time.perf_counter() - t0
+        after = _fingerprint(torch, self)
+        steps.append(dict(s=s, launches=launches, metrics=m,
+                          tokens=tokens_of(batch),
+                          moved={n: not torch.equal(before[n], after[n])
+                                 for n in before}))
+        return m
+    eng_mod.Engines.step = timed
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        engines = train.main(cfg=cfg, device=dev)
+    finally:
+        eng_mod.Engines.step = orig
+    return engines, steps, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _check_launches(name, launches, expect) -> None:
+    """The launches of K1, K4 and K5 are ``expect``, and no other kernel
+    ran."""
+    from tortoise_tts_tpu_torch.kernels import KERNELS
+    got = {k: launches[k] for k in TRAIN_KERNELS}
+    assert got == expect, (name, got, expect)
+    others = [k for k in KERNELS if k not in TRAIN_KERNELS and launches[k]]
+    assert not others, (name, others)
+
+
+def _route_report(name, steps, expect, every_k: int, warm: int = 2) -> dict:
+    """Per-step checks (finite losses, no skipped step, the launches the
+    code implies each micro-step, every engine's parameters moved by the
+    k-th micro-steps' updates and by no other) and the steady window's
+    means."""
+    for i, st in enumerate(steps):
+        m = st["metrics"]
+        skipped = [k for k in m if k.endswith(".skipped")]
+        assert not skipped, f"{name}: step {i} skipped {skipped}"
+        losses = {k: v for k, v in m.items() if ".loss" in k}
+        assert losses and all(math.isfinite(v) for v in losses.values()), \
+            (name, i, losses)
+        _check_launches(f"{name} step {i}", st["launches"], expect)
+        update = (i + 1) % every_k == 0
+        assert all(v == update for v in st["moved"].values()), \
+            (name, i, update, st["moved"])
+    steady = steps[warm:] or steps
+    engines = sorted({k.rsplit(".", 1)[0] for st in steps
+                      for k in st["metrics"] if k.endswith(".elapsed_time")})
+    ms = {e: 1e3 * float(np.mean([st["metrics"][f"{e}.elapsed_time"]
+                                  for st in steady])) for e in engines}
+    wall = float(np.mean([st["s"] for st in steady]))
+    return dict(ms_per_micro_step=ms, wall_ms_per_micro_step=1e3 * wall,
+                tokens_per_s=float(np.mean([st["tokens"] for st in steady]))
+                / wall, steps=len(steps), steady_steps=len(steady),
+                launches_per_micro_step=expect)
+
+
+def eval_launches(tokens: int, steps: int = 30) -> dict:
+    """The launches of one ``run_eval`` sample whose decode took
+    ``tokens`` steps: K1 a layer in the prefill and in the latent pass;
+    K2 four GEMVs and K3 one attention a layer a token; K4 the latent
+    conditioner's 4 heads once, then, as in the default route
+    (``bigvgan_route``), K4 and K5 of a denoiser call a P step; K7 the
+    vocoder's Snake calls (6 a resblock, 3 resblocks an upsample, one
+    after)."""
+    from tortoise_tts_tpu_torch.models.bigvgan import BigVGANConfig
+    from tortoise_tts_tpu_torch.models.diffusion import DiffusionConfig
+    from tortoise_tts_tpu_torch.models.unified_voice import \
+        UnifiedVoiceConfig
+    layers, nl = UnifiedVoiceConfig().layers, DiffusionConfig().num_layers
+    voc = BigVGANConfig()
+    return {"flash_attention": 2 * layers, "qgemv": 4 * layers * tokens,
+            "flash_decode": layers * tokens,
+            "gn_conv": 4 + steps * (2 * (3 + nl) + 3),
+            "ts_res_block": steps * (3 + nl + 3),
+            "snake": len(voc.upsample_rates)
+            * len(voc.resblock_kernel_sizes) * 6 + 1}
+
+
+def _kernel_group(name: str) -> str:
+    for key, group in (("flash_attn", "K1"), ("gn_conv", "K4"),
+                       ("ts_res_block", "K5"), ("group_norm_act", "K4/K5 "
+                                                "normalise"),
+                       ("group_stats", "K4/K5 normalise"),
+                       ("gemm", "GEMM"), ("sm90", "GEMM"), ("cutlass", "GEMM"),
+                       ("softmax", "softmax"), ("elementwise", "elementwise"),
+                       ("reduce", "reduce"), ("index", "index")):
+        if key in name.lower():
+            return group
+    return "other"
+
+
+def _profile_step(torch, fn) -> dict:
+    """One call of fn under torch.profiler: wall and device ms, the busy
+    share, the CUDA kernels, and the device ms by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiler_warmup(torch)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = _cuda_events(prof)
+    groups: dict = {}
+    for e in events:
+        g = _kernel_group(e.name)
+        groups[g] = groups.get(g, 0.0) + e.device_time / 1e3
+    dev = sum(groups.values())
+    return dict(wall_ms=wall, device_ms=dev, busy=dev / wall,
+                cuda_kernels=len(events),
+                device_ms_by_group=dict(sorted(groups.items(),
+                                               key=lambda kv: -kv[1])))
+
+
+def _shape(cfg) -> dict:
+    """The batch and the sequence shapes a route's config gives the steps:
+    the AR trunk's S (cond, the text bucket and the mel bucket with their
+    start and stop tokens), the diffusion's T and the DVAE's mel frames."""
+    ds, b = cfg.dataset, cfg.hyperparameters.batch_size
+    f = int(ds.mel_bucket * 4 * 24000 / 22050)
+    return dict(batch=b, accumulation=cfg.hyperparameters
+                .gradient_accumulation_steps, text_bucket=ds.text_bucket,
+                mel_bucket=ds.mel_bucket,
+                ar_seq=1 + ds.text_bucket + 2 + ds.mel_bucket + 2,
+                diffusion_t=(f + 63) // 64 * 64, dvae_frames=4 * ds.mel_bucket)
+
+
+def _params_close(torch, a, b, name):
+    from tortoise_tts_tpu_torch.engine.state import flatten_tree
+    fa, fb = flatten_tree(a), flatten_tree(b)
+    worst = 0.0
+    for k in fa:
+        d = (fa[k].float() - fb[k].float()).abs()
+        lim = RESUME_PARAM_RTOL * fa[k].float().abs() + 1e-6
+        bad = int((d > lim).sum())
+        assert bad == 0, f"{name}: {k} off in {bad} elements"
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def train_route(torch, dev, tmp: str):
+    """Phase 18: training through ``train.main`` at full width (random bf16
+    weights) on fabricated 3-5 s artifacts: the AR finetune at
+    train_bench's shape (batch 8, buckets 128/256, one fixed batch:
+    the AR loss must fall), with a checkpoint at its last step that a new
+    ``load_engines`` resumes (its next step against the uninterrupted
+    one's) and one ``run_eval`` sample; the README yaml (AR + diffusion
+    co-trained at batch 16, buckets 256/512, halved until it fits; two
+    updates of 4 micro-steps, the AR loss lower after the first); a
+    rank-128 LoRA run; one DVAE step.  Every step and the eval are
+    counted and checked against the launches the code implies.  Returns
+    the launch counts."""
+    import gc
+    from tortoise_tts_tpu_torch import kernels, train
+    from tortoise_tts_tpu_torch.data import Dataset
+    from tortoise_tts_tpu_torch.engine.factory import load_engines
+    from tortoise_tts_tpu_torch.models.diffusion import DiffusionConfig
+    from tortoise_tts_tpu_torch.models.unified_voice import \
+        UnifiedVoiceConfig
+    counts = {k: 0 for k in kernels.launch_counts()}
+
+    def add(launches):
+        for k, v in launches.items():
+            counts[k] += v
+
+    def step(engines, batch, name, expect):
+        m, c = _counted(torch, lambda: engines.step(batch))
+        _check_launches(name, c, expect)
+        add(c)
+        return m
+
+    layers = UnifiedVoiceConfig().layers
+    k1_ar = train_launches(ar=layers)
+    root = Path(tmp) / "train_ar"
+    data = _train_artifacts(root, 8, seed=1)
+    iters = 10
+    cfg = _train_cfg(root, data, [{"name": "autoregressive",
+                                   "training": True}], 8, iters,
+                     hyperparameters={"gradient_accumulation_steps": 1,
+                                      "warmup_steps": 0},
+                     trainer={"save_frequency": iters},
+                     dataset={"text_bucket": 128, "mel_bucket": 256,
+                              "load_mels": False})
+    engines, steps, peak = _run_train(torch, cfg, dev)
+    for st in steps:
+        add(st["launches"])
+    rep = _route_report("ar_finetune", steps, k1_ar, 1)
+    losses = [st["metrics"]["autoregressive.loss"] for st in steps]
+    assert losses[-1] < losses[0], f"AR loss did not fall: {losses}"
+    stall, write = engines.last_save_stall_s, engines.last_write_s
+    batch = next(Dataset(cfg, cfg.dataset.training).batches())
+    m1 = step(engines, batch, "uninterrupted next step", k1_ar)
+    resumed = load_engines(cfg, device=dev)
+    assert resumed.global_step == iters, resumed.global_step
+    m2 = step(resumed, batch, "resumed next step", k1_ar)
+    loss_diff = abs(m1["autoregressive.loss"] - m2["autoregressive.loss"])
+    assert loss_diff <= 1e-2 * abs(m1["autoregressive.loss"]), (m1, m2)
+    resume_err = _params_close(torch, engines["autoregressive"].params,
+                               resumed["autoregressive"].params,
+                               "resume vs uninterrupted")
+    del resumed
+    prof = _profile_step(torch, lambda: step(engines, batch, "profiled step",
+                                             k1_ar))
+    t0 = time.perf_counter()
+    val = Dataset(cfg, cfg.dataset.training, training=False)
+    ev, c = _counted(torch, lambda: train.run_eval(
+        cfg, engines["autoregressive"], val, root / "logs", max_samples=1,
+        prefix="val", device=dev))
+    eval_s = time.perf_counter() - t0
+    add(c)
+    tokens = c["flash_decode"] // layers
+    assert 0 < tokens <= cfg.evaluation.kwargs["max_steps"], c
+    want = eval_launches(tokens)
+    got = {k: v for k, v in c.items() if v}
+    assert got == want, ("run_eval launches", got, want)
+    wavs = sorted((root / "logs").rglob("val_0_hyp.wav"))
+    assert wavs and wavs[0].stat().st_size > 1000, wavs
+    import wave
+    with wave.open(str(wavs[0])) as w:
+        hyp_s = w.getnframes() / w.getframerate()
+    emit("train_route", route="ar_finetune", **_shape(cfg), losses=losses,
+         peak_mem_gb=peak,
+         checkpoint_stall_s=stall, checkpoint_write_s=write,
+         resume_next_loss=[m1["autoregressive.loss"],
+                           m2["autoregressive.loss"]],
+         resume_param_max_abs_diff=resume_err, eval=ev, eval_s=eval_s,
+         eval_hyp_wav_s=hyp_s, eval_tokens=tokens, eval_launches=got,
+         profiled_step=prof, **rep)
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the README yaml: AR + diffusion co-trained, two updates of 4
+    # micro-steps (no warm-up: optax's warm-up starts at lr 0)
+    root = Path(tmp) / "train_readme"
+    batch_size = 16
+    data = _train_artifacts(root, batch_size, seed=2)
+    co = train_launches(ar=layers, feeder=layers,
+                        diffusion=DiffusionConfig().num_layers)
+    while True:
+        cfg = _train_cfg(
+            root, data,
+            [{"name": "autoregressive", "training": True},
+             {"name": "diffusion", "training": True,
+              "hyperparameters": {"learning_rate": 3e-5}}],
+            batch_size, 8, hyperparameters={"warmup_steps": 0},
+            trainer={"save_frequency": 0})
+        try:
+            engines, steps, peak = _run_train(torch, cfg, dev)
+        except torch.cuda.OutOfMemoryError:
+            steps = [{"metrics": {"oom.skipped": 1.0}}]
+        if any(k.endswith(".skipped") for st in steps
+               for k in st["metrics"]):
+            emit("train_route_oom", route="readme_yaml", batch=batch_size)
+            engines = steps = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            assert batch_size > 1, "README yaml: batch 1 does not fit"
+            batch_size //= 2
+            continue
+        break
+    for st in steps:
+        add(st["launches"])
+    k = cfg.hyperparameters.gradient_accumulation_steps
+    assert len(steps) == 2 * k, (len(steps), k)
+    rep = _route_report("readme_yaml", steps, co, k)
+    ar_losses = [st["metrics"]["autoregressive.loss"] for st in steps]
+    assert ar_losses[k] < ar_losses[0], \
+        f"README yaml: AR loss did not fall after the update: {ar_losses}"
+    batch = next(Dataset(cfg, cfg.dataset.training).batches())
+    prof = _profile_step(torch, lambda: step(engines, batch,
+                                             "README yaml profiled step", co))
+    emit("train_route", route="readme_yaml", **_shape(cfg), peak_mem_gb=peak,
+         profiled_step=prof, updates=len(steps) // k,
+         losses={e: [st["metrics"][f"{e}.loss"] for st in steps]
+                 for e in ("autoregressive", "diffusion")}, **rep)
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a rank-128 LoRA adapter on the AR finetune's shape
+    root = Path(tmp) / "train_lora"
+    data = _train_artifacts(root, 8, seed=3)
+    cfg = _train_cfg(root, data, [{"name": "autoregressive",
+                                   "training": True}], 8, 6,
+                     hyperparameters={"gradient_accumulation_steps": 1,
+                                      "warmup_steps": 0},
+                     trainer={"save_frequency": 0},
+                     dataset={"text_bucket": 128, "mel_bucket": 256,
+                              "load_mels": False},
+                     loras=[{"name": "bench-lora", "rank": 128,
+                             "alpha": 128, "training": True}])
+    engines, steps, peak = _run_train(torch, cfg, dev)
+    for st in steps:
+        add(st["launches"])
+    rep = _route_report("lora_r128", steps, k1_ar, 1)
+    assert engines.names() == ["bench-lora-r128-a128"], engines.names()
+    emit("train_route", route="lora_r128", **_shape(cfg), peak_mem_gb=peak,
+         losses=[st["metrics"]["bench-lora-r128-a128.loss"]
+                 for st in steps], **rep)
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the DVAE engine, one update
+    root = Path(tmp) / "train_dvae"
+    data = _train_artifacts(root, 16, seed=4)
+    cfg = _train_cfg(root, data, [{"name": "dvae", "training": True}], 16, 1,
+                     hyperparameters={"gradient_accumulation_steps": 1,
+                                      "warmup_steps": 0},
+                     trainer={"save_frequency": 0})
+    engines, steps, peak = _run_train(torch, cfg, dev)
+    for st in steps:
+        add(st["launches"])
+    rep = _route_report("dvae", steps, train_launches(), 1, warm=0)
+    emit("train_route", route="dvae", **_shape(cfg), peak_mem_gb=peak,
+         loss=steps[0]["metrics"]["dvae.loss"], **rep)
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3020,6 +3823,17 @@ def main() -> int:
             decode_timing(torch, tts, ref, mode)
             decode_timing(torch, tts, ref, mode, rows=BATCH_ROWS)
             decode_timing(torch, tts, ref, mode, fan_out=CANDIDATES)
+        # training: the serving models leave the card first
+        t_train = time.perf_counter()
+        del tts
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_grads(torch, dev)
+        train_tiny(torch, dev)
+        c = train_route(torch, dev, tmp)
+        counts = {k: counts[k] + c[k] for k in counts}
+        emit("train_total", seconds=time.perf_counter() - t_train)
 
     src = "tortoise_tts_tpu_torch/csrc/"
     rows = [
@@ -3050,6 +3864,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src + f, "replaces": rep,
          "launches": counts[n], **r} for n, f, rep, r in rows]}))
+    emit("total", seconds=time.perf_counter() - T0)
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1128,3 +1128,127 @@ def test_lora_toggle_recaptures_decode_cuda(cuda):
             assert STATS.captures - captures == 2
         out.append(state.tokens[:, :16].clone())
     assert torch.equal(out[0], out[1])
+
+
+# training: the kernels differentiated on the card
+
+def _grads_of(fn, inputs):
+    """fn(*inputs) and every input's gradient of <out, G>, G one upstream
+    gradient drawn from a seed: the kernel's and the plain version's
+    backwards take the same G, so their gradients differ only where the
+    backwards do (through the bf16 plain backward, an upstream gradient
+    that moves by an ulp moves some rows of K1's dq by more than 2%)."""
+    xs = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*xs)
+    g = torch.Generator(device=out.device).manual_seed(7)
+    up = torch.randn(out.shape, generator=g, device=out.device).to(out.dtype)
+    return out.detach(), torch.autograd.grad(out, xs, up)
+
+
+def _rel_close(got, want, tol):
+    """Row by row (trailing dims folded until a row holds 64 elements or
+    more; a vector is one row): ||got - want|| <= tol ||want|| plus, an
+    element, one bf16 ulp (2^-7) of want's RMS in bf16 or tol of it in
+    fp32.  A row of K1's output averages up to S values, so a bound on the
+    tensor's largest |value| would pass a lost key tile."""
+    n, i = 1, want.dim()
+    while i > 0 and n < 64:
+        i -= 1
+        n *= want.shape[i]
+    g, w = got.float().reshape(-1, n), want.float().reshape(-1, n)
+    rms = w.pow(2).mean().sqrt()
+    assert rms > 0
+    floor = (2.0 ** -7 if want.dtype == torch.bfloat16 else tol) * rms
+    bound = tol * w.norm(dim=1) + floor * n ** 0.5
+    worst = float(((g - w).norm(dim=1) / bound).max())
+    assert worst <= 1, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,s", [(2, 389), (1, 773), (2, 17)])
+def test_flash_attention_backward_cuda(cuda, b, s, dtype, tol):
+    """K1's autograd path (kernel forward, plain recompute backward) against
+    the plain version's autograd at the AR train step's S (ring path),
+    q, k, v as views of the fused projection, as the trunk passes them."""
+    q, k, v, _ = _fused_qkv(cuda, b, 16, s, dtype, seed=s)
+    before = k1.KERNEL.launches
+    out_k, g_k = _grads_of(lambda q, k, v: k1.flash_attention(q, k, v),
+                           (q, k, v))
+    assert k1.KERNEL.launches == before + 1
+    out_p, g_p = _grads_of(lambda q, k, v: k1.flash_attention_plain(q, k, v),
+                           (q, k, v))
+    _rel_close(out_k, out_p, tol)
+    for a, p in zip(g_k, g_p):
+        _rel_close(a, p, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("act,m", [(True, 256), (False, 768)])
+def test_gn_conv_backward_cuda(cuda, monkeypatch, act, m, dtype, tol):
+    """K4's gradients of x, the norm's scale and bias and the conv's weight
+    and bias against the plain version's, at a ragged T."""
+    _fp32_exact(monkeypatch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(m)
+    b, c, t = 2, 256, 283
+    x = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
+    ga = 1 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    be = 0.1 * torch.randn(c, generator=g, device=cuda)
+    w = (0.05 * torch.randn(m, c, 1, generator=g, device=cuda)).to(dtype)
+    bi = 0.05 * torch.randn(m, generator=g, device=cuda)
+
+    def run(fn):
+        return _grads_of(lambda x, ga, be, w, bi: fn(
+            x, {"scale": ga, "bias": be}, {"w": w, "b": bi}, 32, act),
+            (x, ga, be, w, bi))
+    out_k, g_k = run(k4.gn_conv1x1)
+    out_p, g_p = run(k4.gn_conv1x1_plain)
+    _rel_close(out_k, out_p, tol)
+    for a, p in zip(g_k, g_p):
+        _rel_close(a, p, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_ts_res_block_backward_reaches_the_live_weight_cuda(
+        cuda, monkeypatch, dtype, tol):
+    """K5 with its tap-major weight made from the live weight inside the
+    graph (as the diffusion train step prepares it): every gradient,
+    the weight's included and nonzero, against the plain version's; and
+    two SGD updates of the weight on the card equal the plain path's."""
+    _fp32_exact(monkeypatch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, c, t = 2, 256, 130
+    h = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
+    x = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
+    emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=cuda)).to(dtype)
+    ga = 1 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    be = 0.1 * torch.randn(c, generator=g, device=cuda)
+    w0 = (0.03 * torch.randn(c, c, 3, generator=g, device=cuda)).to(dtype)
+    bi = 0.05 * torch.randn(c, generator=g, device=cuda)
+
+    def kernel(h, x, emb, ga, be, w, bi):
+        return k5.ts_res_block_out(h, x, emb, {"scale": ga, "bias": be},
+                                   k5.prepare_conv({"w": w, "b": bi}), 32)
+
+    def plain(h, x, emb, ga, be, w, bi):
+        return k5.ts_res_block_out_plain(h, x, emb, {"scale": ga,
+                                                     "bias": be},
+                                         {"w": w, "b": bi}, 32)
+    out_k, g_k = _grads_of(kernel, (h, x, emb, ga, be, w0, bi))
+    out_p, g_p = _grads_of(plain, (h, x, emb, ga, be, w0, bi))
+    _rel_close(out_k, out_p, tol)
+    for a, p in zip(g_k, g_p):
+        _rel_close(a, p, tol)
+    assert g_k[5].float().abs().max() > 0
+    wk, wp = w0.clone(), w0.clone()
+    for _ in range(2):
+        for fn, w in ((kernel, wk), (plain, wp)):
+            _, gr = _grads_of(fn, (h, x, emb, ga, be, w, bi))
+            w.sub_(1e-3 * gr[5].to(w.dtype))
+    _rel_close(wk, wp, tol)
+    assert not torch.equal(wk, w0)

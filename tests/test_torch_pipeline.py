@@ -202,7 +202,8 @@ def test_inference_bigvgan_matches_jax(pair, monkeypatch, cond_free):
 
 
 def test_routes_not_ported_say_so(pair):
-    """The serving mesh and the classifier still raise; UnivNet, DPM++ and
+    """The serving mesh, the classifier and the training routes of later
+    slices still raise; UnivNet, DPM++ and
     beam search, which raised before they were ported, now run
     (tests/test_torch_univnet.py, test_torch_dpmpp.py and
     test_torch_beam.py hold their results against the JAX package), and
@@ -224,3 +225,23 @@ def test_routes_not_ported_say_so(pair):
     assert wavs[0].size > 0 and np.isfinite(wavs[0]).all()
     with pytest.raises(NotImplementedError, match="not ported"):
         ttts._model("classifier")
+    # training: the CLVP and BigVGAN engines, a mesh of more
+    # than one device, the optimizers beyond AdamW/Adam/SGD/Adagrad and
+    # the melbin loader
+    from tortoise_tts_tpu_torch.config import DatasetConfig, Hyperparameters
+    from tortoise_tts_tpu_torch.data import Dataset
+    from tortoise_tts_tpu_torch.engine.factory import load_engines
+    from tortoise_tts_tpu_torch.engine.optim import make_optimizer
+    for raw in ({"models": [{"name": "clvp", "training": True}]},
+                {"models": [{"name": "bigvgan", "training": True}]},
+                {"trainer": {"mesh_shape": [2, 1]}}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            load_engines(Config.from_dict(raw), device="cpu")
+    for opt in ("Adafactor", "Prodigy", "Muon", "DAdaptation", "Apollo",
+                "apollo-mini"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_optimizer(Hyperparameters(optimizer=opt))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_optimizer(Hyperparameters(scheduler="schedulefree"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Dataset(Config(dataset=DatasetConfig(use_melbin=True)), ())

@@ -49,6 +49,12 @@ def test_import_leaves_jax_out():
             "flash_attention_bias_kq, gn_conv, qgemv_w8a8, snake, "
             "ts_res_block)\n"
             "from tortoise_tts_tpu_torch.models import convert\n"
+            "from tortoise_tts_tpu_torch import train\n"
+            "from tortoise_tts_tpu_torch.engine import (engines, factory, "
+            "optim, state, train_step)\n"
+            "from tortoise_tts_tpu_torch.data import dataset, sampler\n"
+            "from tortoise_tts_tpu_torch.models import dvae\n"
+            "from tortoise_tts_tpu_torch.utils import trainer\n"
             "import tortoise_tts_tpu_torch.__main__\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'tortoise_tts_tpu' "

@@ -40,6 +40,9 @@ CLVP_LAYER_KEYS = {"attn_norm", "to_q", "to_k", "to_v", "to_out", "ff_norm",
 RLG_KEYS = {"equal_linears", "final"}
 UNIVNET_KEYS = {"conv_pre", "conv_post", "res_stack"}
 UNIVNET_BLOCK_KEYS = {"kernel_predictor", "convt_pre", "conv_blocks"}
+DVAE_KEYS = {"enc_convs", "enc_res", "enc_out", "dec_in", "dec_res",
+             "dec_convs", "dec_out", "codebook"}
+DVAE_CODEBOOK_KEYS = {"embed", "cluster_size", "embed_avg"}
 
 
 def to_torch(tree, device=None, dtype: Optional[torch.dtype] = None):
@@ -131,4 +134,13 @@ def univnet_from_jax(params, device=None,
     _check_keys(params, UNIVNET_KEYS, "UnivNet params")
     for blk in params["res_stack"]:
         _check_keys(blk, UNIVNET_BLOCK_KEYS, "UnivNet res_stack block")
+    return to_torch(params, device, dtype)
+
+
+def dvae_from_jax(params, device=None,
+                  dtype: Optional[torch.dtype] = None) -> Params:
+    """The DVAE with its EMA codebook buffers (``embed``,
+    ``cluster_size``, ``embed_avg``)."""
+    _check_keys(params, DVAE_KEYS, "DVAE params")
+    _check_keys(params["codebook"], DVAE_CODEBOOK_KEYS, "DVAE codebook")
     return to_torch(params, device, dtype)

@@ -1,6 +1,7 @@
 """Model registry (port of ``tortoise_tts_tpu/models/__init__.py``, for
-the models of the serving routes: the AR model, the denoiser, the three
-vocoders, CLVP and the random latent converters).
+the models of the serving routes and of training: the AR model, the
+denoiser, the three vocoders, CLVP, the random latent converters and the
+DVAE).
 
 ``load_model(name)`` returns a ``LoadedModel``: the reference's
 checkpoint when one is found in the model directories (``.pth``, ``.sft``
@@ -39,11 +40,12 @@ WEIGHT_FILES = {
     "rlg_auto": "rlg_auto.pth",
     "rlg_diffuser": "rlg_diffuser.pth",
     "mel_norms": "mel_norms.pth",
+    "dvae": "dvae.pth",
 }
 # the sub-dict of a checkpoint that holds the weights
 STATE_DICT_KEYS = {"bigvgan": "generator", "vocoder": "model_g"}
 MODEL_NAMES = ("autoregressive", "diffusion", "bigvgan", "hifigan", "clvp",
-               "rlg_auto", "rlg_diffuser", "vocoder")
+               "rlg_auto", "rlg_diffuser", "vocoder", "dvae")
 # conditioning latent width of each random latent converter
 RLG_CHANNELS = {"rlg_auto": 1024, "rlg_diffuser": 2048}
 
@@ -128,6 +130,8 @@ def convert_torch_sd(name: str, sd, cfg) -> Dict[str, Any]:
         return convert.convert_univnet(sd)
     if c in RLG_CHANNELS:
         return convert.convert_rlg(sd)
+    if c == "dvae":
+        return convert.convert_dvae(sd)
     raise KeyError(f"no torch-layout converter for model: {name}")
 
 
@@ -149,8 +153,8 @@ def load_model(name: str, dtype: str = "float32", seed: int = 0,
     (None: the CUDA device): converted from the reference's checkpoint
     when one is found, else random parameters from ``seed``.  An
     unreadable or unconvertible checkpoint raises."""
-    from . import (bigvgan, clvp, diffusion, hifigan, rlg, unified_voice,
-                   univnet)
+    from . import (bigvgan, clvp, diffusion, dvae, hifigan, rlg,
+                   unified_voice, univnet)
     device = resolve_device(device, "load_model")
     cname = _canonical(name)
     if cname not in MODEL_NAMES:
@@ -178,6 +182,8 @@ def load_model(name: str, dtype: str = "float32", seed: int = 0,
         cfg, module, init = RLG_CHANNELS[cname], rlg, rlg.init
     elif cname == "vocoder":
         cfg, module, init = univnet.UnivNetConfig(), univnet, _univnet_random
+    elif cname == "dvae":
+        cfg, module, init = dvae.DVAEConfig(), dvae, dvae.init
     else:
         cfg, module = hifigan.HifiganConfig(), hifigan
         init = _hifigan_random

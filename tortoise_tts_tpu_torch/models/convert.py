@@ -1,13 +1,15 @@
 """Checkpoint ingestion: reference PyTorch state dicts -> the port's
 parameter trees (the port's own copy of ``tortoise_tts_tpu/models/
 convert.py``, for the models the port has: UnifiedVoice, DiffusionTTS,
-CLVP, BigVGAN, HiFiGAN, UnivNet and the random latent converters).
+CLVP, BigVGAN, HiFiGAN, UnivNet, the DVAE and the random latent
+converters).
 
 The reference ships jbetker's original tortoise-tts-v2 weights; this
 module maps those state dicts (``utils/io.load_state_dict``) onto the
 functional parameter layout the port shares with the JAX package, as
 numpy arrays: ``models.load_model`` casts them onto the device.  The
-DVAE and classifier converters wait for their models (ROADMAP.md).  Conventions (models/common.py):
+classifier's converter waits for its model (ROADMAP.md).  Conventions
+(models/common.py):
 
 - torch nn.Linear.weight (out,in)   -> ours (in,out)  [transpose]
 - HF  Conv1D.weight      (in,out)   -> ours (in,out)  [as-is]
@@ -310,6 +312,35 @@ def convert_rlg(sd: StateDict) -> Dict[str, Any]:
                            "b": _np(sd[f"layers.{i}.bias"])}
                           for i in range(5)],
         "final": _lin(sd, "layers.5"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# DVAE — reference dvae.py state_dict layout
+# ---------------------------------------------------------------------------
+
+
+def _dvae_res(sd: StateDict, prefix: str) -> Dict[str, Any]:
+    return {"c1": _conv(sd, prefix + ".net.0"),
+            "c2": _conv(sd, prefix + ".net.2"),
+            "c3": _conv(sd, prefix + ".net.4")}
+
+
+def convert_dvae(sd: StateDict, num_layers: int = 2,
+                 num_resnet_blocks: int = 3) -> Dict[str, Any]:
+    n, r = num_layers, num_resnet_blocks
+    return {
+        "enc_convs": [_conv(sd, f"encoder.{i}.0") for i in range(n)],
+        "enc_res": [_dvae_res(sd, f"encoder.{n + i}") for i in range(r)],
+        "enc_out": _conv(sd, f"encoder.{n + r}"),
+        "dec_in": _conv(sd, "decoder.0"),
+        "dec_res": [_dvae_res(sd, f"decoder.{1 + i}") for i in range(r)],
+        "dec_convs": [_conv(sd, f"decoder.{1 + r + i}.0.conv")
+                      for i in range(n)],
+        "dec_out": _conv(sd, f"decoder.{1 + r + n}"),
+        "codebook": {"embed": _np(sd["codebook.embed"]),
+                     "cluster_size": _np(sd["codebook.cluster_size"]),
+                     "embed_avg": _np(sd["codebook.embed_avg"])},
     }
 
 

@@ -1,5 +1,5 @@
 """Gaussian diffusion math: respaced schedules and the sampling loop
-(port of ``tortoise_tts_tpu/models/gaussian.py``, inference slice).
+and the training losses (port of ``tortoise_tts_tpu/models/gaussian.py``).
 
 - schedule tables are computed in float64 numpy and read as float32, as
   the JAX package gathers them; ``step_tables`` puts every per-step
@@ -16,8 +16,12 @@
 - semantics of get_diffuser(trained_diffusion_steps=4000, linear betas,
   epsilon prediction, learned_range variance), diffusion.py:1576-1590.
 
-DDIM with eta > 0, the cosine schedule and the training losses are not
-ported yet (ROADMAP.md).
+- ``q_sample`` and ``training_losses`` (diffusion.py:847-933): the MSE
+  on epsilon plus the variational bound on a frozen mean, over the
+  unspaced 4000-step schedule the train step uses.
+
+DDIM with eta > 0 and the cosine schedule are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Callable, Dict, Optional, Sequence
+
+import math
 
 import numpy as np
 import torch
@@ -287,3 +293,53 @@ def sample_loop(model_fn: ModelFn, noise: torch.Tensor,
     for _ in range(sched.num_timesteps - 1):
         graph.replay()
     return x
+
+
+# training losses (diffusion.py:847-933)
+
+def _gather(arr: np.ndarray, t: torch.Tensor) -> torch.Tensor:
+    """The float32 entries of a schedule table at t (B,), as (B, 1, 1)."""
+    tab = torch.as_tensor(np.asarray(arr, np.float32), device=t.device)
+    return tab[t][:, None, None]
+
+
+def q_sample(x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
+             sched: DiffusionSchedule) -> torch.Tensor:
+    """x_t for respaced steps t (B,): sqrt(abar) x_0 + sqrt(1 - abar) eps."""
+    return (_gather(sched.sqrt_alphas_cumprod, t) * x_start
+            + _gather(sched.sqrt_one_minus_alphas_cumprod, t) * noise)
+
+
+def _normal_kl(mean1, logvar1, mean2, logvar2):
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+def training_losses(model_out: torch.Tensor, x_start: torch.Tensor,
+                    x_t: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
+                    sched: DiffusionSchedule) -> Dict[str, torch.Tensor]:
+    """Per-sample losses of the model output (B, 200, T) on x_t: dict of
+    ``mse``, ``vb`` and ``loss`` = mse + vb, each (B,), in fp32.  The VB
+    term sees epsilon detached (the reference's frozen mean) and uses the
+    KL at every t, as the JAX package does (the discretised decoder NLL
+    of t = 0 is not taken)."""
+    def tab(a):
+        return _gather(a, t)
+
+    eps, var_values = model_out.float().chunk(2, dim=1)
+    mse = ((noise - eps) ** 2).mean(dim=(1, 2))
+    eps_frozen = eps.detach()
+    min_log = tab(sched.posterior_log_variance_clipped)
+    max_log = tab(sched.log_betas)
+    frac = (var_values + 1) / 2
+    model_log_variance = frac * max_log + (1 - frac) * min_log
+    pred_xstart = (tab(sched.sqrt_recip_alphas_cumprod) * x_t
+                   - tab(sched.sqrt_recipm1_alphas_cumprod) * eps_frozen)
+    model_mean = (tab(sched.posterior_mean_coef1) * pred_xstart
+                  + tab(sched.posterior_mean_coef2) * x_t)
+    true_mean = (tab(sched.posterior_mean_coef1) * x_start
+                 + tab(sched.posterior_mean_coef2) * x_t)
+    true_logvar = tab(sched.posterior_log_variance_clipped)
+    kl = _normal_kl(true_mean, true_logvar, model_mean, model_log_variance)
+    vb = kl.mean(dim=(1, 2)) / math.log(2.0)
+    return {"mse": mse, "vb": vb, "loss": mse + vb}

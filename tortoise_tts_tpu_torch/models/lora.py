@@ -1,12 +1,12 @@
 """LoRA adapters of the AR model's trunk (port of
-``tortoise_tts_tpu/models/lora.py``, inference slice).
+``tortoise_tts_tpu/models/lora.py``).
 
 An adapter is a tree of its own, {"gpt": {target: {"a": (L, d_in, r),
 "b": (L, r, d_out)}}}, over the stacked trunk weights, which the port
 keeps in the JAX package's (L, d_in, d_out) layout.  ``merge_lora`` gives
 the weights w + (alpha / rank) a @ b, which the decode then quantizes
-like any other weights.  The training mask waits for the training slice
-(ROADMAP.md).
+like any other weights.  In adapter training the factors are the
+trainable tree and the base weights stay frozen (``freeze_non_lora_mask``).
 """
 
 from __future__ import annotations
@@ -62,3 +62,10 @@ def merge_lora(params: Params, lora: Params, alpha: float = 128,
                rank: int = 128) -> Params:
     """The merge for serving (reference lora.py:220-228)."""
     return apply_lora(params, lora, alpha, rank)
+
+
+def freeze_non_lora_mask(params: Params, lora: Params):
+    """Trainable masks: every leaf of ``params`` False, every leaf of
+    ``lora`` True (reference freeze_non_lora_weights, lora.py:207-218)."""
+    from .common import tree_map
+    return tree_map(lambda _: False, params), tree_map(lambda _: True, lora)

@@ -1,13 +1,17 @@
 """UnifiedVoice, the autoregressive GPT-2 TTS model (port of
-``tortoise_tts_tpu/models/unified_voice.py``, inference slice).
+``tortoise_tts_tpu/models/unified_voice.py``).
 
 Sequence layout, as in the JAX package:
     [cond (1)] [start_text, text.., stop_text (+pad)] [start_mel, mel..]
 with per-modality learned position embeddings and no trunk positions.
 
 What runs where:
-- the causal trunk attention of the prefill and of the latent pass
-  (``forward``) goes through K1 (``kernels/flash_attention``);
+- the causal trunk attention of the prefill, of the latent pass and of
+  the training forward (``forward``) goes through K1
+  (``kernels/flash_attention``), whose backward recomputes its plain
+  version; with ``remat`` each trunk layer is recomputed in the backward
+  (``torch.utils.checkpoint``), so a training step launches K1 twice a
+  layer;
 - each decode step's four linears go through K2 (``kernels/qgemv``, int8
   weights) or, with ``quant_mode="w8a8"``, K8 (``kernels/qgemv_w8a8``,
   int8 weights and per-row int8 activations), the LayerNorms fused into
@@ -44,6 +48,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_decode import flash_decode, flash_decode_shared
@@ -164,13 +169,32 @@ def _gpt_layer(lp: Params, x: torch.Tensor, heads: int,
     return x, k, v
 
 
+def _unbound_layers(gpt: Params) -> List[Params]:
+    """Every layer's parameters as views made by one ``unbind`` a stacked
+    tensor: the backward then stacks the layers' gradients once, where a
+    view per layer (``_layer``) would add a stacked-size gradient per
+    layer."""
+    n_layers = gpt["attn_qkv"]["w"].shape[0]
+    parts = {name: {k: t.unbind(0) for k, t in p.items()}
+             for name, p in gpt.items() if name != "ln_f"}
+    return [{name: {k: ts[li] for k, ts in p.items()}
+             for name, p in parts.items()} for li in range(n_layers)]
+
+
 def gpt_forward(gpt: Params, emb: torch.Tensor, heads: int,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_mask: Optional[torch.Tensor] = None,
+                remat: bool = False) -> torch.Tensor:
     """Full-sequence causal forward.  emb: (B, T, D) -> the ln_f'd hidden
-    states (B, T, D); key_mask: (B, T) bool, True = valid key."""
+    states (B, T, D); key_mask: (B, T) bool, True = valid key.  ``remat``:
+    each layer keeps only its input for the backward and runs again there
+    (the JAX package's ``jax.checkpoint`` of the scan body)."""
+    def body(lp, x):
+        return _gpt_layer(lp, x, heads, key_mask)[0]
+
     x = emb
-    for li in range(gpt["attn_qkv"]["w"].shape[0]):
-        x = _gpt_layer(_layer(gpt, li), x, heads, key_mask)[0]
+    for lp in _unbound_layers(gpt):
+        x = (checkpoint(body, lp, x, use_reentrant=False) if remat
+             else body(lp, x))
     return layer_norm(gpt["ln_f"], x)
 
 
@@ -316,17 +340,19 @@ def forward(params: Params, cond_latent: torch.Tensor, text: torch.Tensor,
             text_lengths: torch.Tensor, mel_codes: torch.Tensor,
             wav_lengths: torch.Tensor,
             cfg: UnifiedVoiceConfig = UnifiedVoiceConfig(),
-            return_latent: bool = True) -> torch.Tensor:
-    """Teacher-forced forward (reference unified_voice.py:544-612) for the
-    latent pass: the hidden states above each mel input, (B, Tm, D).
+            return_latent: bool = True, remat: bool = False):
+    """Teacher-forced forward (reference unified_voice.py:544-612).
     cond_latent: (B, D); text: (B, Tt), text_lengths: (B,); mel_codes:
-    (B, Tm); wav_lengths: (B,) in samples.  The whole sequence is
-    attended without a key mask, as the JAX package does."""
-    if not return_latent:
-        raise NotImplementedError(
-            "the training losses of UnifiedVoice.forward are not ported "
-            "yet (ROADMAP.md); pass return_latent=True")
-    b = text.shape[0]
+    (B, Tm); wav_lengths: (B,) in samples.  The whole sequence is attended
+    without a key mask, as the JAX package does.
+
+    ``return_latent`` (the default, the latent pass): the hidden states
+    above each mel input, (B, Tm, D).  Otherwise the training losses
+    (loss_text, loss_mel, mel_logits): the mean cross entropies of the
+    text and mel heads against [text, stop, stop] and [codes, stop, stop],
+    and the (B, Tm + 2, number_mel_codes) mel logits.  ``remat``: the
+    trunk's layers are recomputed in the backward."""
+    tt = text.shape[1]
     tm = mel_codes.shape[1]
     text_emb, _ = _build_text_segment(params, text, text_lengths, cfg)
     # set_mel_padding (unified_voice.py:494-506)
@@ -341,10 +367,28 @@ def forward(params: Params, cond_latent: torch.Tensor, text: torch.Tensor,
                            torch.arange(tm + 2, device=mel_in.device))[None])
     emb = torch.cat([cond_latent[:, None].to(text_emb.dtype), text_emb,
                      mel_emb.to(text_emb.dtype)], dim=1)
-    hidden = gpt_forward(params["gpt"], emb, cfg.heads)
+    hidden = gpt_forward(params["gpt"], emb, cfg.heads, remat=remat)
     # the first position is tied to the conditioning input
-    enc = layer_norm(params["final_norm"], hidden[:, -(tm + 2):])
-    return enc[:, :tm]
+    if return_latent:
+        enc = layer_norm(params["final_norm"], hidden[:, -(tm + 2):])
+        return enc[:, :tm]
+    enc = layer_norm(params["final_norm"], hidden[:, 1:])
+    # aligned targets: positions >= len are stop, as the reference's
+    # stop(0)-padded text is
+    pos_t = torch.arange(tt + 2, device=text.device)[None]
+    text_targets = torch.where(pos_t >= text_lengths[:, None],
+                               cfg.stop_text_token, F.pad(text, (0, 2)))
+    mel_targets = F.pad(codes, (0, 2), value=cfg.stop_mel_token)
+    text_logits = linear(params["text_head"], enc[:, :tt + 2])
+    mel_logits = linear(params["mel_head"], enc[:, -(tm + 2):])
+    return (_ce(text_logits, text_targets), _ce(mel_logits, mel_targets),
+            mel_logits)
+
+
+def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy, log-softmax in fp32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
 
 
 class DecodeResult(NamedTuple):

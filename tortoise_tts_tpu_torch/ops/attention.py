@@ -26,7 +26,8 @@ never produces NaN.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from functools import lru_cache
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,15 +54,59 @@ def t5_rel_pos_bucket(n_query: int, n_key: int, num_buckets: int = 32,
     return ret.astype(np.int32)
 
 
+@lru_cache(maxsize=16)
+def _bucket_tensors(n: int, num_buckets: int, max_distance: int, device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (n, n) bucket matrix on the device and its (2n - 1,) buckets by
+    relative position k - q + n - 1, made once per size and device (the
+    numpy build takes tens of ms at the training T of 2240)."""
+    b = t5_rel_pos_bucket(n, n, num_buckets, max_distance)
+    rel = np.concatenate([b[1:, 0][::-1], b[0, :]])
+    # normal tensors even when first made under inference_mode: training
+    # saves them for the backward
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(np.ascontiguousarray(a),
+                                     dtype=torch.long, device=device)
+                     for a in (b, rel))
+
+
+class _RelPosBias(torch.autograd.Function):
+    """The (H, T, T) bias gathered from a (buckets, H) table.  Its backward
+    sums the gradient along each diagonal (one relative position: a pad,
+    a view and a column sum) and adds the 2T - 1 sums into the table:
+    the gather's own backward accumulates T^2 rows into 32, which on the
+    card serialises on the few rows (seconds a step at T = 2240)."""
+
+    @staticmethod
+    def forward(ctx, w, n, num_buckets, max_distance):
+        bucket, rel = _bucket_tensors(n, num_buckets, max_distance, w.device)
+        ctx.save_for_backward(rel)
+        ctx.shape = w.shape
+        return w[bucket].permute(2, 0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rel,) = ctx.saved_tensors
+        h, n = g.shape[0], g.shape[-1]
+        # row q of the skewed view holds g[q, k] at column n-1 - (k - q)
+        acc = torch.promote_types(g.dtype, torch.float32)
+        skew = torch.nn.functional.pad(g.to(acc).flip(-1), (0, n))
+        skew = skew.reshape(h, -1)[:, :n * (2 * n - 1)].reshape(h, n,
+                                                                2 * n - 1)
+        diag = skew.sum(1).flip(-1)            # (H, 2n - 1) by k - q + n - 1
+        gw = torch.zeros(ctx.shape, dtype=acc, device=g.device)
+        gw.index_add_(0, rel, diag.t())
+        return gw.to(g.dtype), None, None, None
+
+
 def rel_pos_bias_from_table(emb_w: torch.Tensor, n_q: int, n_k: int,
                             num_buckets: int = 32,
                             max_distance: int = 64) -> torch.Tensor:
     """(num_buckets, heads) table -> (heads, n_q, n_k) bias (unscaled), by
-    a plain gather."""
-    bucket = torch.as_tensor(
-        t5_rel_pos_bucket(n_q, n_k, num_buckets, max_distance),
-        dtype=torch.long, device=emb_w.device)
-    return emb_w[bucket].permute(2, 0, 1)
+    a plain gather (every call site is square: n_q == n_k)."""
+    if n_q != n_k:
+        raise ValueError(f"rel-pos bias of a square block, got {n_q}x{n_k}")
+    return _RelPosBias.apply(emb_w, n_q, num_buckets, max_distance)
 
 
 def qkv_attention(qkv: torch.Tensor, n_heads: int,

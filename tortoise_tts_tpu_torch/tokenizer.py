@@ -348,6 +348,12 @@ def tokenize(text: str) -> List[int]:
     return default_tokenizer().encode(text)
 
 
+def get_phone_symmap() -> Dict[str, int]:
+    """Token -> id map (reference data.py:276-277), embedded in exported
+    weights."""
+    return default_tokenizer().get_vocab()
+
+
 def write_char_tokenizer(path: str | Path) -> Path:
     """Write a small HF-format character-level ``tokenizer.json``.
 

@@ -1,8 +1,9 @@
 """Checkpoint and audio IO (the port's copy of ``tortoise_tts_tpu/utils/io.py``).
 
 - ``load_state_dict``: .pth/.pt (torch pickle) or .sft/.safetensors into
-  a flat name -> tensor dict.  The safetensors format is read here
-  (``load_safetensors``), without the ``safetensors`` package.
+  a flat name -> tensor dict.  The safetensors format is read and written
+  here (``load_safetensors``, ``save_state_dict``), without the
+  ``safetensors`` package.
 - WAV read/write through the stdlib ``wave`` module.
 """
 
@@ -64,6 +65,43 @@ def load_safetensors(path: str | Path) -> Dict[str, torch.Tensor]:
              if count else torch.empty(0, dtype=dtype))
         out[name] = t.reshape(info["shape"])
     return out
+
+
+def save_state_dict(state: Dict[str, Any], path: str | Path,
+                    metadata: Optional[Dict[str, Any]] = None) -> None:
+    """Write {name: tensor or numpy array} as a .safetensors file, the
+    layout ``load_safetensors`` reads: the buffers in the dict's order,
+    contiguous, the header padded with spaces to 8 bytes.  Metadata values
+    that are not strings are stored as JSON, as the JAX package stores
+    them.  The file is written under a temporary name and renamed."""
+    names = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+    header: Dict[str, Any] = {}
+    if metadata:
+        header["__metadata__"] = {
+            k: v if isinstance(v, str) else json.dumps(v)
+            for k, v in metadata.items()}
+    bufs, offset = [], 0
+    for name, value in state.items():
+        t = torch.as_tensor(value).detach().cpu().contiguous()
+        if t.dtype not in names:
+            raise TypeError(f"{name}: no safetensors type for {t.dtype}")
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() \
+            if t.numel() else b""
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        bufs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in bufs:
+            f.write(raw)
+    tmp.replace(path)
 
 
 def load_metadata(path: str | Path) -> Dict[str, Any]:
