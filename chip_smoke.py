@@ -119,12 +119,13 @@ Phases 11-15 (slice 12's routes) run after phase 8, before 9 and 10:
    a decode captured with it, ``disable_lora``, the same state's next
    chunk captured again with the base weights, equal to the eager step.
 
-Phases 16-18 (training) run last, after the serving models
+Phases 16-22 (training) run last, after the serving models
 leave the card:
 16. ``train_grads``: K1 at the AR train steps' shapes ((16, 16, 773, 64),
    the README yaml's, and (8, 16, 389, 64), train_bench's: the ring
    path), K4 (the resblock in-half and the attention qkv head) and K5 at
-   the diffusion step's (16, 1024, 2240), in bf16: the kernel's autograd
+   the diffusion step's (16, 1024, 2240), K7 at the vocoder step's six
+   (8, C, T) stages, in bf16: the kernel's autograd
    path (kernel forward, plain recompute backward; K5's tap-major weight
    made from the live weight in the graph) against the plain version's
    autograd, the output and every input's gradient within 2% of the
@@ -134,7 +135,9 @@ leave the card:
    with TF32 off, on the card (K1, K4, K5) and on the CPU from the same
    params, batch, t and noise: loss and every gradient leaf within 1e-3
    of the leaf's largest value, the params after one SGD update within
-   1e-6 + 1e-5 |p|, and the launches the code implies.
+   1e-6 + 1e-5 |p|, and the launches the code implies; a tiny CLVP step
+   and a tiny vocoder GAN step (K7 218 times) the same way, their
+   parameter moves within 1e-3 of each leaf's largest plus 1e-6.
 18. ``train_route``: ``train.main(cfg=...)`` at full width on fabricated
    3-5 s artifacts with the ``store_mels`` targets: the AR finetune at
    train_bench's shape (batch 8, buckets 128/256, AdamW without warmup on
@@ -149,6 +152,21 @@ leave the card:
    checks finite losses, no skipped step and K1, K4 and K5's launches a
    micro-step against the count the code implies (``train_launches``);
    the AR finetune also the checkpoint's stall and write seconds.
+19. ``vocoder_gan``: the BigVGAN engine through ``load_engines`` and
+   ``Engines.step`` at full width (the shipped generator, MPD periods 2,
+   3, 5, 7, 11, MRD; AdamW), 8 steps on one batch of 8 x 8192 samples of
+   the synthetic reference at 24 kHz (halved until it fits): K7 218
+   times a step and no other kernel, the mel L1 falling, a checkpoint
+   resumed bit for bit (generator, discriminator, both optimizer states),
+   ms a step, peak GB, one profiled step.
+20. ``clvp``: CLVP through ``train.main`` at full width, batch 32 (halved
+   until it fits), 6 steps on a fixed batch: the loss falls.
+21. ``optimizers``: Adafactor, Prodigy, Muon, DAdaptation, APOLLO,
+   apollo-mini and AdamW under schedule-free, 3 micro-steps each on the
+   AR finetune's shape: ms a micro-step and peak GB.
+22. ``melbin``: the native loader built from ``native/melbin.cpp``, a
+   pack of 32 artifacts, the AR finetune's batches from it equal to the
+   Python path's, ms a batch both ways.
 The training launches join the ``kernels`` line's counts.
 
 Every route runs its decode and its sampler loop as CUDA graphs
@@ -1177,9 +1195,10 @@ def check_snake(torch, k7, dev):
 # ---------------------------------------------------------------------------
 
 
-def reference_wav(path: Path, seconds: float = 4.0, sr: int = 22050,
-                  seed: int = 0):
-    from tortoise_tts_tpu_torch.utils.io import write_wav
+def reference_signal(seconds: float = 4.0, sr: int = 22050,
+                     seed: int = 0) -> np.ndarray:
+    """The synthetic reference voice: five harmonics of a gliding 140 Hz
+    pitch, amplitude-modulated, with a little noise (float32)."""
     rng = np.random.RandomState(seed)
     t = np.arange(int(seconds * sr)) / sr
     f0 = 140 + 30 * np.sin(2 * np.pi * 0.5 * t)
@@ -1187,7 +1206,13 @@ def reference_wav(path: Path, seconds: float = 4.0, sr: int = 22050,
     wav = sum(0.2 / k * np.sin(k * phase) for k in range(1, 6))
     wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t)) \
         + 0.01 * rng.randn(t.size)
-    write_wav(path, wav.astype(np.float32), sr)
+    return wav.astype(np.float32)
+
+
+def reference_wav(path: Path, seconds: float = 4.0, sr: int = 22050,
+                  seed: int = 0):
+    from tortoise_tts_tpu_torch.utils.io import write_wav
+    write_wav(path, reference_signal(seconds, sr, seed), sr)
     return str(path)
 
 
@@ -2998,6 +3023,45 @@ K1_TRAIN_SHAPES = ((16, 16, 773, 64), (8, 16, 389, 64))
 DIFF_TRAIN_T = 2240
 DIFF_TRAIN_B = 16
 TRAIN_KERNELS = ("flash_attention", "gn_conv", "ts_res_block")
+# the vocoder GAN step: B segments of T samples (T / 256 mel frames) of
+# the synthetic reference at 24 kHz, AdamW at VOC_LR (the BigVGAN
+# recipe's rate) for VOC_STEPS steps
+VOC_B = 8
+VOC_T = 8192
+VOC_STEPS = 8
+VOC_LR = 1e-4
+# CLVP at full width through train.main: batch CLVP_B (halved until it
+# fits) of as many artifacts, so every batch is the same one; AdamW at
+# CLVP_LR: at 1e-3 the full-width bf16 model overshoots within 6 steps
+CLVP_B = 32
+CLVP_STEPS = 6
+CLVP_LR = 5e-5
+# slice 14's optimizers and schedule-free, 3 micro-steps each on the AR
+# finetune's shape
+NEW_OPTIMIZERS = (("Adafactor", ""), ("Prodigy", ""), ("Muon", ""),
+                  ("DAdaptation", ""), ("Apollo", ""), ("apollo-mini", ""),
+                  ("AdamW", "schedulefree"))
+
+
+def vocoder_snake_shapes() -> list:
+    """K7's (C, T) in the shipped generator at the vocoder step's T: one
+    stage an upsample (18 Snakes each: 3 resblocks of 6), the last
+    stage's shape also activation_post's (one more)."""
+    from tortoise_tts_tpu_torch.models.bigvgan import BigVGANConfig
+    cfg = BigVGANConfig()
+    t, out = VOC_T // cfg.hop_size, []
+    for i, u in enumerate(cfg.upsample_rates):
+        t *= u
+        out.append((cfg.upsample_initial_channel // 2 ** (i + 1), t))
+    return out
+
+
+def vocoder_snakes(cfg=None) -> int:
+    """K7 calls of one generator forward: 6 a resblock, one after."""
+    from tortoise_tts_tpu_torch.models.bigvgan import BigVGANConfig
+    cfg = cfg or BigVGANConfig()
+    return (len(cfg.upsample_rates) * len(cfg.resblock_kernel_sizes) * 6
+            + 1)
 
 
 def train_launches(ar: int = 0, diffusion: int = 0, feeder: int = 0,
@@ -3067,11 +3131,11 @@ def _held(name, out_k, g_k, out_p, g_p, names) -> dict:
 
 
 def _grad_case(torch, name, shape, kernel, plain, library, inputs, names,
-               nbytes, flops, fault=None, n=10):
+               nbytes, flops, fault=None, n=10, peak=BF16_FLOPS):
     """One kernel's forward and every input's gradient against its plain
     version (TRAIN_GRAD_TOL, row by row), then fwd+bwd device ms of the
-    kernel path, the plain version and the library's call; one
-    ``train_grads`` line.  Every version's backward takes one upstream
+    kernel path, the plain version and the library's call (None where no
+    library call computes the function); one ``train_grads`` line.  Every version's backward takes one upstream
     gradient, random from a seed.  ``fault``, a planted error (the plain
     version with one key tile dropped), must fail the same check."""
     with torch.no_grad():
@@ -3095,12 +3159,12 @@ def _grad_case(torch, name, shape, kernel, plain, library, inputs, names,
             f"{name}: the check passes a dropped key tile: {planted}"
         del out_f, g_f
     del out_p, g_p
-    t_ = {key: device_ms(torch, lambda _, f=fn: _fwd_bwd(torch, f, inputs,
-                                                        up),
-                         n=n, warmup=2)
+    t_ = {key: None if fn is None else
+          device_ms(torch, lambda _, f=fn: _fwd_bwd(torch, f, inputs, up),
+                    n=n, warmup=2)
           for key, fn in (("fwd_bwd_ms", kernel), ("plain_fwd_bwd_ms", plain),
                           ("library_fwd_bwd_ms", library))}
-    bms, by = bound_ms(nbytes, flops)
+    bms, by = bound_ms(nbytes, flops, peak)
     emit("train_grads", name=name, shape=list(shape), err=errs,
          tol=TRAIN_GRAD_TOL, **({"planted_fault": planted} if planted
                                 else {}),
@@ -3111,11 +3175,11 @@ def _grad_case(torch, name, shape, kernel, plain, library, inputs, names,
 
 
 def train_grads(torch, dev):
-    """Phase 16: K1, K4 and K5 differentiated on the card at the training
-    shapes, in bf16: the kernel's autograd path (kernel forward, plain
-    recompute backward) against the plain version's autograd, output and
-    every input's gradient, and fwd+bwd device ms beside the library's
-    (SDPA; F.group_norm + F.silu + F.conv1d) and the bound."""
+    """Phase 16: K1, K4, K5 and K7 differentiated on the card at the
+    training shapes, in bf16: the kernel's autograd path (kernel forward,
+    plain recompute backward) against the plain version's autograd, output
+    and every input's gradient, and fwd+bwd device ms beside the library's
+    (SDPA; F.group_norm + F.silu + F.conv1d; none for K7) and the bound."""
     from tortoise_tts_tpu_torch.kernels import flash_attention as k1
     from tortoise_tts_tpu_torch.kernels import gn_conv as k4
     from tortoise_tts_tpu_torch.kernels import ts_res_block as k5
@@ -3192,6 +3256,26 @@ def train_grads(torch, dev):
         (h, x, emb, norm["scale"], norm["bias"], conv["w"], conv["b"]),
         ("h", "x", "emb", "gamma", "beta", "w", "b"),
         2 * 7 * b * c * t + 2 * 2 * 3 * c * c, 6 * b * c * 3 * c * t)
+    # K7 at the vocoder step's shapes, bf16: the kernel forward with its
+    # plain recompute backward against the plain version's autograd; no
+    # library call computes it.  Bytes: the forward reads x and writes y,
+    # the backward reads x and the upstream and writes dx (2 bytes each);
+    # operations: the forward's 58 a sample (check_snake) and a backward
+    # of twice as many
+    from tortoise_tts_tpu_torch.kernels import snake as k7
+    for i, (c, t) in enumerate(vocoder_snake_shapes()):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        x = torch.randn(VOC_B, c, t, generator=g, device=dev
+                        ).to(torch.bfloat16)
+        alpha = torch.exp(0.3 * torch.randn(c, generator=g, device=dev))
+        inv_beta = 1 / (torch.exp(0.3 * torch.randn(c, generator=g,
+                                                    device=dev)) + 1e-9)
+        n = VOC_B * c * t
+        out[("snake", c)] = _grad_case(
+            torch, "snake", (VOC_B, c, t), k7.snake_resample2,
+            k7.snake_resample2_plain, None, (x, alpha, inv_beta),
+            ("x", "alpha", "inv_beta"), 2 * 5 * n + 4 * 4 * c, 3 * 58 * n,
+            peak=FP32_FLOPS)
     return out
 
 
@@ -3319,12 +3403,101 @@ def train_tiny(torch, dev):
                                 loss_rel_err=loss_err, grad_rel_err=grad_err,
                                 param_max_abs_err=param_err,
                                 launches=launched)
+        report.update(_tiny_clvp_vocoder(torch, dev, Recording, hp))
     finally:
         ts.diffusion_draws = draws
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = tf32
     emit("train_tiny", tol=dict(rel=TINY_REL_TOL, params=TINY_PARAM_TOL),
          optimizer="SGD momentum 0.9, lr 1e-2, clip 1.0", **report)
+    # the tiny steps' cuFFT plans (their workspaces) and blocks leave the
+    # card before the routes read their peaks
+    if dev.type == "cuda":
+        torch.backends.cuda.cufft_plan_cache[dev.index or 0].clear()
+    _free(torch)
+
+
+def _tiny_clvp_vocoder(torch, dev, Recording, hp) -> dict:
+    """Train_tiny's CLVP step (64 wide, 2 + 2 layers, a batch of 4) and
+    vocoder GAN step (BigVGAN 512 wide, MPD periods 2 and 3, one MRD
+    resolution, 4096 samples), fp32, on the card
+    (K7 forward with its plain recompute backward, cuDNN convs, cuFFT) and
+    on the CPU: every metric and every gradient leaf (both optimizers'
+    for the vocoder) within TINY_REL_TOL of the leaf's largest |value|,
+    and each parameter's move by the SGD update within TINY_REL_TOL of
+    the leaf's largest move (both plus 1e-6, ``_rel_err``); K7 launched
+    twice a generator's Snakes, CLVP no kernel.  The
+    generator is wider than the JAX package's 64-wide test generator,
+    whose near-silent output sits on the training mel's log clamp and on
+    the L1's kinks: there a one-ulp difference in a Snake moves its
+    gradients by percents, on the CPU alone."""
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.engine import train_step as ts
+    from tortoise_tts_tpu_torch.engine.state import (TrainState,
+                                                     flatten_tree,
+                                                     init_state)
+    from tortoise_tts_tpu_torch.models import _bigvgan_random, bigvgan
+    from tortoise_tts_tpu_torch.models import bigvgan_disc as bvd
+    from tortoise_tts_tpu_torch.models import clvp
+    from tortoise_tts_tpu_torch.models.common import tree_map
+    ccfg = clvp.CLVPConfig(dim_text=64, dim_speech=64, dim_latent=64,
+                           text_enc_depth=2, speech_enc_depth=2,
+                           text_heads=2, speech_heads=2, dim_head=32)
+    vcfg = bigvgan.BigVGANConfig(upsample_initial_channel=512)
+    dcfg = bvd.DiscriminatorConfig(periods=(2, 3),
+                                   resolutions=((512, 128, 512),))
+    params = {"clvp": clvp.init(torch.Generator().manual_seed(50), ccfg),
+              "bigvgan": {
+                  "generator": _bigvgan_random(
+                      torch.Generator().manual_seed(51), vcfg),
+                  "discriminator": bvd.init(
+                      torch.Generator().manual_seed(52), dcfg)}}
+    rng = np.random.RandomState(6)
+    x = np.linspace(0, 1, 4096)
+    batches = {"clvp": {"text": rng.randint(0, 256, (4, 16)),
+                        "codes": rng.randint(0, 8192, (4, 24))},
+               "bigvgan": {"wav": (0.4 * np.sin(2 * np.pi * 220 * x)
+                                   + 0.05 * rng.randn(4096))[None]
+                           .astype(np.float32)}}
+    expect = {"clvp": {}, "bigvgan": {"snake": 2 * vocoder_snakes(vcfg)}}
+    report = {}
+    for name in ("clvp", "bigvgan"):
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            txs = [Recording("sgd", hp.learning_rate, hp.gradient_clipping,
+                             1) for _ in range(2)]
+            p = tree_map(lambda t: t.clone().to(device), params[name])
+            if name == "clvp":
+                step = ts.make_clvp_train_step(ccfg, txs[0])
+                state = init_state(p, txs[0])
+            else:
+                step = ts.make_vocoder_train_step(vcfg, txs[0], txs[1], dcfg)
+                state = TrainState(p, {
+                    "g": txs[0].init(p["generator"]),
+                    "d": txs[1].init(p["discriminator"])})
+            p0 = {k: v.detach().cpu().clone()
+                  for k, v in flatten_tree(state.params).items()}
+            kernels.reset_launches()
+            state, m = step(state, ts.to_device(batches[name], device))
+            runs.append(({k: float(v) for k, v in m.items()},
+                         [g for tx in txs for g in getattr(tx, "grads", [])],
+                         {k: v.detach().cpu() - p0[k]
+                          for k, v in flatten_tree(state.params).items()},
+                         kernels.launch_counts()))
+        (mk, gk, dk, ck), (mc, gc, dc, _) = runs
+        launched = {k: v for k, v in ck.items() if v}
+        assert launched == expect[name], (name, launched, expect[name])
+        loss_err = max(abs(mk[k] - mc[k]) / abs(mc[k]) for k in mc)
+        assert loss_err <= TINY_REL_TOL, (name, mk, mc)
+        grad_err = max(_rel_err(a, b, f"{name} grad", TINY_REL_TOL)
+                       for a, b in zip(gk, gc) if float(b.abs().max()) > 0)
+        move_err = max(_rel_err(dk[k], dc[k], f"{name} move {k}",
+                                TINY_REL_TOL)
+                       for k in dc if float(dc[k].abs().max()) > 0)
+        report[name] = dict(metrics_card=mk, metrics_cpu=mc,
+                            loss_rel_err=loss_err, grad_rel_err=grad_err,
+                            move_rel_err=move_err, launches=launched)
+    return report
 
 
 def _train_artifacts(root: Path, n: int, seed: int, dim=None) -> Path:
@@ -3434,12 +3607,14 @@ def _run_train(torch, cfg, dev):
 
 
 def _check_launches(name, launches, expect) -> None:
-    """The launches of K1, K4 and K5 are ``expect``, and no other kernel
-    ran."""
+    """The launches of K1, K4, K5 and every kernel in ``expect`` are
+    ``expect``'s (0 where it has none), and no other kernel ran."""
     from tortoise_tts_tpu_torch.kernels import KERNELS
-    got = {k: launches[k] for k in TRAIN_KERNELS}
-    assert got == expect, (name, got, expect)
-    others = [k for k in KERNELS if k not in TRAIN_KERNELS and launches[k]]
+    keys = set(TRAIN_KERNELS) | set(expect)
+    got = {k: launches[k] for k in keys}
+    want = {k: expect.get(k, 0) for k in keys}
+    assert got == want, (name, got, want)
+    others = [k for k in KERNELS if k not in keys and launches[k]]
     assert not others, (name, others)
 
 
@@ -3739,6 +3914,248 @@ def train_route(torch, dev, tmp: str):
     return counts
 
 
+
+def _free(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vocoder_route(torch, dev, tmp: str) -> dict:
+    """Phase 19: the BigVGAN GAN engine at full width: ``load_engines``
+    with ``bigvgan`` training (the shipped 24 kHz/100-band generator,
+    random bf16 weights from seed 0; the MultiPeriod (periods 2, 3, 5, 7,
+    11) and MultiResolution discriminators, fp32 from their seed; AdamW
+    for each), VOC_STEPS steps through ``Engines.step`` on one fixed batch
+    of VOC_B x VOC_T samples of the synthetic reference at 24 kHz (halved
+    until it fits).  Every step launches K7 twice a generator forward
+    (the detached fake, then the generator's loss) and no other kernel;
+    the mel L1 falls; a checkpoint resumes the generator, the
+    discriminator and both optimizer states bit for bit; one step
+    profiled.  Returns the launch counts."""
+    from tortoise_tts_tpu_torch.config import Config
+    from tortoise_tts_tpu_torch.engine.factory import load_engines
+    from tortoise_tts_tpu_torch.engine.state import flatten_tree
+    from tortoise_tts_tpu_torch.kernels import launch_counts
+    counts = {k: 0 for k in launch_counts()}
+    expect = {"snake": 2 * vocoder_snakes()}
+    root = Path(tmp) / "train_vocoder"
+    cfg = Config.from_dict({
+        "models": [{"name": "bigvgan", "training": True}],
+        "hyperparameters": {"optimizer": "AdamW", "learning_rate": VOC_LR,
+                            "warmup_steps": 0,
+                            "gradient_accumulation_steps": 1},
+        "trainer": {"weight_dtype": "bfloat16"}},
+        yaml_path=str(root / "cfg.yaml"))
+    signal = reference_signal(seconds=4.0, sr=24000, seed=5)
+    b = VOC_B
+    while True:
+        hop = (signal.size - VOC_T) // max(1, b - 1)
+        batch = {"wav": np.stack([signal[i * hop:i * hop + VOC_T]
+                                  for i in range(b)])}
+        engines = load_engines(cfg, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for _ in range(VOC_STEPS):
+            t0 = time.perf_counter()
+            m, c = _counted(torch, lambda: engines.step(batch))
+            steps.append(dict(s=time.perf_counter() - t0, launches=c,
+                              metrics=m))
+            if "bigvgan.skipped" in m:
+                break
+        if any("bigvgan.skipped" in st["metrics"] for st in steps):
+            emit("train_route_oom", route="vocoder_gan", batch=b)
+            del engines
+            _free(torch)
+            assert b > 1, "vocoder GAN: batch 1 does not fit"
+            b //= 2
+            continue
+        break
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i, st in enumerate(steps):
+        _check_launches(f"vocoder step {i}", st["launches"], expect)
+        for k, v in st["launches"].items():
+            counts[k] += v
+        assert all(math.isfinite(v) for v in st["metrics"].values()), st
+    mel = [st["metrics"]["bigvgan.loss.mel"] for st in steps]
+    assert mel[-1] < mel[0], f"vocoder GAN: the mel L1 did not fall: {mel}"
+    engines.save_checkpoint(cfg.ckpt_dir)
+    resumed = load_engines(cfg, device=dev)
+    assert resumed.global_step == VOC_STEPS, resumed.global_step
+    mismatched = []
+    for tree in ("params", "opt_state"):
+        a = flatten_tree(getattr(engines["bigvgan"], tree))
+        r = flatten_tree(getattr(resumed["bigvgan"], tree))
+        assert set(a) == set(r), tree
+        mismatched += [k for k in a if not torch.equal(a[k], r[k])]
+    assert not mismatched, f"vocoder resume: {mismatched[:5]}"
+    n_leaves = {t: len(flatten_tree(getattr(resumed["bigvgan"], t)))
+                for t in ("params", "opt_state")}
+    del resumed
+    _free(torch)
+
+    def one():
+        m, c = _counted(torch, lambda: engines.step(batch))
+        _check_launches("vocoder profiled step", c, expect)
+        for k, v in c.items():
+            counts[k] += v
+    prof = _profile_step(torch, one)
+    steady = steps[2:]
+    emit("train_route", route="vocoder_gan", batch=b, samples=VOC_T,
+         mel_frames=VOC_T // 256, lr=VOC_LR, steps=len(steps),
+         ms_per_step=1e3 * float(np.mean([st["s"] for st in steady])),
+         engine_ms_per_step=1e3 * float(np.mean(
+             [st["metrics"]["bigvgan.elapsed_time"] for st in steady])),
+         peak_mem_gb=peak, losses={k: [st["metrics"][f"bigvgan.{k}"]
+                                       for st in steps]
+                                   for k in ("loss", "loss.disc", "loss.adv",
+                                             "loss.fm", "loss.mel")},
+         launches_per_step=expect, resume_bit_equal=True,
+         resume_leaves=n_leaves, profiled_step=prof)
+    del engines
+    _free(torch)
+    return counts
+
+
+def clvp_route(torch, dev, tmp: str) -> None:
+    """Phase 20: CLVP through ``train.main`` at full width (768 wide,
+    20 + 20 layers, random bf16 weights), a batch of CLVP_B artifacts
+    (halved until it fits: as many artifacts as the batch, so every batch
+    is the same one), text and mel buckets 64 / 128 (the artifacts hold
+    36-60 text tokens and 64-107 codes: CLVP takes no mask, as in the JAX
+    package, so the padding enters its mean pooling), AdamW at CLVP_LR,
+    CLVP_STEPS steps: the InfoNCE loss falls; no kernel of the port runs
+    (CLVP's attention is plain in both packages)."""
+    b = CLVP_B
+    while True:
+        root = Path(tmp) / f"train_clvp_{b}"
+        data = _train_artifacts(root, b, seed=6)
+        cfg = _train_cfg(root, data, [{"name": "clvp", "training": True}],
+                         b, CLVP_STEPS,
+                         hyperparameters={"gradient_accumulation_steps": 1,
+                                          "warmup_steps": 0,
+                                          "learning_rate": CLVP_LR},
+                         trainer={"save_frequency": 0},
+                         dataset={"text_bucket": 64, "mel_bucket": 128,
+                                  "load_mels": False})
+        try:
+            engines, steps, peak = _run_train(torch, cfg, dev)
+        except torch.cuda.OutOfMemoryError:
+            steps = [{"metrics": {"oom.skipped": 1.0}}]
+        if any(k.endswith(".skipped") for st in steps
+               for k in st["metrics"]):
+            emit("train_route_oom", route="clvp", batch=b)
+            engines = steps = None
+            _free(torch)
+            assert b > 1, "CLVP: batch 1 does not fit"
+            b //= 2
+            continue
+        break
+    rep = _route_report("clvp", steps, train_launches(), 1)
+    losses = [st["metrics"]["clvp.loss"] for st in steps]
+    assert losses[-1] < losses[0], f"CLVP loss did not fall: {losses}"
+    emit("train_route", route="clvp", **_shape(cfg), peak_mem_gb=peak,
+         lr=CLVP_LR, losses=losses, **rep)
+    del engines
+    _free(torch)
+
+
+def optimizers_route(torch, dev, tmp: str) -> dict:
+    """Phase 21: each optimizer of slice 14 and AdamW under schedule-free
+    on the AR finetune's shape (batch 8, buckets 128/256, random bf16
+    weights, remat), 3 micro-steps each through ``train.main``: finite
+    losses, K1's launches, ms a micro-step (the last two) and peak GB,
+    and every update moved the parameters (Prodigy and DAdaptation start
+    from a step size of 1e-6 x the rate, so their losses barely move in
+    3 steps).  Returns the launch counts."""
+    from tortoise_tts_tpu_torch.kernels import launch_counts
+    from tortoise_tts_tpu_torch.models.unified_voice import \
+        UnifiedVoiceConfig
+    counts = {k: 0 for k in launch_counts()}
+    k1_ar = train_launches(ar=UnifiedVoiceConfig().layers)
+    data = _train_artifacts(Path(tmp) / "train_opt_data", 8, seed=7)
+    report = {}
+    for opt, sched in NEW_OPTIMIZERS:
+        name = opt + ("+" + sched if sched else "")
+        root = Path(tmp) / f"train_opt_{name}"
+        cfg = _train_cfg(root, data, [{"name": "autoregressive",
+                                       "training": True}], 8, 3,
+                         hyperparameters={"optimizer": opt,
+                                          "scheduler": sched,
+                                          "gradient_accumulation_steps": 1,
+                                          "warmup_steps": 0},
+                         trainer={"save_frequency": 0},
+                         dataset={"text_bucket": 128, "mel_bucket": 256,
+                                  "load_mels": False})
+        engines, steps, peak = _run_train(torch, cfg, dev)
+        for i, st in enumerate(steps):
+            m = st["metrics"]
+            assert not [k for k in m if k.endswith(".skipped")], (name, i)
+            assert math.isfinite(m["autoregressive.loss"]), (name, i, m)
+            _check_launches(f"{name} step {i}", st["launches"], k1_ar)
+            for k, v in st["launches"].items():
+                counts[k] += v
+        assert all(st["moved"]["autoregressive"] for st in steps), name
+        report[name] = dict(
+            ms_per_micro_step=1e3 * float(np.mean(
+                [st["metrics"]["autoregressive.elapsed_time"]
+                 for st in steps[1:]])),
+            peak_mem_gb=peak,
+            losses=[st["metrics"]["autoregressive.loss"] for st in steps],
+            moved=[st["moved"]["autoregressive"] for st in steps])
+        del engines
+        _free(torch)
+    emit("train_route", route="optimizers", batch=8, text_bucket=128,
+         mel_bucket=256, micro_steps=3, lr=1e-4, **report)
+    return counts
+
+
+def melbin_route(torch, dev, tmp: str) -> None:
+    """Phase 22: the native melbin loader on the AR finetune's batches (32
+    fabricated artifacts, batch 8, buckets 128/256): the library built
+    from ``native/melbin.cpp``, the pack, 8 batches through the Dataset
+    with ``use_melbin`` equal to the Python path's bit for bit, and ms to
+    assemble a batch both ways (the same index lists)."""
+    from tortoise_tts_tpu_torch.data import Dataset, native_loader
+    root = Path(tmp) / "train_melbin"
+    data = _train_artifacts(root, 32, seed=8)
+    t0 = time.perf_counter()
+    native_loader.build()
+    build_s = time.perf_counter() - t0
+    paths = sorted(Path(data).rglob("*.mel"))
+    t0 = time.perf_counter()
+    native_loader.pack_melbin(paths, root / "data.melbin")
+    pack_s = time.perf_counter() - t0
+    ds = {}
+    for melbin in (True, False):
+        cfg = _train_cfg(root, data, [{"name": "autoregressive",
+                                       "training": True}], 8, 1,
+                         dataset={"text_bucket": 128, "mel_bucket": 256,
+                                  "load_mels": False, "use_melbin": melbin})
+        ds[melbin] = Dataset(cfg, cfg.dataset.training)
+    assert ds[True]._melbin is not None and ds[False]._melbin is None
+    its = {k: d.batches() for k, d in ds.items()}
+    for i in range(8):
+        a, b = next(its[True]), next(its[False])
+        assert set(a) == set(b), (set(a), set(b))
+        for k in a:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), \
+                f"melbin batch {i}: {k} differs"
+    idx = [list(range(i, i + 8)) for i in range(0, 32, 8)]
+    ms = {}
+    for key, fn in (("native_ms_per_batch", ds[True]._native_batch),
+                    ("python_ms_per_batch", lambda ix: ds[False].collate(
+                        [ds[False][j] for j in ix]))):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            for ix in idx:
+                fn(ix)
+        ms[key] = 1e3 * (time.perf_counter() - t0) / (5 * len(idx))
+    emit("train_route", route="melbin", artifacts=len(paths), batch=8,
+         text_bucket=128, mel_bucket=256, batches_equal=8,
+         build_s=build_s, pack_s=pack_s,
+         pack_mb=(root / "data.melbin").stat().st_size / 1e6, **ms)
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3833,6 +4250,11 @@ def main() -> int:
         train_tiny(torch, dev)
         c = train_route(torch, dev, tmp)
         counts = {k: counts[k] + c[k] for k in counts}
+        for route in (vocoder_route, optimizers_route):
+            c = route(torch, dev, tmp)
+            counts = {k: counts[k] + c[k] for k in counts}
+        clvp_route(torch, dev, tmp)
+        melbin_route(torch, dev, tmp)
         emit("train_total", seconds=time.perf_counter() - t_train)
 
     src = "tortoise_tts_tpu_torch/csrc/"

@@ -1252,3 +1252,107 @@ def test_ts_res_block_backward_reaches_the_live_weight_cuda(
             w.sub_(1e-3 * gr[5].to(w.dtype))
     _rel_close(wk, wp, tol)
     assert not torch.equal(wk, w0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,c,t", [(8, 768, 128), (8, 24, 8192),
+                                   (2, 5, 1001)])
+def test_snake_backward_cuda(cuda, monkeypatch, b, c, t, dtype, tol):
+    """K7's autograd path (kernel forward, plain recompute backward)
+    against the plain version's autograd at the vocoder step's first and
+    last stages (B=8, 8192 samples) and a ragged T: the output and the
+    gradients of x, alpha and inv_beta, one kernel launch a call."""
+    _fp32_exact(monkeypatch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
+    alpha = torch.exp(0.3 * torch.randn(c, generator=g, device=cuda))
+    inv_beta = 1 / (torch.exp(0.3 * torch.randn(c, generator=g,
+                                                device=cuda)) + 1e-9)
+    before = k7.KERNEL.launches
+    out_k, g_k = _grads_of(k7.snake_resample2, (x, alpha, inv_beta))
+    assert k7.KERNEL.launches == before + 1
+    out_p, g_p = _grads_of(k7.snake_resample2_plain, (x, alpha, inv_beta))
+    _rel_close(out_k, out_p, tol)
+    for a, p in zip(g_k, g_p):
+        _rel_close(a, p, tol)
+        assert a.float().abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_vocoder_step_launches_k7_twice_a_forward_cuda(cuda):
+    """A tiny vocoder GAN step in bf16 on the card: K7 for every Snake of
+    the detached fake and of the generator's loss (218 launches), finite
+    metrics, the generator and the discriminator both updated."""
+    import numpy as np
+    from tortoise_tts_tpu_torch.config import Hyperparameters
+    from tortoise_tts_tpu_torch.engine import optim, train_step as ts
+    from tortoise_tts_tpu_torch.engine.state import TrainState, tree_leaves
+    from tortoise_tts_tpu_torch.models import _bigvgan_random, bigvgan
+    from tortoise_tts_tpu_torch.models import bigvgan_disc as bvd
+    from tortoise_tts_tpu_torch.models.common import tree_cast
+    vcfg = bigvgan.BigVGANConfig(upsample_initial_channel=64)
+    dcfg = bvd.DiscriminatorConfig(periods=(2, 3),
+                                   resolutions=((512, 128, 512),))
+    gen = tree_cast(_bigvgan_random(torch.Generator(device=cuda)
+                                    .manual_seed(0), vcfg), torch.bfloat16)
+    disc = bvd.init(torch.Generator(device=cuda).manual_seed(1), dcfg)
+    hp = Hyperparameters(optimizer="AdamW", learning_rate=1e-4,
+                         warmup_steps=0, gradient_accumulation_steps=1)
+    tx, tx_d = optim.make_optimizer(hp), optim.make_optimizer(hp)
+    state = TrainState({"generator": gen, "discriminator": disc},
+                       {"g": tx.init(gen), "d": tx_d.init(disc)})
+    before = [p.clone() for p in tree_leaves(state.params)]
+    wav = np.random.RandomState(0).randn(2, 4096).astype(np.float32) * 0.3
+    launches = k7.KERNEL.launches
+    state, m = ts.make_vocoder_train_step(vcfg, tx, tx_d, dcfg)(
+        state, ts.to_device({"wav": wav}, cuda))
+    assert k7.KERNEL.launches - launches == 2 * 109
+    assert all(torch.isfinite(v) for v in m.values())
+    moved = [not torch.equal(a, b)
+             for a, b in zip(before, tree_leaves(state.params))]
+    n_gen = len(tree_leaves(gen))
+    assert any(moved[:n_gen]) and any(moved[n_gen:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eta,schedule", [(0.8, "linear"), (0.5, "cosine"),
+                                          (0.0, "cosine")])
+@pytest.mark.parametrize("b", [1, 8])
+def test_captured_ddim_eta_and_cosine_equal_eager_cuda(cuda, b, eta,
+                                                       schedule):
+    """DDIM at eta > 0 (per-row noise registered with the graph) and on the
+    cosine schedule: the captured loop equals the eager step bit for bit,
+    with the same launches."""
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.models import diffusion, gaussian
+    cfg, params, rel = _tiny_denoiser(cuda, "auto")
+    sched = gaussian.get_schedule(steps=6, schedule=schedule)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    code = torch.randn(2 * b, 128, 256, generator=g, device=cuda).to(
+        torch.bfloat16)
+    noise = torch.randn(b, 100, 256, generator=g, device=cuda)
+
+    def model_fn(x, ts, _):
+        return diffusion.forward(params, x.to(torch.bfloat16), ts, code, cfg,
+                                 rel)
+
+    def gens():
+        return [torch.Generator(device=cuda).manual_seed(70 + r)
+                for r in range(b)]
+
+    kernels.reset_launches()
+    x = noise.clone()
+    t = torch.tensor([sched.num_timesteps - 1], device=cuda)
+    step = gaussian.sampler_step_fn(model_fn, x, t,
+                                    gaussian.step_tables(sched, cuda, eta),
+                                    gens(), sched, "ddim", eta)
+    for _ in range(sched.num_timesteps):
+        step()
+    eager_counts = kernels.launch_counts()
+    kernels.reset_launches()
+    got = gaussian.sample_loop(model_fn, noise, gens(), sched, "ddim", eta)
+    torch.cuda.synchronize()
+    assert torch.equal(got, x)
+    assert kernels.launch_counts() == eager_counts

@@ -193,7 +193,24 @@ def test_hdf5_path_is_bit_equal(data_root):
         _same(a, b)
 
 
-def test_melbin_loader_is_refused(data_root):
-    _, t = _pair(data_root, use_melbin=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Dataset(t, t.dataset.training)
+def test_melbin_loader_is_refused(data_root, monkeypatch):
+    """``use_melbin`` (refused before slice 14; the test keeps its name):
+    without a pack both packages run the Python path; with one (packed by
+    the port) both batch natively, the same batches, bit for bit
+    (tests/test_torch_melbin.py holds the pack and the reader)."""
+    from tortoise_tts_tpu.data import native_loader as jnl
+    from tortoise_tts_tpu_torch.data import native_loader as nl
+    monkeypatch.setattr(jnl, "SO_PATH", nl.build())
+    monkeypatch.setattr(jnl, "_lib", None)
+    j, t = _pair(data_root, use_melbin=True)
+    for packed in (False, True):
+        if packed:
+            nl.pack_melbin(sorted((data_root / "data").rglob("*.mel")),
+                           data_root / "data.melbin")
+        jd, td = (JDataset(j, j.dataset.training),
+                  Dataset(t, t.dataset.training))
+        assert (td._melbin is not None) == packed
+        assert (jd._melbin is not None) == packed
+        for a, b in zip(_batches(td, 3), _batches(jd, 3)):
+            _same(a, b)
+            assert ("mel" in a) != packed

@@ -248,6 +248,59 @@ def test_ddim_sample_loop_matches_jax(models):
         tgauss.sample_loop(tfn, _t(noise), None, ts, sampler="euler")
 
 
+@pytest.mark.parametrize("steps", [1, 50, 80])
+def test_cosine_schedule_tables_exact(steps):
+    """The cosine beta schedule respaced (JAX ``get_schedule(schedule=
+    "cosine")``), every table bit for bit."""
+    got = tgauss.get_schedule(steps=steps, schedule="cosine")
+    want = jgauss.get_schedule(steps=steps, schedule="cosine")
+    for name in got.__dataclass_fields__:
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name), err_msg=name)
+    assert not np.array_equal(got.betas, tgauss.get_schedule(steps).betas)
+    with pytest.raises(ValueError, match="beta schedule"):
+        tgauss.get_schedule(steps, schedule="sigmoid")
+
+
+@pytest.mark.parametrize("eta,schedule", [(0.8, "linear"), (0.0, "cosine")])
+def test_ddim_eta_sample_loop_matches_jax(monkeypatch, eta, schedule):
+    """DDIM at eta > 0 (sigma from the float32 tables, the noise added
+    where t != 0) and on the cosine schedule: six guided steps of a linear
+    stand-in for the denoiser (the sampler's math is under test; the
+    denoiser's parity is the tests above), the JAX package's threefry draws
+    injected through ``gaussian.row_noise`` (one a step, as its scan
+    draws)."""
+    rng = np.random.RandomState(11)
+    noise = rng.randn(2, 100, 16).astype(np.float32)
+    w = (rng.randn(200, 100) * 0.1).astype(np.float32)
+    js = jgauss.get_schedule(steps=6, schedule=schedule)
+    ts = tgauss.get_schedule(steps=6, schedule=schedule)
+    key = jax.random.PRNGKey(3)
+    draws, k = [], key
+    for _ in range(6):
+        k, sub = jax.random.split(k)
+        draws.append(_t(jax.random.normal(sub, noise.shape, jnp.float32)))
+    taken = []
+
+    def injected(generators, x):
+        taken.append(1)
+        return draws[len(taken) - 1]
+    monkeypatch.setattr(tgauss, "row_noise", injected)
+    want = jgauss.sample_loop(
+        lambda x, t, _: jnp.einsum("oc,bct->bot", w, x)
+        + t.astype(jnp.float32)[:, None, None] / 4000.0,
+        jnp.asarray(noise), key, js, eta=eta)
+    got = tgauss.sample_loop(
+        lambda x, t, _: torch.einsum("oc,bct->bot", _t(w), x)
+        + t.float()[:, None, None] / 4000.0,
+        _t(noise), [torch.Generator()] * 2, ts, eta=eta)
+    assert len(taken) == (6 if eta else 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if eta:
+        tabs = tgauss.step_tables(ts, "cpu", eta)
+        assert float(tabs["ddim_sigma"][1]) > 0
+
+
 @pytest.mark.parametrize("t", [0, 2])
 def test_p_mean_variance_matches_jax(models, t):
     """The P sampler's step: mean, learned-range log variance and x_0,

@@ -3,8 +3,9 @@ the CPU: the README's AR + diffusion yaml and the AR-only yaml train,
 checkpoint and resume to the parameters of an uninterrupted run; the
 REPL's deferred events and ``lr``; the OOM skip and the reload after an
 OOM inside the update; the trainer fault the port repairs; checkpoints
-crossing between the two packages; ``run_eval`` writing wavs; and the
-training routes that are not ported raising."""
+crossing between the two packages; ``run_eval`` writing wavs; the
+routes of slice 14 (CLVP, BigVGAN, Prodigy) through the trainer's
+engines; and the training mesh raising."""
 
 import dataclasses
 
@@ -356,14 +357,61 @@ def test_run_eval_writes_wavs(env, monkeypatch, tmp_path):
     ({"trainer": {"mesh_shape": [4, 1]}}, "mesh_shape"),
     ({"hyperparameters": {"optimizer": "Prodigy"}}, "Prodigy"),
 ])
-def test_training_routes_not_ported_say_so(env, edit, match):
-    root, data, _ = env
+def test_training_routes_not_ported_say_so(env, monkeypatch, edit, match):
+    """A mesh of more than one device still raises.  The routes the port
+    refused before slice 14 (the test keeps its name) build through
+    ``load_engines`` and step on the Dataset's batches: the CLVP engine
+    and a Prodigy AR engine move their parameters; the BigVGAN engine's
+    feeder refuses a batch without wavs and steps on one with them."""
+    from tortoise_tts_tpu_torch.engine import factory as fac
+    from tortoise_tts_tpu_torch.models import (DTYPES, LoadedModel,
+                                               _bigvgan_random)
+    from tortoise_tts_tpu_torch.models import bigvgan as tbv
+    from tortoise_tts_tpu_torch.models import bigvgan_disc as bvd
+    from tortoise_tts_tpu_torch.models.common import tree_cast
+    root, data, params = env
     raw = {"models": [{"name": "autoregressive", "training": True}],
-           "dataset": {"training": [str(data)], "validate": False}}
-    raw.update(edit)
+           "dataset": {"training": [str(data)], "validate": False,
+                       "text_bucket": 40, "mel_bucket": 48},
+           "hyperparameters": {"batch_size": 2, "warmup_steps": 0,
+                               "learning_rate": 1e-3,
+                               "gradient_accumulation_steps": 1},
+           "trainer": {"weight_dtype": "float32"}}
+    for k, v in edit.items():
+        raw[k] = {**raw[k], **v} if isinstance(v, dict) else v
     cfg = Config.from_dict(raw, yaml_path=str(root / "cfg.yaml"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_engines(cfg, device="cpu")
+    if match == "mesh_shape":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            load_engines(cfg, device="cpu")
+        return
+    base = tiny_load_model({**params, "clvp": jax_params("clvp")})
+    vcfg = tbv.BigVGANConfig(upsample_initial_channel=64)
+
+    def load(name, dtype="float32", seed=0, device=None):
+        if name != "bigvgan":
+            return base(name, dtype, seed, device)
+        g = _bigvgan_random(torch.Generator().manual_seed(0), vcfg)
+        return LoadedModel(name, tbv, vcfg, tree_cast(g, DTYPES[dtype]),
+                           False)
+    monkeypatch.setattr(tmodels, "load_model", load)
+    monkeypatch.setattr(fac, "load_model", load)
+    small = bvd.DiscriminatorConfig(periods=(2,),
+                                    resolutions=((512, 128, 512),))
+    monkeypatch.setattr(bvd, "DiscriminatorConfig", lambda: small)
+    engines = load_engines(cfg, device="cpu")
+    name = "autoregressive" if match == "Prodigy" else match
+    assert engines.names() == [name]
+    before = [t.clone() for t in st.tree_leaves(engines[name].params)]
+    batch = next(Dataset(cfg, cfg.dataset.training).batches())
+    if name == "bigvgan":
+        with pytest.raises(KeyError, match="wav"):
+            engines.step(batch)
+        rng = np.random.RandomState(0)
+        batch = {"wav": (0.3 * rng.randn(1, 2048)).astype(np.float32)}
+    m = engines.step(batch)
+    assert np.isfinite(m[f"{name}.loss"])
+    after = st.tree_leaves(engines[name].params)
+    assert any(not torch.equal(a, b) for a, b in zip(before, after))
 
 
 def test_model_path_reference_torch_layout_loads(env, tmp_path):

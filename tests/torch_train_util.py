@@ -1,4 +1,4 @@
-"""Shared pieces of the training parity tests: tiny configs of the three
+"""Shared pieces of the training parity tests: tiny configs of the
 trainable models in both packages, the same weights on both sides (made
 by the JAX package's inits, carried over by the bridge) and fabricated
 reference-format .mel artifacts."""
@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from tortoise_tts_tpu.models import clvp as jclvp
 from tortoise_tts_tpu.models import diffusion as jdiff
 from tortoise_tts_tpu.models import dvae as jdvae
 from tortoise_tts_tpu.models import unified_voice as juv
 from tortoise_tts_tpu_torch import bridge
+from tortoise_tts_tpu_torch.models import clvp as tclvp
 from tortoise_tts_tpu_torch.models import diffusion as tdiff
 from tortoise_tts_tpu_torch.models import dvae as tdvae
 from tortoise_tts_tpu_torch.models import unified_voice as tuv
@@ -23,14 +25,17 @@ UV = dict(layers=2, model_dim=64, heads=4, max_text_tokens=40,
 DIFF = dict(model_channels=64, num_layers=2, in_latent_channels=64,
             num_heads=4)
 DVAE = dict(codebook_dim=32, hidden_dim=32)
+CLVP = dict(dim_text=64, dim_speech=64, dim_latent=64, text_enc_depth=2,
+            speech_enc_depth=2, text_heads=2, speech_heads=2, dim_head=32)
 CFGS = {"autoregressive": (juv.UnifiedVoiceConfig(**UV),
                            tuv.UnifiedVoiceConfig(**UV)),
         "diffusion": (jdiff.DiffusionConfig(**DIFF),
                       tdiff.DiffusionConfig(**DIFF)),
-        "dvae": (jdvae.DVAEConfig(**DVAE), tdvae.DVAEConfig(**DVAE))}
+        "dvae": (jdvae.DVAEConfig(**DVAE), tdvae.DVAEConfig(**DVAE)),
+        "clvp": (jclvp.CLVPConfig(**CLVP), tclvp.CLVPConfig(**CLVP))}
 MODULES = {"autoregressive": (juv, tuv), "diffusion": (jdiff, tdiff),
-           "dvae": (jdvae, tdvae)}
-SEEDS = {"autoregressive": 11, "diffusion": 12, "dvae": 13}
+           "dvae": (jdvae, tdvae), "clvp": (jclvp, tclvp)}
+SEEDS = {"autoregressive": 11, "diffusion": 12, "dvae": 13, "clvp": 14}
 # fp32 parity of a loss and of every gradient leaf
 TOL = dict(rtol=1e-4, atol=1e-6)
 

@@ -43,6 +43,8 @@ UNIVNET_BLOCK_KEYS = {"kernel_predictor", "convt_pre", "conv_blocks"}
 DVAE_KEYS = {"enc_convs", "enc_res", "enc_out", "dec_in", "dec_res",
              "dec_convs", "dec_out", "codebook"}
 DVAE_CODEBOOK_KEYS = {"embed", "cluster_size", "embed_avg"}
+DISC_KEYS = {"mpd", "mrd"}
+WN_CONV_KEYS = {"v", "g", "b"}
 
 
 def to_torch(tree, device=None, dtype: Optional[torch.dtype] = None):
@@ -143,4 +145,16 @@ def dvae_from_jax(params, device=None,
     ``cluster_size``, ``embed_avg``)."""
     _check_keys(params, DVAE_KEYS, "DVAE params")
     _check_keys(params["codebook"], DVAE_CODEBOOK_KEYS, "DVAE codebook")
+    return to_torch(params, device, dtype)
+
+
+def bigvgan_disc_from_jax(params, device=None,
+                          dtype: Optional[torch.dtype] = None) -> Params:
+    """The MultiPeriod + MultiResolution discriminators (lists of
+    ``{"convs", "post"}``, weight-norm OIHW convs ``{"v", "g", "b"}``)."""
+    _check_keys(params, DISC_KEYS, "BigVGAN discriminator params")
+    for d in params["mpd"] + params["mrd"]:
+        _check_keys(d, {"convs", "post"}, "BigVGAN discriminator")
+        for c in d["convs"] + [d["post"]]:
+            _check_keys(c, WN_CONV_KEYS, "weight-norm conv")
     return to_torch(params, device, dtype)

@@ -203,7 +203,8 @@ class DatasetConfig:
     # fixed text and mel-code lengths of a training batch
     text_bucket: int = 256
     mel_bucket: int = 512
-    # the native packed-dataset loader (not ported: ROADMAP.md)
+    # the native packed-dataset loader (data/native_loader.py): reads
+    # <data dir>/data.melbin where it exists
     use_melbin: bool = False
     # load the mel / mel_diff targets (artifacts written with store_mels)
     load_mels: bool = False

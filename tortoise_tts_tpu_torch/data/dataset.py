@@ -14,8 +14,15 @@ metadata) from ``<data_dir>/<group>/<speaker>/<utt>.mel`` trees, with:
   stop(0), codes to ``mel_bucket`` (TPU design delta — the reference
   pads dynamically per batch, SURVEY §7 'fixed shapes under jit').
 
-The native melbin loader (``use_melbin``) is not ported: it raises
-(ROADMAP.md).  The HDF5 path needs ``h5py``, imported when used.
+With ``use_melbin`` and a ``data.melbin`` pack beside the config (with
+its ``.paths.json`` sidecar), batches come from the native loader
+(``native_loader.MelBinDataset``): the same rows, mapped from the
+sampler's indices through the sidecar, assembled in C++.  Without the
+pack the Python path runs.  A pack that is present but cannot be used
+(the library does not build or load, no sidecar, a path missing from
+it) raises: no silent fallback.  The native batches carry no mel
+targets and take no similar-utterance prompt, as in the JAX package.
+The HDF5 path needs ``h5py``, imported when used.
 """
 
 from __future__ import annotations
@@ -68,10 +75,12 @@ class Dataset:
         self.paths: List[Path] = []
         self.durations: List[float] = []
         self._h5 = None
-        if self.dcfg.use_melbin:
-            raise NotImplementedError(
-                "dataset.use_melbin: the native melbin loader is not ported "
-                "yet (ROADMAP.md); set use_melbin: false")
+        self._melbin = None
+        melbin = cfg.rel_path / "data.melbin"
+        if self.dcfg.use_melbin and melbin.exists():
+            from .native_loader import MelBinDataset
+            self._melbin = MelBinDataset(melbin)
+            _logger.info("using the native melbin loader: %s", melbin)
         if self.dcfg.use_hdf5:
             import h5py
             h5_path = cfg.rel_path / self.dcfg.hdf5_name
@@ -139,7 +148,26 @@ class Dataset:
                         for i, p in enumerate(self.paths)}
         self._rng = np.random.RandomState(0)
 
+        if self._melbin is not None:
+            self._melbin_rows = self._pack_rows(melbin)
         self.sampler = self._make_sampler()
+
+    def _pack_rows(self, melbin: Path) -> np.ndarray:
+        """The pack row of each sample: the pack keeps its records in the
+        order of its ``.paths.json`` sidecar, the samples are pruned,
+        sharded, filtered and reordered."""
+        sidecar = Path(str(melbin) + ".paths.json")
+        if not sidecar.exists():
+            raise FileNotFoundError(
+                f"{melbin} has no .paths.json sidecar: its order cannot be "
+                "matched to the dataset's; re-pack it (native_loader."
+                "pack_melbin) or set dataset.use_melbin: false")
+        pos = {s: i for i, s in enumerate(json.loads(sidecar.read_text()))}
+        missing = [str(p) for p in self.paths if str(p) not in pos]
+        if missing:
+            raise KeyError(f"{melbin} lacks {len(missing)} of the dataset's "
+                           f"paths (first: {missing[0]}); re-pack it")
+        return np.asarray([pos[str(p)] for p in self.paths], np.int64)
 
     def _speaker_of(self, p) -> str:
         return str(Path(str(p)).parent)
@@ -349,6 +377,11 @@ class Dataset:
     def collate(self, items: List[Dict[str, Any]]) -> Dict[str, np.ndarray]:
         return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
+    def _native_batch(self, indices) -> Dict[str, np.ndarray]:
+        rows = self._melbin_rows[np.asarray(indices)]
+        return self._melbin.batch(rows, self.dcfg.text_bucket,
+                                  self.dcfg.mel_bucket)
+
     # ------------------------------------------------------------------
     def _index_batches(self, bs: int) -> Iterator[tuple]:
         """Infinite stream of (index list, the sampler's state once it is
@@ -380,11 +413,14 @@ class Dataset:
         state ``get_state`` saves is the sampler's as of the last batch
         yielded, not of the one assembled ahead: a run resumed from it
         trains on the batches the uninterrupted run trains on next (the
-        JAX package saves the sampler's live state, one batch ahead)."""
+        JAX package saves the sampler's live state, one batch ahead).  The
+        native path assembles in C++ threads with the GIL released."""
         bs = batch_size or self.cfg.hyperparameters.batch_size
 
         def make(item):
             idx, state = item
+            if self._melbin is not None:
+                return self._native_batch(idx), state
             return self.collate([self[i] for i in idx]), state
         import concurrent.futures as _cf
         idx_it = self._index_batches(bs)

@@ -26,10 +26,17 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from .optim import eval_params
 from .state import (AsyncCheckpointer, TrainState, export_weights,
                     load_checkpoint, save_checkpoint, snapshot_state)
 
 _logger = logging.getLogger(__name__)
+
+
+def _eval_params(state: TrainState):
+    """An engine's export: its parameters as ``optim.eval_params`` gives
+    them under its optimizer's state."""
+    return eval_params(state.params, state.opt_state)
 
 
 class Engines:
@@ -44,14 +51,18 @@ class Engines:
 
     def add(self, name: str, state: TrainState, step_fn: Callable,
             batch_selector: Optional[Callable] = None,
-            config: Optional[dict] = None):
+            config: Optional[dict] = None,
+            export_params: Optional[Callable] = None):
         """step_fn(state, batch) -> (state, metrics); batch_selector maps
         the global batch to this engine's batch on its device (the feeder
-        role)."""
+        role); export_params(state) gives the weights ``export`` writes
+        (default: ``optim.eval_params`` of the parameters and their one
+        optimizer's state)."""
         self._engines[name] = {
             "state": state, "step": step_fn,
             "select": batch_selector or (lambda b: b),
-            "config": config or {}, "host_step": int(state.step)}
+            "config": config or {}, "host_step": int(state.step),
+            "export": export_params or _eval_params}
 
     def __getitem__(self, name: str) -> TrainState:
         return self._engines[name]["state"]
@@ -217,10 +228,9 @@ class Engines:
     def export(self, ckpt_dir: Path, weights_format: str = "sft",
                userdata: Optional[dict] = None):
         """fp32 export of each engine (engines/base.py:356-400)."""
-        from .optim import eval_params
         for name, e in self._engines.items():
             s = e["state"]
-            export_weights(eval_params(s.params, s.opt_state),
+            export_weights(e["export"](s),
                            Path(ckpt_dir) / name / f"fp32.{weights_format}",
                            config={"name": name, **e["config"]},
                            stats={"step": int(s.step)}, userdata=userdata)

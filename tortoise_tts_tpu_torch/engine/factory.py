@@ -16,8 +16,13 @@ engine's current parameters when the AR model co-trains (the adapted
 model under LoRA), else with the loaded AR model (the TorToiSe recipe:
 the denoiser conditions on AR latents).
 
-The CLVP and BigVGAN engines and a mesh of more than one device are not
-ported and raise (ROADMAP.md).
+The BigVGAN engine trains the generator against a random-initialised
+MultiPeriod + MultiResolution discriminator, each with its own optimizer
+from the same hyperparameters; its feeder takes ``wav`` segments, which
+the Dataset does not yield (as in the JAX package): it runs from a
+caller's batches through ``Engines.step``.  The CLVP engine trains on the
+batch's text and codes.  A mesh of more than one device is not ported
+and raises (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,8 +42,9 @@ from .engines import Engines
 
 _logger = logging.getLogger(__name__)
 
-TRAINABLE = ("autoregressive", "diffusion", "dvae")
-NOT_PORTED = ("clvp", "bigvgan")
+TRAINABLE = ("autoregressive", "diffusion", "dvae", "clvp", "bigvgan")
+# the discriminator's seed (the JAX package's PRNGKey(1))
+DISC_SEED = 1
 
 
 def _merged_hp(cfg: Config, m: ModelConfig) -> Hyperparameters:
@@ -116,9 +122,6 @@ def load_engines(cfg: Config, training: bool = True,
     loaded: Dict[str, LoadedModel] = {}
     teacher_params = None
     for m in cfg.models:
-        if training and m.training and m.name in NOT_PORTED:
-            raise NotImplementedError(
-                f"the {m.name} engine is not ported yet (ROADMAP.md)")
         lm = load_model(m.name, dtype, device=device)
         if m.path:
             lm = _load_path(lm, m, cfg)
@@ -199,11 +202,41 @@ def load_engines(cfg: Config, training: bool = True,
             engines.add(m.full_name, st.init_state(lm.params, tx), step_fn,
                         batch_selector=_dvae_selector(device), config=conf)
 
+        elif m.name == "clvp":
+            step_fn = ts.make_clvp_train_step(lm.config, tx)
+            engines.add(m.full_name, st.init_state(lm.params, tx), step_fn,
+                        batch_selector=_selector(device, ("text", "codes")),
+                        config=conf)
+
+        elif m.name == "bigvgan":
+            from ..models import bigvgan_disc as bvd
+            tx_d = optim.make_optimizer(hp)
+            g = torch.Generator(device=device).manual_seed(DISC_SEED)
+            dcfg = bvd.DiscriminatorConfig()
+            disc = bvd.init(g, dcfg)
+            params = {"generator": lm.params, "discriminator": disc}
+            state = st.TrainState(params, {"g": tx.init(lm.params),
+                                           "d": tx_d.init(disc)})
+            step_fn = ts.make_vocoder_train_step(lm.config, tx, tx_d, dcfg)
+            engines.add(m.full_name, state, step_fn,
+                        batch_selector=_vocoder_selector(device),
+                        config=conf, export_params=vocoder_export_params)
+
     if not engines.names() and training:
         raise RuntimeError("training, but no model set to train "
                            "(reference trainer.py:140-147 behavior)")
     engines.load_checkpoint(cfg.ckpt_dir, strict=cfg.trainer.strict_loading)
     return engines
+
+
+def vocoder_export_params(state: st.TrainState) -> Dict[str, Any]:
+    """The bigvgan engine's export: the generator's and the
+    discriminator's weights, each under its own optimizer's state
+    (``optim.eval_params``)."""
+    return {"generator": optim.eval_params(state.params["generator"],
+                                           state.opt_state["g"]),
+            "discriminator": optim.eval_params(
+                state.params["discriminator"], state.opt_state["d"])}
 
 
 _AR_KEYS = ("latents", "text", "text_lengths", "codes", "wav_lengths")
@@ -237,6 +270,17 @@ def _dvae_selector(device):
                 "dvae training needs 'mel' targets: re-run emb.process with "
                 "store_mels and set dataset.load_mels: true")
         return ts.to_device({"mel": batch["mel"]}, device)
+    return select
+
+
+def _vocoder_selector(device):
+    def select(batch):
+        if "wav" not in batch:
+            raise KeyError(
+                "bigvgan training needs 'wav' segments (B, T) at 24 kHz: "
+                "the Dataset yields none, so step the engine with batches "
+                "of your own through Engines.step")
+        return ts.to_device({"wav": batch["wav"]}, device)
     return select
 
 

@@ -1,24 +1,29 @@
 """Train steps (port of ``tortoise_tts_tpu/engine/train_step.py``): the
-AR step (LoRA, teacher distillation), the diffusion step and the DVAE
-step.
+AR step (LoRA, teacher distillation), the diffusion step, the DVAE step,
+the BigVGAN GAN step and the CLVP step.
 
 Each ``make_*_train_step`` returns ``step(state, batch) -> (state,
 metrics)``: the loss and every gradient from ``torch.autograd.grad``
 over the trainable leaves, then the optimizer's update of the
 parameters in place.  Metrics are 0-d tensors on the device under the
 JAX package's names (``loss``, ``grad_norm``, ``loss.text``,
-``loss.mel``, ``loss.kl``, ``loss.mse``, ``loss.vb``, ``loss.commit``);
-``grad_norm`` is the global norm of the micro-step's raw gradients.
+``loss.mel``, ``loss.kl``, ``loss.mse``, ``loss.vb``, ``loss.commit``,
+``loss.disc``, ``loss.adv``, ``loss.fm``); ``grad_norm`` is the global
+norm of the micro-step's raw gradients.
 
 A ``torch.cuda.OutOfMemoryError`` in the forward or the backward leaves
 the state as it was; one inside the update marks it not ``intact`` (the
 tensors may be half written), and ``Engines.step`` reloads the last
-checkpoint.
+checkpoint.  The vocoder step updates the discriminator before the
+generator's forward: an OOM after that update marks the state not intact
+too.
 
 On the card the kernels carry the forward: K1 in the AR trunk (twice a
 layer with ``remat``: the layer runs again in the backward), K4 and K5
-in the denoiser's resblocks and attention heads.  Their backwards
-recompute the plain versions.  K5 reads its weight tap-major: the
+in the denoiser's resblocks and attention heads, K7 in every Snake of
+the vocoder's generator (twice a step: the detached fake for the
+discriminator, then the generator's loss).  Their backwards recompute
+the plain versions.  K5 reads its weight tap-major: the
 diffusion step prepares it from the live weight inside the loss, so the
 kernel never sees a stale copy and the weight's gradient comes through.
 
@@ -70,13 +75,17 @@ def _grads(loss, leaves):
             for p, g in zip(leaves, grads)]
 
 
-def _apply(state: TrainState, tx: Optimizer, grads) -> torch.Tensor:
-    """The optimizer's update, in place; returns the gradients' global
-    norm (the metric, and the clip's norm without accumulation).  An OOM
-    inside the update leaves the state marked not intact."""
+def _apply(state: TrainState, tx: Optimizer, grads, params=None,
+           opt_state=None) -> torch.Tensor:
+    """The optimizer's update of ``params`` (the state's by default) with
+    ``opt_state``, in place; returns the gradients' global norm (the
+    metric, and the clip's norm without accumulation).  An OOM inside the
+    update leaves the state marked not intact."""
     norm = global_norm(grads)
     try:
-        tx.step(state.params, grads, state.opt_state, norm=norm)
+        tx.step(state.params if params is None else params, grads,
+                state.opt_state if opt_state is None else opt_state,
+                norm=norm)
     except torch.cuda.OutOfMemoryError:
         state.intact = False
         raise
@@ -227,3 +236,85 @@ def ar_latents(params, cfg: uv.UnifiedVoiceConfig, batch) -> torch.Tensor:
         return uv.forward(params, batch["latents"], batch["text"],
                           batch["text_lengths"], batch["codes"],
                           batch["wav_lengths"], cfg, return_latent=True)
+
+
+def make_vocoder_train_step(gen_cfg, tx_g: Optimizer, tx_d: Optimizer,
+                            disc_cfg=None, mel_weight: float = 45.0):
+    """BigVGAN adversarial step (reference bigvgan.py:543-762 and the
+    upstream recipe), in the JAX package's order: the training mel of the
+    real wav; the generator's fake, detached; the discriminator's LSGAN
+    update on real and fake; then the generator's loss through the updated
+    discriminator: LSGAN + feature matching + ``mel_weight`` x the mel L1.
+
+    State: ``params`` = {"generator", "discriminator"}, ``opt_state`` =
+    {"g", "d"}.  Batch: {"wav": (B, T) or (B, 1, T) 24 kHz segments, T a
+    multiple of 256}.  The generator runs in its weights' type (the mel
+    cast to it; the JAX package runs it in the mel's fp32, the same in
+    fp32) and its wav is cast back to the real wav's type for the
+    discriminator and the losses."""
+    from ..models import bigvgan as bv
+    from ..models import bigvgan_disc as bvd
+    disc_cfg = disc_cfg or bvd.DiscriminatorConfig()
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
+        wav = batch["wav"]
+        if wav.dim() == 2:
+            wav = wav[:, None]
+        mel = bvd.training_mel(wav[:, 0])
+        gen = state.params["generator"]
+        mel_g = mel.to(tree_leaves(gen)[0].dtype)
+        with torch.no_grad():
+            fake = bv.forward(gen, mel_g, gen_cfg).to(wav.dtype)
+        d_leaves, disc = _with_grad(state.params["discriminator"])
+        real_s, _ = bvd.discriminate(disc, wav, disc_cfg)
+        fake_s, _ = bvd.discriminate(disc, fake, disc_cfg)
+        d_loss = bvd.discriminator_loss(real_s, fake_s)
+        d_grads = _grads(d_loss, d_leaves)
+        del disc, d_leaves, real_s, fake_s, fake
+        _apply(state, tx_d, d_grads, state.params["discriminator"],
+               state.opt_state["d"])
+        del d_grads
+        try:
+            disc = state.params["discriminator"]
+            g_leaves, gp = _with_grad(gen)
+            fake = bv.forward(gp, mel_g, gen_cfg).to(wav.dtype)
+            with torch.no_grad():
+                _, real_f = bvd.discriminate(disc, wav, disc_cfg)
+            fake_s, fake_f = bvd.discriminate(disc, fake, disc_cfg)
+            adv = bvd.generator_loss(fake_s)
+            fm = bvd.feature_loss(real_f, fake_f)
+            ml = bvd.mel_loss(wav[:, 0], fake[:, 0])
+            g_loss = adv + fm + mel_weight * ml
+            g_grads = _grads(g_loss, g_leaves)
+        except torch.cuda.OutOfMemoryError:
+            # the discriminator has taken its update, the generator not
+            state.intact = False
+            raise
+        del gp, g_leaves, fake, real_f, fake_s, fake_f
+        _apply(state, tx_g, g_grads, gen, state.opt_state["g"])
+        state.step += 1
+        state.samples_processed += wav.shape[0]
+        return state, {"loss": g_loss.detach(), "loss.disc": d_loss.detach(),
+                       "loss.adv": adv.detach(), "loss.fm": fm.detach(),
+                       "loss.mel": ml.detach()}
+
+    return step
+
+
+def make_clvp_train_step(cfg, tx: Optimizer):
+    """CLVP's symmetric InfoNCE step (clvp.py:138-141).  Batch: text (B,
+    Tt) and codes (B, Tm), no masks (the JAX package passes none)."""
+    from ..models import clvp as clvp_m
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
+        leaves, params = _with_grad(state.params)
+        loss = clvp_m.forward(params, batch["text"], batch["codes"], cfg,
+                              return_loss=True)
+        grads = _grads(loss, leaves)
+        del params, leaves
+        _apply(state, tx, grads)
+        state.step += 1
+        state.samples_processed += batch["text"].shape[0]
+        return state, {"loss": loss.detach()}
+
+    return step

@@ -4,10 +4,12 @@
 Two 20-layer, 768-wide, 12-head encoders with RMSNorm pre-norm, rotary
 positions (dim 32, applied to q, k and v, a quirk of the vendored
 xtransformers) and a GEGLU feed-forward; ``forward`` returns one
-similarity per (text, speech) row.  The JAX package has no Pallas
-kernel here, so its matmuls and attention stay plain PyTorch.  The
-legacy DALLE-style encoder and the training loss are not ported
-(ROADMAP.md).
+similarity per (text, speech) row, or with ``return_loss`` the
+symmetric InfoNCE loss of the batch (the training objective).  The
+legacy DALLE-style encoder (``legacy_encoder``: LayerNorm pre-norm,
+LayerScale, GEGLU, masked non-causal attention) is here too.  The JAX
+package has no Pallas kernel in CLVP, so its matmuls and attention stay
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -134,6 +136,58 @@ def _encoder(p: Params, x: torch.Tensor, mask: Optional[torch.Tensor],
     return layer_norm(p["final_norm"], x)
 
 
+# the legacy DALLE-style tower (reference transformer.py,
+# use_xformers=False)
+
+def _layer_scale_init(depth_ind: int, dim: int, device=None) -> torch.Tensor:
+    """LayerScale's depth-dependent init (transformer.py)."""
+    eps = 0.1 if depth_ind <= 18 else 1e-5 if depth_ind <= 24 else 1e-6
+    return torch.full((1, 1, dim), eps, device=device)
+
+
+def legacy_encoder_init(g: torch.Generator, dim: int, depth: int,
+                        heads: int, dim_head: int = 64,
+                        ff_mult: int = 4) -> Params:
+    inner = dim_head * heads
+    return {"layers": [{
+        "attn_norm": norm_init(dim, g.device),
+        "to_qkv": linear_init(g, dim, inner * 3, bias=False),
+        "to_out": linear_init(g, inner, dim),
+        "attn_scale": _layer_scale_init(ind + 1, dim, g.device),
+        "ff_norm": norm_init(dim, g.device),
+        "ff_in": linear_init(g, dim, dim * ff_mult * 2),
+        "ff_out": linear_init(g, dim * ff_mult, dim),
+        "ff_scale": _layer_scale_init(ind + 1, dim, g.device),
+    } for ind in range(depth)]}
+
+
+def legacy_encoder(p: Params, x: torch.Tensor, mask: Optional[torch.Tensor],
+                   heads: int, dim_head: int = 64) -> torch.Tensor:
+    """PreNorm + LayerScale stack, non-causal (transformer.py:99-220).
+    x: (B, T, D); mask: (B, T), True = a key that may be attended."""
+    b, t, _ = x.shape
+    scale = dim_head ** -0.5
+
+    def split(z):
+        return z.reshape(b, t, heads, dim_head).transpose(1, 2)
+
+    for lp in p["layers"]:
+        q, k, v = linear(lp["to_qkv"], layer_norm(lp["attn_norm"], x)
+                         ).chunk(3, dim=-1)
+        q, k, v = split(q) * scale, split(k), split(v)
+        dots = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+        if mask is not None:
+            dots = dots.masked_fill(~mask[:, None, None, :], NEG_INF)
+        w = torch.softmax(dots, dim=-1).to(x.dtype)
+        o = torch.einsum("bhqk,bhkd->bhqd", w, v)
+        x = x + linear(lp["to_out"], o.transpose(1, 2).reshape(b, t, -1)
+                       ) * lp["attn_scale"]
+        a, gate = linear(lp["ff_in"], layer_norm(lp["ff_norm"], x)).chunk(
+            2, dim=-1)
+        x = x + linear(lp["ff_out"], a * F.gelu(gate)) * lp["ff_scale"]
+    return x
+
+
 def _masked_mean(t: torch.Tensor, mask: Optional[torch.Tensor]
                  ) -> torch.Tensor:
     if mask is None:
@@ -161,11 +215,17 @@ def latents(params: Params, text: torch.Tensor, speech_tokens: torch.Tensor,
 
 
 def forward(params: Params, text: torch.Tensor, speech_tokens: torch.Tensor,
-            cfg: CLVPConfig = CLVPConfig(),
+            cfg: CLVPConfig = CLVPConfig(), return_loss: bool = False,
             text_mask: Optional[torch.Tensor] = None,
             speech_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Similarity scores (B,) of each text row with its speech row
-    (clvp.py:132-141)."""
+    """Similarity scores (B,) of each text row with its speech row, or
+    with ``return_loss`` the symmetric InfoNCE loss over the batch's
+    (B, B) similarities, row r's match at column r (clvp.py:132-141)."""
     tl, sl = latents(params, text, speech_tokens, cfg, text_mask,
                      speech_mask)
-    return (tl * sl).sum(dim=-1) * torch.exp(params["temperature"])
+    temp = torch.exp(params["temperature"])
+    if not return_loss:
+        return (tl * sl).sum(dim=-1) * temp
+    sim = torch.einsum("id,jd->ij", tl, sl) * temp
+    labels = torch.arange(sim.shape[0], device=sim.device)
+    return (F.cross_entropy(sim, labels) + F.cross_entropy(sim.T, labels)) / 2

@@ -5,23 +5,22 @@ and the training losses (port of ``tortoise_tts_tpu/models/gaussian.py``).
   the JAX package gathers them; ``step_tables`` puts every per-step
   number a sampler step reads (made on the host in numpy, as the eager
   loop made them) into device tables indexed by the step on the device;
-- ``sample_loop`` runs DDIM (eta 0, as the inference route calls it),
-  the ancestral P sampler or DPM-Solver++(2M) (``"dpm++"``, the JAX
-  package's ``_dpmpp_2m_loop``), with conditioning-free guidance (the
+- ``sample_loop`` runs DDIM (eta 0, as the inference route calls it, or
+  eta > 0 with per-row noise added where t != 0), the ancestral P
+  sampler or DPM-Solver++(2M) (``"dpm++"``, the JAX package's
+  ``_dpmpp_2m_loop``), with conditioning-free guidance (the
   reference's ramped k) batched into one model call: one step
   (``sampler_step_fn``) reads no host value, and on CUDA tensors it is
   captured once as a CUDA graph (``utils/graphs.StepGraph``) and replayed
   for every respaced step, as the JAX package runs its ``lax.scan``; on
   CPU tensors the same step runs eagerly;
-- semantics of get_diffuser(trained_diffusion_steps=4000, linear betas,
-  epsilon prediction, learned_range variance), diffusion.py:1576-1590.
+- semantics of get_diffuser(trained_diffusion_steps=4000, linear or
+  cosine betas, epsilon prediction, learned_range variance),
+  diffusion.py:1576-1590.
 
 - ``q_sample`` and ``training_losses`` (diffusion.py:847-933): the MSE
   on epsilon plus the variational bound on a frozen mean, over the
   unspaced 4000-step schedule the train step uses.
-
-DDIM with eta > 0 and the cosine schedule are not ported yet
-(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -81,11 +80,25 @@ def linear_betas(n: int) -> np.ndarray:
     return np.linspace(scale * 1e-4, scale * 0.02, n, dtype=np.float64)
 
 
+def cosine_betas(n: int, max_beta: float = 0.999) -> np.ndarray:
+    """Nichol and Dhariwal's cosine schedule (diffusion.py:125-151)."""
+    def abar(t):
+        return math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2
+    return np.array([min(1 - abar((i + 1) / n) / abar(i / n), max_beta)
+                     for i in range(n)])
+
+
 @lru_cache(maxsize=32)
-def get_schedule(steps: int = 80,
-                 cond_free: bool = True) -> DiffusionSchedule:
-    """get_diffuser equivalent (diffusion.py:1576-1590), linear betas."""
-    abar_base = np.cumprod(1.0 - linear_betas(TRAINED_DIFFUSION_STEPS))
+def get_schedule(steps: int = 80, cond_free: bool = True,
+                 schedule: str = "linear") -> DiffusionSchedule:
+    """get_diffuser equivalent (diffusion.py:1576-1590): ``steps``
+    respaced from the 4000 trained steps of the ``schedule``'s betas
+    ("linear" or "cosine")."""
+    if schedule not in ("linear", "cosine"):
+        raise ValueError(f"unknown beta schedule {schedule!r}")
+    base = (linear_betas if schedule == "linear"
+            else cosine_betas)(TRAINED_DIFFUSION_STEPS)
+    abar_base = np.cumprod(1.0 - base)
     keep = space_timesteps(TRAINED_DIFFUSION_STEPS, steps)
     last, new_betas = 1.0, []
     for i in keep:
@@ -131,14 +144,18 @@ def _tab(arr: np.ndarray, t: int) -> np.float32:
     return np.float32(arr[t])
 
 
-def step_tables(sched: DiffusionSchedule, device) -> Dict[str, torch.Tensor]:
+def step_tables(sched: DiffusionSchedule, device,
+                eta: float = 0.0) -> Dict[str, torch.Tensor]:
     """Every per-step number a sampler step reads, as (T,) device tables
     indexed by the respaced step: the float32 values the eager loop read
     with ``_tab``, made on the host in numpy (PyTorch on CUDA multiplies
     by the reciprocal where a division has a Python number for divisor, so
     nothing here is recomputed on the device).  ``timestep_map`` is int64,
     the rest float32; DPM++'s ``alpha``, ``sigma`` and ``lambda`` have one
-    more entry, index n, for the clean state past t = 0."""
+    more entry, index n, for the clean state past t = 0.  DDIM at ``eta``
+    reads ``ddim_sigma``, eta sqrt((1 - abar_prev) / (1 - abar)) sqrt(1 -
+    abar / abar_prev), and ``ddim_coef``, sqrt(1 - abar_prev - sigma^2),
+    in the JAX package's float32 arithmetic."""
     n = sched.num_timesteps
     ts = range(n)
     # the ramped guidance strength, in float32
@@ -160,6 +177,13 @@ def step_tables(sched: DiffusionSchedule, device) -> Dict[str, torch.Tensor]:
                                      for a in abar_prev],
         "nonzero": [np.float32(t != 0) for t in ts],
     }
+    one, e = np.float32(1), np.float32(eta)
+    abar_t = [_tab(sched.alphas_cumprod, t) for t in ts]
+    sig = [e * np.sqrt((one - ap) / (one - a)) * np.sqrt(one - a / ap)
+           for a, ap in zip(abar_t, abar_prev)]
+    cols.update(ddim_sigma=sig,
+                ddim_coef=[np.sqrt(one - ap - s_ * s_)
+                           for ap, s_ in zip(abar_prev, sig)])
     # DPM++'s alpha, sigma and lambda, with the extra index n for "t < 0"
     # (a clean state), in float64 and read as float32, as the JAX package
     # builds them
@@ -212,20 +236,28 @@ def p_mean_variance(model_fn: ModelFn, x: torch.Tensor, t,
     return mean, model_log_variance, pred_xstart
 
 
+def row_noise(generators: Sequence[torch.Generator],
+              x: torch.Tensor) -> torch.Tensor:
+    """One step's noise like x (B, C, T), row r from ``generators[r]``."""
+    return torch.cat([torch.randn((1,) + x.shape[1:], generator=g,
+                                  device=x.device) for g in generators])
+
+
 def sampler_step_fn(model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor,
                     tabs: Dict[str, torch.Tensor],
                     generators: Optional[Sequence[torch.Generator]],
-                    sched: DiffusionSchedule, sampler: str
-                    ) -> Callable[[], None]:
+                    sched: DiffusionSchedule, sampler: str,
+                    eta: float = 0.0) -> Callable[[], None]:
     """One reverse step as a function of no arguments: x_{t-1} from the
     fp32 buffer ``x`` (B, C, T) at the respaced step ``t``, a (1,) int64
     device tensor, both updated in place (t counts down).  It reads no
     host value, so it can be captured and replayed.  The P sampler draws
     row r's noise from ``generators[r]`` at every step and adds it where
-    t != 0, as the JAX package's ``p_step`` does.  DPM++ carries the last
-    step's x_0 and log-SNR step h in device buffers of its own (h starts at
-    1), and takes its second-order update where it has a last step and t >
-    0, as ``_dpmpp_2m_loop`` does."""
+    t != 0, as the JAX package's ``p_step`` does; DDIM at eta > 0 draws
+    likewise (``tabs`` made with that eta), at eta 0 nothing.  DPM++
+    carries the last step's x_0 and log-SNR step h in device buffers of
+    its own (h starts at 1), and takes its second-order update where it
+    has a last step and t > 0, as ``_dpmpp_2m_loop`` does."""
     n = sched.num_timesteps
     if sampler == "dpm++":
         x0_prev = torch.zeros_like(x)
@@ -250,31 +282,36 @@ def sampler_step_fn(model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor,
     def step() -> None:
         mean, logvar, xstart = p_mean_variance(model_fn, x, t, sched, tabs)
         if sampler == "p":
-            z = torch.cat([torch.randn((1,) + x.shape[1:], generator=g,
-                                       device=x.device)
-                           for g in generators])
+            z = row_noise(generators, x)
             x.copy_(mean + tab("nonzero", t) * torch.exp(0.5 * logvar) * z)
         elif sampler == "dpm++":
             dpmpp(xstart)
-        else:
+        elif eta == 0.0:
             eps = (tab("recip", t) * x - xstart) / tab("recipm1", t)
             x.copy_(xstart * tab("sqrt_abar_prev", t)
                     + tab("sqrt_one_minus_abar_prev", t) * eps)
+        else:
+            eps = (tab("recip", t) * x - xstart) / tab("recipm1", t)
+            z = row_noise(generators, x)
+            x.copy_(xstart * tab("sqrt_abar_prev", t)
+                    + tab("ddim_coef", t) * eps
+                    + tab("nonzero", t) * tab("ddim_sigma", t) * z)
         t.sub_(1)
     return step
 
 
 def sample_loop(model_fn: ModelFn, noise: torch.Tensor,
                 generators: Optional[Sequence[torch.Generator]],
-                sched: DiffusionSchedule, sampler: str = "ddim"
-                ) -> torch.Tensor:
+                sched: DiffusionSchedule, sampler: str = "ddim",
+                eta: float = 0.0) -> torch.Tensor:
     """The full reverse process from x_T = ``noise`` (B, 100, T).
 
-    sampler: 'ddim' with eta 0 (diffusion.py:646-694), 'p' (510-554) or
+    sampler: 'ddim' at ``eta`` (diffusion.py:646-694), 'p' (510-554) or
     'dpm++' (DPM-Solver++(2M), arXiv:2211.01095, in x_0-prediction form).
-    The P sampler draws row r's per-step noise from ``generators[r]``, so
-    a row's draws depend on its own generator only (the JAX package's
-    per-row keys); DDIM and DPM++ draw nothing.  On CUDA tensors the step is
+    The P sampler and DDIM at eta > 0 draw row r's per-step noise from
+    ``generators[r]``, so a row's draws depend on its own generator only
+    (the JAX package's per-row keys); DDIM at eta 0 and DPM++ draw
+    nothing.  On CUDA tensors the step is
     captured as a CUDA graph at the first step (which runs eagerly, as the
     capture's warm-up) and replayed for the others."""
     if sampler not in ("ddim", "p", "dpm++"):
@@ -283,13 +320,15 @@ def sample_loop(model_fn: ModelFn, noise: torch.Tensor,
     dev = noise.device
     x = noise.float().clone()
     t = torch.tensor([sched.num_timesteps - 1], device=dev)
-    tabs = step_tables(sched, dev)
-    step = sampler_step_fn(model_fn, x, t, tabs, generators, sched, sampler)
+    tabs = step_tables(sched, dev, eta)
+    step = sampler_step_fn(model_fn, x, t, tabs, generators, sched, sampler,
+                           eta)
     if dev.type != "cuda":
         for _ in range(sched.num_timesteps):
             step()
         return x
-    graph = StepGraph(step, dev, generators if sampler == "p" else ())
+    draws = sampler == "p" or (sampler == "ddim" and eta != 0.0)
+    graph = StepGraph(step, dev, generators if draws else ())
     for _ in range(sched.num_timesteps - 1):
         graph.replay()
     return x
