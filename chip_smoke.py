@@ -168,6 +168,35 @@ leave the card:
    pack of 32 artifacts, the AR finetune's batches from it equal to the
    Python path's, ms a batch both ways.
 The training launches join the ``kernels`` line's counts.
+Phases 23-26 (dataset preparation and the tools):
+23. ``classifier_route`` (after the training phases, so that what runs
+   before the default route is as in slice 14): ``load_model(
+   "classifier")`` at the published widths in bf16 over 16 clips of 9.28 s
+   at 24 kHz: finite logits, one K4 launch for each of the 4 attention
+   heads at (16, 512, 218) -> 1536 and no other kernel; K4 at that shape
+   against its plain version (device ms, bound, F.group_norm + F.conv1d);
+   the forward's ms.
+24. ``webui_route`` (after ``lora_route``): ``webui.make_server`` over the
+   shipped-width ``TTS`` on port 0: ``GET /``, ``POST /generate`` with the
+   default route's budgets and its ``/audio/<name>`` (no "error:" in the
+   page, a non-silent wav), the chunked ``GET /stream`` (seconds to the
+   first PCM bytes, total bytes).
+25. ``tools_route``: ``utils.profiling.trace`` around one default
+   inference (the Chrome trace names K2's and K7's CUDA kernels), and,
+   after phase 26, ``export`` of the checkpoint phase 26 wrote (every
+   leaf the checkpoint's, in float32).
+26. ``prep_route`` (after the training phases): ``emb.process``'s CLI at
+   its default float32 over 2 speakers x 2 clips of 4 and 6 s of the
+   synthetic voice at distinct f0, with random full-width DVAE, AR and
+   diffusion models: every artifact's codes non-zero and as many as the
+   DVAE gives for its length, K4 11 times a clip and held in fp32
+   against its plain version on the first inputs it took at each shape
+   (device ms, bound, library ms); the ``data`` CLI's
+   metadata, similar, validate (0 bad), sample (two finite, non-silent
+   wavs) and melbin; ``train.main`` for 2 AR micro-steps on what it
+   prepared; the stage seconds.  A ``left_out`` line names the phases
+   whose packages the machine lacks (h5py: hdf5, matplotlib: plot,
+   transformers: transcribe, gradio: the web UI's gradio branch).
 
 Every route runs its decode and its sampler loop as CUDA graphs
 (``utils/graphs.StepGraph``): each route phase asserts one capture a
@@ -187,6 +216,7 @@ It needs one card and no network; kernels build under
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -992,6 +1022,29 @@ def _gn_conv_inputs(torch, dev, b, c, t, m, k, seed):
 
 
 RESBLOCK_TOL = dict(atol=3e-2, rtol=2e-2)   # 1-2 bf16 ulps at |y| <~ 4
+F32_TOL = dict(atol=1e-4, rtol=1e-4)        # fp32 sums in another order
+
+
+@contextlib.contextmanager
+def recorded_heads():
+    """Every attention head's K4 call (``models.arch.gn_conv1x1``) made in
+    the block, in order: yields a list of ((B, C, T, M), inputs), the
+    inputs (x copied; the norm's and conv's params; groups; act) kept
+    for the first call at each shape and None for the others."""
+    from tortoise_tts_tpu_torch.models import arch
+    head, calls, seen = arch.gn_conv1x1, [], set()
+
+    def recorded(x, norm, conv, groups, act, eps=1e-5):
+        key = (*x.shape, conv["w"].shape[0])
+        calls.append((key, None if key in seen else
+                      (x.detach().clone(), norm, conv, groups, act)))
+        seen.add(key)
+        return head(x, norm, conv, groups, act, eps)
+    arch.gn_conv1x1 = recorded
+    try:
+        yield calls
+    finally:
+        arch.gn_conv1x1 = head
 
 
 def _normalise_bits(torch, k4, x, norm, groups, act, emb=None) -> int:
@@ -1010,33 +1063,52 @@ def _normalise_bits(torch, k4, x, norm, groups, act, emb=None) -> int:
     return diff
 
 
-def _gn_conv_case(torch, k4, dev, name, b, c, t, m, act, seed, plain=True):
-    """One K4 shape: the kernel against its plain version, its time, the
-    library's and the bound; one ``kernel_detail`` line."""
+def _gn_conv_case(torch, k4, name, x, norm, conv, act, groups=32,
+                  plain=True):
+    """One K4 call on these inputs: the kernel against its plain version
+    (bf16: ``RESBLOCK_TOL``; fp32: ``F32_TOL``, TF32 off, as the library
+    call is timed too), its time, the library's and the bound at its
+    type's peak rate; one ``kernel_detail`` line.  Returns (error,
+    times, bytes, operations)."""
     F = torch.nn.functional
-    groups, eps = 32, 1e-5
-    x, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, m, 1, seed)
-    got = k4.gn_conv1x1(x, norm, conv, groups, act)
-    want = k4.gn_conv1x1_plain(x, norm, conv, groups, act)
-    err = bf16_err(torch, got, want, name=f"gn_conv {name}", **RESBLOCK_TOL)
-    del got, want
-    g16, b16 = (norm[n].to(torch.bfloat16) for n in ("scale", "bias"))
-    w16, bias16 = conv["w"], conv["b"].to(torch.bfloat16)
+    eps = 1e-5
+    b, c, t = x.shape
+    m = conv["w"].shape[0]
+    fp32 = x.dtype == torch.float32
+    tol = F32_TOL if fp32 else RESBLOCK_TOL
+    backends = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    saved = [bk.allow_tf32 for bk in backends]
+    try:
+        for bk in backends:
+            bk.allow_tf32 = bk.allow_tf32 and not fp32
+        got = k4.gn_conv1x1(x, norm, conv, groups, act)
+        want = k4.gn_conv1x1_plain(x, norm, conv, groups, act)
+        err = bf16_err(torch, got, want, name=f"gn_conv {name}", **tol)
+        del got, want
+        gn_w, gn_b = (norm[n].to(x.dtype) for n in ("scale", "bias"))
+        w, bias = conv["w"].to(x.dtype), conv["b"].to(x.dtype)
 
-    def library(_):
-        h = F.group_norm(x, groups, g16, b16, eps)
-        return F.conv1d(F.silu(h) if act else h, w16, bias16)
-    t_ = timings(
-        torch, lambda _: k4.gn_conv1x1(x, norm, conv, groups, act),
-        (lambda _: k4.gn_conv1x1_plain(x, norm, conv, groups, act))
-        if plain else None, library)
-    nbytes = 2 * b * c * t + 2 * m * c + 8 * c + 4 * m + 2 * b * m * t
+        def library(_):
+            h = F.group_norm(x, groups, gn_w, gn_b, eps)
+            return F.conv1d(F.silu(h) if act else h, w, bias)
+        t_ = timings(
+            torch, lambda _: k4.gn_conv1x1(x, norm, conv, groups, act),
+            (lambda _: k4.gn_conv1x1_plain(x, norm, conv, groups, act))
+            if plain else None, library)
+    finally:
+        for bk, v in zip(backends, saved):
+            bk.allow_tf32 = v
+    nbytes = sum(v.numel() * v.element_size() for v in (
+        x, norm["scale"], norm["bias"], conv["w"], conv["b"])) \
+        + b * m * t * x.element_size()
     flops = 2 * b * m * c * t
+    bms, by = bound_ms(nbytes, flops, FP32_FLOPS if fp32 else BF16_FLOPS)
     emit("kernel_detail", name="gn_conv", shape=name, b=b, c=c, t=t,
-         c_out=m, act=act, max_abs_err=err, tol=RESBLOCK_TOL,
+         c_out=m, act=act, dtype=str(x.dtype), max_abs_err=err, tol=tol,
          library="F.group_norm + " + ("F.silu + " if act else "")
-         + "F.conv1d", bound_ms=bound_ms(nbytes, flops)[0],
-         gemm_tile_t=k4.plan(b, c, t, m, groups, x.dtype), **t_)
+         + "F.conv1d", bound_ms=bms, bound_by=by,
+         gemm_tile_t=None if fp32 else k4.plan(b, c, t, m, groups, x.dtype),
+         **t_)
     return err, t_, nbytes, flops
 
 
@@ -1054,8 +1126,9 @@ def check_gn_conv(torch, k4, dev):
     tot = dict(bytes=0.0, flops=0.0)
     err_max = 0.0
     for i, (name, b, m, act) in enumerate(shapes):
-        err, t_, nbytes, flops = _gn_conv_case(torch, k4, dev, name, b, 1024,
-                                               896, m, act, 10 + i)
+        err, t_, nbytes, flops = _gn_conv_case(
+            torch, k4, name, *_gn_conv_inputs(torch, dev, b, 1024, 896, m, 1,
+                                              10 + i), act)
         err_max = max(err_max, err)
         for key, val in t_.items():
             tot[key] = tot.get(key, 0.0) + val
@@ -1068,8 +1141,10 @@ def check_gn_conv(torch, k4, dev):
             ("integrator_qkv_head_b8", 8, 1024, 896, 3072, False),
             ("ar_conditioning_head_t517", 1, 1024, 517, 3072, False),
             ("contextual_embedder_head_t101", 1, 2048, 101, 6144, False))):
-        err_max = max(err_max, _gn_conv_case(torch, k4, dev, name, b, c, t,
-                                              m, act, 40 + i, plain=False)[0])
+        inputs = _gn_conv_inputs(torch, dev, b, c, t, m, 1, 40 + i)
+        err_max = max(err_max, _gn_conv_case(torch, k4, name, *inputs, act,
+                                              plain=False)[0])
+        del inputs
         torch.cuda.empty_cache()
     x, norm, _ = _gn_conv_inputs(torch, dev, 2, 1024, 896, 8, 1, 13)
     bits = _normalise_bits(torch, k4, x, norm, 32, True)
@@ -1196,12 +1271,13 @@ def check_snake(torch, k7, dev):
 
 
 def reference_signal(seconds: float = 4.0, sr: int = 22050,
-                     seed: int = 0) -> np.ndarray:
-    """The synthetic reference voice: five harmonics of a gliding 140 Hz
-    pitch, amplitude-modulated, with a little noise (float32)."""
+                     seed: int = 0, f0: float = 140.0) -> np.ndarray:
+    """The synthetic reference voice: five harmonics of a pitch gliding
+    around ``f0`` Hz, amplitude-modulated, with a little noise
+    (float32)."""
     rng = np.random.RandomState(seed)
-    t = np.arange(int(seconds * sr)) / sr
-    f0 = 140 + 30 * np.sin(2 * np.pi * 0.5 * t)
+    t = np.arange(int(round(seconds * sr))) / sr
+    f0 = f0 + 30 * np.sin(2 * np.pi * 0.5 * t)
     phase = 2 * np.pi * np.cumsum(f0) / sr
     wav = sum(0.2 / k * np.sin(k * phase) for k in range(1, 6))
     wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t)) \
@@ -4156,6 +4232,412 @@ def melbin_route(torch, dev, tmp: str) -> None:
          build_s=build_s, pack_s=pack_s,
          pack_mb=(root / "data.melbin").stat().st_size / 1e6, **ms)
 
+# ---------------------------------------------------------------------------
+# phases 23-26: dataset preparation, the classifier, the web UI, the tools
+# ---------------------------------------------------------------------------
+
+CLF_B = 16
+CLF_SECONDS = 9.28             # the default route's audio, at 24 kHz
+# the voices tree of the prep route: (speaker, f0 Hz), two clips each
+PREP_SPEAKERS = (("alice", 120.0), ("bob", 190.0))
+PREP_CLIP_S = (4.0, 6.0)
+# K4 a clip: the AR conditioning encoder's 6 attention heads and the
+# contextual embedder's 5
+PREP_K4_PER_CLIP = 6 + 5
+PREP_TRAIN_STEPS = 2
+# what the card's machine may lack, and the phases that need it
+OPTIONAL_MODULES = {"h5py": "data --action hdf5",
+                    "matplotlib": "plot",
+                    "transformers": "emb.transcribe",
+                    "gradio": "webui's gradio branch"}
+
+
+def _dvae_codes(samples22: int) -> int:
+    """The DVAE's code count for a 22.05 kHz clip: the centred mel's
+    frames, halved by each of its two stride-2 convs (k=3, padding 1)."""
+    n = samples22 // 256 + 1
+    for _ in range(2):
+        n = (n - 1) // 2 + 1
+    return n
+
+
+def classifier_route(torch, dev) -> dict:
+    """Phase 23: the classifier at the published widths (``load_model(
+    "classifier")``, random bf16 weights) over 16 clips of 9.28 s at 24
+    kHz: finite logits, one K4 launch for each of its 4 attention heads
+    at (16, 512, T) -> 1536 and no other kernel; K4 at that shape held
+    against its plain version with its device ms, bound and the library
+    call's (a ``kernel_detail`` line); the forward's ms.  Returns the
+    forward's launch counts."""
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.kernels import gn_conv as k4
+    from tortoise_tts_tpu_torch.models import load_model
+    t0 = time.perf_counter()
+    m = load_model("classifier", "bfloat16", device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg = m.config
+    assert (cfg.base_channels, cfg.depth, cfg.downsample_factor,
+            cfg.kernel_size, cfg.embedding_dim, cfg.attn_blocks,
+            cfg.num_attn_heads, cfg.classes) == (32, 5, 4, 5, 512, 4, 4, 2)
+    clips = [reference_signal(CLF_SECONDS, 24000, seed=40 + i,
+                              f0=100.0 + 10 * i) for i in range(CLF_B)]
+    x = torch.from_numpy(np.stack(clips))[:, None].to(dev, torch.bfloat16)
+    t = x.shape[-1]
+    for _ in range(cfg.depth):
+        t = (t - 1) // cfg.downsample_factor + 1
+    def forward(_=None):
+        return m.module.forward(m.params, x, cfg)
+    with torch.inference_mode():
+        forward()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with recorded_heads() as heads:
+            logits = forward()
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        emit("launches", route="classifier", **counts)
+        assert counts["gn_conv"] == cfg.attn_blocks, counts
+        assert not any(v for k, v in counts.items() if k != "gn_conv"), counts
+        assert [k for k, _ in heads] == [(CLF_B, 512, t, 1536)] \
+            * cfg.attn_blocks, heads
+        assert logits.shape == (CLF_B, cfg.classes)
+        assert bool(torch.isfinite(logits.float()).all()), logits
+        del heads
+        err, t_, nbytes, flops = _gn_conv_case(
+            torch, k4, f"classifier_head_b{CLF_B}",
+            *_gn_conv_inputs(torch, dev, CLF_B, 512, t, 1536, 1, 60), False)
+        fwd_ms = call_ms(torch, forward, n=10, warmup=2)
+        fwd_dev = device_ms(torch, forward, n=5, warmup=1)
+    bms, by = bound_ms(nbytes, flops)
+    emit("classifier_route", card=nvidia_smi(), batch=CLF_B,
+         samples=x.shape[-1], attention_t=t, load_s=load_s,
+         forward_ms=fwd_ms, forward_device_ms=fwd_dev,
+         audio_s_per_s=CLF_B * CLF_SECONDS / (fwd_ms / 1e3),
+         logits=logits.float().cpu().tolist()[:2],
+         k4=dict(shape=[CLF_B, 512, t, 1536], max_abs_err=err,
+                 tol=RESBLOCK_TOL, bound_ms=bms, bound_by=by, **t_),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del m, x
+    _free(torch)
+    return counts
+
+
+def _pcm_ok(data: bytes, what: str) -> np.ndarray:
+    """A 16-bit mono WAV's samples after its 44-byte header: present and
+    not silent."""
+    assert data[:4] == b"RIFF" and data[8:12] == b"WAVE", (what, data[:16])
+    pcm = np.frombuffer(data[44:44 + (len(data) - 44) // 2 * 2], "<i2")
+    assert pcm.size > 24000, (what, pcm.size)
+    assert np.count_nonzero(pcm) > 1000, what
+    assert float(np.abs(pcm.astype(np.float32)).mean()) > 3.0, what
+    return pcm
+
+
+def webui_route(torch, tts, ref: str, tmp: str) -> dict:
+    """Phase 24: the stdlib web UI (``webui.make_server`` on port 0, in a
+    thread) over the shipped-width ``TTS``: ``GET /``, ``POST /generate``
+    with the default route's budgets and ``GET`` of its ``/audio/<name>``
+    (no "error:" in the page, a non-silent wav), then ``GET /stream``
+    (the seconds to the first PCM bytes, the total).  Each request's
+    launches are read from 0; returns their sum."""
+    import http.client
+    import re
+    import threading
+    import urllib.parse
+    from tortoise_tts_tpu_torch import kernels, webui
+    srv = webui.make_server(tts, port=0, out_dir=Path(tmp) / "webui")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    total = {k: 0 for k in kernels.launch_counts()}
+    out = {}
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_port,
+                                          timeout=300)
+        t0 = time.perf_counter()
+        conn.request("GET", "/")
+        r = conn.getresponse()
+        page = r.read().decode()
+        out["form_s"] = time.perf_counter() - t0
+        assert r.status == 200 and 'name="text"' in page, r.status
+
+        kernels.reset_launches()
+        body = urllib.parse.urlencode({
+            "text": TEXT, "references": ref, "max_ar_steps": AR_STEPS,
+            "max_diffusion_steps": DIFF_STEPS, "seed": 0})
+        t0 = time.perf_counter()
+        conn.request("POST", "/generate", body, {
+            "Content-Type": "application/x-www-form-urlencoded"})
+        r = conn.getresponse()
+        page = r.read().decode()
+        out["generate_s"] = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        emit("launches", route="webui_generate", **counts)
+        assert r.status == 200 and "error:" not in page, page[-2000:]
+        _launched(counts, DEFAULT_ROUTE_KERNELS + ("snake",),
+                  "webui generate")
+        total = {k: total[k] + counts[k] for k in total}
+        m = re.search(r'src="(/audio/[0-9a-f]+\.wav)"', page)
+        assert m, page[-2000:]
+        conn.request("GET", m.group(1))
+        r = conn.getresponse()
+        wav = r.read()
+        assert r.status == 200, r.status
+        pcm = _pcm_ok(wav, "generated wav")
+        out["generate_audio_s"] = pcm.size / 24000
+
+        kernels.reset_launches()
+        q = urllib.parse.urlencode({"text": TEXT, "references": ref})
+        t0 = time.perf_counter()
+        conn.request("GET", "/stream?" + q)
+        r = conn.getresponse()
+        assert r.status == 200 and \
+            r.getheader("Transfer-Encoding") == "chunked", r.status
+        data, first_s, reads = bytearray(), None, 0
+        while True:
+            piece = r.read1(1 << 16)
+            if not piece:
+                break
+            reads += 1
+            data += piece
+            if first_s is None and len(data) > 44:
+                first_s = time.perf_counter() - t0
+        out["stream_s"] = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        emit("launches", route="webui_stream", **counts)
+        _launched(counts, ("flash_attention", "qgemv", "flash_decode"),
+                  "webui stream")
+        total = {k: total[k] + counts[k] for k in total}
+        pcm = _pcm_ok(bytes(data), "stream")
+        out.update(stream_first_pcm_s=first_s, stream_bytes=len(data),
+                   stream_reads=reads, stream_audio_s=pcm.size / 24000)
+        conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    emit("webui_route", card=nvidia_smi(), **out)
+    return total
+
+
+def _trace_kernels(path: Path) -> dict:
+    """The CUDA kernels of a Chrome trace, by name: their count."""
+    names: dict = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def tools_trace(torch, tts, ref: str, tmp: str) -> dict:
+    """Phase 25 (part): ``utils.profiling.trace`` around one default
+    inference: the Chrome trace exists and names K2's (``qgemv_gemm``)
+    and K7's (``snake_resample2``) CUDA kernels.  Returns the launches."""
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.utils import profiling
+    log_dir = Path(tmp) / "trace"
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with profiling.trace(log_dir):
+        wav, sr = tts.inference(TEXT, ref, seed=0, **ROUTE_KW)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    emit("launches", route="tools_trace", **counts)
+    _check_wav(wav)
+    path = log_dir / "trace.json"
+    names = _trace_kernels(path)
+    k2 = sum(n for k, n in names.items() if "qgemv_gemm" in k)
+    k7 = sum(n for k, n in names.items() if "snake_resample2" in k)
+    assert k2 > 0 and k7 > 0, sorted(names)[:50]
+    emit("tools_route", tool="trace", card=nvidia_smi(), wall_s=wall,
+         trace_mb=path.stat().st_size / 1e6,
+         trace_cuda_kernels=sum(names.values()), trace_k2_kernels=k2,
+         trace_k7_kernels=k7, k2_launches=counts["qgemv"],
+         k7_launches=counts["snake"])
+    return counts
+
+
+def _voices(root: Path) -> Path:
+    """The prep route's voices tree: each speaker's clips from the
+    synthetic voice at its own f0, each with a .txt transcript."""
+    from tortoise_tts_tpu_torch.utils.io import write_wav
+    voices = root / "voices"
+    for s, (spk, f0) in enumerate(PREP_SPEAKERS):
+        d = voices / "group" / spk
+        d.mkdir(parents=True, exist_ok=True)
+        for c, secs in enumerate(PREP_CLIP_S):
+            write_wav(d / f"clip{c}.wav", reference_signal(
+                secs, 22050, seed=20 + 2 * s + c, f0=f0 + 15 * c), 22050)
+            (d / f"clip{c}.txt").write_text(
+                f"{spk} reads the sample number {c}.")
+    return voices
+
+
+def prep_route(torch, dev, tmp: str):
+    """Phase 26: dataset preparation into training on the card: ``python
+    -m tortoise_tts_tpu_torch.emb.process`` (its ``main``, CUDA, the CLI's
+    default float32) over 2 speakers x 2 clips of 4 and 6 s with random
+    full-width DVAE, AR and diffusion models; every artifact checked
+    (numpy only, non-zero codes, the DVAE's code count for its length,
+    the latents' widths, the training mels); K4 launched 11 times a clip,
+    and held (fp32) against its plain version on the first inputs it
+    took at each shape, with its device ms, bound and library ms; then ``python -m tortoise_tts_tpu_torch.data`` (its ``main``) with
+    ``--action`` metadata, similar, validate (0 bad), sample (two finite,
+    non-silent wavs) and melbin (hdf5 where h5py is installed); then
+    ``train.main`` for 2 AR micro-steps at full width on the prepared
+    data, which writes a checkpoint.  The stage seconds.  Returns (the
+    route's launches, the config's path)."""
+    import importlib.util
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.config import Config
+    from tortoise_tts_tpu_torch.data import __main__ as data_cli
+    from tortoise_tts_tpu_torch.data.dataset import load_artifact
+    from tortoise_tts_tpu_torch.emb import process
+    from tortoise_tts_tpu_torch.engine.state import latest_checkpoint
+    from tortoise_tts_tpu_torch.kernels import gn_conv as k4
+    from tortoise_tts_tpu_torch.models.unified_voice import \
+        UnifiedVoiceConfig
+    from tortoise_tts_tpu_torch.utils.io import read_wav
+    missing = {m: use for m, use in OPTIONAL_MODULES.items()
+               if importlib.util.find_spec(m) is None}
+    emit("left_out", phases=sorted(missing.values()),
+         reason="not installed here: " + ", ".join(sorted(missing)))
+    root = Path(tmp) / "prep"
+    voices = _voices(root)
+    data = root / "data"
+    stage_s = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with recorded_heads() as heads:
+        n = process.main(["--input-audio", str(voices), "--output-dataset",
+                          str(data)])
+    torch.cuda.synchronize()
+    stage_s["process"] = time.perf_counter() - t0
+    c_proc = kernels.launch_counts()
+    emit("launches", route="prep_process", **c_proc)
+    clips = len(PREP_SPEAKERS) * len(PREP_CLIP_S)
+    assert n == clips, n
+    assert c_proc["gn_conv"] == clips * PREP_K4_PER_CLIP, c_proc
+    assert len(heads) == c_proc["gn_conv"], len(heads)
+    dim = UnifiedVoiceConfig().model_dim
+    codes = {}
+    for path in sorted(data.rglob("*.mel")):
+        art = load_artifact(path)
+        md = art["metadata"]
+        c = art["codes"]
+        want = _dvae_codes(md["original_length"])
+        assert md["sample_rate"] == 22050 and md["text"], md
+        assert c.dtype == np.uint16 and c.shape == (1, want), (c.shape, want)
+        assert np.count_nonzero(c) > 0, path
+        assert art["text"].dtype == np.uint8 and art["text"].size > 10
+        assert [a.shape for a in art["latent"]] == [(1, dim), (1, 2 * dim)]
+        assert all(a.dtype == np.float32 and np.isfinite(a).all()
+                   for a in art["latent"] + art["conds"])
+        assert art["mel"].dtype == np.float16 and \
+            art["mel"].shape[-1] == md["original_length"] // 256 + 1
+        assert art["mel_diff"].dtype == np.float16 and \
+            np.isfinite(art["mel_diff"]).all()
+        codes[str(path.relative_to(data))] = int(c.shape[-1])
+    assert len(codes) == clips, codes
+    raw = {"models": [{"name": "autoregressive", "training": True}],
+           "hyperparameters": {"batch_size": 4, "optimizer": "AdamW",
+                               "learning_rate": 1e-4, "warmup_steps": 0,
+                               "gradient_accumulation_steps": 1},
+           "trainer": {"iterations": PREP_TRAIN_STEPS, "log_frequency": 1,
+                       "export_on_save": False, "keep_last_checkpoints": 1,
+                       "weight_dtype": "bfloat16",
+                       "gradient_checkpointing": True,
+                       "save_frequency": PREP_TRAIN_STEPS},
+           "evaluation": {"frequency": 0},
+           "dataset": {"training": [str(data)], "validate": False,
+                       "duration_range": [1.0, 10.0], "text_bucket": 128,
+                       "mel_bucket": 256, "load_mels": False}}
+    cfg_path = root / "cfg.json"
+    cfg_path.write_text(json.dumps(raw))
+    results = {}
+    actions = ["metadata", "similar", "validate", "sample", "melbin"]
+    if "h5py" not in missing:
+        actions.append("hdf5")
+    for action in actions:
+        t0 = time.perf_counter()
+        results[action] = data_cli.main(
+            ["--yaml", str(cfg_path), "--action", action, "--out",
+             str(root / "samples")])
+        torch.cuda.synchronize()
+        stage_s[action] = time.perf_counter() - t0
+    assert results["metadata"] == results["similar"] == clips, results
+    assert results["validate"] == 0, results
+    assert results["melbin"] == clips, results
+    sample_s = []
+    for p in results.pop("sample"):
+        wav, sr = read_wav(p)
+        assert sr == 22050
+        _check_wav(wav, 4 * 256)
+        sample_s.append(wav.size / sr)
+    cfg = Config.load(cfg_path)
+    layers = UnifiedVoiceConfig().layers
+    t0 = time.perf_counter()
+    engines, steps, peak = _run_train(torch, cfg, dev)
+    stage_s["train"] = time.perf_counter() - t0
+    assert len(steps) == PREP_TRAIN_STEPS, len(steps)
+    rep = _route_report("prep_ar", steps, train_launches(ar=layers), 1,
+                        warm=1)
+    ckpt = latest_checkpoint(cfg.ckpt_dir, "autoregressive")
+    assert ckpt is not None and (ckpt / "module.sft").exists(), ckpt
+    counts = kernels.launch_counts()
+    # K4 as the process stage ran it (fp32), on the inputs it was given
+    k4_fp32 = []
+    with torch.inference_mode():
+        for (b, c, t, m), inputs in heads:
+            if inputs is None:
+                continue
+            x, norm, conv, groups, act = inputs
+            assert x.dtype == torch.float32, x.dtype
+            err, t_, nbytes, flops = _gn_conv_case(
+                torch, k4, f"prep_head_c{c}_t{t}", x, norm, conv, act, groups)
+            k4_fp32.append(dict(
+                shape=[b, c, t, m], max_abs_err=err, tol=F32_TOL,
+                bound_ms=bound_ms(nbytes, flops, FP32_FLOPS)[0],
+                **{k: t_[k] for k in ("ms", "plain_ms", "library_ms")}))
+    del heads
+    emit("prep_route", card=nvidia_smi(), clips=clips, codes=codes,
+         stage_s=stage_s, k4_process=c_proc["gn_conv"],
+         k4_expected=clips * PREP_K4_PER_CLIP, k4_fp32=k4_fp32,
+         actions=results,
+         sample_wav_s=sample_s,
+         losses=[st["metrics"]["autoregressive.loss"] for st in steps],
+         checkpoint=ckpt.name, peak_mem_gb=peak, **_shape(cfg), **rep)
+    del engines
+    _free(torch)
+    return counts, cfg_path
+
+
+def tools_export(torch, cfg_path: Path) -> None:
+    """Phase 25 (part): ``python -m tortoise_tts_tpu_torch.export`` (its
+    ``main``) of the prep route's checkpoint: fp32.sft, every floating
+    leaf the checkpoint's in float32, the others as stored."""
+    from tortoise_tts_tpu_torch import export
+    from tortoise_tts_tpu_torch.config import Config
+    from tortoise_tts_tpu_torch.engine.state import latest_checkpoint
+    from tortoise_tts_tpu_torch.utils.io import load_state_dict
+    t0 = time.perf_counter()
+    out = export.main(["--yaml", str(cfg_path)])
+    export_s = time.perf_counter() - t0
+    ckpt = latest_checkpoint(Config.load(cfg_path).ckpt_dir,
+                             "autoregressive")
+    src, got = load_state_dict(ckpt / "module.sft"), load_state_dict(out)
+    assert set(src) == set(got) and src, (len(src), len(got))
+    kinds = {}
+    for k, v in src.items():
+        g = got[k]
+        want = v.float() if v.is_floating_point() else v
+        assert g.dtype == want.dtype and torch.equal(g, want), k
+        kinds[str(v.dtype)] = kinds.get(str(v.dtype), 0) + 1
+    emit("tools_route", tool="export", seconds=export_s, leaves=len(src),
+         leaf_types=kinds, fp32_mb=out.stat().st_size / 1e6,
+         checkpoint=ckpt.name)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4235,6 +4717,9 @@ def main() -> int:
             counts = {k: counts[k] + c[k] for k in counts}
         c = lora_route(torch, tts, ref, tmp)
         counts = {k: counts[k] + c[k] for k in counts}
+        for route in (webui_route, tools_trace):
+            c = route(torch, tts, ref, tmp)
+            counts = {k: counts[k] + c[k] for k in counts}
         diffusion_pairs(torch, tts, ref)
         for mode in ("int8", "w8a8"):
             decode_timing(torch, tts, ref, mode)
@@ -4256,6 +4741,13 @@ def main() -> int:
         clvp_route(torch, dev, tmp)
         melbin_route(torch, dev, tmp)
         emit("train_total", seconds=time.perf_counter() - t_train)
+        c = classifier_route(torch, dev)
+        counts = {k: counts[k] + c[k] for k in counts}
+        t_prep = time.perf_counter()
+        c, cfg_path = prep_route(torch, dev, tmp)
+        counts = {k: counts[k] + c[k] for k in counts}
+        tools_export(torch, cfg_path)
+        emit("prep_total", seconds=time.perf_counter() - t_prep)
 
     src = "tortoise_tts_tpu_torch/csrc/"
     rows = [

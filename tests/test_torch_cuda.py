@@ -541,12 +541,19 @@ def _gn_conv_inputs(dev, b, c, t, m, k, dtype, seed):
     (2, 1024, 896, 3072, False, torch.bfloat16, 32),   # attention qkv head
     (1, 1024, 517, 3072, False, torch.bfloat16, 32),   # AR conditioning head
     (1, 2048, 101, 6144, False, torch.bfloat16, 32),   # contextual embedder
+    # the classifier's heads at 9.28 s of 24 kHz audio: C = 512 in 32
+    # groups of 16, T = 218 (128-wide T tiles at B = 16, 64-wide at B = 1)
+    (16, 512, 218, 1536, False, torch.bfloat16, 32),
+    (1, 512, 218, 1536, False, torch.bfloat16, 32),
     # ragged T, M and K (136 = 2 x 64 + 8) at B = 16; 17 channels a group
     (16, 136, 1, 192, True, torch.bfloat16, 8),
     (16, 136, 7, 192, False, torch.bfloat16, 8),
     (16, 136, 45, 192, True, torch.bfloat16, 8),
     (16, 136, 517, 192, False, torch.bfloat16, 8),
-    (2, 64, 45, 192, True, torch.float32, 16)])        # fp32 reference runs
+    (2, 64, 45, 192, True, torch.float32, 16),         # fp32 reference runs
+    # the conditioning heads as ``emb.process`` runs them (float32)
+    (1, 1024, 517, 3072, False, torch.float32, 32),
+    (1, 2048, 101, 6144, False, torch.float32, 32)])
 def test_gn_conv_kernel_cuda(cuda, monkeypatch, b, c, t, m, act, dtype,
                              groups):
     _fp32_exact(monkeypatch, dtype)
@@ -1356,3 +1363,20 @@ def test_captured_ddim_eta_and_cosine_equal_eager_cuda(cuda, b, eta,
     torch.cuda.synchronize()
     assert torch.equal(got, x)
     assert kernels.launch_counts() == eager_counts
+
+
+@pytest.mark.cuda
+def test_classifier_heads_launch_k4_cuda(cuda):
+    """The classifier at the published widths in bf16 on the card: each of
+    its 4 attention blocks' heads is one K4 launch, the logits finite."""
+    from tortoise_tts_tpu_torch.models import load_model
+    m = load_model("classifier", "bfloat16", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    audio = (0.3 * torch.randn(2, 1, 222720, generator=g, device=cuda)) \
+        .to(torch.bfloat16)
+    before = k4.KERNEL.launches
+    with torch.inference_mode():
+        logits = m.module.forward(m.params, audio, m.config)
+    torch.cuda.synchronize()
+    assert k4.KERNEL.launches == before + 4
+    assert logits.shape == (2, 2) and torch.isfinite(logits.float()).all()

@@ -247,6 +247,7 @@ def test_plan_refuses_what_the_kernels_do_not_take(args, err, match):
     (2, 1024, 896, 1024, 128),   # 112 blocks of 128: more than half the SMs
     (1, 1024, 896, 1024, 64),    # 56: narrower tiles
     (1, 1024, 517, 3072, 128), (1, 2048, 101, 6144, 64),
+    (16, 512, 218, 1536, 128), (1, 512, 218, 1536, 64),   # the classifier
     (16, 1024, 896, 3072, 128), (2, 64, 45, 192, 64)])
 def test_plan_picks_the_gemm_tile(b, c, t, m, bn):
     assert k4.plan(b, c, t, m, 32 if c > 64 else 16, torch.bfloat16) == bn

@@ -35,6 +35,7 @@ SHAPES = [("k4", 2, 1024, 1024, 896, True), ("k4", 2, 1024, 3072, 896, False),
           ("k4", 16, 1024, 3072, 896, False),
           ("k4", 8, 1024, 1024, 896, True), ("k4", 1, 1024, 3072, 517, False),
           ("k4", 1, 2048, 6144, 101, False),
+          ("k4", 16, 512, 1536, 218, False),   # the classifier's heads
           ("k5", 2, 1024, 1024, 896, True), ("k5", 1, 1024, 1024, 896, True),
           ("k5", 16, 1024, 1024, 896, True), ("k5", 8, 1024, 1024, 896, True)]
 

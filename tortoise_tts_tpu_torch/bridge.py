@@ -43,6 +43,9 @@ UNIVNET_BLOCK_KEYS = {"kernel_predictor", "convt_pre", "conv_blocks"}
 DVAE_KEYS = {"enc_convs", "enc_res", "enc_out", "dec_in", "dec_res",
              "dec_convs", "dec_out", "codebook"}
 DVAE_CODEBOOK_KEYS = {"embed", "cluster_size", "embed_avg"}
+CLASSIFIER_KEYS = {"enc", "head"}
+MINI_ENCODER_KEYS = {"init", "res", "final_norm", "final_conv", "attn"}
+ATTENTION_KEYS = {"norm", "qkv", "proj_out"}
 DISC_KEYS = {"mpd", "mrd"}
 WN_CONV_KEYS = {"v", "g", "b"}
 
@@ -157,4 +160,22 @@ def bigvgan_disc_from_jax(params, device=None,
         _check_keys(d, {"convs", "post"}, "BigVGAN discriminator")
         for c in d["convs"] + [d["post"]]:
             _check_keys(c, WN_CONV_KEYS, "weight-norm conv")
+    return to_torch(params, device, dtype)
+
+
+def classifier_from_jax(params, device=None,
+                        dtype: Optional[torch.dtype] = None) -> Params:
+    """The audio classifier: the AudioMiniEncoder (``enc``: its init conv,
+    res blocks and downsamples, final norm and conv, attention blocks)
+    and the linear ``head``."""
+    _check_keys(params, CLASSIFIER_KEYS, "classifier params")
+    enc = params["enc"]
+    _check_keys(enc, MINI_ENCODER_KEYS, "classifier params['enc']")
+    for blk in enc["res"]:
+        if not isinstance(blk, dict) or len(blk) != 1 \
+                or set(blk) not in ({"res"}, {"down"}):
+            raise KeyError(f"classifier res entry: expected one of 'res', "
+                           f"'down', got {blk!r:.80}")
+    for a in enc["attn"]:
+        _check_keys(a, ATTENTION_KEYS, "classifier attention block")
     return to_torch(params, device, dtype)

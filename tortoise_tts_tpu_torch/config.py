@@ -327,11 +327,16 @@ class Config:
 
     @staticmethod
     def load(path: str | Path, **overrides) -> "Config":
-        """Read a YAML config, or the config a weights file (.sft) holds in
-        its metadata."""
+        """Read a YAML config (a .json one with the stdlib, where PyYAML
+        may be missing), or the config a weights file (.sft) holds in its
+        metadata."""
         path = Path(path)
         if path.suffix in (".sft", ".safetensors"):
             return Config.load_model(path, **overrides)
+        if path.suffix == ".json":
+            import json
+            raw = json.loads(path.read_text()) or {}
+            return Config.from_dict(raw, yaml_path=str(path), **overrides)
         import yaml
         with open(path) as f:
             raw = yaml.safe_load(f) or {}

@@ -512,7 +512,7 @@ class TTS:
         enc = emb_mel.encode_from_files(
             paths, dtype=self.dtype, rng=np.random.RandomState(seed),
             device=self.device, ar=self._model("autoregressive"),
-            diffusion=self._model("diffusion"))
+            diffusion=self._model("diffusion"), codes=False)
         if len(self._voice_cache) < 16:
             self._voice_cache[key] = enc
         return enc

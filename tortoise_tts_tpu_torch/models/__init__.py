@@ -1,7 +1,6 @@
-"""Model registry (port of ``tortoise_tts_tpu/models/__init__.py``, for
-the models of the serving routes and of training: the AR model, the
-denoiser, the three vocoders, CLVP, the random latent converters and the
-DVAE).
+"""Model registry (port of ``tortoise_tts_tpu/models/__init__.py``: the
+AR model, the denoiser, the three vocoders, CLVP, the random latent
+converters, the DVAE and the audio classifier).
 
 ``load_model(name)`` returns a ``LoadedModel``: the reference's
 checkpoint when one is found in the model directories (``.pth``, ``.sft``
@@ -41,11 +40,12 @@ WEIGHT_FILES = {
     "rlg_diffuser": "rlg_diffuser.pth",
     "mel_norms": "mel_norms.pth",
     "dvae": "dvae.pth",
+    "classifier": "classifier.pth",
 }
 # the sub-dict of a checkpoint that holds the weights
 STATE_DICT_KEYS = {"bigvgan": "generator", "vocoder": "model_g"}
 MODEL_NAMES = ("autoregressive", "diffusion", "bigvgan", "hifigan", "clvp",
-               "rlg_auto", "rlg_diffuser", "vocoder", "dvae")
+               "rlg_auto", "rlg_diffuser", "vocoder", "dvae", "classifier")
 # conditioning latent width of each random latent converter
 RLG_CHANNELS = {"rlg_auto": 1024, "rlg_diffuser": 2048}
 
@@ -132,6 +132,8 @@ def convert_torch_sd(name: str, sd, cfg) -> Dict[str, Any]:
         return convert.convert_rlg(sd)
     if c == "dvae":
         return convert.convert_dvae(sd)
+    if c == "classifier":
+        return convert.convert_classifier(sd, depth=cfg.depth)
     raise KeyError(f"no torch-layout converter for model: {name}")
 
 
@@ -153,7 +155,7 @@ def load_model(name: str, dtype: str = "float32", seed: int = 0,
     (None: the CUDA device): converted from the reference's checkpoint
     when one is found, else random parameters from ``seed``.  An
     unreadable or unconvertible checkpoint raises."""
-    from . import (bigvgan, clvp, diffusion, dvae, hifigan, rlg,
+    from . import (bigvgan, classifier, clvp, diffusion, dvae, hifigan, rlg,
                    unified_voice, univnet)
     device = resolve_device(device, "load_model")
     cname = _canonical(name)
@@ -184,6 +186,9 @@ def load_model(name: str, dtype: str = "float32", seed: int = 0,
         cfg, module, init = univnet.UnivNetConfig(), univnet, _univnet_random
     elif cname == "dvae":
         cfg, module, init = dvae.DVAEConfig(), dvae, dvae.init
+    elif cname == "classifier":
+        cfg, module = classifier.ClassifierConfig(), classifier
+        init = classifier.init
     else:
         cfg, module = hifigan.HifiganConfig(), hifigan
         init = _hifigan_random

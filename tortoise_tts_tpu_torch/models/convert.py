@@ -1,14 +1,13 @@
 """Checkpoint ingestion: reference PyTorch state dicts -> the port's
 parameter trees (the port's own copy of ``tortoise_tts_tpu/models/
-convert.py``, for the models the port has: UnifiedVoice, DiffusionTTS,
-CLVP, BigVGAN, HiFiGAN, UnivNet, the DVAE and the random latent
-converters).
+convert.py``: UnifiedVoice, DiffusionTTS, CLVP, BigVGAN, HiFiGAN,
+UnivNet, the DVAE, the random latent converters and the classifier).
 
 The reference ships jbetker's original tortoise-tts-v2 weights; this
 module maps those state dicts (``utils/io.load_state_dict``) onto the
 functional parameter layout the port shares with the JAX package, as
 numpy arrays: ``models.load_model`` casts them onto the device.  The
-classifier's converter waits for its model (ROADMAP.md).  Conventions
+classifier converts too.  Conventions
 (models/common.py):
 
 - torch nn.Linear.weight (out,in)   -> ours (in,out)  [transpose]
@@ -71,6 +70,17 @@ def _attention_block(sd: StateDict, prefix: str) -> Dict[str, Any]:
     rel = prefix + ".relative_pos_embeddings.relative_attention_bias.weight"
     if rel in sd:
         p["rel_pos"] = {"w": _np(sd[rel])}
+    return p
+
+
+def _res_block_arch(sd: StateDict, prefix: str) -> Dict[str, Any]:
+    """arch_utils.ResBlock: in_layers.{0 norm,2 conv}, out_layers.{0,3}."""
+    p = {"in_norm": _norm(sd, prefix + ".in_layers.0"),
+         "in_conv": _conv(sd, prefix + ".in_layers.2"),
+         "out_norm": _norm(sd, prefix + ".out_layers.0"),
+         "out_conv": _conv(sd, prefix + ".out_layers.3")}
+    if prefix + ".skip_connection.weight" in sd:
+        p["skip"] = _conv(sd, prefix + ".skip_connection")
     return p
 
 
@@ -312,6 +322,30 @@ def convert_rlg(sd: StateDict) -> Dict[str, Any]:
                            "b": _np(sd[f"layers.{i}.bias"])}
                           for i in range(5)],
         "final": _lin(sd, "layers.5"),
+    }
+
+
+def convert_classifier(sd: StateDict, depth: int = 5, resnet_blocks: int = 2,
+                       attn_blocks: int = 4) -> Dict[str, Any]:
+    """Published classifier.pth: depth 5 (15 enc.res entries), the
+    raw-audio init conv (32, 1, 3) (``classifier.ClassifierConfig``)."""
+    res, idx = [], 0
+    for _ in range(depth):
+        for _ in range(resnet_blocks):
+            res.append({"res": _res_block_arch(sd, f"enc.res.{idx}")})
+            idx += 1
+        res.append({"down": {"op": _conv(sd, f"enc.res.{idx}.op")}})
+        idx += 1
+    return {
+        "enc": {
+            "init": _conv(sd, "enc.init.0"),
+            "res": res,
+            "final_norm": _norm(sd, "enc.final.0"),
+            "final_conv": _conv(sd, "enc.final.2"),
+            "attn": [_attention_block(sd, f"enc.attn.{i}")
+                     for i in range(attn_blocks)],
+        },
+        "head": _lin(sd, "head"),
     }
 
 

@@ -11,6 +11,8 @@ Port of ``tortoise_tts_tpu/ops/stft.py``:
   to and from the diffusion model's [-1, 1] space.
 - ``resample``: torchaudio.functional.resample equivalent (windowed
   sinc, hann window, lowpass_filter_width=6, rolloff=0.99).
+- ``griffin_lim_from_mel``: rough audio from a log-mel (the dataset's
+  ``--action sample`` listening aid), with ``torch.fft``.
 
 Filterbanks and resampling kernels are built with numpy once per
 geometry; the signal path is torch on the caller's device.
@@ -146,6 +148,54 @@ def denormalize_tacotron_mel(norm_mel):
     """arch_utils.py:536-537"""
     return (((norm_mel + 1) / 2) * (TACOTRON_MEL_MAX - TACOTRON_MEL_MIN)
             + TACOTRON_MEL_MIN)
+
+
+def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """(B, T, n) frames -> (B, n + hop (T - 1)): each frame added in at
+    its hop offset."""
+    b, t, n = frames.shape
+    out_len = n + hop * (t - 1)
+    return F.fold(frames.transpose(1, 2), (1, out_len), (1, n),
+                  stride=(1, hop)).reshape(b, out_len)
+
+
+def griffin_lim_from_mel(mel_log: torch.Tensor, sr: int = 22050,
+                         n_fft: int = 1024, hop: int = 256,
+                         n_mels: int = 80, fmax: float = 8000.0,
+                         scale: str = "htk", iters: int = 32,
+                         phase: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """Rough audio from a natural-log mel (B, n_mels, T) -> (B, hop (T -
+    1)): a pseudo-inverse filterbank, then ``iters`` Griffin-Lim rounds.
+    ``phase``: the initial phase (B, n_fft // 2 + 1, T); otherwise drawn
+    uniform in [-pi, pi) from a ``torch.Generator`` seeded 0 on the mel's
+    device."""
+    mel_log = mel_log.float()
+    dev = mel_log.device
+    fb = mel_filterbank(sr, n_fft, n_mels, 0.0, fmax, scale=scale)
+    pinv = torch.as_tensor(np.linalg.pinv(fb), device=dev)   # (F, n_mels)
+    mag = torch.sqrt(torch.clamp(torch.einsum(
+        "fm,bmt->bft", pinv, torch.exp(mel_log)), min=1e-10))
+    window = torch.as_tensor(hann_window(n_fft), device=dev)
+    b, _, t = mag.shape
+    if phase is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+        phase = (torch.rand(mag.shape, generator=generator, device=dev)
+                 * 2 - 1) * math.pi
+    spec = mag * torch.exp(1j * phase.to(dev, torch.float32))
+    wsum = _overlap_add((window ** 2).expand(1, t, n_fft), hop)
+    wsum = torch.clamp(wsum, min=1e-8)
+
+    def istft(s):
+        frames = torch.fft.irfft(s.transpose(1, 2), n=n_fft, dim=-1) * window
+        wav = _overlap_add(frames, hop) / wsum
+        return wav[:, n_fft // 2: -(n_fft // 2)]
+
+    for _ in range(iters):
+        re = torch.fft.rfft(frame_signal(istft(spec), n_fft, hop) * window,
+                            n=n_fft, dim=-1).transpose(1, 2)
+        spec = mag * torch.exp(1j * torch.angle(re))
+    return istft(spec)
 
 
 @lru_cache(maxsize=16)
