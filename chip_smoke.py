@@ -20,7 +20,15 @@ one JSON line per phase:
    K9b at B = 1, 2, 8 and 16 (T=896); K1 also at the batch's prefill
    (B=8) and, after the main path, at the latent pass's S read off the
    route, K3 also at 604 slots and at the batch's 8 rows, K7 also at the
-   batch's first BigVGAN stage (B=8) (detail lines).
+   batch's first BigVGAN stage (B=8) (detail lines).  K4 and K5 in fp32
+   too (3xTF32 on the tensor cores: ``emb.process``'s heads at (1, 1024,
+   517) -> 3072 and (1, 2048, 101) -> 6144, K5 at (2, 1024, 896)), with
+   the 3xTF32 bound (3x the operations at 495 TFLOP/s, or the bytes)
+   beside the FFMA bound (67 TFLOP/s), the GEMM's plan, two calls' bits
+   equal and the normalise kernel's Y_hi and Y_lo bit for bit against
+   their plain split; then every other kernel's fp32 form once at the
+   default route's shapes (``kernel_fp32`` lines: device ms, plain ms,
+   the library call's, TF32 off, and the bound).
    Each K1 and K3 call is one CUDA kernel, and K3 with ``pos`` in device
    memory gives the int's output bit for bit.  ``ms`` is device time per
    call (the summed kernel durations from torch.profiler); ``call_ms`` is
@@ -105,8 +113,9 @@ Phases 11-15 (slice 12's routes) run after phase 8, before 9 and 10:
    and ``batch_inference`` of 8 texts through UnivNet (wall, RTF, audio
    seconds per wall second); ``univnet_reference``: UnivNet at its
    widths on the card against the CPU, the same injected noise, fp32
-   with TF32 off within 1e-4 (the difference with the card's default
-   TF32 convolutions, as the route runs, reported).
+   under torch's default flags within 1e-4 (the port's convolutions run
+   fp32 inputs with cuDNN's TF32 off themselves; the script sets no
+   flag).
 13. ``beam_route``: ``inference(beam_width=4)`` at the 200-token budget,
    greedy and sampled; ``beam_decode``: the beam alone, eager and
    captured from the same seed (equal tokens, lengths and launches: K2 4
@@ -233,6 +242,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 BF16_FLOPS = 989e12            # H100 SXM, dense tensor core
 FP32_FLOPS = 67e12             # H100 SXM, fp32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM, dense TF32 tensor core
 INT8_OPS = 1979e12             # H100 SXM, dense int8 tensor core
 AR_STEPS = 200
 DIFF_STEPS = 50
@@ -1008,17 +1018,34 @@ def check_flash_attention_bias_k9(torch, k9a, k9b, dev):
     return out
 
 
-def _gn_conv_inputs(torch, dev, b, c, t, m, k, seed):
+def _gn_conv_inputs(torch, dev, b, c, t, m, k, seed, dtype=None):
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = (torch.randn(b, c, t, generator=g, device=dev) * 2 + 0.5) \
-        .to(torch.bfloat16)
+    x = (torch.randn(b, c, t, generator=g, device=dev) * 2 + 0.5).to(dtype)
     norm = {"scale": 1 + 0.1 * torch.randn(c, generator=g, device=dev),
             "bias": 0.1 * torch.randn(c, generator=g, device=dev)}
     bound = (c * k) ** -0.5
     conv = {"w": ((torch.rand(m, c, k, generator=g, device=dev) * 2 - 1)
-                  * bound).to(torch.bfloat16),
+                  * bound).to(dtype),
             "b": (torch.rand(m, generator=g, device=dev) * 2 - 1) * bound}
     return x, norm, conv
+
+
+def f32_bounds(nbytes: float, flops: float) -> dict:
+    """An fp32 K4/K5 call's bounds: its kernels' own work, three TF32
+    products a multiply-add (3xTF32) or the fp32 bytes (``bound_ms``),
+    and the FFMA bound, the operations at the fp32 CUDA-core peak."""
+    bms, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS)
+    return dict(bound_ms=bms, bound_by=by,
+                ffma_bound_ms=bound_ms(nbytes, flops, FP32_FLOPS)[0])
+
+
+def _same_bits(torch, fn) -> bool:
+    """Two calls of fn give the same bits (fp32 K4/K5: no atomics)."""
+    a, b = fn(), fn()
+    same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert same, "two calls of an fp32 K4/K5 differ"
+    return same
 
 
 RESBLOCK_TOL = dict(atol=3e-2, rtol=2e-2)   # 1-2 bf16 ulps at |y| <~ 4
@@ -1048,17 +1075,21 @@ def recorded_heads():
 
 
 def _normalise_bits(torch, k4, x, norm, groups, act, emb=None) -> int:
-    """Elements where the bf16 path's normalise kernel and its plain
-    version (given the kernel's statistics) differ: 0, bit for bit."""
-    y, stats = k4.group_norm_act(x, norm["scale"], norm["bias"], groups, act,
-                                 emb=emb)
+    """Elements where the normalise kernel and its plain version (given
+    the kernel's statistics) differ: 0, bit for bit; in fp32 both of
+    Y_hi and Y_lo against ``tf32_split`` of the plain Y."""
+    fp32 = x.dtype == torch.float32
+    y, stats = (k4.group_norm_split if fp32 else k4.group_norm_act)(
+        x, norm["scale"], norm["bias"], groups, act, emb=emb)
     c = x.shape[1]
     scale, shift = (None, None) if emb is None else (emb[:, :c].float(),
                                                      emb[:, c:].float())
     want = k4.group_norm_act_plain(x, norm["scale"], norm["bias"], groups,
                                    act, scale=scale, shift=shift,
                                    stats=stats)
-    diff = int((y.view(torch.int16) != want.view(torch.int16)).sum())
+    pairs = zip(y, k4.tf32_split(want)) if fp32 else [(y, want)]
+    bits = torch.int32 if fp32 else torch.int16
+    diff = sum(int((a.view(bits) != w.view(bits)).sum()) for a, w in pairs)
     assert diff == 0, f"normalise kernel: {diff} elements differ"
     return diff
 
@@ -1066,9 +1097,10 @@ def _normalise_bits(torch, k4, x, norm, groups, act, emb=None) -> int:
 def _gn_conv_case(torch, k4, name, x, norm, conv, act, groups=32,
                   plain=True):
     """One K4 call on these inputs: the kernel against its plain version
-    (bf16: ``RESBLOCK_TOL``; fp32: ``F32_TOL``, TF32 off, as the library
-    call is timed too), its time, the library's and the bound at its
-    type's peak rate; one ``kernel_detail`` line.  Returns (error,
+    (bf16: ``RESBLOCK_TOL``; fp32: ``F32_TOL``), its time, the library's
+    (fp32: with TF32 off, as the port's plain version runs it), the bound
+    at its type's peak rate (fp32: ``f32_bounds``), the GEMM's plan and in
+    fp32 two calls' bits; one ``kernel_detail`` line.  Returns (error,
     times, bytes, operations)."""
     F = torch.nn.functional
     eps = 1e-5
@@ -1102,13 +1134,18 @@ def _gn_conv_case(torch, k4, name, x, norm, conv, act, groups=32,
         x, norm["scale"], norm["bias"], conv["w"], conv["b"])) \
         + b * m * t * x.element_size()
     flops = 2 * b * m * c * t
-    bms, by = bound_ms(nbytes, flops, FP32_FLOPS if fp32 else BF16_FLOPS)
+    if fp32:
+        bounds = f32_bounds(nbytes, flops)
+        bounds["same_bits"] = _same_bits(
+            torch, lambda: k4.gn_conv1x1(x, norm, conv, groups, act))
+    else:
+        bms, by = bound_ms(nbytes, flops)
+        bounds = dict(bound_ms=bms, bound_by=by)
     emit("kernel_detail", name="gn_conv", shape=name, b=b, c=c, t=t,
          c_out=m, act=act, dtype=str(x.dtype), max_abs_err=err, tol=tol,
          library="F.group_norm + " + ("F.silu + " if act else "")
-         + "F.conv1d", bound_ms=bms, bound_by=by,
-         gemm_tile_t=None if fp32 else k4.plan(b, c, t, m, groups, x.dtype),
-         **t_)
+         + "F.conv1d", plan=list(k4.plan(b, c, t, m, groups, x.dtype)),
+         **bounds, **t_)
     return err, t_, nbytes, flops
 
 
@@ -1118,8 +1155,10 @@ def check_gn_conv(torch, k4, dev):
     integrator's in-half at B=1; the row sums the three.  Then detail lines
     at the batch route's shapes (trunk B=16, integrator B=8) and the ragged
     heads (the AR conditioning encoder's at T=517, the contextual
-    embedder's at C=2048, T=101), and the normalise kernel's Y against its
-    plain version, bit for bit."""
+    embedder's at C=2048, T=101), in bf16 and in fp32 (``emb.process``'s
+    float32: 3xTF32, with both bounds, the plan and two calls' bits), and
+    the normalise kernel's Y against its plain version, bit for bit (fp32:
+    Y_hi and Y_lo)."""
     shapes = [("resblock_in_half", 2, 1024, True),
               ("attention_qkv_head", 2, 3072, False),
               ("integrator_in_half_b1", 1, 1024, True)]
@@ -1146,45 +1185,74 @@ def check_gn_conv(torch, k4, dev):
                                               plain=False)[0])
         del inputs
         torch.cuda.empty_cache()
+    fp32 = {}
+    for i, (name, c, t, m) in enumerate((
+            ("ar_conditioning_head_t517_fp32", 1024, 517, 3072),
+            ("contextual_embedder_head_t101_fp32", 2048, 101, 6144))):
+        inputs = _gn_conv_inputs(torch, dev, 1, c, t, m, 1, 46 + i,
+                                 torch.float32)
+        err, t_, nbytes, flops = _gn_conv_case(torch, k4, name, *inputs,
+                                               False)
+        fp32[name] = dict(max_abs_err=err, **f32_bounds(nbytes, flops),
+                          **{k: t_[k] for k in ("ms", "plain_ms",
+                                                "library_ms")})
+        del inputs
     x, norm, _ = _gn_conv_inputs(torch, dev, 2, 1024, 896, 8, 1, 13)
     bits = _normalise_bits(torch, k4, x, norm, 32, True)
+    x, norm, _ = _gn_conv_inputs(torch, dev, 1, 2048, 101, 8, 1, 14,
+                                 torch.float32)
+    bits += _normalise_bits(torch, k4, x, norm, 32, False)
     bms, by = bound_ms(tot.pop("bytes"), tot.pop("flops"))
     emit("kernel", name="gn_conv", shape="three calls: " + ", ".join(
         n for n, *_ in shapes), max_abs_err=err_max, tol=RESBLOCK_TOL,
         library="F.group_norm + (F.silu) + F.conv1d, two or three calls",
-        bound_ms=bms, bound_by=by, normalise_bits_differ=bits, **tot)
+        bound_ms=bms, bound_by=by, normalise_bits_differ=bits, fp32=fp32,
+        **tot)
     return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **tot)
 
 
-def _ts_res_block_case(torch, k5, dev, b, seed, plain=True):
+def _ts_res_block_case(torch, k5, dev, b, seed, plain=True, dtype=None):
     """K5 at (b, 1024, 896): the kernel (on the weight prepared once)
-    against its plain version, its time, the library's and the bound."""
+    against its plain version, its time, the library's (fp32: TF32 off)
+    and the bound; in fp32 also two calls' bits."""
     from tortoise_tts_tpu_torch.kernels import gn_conv as k4
     F = torch.nn.functional
+    dtype = dtype or torch.bfloat16
+    fp32 = dtype == torch.float32
     c, t, groups, eps = 1024, 896, 32, 1e-5
-    h, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, c, 3, seed)
+    h, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, c, 3, seed, dtype)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
-    x = torch.randn(b, c, t, generator=g, device=dev).to(torch.bfloat16)
-    emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=dev)) \
-        .to(torch.bfloat16)
+    x = torch.randn(b, c, t, generator=g, device=dev).to(dtype)
+    emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=dev)).to(dtype)
     prepared = k5.prepare_conv(conv)
     got = k5.ts_res_block_out(h, x, emb, norm, prepared, groups)
     want = k5.ts_res_block_out_plain(h, x, emb, norm, conv, groups)
-    err = bf16_err(torch, got, want, name=f"ts_res_block B={b}",
-                   **RESBLOCK_TOL)
+    err = bf16_err(torch, got, want, name=f"ts_res_block B={b} {dtype}",
+                   **(F32_TOL if fp32 else RESBLOCK_TOL))
     del got, want
-    g16, b16 = (norm[n].to(torch.bfloat16) for n in ("scale", "bias"))
-    bias16 = conv["b"].to(torch.bfloat16)
-    t_ = timings(
-        torch, lambda _: k5.ts_res_block_out(h, x, emb, norm, prepared,
-                                             groups),
-        (lambda _: k5.ts_res_block_out_plain(h, x, emb, norm, conv, groups))
-        if plain else None,
-        lambda _: F.conv1d(F.group_norm(h, groups, g16, b16, eps),
-                           conv["w"], bias16, padding=1))
-    nbytes = 3 * 2 * b * c * t + 2 * 3 * c * c + 2 * b * 2 * c + 12 * c
+    gn, bn = (norm[n].to(dtype) for n in ("scale", "bias"))
+    bias = conv["b"].to(dtype)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = saved and not fp32
+        t_ = timings(
+            torch, lambda _: k5.ts_res_block_out(h, x, emb, norm, prepared,
+                                                 groups),
+            (lambda _: k5.ts_res_block_out_plain(h, x, emb, norm, conv,
+                                                 groups))
+            if plain else None,
+            lambda _: F.conv1d(F.group_norm(h, groups, gn, bn, eps),
+                               conv["w"], bias, padding=1))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    es = h.element_size()
+    nbytes = 3 * es * b * c * t + es * 3 * c * c + es * b * 2 * c + 12 * c
     flops = 2 * b * c * 3 * c * t
-    extra = {}
+    extra = {"plan": list(k4.plan(b, c, t, c, groups, dtype, taps=3))}
+    if fp32:
+        extra["same_bits"] = _same_bits(
+            torch, lambda: k5.ts_res_block_out(h, x, emb, norm, prepared,
+                                               groups))
     if plain:
         # the one-off reorder of the weight to tap-major (once per weight
         # when the denoiser's params are first used), by CUDA events
@@ -1197,7 +1265,9 @@ def _ts_res_block_case(torch, k5, dev, b, seed, plain=True):
 def check_ts_res_block(torch, k5, dev):
     """K5 at the denoiser's trunk shape, B=2, C=1024, T=896, with the
     one-off weight reorder timed on its own; detail lines at the batch
-    route's trunk (B=16) and integrator (B=8)."""
+    route's trunk (B=16) and integrator (B=8), and at B=2 in fp32
+    (3xTF32, both bounds, two calls' bits, the normalise kernel's Y_hi and
+    Y_lo with the scale-shift bit for bit)."""
     b = 2
     err, t_, nbytes, flops, extra = _ts_res_block_case(torch, k5, dev, b, 20)
     bms, by = bound_ms(nbytes, flops)
@@ -1207,15 +1277,26 @@ def check_ts_res_block(torch, k5, dev):
          bound_by=by, **extra, **t_)
     err_max = err
     for i, bb in enumerate((16, 8)):
-        e, td, nb, fl, _ = _ts_res_block_case(torch, k5, dev, bb, 50 + 2 * i,
-                                              plain=False)
+        e, td, nb, fl, ex = _ts_res_block_case(torch, k5, dev, bb,
+                                               50 + 2 * i, plain=False)
         err_max = max(err_max, e)
         emit("kernel_detail", name="ts_res_block", shape=[bb, 1024, 896],
              max_abs_err=e, tol=RESBLOCK_TOL,
              library="F.group_norm + F.conv1d (two calls)",
-             bound_ms=bound_ms(nb, fl)[0], **td)
+             bound_ms=bound_ms(nb, fl)[0], **ex, **td)
         torch.cuda.empty_cache()
-    return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **t_)
+    # fp32 (TTS(dtype="float32")'s trunk): 3xTF32, both bounds
+    e, td, nb, fl, ex = _ts_res_block_case(torch, k5, dev, b, 56,
+                                           dtype=torch.float32)
+    fp32 = dict(max_abs_err=e, **f32_bounds(nb, fl),
+                **{k: td[k] for k in ("ms", "plain_ms", "library_ms")})
+    emit("kernel_detail", name="ts_res_block", shape=[b, 1024, 896],
+         dtype="torch.float32", max_abs_err=e, tol=F32_TOL,
+         library="F.group_norm + F.conv1d (two calls, TF32 off)",
+         **f32_bounds(nb, fl), **ex, **td)
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, fp32=fp32,
+                **t_)
 
 
 def check_snake(torch, k7, dev):
@@ -1263,6 +1344,204 @@ def check_snake(torch, k7, dev):
          bound_by=by, **tot)
     torch.cuda.empty_cache()
     return dict(max_abs_err=err_max, bound_ms=bms, bound_by=by, **tot)
+
+
+def check_fp32_forms(torch, dev) -> dict:
+    """Every other kernel's fp32 form (``TTS(dtype="float32")`` reaches
+    each) once, at the default route's shapes: K1 at the prefill (B=1,
+    S=68), K2 and K8 at one decode layer's four GEMVs (M=1), K3 and its
+    shared form at the last decode step, K9a and K9b's fused entry at the
+    trunk's (2, 16, 896), K6 at the batch's trunk (16, 16, 896: "auto"
+    takes K6 from B=8), K7 at the first and last BigVGAN stage.  Each
+    against its plain version (``F32_TOL``; the decode GEMVs 1e-3 of
+    their |y| <~ 2 plus one int8 step's share), its device ms beside the
+    plain version's and the library call's (SDPA in fp32 with TF32 off,
+    the bias as a float mask; F.linear on pre-dequantized fp32 weights for
+    K2; None where no call computes the function) and the bound (fp32
+    bytes or the FFMA rate).  One ``kernel_fp32`` line each; returns
+    {name: that line}."""
+    from tortoise_tts_tpu_torch.kernels import flash_attention as k1
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias_cm as k9b
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias_kq as k9a
+    from tortoise_tts_tpu_torch.kernels import flash_decode as k3
+    from tortoise_tts_tpu_torch.kernels import qgemv as k2
+    from tortoise_tts_tpu_torch.kernels import qgemv_w8a8 as k8
+    from tortoise_tts_tpu_torch.kernels import snake as k7
+    F = torch.nn.functional
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(60)
+    out = {}
+
+    def row(name, shape, kernel, kern, plain, library, nbytes, flops,
+            tol=F32_TOL, lib_name=None):
+        before = kernel.launches
+        err = bf16_err(torch, kern(0), plain(0), name=f"{name} fp32", **tol)
+        assert kernel.launches == before + 1, f"{name}: no fp32 launch"
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            t_ = {key + "ms": device_ms(torch, fn) if fn else None
+                  for key, fn in (("", kern), ("plain_", plain),
+                                  ("library_", library))}
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
+        line = dict(shape=shape, max_abs_err=err, tol=tol, bound_ms=bms,
+                    bound_by=by, library=lib_name, **t_)
+        if t_["library_ms"]:
+            line["vs_library"] = t_["ms"] / t_["library_ms"]
+        emit("kernel_fp32", name=name, **line)
+        out[name] = line
+
+    # K1: the prefill, the text's padded tail masked
+    b, h, s, d = 1, 16, 1 + BUCKET + 2 + 1, 64
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=dev)
+    q, k, v = (z.view(b, s, h, d).transpose(1, 2)
+               for z in qkv.split(h * d, dim=-1))
+    mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+    mask[:, 1 + 20 + 2:s - 1] = False
+    allowed = mask[:, None, None, :] & torch.ones(
+        s, s, dtype=torch.bool, device=dev).tril()
+    row("flash_attention", [b, h, s, d], k1.KERNEL,
+        lambda i: k1.flash_attention(q, k, v, mask),
+        lambda i: k1.flash_attention_plain(q, k, v, mask),
+        lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed),
+        4 * b * h * s * d * 4 + b * s, 2 * 2 * b * h * d * s * (s + 1) / 2,
+        lib_name="scaled_dot_product_attention")
+    # K2 / K8: one decode layer's four GEMVs at M=1 (each on its own
+    # weights), timed as the sum of the four
+    layer = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
+                     flops=0.0, err=0.0) for n in ("qgemv", "qgemv_w8a8")}
+    for name, kd, nd, ln in GEMV_SHAPES:
+        wq, sc, bias, gam, bet = _gemv_weights(torch, g, dev, 1, kd, nd)
+        wq, sc, bias = wq[0], sc[0], bias[0]
+        lnp = (gam[0], bet[0]) if ln else None
+        x = torch.randn(1, kd, generator=g, device=dev)
+        wdq_t = (wq.float() * sc[None, :]).t().contiguous()
+        for kname, mod, fn, plain, lib in (
+                ("qgemv", k2, k2.qgemv, k2.qgemv_plain,
+                 lambda i: F.linear(x, wdq_t, bias)),
+                ("qgemv_w8a8", k8, k8.qgemv_w8a8, k8.qgemv_w8a8_plain, None)):
+            want = plain(x, wq, sc, bias, ln=lnp)
+            before = mod.KERNEL.launches
+            got = fn(x, wq, sc, bias, ln=lnp)
+            assert mod.KERNEL.launches == before + 1, kname
+            torch.cuda.synchronize()
+            # 1e-3 of |y| <~ 2, and for K8 one int8 code of the row
+            # (the LN's sums in another order) times the weights' share
+            err = float((got - want).abs().max())
+            assert err <= 2e-3 + (0.05 if kname == "qgemv_w8a8" else 0), \
+                (kname, name, err)
+            t = layer[kname]
+            t["err"] = max(t["err"], err)
+            t["ms"] += device_ms(torch, lambda i: fn(x, wq, sc, bias, ln=lnp))
+            t["plain_ms"] += device_ms(torch, lambda i: plain(
+                x, wq, sc, bias, ln=lnp))
+            t["library_ms"] = None if lib is None else \
+                t["library_ms"] + device_ms(torch, lib)
+            # int8 weights, x and y in fp32, scales and biases (and the
+            # LN's parameters)
+            t["bytes"] += (kd * nd + kd * 4 + (2 * kd * 4 if ln else 0)
+                           + 2 * nd * 4 + nd * 4)
+            t["flops"] += 2 * kd * nd
+    for kname, t in layer.items():
+        bms, by = bound_ms(t["bytes"], t["flops"], FP32_FLOPS)
+        line = dict(shape="one decode layer: 4 GEMVs, M=1",
+                    max_abs_err=t["err"], bound_ms=bms, bound_by=by,
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    library_ms=t["library_ms"],
+                    library="F.linear on pre-dequantized fp32 weights"
+                    if kname == "qgemv" else None)
+        if t["library_ms"]:
+            line["vs_library"] = t["ms"] / t["library_ms"]
+        emit("kernel_fp32", name=kname, **line)
+        out[kname] = line
+    # K3 and its shared form: the last decode step, 268 slots
+    slots = 1 + BUCKET + 2 + 1 + AR_STEPS
+    pos = slots - 1
+    ck, cv = (torch.randn(1, h, slots, d, generator=g, device=dev)
+              for _ in range(2))
+    q1 = torch.randn(1, h, d, generator=g, device=dev)
+    km = torch.ones(1, slots, dtype=torch.bool, device=dev)
+    km[:, 55:67] = False
+    row("flash_decode", [1, h, slots, d], k3.KERNEL,
+        lambda i: k3.flash_decode(q1, ck, cv, pos, km),
+        lambda i: k3.flash_decode_plain(q1, ck, cv, pos, km),
+        lambda i: F.scaled_dot_product_attention(
+            q1[:, :, None], ck[:, :, :pos + 1], cv[:, :, :pos + 1],
+            attn_mask=km[:, None, None, :pos + 1]),
+        2 * h * (pos + 1) * d * 4 + 2 * h * d * 4 + pos + 1,
+        4 * h * (pos + 1) * d, lib_name="scaled_dot_product_attention")
+    c, sp, sd = CANDIDATES, 1 + BUCKET + 2 + 1, AR_STEPS
+    kp, vp = (torch.randn(1, h, sp, d, generator=g, device=dev)
+              for _ in range(2))
+    kd_, vd_ = (torch.randn(c, h, sd, d, generator=g, device=dev)
+                for _ in range(2))
+    qc = torch.randn(c, h, d, generator=g, device=dev)
+    pm = torch.ones(1, sp, dtype=torch.bool, device=dev)
+    row("flash_decode_shared", dict(g=1, c=c, h=h, sp=sp, sd=sd),
+        k3.KERNEL_SHARED,
+        lambda i: k3.flash_decode_shared(qc, kp, vp, pm, kd_, vd_, sd - 1),
+        lambda i: k3.flash_decode_shared_plain(qc, kp, vp, pm, kd_, vd_,
+                                               sd - 1),
+        None, 2 * h * sp * d * 4 + 2 * c * h * sd * d * 4
+        + 2 * c * h * d * 4 + sp, 4 * c * h * (sp + sd) * d)
+    del ck, cv, kp, vp, kd_, vd_
+    # K6 at the batch's trunk; K9a, K9b at the single route's trunk
+    t = 896
+
+    def biased(b):
+        qkv, (bias,) = _bias_attn_inputs(torch, dev, b, h, t, f32, 61 + b)
+        qv, kv, vv = qkv.view(b, h, 3, 64, t).unbind(2)
+        return (qkv, bias, qv, kv, vv, 4 * b * h * 64 * t * 4 + h * t * t * 4,
+                2 * 2 * b * h * t * t * 64)
+    lib = "scaled_dot_product_attention, bias as a float mask"
+    qkv, bias, qv, kv, vv, nb, fl = biased(16)
+    row("flash_attention_bias", [16, h, t], k6.KERNEL,
+        lambda i: k6.flash_attention_bias(qkv, bias, h),
+        lambda i: k6.flash_attention_bias_plain(qkv, bias, h),
+        lambda i: _sdpa_cm(F, qv, kv, vv, bias), nb, fl, lib_name=lib)
+    del qkv, bias, qv, kv, vv
+    torch.cuda.empty_cache()
+    qkv, bias, qv, kv, vv, nb, fl = biased(2)
+    bt = bias.transpose(1, 2).contiguous()
+    row("flash_attention_bias_kq", [2, h, t], k9a.KERNEL,
+        lambda i: k9a.flash_attention_bias_kq(qkv, bt, h),
+        lambda i: k9a.flash_attention_bias_kq_plain(qkv, bt, h),
+        lambda i: _sdpa_cm(F, qv, kv, vv, bt.transpose(1, 2)), nb, fl,
+        lib_name=lib)
+    row("flash_attention_bias_cm", [2, h, t], k9b.KERNEL,
+        lambda i: k9b.flash_attention_bias_qkv(qkv, bias, h),
+        lambda i: k9b.flash_attention_bias_qkv_plain(qkv, bias, h),
+        lambda i: _sdpa_cm(F, qv, kv, vv, bias), nb, fl, lib_name=lib)
+    del qkv, bias, bt, qv, kv, vv
+    # K7 at the first and last BigVGAN stage (two lines' sum)
+    tot = None
+    for c7, t7 in ((768, 3624), (24, 231936)):
+        x = torch.randn(1, c7, t7, generator=g, device=dev)
+        alpha = torch.exp(0.3 * torch.randn(c7, generator=g, device=dev))
+        ib = 1 / (torch.exp(0.3 * torch.randn(c7, generator=g,
+                                              device=dev)) + 1e-9)
+        err = bf16_err(torch, k7.snake_resample2(x, alpha, ib),
+                       k7.snake_resample2_plain(x, alpha, ib),
+                       name="snake fp32", **F32_TOL)
+        t_ = dict(err=err, ms=device_ms(
+            torch, lambda i: k7.snake_resample2(x, alpha, ib)),
+            plain_ms=device_ms(torch, lambda i: k7.snake_resample2_plain(
+                x, alpha, ib)), bytes=2 * 4 * c7 * t7 + 8 * c7,
+            flops=58 * c7 * t7)
+        tot = t_ if tot is None else {key: max(tot[key], t_[key])
+                                      if key == "err" else tot[key] + t_[key]
+                                      for key in tot}
+    bms, by = bound_ms(tot["bytes"], tot["flops"], FP32_FLOPS)
+    line = dict(shape="768x3624 + 24x231936, B=1", max_abs_err=tot["err"],
+                tol=F32_TOL, bound_ms=bms, bound_by=by, ms=tot["ms"],
+                plain_ms=tot["plain_ms"], library_ms=None, library=None)
+    emit("kernel_fp32", name="snake", **line)
+    out["snake"] = line
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1718,10 +1997,9 @@ def _sum_census(a, b) -> dict:
 def _kernel_census(prof) -> dict:
     """CUDA kernels of one profiled stage: the launches and device ms of
     the port's K4 and K5 GEMMs (csrc/resblock.cu: ``gn_conv_wgmma<BN>``
-    and ``ts_res_block_wgmma<BN>`` in bf16, ``gn_conv_f32`` and
-    ``ts_res_block_f32`` in fp32), the normalise kernel before each of
-    them (``group_norm_act<CACHED>`` in bf16, ``group_stats_f32`` in
-    fp32), K6 (``attn_bias_tc<NB, NQ>`` of csrc/flash_attention_bias.cu in
+    and ``ts_res_block_wgmma<BN>`` in bf16, ``gn_conv_tf32<BN>`` and
+    ``ts_res_block_tf32<BN>`` in fp32), the normalise kernel before each
+    of them (``group_norm_act<T, CACHED>``), K6 (``attn_bias_tc<NB, NQ>`` of csrc/flash_attention_bias.cu in
     bf16, ``attn_bias_f32`` in fp32), K9a (``attn_bias_kq_*``), K9b
     (``attn_bias_cm_*``), K7, K2 and K8 (their
     GEMM and row kernels, ``DECODE_KERNELS``) and all other kernels.  The
@@ -1733,11 +2011,11 @@ def _kernel_census(prof) -> dict:
     out = {k: 0 for k in kinds}
     ms = {k: 0.0 for k in kinds}
     for e in events:
-        if "gn_conv_wgmma" in e.name or "gn_conv_f32" in e.name:
+        if "gn_conv_wgmma" in e.name or "gn_conv_tf32" in e.name:
             kind = "gn_conv_gemm"
-        elif "ts_res_block_wgmma" in e.name or "ts_res_block_f32" in e.name:
+        elif "ts_res_block_wgmma" in e.name or "ts_res_block_tf32" in e.name:
             kind = "ts_res_block_gemm"
-        elif "group_norm_act" in e.name or "group_stats_f32" in e.name:
+        elif "group_norm_act" in e.name:
             kind = "normalise"
         elif "attn_bias_kq" in e.name:
             kind = "attn_bias_kq"
@@ -2720,11 +2998,18 @@ def dpmpp_route(torch, tts, ref: str):
 def _univnet_reference(torch) -> tuple:
     """UnivNet at its shipped widths (random weights) on the card against
     the CPU, 64 frames of two rows, the same injected noise, in fp32 (the
-    route's type): with TF32 off, within 1e-4 (the same fp32 arithmetic
-    in another order); and with the card's default convolutions, as the
-    route runs them (TF32), reported.  Returns both max abs errors."""
+    route's type), under torch's default flags (cuDNN's TF32 on, matmul's
+    off: this script sets none), as the route runs: within 1e-4 (the same
+    fp32 arithmetic in another order; the port's convolutions turn TF32
+    off for fp32 inputs themselves).  Returns the max abs error and the
+    default flags it ran under."""
     from tortoise_tts_tpu_torch.models import _univnet_random, univnet
     from tortoise_tts_tpu_torch.models.common import tree_map
+    flags = dict(cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                 cudnn_enabled=torch.backends.cudnn.enabled,
+                 matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    assert flags == dict(cudnn_allow_tf32=True, cudnn_enabled=True,
+                         matmul_allow_tf32=False), flags
     cfg = univnet.UnivNetConfig()
     params = _univnet_random(torch.Generator().manual_seed(3), cfg)
     g = torch.Generator().manual_seed(4)
@@ -2732,21 +3017,11 @@ def _univnet_reference(torch) -> tuple:
     noise = torch.randn(2, *univnet.noise_shape(64, cfg), generator=g)
     want = univnet.inference(params, mel, noise=noise, cfg=cfg)
     on_card = tree_map(lambda t: t.cuda(), params)
-    backends = (torch.backends.cudnn, torch.backends.cuda.matmul)
-    saved = [b.allow_tf32 for b in backends]
-    try:
-        for b in backends:
-            b.allow_tf32 = False
-        strict = univnet.inference(on_card, mel.cuda(), noise=noise.cuda(),
-                                   cfg=cfg)
-    finally:
-        for b, v in zip(backends, saved):
-            b.allow_tf32 = v
     route = univnet.inference(on_card, mel.cuda(), noise=noise.cuda(),
                               cfg=cfg)
-    err = bf16_err(torch, strict.cpu(), want, atol=1e-4, rtol=1e-4,
+    err = bf16_err(torch, route.cpu(), want, atol=1e-4, rtol=1e-4,
                    name="univnet fp32")
-    return err, float((route.cpu() - want).abs().max())
+    return err, flags
 
 
 def univnet_route(torch, tts, ref: str):
@@ -2792,9 +3067,9 @@ def univnet_route(torch, tts, ref: str):
                     k: total[k] + counts[k] for k in counts}
     finally:
         stages.close()
-    err, tf32_err = _univnet_reference(torch)
+    err, flags = _univnet_reference(torch)
     emit("univnet_reference", card=nvidia_smi(), max_abs_err=err,
-         tol="1e-4 + 1e-4 |x| (TF32 off)", tf32_max_abs_err=tf32_err)
+         tol="1e-4 + 1e-4 |x| (torch's default flags)", flags=flags)
     return total
 
 
@@ -4597,7 +4872,7 @@ def prep_route(torch, dev, tmp: str):
                 torch, k4, f"prep_head_c{c}_t{t}", x, norm, conv, act, groups)
             k4_fp32.append(dict(
                 shape=[b, c, t, m], max_abs_err=err, tol=F32_TOL,
-                bound_ms=bound_ms(nbytes, flops, FP32_FLOPS)[0],
+                **f32_bounds(nbytes, flops),
                 **{k: t_[k] for k in ("ms", "plain_ms", "library_ms")}))
     del heads
     emit("prep_route", card=nvidia_smi(), clips=clips, codes=codes,
@@ -4699,6 +4974,7 @@ def main() -> int:
             r6 = check_flash_attention_bias(torch, k6, dev)
             r9 = check_flash_attention_bias_k9(torch, k9a, k9b, dev)
             r3s = check_flash_decode_shared(torch, k3, dev)
+            check_fp32_forms(torch, dev)
         torch.cuda.empty_cache()
 
         ref = reference_wav(Path(tmp) / "reference.wav")

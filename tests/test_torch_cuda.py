@@ -551,9 +551,16 @@ def _gn_conv_inputs(dev, b, c, t, m, k, dtype, seed):
     (16, 136, 45, 192, True, torch.bfloat16, 8),
     (16, 136, 517, 192, False, torch.bfloat16, 8),
     (2, 64, 45, 192, True, torch.float32, 16),         # fp32 reference runs
-    # the conditioning heads as ``emb.process`` runs them (float32)
+    # the conditioning heads as ``emb.process`` runs them (float32: K
+    # split over a cluster of 2 and 5 blocks)
     (1, 1024, 517, 3072, False, torch.float32, 32),
-    (1, 2048, 101, 6144, False, torch.float32, 32)])
+    (1, 2048, 101, 6144, False, torch.float32, 32),
+    # TTS(dtype="float32")'s denoiser, ragged T, M and K in fp32
+    (2, 1024, 896, 1024, True, torch.float32, 32),
+    (2, 1024, 896, 3072, False, torch.float32, 32),
+    (1, 1024, 896, 1024, True, torch.float32, 32),
+    (16, 136, 45, 192, True, torch.float32, 8),
+    (3, 136, 1, 200, False, torch.float32, 8)])
 def test_gn_conv_kernel_cuda(cuda, monkeypatch, b, c, t, m, act, dtype,
                              groups):
     _fp32_exact(monkeypatch, dtype)
@@ -574,7 +581,10 @@ def test_gn_conv_kernel_cuda(cuda, monkeypatch, b, c, t, m, act, dtype,
     (2, 1024, 896, torch.bfloat16, 32), (1, 1024, 896, torch.bfloat16, 32),
     (16, 1024, 896, torch.bfloat16, 32), (8, 1024, 896, torch.bfloat16, 32),
     (2, 1024, 517, torch.bfloat16, 32), (3, 136, 1, torch.bfloat16, 8),
-    (16, 136, 45, torch.bfloat16, 8), (2, 64, 45, torch.float32, 16)])
+    (16, 136, 45, torch.bfloat16, 8), (2, 64, 45, torch.float32, 16),
+    # TTS(dtype="float32")'s trunk and integrator; ragged in fp32
+    (2, 1024, 896, torch.float32, 32), (1, 1024, 896, torch.float32, 32),
+    (3, 136, 1, torch.float32, 8), (16, 136, 45, torch.float32, 8)])
 def test_ts_res_block_kernel_cuda(cuda, monkeypatch, b, c, t, dtype, groups):
     _fp32_exact(monkeypatch, dtype)
     h, norm, conv = _gn_conv_inputs(cuda, b, c, t, c, 3, dtype, 4)
@@ -610,21 +620,25 @@ def test_ts_res_block_prepared_weight_cuda(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,c,t,groups,act,film", [
     (2, 1024, 896, 32, True, False), (2, 1024, 896, 32, False, False),
     (2, 1024, 896, 32, True, True), (3, 136, 45, 8, True, True),
     (1, 128, 1, 32, True, True),
     (1, 64, 4000, 2, True, False)])    # 256 KB a group: read twice
-def test_group_norm_act_kernel_cuda(cuda, b, c, t, groups, act, film):
+def test_group_norm_act_kernel_cuda(cuda, b, c, t, groups, act, film, dtype):
     """The normalise kernel's Y is bit-equal to its plain version given the
     kernel's statistics (every fp32 step rounded on its own, the same
-    sigmoid); the statistics agree with the plain two-pass ones in fp32."""
-    x, norm, _ = _gn_conv_inputs(cuda, b, c, t, 8, 1, torch.bfloat16, 7)
+    sigmoid; fp32: Y_hi and Y_lo equal to ``tf32_split`` of it); the
+    statistics agree with the plain two-pass ones in fp32; in fp32
+    ``group_norm_act``'s Y_hi + Y_lo is the plain Y."""
+    x, norm, _ = _gn_conv_inputs(cuda, b, c, t, 8, 1, dtype, 7)
     g = torch.Generator(device=cuda).manual_seed(8)
     emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=cuda)).to(
-        torch.bfloat16) if film else None
-    y, stats = k4.group_norm_act(x, norm["scale"], norm["bias"], groups, act,
-                                 emb=emb)
+        dtype) if film else None
+    fp32 = dtype == torch.float32
+    y, stats = (k4.group_norm_split if fp32 else k4.group_norm_act)(
+        x, norm["scale"], norm["bias"], groups, act, emb=emb)
     torch.cuda.synchronize()
     for got, want in zip(stats, k4.group_stats_plain(x, groups)):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
@@ -633,7 +647,60 @@ def test_group_norm_act_kernel_cuda(cuda, b, c, t, groups, act, film):
     want = k4.group_norm_act_plain(x, norm["scale"], norm["bias"], groups,
                                    act, scale=scale, shift=shift,
                                    stats=stats)
-    assert y.shape == want.shape and torch.equal(y, want)
+    if fp32:
+        assert all(torch.equal(a.view(torch.int32), w.view(torch.int32))
+                   for a, w in zip(y, k4.tf32_split(want)))
+        y, _ = k4.group_norm_act(x, norm["scale"], norm["bias"], groups,
+                                 act, emb=emb)
+        assert torch.equal(y, want)
+    else:
+        assert y.shape == want.shape and torch.equal(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,b,c,t,m", [
+    ("k4", 1, 1024, 517, 3072), ("k4", 1, 2048, 101, 6144),
+    ("k5", 2, 1024, 896, 1024)])
+def test_fp32_kernels_give_the_same_bits_twice_cuda(cuda, kernel, b, c, t, m):
+    """The fp32 GEMM's split-K sums its K slices in rank order through the
+    cluster's shared memory, no atomics: two calls, the same bits."""
+    x, norm, conv = _gn_conv_inputs(cuda, b, c, t, m, 1 if kernel == "k4"
+                                    else 3, torch.float32, 9)
+    if kernel == "k4":
+        def run():
+            return k4.gn_conv1x1(x, norm, conv, 32, False)
+    else:
+        emb = 0.3 * torch.randn(b, 2 * c, device=cuda)
+        prepared = k5.prepare_conv(conv)
+
+        def run():
+            return k5.ts_res_block_out(x, x, emb, norm, prepared, 32)
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run().view(torch.int32), first.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [64, 104, 128])
+@pytest.mark.parametrize("split", [1, 2, 3, 8])
+def test_fp32_gemm_every_tile_and_split_cuda(cuda, monkeypatch, bn, split):
+    """Each fp32 tile width and K split the wrapper may pass, K4 and K5,
+    against their plain versions at a ragged T and M."""
+    _fp32_exact(monkeypatch, torch.float32)
+    monkeypatch.setattr(k4, "plan", lambda *a, **kw: k4.Plan(bn, split))
+    monkeypatch.setattr(k5, "plan", lambda *a, **kw: k4.Plan(bn, split))
+    x, norm, conv = _gn_conv_inputs(cuda, 2, 1024, 141, 200, 1,
+                                    torch.float32, 11)
+    torch.testing.assert_close(k4.gn_conv1x1(x, norm, conv, 32, True),
+                               k4.gn_conv1x1_plain(x, norm, conv, 32, True),
+                               atol=1e-4, rtol=1e-4)
+    h, norm, conv = _gn_conv_inputs(cuda, 2, 256, 141, 256, 3,
+                                    torch.float32, 12)
+    emb = 0.3 * torch.randn(2, 512, device=cuda)
+    torch.testing.assert_close(
+        k5.ts_res_block_out(h, h, emb, norm, k5.prepare_conv(conv), 32),
+        k5.ts_res_block_out_plain(h, h, emb, norm, conv, 32),
+        atol=1e-4, rtol=1e-4)
 
 
 # BigVGAN's six stage shapes at 906 mel frames (activation_post repeats the

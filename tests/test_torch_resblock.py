@@ -250,4 +250,108 @@ def test_plan_refuses_what_the_kernels_do_not_take(args, err, match):
     (16, 512, 218, 1536, 128), (1, 512, 218, 1536, 64),   # the classifier
     (16, 1024, 896, 3072, 128), (2, 64, 45, 192, 64)])
 def test_plan_picks_the_gemm_tile(b, c, t, m, bn):
-    assert k4.plan(b, c, t, m, 32 if c > 64 else 16, torch.bfloat16) == bn
+    assert k4.plan(b, c, t, m, 32 if c > 64 else 16, torch.bfloat16) == \
+        (bn, 1)
+
+
+# fp32 (3xTF32): emb.process's two heads and TTS(dtype="float32")'s K5,
+# with the plan measured fastest on an H100 (tools/resblock_tiles.py)
+@pytest.mark.parametrize("b,c,t,m,taps,want", [
+    (1, 1024, 517, 3072, 1, (104, 1)), (1, 2048, 101, 6144, 1, (104, 2)),
+    (2, 1024, 896, 1024, 3, (128, 1))])
+def test_fp32_plan_fills_the_card(b, c, t, m, taps, want):
+    """The fp32 GEMM's tile and K split: one wave of blocks on at least
+    70% of the SMs, each cluster a power of two up to 8, every K slice at
+    least ``MIN_SLICE_STEPS`` steps, a tile width the kernel has, and a
+    ragged T tile at least half full."""
+    p = k4.plan(b, c, t, m, 32, torch.float32, taps=taps)
+    assert p == want
+    assert p.bn in k4.F32_TILES and p.split in k4.F32_SPLITS
+    blocks = b * -(-m // k4.GEMM_ROWS) * -(-t // p.bn) * p.split
+    assert 0.7 * k4.SMS <= blocks <= k4.SMS
+    steps = taps * c // k4.F32_K_STEP
+    assert steps // p.split >= k4.MIN_SLICE_STEPS
+    assert t % p.bn == 0 or t % p.bn >= p.bn // 2
+
+
+def test_fp32_plan_keeps_small_shapes_whole():
+    """Where K is too short to split, the plan takes the grid it has."""
+    assert k4.plan(2, 64, 45, 192, 16, torch.float32) == (64, 1)
+
+
+F32_TOL = dict(atol=1e-4, rtol=1e-4)   # chip_smoke.F32_TOL
+
+
+def test_tf32_split_rounds_as_cvt_rna():
+    """hi is y rounded to TF32 (10 mantissa bits) to nearest with ties
+    away from zero, its 13 low bits clear; hi + lo is y exactly."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    y = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                      one + 1.5 * ulp, 3.0, 0.0, -2.5e-30, 1e30],
+                     dtype=torch.float32)
+    hi, lo = k4.tf32_split(y)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + 2 * ulp, 3.0,
+                         0.0], dtype=torch.float32)
+    assert torch.equal(hi[:6], want)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert torch.equal(hi + lo, y)
+    g = torch.Generator().manual_seed(0)
+    r = torch.randn(4096, generator=g) * 10
+    hi, lo = k4.tf32_split(r)
+    assert torch.equal(hi + lo, r)
+    assert bool((lo.abs() <= hi.abs() * 2.0 ** -11).all())
+
+
+def _gn_inputs(b, c, t, m, k, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, c, t, generator=g) * 2 + 0.5
+    norm = {"scale": 1 + 0.1 * torch.randn(c, generator=g),
+            "bias": 0.1 * torch.randn(c, generator=g)}
+    bound = (c * k) ** -0.5
+    conv = {"w": (torch.rand(m, c, k, generator=g) * 2 - 1) * bound,
+            "b": (torch.rand(m, generator=g) * 2 - 1) * bound}
+    return x, norm, conv
+
+
+@pytest.mark.parametrize("act", [True, False])
+def test_3xtf32_decomposition_matches_fp32(act):
+    """The fp32 kernels' arithmetic (Y, its TF32 split, three TF32
+    products a step) holds chip_smoke's F32_TOL against the fp32 plain
+    version at a ragged shape; one TF32 product alone does not hold a
+    tenth of the 3xTF32 error's margin."""
+    x, norm, conv = _gn_inputs(2, 136, 45, 200, 1, 3)
+    want = k4.gn_conv1x1_plain(x, norm, conv, 8, act)
+    y = k4.group_norm_act_plain(x, norm["scale"], norm["bias"], 8, act)
+    got = k4.matmul_3xtf32(conv["w"][:, :, 0], y) + conv["b"][:, None]
+    torch.testing.assert_close(got, want, **F32_TOL)
+    err3 = float((got - want).abs().max())
+    wh, _ = k4.tf32_split(conv["w"][:, :, 0])
+    yh, _ = k4.tf32_split(y)
+    one = torch.matmul(wh, yh) + conv["b"][:, None]
+    assert float((one - want).abs().max()) > 10 * err3
+
+
+def test_3xtf32_ts_res_block_matches_fp32():
+    """K5's decomposition on the 3xTF32 products against its fp32 plain
+    version at a ragged shape."""
+    h, norm, conv = _gn_inputs(2, 136, 45, 136, 3, 4)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 136, 45, generator=g)
+    emb = 0.3 * torch.randn(2, 272, generator=g)
+    want = k5.ts_res_block_out_plain(h, x, emb, norm, conv, 8)
+    got = k5.ts_res_block_out_taps_plain(h, x, emb, norm, k5.taps(conv["w"]),
+                                         conv["b"], 8,
+                                         matmul=k4.matmul_3xtf32)
+    torch.testing.assert_close(got, want, **F32_TOL)
+
+
+def test_fp32_normalise_on_the_cpu_is_the_split():
+    """``group_norm_split`` on an fp32 CPU tensor gives the fp32 kernel's
+    (Y_hi, Y_lo) from the plain version: hi + lo is Y."""
+    x, norm, _ = _gn_inputs(2, 64, 33, 8, 1, 6)
+    (hi, lo), stats = k4.group_norm_split(x, norm["scale"], norm["bias"], 16,
+                                          True)
+    y = k4.group_norm_act_plain(x, norm["scale"], norm["bias"], 16, True)
+    assert torch.equal(hi + lo, y)
+    assert torch.equal(hi, k4.tf32_split(y)[0])

@@ -47,8 +47,29 @@
 //      zeros; the epilogue stages the tile in shared memory, adds the
 //      fp32 bias (K5: and the residual x in fp32), rounds once and stores
 //      whole rows in 16-byte pieces, masked at the ragged edges.
-// fp32 (the parity runs only): group_stats_f32 and a CUDA-core GEMM with
-// the prologue made on load (8 x 4 outputs a thread), kernels of their own.
+// fp32, the same two kernels (3xTF32: fp32 accuracy on the tensor cores):
+//   1. group_norm_act<float>: as in bf16, but Y stays fp32 (no rounding
+//      between the steps) and leaves as two time-major arrays, Y_hi = Y
+//      rounded to TF32 (cvt.rna, the low 13 bits zero) and Y_lo = Y - Y_hi
+//      (exact).
+//   2. gemm_tf32: out = W (M x K, fp32) * Y + bias (+ x) with
+//      wgmma m64nBNk8 tf32 (BN = 64, 104 or 128), TMA boxes 32 channels
+//      deep (one 128-byte swizzle row of fp32) in a ring of 4 stages of
+//      [W tile | Y_hi box | Y_lo box].  Each consumer thread reads its A
+//      fragments of the weight tile from shared memory and splits them in
+//      registers (W_hi = rna(W), W_lo = W - W_hi), so W leaves device
+//      memory once, in fp32; each 8-deep slice is three products into the
+//      fp32 accumulators, W_lo Y_hi + W_hi Y_lo + W_hi Y_hi (the dropped
+//      W_lo Y_lo is about 2^-22 of a product; the tensor cores read the lo
+//      parts truncated to TF32).  The bound is 3x the operations at 495
+//      TFLOP/s (TF32) or the fp32 bytes, whichever is larger.  Where the
+//      output tiles are too few to fill the SMs (B = 1, C = 2048, T = 101
+//      -> 6144: 48 tiles) K is split over a cluster of `split` blocks
+//      along grid x; each block leaves its partial tile in its shared
+//      memory and the cluster sums them through distributed shared memory
+//      in rank order (no atomics: the same bits on every call), each block
+//      storing its share of the rows.  The tile width and the split are
+//      the wrapper's (kernels/gn_conv.plan).
 // K must be a multiple of 8 (16-byte weight rows), for both.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -97,14 +118,27 @@ __device__ float block_sum(float v, float* red) {
 constexpr int NORM_THREADS = 512;
 constexpr int NORM_CACHE_MAX = 160 * 1024;   // bytes of one slice kept
 
+template <typename TX>
 struct NormArgs {
-  const bf16* x;   // (B, C, T)
-  bf16* y;         // (B, T, C): time-major
+  const TX* x;     // (B, C, T)
+  TX* y;           // (B, T, C): time-major (fp32: Y_hi)
+  float* ylo;      // (B, T, C): fp32 Y_lo, or null (bf16)
   float* stats;    // mu (B*G), then rstd (B*G), or null
   Vecs v;          // gamma, beta; emb (K5) or null
   int B, C, G, T, act;
   float eps;
 };
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+
+// Y rounded to TF32 as cvt.rna rounds it (to nearest, ties away from
+// zero), the 13 low bits cleared: Y_hi; Y - Y_hi is exact in fp32
+__device__ __forceinline__ float tf32_hi(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
 
 // The sum of v over the block, then over the cluster's blocks in rank
 // order (every block of the cluster gets the same value).  slot: this
@@ -122,15 +156,40 @@ __device__ float cluster_sum(float v, float* red, float* slot) {
   return total;
 }
 
+// Y of one (time step, channel) of the slice: ((x - mu) * rstd) * gamma +
+// beta, (times 1 + scale, plus shift), then silu where act; every fp32
+// step rounded on its own (no fused multiply-add).  bf16 rounds the
+// normalised value and the sigmoid to bf16 as the TPU kernel does; fp32
+// rounds nothing.
+template <typename TX>
+__device__ __forceinline__ float norm_value(TX xv, const float* q4,
+                                            float mu, float rs, bool film,
+                                            int act) {
+  constexpr bool BF = sizeof(TX) == 2;
+  float yn = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(to_f(xv), mu), rs),
+                                 q4[0]),
+                       q4[1]);
+  if (film) yn = __fadd_rn(__fmul_rn(yn, q4[2]), q4[3]);
+  float y = BF ? __bfloat162float(__float2bfloat16(yn)) : yn;
+  if (act) {
+    float sg = 1.f / (1.f + expf(-y));
+    if (BF) sg = __bfloat162float(__float2bfloat16(sg));
+    y = __fmul_rn(y, sg);
+  }
+  return y;
+}
+
 // One cluster of blocks per (batch, group); block `rank` of the cluster
 // normalises `ps` = (C/G)/cluster of the group's channels, which are
 // contiguous in x.  Dynamic shared memory: the slice's channel parameters
 // (4 floats a channel: gamma, beta, 1 + scale, shift), then the cached
 // slice.
-template <bool CACHED>
+template <typename TX, bool CACHED>
 __global__ void __launch_bounds__(NORM_THREADS)
-    group_norm_act(NormArgs a) {
+    group_norm_act(NormArgs<TX> a) {
   namespace cg = cooperative_groups;
+  constexpr bool BF = sizeof(TX) == 2;
+  constexpr int E = 16 / sizeof(TX);   // elements a 16-byte load
   extern __shared__ __align__(16) unsigned char norm_smem[];
   __shared__ float red[NORM_THREADS / 32];
   __shared__ float slots[2];
@@ -141,8 +200,8 @@ __global__ void __launch_bounds__(NORM_THREADS)
   const int c0 = g * per + rank * ps;   // the slice's first channel
   const int n = ps * T;
   float* prm = reinterpret_cast<float*>(norm_smem);
-  bf16* cache = reinterpret_cast<bf16*>(prm + 4 * ((ps + 3) & ~3));
-  const bf16* p = a.x + ((long long)b * a.C + c0) * T;
+  TX* cache = reinterpret_cast<TX*>(prm + 4 * ((ps + 3) & ~3));
+  const TX* p = a.x + ((long long)b * a.C + c0) * T;
   const int tid = threadIdx.x;
   const bool film = a.v.emb != nullptr;
   for (int r = tid; r < ps; r += NORM_THREADS) {
@@ -155,39 +214,46 @@ __global__ void __launch_bounds__(NORM_THREADS)
   }
 
   float s = 0.f;
-  if (((reinterpret_cast<uintptr_t>(p) & 15) | (n & 7)) == 0) {
+  if (((reinterpret_cast<uintptr_t>(p) & 15) | (n % E)) == 0) {
     // four 16-byte loads in flight a thread before any is used
     constexpr int U = 4;
     const int4* p4 = reinterpret_cast<const int4*>(p);
-    for (int i0 = tid; i0 < n / 8; i0 += U * NORM_THREADS) {
+    for (int i0 = tid; i0 < n / E; i0 += U * NORM_THREADS) {
       int4 v[U];
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        if (i0 + u * NORM_THREADS < n / 8) v[u] = p4[i0 + u * NORM_THREADS];
+        if (i0 + u * NORM_THREADS < n / E) v[u] = p4[i0 + u * NORM_THREADS];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int i = i0 + u * NORM_THREADS;
-        if (i < n / 8) {
+        if (i < n / E) {
           if (CACHED) reinterpret_cast<int4*>(cache)[i] = v[u];
-          const bf16* e = reinterpret_cast<const bf16*>(&v[u]);
+          if constexpr (BF) {
+            const TX* e = reinterpret_cast<const TX*>(&v[u]);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) s += __bfloat162float(e[j]);
+            for (int j = 0; j < E; ++j) s += to_f(e[j]);
+          } else {
+            s += __int_as_float(v[u].x);
+            s += __int_as_float(v[u].y);
+            s += __int_as_float(v[u].z);
+            s += __int_as_float(v[u].w);
+          }
         }
       }
     }
   } else {
     for (int i = tid; i < n; i += NORM_THREADS) {
-      const bf16 v = p[i];
+      const TX v = p[i];
       if (CACHED) cache[i] = v;
-      s += __bfloat162float(v);
+      s += to_f(v);
     }
   }
-  const bf16* src = CACHED ? cache : p;
+  const TX* src = CACHED ? cache : p;
   const float cnt = (float)per * (float)T;
   const float mu = cluster_sum(s, red, &slots[0]) / cnt;
   float q = 0.f;
   for (int i = tid; i < n; i += NORM_THREADS) {
-    const float d = __bfloat162float(src[i]) - mu;
+    const float d = to_f(src[i]) - mu;
     q = fmaf(d, d, q);
   }
   const float rs = rsqrtf(cluster_sum(q, red, &slots[1]) / cnt + a.eps);
@@ -196,51 +262,65 @@ __global__ void __launch_bounds__(NORM_THREADS)
     a.stats[a.B * a.G + bg] = rs;
   }
   // Y, time-major: a thread makes one time step of a run of 8 channels and
-  // stores it as 16 bytes where the slice's channel count allows; the runs
-  // of a step go to consecutive threads, so a step's ps channels leave as
-  // one contiguous piece (whole 32-byte sectors when ps % 16 == 0: a
+  // stores it as 16-byte pieces where the slice's channel count allows; the
+  // runs of a step go to consecutive threads, so a step's ps channels leave
+  // as one contiguous piece (whole 32-byte sectors when ps % 16 == 0: a
   // sector written in halves costs the H100 several times as much)
   const int runs = (ps + 7) / 8;
   const bool vec_out = ps % 8 == 0;
-  bf16* yb = a.y + (long long)b * T * a.C + c0;
+  const long long yoff = (long long)b * T * a.C + c0;
   for (int i = tid; i < runs * T; i += NORM_THREADS) {
     const int t = i / runs, r0 = 8 * (i - t * runs);
     const int nr = min(8, ps - r0);
-    __nv_bfloat162 v2[4];
+    float y[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float y = 0.f;
-      if (k < nr) {
-        const float* q4 = prm + 4 * (r0 + k);
-        float yn = __fadd_rn(
-            __fmul_rn(__fmul_rn(
-                __fsub_rn(__bfloat162float(src[(r0 + k) * T + t]), mu),
-                rs), q4[0]),
-            q4[1]);
-        if (film) yn = __fadd_rn(__fmul_rn(yn, q4[2]), q4[3]);
-        y = __bfloat162float(__float2bfloat16(yn));
-        if (a.act) {
-          const float sg =
-              __bfloat162float(__float2bfloat16(1.f / (1.f + expf(-y))));
-          y = __fmul_rn(y, sg);
-        }
+    for (int k = 0; k < 8; ++k)
+      y[k] = k < nr ? norm_value(src[(r0 + k) * T + t], prm + 4 * (r0 + k),
+                                 mu, rs, film, a.act)
+                    : 0.f;
+    const long long o = yoff + (long long)t * a.C + r0;
+    if constexpr (BF) {
+      __nv_bfloat162 v2[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v2[k] = __floats2bfloat162_rn(y[2 * k], y[2 * k + 1]);
+      bf16* dst = a.y + o;
+      if (vec_out) {
+        *reinterpret_cast<int4*>(dst) = make_int4(
+            *reinterpret_cast<const int*>(&v2[0]),
+            *reinterpret_cast<const int*>(&v2[1]),
+            *reinterpret_cast<const int*>(&v2[2]),
+            *reinterpret_cast<const int*>(&v2[3]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (k < nr) dst[k] = k % 2 ? v2[k / 2].y : v2[k / 2].x;
       }
-      if (k % 2 == 0)
-        v2[k / 2].x = __float2bfloat16(y);
-      else
-        v2[k / 2].y = __float2bfloat16(y);
-    }
-    bf16* dst = yb + (long long)t * a.C + r0;
-    if (vec_out) {
-      *reinterpret_cast<int4*>(dst) = make_int4(
-          *reinterpret_cast<const int*>(&v2[0]),
-          *reinterpret_cast<const int*>(&v2[1]),
-          *reinterpret_cast<const int*>(&v2[2]),
-          *reinterpret_cast<const int*>(&v2[3]));
     } else {
+      float hi[8], lo[8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        if (k < nr) dst[k] = k % 2 ? v2[k / 2].y : v2[k / 2].x;
+      for (int k = 0; k < 8; ++k) {
+        hi[k] = tf32_hi(y[k]);
+        lo[k] = __fsub_rn(y[k], hi[k]);
+      }
+      float* dh = a.y + o;
+      float* dl = a.ylo + o;
+      if (vec_out) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          reinterpret_cast<float4*>(dh)[h] = make_float4(
+              hi[4 * h], hi[4 * h + 1], hi[4 * h + 2], hi[4 * h + 3]);
+          reinterpret_cast<float4*>(dl)[h] = make_float4(
+              lo[4 * h], lo[4 * h + 1], lo[4 * h + 2], lo[4 * h + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (k < nr) {
+            dh[k] = hi[k];
+            dl[k] = lo[k];
+          }
+      }
     }
   }
   cluster.sync();   // the other blocks have read this block's slots
@@ -427,13 +507,15 @@ int allow_smem(int bytes) {
 
 // the normalise kernel into y (B, T, C): a cluster of two blocks a
 // (batch, group) where the groups are too few for two blocks an SM and
-// the halves stay multiples of 16 channels (whole sectors of Y)
-int run_norm(const NormArgs& a, cudaStream_t st) {
+// the halves stay multiples of 16 channels (whole sectors of Y; in fp32
+// clusters of four blocks of 8 channels ran slower on an H100)
+template <typename TX>
+int run_norm(const NormArgs<TX>& a, cudaStream_t st) {
   const int per = a.C / a.G, groups = a.B * a.G;
   const int cl = groups < 2 * 132 && per % 32 == 0 ? 2 : 1;
   const int ps = per / cl;
   const long long prm = 16LL * ((ps + 3) & ~3);
-  const long long cached = prm + 2LL * ps * a.T;
+  const long long cached = prm + (long long)sizeof(TX) * ps * a.T;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(groups * cl);
   cfg.blockDim = dim3(NORM_THREADS);
@@ -448,12 +530,12 @@ int run_norm(const NormArgs& a, cudaStream_t st) {
   int rc;
   if (cached <= NORM_CACHE_MAX) {
     cfg.dynamicSmemBytes = cached;
-    rc = allow_smem<group_norm_act<true>>((int)cached);
-    if (!rc) rc = cudaLaunchKernelEx(&cfg, group_norm_act<true>, a);
+    rc = allow_smem<group_norm_act<TX, true>>((int)cached);
+    if (!rc) rc = cudaLaunchKernelEx(&cfg, group_norm_act<TX, true>, a);
   } else {
     cfg.dynamicSmemBytes = prm;
-    rc = allow_smem<group_norm_act<false>>((int)prm);
-    if (!rc) rc = cudaLaunchKernelEx(&cfg, group_norm_act<false>, a);
+    rc = allow_smem<group_norm_act<TX, false>>((int)prm);
+    if (!rc) rc = cudaLaunchKernelEx(&cfg, group_norm_act<TX, false>, a);
   }
   return rc ? rc : static_cast<int>(cudaGetLastError());
 }
@@ -494,204 +576,295 @@ int run_gemm(const bf16* w, const bf16* y, const void* bias, int bias_bf,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: group statistics and a CUDA-core GEMM with the prologue on load
+// fp32: the 3xTF32 wgmma GEMM
 // ---------------------------------------------------------------------------
 
-constexpr int F_BN = 64;    // time steps a block
-constexpr int F_BK = 32;    // channels a K step
-constexpr int F_THREADS = 256;
-constexpr int STAT_THREADS = 512;
+constexpr int TK = 32;                 // fp32 channels a K step (128 bytes)
+constexpr int TA_BYTES = BM * TK * 4;  // the weight tile of a stage
 
-__global__ void __launch_bounds__(STAT_THREADS)
-    group_stats_f32(const float* __restrict__ x, float* __restrict__ mu,
-                    float* __restrict__ rstd, long long n, float eps) {
-  __shared__ float red[STAT_THREADS / 32];
-  const float* p = x + (long long)blockIdx.x * n;
-  float s = 0.f;
-  for (long long i = threadIdx.x; i < n; i += blockDim.x) s += p[i];
-  const float m = block_sum(s, red) / (float)n;
-  float q = 0.f;
-  for (long long i = threadIdx.x; i < n; i += blockDim.x) {
-    const float d = p[i] - m;
-    q = fmaf(d, d, q);
-  }
-  const float var = block_sum(q, red) / (float)n;
-  if (threadIdx.x == 0) {
-    mu[blockIdx.x] = m;
-    rstd[blockIdx.x] = rsqrtf(var + eps);
-  }
-}
-
-struct Prologue {
-  const float* mu;     // (B*G) group means of the normalised input
-  const float* rstd;   // (B*G)
-  Vecs v;              // gamma, beta, bias; emb (K5) or null
-  int C, G, T, act;
+template <int BN>
+struct RingF {
+  static constexpr int B_BYTES = BN * TK * 4;           // one Y box
+  static constexpr int STAGE = TA_BYTES + 2 * B_BYTES;  // W | Y_hi | Y_lo
+  static constexpr int BARS = STAGES * STAGE;           // full[], then empty[]
+  static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;
+  // the epilogue tile's row stride in floats: 8 mod 32, so a warp's float2
+  // stores of eight rows fall in distinct banks
+  static constexpr int TS = BN + (40 - BN % 32) % 32;
+  static_assert(B_BYTES % 1024 == 0, "Y boxes stay on the swizzle atom");
+  static_assert(BM * TS * 4 <= BARS, "the epilogue tile fits the ring");
 };
 
-// out[b] (M x T) = sum over taps s of W_s (M x C) * Y_b shifted by s - 1
-// (TAPS = 3) + bias (+ res[b]); Y made from x on load.  w: (TAPS, M, C).
-template <int TAPS>
-__device__ __forceinline__ void gemm_f32(const float* __restrict__ w,
-                                         const float* __restrict__ x,
-                                         const float* __restrict__ res,
-                                         float* __restrict__ out, int M,
-                                         const Prologue& pro) {
-  __shared__ __align__(16) float As[BM][F_BK + 4];
-  __shared__ float Bs[F_BK][F_BN + 4];
-  __shared__ float pmu[F_BK], prs[F_BK], pga[F_BK], pbe[F_BK], psc[F_BK],
-      psh[F_BK];
-  const int C = pro.C, Tn = pro.T;
-  const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * F_BN;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int per = C / pro.G;
-  const float* xb = x + (long long)b * C * Tn;
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// out[b] = W * Y_b + bias (+ res[b]) in fp32 from Y_hi and Y_lo (B, T, C)
+// on the 3xTF32 products; TAPS = 3: tap s of the (3, M, C) weight against
+// Y shifted by s - 1 steps.  Block (x, y, z) = (n tile * split + K slice,
+// m tile, b); the `split` blocks of a cluster share the output tile and
+// each walks its own K slice.
+template <int TAPS, int BN>
+__device__ __forceinline__ void conv_gemm_tf32(
+    const CUtensorMap* wmap, const CUtensorMap* hmap, const CUtensorMap* lmap,
+    const void* bias, int bias_bf, const float* __restrict__ res,
+    float* __restrict__ out, int M, int C, int T, int split) {
+  namespace cg = cooperative_groups;
+  using L = RingF<BN>;
+  extern __shared__ unsigned char gemm_smem[];
+  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  unsigned char* const ring = gemm_smem + (base - smem_u32(gemm_smem));
+  const uint32_t full0 = base + L::BARS, empty0 = full0 + STAGES * 8;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int ks = blockIdx.x % split, n0 = (blockIdx.x / split) * BN;
+  const int m0 = blockIdx.y * BM, b = blockIdx.z;
+  const int kc = (C + TK - 1) / TK, kt = TAPS * kc;
+  const int k0 = ks * kt / split, k1 = (ks + 1) * kt / split;
 
-  for (int tap = 0; tap < TAPS; ++tap) {
-    const float* ws = w + (long long)tap * M * C;
-    const int dt = TAPS == 3 ? tap - 1 : 0;
-    for (int c0 = 0; c0 < C; c0 += F_BK) {
-      __syncthreads();   // the previous step's tiles are consumed
-      if (tid < F_BK) {
-        const int c = c0 + tid;
-        if (c < C) {
-          const int g = b * pro.G + c / per;
-          pmu[tid] = pro.mu[g];
-          prs[tid] = pro.rstd[g];
-          const long long e = 2LL * b * C + c;
-          pga[tid] = ld(pro.v.gamma, c, pro.v.bf);
-          pbe[tid] = ld(pro.v.beta, c, pro.v.bf);
-          psc[tid] = pro.v.emb ? ld(pro.v.emb, e, pro.v.emb_bf) : 0.f;
-          psh[tid] = pro.v.emb ? ld(pro.v.emb, e + C, pro.v.emb_bf) : 0.f;
-        }
-      }
-      // weight tile, 16-byte vectors (C % 8 == 0: a vector never straddles
-      // the end of a row)
-      for (int idx = tid; idx < BM * F_BK / 4; idx += F_THREADS) {
-        const int r = idx / (F_BK / 4), cv = (idx % (F_BK / 4)) * 4;
-        const int m = m0 + r, c = c0 + cv;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (m < M && c < C)
-          v = *reinterpret_cast<const float4*>(ws + (long long)m * C + c);
-        *reinterpret_cast<float4*>(&As[r][cv]) = v;
-      }
-      __syncthreads();   // channel parameters are in shared memory
-      for (int idx = tid; idx < F_BK * F_BN; idx += F_THREADS) {
-        const int r = idx / F_BN, n = idx % F_BN;
-        const int c = c0 + r, t = n0 + n + dt;
-        float y = 0.f;
-        if (c < C && t >= 0 && t < Tn) {
-          float yn = (xb[(long long)c * Tn + t] - pmu[r]) * prs[r] * pga[r]
-                     + pbe[r];
-          if (TAPS == 3) yn = yn * (1.f + psc[r]) + psh[r];
-          y = yn;
-          if (pro.act) y = y * (1.f / (1.f + expf(-y)));
-        }
-        Bs[r][n] = y;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < F_BK; ++kk) {
-        float a[8], bv[4];
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);   // one arrival per consumer warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  float acc[BN / 2];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = As[ty * 8 + i][kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  if (wg == 2) {   // producer: one thread keeps the ring full
+    if (tid == 256) {
+      for (int it = k0; it < k1; ++it) {
+        const int i = it - k0, s = i % STAGES;
+        mbar_wait(empty0 + 8 * s, ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, L::STAGE);
+        const int tap = it / kc, c0 = (it - tap * kc) * TK;
+        const int t0 = n0 + (TAPS == 3 ? tap - 1 : 0);
+        const uint32_t sa = base + s * L::STAGE;
+        tma_load_3d(sa, wmap, full0 + 8 * s, c0, m0, tap);
+        tma_load_3d(sa + TA_BYTES, hmap, full0 + 8 * s, c0, t0, b);
+        tma_load_3d(sa + TA_BYTES + L::B_BYTES, lmap, full0 + 8 * s, c0, t0,
+                    b);
       }
     }
-  }
+  } else {
+    // this thread's A fragment rows (wgmma_tf32_rs) in the warpgroup's 64
+    // rows of the weight tile, and its channel within each 4-channel half
+    const int lane = tid % 32;
+    const int r0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+    const int kq = lane % 4;
+    for (int it = k0; it < k1; ++it) {
+      const int i = it - k0, s = i % STAGES;
+      mbar_wait(full0 + 8 * s, (i / STAGES) & 1);
+      const float* wt =
+          reinterpret_cast<const float*>(ring + s * L::STAGE);
+      // the 128-byte swizzle: row r's 16-byte chunk j lies at chunk
+      // j ^ (r % 8); rows r0 and r0 + 8 share r % 8
+      uint32_t hi[TK / 8][4], lo[TK / 8][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty * 8 + i;
-    if (m >= M) continue;
+      for (int kk = 0; kk < TK / 8; ++kk)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = n0 + tx * 4 + j;
-      if (t < Tn) {
-        const long long o = ((long long)b * M + m) * Tn + t;
-        float v = acc[i][j] + ld(pro.v.bias, m, pro.v.bf);
-        if (res) v += res[o];
-        out[o] = v;
+        for (int q = 0; q < 4; ++q) {
+          const int r = r0 + 8 * (q & 1), k = 8 * kk + kq + 4 * (q >> 1);
+          const float v = wt[r * TK + (((k >> 2) ^ (r & 7)) << 2) + (k & 3)];
+          const float h = tf32_hi(v);
+          hi[kk][q] = __float_as_uint(h);
+          lo[kk][q] = __float_as_uint(__fsub_rn(v, h));
+        }
+      const uint32_t sh = base + s * L::STAGE + TA_BYTES;
+      const uint32_t sl = sh + L::B_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 8; ++kk) {
+        wgmma_tf32_rs<BN>(acc, lo[kk], desc_sw128(sh + kk * 32, 16, 1024));
+        wgmma_tf32_rs<BN>(acc, hi[kk], desc_sw128(sl + kk * 32, 16, 1024));
+        wgmma_tf32_rs<BN>(acc, hi[kk], desc_sw128(sh + kk * 32, 16, 1024));
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (tid % 128 == 0) mbar_arrive(empty0 + 8 * s);
     }
   }
-}
 
-__global__ void __launch_bounds__(F_THREADS)
-    gn_conv_f32(const float* __restrict__ w, const float* __restrict__ x,
-                float* __restrict__ out, int M, Prologue pro) {
-  gemm_f32<1>(w, x, nullptr, out, M, pro);
-}
-
-__global__ void __launch_bounds__(F_THREADS)
-    ts_res_block_f32(const float* __restrict__ w, const float* __restrict__ x,
-                     const float* __restrict__ res, float* __restrict__ out,
-                     Prologue pro) {
-  gemm_f32<3>(w, x, res, out, pro.C, pro);
-}
-
-int run_f32(const float* w, const float* x, const float* res, float* out,
-            float* stats, int B, int C, int T, int M, int G, int act,
-            float eps, const Vecs& v, int taps, cudaStream_t st) {
-  float* mu = stats;
-  float* rstd = stats + B * G;
-  group_stats_f32<<<B * G, STAT_THREADS, 0, st>>>(
-      x, mu, rstd, (long long)(C / G) * T, eps);
-  const Prologue pro{mu, rstd, v, C, G, T, act};
-  const dim3 grid((T + F_BN - 1) / F_BN, (M + BM - 1) / BM, B);
-  if (taps == 3)
-    ts_res_block_f32<<<grid, F_THREADS, 0, st>>>(w, x, res, out, pro);
+  // Epilogue: every block's partial tile to its shared memory over the
+  // ring (every stage consumed), then each block of the cluster sums its
+  // share of the rows over the cluster's tiles in rank order, adds the
+  // bias (and the residual) and stores whole rows of T.
+  constexpr int TS = L::TS;
+  float* tile = reinterpret_cast<float*>(ring);
+  __syncthreads();
+  if (wg < 2) {
+    const int w = (tid % 128) / 32, lane = tid % 32;
+    const int r0 = wg * 64 + w * 16 + lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        *reinterpret_cast<float2*>(tile + (r0 + 8 * h) * TS + 8 * j +
+                                   2 * (lane % 4)) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  if (split > 1)
+    cluster.sync();
   else
-    gn_conv_f32<<<grid, F_THREADS, 0, st>>>(w, x, out, M, pro);
-  return static_cast<int>(cudaGetLastError());
+    __syncthreads();
+  const int rows = (BM + split - 1) / split;
+  const int ra = ks * rows, rb = min(BM, ra + rows);
+  for (int i = tid; i < (rb - ra) * BN; i += GEMM_THREADS) {
+    const int r = ra + i / BN, c = i % BN;
+    const int m = m0 + r, t = n0 + c;
+    if (m >= M || t >= T) continue;
+    float v = 0.f;
+    for (int q = 0; q < split; ++q)
+      v += (split > 1 ? cluster.map_shared_rank(tile, q) : tile)[r * TS + c];
+    v += ld(bias, m, bias_bf);
+    const long long o = ((long long)b * M + m) * T + t;
+    if (res) v += res[o];
+    out[o] = v;
+  }
+  if (split > 1) cluster.sync();   // no block leaves while its tile is read
+}
+
+template <int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    gn_conv_tf32(const __grid_constant__ CUtensorMap wmap,
+                 const __grid_constant__ CUtensorMap hmap,
+                 const __grid_constant__ CUtensorMap lmap, const void* bias,
+                 int bias_bf, float* __restrict__ out, int M, int C, int T,
+                 int split) {
+  conv_gemm_tf32<1, BN>(&wmap, &hmap, &lmap, bias, bias_bf, nullptr, out, M,
+                        C, T, split);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    ts_res_block_tf32(const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap hmap,
+                      const __grid_constant__ CUtensorMap lmap,
+                      const void* bias, int bias_bf,
+                      const float* __restrict__ res, float* __restrict__ out,
+                      int C, int T, int split) {
+  conv_gemm_tf32<3, BN>(&wmap, &hmap, &lmap, bias, bias_bf, res, out, C, C, T,
+                        split);
+}
+
+template <auto Kernel, typename... Args>
+int launch_tf32(dim3 grid, int split, int smem, cudaStream_t st,
+                Args... args) {
+  if (int rc = allow_smem<Kernel>(smem)) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(GEMM_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, Kernel, args...));
+}
+
+// the 3xTF32 GEMM over Y_hi, Y_lo (B, T, C): w is (taps, M, C) fp32, out
+// (B, M, T), res null or (B, M, T); bn 64, 104 or 128, split 1 to 8 (at
+// most the K steps)
+int run_gemm_tf32(const float* w, const float* yhi, const float* ylo,
+                  const void* bias, int bias_bf, const float* res, float* out,
+                  int B, int C, int T, int M, int taps, int bn, int split,
+                  cudaStream_t st) {
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (split < 1 || split > 8 || split > taps * ((C + TK - 1) / TK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap wmap, hmap, lmap;
+  if (int rc = tensor_map_3d(&wmap, w, C, M, taps, 4ull * C, 4ull * C * M,
+                             TK, BM, F32))
+    return rc;
+  if (int rc = tensor_map_3d(&hmap, yhi, C, T, B, 4ull * C, 4ull * C * T, TK,
+                             bn, F32))
+    return rc;
+  if (int rc = tensor_map_3d(&lmap, ylo, C, T, B, 4ull * C, 4ull * C * T, TK,
+                             bn, F32))
+    return rc;
+  const dim3 grid((T + bn - 1) / bn * split, (M + BM - 1) / BM, B);
+  int rc;
+#define TTS_LAUNCH_TF32(BN_)                                                 \
+  if (taps == 3)                                                             \
+    rc = launch_tf32<ts_res_block_tf32<BN_>>(grid, split, RingF<BN_>::SMEM,  \
+                                             st, wmap, hmap, lmap, bias,     \
+                                             bias_bf, res, out, C, T,        \
+                                             split);                         \
+  else                                                                       \
+    rc = launch_tf32<gn_conv_tf32<BN_>>(grid, split, RingF<BN_>::SMEM, st,   \
+                                        wmap, hmap, lmap, bias, bias_bf,     \
+                                        out, M, C, T, split);
+  if (bn == 64) {
+    TTS_LAUNCH_TF32(64)
+  } else if (bn == 104) {
+    TTS_LAUNCH_TF32(104)
+  } else if (bn == 128) {
+    TTS_LAUNCH_TF32(128)
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TTS_LAUNCH_TF32
+  return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The normalise kernel alone (the bf16 path's first kernel, for checks):
-// x (B, C, T) bf16 -> y (B, T, C) bf16, stats 2*B*G fp32 (mu, then rstd).
-// gamma, beta: (C), bf16 if vec_bf else fp32; emb: (B, 2C) [scale | shift]
+// The normalise kernel alone (each path's first kernel, for checks):
+// x (B, C, T) -> y (B, T, C) in x's type (dtype 1: bf16; 0: fp32, then
+// Y_hi in y and Y_lo in ylo), stats 2*B*G fp32 (mu, then rstd).  gamma,
+// beta: (C), bf16 if vec_bf else fp32; emb: (B, 2C) [scale | shift]
 // (bf16 if emb_bf else fp32) or null.
 extern "C" int tts_group_norm_act(const void* x, const void* gamma,
                                   const void* beta, const void* emb, void* y,
-                                  float* stats, int B, int C, int T, int G,
-                                  int act, float eps, int vec_bf, int emb_bf,
+                                  void* ylo, float* stats, int B, int C,
+                                  int T, int G, int act, float eps,
+                                  int vec_bf, int emb_bf, int dtype,
                                   void* stream) {
-  const NormArgs a{static_cast<const bf16*>(x), static_cast<bf16*>(y), stats,
-                   Vecs{gamma, beta, nullptr, emb, vec_bf, emb_bf}, B, C, G,
-                   T, act, eps};
-  return run_norm(a, static_cast<cudaStream_t>(stream));
+  const Vecs v{gamma, beta, nullptr, emb, vec_bf, emb_bf};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_norm(NormArgs<float>{static_cast<const float*>(x),
+                                    static_cast<float*>(y),
+                                    static_cast<float*>(ylo), stats, v, B, C,
+                                    G, T, act, eps},
+                    st);
+  return run_norm(NormArgs<bf16>{static_cast<const bf16*>(x),
+                                 static_cast<bf16*>(y), nullptr, stats, v, B,
+                                 C, G, T, act, eps},
+                  st);
 }
 
 // K4.  x: (B, C, T) contiguous; w: (M, C) contiguous in x's type, 16-byte
 // aligned; gamma, beta: (C) and bias: (M), all bf16 if vec_bf else fp32;
-// out: (B, M, T); stats: 2*B*G fp32 scratch (fp32; bf16: null, or where
-// the statistics go); ybuf: (B, T, C) scratch in x's type (bf16 only).  dtype: 0 = float32, 1 = bfloat16; bn: 64 or 128
-// time steps a GEMM block (bf16).  C % 8 == 0, C % G == 0.
+// out: (B, M, T); stats: 2*B*G fp32 (where the statistics go) or null;
+// ybuf: (B, T, C) scratch in x's type (fp32: Y_hi), ylo: fp32 (B, T, C)
+// scratch for Y_lo (fp32 only).  dtype: 0 = float32, 1 = bfloat16; bn:
+// the GEMM's time steps a block (bf16: 64 or 128; fp32: 64, 104 or 128),
+// split: K slices a tile (fp32; bf16: 1).  C % 8 == 0, C % G == 0.
 extern "C" int tts_gn_conv1x1(const void* x, const void* gamma,
                               const void* beta, const void* w,
                               const void* bias, void* out, float* stats,
-                              void* ybuf, int B, int C, int T, int M, int G,
-                              int act, float eps, int dtype, int vec_bf,
-                              int bn, void* stream) {
+                              void* ybuf, void* ylo, int B, int C, int T,
+                              int M, int G, int act, float eps, int dtype,
+                              int vec_bf, int bn, int split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Vecs v{gamma, beta, bias, nullptr, vec_bf, 0};
-  if (dtype == 0)
-    return run_f32(static_cast<const float*>(w),
-                   static_cast<const float*>(x), nullptr,
-                   static_cast<float*>(out), stats, B, C, T, M, G, act, eps,
-                   v, 1, st);
-  const NormArgs a{static_cast<const bf16*>(x), static_cast<bf16*>(ybuf),
-                   stats, v, B, C, G, T, act, eps};
+  if (dtype == 0) {
+    const NormArgs<float> a{static_cast<const float*>(x),
+                            static_cast<float*>(ybuf),
+                            static_cast<float*>(ylo), stats, v, B, C, G, T,
+                            act, eps};
+    if (int rc = run_norm(a, st)) return rc;
+    return run_gemm_tf32(static_cast<const float*>(w), a.y, a.ylo, bias,
+                         vec_bf, nullptr, static_cast<float*>(out), B, C, T,
+                         M, 1, bn, split, st);
+  }
+  const NormArgs<bf16> a{static_cast<const bf16*>(x),
+                         static_cast<bf16*>(ybuf), nullptr, stats, v, B, C,
+                         G, T, act, eps};
   if (int rc = run_norm(a, st)) return rc;
   return run_gemm(static_cast<const bf16*>(w), static_cast<bf16*>(ybuf), bias,
                   vec_bf, nullptr, static_cast<bf16*>(out), B, C, T, M, 1,
@@ -701,24 +874,32 @@ extern "C" int tts_gn_conv1x1(const void* x, const void* gamma,
 // K5.  h, x, out: (B, C, T) contiguous; emb: (B, 2C) [scale | shift], bf16
 // if emb_bf else fp32; w: the tap-major (3, C, C) conv weight (w[s] =
 // W[:, :, s]), contiguous, in h's type, 16-byte aligned; gamma, beta,
-// bias: (C), bf16 if vec_bf else fp32; stats: 2*B*G fp32 scratch (as for
-// K4); ybuf: (B, T, C) scratch (bf16 only).  C % 8 == 0, C % G == 0.
+// bias: (C), bf16 if vec_bf else fp32; stats, ybuf, ylo, bn, split: as for
+// K4.  C % 8 == 0, C % G == 0.
 extern "C" int tts_ts_res_block_out(const void* h, const void* x,
                                     const void* gamma, const void* beta,
                                     const void* emb, const void* w,
                                     const void* bias, void* out, float* stats,
-                                    void* ybuf, int B, int C, int T, int G,
-                                    float eps, int dtype, int vec_bf,
-                                    int emb_bf, int bn, void* stream) {
+                                    void* ybuf, void* ylo, int B, int C,
+                                    int T, int G, float eps, int dtype,
+                                    int vec_bf, int emb_bf, int bn,
+                                    int split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Vecs v{gamma, beta, bias, emb, vec_bf, emb_bf};
-  if (dtype == 0)
-    return run_f32(static_cast<const float*>(w),
-                   static_cast<const float*>(h),
-                   static_cast<const float*>(x), static_cast<float*>(out),
-                   stats, B, C, T, C, G, 1, eps, v, 3, st);
-  const NormArgs a{static_cast<const bf16*>(h), static_cast<bf16*>(ybuf),
-                   stats, v, B, C, G, T, 1, eps};
+  if (dtype == 0) {
+    const NormArgs<float> a{static_cast<const float*>(h),
+                            static_cast<float*>(ybuf),
+                            static_cast<float*>(ylo), stats, v, B, C, G, T, 1,
+                            eps};
+    if (int rc = run_norm(a, st)) return rc;
+    return run_gemm_tf32(static_cast<const float*>(w), a.y, a.ylo, bias,
+                         vec_bf, static_cast<const float*>(x),
+                         static_cast<float*>(out), B, C, T, C, 3, bn, split,
+                         st);
+  }
+  const NormArgs<bf16> a{static_cast<const bf16*>(h),
+                         static_cast<bf16*>(ybuf), nullptr, stats, v, B, C,
+                         G, T, 1, eps};
   if (int rc = run_norm(a, st)) return rc;
   return run_gemm(static_cast<const bf16*>(w), static_cast<bf16*>(ybuf), bias,
                   vec_bf, static_cast<const bf16*>(x),

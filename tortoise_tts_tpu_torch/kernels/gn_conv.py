@@ -5,9 +5,11 @@ head (``act=False``).
 Replaces the TPU kernel ``tortoise_tts_tpu/ops/pallas_resblock.py``
 ``fused_gn_conv1x1`` (``_gn_conv_kernel``, ``_group_stats``).  The CUDA
 source is ``csrc/resblock.cu``; its header gives the bound on an H100
-and the design: in bf16 a normalise kernel writes Y = act(GroupNorm(x))
-once, time-major, then a TMA-fed ``wgmma`` GEMM multiplies the weight by
-Y; in fp32 (the parity runs) a CUDA-core GEMM makes Y as it loads x.  The
+and the design: a normalise kernel writes Y = act(GroupNorm(x)) once,
+time-major, then a TMA-fed ``wgmma`` GEMM multiplies the weight by Y.  In
+fp32 Y leaves as Y_hi (TF32) and Y_lo = Y - Y_hi, and the GEMM sums three
+TF32 products a step (3xTF32: fp32 accuracy on the tensor cores), with K
+split over a cluster where the output tiles are too few for the SMs.  The
 TPU kernel's ``c % 128``/``t % 128`` guard and its block size knob are
 Mosaic tiling limits: the CUDA kernels take ragged T and c_out and any C
 that is a multiple of 8.
@@ -16,13 +18,17 @@ that is a multiple of 8.
 kernel for CUDA tensors (it raises on what the kernel does not take).
 On CUDA the call is a ``torch.autograd.Function`` whose backward
 recomputes the plain version, as the JAX package's ``custom_vjp`` does
-(``arch.py:52-71``).  ``group_norm_act`` runs the bf16 path's normalise
-kernel alone, for checks; ``group_norm_act_plain`` is its plain version.
+(``arch.py:52-71``).  ``group_norm_act`` runs the normalise kernel
+alone, for checks (``group_norm_split``: the fp32 kernel's Y_hi and
+Y_lo); ``group_norm_act_plain`` is its plain version, and ``tf32_split``
+of it the fp32 kernel's (Y_hi, Y_lo).  ``matmul_3xtf32`` is
+the fp32 GEMM's arithmetic in plain PyTorch (the TF32 rounding emulated on
+the bits).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,22 +36,63 @@ from ..models.common import Params, conv1d, group_norm, silu
 from ._build import F, I, P, Kernel
 
 KERNEL = Kernel("resblock", "tts_gn_conv1x1",
-                [P] * 8 + [I] * 6 + [F, I, I, I, P])
+                [P] * 9 + [I] * 6 + [F, I, I, I, I, P])
 # the normalise kernel alone; its launches are not K4's
 NORMALISE = Kernel("resblock", "tts_group_norm_act",
-                   [P] * 6 + [I] * 5 + [F, I, I, P])
+                   [P] * 7 + [I] * 5 + [F, I, I, I, P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # also: 1 = bf16 vectors
 SMS = 132          # streaming multiprocessors of an H100 SXM
 GEMM_ROWS = 128    # output channels a GEMM block
+# fp32 (3xTF32) GEMM: its tile widths, the K step (channels), the K
+# splits (clusters of 3, 5, 6 or 7 blocks ran slower than the next power
+# of two on an H100), the fewest K steps a slice keeps, and the plan's
+# cost model, in units of one time step's K step: a step of a block costs
+# its tile width plus A_COST (the weight tile's load and split), a split
+# block SPLIT_COST more (the cluster's sum), and the blocks run in waves
+# of one an SM.  Fitted to ``tools/resblock_tiles.py`` on an H100 (every
+# width and split at emb.process's heads and TTS(dtype="float32")'s
+# denoiser: one wave of 96-120 blocks beat every grid of two waves).
+F32_TILES = (64, 104, 128)
+F32_K_STEP = 32
+F32_SPLITS = (1, 2, 4, 8)
+MIN_SLICE_STEPS = 4
+A_COST = 32
+SPLIT_COST = 600
+
+
+class Plan(NamedTuple):
+    """The GEMM's launch: ``bn`` time steps a block, ``split`` blocks (a
+    cluster) sharing an output tile, each over a slice of K."""
+    bn: int
+    split: int
+
+
+def _plan_f32(b: int, k: int, t: int, m: int) -> Plan:
+    """The fp32 GEMM's tile width and K split for (B, K) x (K, T) -> M
+    rows: the least modelled time (see ``A_COST``)."""
+    steps = -(-k // F32_K_STEP)
+    best = None
+    for bn in F32_TILES:
+        tiles = b * -(-m // GEMM_ROWS) * -(-t // bn)
+        for split in F32_SPLITS:
+            if split > 1 and steps // split < MIN_SLICE_STEPS:
+                break
+            waves = -(-tiles * split // SMS)
+            cost = waves * (-(-steps // split) * (bn + A_COST)
+                            + (SPLIT_COST if split > 1 else 0))
+            key = (cost, split, bn)
+            best = min(best, key) if best else key
+    return Plan(best[2], best[1])
 
 
 def plan(b: int, c: int, t: int, m: int, groups: int, dtype: torch.dtype,
-         name: str = "gn_conv1x1") -> int:
-    """Check the shapes of a call (B, C, T) -> (B, M, T) against what the
-    kernels take and return the time steps a bf16 GEMM block covers: 128,
-    or 64 where a grid of 128-wide blocks would fill less than half the
-    SMs (the faster of the two at the denoiser's shapes on an H100,
-    ``tools/resblock_tiles.py``).  Raises
+         name: str = "gn_conv1x1", taps: int = 1) -> Plan:
+    """Check the shapes of a call (B, C, T) -> (B, M, T) (``taps`` = 3:
+    K5's k=3 convolution, K = 3C) against what the kernels take and return
+    the GEMM's launch.  bf16: 128 time steps a block, or 64 where a grid
+    of 128-wide blocks would fill less than half the SMs (the faster of
+    the two at the denoiser's shapes on an H100,
+    ``tools/resblock_tiles.py``), no split.  fp32: ``_plan_f32``.  Raises
     TypeError for a dtype other than float32 or bfloat16, ValueError for
     an empty dimension, C % 8 != 0 (the weight's and Y's rows are read in
     16-byte pieces) or C % groups != 0."""
@@ -58,8 +105,10 @@ def plan(b: int, c: int, t: int, m: int, groups: int, dtype: torch.dtype,
     if c % 8 or c % groups:
         raise ValueError(f"{name} kernel needs C % 8 == 0 and C % groups "
                          f"== 0, got C={c}, groups={groups}")
+    if dtype == torch.float32:
+        return _plan_f32(b, taps * c, t, m)
     wide = b * -(-m // GEMM_ROWS) * -(-t // 128)
-    return 128 if 2 * wide > SMS else 64
+    return Plan(128 if 2 * wide > SMS else 64, 1)
 
 
 def gn_conv1x1_plain(x: torch.Tensor, norm: Params, conv: Params,
@@ -111,6 +160,31 @@ def group_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor,
     return y
 
 
+def tf32_split(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 y as (hi, lo): hi = y rounded to TF32 as ``cvt.rna.tf32.f32``
+    rounds (to nearest, ties away from zero; the 13 low bits cleared, on
+    the bits), lo = y - hi (exact)."""
+    bits = y.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, y - hi
+
+
+def _tf32_trunc(a: torch.Tensor) -> torch.Tensor:
+    """a as the tensor cores read a TF32 operand: the 13 low bits
+    ignored."""
+    return (a.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """w @ y as the fp32 GEMM computes it: each operand split by
+    ``tf32_split``, the lo parts read truncated to TF32, and W_lo Y_hi +
+    W_hi Y_lo + W_hi Y_hi summed in fp32 (W_lo Y_lo dropped)."""
+    wh, wl = tf32_split(w.float())
+    yh, yl = tf32_split(y.float())
+    return (torch.matmul(_tf32_trunc(wl), yh)
+            + torch.matmul(wh, _tf32_trunc(yl)) + torch.matmul(wh, yh))
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -125,17 +199,18 @@ def _vectors(*vs: torch.Tensor):
     return tuple(v.contiguous() for v in vs), _DTYPES[dt]
 
 
-def _scratch(x: torch.Tensor, groups: int):
-    """The kernels' scratch for x (B, C, T): in bf16 Y's time-major
-    (B, T, C) buffer, and no statistics kept; in fp32 the statistics the
-    GEMM's prologue reads.  Returns the buffer (alive across the launch)
-    and the (statistics, Y) pointers."""
+def _scratch(x: torch.Tensor) -> torch.Tensor:
+    """The kernels' time-major scratch for x (B, C, T): Y (B, T, C) in
+    bf16; Y_hi and Y_lo, (2, B, T, C), in fp32."""
     b, c, t = x.shape
     if x.dtype == torch.bfloat16:
-        buf = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
-        return buf, (None, buf.data_ptr())
-    buf = torch.empty(2 * b * groups, dtype=torch.float32, device=x.device)
-    return buf, (buf.data_ptr(), None)
+        return torch.empty((1, b, t, c), dtype=x.dtype, device=x.device)
+    return torch.empty((2, b, t, c), dtype=torch.float32, device=x.device)
+
+
+def _ptrs(buf: torch.Tensor):
+    """(Y or Y_hi, Y_lo or None) pointers of a ``_scratch`` buffer."""
+    return buf[0].data_ptr(), buf[1].data_ptr() if len(buf) == 2 else None
 
 
 def _aligned(w: torch.Tensor) -> torch.Tensor:
@@ -144,51 +219,78 @@ def _aligned(w: torch.Tensor) -> torch.Tensor:
     return w if w.data_ptr() % 16 == 0 else w.clone()
 
 
+def _normalise(x, gamma, beta, groups, act, eps, emb):
+    """Launches the normalise kernel alone on CUDA x: (its ``_scratch``
+    buffer, (mu, rstd))."""
+    b, c, t = x.shape
+    plan(b, c, t, c, groups, x.dtype, "group_norm_act")
+    x = x.contiguous()
+    buf = _scratch(x)
+    stats = torch.empty(2 * b * groups, dtype=torch.float32, device=x.device)
+    (gamma, beta), vec_bf = _vectors(gamma, beta)
+    (emb,), emb_bf = _vectors(emb) if emb is not None else ((None,), 0)
+    NORMALISE.launch(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                     None if emb is None else emb.data_ptr(), *_ptrs(buf),
+                     stats.data_ptr(), b, c, t, groups, int(act), eps,
+                     vec_bf, emb_bf, _DTYPES[x.dtype], _stream(x))
+    return buf, (stats[:b * groups], stats[b * groups:])
+
+
+def _plain_normalise(x, gamma, beta, groups, act, eps, emb):
+    c = x.shape[1]
+    scale, shift = (None, None) if emb is None else (emb[:, :c].float(),
+                                                     emb[:, c:].float())
+    stats = group_stats_plain(x, groups, eps)
+    return group_norm_act_plain(x, gamma, beta, groups, act, eps, scale,
+                                shift, stats), stats
+
+
 def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    groups: int, act: bool, eps: float = 1e-5,
                    emb: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
                                                   torch.Tensor]]:
-    """The bf16 path's normalise kernel alone: (Y (B, C, T), a view of the
-    kernel's time-major scratch, and (mu, rstd)).  emb: (B, 2C) [scale |
-    shift] or None.  A CPU tensor takes ``group_norm_act_plain`` and
-    ``group_stats_plain``; on CUDA only bf16 has this kernel."""
-    b, c, t = x.shape
-    scale, shift = (None, None) if emb is None else (emb[:, :c].float(),
-                                                     emb[:, c:].float())
+    """The normalise kernel alone: (Y (B, C, T), a view of the kernel's
+    time-major scratch (fp32: Y_hi + Y_lo, which is Y exactly), and (mu,
+    rstd)).  emb: (B, 2C) [scale | shift] or None.  A CPU tensor takes
+    ``group_norm_act_plain`` and ``group_stats_plain``."""
     if x.device.type == "cpu":
-        stats = group_stats_plain(x, groups, eps)
-        return group_norm_act_plain(x, gamma, beta, groups, act, eps, scale,
-                                    shift, stats), stats
-    plan(b, c, t, c, groups, x.dtype, "group_norm_act")
-    if x.dtype != torch.bfloat16:
-        raise TypeError("group_norm_act: the normalise kernel is the bf16 "
-                        f"path's, got {x.dtype}")
-    x = x.contiguous()
-    y = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
-    stats = torch.empty(2 * b * groups, dtype=torch.float32, device=x.device)
-    (gamma, beta), vec_bf = _vectors(gamma, beta)
-    (emb,), emb_bf = _vectors(emb) if emb is not None else ((None,), 0)
-    NORMALISE.launch(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                     None if emb is None else emb.data_ptr(), y.data_ptr(),
-                     stats.data_ptr(), b, c, t, groups, int(act), eps,
-                     vec_bf, emb_bf, _stream(x))
-    return y.transpose(1, 2), (stats[:b * groups], stats[b * groups:])
+        return _plain_normalise(x, gamma, beta, groups, act, eps, emb)
+    buf, stats = _normalise(x, gamma, beta, groups, act, eps, emb)
+    y = buf[0] if len(buf) == 1 else buf[0] + buf[1]
+    return y.transpose(1, 2), stats
+
+
+def group_norm_split(x: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, groups: int, act: bool,
+                     eps: float = 1e-5, emb: Optional[torch.Tensor] = None
+                     ) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
+                                Tuple[torch.Tensor, torch.Tensor]]:
+    """The fp32 normalise kernel alone: ((Y_hi, Y_lo), (mu, rstd)), Y_hi
+    and Y_lo (B, C, T) views of its two time-major arrays, for checks.  A
+    CPU tensor takes ``tf32_split`` of ``group_norm_act_plain``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"group_norm_split: fp32 only, got {x.dtype}")
+    if x.device.type == "cpu":
+        y, stats = _plain_normalise(x, gamma, beta, groups, act, eps, emb)
+        return tf32_split(y), stats
+    buf, stats = _normalise(x, gamma, beta, groups, act, eps, emb)
+    return (buf[0].transpose(1, 2), buf[1].transpose(1, 2)), stats
 
 
 def _launch(x, gamma, beta, w, bias, groups, act, eps):
     b, c, t = x.shape
     m = w.shape[0]
-    bn = plan(b, c, t, m, groups, x.dtype)
+    p = plan(b, c, t, m, groups, x.dtype)
     x = x.contiguous()
     w = _aligned(w.to(x.dtype).reshape(m, c))
     out = torch.empty((b, m, t), dtype=x.dtype, device=x.device)
-    scratch, (stats, ybuf) = _scratch(x, groups)
+    buf = _scratch(x)
     (gamma, beta, bias), vec_bf = _vectors(gamma, beta, bias)
     KERNEL.launch(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                  w.data_ptr(), bias.data_ptr(), out.data_ptr(), stats, ybuf,
-                  b, c, t, m, groups, int(act), eps, _DTYPES[x.dtype], vec_bf,
-                  bn, _stream(x))
+                  w.data_ptr(), bias.data_ptr(), out.data_ptr(), None,
+                  *_ptrs(buf), b, c, t, m, groups, int(act), eps,
+                  _DTYPES[x.dtype], vec_bf, p.bn, p.split, _stream(x))
     return out
 
 

@@ -4,9 +4,9 @@ x + conv3(silu(GroupNorm(h) * (1 + scale) + shift)) + b, with h from K4.
 Replaces the TPU kernel ``tortoise_tts_tpu/ops/pallas_resblock.py``
 ``fused_ts_res_block`` (``_rb_out_kernel``).  The CUDA source is
 ``csrc/resblock.cu`` (shared with K4); its header gives the bound on an
-H100 and the design: in bf16 the normalise kernel writes Y once, then the
-``wgmma`` GEMM takes the k=3 convolution as three tap-shifted
-accumulations.  The TPU kernel's ``b <= 2 and t <= 1024`` envelope was a
+H100 and the design: the normalise kernel writes Y once (fp32: Y_hi and
+Y_lo), then the ``wgmma`` GEMM (fp32: 3xTF32) takes the k=3 convolution as
+three tap-shifted accumulations.  The TPU kernel's ``b <= 2 and t <= 1024`` envelope was a
 VMEM limit and does not apply: the CUDA kernels take any B and T.
 
 The kernels read the weight tap-major, (3, C, C) with ``w_taps[s] =
@@ -30,11 +30,11 @@ import torch.nn.functional as Fn
 
 from ..models.common import Params, conv1d, group_norm, silu
 from ._build import F, I, P, Kernel
-from .gn_conv import (_DTYPES, _aligned, _scratch, _stream, _vectors,
-                      group_norm_act_plain, plan)
+from .gn_conv import (_DTYPES, _aligned, _ptrs, _scratch, _stream,
+                      _vectors, group_norm_act_plain, plan)
 
 KERNEL = Kernel("resblock", "tts_ts_res_block_out",
-                [P] * 10 + [I] * 4 + [F, I, I, I, I, P])
+                [P] * 11 + [I] * 4 + [F, I, I, I, I, I, P])
 
 
 def ts_res_block_out_plain(h: torch.Tensor, x: torch.Tensor,
@@ -62,24 +62,24 @@ def prepare_conv(conv: Params) -> Params:
 def ts_res_block_out_taps_plain(h: torch.Tensor, x: torch.Tensor,
                                 emb_out: torch.Tensor, norm: Params,
                                 w_taps: torch.Tensor, bias: torch.Tensor,
-                                groups: int, eps: float = 1e-5
-                                ) -> torch.Tensor:
+                                groups: int, eps: float = 1e-5,
+                                matmul=torch.matmul) -> torch.Tensor:
     """The kernels' decomposition in plain PyTorch: Y the normalise step
     (``group_norm_act_plain`` with the scale-shift and silu), then x +
     sum over taps s of w_taps[s] @ Y shifted by s - 1 (zeros outside
-    [0, T)) + b, summed in fp32 and rounded once."""
+    [0, T)) + b, summed in fp32 and rounded once.  ``matmul``:
+    ``gn_conv.matmul_3xtf32`` for the fp32 kernel's arithmetic."""
     c, t = h.shape[1], h.shape[2]
     y = group_norm_act_plain(h, norm["scale"], norm["bias"], groups, True,
                              eps, emb_out[:, :c], emb_out[:, c:])
     yp = Fn.pad(y.float(), (1, 1))
-    acc = sum(torch.matmul(w_taps[s].float(), yp[..., s:s + t])
-              for s in range(3))
+    acc = sum(matmul(w_taps[s].float(), yp[..., s:s + t]) for s in range(3))
     return (acc + bias.float()[:, None] + x.float()).to(h.dtype)
 
 
 def _launch(h, x, emb_out, gamma, beta, w_taps, bias, groups, eps):
     b, c, t = h.shape
-    bn = plan(b, c, t, c, groups, h.dtype, "ts_res_block_out")
+    p = plan(b, c, t, c, groups, h.dtype, "ts_res_block_out", taps=3)
     if x.shape != h.shape or x.dtype != h.dtype or w_taps.shape != (3, c, c):
         raise ValueError(f"ts_res_block_out: x {tuple(x.shape)} {x.dtype} "
                          f"and the tap-major weight {tuple(w_taps.shape)} "
@@ -88,14 +88,14 @@ def _launch(h, x, emb_out, gamma, beta, w_taps, bias, groups, eps):
     h, x = h.contiguous(), x.contiguous()
     w_taps = _aligned(w_taps.to(h.dtype))
     out = torch.empty_like(h)
-    scratch, (stats, ybuf) = _scratch(h, groups)
+    buf = _scratch(h)
     (gamma, beta, bias), vec_bf = _vectors(gamma, beta, bias)
     (emb_out,), emb_bf = _vectors(emb_out)
     KERNEL.launch(h.data_ptr(), x.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), emb_out.data_ptr(), w_taps.data_ptr(),
-                  bias.data_ptr(), out.data_ptr(), stats, ybuf, b, c, t,
-                  groups, eps, _DTYPES[h.dtype], vec_bf, emb_bf, bn,
-                  _stream(h))
+                  bias.data_ptr(), out.data_ptr(), None, *_ptrs(buf), b, c,
+                  t, groups, eps, _DTYPES[h.dtype], vec_bf, emb_bf, p.bn,
+                  p.split, _stream(h))
     return out
 
 

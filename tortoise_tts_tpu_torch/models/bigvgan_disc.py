@@ -12,8 +12,9 @@
 
 Weight-norm convs are ``{"v", "g", "b"}`` folded at every call, the norm
 in fp32 over (in, kh, kw) plus 1e-12.  The FFTs are ``torch.fft.rfft``
-and the convs ``F.conv2d``: the JAX package left both to XLA, outside
-any Pallas kernel.  Parameters are nested dicts and lists of tensors in
+and the convs ``F.conv2d`` (through ``common.conv``: fp32 with cuDNN's
+TF32 off on the card): the JAX package left both to XLA, outside any
+Pallas kernel.  Parameters are nested dicts and lists of tensors in
 the JAX package's layout (OIHW convs), so ``bridge.py`` carries them
 across leaf for leaf.
 """
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.stft import mel_filterbank
-from .common import _uniform, normal
+from .common import _uniform, conv, normal
 
 Params = Dict[str, Any]
 
@@ -64,7 +65,8 @@ def _wn_conv2d(p: Params, x: torch.Tensor, stride=(1, 1),
     norm = torch.sqrt(p["v"].float().pow(2).sum(dim=(1, 2, 3), keepdim=True)
                       + 1e-12).to(x.dtype)
     w = p["g"].to(x.dtype)[:, None, None, None] * v / norm
-    return F.conv2d(x, w, p["b"].to(x.dtype), stride=stride, padding=padding)
+    return conv(F.conv2d, x, w, p["b"].to(x.dtype), stride=stride,
+                padding=padding)
 
 
 # DiscriminatorP (bigvgan.py:543-580)

@@ -8,12 +8,21 @@ weights across without a key map.  Layouts stay the JAX package's:
 - linear ``w`` is ``(in, out)`` (application ``x @ w + b``);
 - conv1d ``w`` is ``(out, in, k)``; conv-transpose ``w`` is ``(in, out, k)``;
 - norms use ``scale`` / ``bias``.
+
+Every convolution of the port goes through ``conv``: an fp32 input on
+CUDA runs, forward and backward, with cuDNN's TF32 off (fp32 means fp32
+in the port: torch's default, ``torch.backends.cudnn.allow_tf32 = True``,
+keeps about three decimal digits), cuDNN's other settings as the caller
+left them, and no flag changed after the call.  Matmuls need nothing:
+``torch.backends.cuda.matmul.allow_tf32`` defaults to False.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -97,12 +106,62 @@ def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
     return w[ids.clamp(0, w.shape[0] - 1)]
 
 
+@functools.lru_cache(maxsize=None)
+def _flag_names() -> tuple:
+    return tuple(inspect.signature(torch.backends.cudnn.flags).parameters)
+
+
+def _fp32_flags():
+    """``torch.backends.cudnn.flags`` with TF32 off and every other setting
+    as it stands: enabled, benchmark, deterministic (and benchmark_limit
+    where this torch has it) passed as they are, any other flag None,
+    which ``set_flags`` leaves unchanged.  (flags' own defaults would turn
+    cuDNN off.)"""
+    c = torch.backends.cudnn
+    kw = {n: None for n in _flag_names()}
+    kw.update(enabled=c.enabled, benchmark=c.benchmark,
+              deterministic=c.deterministic, allow_tf32=False)
+    if "benchmark_limit" in kw and c.is_available():
+        kw["benchmark_limit"] = c.benchmark_limit
+    return c.flags(**kw)
+
+
+def _fp32_backward(node) -> None:
+    """Runs a convolution's autograd node under ``_fp32_flags`` as well: a
+    hook before the node enters them, a hook after it restores the
+    flags."""
+    held = []
+
+    def enter(grad_outputs):
+        held.append(_fp32_flags())
+        held[-1].__enter__()
+
+    def leave(grad_inputs, grad_outputs):
+        held.pop().__exit__(None, None, None)
+    node.register_prehook(enter)
+    node.register_hook(leave)
+
+
+def conv(fn: Callable, x: torch.Tensor, w: torch.Tensor,
+         b: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
+    """fn(x, w, b, **kw) for a ``torch.nn.functional`` convolution; an
+    fp32 CUDA input runs, forward and backward, with cuDNN's TF32 off
+    (``_fp32_flags``).  Any other input calls fn as it is."""
+    if x.dtype != torch.float32 or not x.is_cuda:
+        return fn(x, w, b, **kw)
+    with _fp32_flags():
+        out = fn(x, w, b, **kw)
+    if out.grad_fn is not None:
+        _fp32_backward(out.grad_fn)
+    return out
+
+
 def conv1d(p: Params, x: torch.Tensor, stride: int = 1, padding: int = 0,
            dilation: int = 1, groups: int = 1) -> torch.Tensor:
     """x: (B, C, T) -> (B, C_out, T_out)."""
     b = p["b"].to(x.dtype) if "b" in p else None
-    return F.conv1d(x, p["w"].to(x.dtype), b, stride=stride, padding=padding,
-                    dilation=dilation, groups=groups)
+    return conv(F.conv1d, x, p["w"].to(x.dtype), b, stride=stride,
+                padding=padding, dilation=dilation, groups=groups)
 
 
 def conv_transpose1d(p: Params, x: torch.Tensor, stride: int,
@@ -110,8 +169,8 @@ def conv_transpose1d(p: Params, x: torch.Tensor, stride: int,
                      ) -> torch.Tensor:
     """Torch ConvTranspose1d; weight (in, out, k)."""
     b = p["b"].to(x.dtype) if "b" in p else None
-    return F.conv_transpose1d(x, p["w"].to(x.dtype), b, stride=stride,
-                              padding=padding, output_padding=output_padding)
+    return conv(F.conv_transpose1d, x, p["w"].to(x.dtype), b, stride=stride,
+                padding=padding, output_padding=output_padding)
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -218,8 +277,8 @@ def depthwise_lowpass(x: torch.Tensor, filt, stride: int, pad_left: int,
     """Per-channel FIR with edge padding (BigVGAN LowPassFilter1d).
     x: (B, C, T); filt: (K,) shared across channels."""
     x = F.pad(x, (pad_left, pad_right), mode="replicate")
-    return F.conv1d(x, _depthwise_weight(filt, x), stride=stride,
-                    groups=x.shape[1])
+    return conv(F.conv1d, x, _depthwise_weight(filt, x), stride=stride,
+                groups=x.shape[1])
 
 
 def depthwise_upsample(x: torch.Tensor, filt, ratio: int, pad: int,
@@ -227,6 +286,6 @@ def depthwise_upsample(x: torch.Tensor, filt, ratio: int, pad: int,
     """BigVGAN UpSample1d: edge-pad, zero-stuffed transposed conv with a
     FIR shared across channels, times ``ratio``, trimmed."""
     x = F.pad(x, (pad, pad), mode="replicate")
-    y = ratio * F.conv_transpose1d(x, _depthwise_weight(filt, x),
-                                   stride=ratio, groups=x.shape[1])
+    y = ratio * conv(F.conv_transpose1d, x, _depthwise_weight(filt, x),
+                     stride=ratio, groups=x.shape[1])
     return y[..., pad_left:y.shape[-1] - pad_right]

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models.common import conv
+
 
 def _hz_to_mel(f, scale: str):
     f = np.asarray(f, dtype=np.float64)
@@ -230,7 +232,7 @@ def resample(wav: torch.Tensor, orig_freq: int, new_freq: int) -> torch.Tensor:
     x = F.pad(x, (width, width + orig))
     # strided conv: each of the `new` phases is an output channel
     k = torch.as_tensor(kernel, device=x.device)[:, None, :]
-    y = F.conv1d(x[:, None, :], k, stride=orig)
+    y = conv(F.conv1d, x[:, None, :], k, stride=orig)
     y = y.transpose(1, 2).reshape(x.shape[0], -1)
     target_len = math.ceil(new * length / orig)
     return y[:, :target_len].reshape(shape[:-1] + (target_len,))
