@@ -1032,19 +1032,21 @@ def _gn_conv_inputs(torch, dev, b, c, t, m, k, seed, dtype=None):
 
 
 def f32_bounds(nbytes: float, flops: float) -> dict:
-    """An fp32 K4/K5 call's bounds: its kernels' own work, three TF32
-    products a multiply-add (3xTF32) or the fp32 bytes (``bound_ms``),
-    and the FFMA bound, the operations at the fp32 CUDA-core peak."""
+    """A 3xTF32 fp32 call's bounds (K4, K5, K6, K9a, K9b): its kernels' own
+    work, three TF32 products a multiply-add (3xTF32) or the fp32 bytes
+    (``bound_ms``), and the FFMA bound, the operations at the fp32
+    CUDA-core peak."""
     bms, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS)
     return dict(bound_ms=bms, bound_by=by,
                 ffma_bound_ms=bound_ms(nbytes, flops, FP32_FLOPS)[0])
 
 
 def _same_bits(torch, fn) -> bool:
-    """Two calls of fn give the same bits (fp32 K4/K5: no atomics)."""
+    """Two calls of fn give the same bits (the 3xTF32 kernels: no
+    atomics)."""
     a, b = fn(), fn()
     same = torch.equal(a.view(torch.int32), b.view(torch.int32))
-    assert same, "two calls of an fp32 K4/K5 differ"
+    assert same, "two calls of an fp32 kernel differ"
     return same
 
 
@@ -1358,8 +1360,9 @@ def check_fp32_forms(torch, dev) -> dict:
     plain version's and the library call's (SDPA in fp32 with TF32 off,
     the bias as a float mask; F.linear on pre-dequantized fp32 weights for
     K2; None where no call computes the function) and the bound (fp32
-    bytes or the FFMA rate).  One ``kernel_fp32`` line each; returns
-    {name: that line}."""
+    bytes or the FFMA rate; K6, K9a and K9b, 3xTF32 on the tensor cores:
+    both of ``f32_bounds``, the share of each and two calls' bits).  One
+    ``kernel_fp32`` line each; returns {name: that line}."""
     from tortoise_tts_tpu_torch.kernels import flash_attention as k1
     from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
     from tortoise_tts_tpu_torch.kernels import flash_attention_bias_cm as k9b
@@ -1374,7 +1377,7 @@ def check_fp32_forms(torch, dev) -> dict:
     out = {}
 
     def row(name, shape, kernel, kern, plain, library, nbytes, flops,
-            tol=F32_TOL, lib_name=None):
+            tol=F32_TOL, lib_name=None, tf32=False):
         before = kernel.launches
         err = bf16_err(torch, kern(0), plain(0), name=f"{name} fp32", **tol)
         assert kernel.launches == before + 1, f"{name}: no fp32 launch"
@@ -1386,9 +1389,16 @@ def check_fp32_forms(torch, dev) -> dict:
                                   ("library_", library))}
         finally:
             torch.backends.cudnn.allow_tf32 = saved
-        bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
-        line = dict(shape=shape, max_abs_err=err, tol=tol, bound_ms=bms,
-                    bound_by=by, library=lib_name, **t_)
+        if tf32:
+            bounds = f32_bounds(nbytes, flops)
+            bounds.update(bound_share=bounds["bound_ms"] / t_["ms"],
+                          ffma_share=bounds["ffma_bound_ms"] / t_["ms"],
+                          same_bits=_same_bits(torch, lambda: kern(0)))
+        else:
+            bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
+            bounds = dict(bound_ms=bms, bound_by=by)
+        line = dict(shape=shape, max_abs_err=err, tol=tol, library=lib_name,
+                    **bounds, **t_)
         if t_["library_ms"]:
             line["vs_library"] = t_["ms"] / t_["library_ms"]
         emit("kernel_fp32", name=name, **line)
@@ -1501,7 +1511,8 @@ def check_fp32_forms(torch, dev) -> dict:
     row("flash_attention_bias", [16, h, t], k6.KERNEL,
         lambda i: k6.flash_attention_bias(qkv, bias, h),
         lambda i: k6.flash_attention_bias_plain(qkv, bias, h),
-        lambda i: _sdpa_cm(F, qv, kv, vv, bias), nb, fl, lib_name=lib)
+        lambda i: _sdpa_cm(F, qv, kv, vv, bias), nb, fl, lib_name=lib,
+        tf32=True)
     del qkv, bias, qv, kv, vv
     torch.cuda.empty_cache()
     qkv, bias, qv, kv, vv, nb, fl = biased(2)
@@ -1510,11 +1521,12 @@ def check_fp32_forms(torch, dev) -> dict:
         lambda i: k9a.flash_attention_bias_kq(qkv, bt, h),
         lambda i: k9a.flash_attention_bias_kq_plain(qkv, bt, h),
         lambda i: _sdpa_cm(F, qv, kv, vv, bt.transpose(1, 2)), nb, fl,
-        lib_name=lib)
+        lib_name=lib, tf32=True)
     row("flash_attention_bias_cm", [2, h, t], k9b.KERNEL,
         lambda i: k9b.flash_attention_bias_qkv(qkv, bias, h),
         lambda i: k9b.flash_attention_bias_qkv_plain(qkv, bias, h),
-        lambda i: _sdpa_cm(F, qv, kv, vv, bias), nb, fl, lib_name=lib)
+        lambda i: _sdpa_cm(F, qv, kv, vv, bias), nb, fl, lib_name=lib,
+        tf32=True)
     del qkv, bias, bt, qv, kv, vv
     # K7 at the first and last BigVGAN stage (two lines' sum)
     tot = None
@@ -1540,6 +1552,54 @@ def check_fp32_forms(torch, dev) -> dict:
                 plain_ms=tot["plain_ms"], library_ms=None, library=None)
     emit("kernel_fp32", name="snake", **line)
     out["snake"] = line
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp32_denoiser(torch, dev) -> dict:
+    """One full-width fp32 denoiser forward (``TTS(dtype="float32")``'s
+    DiffusionTTS, 1024 x 10 layers, 16 heads; random weights from seed 0;
+    T=896): B=16 under "auto" (its 13 biased attention blocks through K6)
+    and B=2 under "kq" (K9a) and "flash_bias" (K9b's fused entry).  Each
+    mode: one profiled forward's device ms (``_profile_step``), the biased
+    attention kernel's ms and share of it, and its launches a forward (13:
+    3 integrator and 10 trunk blocks).  One ``fp32_denoiser`` line;
+    returns {mode: its numbers}."""
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias_cm as k9b
+    from tortoise_tts_tpu_torch.kernels import flash_attention_bias_kq as k9a
+    from tortoise_tts_tpu_torch.models import diffusion
+    cfg = diffusion.DiffusionConfig()
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = diffusion.prepare(diffusion.init(g, cfg))
+    t, out = 896, {}
+    for mode, b, mod in (("auto", 16, k6), ("kq", 2, k9a),
+                         ("flash_bias", 2, k9b)):
+        rel = diffusion.precompute_rel_biases(
+            p, t, cfg, torch.float32, transposed=mode == "kq",
+            flash_bias=mode == "flash_bias")
+        x = torch.randn(b, cfg.in_channels, t, generator=g, device=dev)
+        code = torch.randn(b, cfg.model_channels, t, generator=g, device=dev)
+        steps = torch.full((b,), 500.0, device=dev)
+
+        def forward(i):
+            return diffusion.forward(p, x, steps, code, cfg, rel)
+        before = mod.KERNEL.launches
+        y = forward(0)
+        torch.cuda.synchronize()
+        launches = mod.KERNEL.launches - before
+        assert launches == 3 + cfg.num_layers, (mode, launches)
+        assert y.shape == (b, 2 * cfg.in_channels, t) and y.dtype == \
+            torch.float32 and bool(torch.isfinite(y).all()), mode
+        prof = _profile_step(torch, lambda: forward(0))
+        ms = prof["device_ms"]
+        attn = prof["device_ms_by_group"].get("biased attention", 0.0)
+        out[mode] = dict(b=b, kernel=mod.KERNEL.source, ms=ms,
+                         wall_ms=prof["wall_ms"], attention_ms=attn,
+                         attention_share=attn / ms, launches=launches)
+        del rel, x, code, y
+    emit("fp32_denoiser", t=t, **out)
+    del p
     torch.cuda.empty_cache()
     return out
 
@@ -4020,7 +4080,8 @@ def eval_launches(tokens: int, steps: int = 30) -> dict:
 
 
 def _kernel_group(name: str) -> str:
-    for key, group in (("flash_attn", "K1"), ("gn_conv", "K4"),
+    for key, group in (("flash_attn", "K1"),
+                       ("attn_bias", "biased attention"), ("gn_conv", "K4"),
                        ("ts_res_block", "K5"), ("group_norm_act", "K4/K5 "
                                                 "normalise"),
                        ("group_stats", "K4/K5 normalise"),
@@ -4975,6 +5036,7 @@ def main() -> int:
             r9 = check_flash_attention_bias_k9(torch, k9a, k9b, dev)
             r3s = check_flash_decode_shared(torch, k3, dev)
             check_fp32_forms(torch, dev)
+            fp32_denoiser(torch, dev)
         torch.cuda.empty_cache()
 
         ref = reference_wav(Path(tmp) / "reference.wav")

@@ -21,6 +21,7 @@ from tortoise_tts_tpu.ops.pallas_attention import flash_attention_bias_qkv_vt
 from tortoise_tts_tpu_torch.kernels import flash_attention_bias as k6
 from tortoise_tts_tpu_torch.kernels import flash_attention_bias_cm as k9b
 from tortoise_tts_tpu_torch.kernels import flash_attention_bias_kq as k9a
+from tortoise_tts_tpu_torch.kernels import gn_conv
 from tortoise_tts_tpu_torch.ops import attention
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -148,3 +149,24 @@ def test_plain_versions_agree(b, t):
                 k9b.flash_attention_bias_cm_plain(q, k, v, bias).reshape(
                     b, h * 64, t)):
         torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_3xtf32_decomposition_matches_fp32(transposed):
+    """The fp32 kernels' arithmetic (both products on three TF32 products
+    of the operands' hi/lo split, lo lo dropped) holds 1e-5 against the
+    fp32 plain version at a ragged T, in both bias orientations; one TF32
+    product alone does not hold a tenth of the 3xTF32 error's margin."""
+    b, h, t = 3, 2, 257
+    qkv, bias = (torch.from_numpy(x) for x in _inputs(17, b, h, t))
+    want = k6.flash_attention_bias_plain(qkv, bias, h)
+    given = bias.transpose(1, 2).contiguous() if transposed else bias
+    got = k6.attention_bias_3xtf32(qkv, given, h, transposed=transposed)
+    torch.testing.assert_close(got, want, **TOL)
+    err3 = float((got - want).abs().max())
+
+    def one(x, y):
+        return torch.matmul(gn_conv.tf32_split(x)[0], gn_conv.tf32_split(y)[0])
+    one_tf32 = k6.attention_bias_3xtf32(qkv, given, h, transposed=transposed,
+                                        matmul=one)
+    assert float((one_tf32 - want).abs().max()) > 10 * err3

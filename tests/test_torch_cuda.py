@@ -387,7 +387,7 @@ def test_flash_decode_shared_kernel_cuda(cuda, g, c, sp, pos, dtype):
 BIAS_B = [1, 2, 3, 8, 9, 16]
 BIAS_T = [64, 257, 300, 896]
 BIAS_DTYPES = [torch.bfloat16, torch.float32]
-# each kernel's CUDA kernel in bf16 (tensor cores) and fp32 (CUDA cores)
+# each kernel's CUDA kernel in bf16 and fp32 (both on the tensor cores)
 BIAS_KERNELS = {"k6": ("attn_bias_tc", "attn_bias_f32"),
                 "k9a": ("attn_bias_kq_tc", "attn_bias_kq_f32"),
                 "k9b": ("attn_bias_cm_tc", "attn_bias_cm_f32")}
@@ -513,6 +513,34 @@ def test_flash_attention_bias_entries_bit_equal_cuda(cuda, b, t):
                 k9b.flash_attention_bias_cm(q, k, v, bias).view(b, h * 64,
                                                                  t)):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [300, 416, 896])
+@pytest.mark.parametrize("b", [2, 16])
+def test_flash_attention_bias_f32_same_bits_cuda(cuda, monkeypatch, b, t):
+    """The fp32 (3xTF32) body: two calls of each entry give the same bits
+    (no atomics, one summation order), and K6, K9a (given the transposed
+    bias) and both entries of K9b, which run that one body, give equal
+    bits on the same fp32 data, by element copies (T=300) and by TMA (T=416,
+    whose last step's second 32-key box lies wholly past T, and 896); each
+    within 1e-5 of the plain version."""
+    _fp32_exact(monkeypatch, torch.float32)
+    qkv, bias, h = _bias_inputs(cuda, b, t, torch.float32, seed=11)
+    bias_t = bias.transpose(1, 2).contiguous()
+    q, k, v = (x.contiguous() for x in qkv.view(b, h, 3, 64, t).unbind(2))
+    calls = (lambda: k6.flash_attention_bias(qkv, bias, h),
+             lambda: k9a.flash_attention_bias_kq(qkv, bias_t, h),
+             lambda: k9b.flash_attention_bias_qkv(qkv, bias, h),
+             lambda: k9b.flash_attention_bias_cm(q, k, v, bias).view(
+                 b, h * 64, t))
+    want = calls[0]()
+    _bias_close(want, k6.flash_attention_bias_plain(qkv, bias, h),
+                torch.float32)
+    for call in calls:
+        got = call()
+        assert torch.equal(got.view(torch.int32), call().view(torch.int32))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _fp32_exact(monkeypatch, dtype):

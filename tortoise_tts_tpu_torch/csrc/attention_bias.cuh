@@ -44,9 +44,26 @@
 // stores.  The warpgroups of the SM's four blocks overlap one's softmax
 // with another's products.
 //
-// fp32 (the reference runs): attn_bias_f32_block, CUDA-core FMAs, one block
-// of 4 warps per (batch, head, 64-query tile), each thread half a query
-// row; TF32 would round the fp32 parity runs' inputs.
+// fp32 (the reference runs): attn_bias_f32_block<BIAS_T>, the same block
+// (one warpgroup per (batch row, 64-query tile, head), 64-key steps, the
+// online softmax in base 2 with the lazy base) on the tensor cores in
+// 3xTF32: each fp32 operand x is split into hi = cvt.rna.tf32(x) with the
+// 13 low bits cleared and lo = x - hi (exact), and each product sums
+// lo hi + hi lo + hi hi in fp32 (lo lo, about 2^-22 of a term, dropped):
+// fp32 accuracy, where one TF32 product would round every input to 11
+// significant bits.  TF32 wgmma reads both shared operands K-major only,
+// so the raw fp32 step (bias, K, V as copied, one stage) is rewritten each
+// step into split operands: K transposed to key rows (K^T_hi, K^T_lo) for
+// S = Q^T K, V's rows split with their keys reordered (V_hi, V_lo) for
+// O += P V^T.  Both products run on wgmma m64n64k8, Q^T's and P's hi and
+// lo in registers: P's A slice takes the accumulator's two columns of each
+// 8-key group as its columns t4 and t4 + 4, so each V row holds its 8 keys
+// in that order (0, 2, 4, 6, 1, 3, 5, 7).  The raw stage is free once
+// split, and the next step's copy is in flight during the products.  Two
+// blocks an SM overlap one's split and softmax with the other's products.
+// Each step's P V^T is summed apart and added to O in fp32: the tensor
+// cores' fp32 accumulation is not round-to-nearest, and a chain over
+// every key would drift.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -500,132 +517,405 @@ int launch_tc(const BiasArgs& a, int nb, int nq, int stages,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32: 3xTF32 tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int F_THREADS = 128;   // 4 warps x 16 query rows
-constexpr int LDT = BT + 1;      // row stride of the staged fp32 tiles
+struct F32Args {
+  const float* q;         // (batch, head) planes of 64 x T, bh_stride apart
+  const float* k;
+  const float* v;
+  long long bh_stride;    // elements
+  const float* bias;      // (H, T, T)
+  float* out;             // (B, H*64, T)
+  int B, H, T;
+  float scale;
+  int tma;      // 16-byte rows (T % 4 == 0): tiles by TMA and 16-byte
+                // output stores (else element copies and element stores)
+};
 
-constexpr size_t f32_smem_bytes() {   // q, k, v and p tiles
-  return 4 * (size_t)BT * LDT * sizeof(float);
+// Shared memory past its 1024-byte aligned base: the raw step (the bias
+// tile, then K and V, as copied), the split operands, then the step's
+// barrier, in the last bytes of the alignment slack.  Each is a 64 x 64
+// fp32 tile kept as two 32-column halves of 64 rows x 128 bytes with the
+// 128-byte swizzle, as TMA writes a 32 x 64 box (sw32).  Seven tiles fit
+// two blocks an SM (all of its 228 KB).  Q never lands: each thread reads
+// its A slices from device memory once.
+constexpr int F_BOX = 32 * BT * 4;     // one TMA box, 8 KB
+constexpr int F_TILE = 2 * F_BOX;
+constexpr int F_BIAS = 0, F_K = F_TILE, F_V = 2 * F_TILE;
+constexpr int F_KT_HI = 3 * F_TILE, F_KT_LO = 4 * F_TILE;
+constexpr int F_V_HI = 5 * F_TILE, F_V_LO = 6 * F_TILE;
+constexpr int F_BAR = 7 * F_TILE;
+constexpr int F_SMEM = 7 * F_TILE + 1024;
+constexpr int F_MIN_BLOCKS = 2;        // blocks an SM: 255 registers
+constexpr int F_LDS = BT + 4;          // the output stage's row stride
+
+// byte offset of element (r, c) of a 64 x 64 fp32 tile kept as two boxes
+// of 32 columns with the 128-byte swizzle (16-byte chunk c / 4 of row r,
+// within its box, at chunk (c / 4 ^ r) % 8), as TMA writes it
+__device__ __forceinline__ uint32_t sw32(int r, int c) {
+  return (c >> 5) * F_BOX + r * 128 + ((((c >> 2) ^ r) & 7) << 4) +
+         (c & 3) * 4;
 }
 
-// dst[c][j] = src[c * ld + t0 + j] for 64 rows and 64 columns; zero past
-// Tn columns and past `rows` rows
-__device__ __forceinline__ void f32_tile(float* dst,
-                                         const float* __restrict__ src,
-                                         long long ld, int r0, int rows,
-                                         int t0, int Tn) {
-  for (int idx = threadIdx.x; idx < BT * BT; idx += F_THREADS) {
-    const int c = idx / BT, j = idx % BT;
-    dst[c * LDT + j] = r0 + c < rows && t0 + j < Tn
-                           ? src[(r0 + c) * ld + t0 + j]
-                           : 0.f;
-  }
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = tf32_hi(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
 }
 
-// One (batch, head, 64-query tile), the block at (blockIdx.x, blockIdx.y,
-// blockIdx.z) = (batch, tile, head).  qp, kp, vp: this (batch, head)'s q,
-// k and v, each 64 channels x Tn; bias: this head's (Tn, Tn) bias, (query,
-// key) or with BIAS_T (key, query); ob: this (batch, head)'s 64 x Tn
-// output.  Each thread owns half a query row: 32 keys of each step, then
-// 32 output channels.
+// x's hi and lo parts to dst_hi and dst_lo, 16 bytes each
+__device__ __forceinline__ void split_store(unsigned char* dst_hi,
+                                            unsigned char* dst_lo,
+                                            float x0, float x1, float x2,
+                                            float x3) {
+  uint4 hi, lo;
+  split(x0, hi.x, lo.x);
+  split(x1, hi.y, lo.y);
+  split(x2, hi.z, lo.z);
+  split(x3, hi.w, lo.w);
+  *reinterpret_cast<uint4*>(dst_hi) = hi;
+  *reinterpret_cast<uint4*>(dst_lo) = lo;
+}
+
+// One block of the fp32 kernel: (blockIdx.x, blockIdx.y, blockIdx.z) =
+// (batch row, 64-query tile, head), as in bf16.  kmap/vmap: (T, 64, B*H)
+// views of k and v; bmap: (T, T, H) of the bias; each a box of 32 x 64
+// fp32 with the 128-byte swizzle (unused without a.tma).
+//
+// Per 64-key step: the raw step arrives; every thread reads its share of
+// the bias into S's accumulator layout, writes its share of K^T_hi and
+// K^T_lo (4 x 4 blocks: 16-byte reads along keys, 16-byte writes along
+// channels, each quarter-warp on 8 distinct chunks of both swizzled
+// layouts) and of V_hi and V_lo (each row's 8-key groups reordered
+// 0, 2, 4, 6, 1, 3, 5, 7); a barrier frees the raw stage for the next
+// step's copy; S = Q^T K (24 wgmma); the softmax; P V^T (24 wgmma into a
+// fresh accumulator) added to O.
 template <bool BIAS_T>
-__device__ __forceinline__ void attn_bias_f32_block(
-    const float* __restrict__ qp, const float* __restrict__ kp,
-    const float* __restrict__ vp, const float* __restrict__ bias,
-    float* __restrict__ ob, int Tn, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_f32[];
-  float* Qs = reinterpret_cast<float*>(smem_f32);   // [c][t]
-  float* Ks = Qs + BT * LDT;                        // [c][key]
-  float* Vs = Ks + BT * LDT;                        // [c][key]
-  float* Ps = Vs + BT * LDT;                        // [query][key]
+__device__ __forceinline__ void attn_bias_f32_block(const CUtensorMap* kmap,
+                                                    const CUtensorMap* vmap,
+                                                    const CUtensorMap* bmap,
+                                                    const F32Args& a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t full = base + F_BAR;
 
-  const int q0 = blockIdx.y * BT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = warp * 16 + lane / 2;   // this thread's query row
-  const int c0 = (lane % 2) * 32;       // and its 32 keys / channels
-  const bool row_ok = q0 + r < Tn;
+  const int T = a.T, h = blockIdx.z, q0 = blockIdx.y * BT;
+  const long long bh = (long long)blockIdx.x * a.H + h;
+  const long long off = bh * a.bh_stride;
+  const int nkt = (T + BT - 1) / BT;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
 
-  f32_tile(Qs, qp, Tn, 0, D, q0, Tn);
-  float m = -INFINITY, l = 0.f, o[32];
+  if (tid == 0) {
+    mbar_init(full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Step j's bias, K and V tiles into the raw stage: by TMA, issued by
+  // thread 0 and counted on the barrier, or by every thread's element
+  // copies (T's rows off 16 bytes), published by `ready`.  Out-of-range rows
+  // and columns arrive as zeros either way.
+  auto fill = [&](int j) {
+    const int k0 = j * BT;
+    if (a.tma) {
+      if (tid == 0) {
+        mbar_expect_tx(full, 3 * F_TILE);
+        for (int b = 0; b < 2; ++b) {
+          const uint32_t o = b * F_BOX;
+          if (BIAS_T)
+            tma_load_3d(base + F_BIAS + o, bmap, full, q0 + 32 * b, k0, h);
+          else
+            tma_load_3d(base + F_BIAS + o, bmap, full, k0 + 32 * b, q0, h);
+          tma_load_3d(base + F_K + o, kmap, full, k0 + 32 * b, 0, (int)bh);
+          tma_load_3d(base + F_V + o, vmap, full, k0 + 32 * b, 0, (int)bh);
+        }
+      }
+      return;
+    }
+    const float* bias_h = a.bias + (long long)h * T * T;
+    for (int i = tid; i < BT * BT; i += THREADS) {
+      const int r = i / BT, c = i % BT;
+      const uint32_t o = sw32(r, c);
+      const int br = (BIAS_T ? k0 : q0) + r, bc = (BIAS_T ? q0 : k0) + c;
+      const bool key = k0 + c < T;
+      *reinterpret_cast<float*>(sm + F_BIAS + o) =
+          br < T && bc < T ? bias_h[(long long)br * T + bc] : 0.f;
+      *reinterpret_cast<float*>(sm + F_K + o) =
+          key ? a.k[off + (long long)r * T + k0 + c] : 0.f;
+      *reinterpret_cast<float*>(sm + F_V + o) =
+          key ? a.v[off + (long long)r * T + k0 + c] : 0.f;
+    }
+  };
+  // step j's raw tiles are in, and every warp is done with step j - 1's
+  // products (their split operands are rewritten next)
+  auto ready = [&](int j) {
+    if (a.tma) wait_or_trap(full, j & 1);
+    __syncthreads();
+  };
+  fill(0);
+
+  // Q^T's A slices for the whole key loop, split: slice kk's a[i] is
+  // channel 8 kk + t4 + 4 (i / 2) of query 16 w + g + 8 (i % 2)
+  uint32_t qh[8][4], ql[8][4];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = 8 * kk + t4 + 4 * (i / 2);
+      const int t = q0 + 16 * w + g + 8 * (i % 2);
+      split(t < T ? a.q[off + (long long)c * T + t] : 0.f, qh[kk][i],
+            ql[kk][i]);
+    }
+
+  float o[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  // the exponent base (log2 units) and this thread's share of the row
+  // sums, of rows g and g + 8
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int k0 = 0; k0 < Tn; k0 += BT) {
-    __syncthreads();   // the previous step's K, V and P are consumed
-    f32_tile(Ks, kp, Tn, 0, D, k0, Tn);
-    f32_tile(Vs, vp, Tn, 0, D, k0, Tn);
-    __syncthreads();
+  // MASK: keys past T in this step
+  auto step = [&](int kt, auto mask) {
+    constexpr bool MASK = decltype(mask)::value;
+    ready(kt);
 
-    float s[32];
+    // the bias in S's accumulator layout: bv[4 j + 2 hh + e] is query
+    // 16 w + g + 8 hh, key 8 j + 2 t4 + e
+    float bv[32];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) s[j] = 0.f;
-    for (int c = 0; c < D; ++c) {
-      const float qv = Qs[c * LDT + r];
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 32; ++j) s[j] = fmaf(qv, Ks[c * LDT + c0 + j], s[j]);
-    }
-    float mx = -INFINITY;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 16 * w + g + 8 * hh, c = 8 * j + 2 * t4;
+        float* d = bv + 4 * j + 2 * hh;
+        if (BIAS_T) {
+          d[0] = *reinterpret_cast<const float*>(sm + F_BIAS + sw32(c, r));
+          d[1] = *reinterpret_cast<const float*>(sm + F_BIAS + sw32(c + 1, r));
+        } else {
+          const float2 b2 =
+              *reinterpret_cast<const float2*>(sm + F_BIAS + sw32(r, c));
+          d[0] = b2.x;
+          d[1] = b2.y;
+        }
+      }
+
+    // K^T: unit u's 4 x 4 block is keys 4 (x + 4 (u / 8)) + {0..3} and
+    // channels 4 ((y + 2 x + 2 (u % 4)) % 8 + 8 ((u / 4) % 2)) + {0..3}
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int key = k0 + c0 + j;
-      if (key < Tn) {
-        const float bv = !row_ok ? 0.f
-                         : BIAS_T ? bias[(long long)key * Tn + q0 + r]
-                                  : bias[(long long)(q0 + r) * Tn + key];
-        s[j] = s[j] * scale + bv;
-        mx = fmaxf(mx, s[j]);
-      } else {
-        s[j] = -INFINITY;
+    for (int it = 0; it < 2; ++it) {
+      const int u = tid / 8 + 16 * it, x = tid % 4, y = (tid / 4) % 2;
+      const int n = 4 * (x + 4 * (u / 8));
+      const int c = 4 * (((y + 2 * x + 2 * (u % 4)) & 7) + 8 * ((u / 4) % 2));
+      float kr[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v4 =
+            *reinterpret_cast<const float4*>(sm + F_K + sw32(c + i, n));
+        kr[i][0] = v4.x;
+        kr[i][1] = v4.y;
+        kr[i][2] = v4.z;
+        kr[i][3] = v4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t kt_at = sw32(n + i, c);
+        split_store(sm + F_KT_HI + kt_at, sm + F_KT_LO + kt_at, kr[0][i],
+                    kr[1][i], kr[2][i], kr[3][i]);
       }
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float mn = fmaxf(m, mx);      // finite: key k0 < Tn is valid
-    const float alpha = expf(m - mn);   // 0 while m is -inf
-    float ps = 0.f;
+    // V, each row's 8-key groups in the order of P's A columns
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(s[j] - mn);
-      ps += p;
-      Ps[r * LDT + c0 + j] = p;
+    for (int it = 0; it < 4; ++it) {
+      const int i = tid + THREADS * it, c = i % D, k8 = 8 * (i / D);
+      const float4 e = *reinterpret_cast<const float4*>(sm + F_V + sw32(c, k8));
+      const float4 f =
+          *reinterpret_cast<const float4*>(sm + F_V + sw32(c, k8 + 4));
+      split_store(sm + F_V_HI + sw32(c, k8), sm + F_V_LO + sw32(c, k8), e.x,
+                  e.z, f.x, f.z);
+      split_store(sm + F_V_HI + sw32(c, k8 + 4), sm + F_V_LO + sw32(c, k8 + 4),
+                  e.y, e.w, f.y, f.w);
     }
-    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-    l = l * alpha + ps;
-    m = mn;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= alpha;
-    __syncwarp();   // the warp's 16 P rows are complete
-    for (int j = 0; j < BT; ++j) {
-      const float p = Ps[r * LDT + j];
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        o[i] = fmaf(p, Vs[(c0 + i) * LDT + j], o[i]);
-    }
-  }
+    fence_proxy_async();   // the split operands, for wgmma
+    __syncthreads();       // and the raw stage is free
+    if (kt + 1 < nkt) fill(kt + 1);
 
-  // o / l, staged channels-major in the q tile, then coalesced stores
-  __syncthreads();
-  const float inv = 1.f / l;
+    // S = Q^T K: per 8-channel slice lo hi + hi lo + hi hi
+    float sc[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) Qs[(c0 + i) * LDT + r] = o[i] * inv;
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t so = (kk / 4) * F_BOX + 32 * (kk % 4);
+      const uint64_t dh = desc_sw128(base + F_KT_HI + so, 16, 1024);
+      const uint64_t dl = desc_sw128(base + F_KT_LO + so, 16, 1024);
+      wgmma_tf32_rs<64>(sc, ql[kk], dh);
+      wgmma_tf32_rs<64>(sc, qh[kk], dl);
+      wgmma_tf32_rs<64>(sc, qh[kk], dh);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sc);
+
+    // the online softmax: x = s * scale + bias (-inf at or past T), then
+    // p = 2^(x log2 e - m); the base m moves (and O and l are rescaled)
+    // only where a row's max passes it by 8
+    const int kvalid = T - kt * BT;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = fmaf(sc[i], a.scale, bv[i]);
+      if (MASK && 8 * (i / 4) + 2 * t4 + (i & 1) >= kvalid) x = -INFINITY;
+      sc[i] = x;
+      if (i & 2)
+        mx1 = fmaxf(mx1, x);
+      else
+        mx0 = fmaxf(mx0, x);
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 *= LOG2E;   // finite: the step's first key is valid
+    mx1 *= LOG2E;
+    const bool up0 = mx0 > m0 + 8.f, up1 = mx1 > m1 + 8.f;
+    if (__any_sync(0xffffffffu, up0 || up1)) {
+      const float n0 = up0 ? mx0 : m0, n1 = up1 ? mx1 : m1;
+      const float al0 = ex2(m0 - n0), al1 = ex2(m1 - n1);   // 0 from -inf
+      m0 = n0;
+      m1 = n1;
+      l0 *= al0;
+      l1 *= al1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j] *= al0;
+        o[4 * j + 1] *= al0;
+        o[4 * j + 2] *= al1;
+        o[4 * j + 3] *= al1;
+      }
+    }
+    const float nb0 = -m0, nb1 = -m1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = ex2(fmaf(sc[i], LOG2E, i & 2 ? nb1 : nb0));
+      sc[i] = p;
+      if (i & 2)
+        l1 += p;
+      else
+        l0 += p;
+    }
+
+    // O += P V^T: accumulator block kk's columns 2 t4 and 2 t4 + 1 are the
+    // A slice's columns t4 and t4 + 4, the keys V's rows hold there.  The
+    // step's products go to a fresh accumulator, added to O in fp32: the
+    // tensor cores' accumulation is not round-to-nearest (a chain over all
+    // 896 keys erred 1.0-1.8e-5 on an H100, as round-toward-zero does),
+    // and one step's chain of 24 products stays near 1e-6.
+    uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      split(sc[4 * kk], ph[kk][0], pl[kk][0]);
+      split(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
+      split(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
+      split(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
+    }
+    float po[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) po[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t so = (kk / 4) * F_BOX + 32 * (kk % 4);
+      const uint64_t dh = desc_sw128(base + F_V_HI + so, 16, 1024);
+      const uint64_t dl = desc_sw128(base + F_V_LO + so, 16, 1024);
+      wgmma_tf32_rs<64>(po, pl[kk], dh);
+      wgmma_tf32_rs<64>(po, ph[kk], dl);
+      wgmma_tf32_rs<64>(po, ph[kk], dh);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(po);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      reg_fence(ph[kk]);
+      reg_fence(pl[kk]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] += po[i];
+  };
+  for (int kt = 0; kt < nkt - 1; ++kt) step(kt, std::false_type());
+  step(nkt - 1, std::true_type());
+
+  // o / l, staged channels-major over the split K (every product is
+  // done), then coalesced stores
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  float* stage = reinterpret_cast<float*>(sm + F_KT_HI);
+  const int r0 = 16 * w + g;
   __syncthreads();
-  for (int idx = threadIdx.x; idx < D * BT; idx += F_THREADS) {
-    const int c = idx / BT, j = idx % BT;
-    if (q0 + j < Tn) ob[(long long)c * Tn + q0 + j] = Qs[c * LDT + j];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = 8 * j + 2 * t4 + e;
+      stage[ch * F_LDS + r0] = o[4 * j + e] * i0;
+      stage[ch * F_LDS + r0 + 8] = o[4 * j + 2 + e] * i1;
+    }
+  __syncthreads();
+  float* ob = a.out + bh * D * T;
+  for (int i = tid; i < D * (BT / 4); i += THREADS) {
+    const int ch = i / (BT / 4), c4 = (i % (BT / 4)) * 4, t = q0 + c4;
+    if (t >= T) continue;
+    const float4 v = *reinterpret_cast<const float4*>(stage + ch * F_LDS + c4);
+    float* dst = ob + (long long)ch * T + t;
+    if (a.tma) {
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (t + k < T) dst[k] = e[k];
+    }
   }
 }
 
-// Launches the fp32 kernel on (B, T tiles, H) blocks of F_THREADS.
-template <typename Kernel, typename... Args>
-int launch_f32(Kernel kernel, int B, int H, int Tn, cudaStream_t st,
-               Args... args) {
-  constexpr size_t bytes = f32_smem_bytes();
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(B, (Tn + BT - 1) / BT, H);
-  kernel<<<grid, F_THREADS, bytes, st>>>(args...);
+// The host half of an fp32 call: the three tensor maps where a.tma, then
+// Kernel (the source's own __global__) on (B, T tiles, H) blocks of
+// THREADS, two an SM.
+template <auto Kernel>
+int launch_f32(const F32Args& a, cudaStream_t st) {
+  CUtensorMap maps[3] = {};
+  if (a.tma) {
+    constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    const uint64_t T = a.T, BH = (uint64_t)a.B * a.H;
+    const float* planes[2] = {a.k, a.v};
+    for (int i = 0; i < 2; ++i)
+      if (int rc = tensor_map_3d(&maps[i], planes[i], T, D, BH, 4 * T,
+                                 4 * (uint64_t)a.bh_stride, 32, BT, F32))
+        return rc;
+    if (int rc = tensor_map_3d(&maps[2], a.bias, T, T, a.H, 4 * T,
+                               4 * T * T, 32, BT, F32))
+      return rc;
+  }
+  static int allowed = 0;
+  if (!allowed) {
+    int rc = static_cast<int>(cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM));
+    if (!rc)
+      rc = static_cast<int>(cudaFuncSetAttribute(
+          Kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100));
+    if (rc) return rc;
+    allowed = 1;
+  }
+  const dim3 grid(a.B, (a.T + BT - 1) / BT, a.H);
+  Kernel<<<grid, THREADS, F_SMEM, st>>>(maps[0], maps[1], maps[2], a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,7 +29,9 @@
 // TMA-copied (bias, K, V) tiles two steps deep, runs both products on
 // wgmma with S and P in registers and the softmax in between, and the
 // four blocks on an SM overlap one's softmax with another's products.
-// fp32 inputs (the reference runs) use attn_bias_f32 (CUDA cores).
+// fp32 inputs (the reference runs) use attn_bias_f32, the same block in
+// 3xTF32 (attn_bias_f32_block): at B=16 3 x 52.6 GFLOP of TF32 products
+// (0.319 ms at 495 TFLOP/s) against 0.785 ms at the fp32 FMA rate.
 #include "attention_bias.cuh"
 
 namespace {
@@ -43,36 +45,35 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   attn_bias_tc_block<false>(&qmap, &kmap, &vmap, &bmap, a);
 }
 
-__global__ void __launch_bounds__(F_THREADS)
-    attn_bias_f32(const float* __restrict__ qkv,
-                  const float* __restrict__ bias, float* __restrict__ out,
-                  int H, int Tn, float scale) {
-  const long long bh = (long long)blockIdx.x * H + blockIdx.z;
-  const float* base = qkv + bh * 3 * D * Tn;
-  attn_bias_f32_block<false>(base, base + (long long)D * Tn,
-                             base + 2LL * D * Tn,
-                             bias + (long long)blockIdx.z * Tn * Tn,
-                             out + bh * D * Tn, Tn, scale);
+__global__ void __launch_bounds__(THREADS, F_MIN_BLOCKS)
+    attn_bias_f32(const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const __grid_constant__ CUtensorMap bmap,
+                  const __grid_constant__ F32Args a) {
+  attn_bias_f32_block<false>(&kmap, &vmap, &bmap, a);
 }
 
 }  // namespace
 
 // qkv: (B, H*3*64, T) contiguous, per-head [q;k;v] channel blocks; bias:
 // (H, T, T) contiguous, the same type; out: (B, H*64, T) contiguous.
-// dtype: 0 = float32, 1 = bfloat16.  bf16 only: tma = 1 when T is a
-// multiple of 8 and all three pointers are 16-byte aligned; (nb, nq,
-// stages) the launch plan.
+// dtype: 0 = float32, 1 = bfloat16.  tma = 1 when T's rows are 16-byte
+// aligned (T a multiple of 8 in bf16, of 4 in fp32) and all three
+// pointers are; bf16 only: (nb, nq, stages) the launch plan.
 extern "C" int tts_flash_attention_bias(const void* qkv, const void* bias,
                                         void* out, int B, int H, int T,
                                         float scale, int tma, int dtype,
                                         int nb, int nq, int stages,
                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 1)
-    return launch_f32(attn_bias_f32, B, H, T, st,
-                      static_cast<const float*>(qkv),
-                      static_cast<const float*>(bias),
-                      static_cast<float*>(out), H, T, scale);
+  if (dtype != 1) {
+    const float* q = static_cast<const float*>(qkv);
+    return launch_f32<attn_bias_f32>(
+        F32Args{q, q + (long long)D * T, q + 2LL * D * T, 3LL * D * T,
+                static_cast<const float*>(bias), static_cast<float*>(out), B,
+                H, T, scale, tma},
+        st);
+  }
   const bf16* q = static_cast<const bf16*>(qkv);
   const BiasArgs a{q, q + (long long)D * T, q + 2LL * D * T, 3LL * D * T,
                    static_cast<const bf16*>(bias), static_cast<bf16*>(out),

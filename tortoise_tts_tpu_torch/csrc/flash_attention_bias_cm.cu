@@ -26,7 +26,8 @@
 // Design: K6's body (attention_bias.cuh, attn_bias_tc_block, the bias read
 // by ldmatrix) with the q, k and v base pointers and the (batch, head)
 // stride as arguments: the fused entry computes what K6 computes, bit for
-// bit.  fp32 inputs use attn_bias_cm_f32 (CUDA cores).
+// bit.  fp32 inputs use attn_bias_cm_f32 (K6's 3xTF32 body; its fused
+// entry is K6's fp32 function bit for bit too).
 #include "attention_bias.cuh"
 
 namespace {
@@ -40,16 +41,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   attn_bias_tc_block<false>(&qmap, &kmap, &vmap, &bmap, a);
 }
 
-__global__ void __launch_bounds__(F_THREADS)
-    attn_bias_cm_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, long long bh_stride,
-                     const float* __restrict__ bias, float* __restrict__ out,
-                     int H, int Tn, float scale) {
-  const long long bh = (long long)blockIdx.x * H + blockIdx.z;
-  const long long off = bh * bh_stride;
-  attn_bias_f32_block<false>(q + off, k + off, v + off,
-                             bias + (long long)blockIdx.z * Tn * Tn,
-                             out + bh * D * Tn, Tn, scale);
+__global__ void __launch_bounds__(THREADS, F_MIN_BLOCKS)
+    attn_bias_cm_f32(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap bmap,
+                     const __grid_constant__ F32Args a) {
+  attn_bias_f32_block<false>(&kmap, &vmap, &bmap, a);
 }
 
 int dispatch(const void* q, const void* k, const void* v, long long bh_stride,
@@ -57,12 +54,12 @@ int dispatch(const void* q, const void* k, const void* v, long long bh_stride,
              int tma, int dtype, int nb, int nq, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 1)
-    return launch_f32(attn_bias_cm_f32, B, H, T, st,
-                      static_cast<const float*>(q),
-                      static_cast<const float*>(k),
-                      static_cast<const float*>(v), bh_stride,
-                      static_cast<const float*>(bias),
-                      static_cast<float*>(out), H, T, scale);
+    return launch_f32<attn_bias_cm_f32>(
+        F32Args{static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), bh_stride,
+                static_cast<const float*>(bias), static_cast<float*>(out), B,
+                H, T, scale, tma},
+        st);
   const BiasArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), bh_stride,
                    static_cast<const bf16*>(bias), static_cast<bf16*>(out),
@@ -74,9 +71,9 @@ int dispatch(const void* q, const void* k, const void* v, long long bh_stride,
 
 // q, k, v: (B, H, 64, T) contiguous each; bias: (H, T, T) contiguous,
 // (query, key) per head, the same type; out: (B, H, 64, T) contiguous.
-// dtype: 0 = float32, 1 = bfloat16.  bf16 only: tma = 1 when T is a
-// multiple of 8 and all five pointers are 16-byte aligned; (nb, nq,
-// stages) the launch plan.
+// dtype: 0 = float32, 1 = bfloat16.  tma = 1 when T's rows are 16-byte
+// aligned (T a multiple of 8 in bf16, of 4 in fp32) and all five pointers
+// are; bf16 only: (nb, nq, stages) the launch plan.
 extern "C" int tts_flash_attention_bias_cm(const void* q, const void* k,
                                            const void* v, const void* bias,
                                            void* out, int B, int H, int T,

@@ -26,7 +26,9 @@
 // accumulators by ldmatrix.trans: an 8 x 8 block of the transposed tile
 // lands in the same threads and elements as K6's by ldmatrix, so the
 // transposed bias costs what K6's does and no transposed copy of the
-// (H, T, T) bias is made.  fp32 inputs use attn_bias_kq_f32 (CUDA cores).
+// (H, T, T) bias is made.  fp32 inputs use attn_bias_kq_f32 (K6's 3xTF32
+// body with BIAS_T: each thread reads the (key, query) tile's elements of
+// its score accumulators from shared memory, conflict-free).
 #include "attention_bias.cuh"
 
 namespace {
@@ -40,36 +42,36 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   attn_bias_tc_block<true>(&qmap, &kmap, &vmap, &bmap, a);
 }
 
-__global__ void __launch_bounds__(F_THREADS)
-    attn_bias_kq_f32(const float* __restrict__ qkv,
-                     const float* __restrict__ bias_t,
-                     float* __restrict__ out, int H, int Tn, float scale) {
-  const long long bh = (long long)blockIdx.x * H + blockIdx.z;
-  const float* base = qkv + bh * 3 * D * Tn;
-  attn_bias_f32_block<true>(base, base + (long long)D * Tn,
-                            base + 2LL * D * Tn,
-                            bias_t + (long long)blockIdx.z * Tn * Tn,
-                            out + bh * D * Tn, Tn, scale);
+__global__ void __launch_bounds__(THREADS, F_MIN_BLOCKS)
+    attn_bias_kq_f32(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap bmap,
+                     const __grid_constant__ F32Args a) {
+  attn_bias_f32_block<true>(&kmap, &vmap, &bmap, a);
 }
 
 }  // namespace
 
 // qkv: (B, H*3*64, T) contiguous, per-head [q;k;v] channel blocks; bias_t:
 // (H, T, T) contiguous, (key, query) per head, the same type; out: (B,
-// H*64, T) contiguous.  dtype: 0 = float32, 1 = bfloat16.  bf16 only: tma
-// = 1 when T is a multiple of 8 and all three pointers are 16-byte
-// aligned; (nb, nq, stages) the launch plan.
+// H*64, T) contiguous.  dtype: 0 = float32, 1 = bfloat16.  tma = 1 when
+// T's rows are 16-byte aligned (T a multiple of 8 in bf16, of 4 in fp32)
+// and all three pointers are; bf16 only: (nb, nq, stages) the launch
+// plan.
 extern "C" int tts_flash_attention_bias_kq(const void* qkv,
                                            const void* bias_t, void* out,
                                            int B, int H, int T, float scale,
                                            int tma, int dtype, int nb, int nq,
                                            int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 1)
-    return launch_f32(attn_bias_kq_f32, B, H, T, st,
-                      static_cast<const float*>(qkv),
-                      static_cast<const float*>(bias_t),
-                      static_cast<float*>(out), H, T, scale);
+  if (dtype != 1) {
+    const float* q = static_cast<const float*>(qkv);
+    return launch_f32<attn_bias_kq_f32>(
+        F32Args{q, q + (long long)D * T, q + 2LL * D * T, 3LL * D * T,
+                static_cast<const float*>(bias_t), static_cast<float*>(out),
+                B, H, T, scale, tma},
+        st);
+  }
   const bf16* q = static_cast<const bf16*>(qkv);
   const BiasArgs a{q, q + (long long)D * T, q + 2LL * D * T, 3LL * D * T,
                    static_cast<const bf16*>(bias_t), static_cast<bf16*>(out),

@@ -370,6 +370,15 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// v rounded to TF32 as cvt.rna rounds it (to nearest, ties away from
+// zero), the 13 low bits cleared: the hi part of a 3xTF32 split; v minus
+// it (the lo part) is exact in fp32
+__device__ __forceinline__ float tf32_hi(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
 // --- tensor maps (host) ----------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

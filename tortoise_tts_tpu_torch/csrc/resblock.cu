@@ -132,14 +132,6 @@ struct NormArgs {
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
 
-// Y rounded to TF32 as cvt.rna rounds it (to nearest, ties away from
-// zero), the 13 low bits cleared: Y_hi; Y - Y_hi is exact in fp32
-__device__ __forceinline__ float tf32_hi(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return __uint_as_float(r & 0xFFFFE000u);
-}
-
 // The sum of v over the block, then over the cluster's blocks in rank
 // order (every block of the cluster gets the same value).  slot: this
 // reduction's own shared float, read by the other blocks through

@@ -14,6 +14,8 @@ memory.
 ``flash_attention_bias`` runs the plain PyTorch version for CPU tensors
 and the kernel for CUDA tensors (it raises on what the kernel does not
 take).  The JAX function has no gradient, and neither has this one.
+fp32 inputs run the same body in 3xTF32 on the tensor cores;
+``attention_bias_3xtf32`` is that arithmetic in plain PyTorch.
 
 The module also holds what the three biased attention wrappers (K6, K9a,
 K9b) share: the bf16 launch plan (``plan``) and the launch itself.
@@ -27,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ._build import F, I, P, Kernel
+from .gn_conv import matmul_3xtf32
 
 # q/k/v/bias/out pointers, B, H, T, scale, tma, dtype, nb, nq, stages, stream
 KERNEL = Kernel("flash_attention_bias", "tts_flash_attention_bias",
@@ -68,10 +71,13 @@ def launch(kernel: Kernel, ptrs, tensors, b: int, h: int, t: int, dtype,
            entry=None, plan_: Plan = None) -> None:
     """One launch of a biased attention kernel: ``ptrs`` the C entry's
     pointer arguments, ``tensors`` every tensor the kernel reads or writes
-    (TMA needs each 16-byte aligned).  ``plan_`` overrides ``plan`` (the
-    tests pin that the kernel refuses a plan it was not built for)."""
+    (TMA needs each 16-byte aligned, and T's rows 16 bytes: fp32 at T % 4
+    == 0, bf16 as the plan says).  ``plan_`` overrides ``plan`` (the tests
+    pin that the kernel refuses a plan it was not built for); the fp32
+    kernel has one launch and takes no plan."""
     p = plan_ or plan(b, h, t)
-    tma = int(p.tma and all(x.data_ptr() % 16 == 0 for x in tensors))
+    rows16 = p.tma if dtype == torch.bfloat16 else t % 4 == 0
+    tma = int(rows16 and all(x.data_ptr() % 16 == 0 for x in tensors))
     kernel.launch(*ptrs, b, h, t, 1.0 / math.sqrt(64), tma, DTYPES[dtype],
                   p.nb, p.nq, p.stages,
                   torch.cuda.current_stream(tensors[0].device).cuda_stream,
@@ -94,6 +100,26 @@ def flash_attention_bias_plain(qkv: torch.Tensor, bias: torch.Tensor,
     acc = torch.einsum("bhts,bhcs->bhct", p, v)
     out = acc / p.sum(dim=-1)[:, :, None, :]
     return out.to(qkv.dtype).reshape(b, n_heads * d, t)
+
+
+def attention_bias_3xtf32(qkv: torch.Tensor, bias: torch.Tensor,
+                          n_heads: int, transposed: bool = False,
+                          matmul=matmul_3xtf32) -> torch.Tensor:
+    """The fp32 kernel's arithmetic in plain PyTorch: S = Q^T K and
+    O = P V^T each by ``matmul`` (default: three TF32 products on the
+    operands' ``tf32_split``, lo lo dropped), the softmax in fp32 between
+    them.  qkv: (B, H*3*D, T) fp32 with per-head [q;k;v] channel blocks;
+    bias: (H, T, T), (query, key), or with ``transposed`` (key, query) ->
+    (B, H*D, T)."""
+    b, width, t = qkv.shape
+    d = width // (3 * n_heads)
+    q, k, v = qkv.reshape(b, n_heads, 3 * d, t).split(d, dim=2)
+    if transposed:
+        bias = bias.transpose(1, 2)
+    s = matmul(q.transpose(2, 3), k) * (1.0 / math.sqrt(d)) + bias[None]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = matmul(p, v.transpose(2, 3)) / p.sum(dim=-1, keepdim=True)
+    return out.transpose(2, 3).reshape(b, n_heads * d, t)
 
 
 def _launch(qkv: torch.Tensor, bias: torch.Tensor, n_heads: int,
