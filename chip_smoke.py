@@ -135,11 +135,17 @@ leave the card:
    path), K4 (the resblock in-half and the attention qkv head) and K5 at
    the diffusion step's (16, 1024, 2240), K7 at the vocoder step's six
    (8, C, T) stages, in bf16: the kernel's autograd
-   path (kernel forward, plain recompute backward; K5's tap-major weight
-   made from the live weight in the graph) against the plain version's
-   autograd, the output and every input's gradient within 2% of the
-   plain one's largest value, and fwd+bwd device ms beside the library's
-   (SDPA causal; F.group_norm + F.silu + F.conv1d) and the bound.
+   path (K1: kernel forward with its log-sum-exp, then K1's backward
+   kernel, never its plain version; K4, K5, K7: kernel forward, plain
+   recompute backward; K5's tap-major weight made from the live weight
+   in the graph) against the plain version's autograd (K1's computed in
+   fp32 from the same bf16 inputs, with the bf16 plain backward's own
+   reading beside it), the output and every input's gradient row by row
+   (TRAIN_GRAD_TOL), and fwd+bwd device ms beside the library's (SDPA
+   causal; F.group_norm + F.silu + F.conv1d) and the bound.  K1's
+   backward alone: its launch count, two calls' bits equal, device ms
+   beside the plain backward's, SDPA's backward's and its bound, and its
+   fp32 form within 1e-4 (row by row) at (8, 16, 389, 64).
 17. ``train_tiny``: one step of a tiny AR, diffusion and DVAE model, fp32
    with TF32 off, on the card (K1, K4, K5) and on the CPU from the same
    params, batch, t and noise: loss and every gradient leaf within 1e-3
@@ -160,7 +166,8 @@ leave the card:
    engine over the steady window, tokens a second, peak memory and
    checks finite losses, no skipped step and K1, K4 and K5's launches a
    micro-step against the count the code implies (``train_launches``);
-   the AR finetune also the checkpoint's stall and write seconds.
+   the AR finetune also the checkpoint's stall and write seconds.  K1's
+   backward kernel launches once a layer of every AR micro-step.
 19. ``vocoder_gan``: the BigVGAN engine through ``load_engines`` and
    ``Engines.step`` at full width (the shipped generator, MPD periods 2,
    3, 5, 7, 11, MRD; AdamW), 8 steps on one batch of 8 x 8192 samples of
@@ -227,6 +234,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import json
 import math
 import os
@@ -266,7 +274,9 @@ BIAS_SOURCES = ("flash_attention_bias", "flash_attention_bias_kq",
 BIAS_CUDA_KERNELS = {"flash_attention_bias": "attn_bias_tc",
                      "flash_attention_bias_kq": "attn_bias_kq_tc",
                      "flash_attention_bias_cm": "attn_bias_cm_tc"}
-INT8_ROUTE_IDLE = SLICE3_KERNELS + (W8A8,) + SLICE5_KERNELS
+# K1's backward: only training launches it
+TRAIN_ONLY = ("flash_attention_bwd",)
+INT8_ROUTE_IDLE = SLICE3_KERNELS + (W8A8,) + SLICE5_KERNELS + TRAIN_ONLY
 # the modes' first trunk output against "auto", relative to its largest
 # value: "auto" runs the single route's attention (and every route's
 # unconditional integrator) with bf16 scores, the kernels with fp32 ones;
@@ -289,15 +299,24 @@ K1_KERNELS = ("flash_attn_mma",)
 # the latent pass's S: cond, the text bucket with its start and stop
 # tokens, the mel codes of the whole budget with theirs
 LATENT_S = 1 + BUCKET + 2 + AR_STEPS + 2
+# a run still going after this many seconds has hung: every thread's stack
+# goes to stderr and the script exits 1, inside the 1200 s that a run may
+# take, so the stack shows where
+WATCHDOG_S = 1140
 
 
 T0 = time.perf_counter()
 
 
 def emit(phase: str, **kw) -> None:
-    """One JSON line; ``t_s`` is the script's elapsed seconds."""
-    print(json.dumps({"phase": phase, **kw,
-                      "t_s": time.perf_counter() - T0}), flush=True)
+    """One JSON line; ``t_s`` is the script's elapsed seconds.  The phase
+    and its time also go to stderr, so the end of stderr says how far a
+    run got and how fast."""
+    t_s = time.perf_counter() - T0
+    print(json.dumps({"phase": phase, **kw, "t_s": t_s}), flush=True)
+    what = " ".join(str(x) for x in (phase, kw.get("name") or kw.get("route"))
+                    if x)
+    print(f"chip_smoke: {what} at {t_s:.1f} s", file=sys.stderr, flush=True)
 
 
 def profiler_warmup(torch) -> None:
@@ -1901,7 +1920,7 @@ def check_reference_batch(torch, ref: str):
     y_err, y_max = float((yg - yc).abs().max()), float(yc.abs().max())
     assert y_err <= 1e-3 * y_max, f"trunk output err {y_err} of {y_max}"
     missing = [k for k, v in lg.items()
-               if v == 0 and k not in (W8A8,) + SLICE5_KERNELS]
+               if v == 0 and k not in (W8A8,) + SLICE5_KERNELS + TRAIN_ONLY]
     assert not missing, f"kernels not reached on the card: {missing}"
     assert not any(lc.values()), f"CPU run launched kernels: {lc}"
     tol = 4 / 32767
@@ -2229,7 +2248,7 @@ def batch_route(torch, tts, ref: str):
             emit("launches", route="batch", run=run, **counts)
             missing = [k for k, v in counts.items()
                        if v == 0 and k not in ("flash_decode_shared", W8A8)
-                       + SLICE5_KERNELS]
+                       + SLICE5_KERNELS + TRAIN_ONLY]
             assert not missing, f"batch route never launched: {missing}"
             assert counts[W8A8] == 0, counts
             assert not any(counts[k] for k in SLICE5_KERNELS), counts
@@ -2463,7 +2482,7 @@ def w8a8_route(torch, tts, ref: str):
             emit("launches", route="w8a8", run=run, **counts)
             missing = [k for k, v in counts.items()
                        if v == 0 and k not in SLICE3_KERNELS + ("qgemv",)
-                       + SLICE5_KERNELS]
+                       + SLICE5_KERNELS + TRAIN_ONLY]
             assert not missing, f"W8A8 route never launched: {missing}"
             assert counts["qgemv"] == 0, counts
             assert not any(counts[k] for k in SLICE5_KERNELS), counts
@@ -3433,7 +3452,10 @@ K1_TRAIN_SHAPES = ((16, 16, 773, 64), (8, 16, 389, 64))
 # mel_bucket 512 x 4 frames x 24000/22050, rounded up to 64
 DIFF_TRAIN_T = 2240
 DIFF_TRAIN_B = 16
-TRAIN_KERNELS = ("flash_attention", "gn_conv", "ts_res_block")
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "gn_conv",
+                 "ts_res_block")
+# K1's fp32 backward against the fp32 plain version, row by row
+K1_F32_BWD_TOL = 1e-4
 # the vocoder GAN step: B segments of T samples (T / 256 mel frames) of
 # the synthetic reference at 24 kHz, AdamW at VOC_LR (the BigVGAN
 # recipe's rate) for VOC_STEPS steps
@@ -3477,14 +3499,17 @@ def vocoder_snakes(cfg=None) -> int:
 
 def train_launches(ar: int = 0, diffusion: int = 0, feeder: int = 0,
                    remat: bool = True) -> dict:
-    """K1, K4 and K5 launches a micro-step: K1 a layer of an ``ar``-layer
-    AR step, again in its remat recompute, and a layer of the diffusion
-    feeder's ``feeder``-layer latent pass; in a ``diffusion``-layer
-    diffusion step K4 in the latent conditioner's 4 attention heads, the
-    integrator's 3 and the trunk's layers (a resblock in-half and an
-    attention head each) and the 3 final resblocks, K5 in every resblock.
-    The backwards recompute the plain versions and launch nothing."""
+    """K1, K1's backward, K4 and K5 launches a micro-step: K1 a layer of an
+    ``ar``-layer AR step, again in its remat recompute, and a layer of the
+    diffusion feeder's ``feeder``-layer latent pass (under no_grad: no
+    backward); K1's backward kernel a layer of the AR step; in a
+    ``diffusion``-layer diffusion step K4 in the latent conditioner's 4
+    attention heads, the integrator's 3 and the trunk's layers (a
+    resblock in-half and an attention head each) and the 3 final
+    resblocks, K5 in every resblock.  K4's and K5's backwards recompute
+    the plain versions and launch nothing."""
     return {"flash_attention": ar * (2 if remat else 1) + feeder,
+            "flash_attention_bwd": ar,
             "gn_conv": 4 + 3 * 2 + 2 * diffusion + 3 if diffusion else 0,
             "ts_res_block": 3 + diffusion + 3 if diffusion else 0}
 
@@ -3542,26 +3567,41 @@ def _held(name, out_k, g_k, out_p, g_p, names) -> dict:
 
 
 def _grad_case(torch, name, shape, kernel, plain, library, inputs, names,
-               nbytes, flops, fault=None, n=10, peak=BF16_FLOPS):
+               nbytes, flops, fault=None, n=10, peak=BF16_FLOPS,
+               fp32_ref=False):
     """One kernel's forward and every input's gradient against its plain
     version (TRAIN_GRAD_TOL, row by row), then fwd+bwd device ms of the
     kernel path, the plain version and the library's call (None where no
-    library call computes the function); one ``train_grads`` line.  Every version's backward takes one upstream
-    gradient, random from a seed.  ``fault``, a planted error (the plain
-    version with one key tile dropped), must fail the same check."""
+    library call computes the function); one ``train_grads`` line.  Every
+    version's backward takes one upstream gradient, random from a seed.
+    ``fp32_ref``: the reference is the plain version computed in fp32
+    from the same inputs (K1, whose backward kernel keeps dP in fp32,
+    where the bf16 plain backward rounds it), and the bf16 plain
+    version's own reading against it is printed beside (``plain_err``).
+    ``fault``, a planted error (the plain version with one key tile
+    dropped), must fail the same check."""
     with torch.no_grad():
         shape_out = kernel(*inputs).shape
     g = torch.Generator(device=inputs[0].device).manual_seed(7)
     up = torch.randn(shape_out, generator=g, device=inputs[0].device
                      ).to(inputs[0].dtype)
     out_k, g_k = _fwd_bwd(torch, kernel, inputs, up)
-    out_p, g_p = _fwd_bwd(torch, plain, inputs, up)
+    if fp32_ref:
+        out_p, g_p = _fwd_bwd(torch, plain, [t.float() for t in inputs],
+                              up.float())
+    else:
+        out_p, g_p = _fwd_bwd(torch, plain, inputs, up)
     errs = _held(name, out_k, g_k, out_p, g_p, names)
     for nm, e in errs.items():
         assert e["row"] <= 1, f"{name} {nm}: {e} off TRAIN_GRAD_TOL"
     for nm, a in zip(names, g_k):
         assert float(a.float().abs().max()) > 0, f"{name}: d{nm} is zero"
     del out_k, g_k
+    plain_err = {}
+    if fp32_ref:
+        out_b, g_b = _fwd_bwd(torch, plain, inputs, up)
+        plain_err = _held(name, out_b, g_b, out_p, g_p, names)
+        del out_b, g_b
     planted = {}
     if fault is not None:
         out_f, g_f = _fwd_bwd(torch, fault, inputs, up)
@@ -3577,20 +3617,120 @@ def _grad_case(torch, name, shape, kernel, plain, library, inputs, names,
                           ("library_fwd_bwd_ms", library))}
     bms, by = bound_ms(nbytes, flops, peak)
     emit("train_grads", name=name, shape=list(shape), err=errs,
-         tol=TRAIN_GRAD_TOL, **({"planted_fault": planted} if planted
-                                else {}),
+         tol=TRAIN_GRAD_TOL, reference="fp32 plain" if fp32_ref else "plain",
+         **({"plain_err": plain_err} if plain_err else {}),
+         **({"planted_fault": planted} if planted else {}),
          bound_ms=bms, bound_by=by, **t_)
     torch.cuda.empty_cache()
     return dict(row_err=max(e["row"] for e in errs.values()), bound_ms=bms,
                 **t_)
 
 
+@contextlib.contextmanager
+def _no_plain(k1):
+    """K1's plain forward and backward raise while the block runs: a CUDA
+    call that reached either would fail."""
+    saved = k1.flash_attention_plain, k1.flash_attention_bwd_plain
+
+    def refuse(*a, **kw):
+        raise AssertionError("K1's plain version ran on CUDA tensors")
+    k1.flash_attention_plain = k1.flash_attention_bwd_plain = refuse
+    try:
+        yield
+    finally:
+        k1.flash_attention_plain, k1.flash_attention_bwd_plain = saved
+
+
+def _k1_backward(torch, k1, shape, q, k, v) -> dict:
+    """K1's backward kernel alone on bf16 (q, k, v), the forward's
+    log-sum-exp and a seeded upstream: one launch count a call (of the
+    autograd path too, where neither plain version may run), the same bits
+    in two calls, the max abs error against its plain version (fp32
+    inside), and device ms beside the plain backward's, SDPA's backward's
+    (autograd of a kept SDPA graph) and the bound: q, k, v, dO in and dq,
+    dk, dv out (plus the log-sum-exp), or the five S x S x D products of
+    the causal half (S, dP, dV, dK, dQ) at 989 TFLOP/s."""
+    F = torch.nn.functional
+    b, h, s, d = shape
+    g = torch.Generator(device=q.device).manual_seed(11)
+    up = torch.randn(shape, generator=g, device=q.device).to(q.dtype)
+    with torch.no_grad():
+        _, lse = k1._launch(q, k, v, None, True, with_lse=True)
+    n0 = k1.KERNEL_BWD.launches
+    with _no_plain(k1):
+        _fwd_bwd(torch, lambda q, k, v: k1.flash_attention(q, k, v),
+                 (q, k, v), up)
+        got = k1.flash_attention_bwd(q, k, v, lse, up)
+        again = k1.flash_attention_bwd(q, k, v, lse, up)
+    torch.cuda.synchronize()
+    assert k1.KERNEL_BWD.launches == n0 + 3, k1.KERNEL_BWD.launches - n0
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    assert same, "K1's backward: two calls differ"
+    want = k1.flash_attention_bwd_plain(q, k, v, lse, up)
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(got, want))
+    top = max(float(w.float().abs().max()) for w in want)
+    assert math.isfinite(err) and err <= 2e-2 * top, (err, top)
+    del got, again, want
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa = F.scaled_dot_product_attention(*xs, is_causal=True)
+    t = {"ms": device_ms(torch, lambda _: k1.flash_attention_bwd(
+             q, k, v, lse, up), n=10, warmup=2),
+         "plain_ms": device_ms(torch, lambda _: k1.flash_attention_bwd_plain(
+             q, k, v, lse, up), n=3, warmup=1),
+         "library_ms": device_ms(torch, lambda _: torch.autograd.grad(
+             sdpa, xs, up, retain_graph=True), n=10, warmup=2)}
+    del sdpa, xs
+    bms, by = bound_ms(7 * b * h * s * d * 2 + 4 * b * h * s,
+                       5 * b * h * d * s * (s + 1))
+    emit("train_grads", name="flash_attention_bwd", shape=list(shape),
+         launches_a_call=1, same_bits=same, max_abs_err=err,
+         max_abs_want=top, library="SDPA backward", bound_ms=bms,
+         bound_by=by, **t)
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t)
+
+
+def _k1_f32(torch, k1, dev, shape) -> None:
+    """K1's fp32 form differentiated at ``shape`` (forward and backward
+    kernels, causal, no key mask) against the plain version's autograd:
+    the output and each gradient row by row within K1_F32_BWD_TOL of the
+    row's norm plus K1_F32_BWD_TOL of the tensor's RMS an element."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    up = torch.randn(shape, generator=g, device=dev)
+    n0 = k1.KERNEL_BWD.launches
+    with _no_plain(k1):
+        out_k, g_k = _fwd_bwd(torch, lambda q, k, v: k1.flash_attention(
+            q, k, v), (q, k, v), up)
+    torch.cuda.synchronize()
+    assert k1.KERNEL_BWD.launches == n0 + 1
+    out_p, g_p = _fwd_bwd(torch, lambda q, k, v: k1.flash_attention_plain(
+        q, k, v), (q, k, v), up)
+    worst = {}
+    for nm, a, w in zip(("out", "dq", "dk", "dv"), (out_k, *g_k),
+                        (out_p, *g_p)):
+        ga, wa = _rows(a), _rows(w)
+        n = wa.shape[1]
+        bound = K1_F32_BWD_TOL * (wa.norm(dim=1)
+                                  + wa.pow(2).mean().sqrt() * math.sqrt(n))
+        worst[nm] = float(((ga - wa).norm(dim=1) / bound).max())
+        assert worst[nm] <= 1, (nm, worst[nm])
+    emit("train_grads", name="flash_attention_fp32", shape=list(shape),
+         row_err=worst, tol=K1_F32_BWD_TOL)
+    torch.cuda.empty_cache()
+
+
 def train_grads(torch, dev):
     """Phase 16: K1, K4, K5 and K7 differentiated on the card at the
-    training shapes, in bf16: the kernel's autograd path (kernel forward,
-    plain recompute backward) against the plain version's autograd, output
+    training shapes, in bf16: the kernel's autograd path (K1: its forward
+    and backward kernels; K4, K5, K7: kernel forward, plain recompute
+    backward) against the plain version's autograd (K1's in fp32), output
     and every input's gradient, and fwd+bwd device ms beside the library's
-    (SDPA; F.group_norm + F.silu + F.conv1d; none for K7) and the bound."""
+    (SDPA; F.group_norm + F.silu + F.conv1d; none for K7) and the bound;
+    K1's backward kernel alone (``_k1_backward``) and its fp32 form.
+    Returns the lines' numbers, K1's backward's at the README yaml's shape
+    under "flash_attention_bwd"."""
     from tortoise_tts_tpu_torch.kernels import flash_attention as k1
     from tortoise_tts_tpu_torch.kernels import gn_conv as k4
     from tortoise_tts_tpu_torch.kernels import ts_res_block as k5
@@ -3615,7 +3755,12 @@ def train_grads(torch, dev):
             (q, k, v), ("q", "k", "v"), 8 * b * h * s * d * 2,
             7 * b * h * s * s * d,
             fault=lambda q, k, v: k1.flash_attention_plain(q, k, v, drop,
-                                                           causal=True))
+                                                           causal=True),
+            fp32_ref=True)
+        bwd = _k1_backward(torch, k1, (b, h, s, d), q, k, v)
+        if i == 0:
+            out["flash_attention_bwd"] = bwd
+    _k1_f32(torch, k1, dev, K1_TRAIN_SHAPES[1])
     b, c, t, groups = DIFF_TRAIN_B, 1024, DIFF_TRAIN_T, 32
     for i, (name, m, act) in enumerate((("resblock_in_half", c, True),
                                         ("attention_qkv_head", 3 * c,
@@ -4080,7 +4225,8 @@ def eval_launches(tokens: int, steps: int = 30) -> dict:
 
 
 def _kernel_group(name: str) -> str:
-    for key, group in (("flash_attn", "K1"),
+    for key, group in (("flash_attn", "K1"), ("bwd_dq", "K1 backward"),
+                       ("bwd_dkdv", "K1 backward"),
                        ("attn_bias", "biased attention"), ("gn_conv", "K4"),
                        ("ts_res_block", "K5"), ("group_norm_act", "K4/K5 "
                                                 "normalise"),
@@ -4979,6 +5125,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
     from tortoise_tts_tpu_torch import kernels
@@ -5069,7 +5216,7 @@ def main() -> int:
         import gc
         gc.collect()
         torch.cuda.empty_cache()
-        train_grads(torch, dev)
+        rg = train_grads(torch, dev)
         train_tiny(torch, dev)
         c = train_route(torch, dev, tmp)
         counts = {k: counts[k] + c[k] for k in counts}
@@ -5112,6 +5259,10 @@ def main() -> int:
         ("flash_attention_bias_cm", "flash_attention_bias_cm.cu",
          "tortoise_tts_tpu/ops/pallas_attention.py:73",
          r9["flash_attention_bias_cm"]),
+        # no Pallas kernel: the custom_vjp's XLA backward, _flash_trunk_bwd
+        ("flash_attention_bwd", "flash_attention_bwd.cu",
+         "tortoise_tts_tpu/models/unified_voice.py:56",
+         rg["flash_attention_bwd"]),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src + f, "replaces": rep,

@@ -1234,16 +1234,18 @@ def test_lora_toggle_recaptures_decode_cuda(cuda):
 
 # training: the kernels differentiated on the card
 
-def _grads_of(fn, inputs):
+def _grads_of(fn, inputs, up_dtype=None):
     """fn(*inputs) and every input's gradient of <out, G>, G one upstream
-    gradient drawn from a seed: the kernel's and the plain version's
-    backwards take the same G, so their gradients differ only where the
-    backwards do (through the bf16 plain backward, an upstream gradient
-    that moves by an ulp moves some rows of K1's dq by more than 2%)."""
+    gradient drawn from a seed (rounded to ``up_dtype``, default the
+    output's): the kernel's and the plain version's backwards take the
+    same G, so their gradients differ only where the backwards do
+    (through the bf16 plain backward, an upstream gradient that moves by
+    an ulp moves some rows of K1's dq by more than 2%)."""
     xs = [t.detach().requires_grad_() for t in inputs]
     out = fn(*xs)
     g = torch.Generator(device=out.device).manual_seed(7)
-    up = torch.randn(out.shape, generator=g, device=out.device).to(out.dtype)
+    up = torch.randn(out.shape, generator=g, device=out.device).to(
+        up_dtype or out.dtype).to(out.dtype)
     return out.detach(), torch.autograd.grad(out, xs, up)
 
 
@@ -1271,19 +1273,60 @@ def _rel_close(got, want, tol):
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("b,s", [(2, 389), (1, 773), (2, 17)])
 def test_flash_attention_backward_cuda(cuda, b, s, dtype, tol):
-    """K1's autograd path (kernel forward, plain recompute backward) against
-    the plain version's autograd at the AR train step's S (ring path),
-    q, k, v as views of the fused projection, as the trunk passes them."""
-    q, k, v, _ = _fused_qkv(cuda, b, 16, s, dtype, seed=s)
-    before = k1.KERNEL.launches
-    out_k, g_k = _grads_of(lambda q, k, v: k1.flash_attention(q, k, v),
-                           (q, k, v))
-    assert k1.KERNEL.launches == before + 1
-    out_p, g_p = _grads_of(lambda q, k, v: k1.flash_attention_plain(q, k, v),
-                           (q, k, v))
-    _rel_close(out_k, out_p, tol)
-    for a, p in zip(g_k, g_p):
-        _rel_close(a, p, tol)
+    """K1's autograd path (kernel forward with its log-sum-exp, then the
+    backward kernel: one count on each, two CUDA kernels) against autograd
+    of the plain version computed in fp32 from the same inputs, at the AR
+    train step's S (ring path), with and without the key mask, q, k, v as
+    views of the fused projection, as the trunk passes them; the same
+    bits in two calls.  bf16 is held against the fp32 plain version (its
+    gradients rounded once to bf16), not the bf16 one: the kernel keeps dP
+    in fp32, where the bf16 plain backward rounds it."""
+    q, k, v, mask = _fused_qkv(cuda, b, 16, s, dtype, seed=s)
+    for km in (None, mask):
+        def kernel(q, k, v):
+            return k1.flash_attention(q, k, v, km)
+
+        fwd, bwd = k1.KERNEL.launches, k1.KERNEL_BWD.launches
+        out_k, g_k = _grads_of(kernel, (q, k, v))
+        torch.cuda.synchronize()
+        assert (k1.KERNEL.launches, k1.KERNEL_BWD.launches) == (fwd + 1,
+                                                                bwd + 1)
+        _, again = _grads_of(kernel, (q, k, v))
+        assert all(torch.equal(a, b) for a, b in zip(g_k, again))
+        out_p, g_p = _grads_of(
+            lambda q, k, v: k1.flash_attention_plain(q, k, v, km),
+            (q.float(), k.float(), v.float()), up_dtype=dtype)
+        _rel_close(out_k, out_p.to(dtype), tol)
+        for a, p in zip(g_k, g_p):
+            assert a.dtype == dtype
+            _rel_close(a, p.to(dtype), tol)
+    o, lse = k1._launch(q, k, v, mask, True, with_lse=True)
+    names = _cuda_kernel_names(
+        lambda: k1.flash_attention_bwd(q, k, v, lse, o, mask))
+    kind = "tc" if dtype == torch.bfloat16 else "f32"
+    assert len(names) == 2 and f"bwd_dq_{kind}" in names[0] \
+        and f"bwd_dkdv_{kind}" in names[1], names
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_refuses_cuda(cuda):
+    """No fallback: the backward kernel raises, before any launch, on bf16
+    rows off 16 bytes, another head dim, mixed dtypes or a wrong lse."""
+    q, k, v, mask = _fused_qkv(cuda, 1, 16, 68, torch.bfloat16, seed=3)
+    o, lse = k1._launch(q, k, v, mask, True, with_lse=True)
+    before = k1.KERNEL_BWD.launches
+    buf = torch.randn(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    off = buf[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        k1.flash_attention_bwd(q, k, v, lse, off, mask)
+    with pytest.raises(ValueError, match="head dim"):
+        k1.flash_attention_bwd(*(t[..., :32] for t in (q, k, v)), lse,
+                               o[..., :32], mask)
+    with pytest.raises(TypeError):
+        k1.flash_attention_bwd(q, k, v, lse, o.float(), mask)
+    with pytest.raises(ValueError, match="lse"):
+        k1.flash_attention_bwd(q, k, v, lse[:, :, 1:], o, mask)
+    assert k1.KERNEL_BWD.launches == before
 
 
 @pytest.mark.cuda

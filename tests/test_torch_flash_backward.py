@@ -1,0 +1,153 @@
+"""K1's backward on the CPU: ``flash_attention_bwd`` (its plain version
+on CPU tensors) against the backward of the JAX package's trunk attention
+``custom_vjp`` (``unified_voice._flash_trunk_bwd``: ``jax.vjp`` of
+``_xla_trunk_attention``, i.e. of ``ops/attention.mha``), the plain
+log-sum-exp against the JAX function's masked scores, and the plain
+backward against autograd of ``flash_attention_plain``.
+
+fp32 throughout, inputs and the upstream gradient from numpy with a seed.
+Tolerance: |got - want| <= 1e-5 |want| + 1e-6 of the largest |gradient|
+(of dq, dk and dv together: a row with one valid key, every row at S=1,
+has a dq of exactly 0, which fp32 rounding leaves at 1e-7 of the rest) an
+element: the same fp32 math, only the order of the sums and where the
+softmax is normalised (exp(S - LSE) against exp(S - max) / sum) differ.
+The CUDA kernel is held against the plain version on the card by
+``tests/test_torch_cuda.py::test_flash_attention_backward_cuda`` and
+``chip_smoke.py``'s ``train_grads``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tortoise_tts_tpu.models.unified_voice import _xla_trunk_attention
+from tortoise_tts_tpu.ops.attention import NEG_INF
+from tortoise_tts_tpu.ops.attention import mha as jax_mha
+from tortoise_tts_tpu_torch.kernels import flash_attention as k1
+
+RTOL, ATOL_OF_MAX = 1e-5, 1e-6
+CASES = [(s, causal, holes) for s in (1, 17, 64, 65, 130)
+         for causal in (True, False) for holes in (False, True)]
+
+
+def _close(got, want, name, scale=None):
+    """``scale``: the largest |value| the atol is a share of (default
+    want's own)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    atol = ATOL_OF_MAX * (np.abs(want).max() if scale is None else scale)
+    bad = np.abs(got - want) > RTOL * np.abs(want) + atol
+    assert not bad.any(), (name, float(np.abs(got - want).max()), atol)
+
+
+def _inputs(s, holes, seed, b=2, h=2, d=64):
+    """q, k, v, the upstream gradient and a key mask (None, or holes with
+    key 0 valid, as the card tests make it)."""
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (rng.randn(b, h, s, d).astype(np.float32) for _ in range(4))
+    mask = None
+    if holes:
+        mask = rng.rand(b, s) > 0.2
+        mask[:, 0] = True
+    return q, k, v, g, mask
+
+
+def _jax_fn(mask, causal):
+    """The JAX function whose vjp is the reference: the trunk's
+    ``_xla_trunk_attention`` (causal) or the same ``mha`` without the
+    causal test."""
+    km = None if mask is None else jnp.asarray(mask)
+    if causal:
+        return lambda q, k, v: _xla_trunk_attention(q, k, v, km)
+    m = None if km is None else km[:, None, None, :]
+    return lambda q, k, v: jax_mha(q, k, v, mask=m, causal=False)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("s,causal,holes", CASES)
+def test_backward_matches_jax_vjp(s, causal, holes):
+    q, k, v, g, mask = _inputs(s, holes, seed=s)
+    out, vjp = jax.vjp(_jax_fn(mask, causal), jnp.asarray(q), jnp.asarray(k),
+                       jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    o = k1.flash_attention(tq, tk, tv, _t(mask), causal)
+    _close(o.numpy(), out, "out")
+    lse = k1.flash_attention_lse_plain(tq, tk, _t(mask), causal)
+    got = k1.flash_attention_bwd(tq, tk, tv, lse, _t(g), _t(mask), causal)
+    top = max(float(np.abs(w).max()) for w in want)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == tq.shape
+        _close(a.numpy(), w, name, top)
+
+
+@pytest.mark.parametrize("s,causal,holes", CASES)
+def test_lse_plain_matches_jax_scores(s, causal, holes):
+    """The plain log-sum-exp against jax.nn.logsumexp of the scores as the
+    JAX ``mha`` masks them (NEG_INF at a masked or later key)."""
+    q, k, _, _, mask = _inputs(s, holes, seed=100 + s)
+    dots = jnp.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(q.shape[-1])
+    if causal:
+        dots = jnp.where(jnp.tril(jnp.ones((s, s), bool)), dots, NEG_INF)
+    if mask is not None:
+        dots = jnp.where(jnp.asarray(mask)[:, None, None, :], dots, NEG_INF)
+    want = jax.nn.logsumexp(dots, axis=-1)
+    got = k1.flash_attention_lse_plain(_t(q), _t(k), _t(mask), causal)
+    assert got.dtype == torch.float32 and got.shape == q.shape[:3]
+    _close(got.numpy(), want, "lse")
+
+
+@pytest.mark.parametrize("s,causal,holes", CASES)
+def test_backward_plain_matches_autograd(s, causal, holes):
+    """The plain backward against torch autograd of flash_attention_plain
+    on the same inputs and upstream gradient."""
+    q, k, v, g, mask = _inputs(s, holes, seed=200 + s)
+    xs = [_t(a).requires_grad_() for a in (q, k, v)]
+    o = k1.flash_attention_plain(*xs, _t(mask), causal)
+    want = torch.autograd.grad(o, xs, _t(g))
+    lse = k1.flash_attention_lse_plain(_t(q), _t(k), _t(mask), causal)
+    got = k1.flash_attention_bwd_plain(_t(q), _t(k), _t(v), lse, _t(g),
+                                       _t(mask), causal)
+    top = max(float(w.abs().max()) for w in want)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        _close(a.numpy(), w.numpy(), name, top)
+
+
+def test_backward_plain_of_strided_views_and_bf16():
+    """q, k, v as views of one fused qkv (the trunk's layout) give the
+    contiguous tensors' gradients; bf16 inputs give bf16 gradients, the
+    fp32 computation rounded once."""
+    q, k, v, g, mask = _inputs(33, True, seed=7)
+    qkv = torch.from_numpy(np.concatenate(
+        [a.transpose(0, 2, 1, 3) for a in (q, k, v)], axis=2).copy())
+    views = qkv.split(2, dim=2)
+    views = [t.transpose(1, 2) for t in views]
+    assert not views[0].is_contiguous()
+    lse = k1.flash_attention_lse_plain(_t(q), _t(k), _t(mask))
+    want = k1.flash_attention_bwd(_t(q), _t(k), _t(v), lse, _t(g), _t(mask))
+    got = k1.flash_attention_bwd(*views, lse, _t(g), _t(mask))
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    bf = [t.to(torch.bfloat16) for t in (_t(q), _t(k), _t(v), _t(g))]
+    got = k1.flash_attention_bwd(*bf[:3], lse, bf[3], _t(mask))
+    want = k1.flash_attention_bwd(*(t.float() for t in bf[:3]), lse,
+                                  bf[3].float(), _t(mask))
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, w.bfloat16())
+
+
+def test_records_grad_only_under_autograd():
+    """The forward writes the log-sum-exp only for a call autograd records:
+    never under no_grad or inference_mode, as every serving route runs."""
+    x = torch.zeros(1, requires_grad=True)
+    y = torch.zeros(1)
+    assert k1.records_grad(y, x)
+    assert not k1.records_grad(y, y)
+    with torch.no_grad():
+        assert not k1.records_grad(x)
+    with torch.inference_mode():
+        assert not k1.records_grad(x)

@@ -118,6 +118,10 @@ def test_kernel_wrappers_on_cpu_run_plain_versions():
     mask = torch.ones(1, 10, dtype=torch.bool)
     assert torch.equal(k1.flash_attention(q, k, v, mask),
                        k1.flash_attention_plain(q, k, v, mask))
+    lse = k1.flash_attention_lse_plain(q, k, mask)
+    for got, want in zip(k1.flash_attention_bwd(q, k, v, lse, v, mask),
+                         k1.flash_attention_bwd_plain(q, k, v, lse, v, mask)):
+        assert torch.equal(got, want)
     x = torch.randn(1, 64, generator=g)
     wq = torch.randint(-127, 128, (64, 128), dtype=torch.int8, generator=g)
     s = torch.rand(128, generator=g)
@@ -165,9 +169,10 @@ def test_kernel_wrappers_on_cpu_run_plain_versions():
         k9b.flash_attention_bias_cm_plain(q3[:, :, 0], q3[:, :, 1],
                                           q3[:, :, 2], bias))
     assert kernels.launch_counts() == {
-        "flash_attention": 0, "qgemv": 0, "qgemv_w8a8": 0, "flash_decode": 0,
-        "flash_decode_shared": 0, "gn_conv": 0, "ts_res_block": 0,
-        "flash_attention_bias": 0, "snake": 0, "flash_attention_bias_kq": 0,
+        "flash_attention": 0, "flash_attention_bwd": 0, "qgemv": 0,
+        "qgemv_w8a8": 0, "flash_decode": 0, "flash_decode_shared": 0,
+        "gn_conv": 0, "ts_res_block": 0, "flash_attention_bias": 0,
+        "snake": 0, "flash_attention_bias_kq": 0,
         "flash_attention_bias_cm": 0}
 
 

@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Time K1's backward kernel (``csrc/flash_attention_bwd.cu``) of one or
+more checkouts at the AR train steps' shapes on a CUDA card, in turns.
+
+    python3 tools/flash_backward_profile.py [--repo DIR ...]
+
+Imports ``tortoise_tts_tpu_torch`` from each ``--repo`` (default: this
+checkout) and times them in the order given, then in reverse (A, B, B, A),
+so two versions of the kernel compare on one card.  For each checkout,
+first its ``ptxas`` report of the backward's CUDA kernels (registers,
+spills), then one JSON line a turn and shape (bf16, causal, no key mask,
+``chip_smoke.K1_TRAIN_SHAPES``): the device ms a call of each of the
+backward's two CUDA kernels and their sum (torch.profiler over 10 calls,
+as ``chip_smoke.device_ms`` sums them), the fwd+bwd device ms of K1's
+autograd path, SDPA's fwd+bwd and its backward alone (autograd of a kept
+graph), and the backward's bound (``chip_smoke.bound_ms``).  Then the
+card's name and power limit.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(HERE))
+import chip_smoke as cs  # noqa: E402  (helpers only: it imports no port)
+
+
+def load(repo: str):
+    """K1's module of the checkout at ``repo``, its kernels built."""
+    for m in [m for m in sys.modules
+              if m.startswith("tortoise_tts_tpu_torch")]:
+        del sys.modules[m]
+    sys.path.insert(0, repo)
+    try:
+        k1 = importlib.import_module(
+            "tortoise_tts_tpu_torch.kernels.flash_attention")
+        from tortoise_tts_tpu_torch.kernels import _build
+    finally:
+        sys.path.pop(0)
+    _build.build(["flash_attention", "flash_attention_bwd"])
+    log = _build._lib_path("flash_attention_bwd").with_suffix(".log")
+    print(json.dumps({"repo": repo, "ptxas": [
+        ln.strip() for ln in log.read_text().splitlines()
+        if "Used" in ln or "spill" in ln or "Function properties" in ln]}),
+        flush=True)
+    return k1
+
+
+def per_kernel_ms(fn, n: int = 10) -> dict:
+    """Device ms a call of fn by CUDA kernel (dq, dkdv, other)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cs.profiler_warmup(torch)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in cs._cuda_events(prof):
+        key = ("dq" if "bwd_dq" in e.name else
+               "dkdv" if "bwd_dkdv" in e.name else "other")
+        out[key] = out.get(key, 0.0) + e.device_time / 1e3 / n
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--repo", action="append", default=None,
+                    help="checkout to time (repeatable; default: this one)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("flash_backward_profile: no CUDA device", file=sys.stderr)
+        return 2
+    repos = args.repo or [str(HERE)]
+    mods = {r: load(r) for r in repos}
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    for turn, repo in enumerate(repos + repos[::-1]):
+        k1 = mods[repo]
+        for i, shape in enumerate(cs.K1_TRAIN_SHAPES):
+            b, h, s, d = shape
+            g = torch.Generator(device=dev).manual_seed(70 + i)
+            q, k, v, up = (torch.randn(shape, generator=g, device=dev)
+                           .to(torch.bfloat16) for _ in range(4))
+            with torch.no_grad():
+                _, lse = k1._launch(q, k, v, None, True, with_lse=True)
+            parts = per_kernel_ms(lambda: k1.flash_attention_bwd(
+                q, k, v, lse, up))
+            xs = [t.detach().requires_grad_() for t in (q, k, v)]
+            sdpa = F.scaled_dot_product_attention(*xs, is_causal=True)
+            line = dict(
+                repo=repo, turn=turn, shape=list(shape),
+                bwd_ms={key: round(val, 5) for key, val in parts.items()},
+                bwd_total_ms=sum(parts.values()),
+                fwd_bwd_ms=cs.device_ms(torch, lambda _: cs._fwd_bwd(
+                    torch, lambda q, k, v: k1.flash_attention(q, k, v),
+                    (q, k, v), up), n=10, warmup=2),
+                sdpa_fwd_bwd_ms=cs.device_ms(torch, lambda _: cs._fwd_bwd(
+                    torch, lambda q, k, v: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True), (q, k, v), up),
+                    n=10, warmup=2),
+                sdpa_bwd_ms=cs.device_ms(torch, lambda _: torch.autograd.grad(
+                    sdpa, xs, up, retain_graph=True), n=10, warmup=2))
+            line["bound_ms"], line["bound_by"] = cs.bound_ms(
+                7 * b * h * s * d * 2 + 4 * b * h * s,
+                5 * b * h * d * s * (s + 1))
+            print(json.dumps(line), flush=True)
+            del sdpa, xs
+            torch.cuda.empty_cache()
+    print(cs.nvidia_smi())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

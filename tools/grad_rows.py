@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Why chip_smoke's ``train_grads`` holds K1's gradients under one fixed
-upstream gradient: K1's autograd path (kernel forward, plain recompute
-backward) and the plain version's, in bf16 at the AR train steps' shapes,
-read row by row as ``chip_smoke._row_err`` reads them (the worst row's
-error over its TRAIN_GRAD_TOL bound; above 1 fails).
+"""How K1's gradients read against chip_smoke's ``train_grads`` bound:
+K1's autograd path (its forward kernel and its backward kernel), the
+plain version's in bf16 and the plain version's in fp32 on the same
+bf16 inputs, at the AR train steps' shapes, read row by row as
+``chip_smoke._row_err`` reads them (the worst row's error over its
+TRAIN_GRAD_TOL bound; above 1 fails).
 
     python3 tools/grad_rows.py
 
 Prints one JSON line a shape and upstream gradient: ``output`` (the
 gradients of 0.5 sum(out^2), so each version's backward takes its own
 output) or ``fixed`` (one seeded draw for both), with the readings of
-the kernel path against the plain one (``kernel_vs_plain``) and, under
-``output``, of each against the fp32 plain version on the same inputs
-(``kernel_vs_fp32``, ``plain_vs_fp32``).  Then the card's name and power
-limit.  Needs a CUDA card.
+the kernel path against the bf16 plain one (``kernel_vs_plain``) and of
+each against the fp32 plain version on the same inputs
+(``kernel_vs_fp32``, what ``train_grads`` holds, and ``plain_vs_fp32``).
+Then the card's name and power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -31,10 +32,10 @@ import chip_smoke as cs  # noqa: E402  (helpers only: it imports no port)
 
 def grads(fn, inputs, upstream):
     """fn(*inputs) and its gradients; ``upstream`` None: the output's own
-    (the gradients of 0.5 sum(out^2))."""
+    (the gradients of 0.5 sum(out^2)), else taken in the output's dtype."""
     xs = [t.detach().requires_grad_() for t in inputs]
     out = fn(*xs)
-    up = out.detach() if upstream is None else upstream
+    up = out.detach() if upstream is None else upstream.to(out.dtype)
     return [out.detach()] + list(torch.autograd.grad(out, xs, up))
 
 
@@ -65,11 +66,10 @@ def main() -> int:
             kg, pg = grads(kernel, qkv, up), grads(plain, qkv, up)
             line = dict(shape=[b, h, s, d], upstream=name,
                         kernel_vs_plain=readings(kg, pg))
-            if up is None:
-                fg = grads(plain, [t.float() for t in qkv], None)
-                line.update(kernel_vs_fp32=readings(kg, fg),
-                            plain_vs_fp32=readings(pg, fg))
-                del fg
+            fg = grads(plain, [t.float() for t in qkv], up)
+            line.update(kernel_vs_fp32=readings(kg, fg),
+                        plain_vs_fp32=readings(pg, fg))
+            del fg
             print(json.dumps(line), flush=True)
             del kg, pg
             torch.cuda.empty_cache()

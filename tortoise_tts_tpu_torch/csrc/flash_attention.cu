@@ -45,6 +45,12 @@
 // projection and gets the output in its (B, S, H, D) layout.  k and v
 // need 16-byte aligned rows (the wrapper raises otherwise).
 //
+// With a non-null `lse` (the wrapper passes one only when autograd records
+// the call, so no serving route writes it) both forms also write each
+// row's natural log-sum-exp of its scaled, masked scores, (B, H, S) fp32:
+// in flash_attn_mma after the WK warps' merge, so the merged row's max and
+// sum.  K1's backward (flash_attention_bwd.cu) reads it.
+//
 // fp32 (flash_attn_f32) keeps CUDA-core FMAs: TF32 would round the fp32
 // parity runs' inputs.  One block of 64 threads per (16-query tile,
 // batch*head); four threads share a query row, each owning 16 of its 64
@@ -68,6 +74,7 @@ constexpr int TILE_BYTES = KT * D * 2;   // one bf16 K or V tile
 constexpr int MERGE_BYTES = 4 * 36 * 32 * 4;   // 4 warps' partial states
 constexpr float NEG_INF = -1e9f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // wait until at most n of this thread's cp.async groups are pending (n is
 // known only at run time; above 7 the wait is for 7, which is stricter)
@@ -120,6 +127,7 @@ struct Args {
   const bf16* v;
   const uint8_t* mask;   // (B, S) or null
   bf16* o;
+  float* lse;            // (B, H, S) or null
   int H, S, causal, nbuf;
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   float scale;
@@ -254,7 +262,9 @@ __device__ __forceinline__ void tile_step(State& st,
 // Dynamic shared memory: nbuf K tiles, nbuf V tiles (or, after the key
 // loop, the warps' partial states, MERGE_BYTES), then the key mask's first
 // kend bytes (with a mask).
-template <int WK>
+// LSE: write a.lse (a separate instance, so the serving calls, which pass
+// none, run the code they ran before the log-sum-exp existed)
+template <int WK, bool LSE>
 __global__ void __launch_bounds__(128, 1)
     flash_attn_mma(const __grid_constant__ Args a) {
   constexpr int WQ = 4 / WK;   // 16-query warp tiles a block
@@ -408,6 +418,11 @@ __global__ void __launch_bounds__(128, 1)
   st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, 1);
   st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, 2);
   const float i0 = 1.f / st.l0, i1 = 1.f / st.l1;
+  if (LSE && t == 0) {   // m is base 2, of the scaled scores
+    float* lp = a.lse + (long long)blockIdx.y * a.S;
+    if (r0 < a.S) lp[r0] = (st.m0 + log2f(st.l0)) * LN2;
+    if (r1 < a.S) lp[r1] = (st.m1 + log2f(st.l1)) * LN2;
+  }
   bf16* ob = a.o + b * a.osb + h * a.osh + 2 * t;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -432,10 +447,11 @@ __global__ void __launch_bounds__(THREADS_F32)
     flash_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
                    const uint8_t* __restrict__ mask, float* __restrict__ o,
-                   int H, int S, long long qsb, long long qsh, long long qss,
-                   long long ksb, long long ksh, long long kss, long long vsb,
-                   long long vsh, long long vss, long long osb, long long osh,
-                   long long oss, int causal, float scale) {
+                   float* __restrict__ lse, int H, int S, long long qsb,
+                   long long qsh, long long qss, long long ksb, long long ksh,
+                   long long kss, long long vsb, long long vsh, long long vss,
+                   long long osb, long long osh, long long oss, int causal,
+                   float scale) {
   __shared__ float Ks[KT][D + 1];
   __shared__ float Vs[KT][D + 1];
   __shared__ uint8_t Ms[KT];
@@ -522,21 +538,28 @@ __global__ void __launch_bounds__(THREADS_F32)
     float* op = o + b * osb + h * osh + (long long)qi * oss;
 #pragma unroll
     for (int i = 0; i < DL; ++i) op[LANES * i + sub] = acc[i] * inv;
+    if (lse && sub == 0) lse[(long long)blockIdx.y * S + qi] = m + logf(l);
   }
 }
 
-template <int WK>
+template <int WK, bool LSE>
 int launch_mma(const Args& a, int B, int qtiles, int smem, cudaStream_t st) {
   static int allowed = 48 * 1024;
   if (smem > allowed) {
     const int rc = static_cast<int>(cudaFuncSetAttribute(
-        flash_attn_mma<WK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem));
+        flash_attn_mma<WK, LSE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
     if (rc) return rc;
     allowed = smem;
   }
-  flash_attn_mma<WK><<<dim3(qtiles, B * a.H), 128, smem, st>>>(a);
+  flash_attn_mma<WK, LSE><<<dim3(qtiles, B * a.H), 128, smem, st>>>(a);
   return 0;
+}
+
+template <int WK>
+int launch_mma(const Args& a, int B, int qtiles, int smem, cudaStream_t st) {
+  return a.lse ? launch_mma<WK, true>(a, B, qtiles, smem, st)
+               : launch_mma<WK, false>(a, B, qtiles, smem, st);
 }
 
 }  // namespace
@@ -545,13 +568,14 @@ int launch_mma(const Args& a, int B, int qtiles, int smem, cudaStream_t st) {
 // (head-dim) stride of every tensor is 1.  bf16: k and v rows 16-byte
 // aligned (base pointers and the b, h, s strides), q's even; float32: k
 // and v aligned to two elements with even strides.  mask: (B, S) uint8
-// or null.  bf16 launch plan (kernels/flash_attention.plan): `wk` warps
+// or null.  lse: (B, H, S) fp32 or null (written when given).  bf16
+// launch plan (kernels/flash_attention.plan): `wk` warps
 // (1, 2 or 4) share each 16-query tile's keys, so a block of 4 warps
 // holds 4 / wk query tiles; `qtiles` = ceil(S / (16 * 4 / wk)) blocks a
 // (batch, head); `nbuf` key tiles resident in shared memory.
 extern "C" int tts_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* mask, void* o,
-    int B, int H, int S, int dtype, long long qsb, long long qsh,
+    void* lse, int B, int H, int S, int dtype, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh, long long oss,
     int causal, float scale, int wk, int qtiles, int nbuf, void* stream) {
@@ -559,9 +583,9 @@ extern "C" int tts_flash_attention_fwd(
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
   if (dtype == 1) {
     const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                 static_cast<const bf16*>(v), mk, static_cast<bf16*>(o), H,
-                 S, causal, nbuf, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh,
-                 vss, osb, osh, oss, scale};
+                 static_cast<const bf16*>(v), mk, static_cast<bf16*>(o),
+                 static_cast<float*>(lse), H, S, causal, nbuf, qsb, qsh,
+                 qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, scale};
     const int body = 2 * nbuf * TILE_BYTES > MERGE_BYTES
                          ? 2 * nbuf * TILE_BYTES
                          : MERGE_BYTES;
@@ -573,8 +597,9 @@ extern "C" int tts_flash_attention_fwd(
   } else {
     flash_attn_f32<<<dim3((S + BQ - 1) / BQ, B * H), THREADS_F32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), mk, static_cast<float*>(o), H, S, qsb,
-        qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, causal, scale);
+        static_cast<const float*>(v), mk, static_cast<float*>(o),
+        static_cast<float*>(lse), H, S, qsb, qsh, qss, ksb, ksh, kss, vsb,
+        vsh, vss, osb, osh, oss, causal, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

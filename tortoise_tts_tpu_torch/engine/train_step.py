@@ -22,8 +22,9 @@ On the card the kernels carry the forward: K1 in the AR trunk (twice a
 layer with ``remat``: the layer runs again in the backward), K4 and K5
 in the denoiser's resblocks and attention heads, K7 in every Snake of
 the vocoder's generator (twice a step: the detached fake for the
-discriminator, then the generator's loss).  Their backwards recompute
-the plain versions.  K5 reads its weight tap-major: the
+discriminator, then the generator's loss).  K1's backward is a kernel
+too, once a layer; the backwards of K4, K5 and K7 recompute the plain
+versions.  K5 reads its weight tap-major: the
 diffusion step prepares it from the live weight inside the loss, so the
 kernel never sees a stale copy and the weight's gradient comes through.
 

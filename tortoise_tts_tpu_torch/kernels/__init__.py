@@ -3,6 +3,7 @@
 | module | replaces (JAX package) | CUDA source |
 | --- | --- | --- |
 | ``flash_attention`` | ``ops/pallas_attention.py`` ``flash_attention`` | ``csrc/flash_attention.cu`` |
+| ``flash_attention`` (``KERNEL_BWD``) | no Pallas kernel: the backward of ``models/unified_voice.py``'s ``custom_vjp`` (XLA's ``jax.vjp`` of ``mha``) | ``csrc/flash_attention_bwd.cu`` |
 | ``qgemv`` | ``ops/pallas_gemv.py`` ``qgemv_stacked`` | ``csrc/qgemv.cu`` |
 | ``qgemv_w8a8`` | ``ops/pallas_gemv.py`` ``qgemv_stacked_w8a8`` | ``csrc/qgemv_w8a8.cu`` |
 | ``flash_decode`` | ``ops/pallas_decode_attn.py`` ``flash_decode_stacked``, and its shared-prefix form | ``csrc/flash_decode.cu`` |
@@ -28,7 +29,9 @@ from . import (flash_attention, flash_attention_bias, flash_attention_bias_cm,
                qgemv_w8a8, snake, ts_res_block)
 from ._build import build
 
-KERNELS = {"flash_attention": flash_attention.KERNEL, "qgemv": qgemv.KERNEL,
+KERNELS = {"flash_attention": flash_attention.KERNEL,
+           "flash_attention_bwd": flash_attention.KERNEL_BWD,
+           "qgemv": qgemv.KERNEL,
            "qgemv_w8a8": qgemv_w8a8.KERNEL,
            "flash_decode": flash_decode.KERNEL,
            "flash_decode_shared": flash_decode.KERNEL_SHARED,

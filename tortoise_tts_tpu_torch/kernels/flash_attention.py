@@ -8,11 +8,21 @@ the design: in bf16 one ``flash_attn_mma`` launch (tensor cores), in fp32
 one ``flash_attn_f32`` launch (CUDA cores).  ``plan`` is the bf16
 kernel's launch plan.
 
-``flash_attention`` runs the plain PyTorch version for CPU tensors and
-the kernel for CUDA tensors (it raises on what the kernel does not
-take).  On CUDA the call is a ``torch.autograd.Function`` whose backward
-recomputes the plain version, as the JAX package's ``custom_vjp`` does
-(``unified_voice.py:44-64``).
+``flash_attention`` runs the plain PyTorch version for CPU tensors (and
+autograd of it) and the kernel for CUDA tensors (it raises on what the
+kernel does not take).  On CUDA, when autograd records the call, it is a
+``torch.autograd.Function`` whose forward also writes each row's
+log-sum-exp and whose backward is K1's backward kernel
+(``flash_attention_bwd``, ``csrc/flash_attention_bwd.cu``: two launches,
+one count on ``KERNEL_BWD``).  That kernel replaces no Pallas kernel: it
+computes what the JAX package's ``custom_vjp`` backward
+(``unified_voice.py:44-64``, XLA's ``jax.vjp`` of ``mha``) computes.  Its
+bound on an H100 at the AR steps' shapes is the five S x S products of
+the causal half or the bytes of q, k, v, dO, dq, dk, dv (0.050 ms of
+operations, 0.053 of bytes at (16, 16, 773, 64)); its design keeps every
+product of its two kernels on ``wgmma`` in bf16 (the source's header).
+A call under ``no_grad`` or ``inference_mode``, as every serving route
+makes it, writes no log-sum-exp.
 """
 
 from __future__ import annotations
@@ -22,11 +32,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.attention import mha
+from ..ops.attention import NEG_INF, mha
 from ._build import F, I, LL, P, Kernel
 
 KERNEL = Kernel("flash_attention", "tts_flash_attention_fwd",
-                [P] * 5 + [I] * 4 + [LL] * 12 + [I, F, I, I, I, P])
+                [P] * 6 + [I] * 4 + [LL] * 12 + [I, F, I, I, I, P])
+KERNEL_BWD = Kernel("flash_attention_bwd", "tts_flash_attention_bwd",
+                    [P] * 10 + [I] * 4 + [LL] * 21 + [I, F, P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132           # streaming multiprocessors of an H100 SXM
 KEY_TILE = 64       # keys a shared-memory tile (KT in the source)
@@ -71,24 +83,99 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return mha(q, k, v, mask=mask, causal=causal)
 
 
+def _allowed(s: int, key_mask: Optional[torch.Tensor], causal: bool,
+             device) -> Optional[torch.Tensor]:
+    """Which (query, key) pairs attend, broadcastable to (B, H, S, S), or
+    None for all."""
+    ok = None
+    if causal:
+        ok = torch.ones(s, s, dtype=torch.bool, device=device).tril()
+    if key_mask is not None:
+        km = key_mask.to(torch.bool)[:, None, None, :]
+        ok = km if ok is None else ok & km
+    return ok
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1])
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              key_mask: Optional[torch.Tensor] = None,
+                              causal: bool = True) -> torch.Tensor:
+    """(B, H, S) fp32: each row's natural log-sum-exp of the scaled scores,
+    a masked or causally excluded key at NEG_INF as ``mha`` sets it (what
+    the kernel's forward writes for the backward)."""
+    s = _scores(q, k)
+    ok = _allowed(q.shape[2], key_mask, causal, q.device)
+    if ok is not None:
+        s = s.masked_fill(~ok, NEG_INF)
+    return torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, lse: torch.Tensor,
+                              do: torch.Tensor,
+                              key_mask: Optional[torch.Tensor] = None,
+                              causal: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward kernel's function in plain PyTorch, fp32 inside: with
+    P = exp(S - LSE) (0 at a masked or causally excluded key), dP = dO
+    V^T and Delta = rowsum(P dP) (autograd's softmax backward: rowsum(dO
+    o) for the exact o), dV = P^T dO, dS = P (dP - Delta), dQ = scale dS
+    K, dK = scale dS^T Q.  q, k, v, do: (B, H, S, D); lse: (B, H, S) fp32.
+    Returns (dq, dk, dv) in q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
+    p = torch.exp(_scores(q, k) - lse.float()[..., None])
+    ok = _allowed(q.shape[2], key_mask, causal, q.device)
+    if ok is not None:
+        p = p.masked_fill(~ok, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
 def _aligned(t: torch.Tensor, elems: int) -> bool:
     """Base pointer and the three outer strides on ``elems`` elements."""
     return t.data_ptr() % (elems * t.element_size()) == 0 \
         and all(st % elems == 0 for st in t.stride()[:3])
 
 
-def _launch(q, k, v, key_mask, causal):
+def _check_qkv(name, q, tensors, key_mask):
+    """Head dim 64, one dtype the kernel takes, one shape and device, a
+    unit head-dim stride; returns the key mask as (B, S) uint8 or None."""
     b, h, s, d = q.shape
     if d != 64:
-        raise ValueError(f"flash_attention kernel takes head dim 64, got {d}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
-                        f"q/k/v of one type, got {q.dtype}/{k.dtype}/{v.dtype}")
-    for t in (k, v):
+        raise ValueError(f"{name} kernel takes head dim 64, got {d}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 tensors "
+                        f"of one type, got "
+                        f"{[t.dtype for t in (q, *tensors)]}")
+    for t in tensors:
         if t.shape != q.shape or t.device != q.device:
-            raise ValueError("q, k, v must share shape and device")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("q, k, v need a unit head-dim stride")
+            raise ValueError(f"{name}: q, k, v (and do) must share shape "
+                             f"and device")
+    if any(t.stride(-1) != 1 for t in (q, *tensors)):
+        raise ValueError(f"{name}: the tensors need a unit head-dim stride")
+    if key_mask is None:
+        return None
+    if key_mask.shape != (b, s) or key_mask.device != q.device:
+        raise ValueError(f"key_mask must be ({b}, {s}) on {q.device}")
+    return key_mask.to(torch.bool).contiguous().view(torch.uint8)
+
+
+def _launch(q, k, v, key_mask, causal, with_lse=False):
+    """The forward kernel: the output, a (B, H, S, D) view of (B, S, H, D)
+    memory, and with ``with_lse`` each row's log-sum-exp (B, H, S) fp32
+    (else None)."""
+    mask = _check_qkv("flash_attention", q, (k, v), key_mask)
+    b, h, s, d = q.shape
     bf16 = q.dtype == torch.bfloat16
     # bf16: 16-byte copies of k and v rows, 4-byte reads of q; fp32: pairs
     kv_elems, q_elems = (8, 2) if bf16 else (2, 1)
@@ -98,11 +185,6 @@ def _launch(q, k, v, key_mask, causal):
             f"flash_attention kernel needs k, v rows aligned to "
             f"{kv_elems * q.element_size()} bytes and q to "
             f"{q_elems * q.element_size()} (base pointers and strides)")
-    mask = None
-    if key_mask is not None:
-        if key_mask.shape != (b, s) or key_mask.device != q.device:
-            raise ValueError(f"key_mask must be ({b}, {s}) on {q.device}")
-        mask = key_mask.to(torch.bool).contiguous().view(torch.uint8)
     wk, tiles, nbuf = plan(b, h, s)
     if bf16 and smem_bytes(s, nbuf, mask is not None) > SMEM_MAX:
         raise ValueError(f"flash_attention kernel: S={s} key mask does not "
@@ -111,30 +193,88 @@ def _launch(q, k, v, key_mask, causal):
     # transpose back to (B, S, H*D) is then free
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   mask.data_ptr() if mask is not None else None,
-                  out.data_ptr(), b, h, s, _DTYPES[q.dtype],
+                  out.data_ptr(), lse.data_ptr() if with_lse else None,
+                  b, h, s, _DTYPES[q.dtype],
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *out.stride()[:3], int(causal), 1.0 / math.sqrt(d),
                   wk, tiles, nbuf,
                   torch.cuda.current_stream(q.device).cuda_stream)
-    return out
+    return out, lse
+
+
+def _launch_bwd(q, k, v, lse, do, key_mask, causal):
+    mask = _check_qkv("flash_attention_bwd", q, (k, v, do), key_mask)
+    b, h, s, d = q.shape
+    if lse.dtype != torch.float32 or lse.shape != (b, h, s) \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"({b}, {h}, {s}) float32 tensor on {q.device}")
+    # bf16: 16-byte copies and loads of every row
+    elems = 8 if q.dtype == torch.bfloat16 else 1
+    if not all(_aligned(t, elems) for t in (q, k, v, do)):
+        raise ValueError(
+            f"flash_attention_bwd kernel needs q, k, v, do rows aligned "
+            f"to {elems * q.element_size()} bytes (base pointers and "
+            f"strides)")
+    # (B, S, H, D) memory as (B, H, S, D) views, as the forward's output
+    dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+                  .transpose(1, 2) for _ in range(3))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    KERNEL_BWD.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        mask.data_ptr() if mask is not None else None,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s,
+        _DTYPES[q.dtype],
+        *(st for t in (q, k, v, do, dq, dk, dv) for st in t.stride()[:3]),
+        int(causal), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor,
+                        key_mask: Optional[torch.Tensor] = None,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` given its log-sum-exp (B, H, S)
+    and the upstream gradient do, (B, H, S, D) as q, k, v.  CPU tensors:
+    ``flash_attention_bwd_plain``; CUDA tensors: the backward kernel
+    (raises on what it does not take)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, lse, do, key_mask, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
+    return _launch_bwd(q, k, v, lse, do, key_mask, causal)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_mask, causal):
-        ctx.save_for_backward(q, k, v)
+        out, lse = _launch(q, k, v, key_mask, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.key_mask, ctx.causal = key_mask, causal
-        return _launch(q, k, v, key_mask, causal)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = flash_attention_plain(q, k, v, ctx.key_mask, ctx.causal)
-        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        q, k, v, lse = ctx.saved_tensors
+        # autograd hands any layout: the kernel reads rows on 16 bytes
+        if g.stride(-1) != 1 or not _aligned(g, 8):
+            g = g.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, g, ctx.key_mask,
+                                         ctx.causal)
         return dq, dk, dv, None, None
+
+
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on these inputs (not under
+    ``no_grad`` or ``inference_mode``, and one of them requires grad)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -146,4 +286,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, key_mask, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
-    return _FlashAttention.apply(q, k, v, key_mask, causal)
+    if records_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, key_mask, causal)
+    return _launch(q, k, v, key_mask, causal)[0]

@@ -8,10 +8,10 @@ with per-modality learned position embeddings and no trunk positions.
 What runs where:
 - the causal trunk attention of the prefill, of the latent pass and of
   the training forward (``forward``) goes through K1
-  (``kernels/flash_attention``), whose backward recomputes its plain
-  version; with ``remat`` each trunk layer is recomputed in the backward
+  (``kernels/flash_attention``), whose backward is K1's backward kernel;
+  with ``remat`` each trunk layer is recomputed in the backward
   (``torch.utils.checkpoint``), so a training step launches K1 twice a
-  layer;
+  layer and its backward once;
 - each decode step's four linears go through K2 (``kernels/qgemv``, int8
   weights) or, with ``quant_mode="w8a8"``, K8 (``kernels/qgemv_w8a8``,
   int8 weights and per-row int8 activations), the LayerNorms fused into
