@@ -135,17 +135,21 @@ leave the card:
    path), K4 (the resblock in-half and the attention qkv head) and K5 at
    the diffusion step's (16, 1024, 2240), K7 at the vocoder step's six
    (8, C, T) stages, in bf16: the kernel's autograd
-   path (K1: kernel forward with its log-sum-exp, then K1's backward
-   kernel, never its plain version; K4, K5, K7: kernel forward, plain
-   recompute backward; K5's tap-major weight made from the live weight
-   in the graph) against the plain version's autograd (K1's computed in
-   fp32 from the same bf16 inputs, with the bf16 plain backward's own
-   reading beside it), the output and every input's gradient row by row
+   path (K1, K4, K5: kernel forward, the forward's statistics kept (K1's
+   log-sum-exp, K4's and K5's mean and rstd), then the backward kernel,
+   never a plain version; K7: kernel forward, plain recompute backward;
+   K5's tap-major weight made from the live weight in the graph) against
+   the plain version's autograd (K1's, K4's and K5's computed in fp32
+   from the same bf16 inputs, with the bf16 plain backward's own reading
+   beside it), the output and every input's gradient row by row
    (TRAIN_GRAD_TOL), and fwd+bwd device ms beside the library's (SDPA
-   causal; F.group_norm + F.silu + F.conv1d) and the bound.  K1's
-   backward alone: its launch count, two calls' bits equal, device ms
-   beside the plain backward's, SDPA's backward's and its bound, and its
-   fp32 form within 1e-4 (row by row) at (8, 16, 389, 64).
+   causal; F.group_norm + F.silu + F.conv1d) and the bound.  K1's, K4's
+   (both heads) and K5's backward alone: the launch count, two calls'
+   bits equal, the error against the fp32 plain backward, device ms (K4
+   and K5 also per CUDA kernel) beside the plain backward's, the
+   library's backward's (SDPA; autograd of F.group_norm + F.silu +
+   F.conv1d) and the bound; K1's fp32 form within 1e-4 (row by row) at
+   (8, 16, 389, 64).
 17. ``train_tiny``: one step of a tiny AR, diffusion and DVAE model, fp32
    with TF32 off, on the card (K1, K4, K5) and on the CPU from the same
    params, batch, t and noise: loss and every gradient leaf within 1e-3
@@ -167,7 +171,8 @@ leave the card:
    checks finite losses, no skipped step and K1, K4 and K5's launches a
    micro-step against the count the code implies (``train_launches``);
    the AR finetune also the checkpoint's stall and write seconds.  K1's
-   backward kernel launches once a layer of every AR micro-step.
+   backward kernel launches once a layer of every AR micro-step, K4's and
+   K5's once a K4 and a K5 call of every diffusion micro-step.
 19. ``vocoder_gan``: the BigVGAN engine through ``load_engines`` and
    ``Engines.step`` at full width (the shipped generator, MPD periods 2,
    3, 5, 7, 11, MRD; AdamW), 8 steps on one batch of 8 x 8192 samples of
@@ -275,7 +280,7 @@ BIAS_CUDA_KERNELS = {"flash_attention_bias": "attn_bias_tc",
                      "flash_attention_bias_kq": "attn_bias_kq_tc",
                      "flash_attention_bias_cm": "attn_bias_cm_tc"}
 # K1's backward: only training launches it
-TRAIN_ONLY = ("flash_attention_bwd",)
+TRAIN_ONLY = ("flash_attention_bwd", "gn_conv_bwd", "ts_res_block_bwd")
 INT8_ROUTE_IDLE = SLICE3_KERNELS + (W8A8,) + SLICE5_KERNELS + TRAIN_ONLY
 # the modes' first trunk output against "auto", relative to its largest
 # value: "auto" runs the single route's attention (and every route's
@@ -3453,9 +3458,14 @@ K1_TRAIN_SHAPES = ((16, 16, 773, 64), (8, 16, 389, 64))
 DIFF_TRAIN_T = 2240
 DIFF_TRAIN_B = 16
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "gn_conv",
-                 "ts_res_block")
+                 "ts_res_block", "gn_conv_bwd", "ts_res_block_bwd")
 # K1's fp32 backward against the fp32 plain version, row by row
 K1_F32_BWD_TOL = 1e-4
+# the CUDA kernels of K4's and K5's backward (csrc/resblock.cu), in launch
+# order; fp32 takes bwd_gemm_f32 for both products
+RESBLOCK_BWD_KERNELS = ("bwd_apply_norm", "bwd_transpose", "bwd_da_wgmma",
+                        "bwd_norm", "bwd_dw_wgmma", "bwd_reduce",
+                        "bwd_gemm_f32")
 # the vocoder GAN step: B segments of T samples (T / 256 mel frames) of
 # the synthetic reference at 24 kHz, AdamW at VOC_LR (the BigVGAN
 # recipe's rate) for VOC_STEPS steps
@@ -3499,19 +3509,21 @@ def vocoder_snakes(cfg=None) -> int:
 
 def train_launches(ar: int = 0, diffusion: int = 0, feeder: int = 0,
                    remat: bool = True) -> dict:
-    """K1, K1's backward, K4 and K5 launches a micro-step: K1 a layer of an
-    ``ar``-layer AR step, again in its remat recompute, and a layer of the
-    diffusion feeder's ``feeder``-layer latent pass (under no_grad: no
-    backward); K1's backward kernel a layer of the AR step; in a
-    ``diffusion``-layer diffusion step K4 in the latent conditioner's 4
-    attention heads, the integrator's 3 and the trunk's layers (a
-    resblock in-half and an attention head each) and the 3 final
-    resblocks, K5 in every resblock.  K4's and K5's backwards recompute
-    the plain versions and launch nothing."""
+    """K1, K1's backward, K4, K5 and their backwards' launches a
+    micro-step: K1 a layer of an ``ar``-layer AR step, again in its remat
+    recompute, and a layer of the diffusion feeder's ``feeder``-layer
+    latent pass (under no_grad: no backward); K1's backward kernel a layer
+    of the AR step; in a ``diffusion``-layer diffusion step K4 in the
+    latent conditioner's 4 attention heads, the integrator's 3 and the
+    trunk's layers (a resblock in-half and an attention head each) and the
+    3 final resblocks, K5 in every resblock; every one of those calls is
+    in the loss's graph, so K4's and K5's backward kernels launch once for
+    each."""
+    k4 = 4 + 3 * 2 + 2 * diffusion + 3 if diffusion else 0
+    k5 = 3 + diffusion + 3 if diffusion else 0
     return {"flash_attention": ar * (2 if remat else 1) + feeder,
-            "flash_attention_bwd": ar,
-            "gn_conv": 4 + 3 * 2 + 2 * diffusion + 3 if diffusion else 0,
-            "ts_res_block": 3 + diffusion + 3 if diffusion else 0}
+            "flash_attention_bwd": ar, "gn_conv": k4, "ts_res_block": k5,
+            "gn_conv_bwd": k4, "ts_res_block_bwd": k5}
 
 
 def _fwd_bwd(torch, fn, inputs, upstream):
@@ -3721,16 +3733,154 @@ def _k1_f32(torch, k1, dev, shape) -> None:
     torch.cuda.empty_cache()
 
 
+def kernel_ms(torch, fn, n: int = 10, warmup: int = 2) -> dict:
+    """Device ms of each CUDA kernel that one call of fn launches, by
+    ``_short_name``, the mean over n calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiler_warmup(torch)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in _cuda_events(prof):
+        key = _short_name(e.name)
+        out[key] = out.get(key, 0.0) + e.device_time / 1e3 / n
+    return out
+
+
+def _short_name(name: str) -> str:
+    """A CUDA kernel's demangled name without its return type, namespace
+    and arguments (template arguments kept): "bwd_da_wgmma<1, 64>"."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    base, lt, targs = name.split("(")[0].partition("<")
+    return base.split("::")[-1] + lt + targs
+
+
+@contextlib.contextmanager
+def _no_resblock_plain(k4, k5):
+    """K4's and K5's plain forwards and backwards raise while the block
+    runs: a CUDA call that reached one would fail."""
+    names = ((k4, "gn_conv1x1_plain"), (k4, "gn_conv1x1_bwd_plain"),
+             (k4, "ts_res_block_out_bwd_plain"),
+             (k5, "ts_res_block_out_plain"))
+    saved = [getattr(m, n) for m, n in names]
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version of K4 or K5 ran on CUDA")
+    for m, n in names:
+        setattr(m, n, refuse)
+    try:
+        yield
+    finally:
+        for (m, n), f in zip(names, saved):
+            setattr(m, n, f)
+
+
+def _resblock_backward(torch, k4, k5, name, shape, autograd, bwd, plain,
+                       library, nbytes, flops) -> dict:
+    """K4's or K5's backward kernel alone (``bwd()``: one direct call on
+    the forward's statistics and a seeded upstream, returning {gradient
+    name: tensor}), in bf16 at a training shape: one launch count a call
+    (of ``autograd()``, the kernel path's forward and backward, too, where
+    no plain version may run), the same bits in two calls, the largest
+    error of each gradient against the plain backward computed in fp32
+    from the same inputs (``plain(True)``; within 2% of the gradient's
+    largest value), and device ms, in sum and per CUDA kernel, beside the
+    bf16 plain backward's (``plain(False)``), the library's backward
+    (``library()``: autograd of F.group_norm + F.silu + F.conv1d on a kept
+    graph) and the bound."""
+    kernel = k5.KERNEL_BWD if name == "ts_res_block_bwd" else k4.KERNEL_BWD
+    n0 = kernel.launches
+    with _no_resblock_plain(k4, k5):
+        autograd()
+        got, again = bwd(), bwd()
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 3, (name, kernel.launches - n0)
+    same = all(torch.equal(got[k], again[k]) for k in got)
+    assert same, f"{name}: two calls differ"
+    want = plain(True)
+    err, rel = {}, {}
+    for k, w in want.items():
+        d = float((got[k].float().reshape(-1) - w.float().reshape(-1)
+                   ).abs().max())
+        top = float(w.float().abs().max())
+        assert math.isfinite(d) and d <= 2e-2 * top, (name, k, d, top)
+        err[k], rel[k] = d, d / max(top, 1e-30)
+    del got, again, want
+    t = {"ms": device_ms(torch, lambda _: bwd(), n=10, warmup=2),
+         "kernels_ms": kernel_ms(torch, bwd),
+         "plain_ms": device_ms(torch, lambda _: plain(False), n=3,
+                               warmup=1),
+         "library_ms": device_ms(torch, lambda _: library(), n=10,
+                                 warmup=2)}
+    bms, by = bound_ms(nbytes, flops)
+    emit("train_grads", name=name, shape=list(shape), launches_a_call=1,
+         same_bits=same, max_abs_err=err, rel_err=rel,
+         library="F.group_norm + F.silu + F.conv1d backward", bound_ms=bms,
+         bound_by=by, **t)
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(err.values()), bound_ms=bms, bound_by=by,
+                ms=t["ms"], plain_ms=t["plain_ms"],
+                library_ms=t["library_ms"])
+
+
+def _k4_backward(torch, k4, k5, x, norm, conv, groups, act, kernel) -> dict:
+    """``_resblock_backward`` of K4 at x's shape: bound by x, the upstream
+    and W read and dx, dW written (2 bytes each), or the two products (da
+    and dW, each the forward's 2 B M C T) at 989 TFLOP/s."""
+    F = torch.nn.functional
+    b, c, t = x.shape
+    ga, be, w, bi = norm["scale"], norm["bias"], conv["w"], conv["b"]
+    m = w.shape[0]
+    g = torch.Generator(device=x.device).manual_seed(13)
+    up = torch.randn(b, m, t, generator=g, device=x.device).to(x.dtype)
+    with torch.no_grad():
+        _, st = k4._launch(x, ga, be, w, bi, groups, act, 1e-5,
+                           with_stats=True)
+    wb = w.reshape(m, c).t().contiguous()[None]
+    names = ("x", "gamma", "beta", "w", "b")
+
+    def bwd():
+        r = k4._launch_bwd(k4.KERNEL_BWD, x, ga, be, bi, wb, up, st, groups,
+                           act, 1e-5)
+        return dict(zip(names, r[:5]))
+
+    def plain(f32):
+        f = (lambda v: v.float()) if f32 else (lambda v: v)
+        r = k4.gn_conv1x1_bwd_plain(f(x), ga, be, f(w), bi, f(up), groups,
+                                    act, stats=(st[:b * groups],
+                                                st[b * groups:]))
+        return dict(zip(names, r))
+    xs = [v.detach().requires_grad_() for v in (x, ga, be, w, bi)]
+    y = F.group_norm(xs[0], groups, xs[1].to(x.dtype), xs[2].to(x.dtype))
+    lib = F.conv1d(F.silu(y) if act else y, xs[3], xs[4].to(x.dtype))
+    r = _resblock_backward(
+        torch, k4, k5, "gn_conv_bwd", (b, c, t, m),
+        lambda: _fwd_bwd(torch, kernel, (x, ga, be, w, bi), up), bwd, plain,
+        lambda: torch.autograd.grad(lib, xs, up, retain_graph=True),
+        2 * (2 * b * c * t + b * m * t + 2 * m * c), 4 * b * m * c * t)
+    del lib, y, xs
+    return r
+
+
 def train_grads(torch, dev):
     """Phase 16: K1, K4, K5 and K7 differentiated on the card at the
-    training shapes, in bf16: the kernel's autograd path (K1: its forward
-    and backward kernels; K4, K5, K7: kernel forward, plain recompute
-    backward) against the plain version's autograd (K1's in fp32), output
-    and every input's gradient, and fwd+bwd device ms beside the library's
-    (SDPA; F.group_norm + F.silu + F.conv1d; none for K7) and the bound;
-    K1's backward kernel alone (``_k1_backward``) and its fp32 form.
-    Returns the lines' numbers, K1's backward's at the README yaml's shape
-    under "flash_attention_bwd"."""
+    training shapes, in bf16: the kernel's autograd path (K1, K4, K5: the
+    forward and backward kernels; K7: kernel forward, plain recompute
+    backward) against the plain version's autograd (K1's, K4's and K5's
+    in fp32), output and every input's gradient, and fwd+bwd device ms
+    beside the library's (SDPA; F.group_norm + F.silu + F.conv1d; none for
+    K7) and the bound; K1's backward kernel alone (``_k1_backward``) and
+    its fp32 form; K4's and K5's backward kernels alone
+    (``_resblock_backward``).  Returns the lines' numbers, K1's backward's
+    at the README yaml's shape under "flash_attention_bwd", K4's and K5's
+    under ("gn_conv_bwd", head) and ("ts_res_block_bwd", B)."""
     from tortoise_tts_tpu_torch.kernels import flash_attention as k1
     from tortoise_tts_tpu_torch.kernels import gn_conv as k4
     from tortoise_tts_tpu_torch.kernels import ts_res_block as k5
@@ -3783,7 +3933,9 @@ def train_grads(torch, dev):
             torch, "gn_conv", (b, c, t, m), kernel, plain, library, inputs,
             ("x", "gamma", "beta", "w", "b"),
             2 * (3 * b * c * t + 3 * b * m * t) + 2 * 2 * m * c,
-            6 * b * m * c * t)
+            6 * b * m * c * t, fp32_ref=True)
+        out[("gn_conv_bwd", name)] = _k4_backward(
+            torch, k4, k5, x, norm, conv, groups, act, kernel)
     h, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, c, 3, 90)
     g = torch.Generator(device=dev).manual_seed(91)
     x = torch.randn(b, c, t, generator=g, device=dev).to(torch.bfloat16)
@@ -3807,11 +3959,45 @@ def train_grads(torch, dev):
         y = F.group_norm(h, groups, ga.to(h.dtype), be.to(h.dtype))
         return x + F.conv1d(F.silu(y * (1 + sc) + sh), w, bi.to(h.dtype),
                             padding=1)
+    k5_inputs = (h, x, emb, norm["scale"], norm["bias"], conv["w"],
+                 conv["b"])
     out[("ts_res_block", b)] = _grad_case(
         torch, "ts_res_block", (b, c, t), k5_kernel, k5_plain, k5_library,
-        (h, x, emb, norm["scale"], norm["bias"], conv["w"], conv["b"]),
-        ("h", "x", "emb", "gamma", "beta", "w", "b"),
-        2 * 7 * b * c * t + 2 * 2 * 3 * c * c, 6 * b * c * 3 * c * t)
+        k5_inputs, ("h", "x", "emb", "gamma", "beta", "w", "b"),
+        2 * 7 * b * c * t + 2 * 2 * 3 * c * c, 6 * b * c * 3 * c * t,
+        fp32_ref=True)
+    # K5's backward alone: bound by h, the upstream and W read and dh, dW
+    # written, or its two products (K = 3C)
+    ga, be, w, bi = norm["scale"], norm["bias"], conv["w"], conv["b"]
+    g = torch.Generator(device=dev).manual_seed(14)
+    up = torch.randn(b, c, t, generator=g, device=dev).to(h.dtype)
+    with torch.no_grad():
+        _, st = k5._launch(h, x, emb, ga, be, k5.taps(w), bi, groups, 1e-5,
+                           with_stats=True)
+    wb = w.flip(2).permute(2, 1, 0).contiguous()
+    k5_names = ("h", "gamma", "beta", "w", "b", "emb")
+
+    def k5_bwd():
+        r = k4._launch_bwd(k5.KERNEL_BWD, h, ga, be, bi, wb, up, st, groups,
+                           True, 1e-5, emb=emb)
+        return dict(zip(k5_names, r))
+
+    def k5_plain_bwd(f32):
+        f = (lambda v: v.float()) if f32 else (lambda v: v)
+        dh, demb, dga, dbe, dw, db = k4.ts_res_block_out_bwd_plain(
+            f(h), f(emb), ga, be, f(w), bi, f(up), groups,
+            stats=(st[:b * groups], st[b * groups:]))
+        return {"h": dh, "gamma": dga, "beta": dbe, "w": dw, "b": db,
+                "emb": demb}
+    xs = [v.detach().requires_grad_() for v in k5_inputs]
+    lib = k5_library(*xs)
+    out[("ts_res_block_bwd", b)] = _resblock_backward(
+        torch, k4, k5, "ts_res_block_bwd", (b, c, t),
+        lambda: _fwd_bwd(torch, k5_kernel, k5_inputs, up), k5_bwd,
+        k5_plain_bwd,
+        lambda: torch.autograd.grad(lib, xs, up, retain_graph=True),
+        2 * (3 * b * c * t + 2 * 3 * c * c), 4 * b * c * 3 * c * t)
+    del lib, xs
     # K7 at the vocoder step's shapes, bf16: the kernel forward with its
     # plain recompute backward against the plain version's autograd; no
     # library call computes it.  Bytes: the forward reads x and writes y,
@@ -4227,6 +4413,7 @@ def eval_launches(tokens: int, steps: int = 30) -> dict:
 def _kernel_group(name: str) -> str:
     for key, group in (("flash_attn", "K1"), ("bwd_dq", "K1 backward"),
                        ("bwd_dkdv", "K1 backward"),
+                       *((k, "K4/K5 backward") for k in RESBLOCK_BWD_KERNELS),
                        ("attn_bias", "biased attention"), ("gn_conv", "K4"),
                        ("ts_res_block", "K5"), ("group_norm_act", "K4/K5 "
                                                 "normalise"),
@@ -5263,6 +5450,13 @@ def main() -> int:
         ("flash_attention_bwd", "flash_attention_bwd.cu",
          "tortoise_tts_tpu/models/unified_voice.py:56",
          rg["flash_attention_bwd"]),
+        # no Pallas kernel: the custom_vjps' XLA backwards, _gn_qkv_bwd
+        # (and the in-half of _ts_rb_bwd) and _ts_rb_bwd
+        ("gn_conv_bwd", "resblock.cu", "tortoise_tts_tpu/models/arch.py:67",
+         rg[("gn_conv_bwd", "resblock_in_half")]),
+        ("ts_res_block_bwd", "resblock.cu",
+         "tortoise_tts_tpu/models/diffusion.py:94",
+         rg[("ts_res_block_bwd", DIFF_TRAIN_B)]),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src + f, "replaces": rep,

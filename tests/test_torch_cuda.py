@@ -1329,13 +1329,19 @@ def test_flash_attention_backward_refuses_cuda(cuda):
     assert k1.KERNEL_BWD.launches == before
 
 
+def _f32(t):
+    return t.float() if t.is_floating_point() else t
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("act,m", [(True, 256), (False, 768)])
 def test_gn_conv_backward_cuda(cuda, monkeypatch, act, m, dtype, tol):
     """K4's gradients of x, the norm's scale and bias and the conv's weight
-    and bias against the plain version's, at a ragged T."""
+    and bias, through the backward kernel (one launch a call, the same
+    bits in two calls), against the plain version's computed in fp32
+    from the same inputs and upstream, at a ragged T."""
     _fp32_exact(monkeypatch, dtype)
     g = torch.Generator(device=cuda).manual_seed(m)
     b, c, t = 2, 256, 283
@@ -1344,16 +1350,41 @@ def test_gn_conv_backward_cuda(cuda, monkeypatch, act, m, dtype, tol):
     be = 0.1 * torch.randn(c, generator=g, device=cuda)
     w = (0.05 * torch.randn(m, c, 1, generator=g, device=cuda)).to(dtype)
     bi = 0.05 * torch.randn(m, generator=g, device=cuda)
+    ins = (x, ga, be, w, bi)
 
-    def run(fn):
+    def run(fn, ins):
         return _grads_of(lambda x, ga, be, w, bi: fn(
             x, {"scale": ga, "bias": be}, {"w": w, "b": bi}, 32, act),
-            (x, ga, be, w, bi))
-    out_k, g_k = run(k4.gn_conv1x1)
-    out_p, g_p = run(k4.gn_conv1x1_plain)
+            ins, up_dtype=dtype)
+    before = k4.KERNEL_BWD.launches
+    out_k, g_k = run(k4.gn_conv1x1, ins)
+    assert k4.KERNEL_BWD.launches == before + 1
+    _, again = run(k4.gn_conv1x1, ins)
+    assert all(torch.equal(a, r) for a, r in zip(g_k, again))
+    out_p, g_p = run(k4.gn_conv1x1_plain, [_f32(v) for v in ins])
     _rel_close(out_k, out_p, tol)
     for a, p in zip(g_k, g_p):
         _rel_close(a, p, tol)
+
+
+@pytest.mark.cuda
+def test_resblock_backward_refuses_cuda(cuda):
+    """A backward the kernel does not take (an upstream of M rows, M % 8
+    != 0: read in 16-byte pieces) raises, and the count does not move;
+    nothing falls back to the plain recompute."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, 64, 130, generator=g, device=cuda,
+                    dtype=torch.bfloat16).requires_grad_()
+    norm = {"scale": torch.ones(64, device=cuda),
+            "bias": torch.zeros(64, device=cuda)}
+    conv = {"w": 0.1 * torch.randn(12, 64, 1, generator=g, device=cuda,
+                                   dtype=torch.bfloat16),
+            "b": torch.zeros(12, device=cuda)}
+    out = k4.gn_conv1x1(x, norm, conv, 16, False)
+    before = k4.KERNEL_BWD.launches
+    with pytest.raises(ValueError, match="M % 8"):
+        out.backward(torch.ones_like(out))
+    assert k4.KERNEL_BWD.launches == before
 
 
 @pytest.mark.cuda
@@ -1363,8 +1394,10 @@ def test_ts_res_block_backward_reaches_the_live_weight_cuda(
         cuda, monkeypatch, dtype, tol):
     """K5 with its tap-major weight made from the live weight inside the
     graph (as the diffusion train step prepares it): every gradient,
-    the weight's included and nonzero, against the plain version's; and
-    two SGD updates of the weight on the card equal the plain path's."""
+    the weight's included and nonzero, through the backward kernel (one
+    launch a call, the same bits in two calls), against the plain
+    version's computed in fp32 from the same inputs and upstream; and two
+    SGD updates of the weight on the card equal the plain path's."""
     _fp32_exact(monkeypatch, dtype)
     g = torch.Generator(device=cuda).manual_seed(5)
     b, c, t = 2, 256, 130
@@ -1384,8 +1417,13 @@ def test_ts_res_block_backward_reaches_the_live_weight_cuda(
         return k5.ts_res_block_out_plain(h, x, emb, {"scale": ga,
                                                      "bias": be},
                                          {"w": w, "b": bi}, 32)
-    out_k, g_k = _grads_of(kernel, (h, x, emb, ga, be, w0, bi))
-    out_p, g_p = _grads_of(plain, (h, x, emb, ga, be, w0, bi))
+    ins = (h, x, emb, ga, be, w0, bi)
+    before = k5.KERNEL_BWD.launches
+    out_k, g_k = _grads_of(kernel, ins, up_dtype=dtype)
+    assert k5.KERNEL_BWD.launches == before + 1
+    _, again = _grads_of(kernel, ins, up_dtype=dtype)
+    assert all(torch.equal(a, r) for a, r in zip(g_k, again))
+    out_p, g_p = _grads_of(plain, [_f32(v) for v in ins], up_dtype=dtype)
     _rel_close(out_k, out_p, tol)
     for a, p in zip(g_k, g_p):
         _rel_close(a, p, tol)

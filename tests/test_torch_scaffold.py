@@ -171,7 +171,8 @@ def test_kernel_wrappers_on_cpu_run_plain_versions():
     assert kernels.launch_counts() == {
         "flash_attention": 0, "flash_attention_bwd": 0, "qgemv": 0,
         "qgemv_w8a8": 0, "flash_decode": 0, "flash_decode_shared": 0,
-        "gn_conv": 0, "ts_res_block": 0, "flash_attention_bias": 0,
+        "gn_conv": 0, "ts_res_block": 0, "gn_conv_bwd": 0,
+        "ts_res_block_bwd": 0, "flash_attention_bias": 0,
         "snake": 0, "flash_attention_bias_kq": 0,
         "flash_attention_bias_cm": 0}
 

@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Time K4's and K5's backward (``csrc/resblock.cu``) of one or more
+checkouts at the diffusion training step's shapes on a CUDA card, in turns.
+
+    python3 tools/resblock_backward_profile.py [--repo DIR ...]
+
+Imports ``tortoise_tts_tpu_torch`` from each ``--repo`` (default: this
+checkout) and times them in the order given, then in reverse (A, B, B, A),
+so two versions compare on one card.  For each checkout, first its
+``ptxas`` report of ``resblock.cu`` (each kernel's registers and spills),
+then one JSON line a turn and shape, bf16, at ``chip_smoke``'s
+(DIFF_TRAIN_B, 1024, DIFF_TRAIN_T): K4 -> 1024 (the resblock in-half,
+``act``), K4 -> 3072 (the attention qkv head) and K5: the kernel forward's
+device ms (no autograd), the autograd path's fwd+bwd, every CUDA kernel of
+that fwd+bwd by name (torch.profiler over 10 calls, as
+``chip_smoke.device_ms`` sums them; a checkout whose backward is the plain
+recompute shows its library kernels there), the library's fwd+bwd and
+backward alone (autograd of F.group_norm + F.silu + F.conv1d, the backward
+on a kept graph), and the backward's bound (``chip_smoke.bound_ms``: x, the
+upstream and W read, dx and dW written, or its two products).  Each turn
+also times the forwards alone at the default route's denoiser shapes
+(B=2, T=896: K4 -> 1024 and -> 3072, K5 with its prepared weight; no
+autograd), the serving rows a change to the shared source must leave as
+they were.  Then the card's name and power limit.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(HERE))
+import chip_smoke as cs  # noqa: E402  (helpers only: it imports no port)
+
+GROUPS = 32
+SHAPES = (("k4_in_half", 1024, 1, True), ("k4_qkv", 3072, 1, False),
+          ("k5", 1024, 3, True))
+SERVING_B, SERVING_T = 2, 896
+
+
+def load(repo: str):
+    """(K4's module, K5's module) of the checkout at ``repo``, built."""
+    for m in [m for m in sys.modules
+              if m.startswith("tortoise_tts_tpu_torch")]:
+        del sys.modules[m]
+    sys.path.insert(0, repo)
+    try:
+        k4 = importlib.import_module("tortoise_tts_tpu_torch.kernels.gn_conv")
+        k5 = importlib.import_module(
+            "tortoise_tts_tpu_torch.kernels.ts_res_block")
+        from tortoise_tts_tpu_torch.kernels import _build
+    finally:
+        sys.path.pop(0)
+    _build.build(["resblock"])
+    log = _build._lib_path("resblock").with_suffix(".log")
+    lines = log.read_text().splitlines()
+    report = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            regs = [x.strip() for x in lines[i + 1:i + 4]
+                    if "Used" in x or "spill" in x]
+            report.append({"kernel": name, "ptxas": regs})
+    print(json.dumps({"repo": repo, "ptxas": report}), flush=True)
+    return k4, k5
+
+
+def fwd_bwd_kernels(fn, n: int = 10) -> dict:
+    """Device ms a call of fn by CUDA kernel (``chip_smoke._short_name``)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cs.profiler_warmup(torch)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in cs._cuda_events(prof):
+        key = cs._short_name(e.name)[:48]
+        out[key] = out.get(key, 0.0) + e.device_time / 1e3 / n
+    return {k: round(v, 5) for k, v in out.items()}
+
+
+def inputs(dev, m, taps, b=cs.DIFF_TRAIN_B, t=cs.DIFF_TRAIN_T):
+    """x (or h), gamma, beta, w, bias, emb (K5) or None, the upstream."""
+    c = 1024
+    g = torch.Generator(device=dev).manual_seed(m + taps)
+    x = (torch.randn(b, c, t, generator=g, device=dev) * 2 + 0.5).bfloat16()
+    ga = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    be = 0.1 * torch.randn(c, generator=g, device=dev)
+    bound = (c * taps) ** -0.5
+    w = ((torch.rand(m, c, taps, generator=g, device=dev) * 2 - 1)
+         * bound).bfloat16()
+    bi = (torch.rand(m, generator=g, device=dev) * 2 - 1) * bound
+    emb = ((0.3 * torch.randn(b, 2 * c, generator=g, device=dev)).bfloat16()
+           if taps == 3 else None)
+    up = torch.randn(b, m, t, generator=g, device=dev).bfloat16()
+    return x, ga, be, w, bi, emb, up
+
+
+def serving(k4, k5, dev) -> dict:
+    """The forwards' device ms at the default route's denoiser shapes."""
+    out = {}
+    for name, m, taps, act in SHAPES:
+        x, ga, be, w, bi, emb, _ = inputs(dev, m, taps, SERVING_B, SERVING_T)
+        norm = {"scale": ga, "bias": be}
+        if taps == 1:
+            conv = {"w": w, "b": bi}
+            fn = lambda _: k4.gn_conv1x1(x, norm, conv, GROUPS, act)  # noqa
+        else:
+            conv = k5.prepare_conv({"w": w, "b": bi})
+            fn = lambda _: k5.ts_res_block_out(x, x, emb, norm, conv,  # noqa
+                                               GROUPS)
+        with torch.no_grad():
+            out[name] = cs.device_ms(torch, fn, n=30, warmup=5)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--repo", action="append", default=None,
+                    help="checkout to time (repeatable; default: this one)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("resblock_backward_profile: no CUDA device", file=sys.stderr)
+        return 2
+    repos = args.repo or [str(HERE)]
+    mods = {r: load(r) for r in repos}
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    for turn, repo in enumerate(repos + repos[::-1]):
+        k4, k5 = mods[repo]
+        print(json.dumps({"repo": repo, "turn": turn,
+                          "serving_shape": [SERVING_B, 1024, SERVING_T],
+                          "serving_fwd_ms": serving(k4, k5, dev)}),
+              flush=True)
+        for name, m, taps, act in SHAPES:
+            x, ga, be, w, bi, emb, up = inputs(dev, m, taps)
+            b, c, t = x.shape
+            if taps == 1:
+                def kernel(x, ga, be, w, bi, act=act):
+                    return k4.gn_conv1x1(x, {"scale": ga, "bias": be},
+                                         {"w": w, "b": bi}, GROUPS, act)
+
+                def library(x, ga, be, w, bi, act=act):
+                    y = F.group_norm(x, GROUPS, ga.bfloat16(), be.bfloat16())
+                    return F.conv1d(F.silu(y) if act else y, w, bi.bfloat16())
+                ins = (x, ga, be, w, bi)
+            else:
+                res = torch.randn_like(x)
+
+                def kernel(h, ga, be, w, bi, emb):
+                    return k5.ts_res_block_out(
+                        h, res, emb, {"scale": ga, "bias": be},
+                        k5.prepare_conv({"w": w, "b": bi}), GROUPS)
+
+                def library(h, ga, be, w, bi, emb):
+                    sc, sh = emb[..., None].chunk(2, dim=1)
+                    y = F.group_norm(h, GROUPS, ga.bfloat16(), be.bfloat16())
+                    return res + F.conv1d(F.silu(y * (1 + sc) + sh), w,
+                                          bi.bfloat16(), padding=1)
+                ins = (x, ga, be, w, bi, emb)
+            with torch.no_grad():
+                fwd = cs.device_ms(torch, lambda _: kernel(*ins), n=10,
+                                   warmup=2)
+            xs = [v.detach().requires_grad_() for v in ins]
+            lib = library(*xs)
+            line = dict(
+                repo=repo, turn=turn, name=name, shape=[b, c, t, m],
+                fwd_ms=fwd,
+                fwd_bwd_ms=cs.device_ms(torch, lambda _: cs._fwd_bwd(
+                    torch, kernel, ins, up), n=10, warmup=2),
+                fwd_bwd_kernels_ms=fwd_bwd_kernels(
+                    lambda: cs._fwd_bwd(torch, kernel, ins, up)),
+                library_fwd_bwd_ms=cs.device_ms(torch, lambda _: cs._fwd_bwd(
+                    torch, library, ins, up), n=10, warmup=2),
+                library_bwd_ms=cs.device_ms(torch, lambda _: torch.autograd
+                                            .grad(lib, xs, up,
+                                                  retain_graph=True),
+                                            n=10, warmup=2))
+            line["bwd_bound_ms"], line["bwd_bound_by"] = cs.bound_ms(
+                2 * (2 * b * c * t + b * m * t + 2 * m * c * taps),
+                4 * b * m * c * t * taps)
+            print(json.dumps(line), flush=True)
+            del lib, xs
+            torch.cuda.empty_cache()
+    print(cs.nvidia_smi())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

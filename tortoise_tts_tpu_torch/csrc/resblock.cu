@@ -71,11 +71,41 @@
 //      storing its share of the rows.  The tile width and the split are
 //      the wrapper's (kernels/gn_conv.plan).
 // K must be a multiple of 8 (16-byte weight rows), for both.
+//
+// The backward (tts_resblock_bwd: K4's and K5's, under autograd) replaces
+// no TPU kernel: the JAX package differentiates its XLA formulation
+// (models/arch.py _gn_qkv_bwd, models/diffusion.py _ts_rb_bwd).  At the
+// diffusion training step's (16, 1024, 2240) it is two products of the
+// forward's size, da = W^T g and dW = g a^T (150 GFLOP for K4 -> 1024, 451
+// for the qkv head and K5) against 0.22-0.38 GB of inputs and outputs:
+// bound by operations (0.152, 0.456 ms at 989 TFLOP/s).  Rounding: a is the
+// forward's bf16 Y (what its GEMM read); silu' and the GroupNorm backward
+// take fp32 z and x^; dn leaves rounded to x's type, its sums in fp32.
+// Six kernels, every sum in a fixed order (no atomics: the same bits on
+// every call):
+//   1. bwd_apply_norm: a from the forward's recorded mean and rstd through
+//      norm_value, time-major (B, T, C), a 64 x 64 tile at a time.
+//   2. bwd_transpose: the upstream g (B, M, T) -> gt (B, T, M), so that
+//      K5's tap shifts are outer TMA coordinates, and db's partial sums.
+//   3. bwd_da_wgmma: da = W^T gt on the forward's TMA ring and wgmma main
+//      loop, over a per-call (taps, C, M) weight with the taps reversed;
+//      its epilogue applies silu'(z) (K5: times 1 + scale), writes dn and
+//      each 64- or 128-step tile's channel sums (dn, dn x^; K5: dz n, dz).
+//   4. bwd_norm: a (batch, group) a block: the tiles' sums in order, then
+//      dx = rstd (gamma dn - mean(gamma dn) - x^ mean(gamma dn x^)).
+//   5. bwd_dw_wgmma: dW partials over slices of the B T reduction, both
+//      operands MN-major from the time-major gt and a (m64n128, both
+//      transpose bits), fp32 partials.
+//   6. bwd_reduce: dW over the slices, db, dgamma and dbeta.
+// fp32 takes the same passes with both products on CUDA cores
+// (bwd_gemm_f32, 64 x 64 tiles).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "hopper.cuh"
 
@@ -334,7 +364,8 @@ struct Ring {
   static constexpr int STAGE = A_BYTES + B_BYTES;   // a multiple of 1024
   static constexpr int BARS = STAGES * STAGE;       // full[], then empty[]
   static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;   // + alignment
-  static_assert(BM * (BN + 8) * 4 <= BARS, "the epilogue tile fits the ring");
+  // the epilogue tile and, in the backward, its rows' parameters
+  static_assert(BM * (BN + 8) * 4 + BM * 32 <= BARS, "the tile fits the ring");
 };
 
 // a barrier of the two consumer warpgroups alone (the producer has left)
@@ -342,22 +373,21 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-// out[b] = W * Y_b + bias (+ res[b]).  TAPS = 1: K = C; TAPS = 3: tap s of
-// the (3, M, C) weight against Y shifted by s - 1 steps.
+// The GEMM's main loop: acc (this consumer warpgroup's 64 of the BM rows x
+// BN steps) = the (taps, rows, K) weight's rows m0.. against Y_b's steps
+// n0.. (Y (B, T, K) time-major), K walked in BK-deep steps; TAPS = 3: tap
+// s against Y shifted by s - 1 steps.  Returns false in the producer
+// warpgroup, which has nothing left to do.  base: the ring, 1024-aligned.
 template <int TAPS, int BN>
-__device__ __forceinline__ void conv_gemm(const CUtensorMap* wmap,
-                                          const CUtensorMap* ymap,
-                                          const void* bias, int bias_bf,
-                                          const bf16* __restrict__ res,
-                                          bf16* __restrict__ out, int M,
-                                          int C, int T) {
+__device__ __forceinline__ bool ring_mainloop(const CUtensorMap* wmap,
+                                              const CUtensorMap* ymap,
+                                              int K, int m0, int n0, int b,
+                                              uint32_t base,
+                                              float (&acc)[BN / 2]) {
   using L = Ring<BN>;
-  extern __shared__ unsigned char gemm_smem[];
-  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
   const uint32_t full0 = base + L::BARS, empty0 = full0 + STAGES * 8;
   const int tid = threadIdx.x, wg = tid / 128;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, b = blockIdx.z;
-  const int kc = (C + BK - 1) / BK, kt = TAPS * kc;
+  const int kc = (K + BK - 1) / BK, kt = TAPS * kc;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -382,10 +412,9 @@ __device__ __forceinline__ void conv_gemm(const CUtensorMap* wmap,
                     n0 + (TAPS == 3 ? tap - 1 : 0), b);
       }
     }
-    return;
+    return false;
   }
 
-  float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   int prev = 0;
@@ -405,27 +434,56 @@ __device__ __forceinline__ void conv_gemm(const CUtensorMap* wmap,
     prev = s;
   }
   wgmma_wait<0>();
+  return true;
+}
 
-  // Epilogue through shared memory: the accumulators go to an fp32 tile
-  // over the ring (every load in it consumed, both warpgroups done reading
-  // it), then whole output rows leave in 16-byte pieces, the residual read
-  // the same way; bias and residual added in fp32, rounded once.
-  constexpr int TS = BN + 8;   // tile row stride in floats (2-way stores)
+// The consumers' accumulators to an fp32 BM x BN tile over the ring (row
+// stride BN + 8 floats: 2-way stores), once both warpgroups are done
+// reading the ring (every load in it consumed); returns the tile.
+template <int BN>
+__device__ __forceinline__ float* acc_to_tile(const float (&acc)[BN / 2],
+                                              uint32_t base) {
+  extern __shared__ unsigned char gemm_smem[];
+  constexpr int TS = BN + 8;
   float* tile =
       reinterpret_cast<float*>(gemm_smem + (base - smem_u32(gemm_smem)));
+  const int tid = threadIdx.x, wg = tid / 128;
   consumers_sync();
-  {
-    const int w = (tid % 128) / 32, lane = tid % 32;
-    const int r0 = wg * 64 + w * 16 + lane / 4;
+  const int w = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = wg * 64 + w * 16 + lane / 4;
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-        *reinterpret_cast<float2*>(tile + (r0 + 8 * h) * TS + 8 * j +
-                                   2 * (lane % 4)) =
-            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-  }
+    for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<float2*>(tile + (r0 + 8 * h) * TS + 8 * j +
+                                 2 * (lane % 4)) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   consumers_sync();
+  return tile;
+}
+
+// out[b] = W * Y_b + bias (+ res[b]).  TAPS = 1: K = C; TAPS = 3: tap s of
+// the (3, M, C) weight against Y shifted by s - 1 steps.
+template <int TAPS, int BN>
+__device__ __forceinline__ void conv_gemm(const CUtensorMap* wmap,
+                                          const CUtensorMap* ymap,
+                                          const void* bias, int bias_bf,
+                                          const bf16* __restrict__ res,
+                                          bf16* __restrict__ out, int M,
+                                          int C, int T) {
+  extern __shared__ unsigned char gemm_smem[];
+  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, b = blockIdx.z;
+  float acc[BN / 2];
+  if (!ring_mainloop<TAPS, BN>(wmap, ymap, C, m0, n0, b, base, acc)) return;
+
+  // Epilogue through shared memory: the accumulators go to an fp32 tile
+  // over the ring, then whole output rows leave in 16-byte pieces, the
+  // residual read the same way; bias and residual added in fp32, rounded
+  // once.
+  constexpr int TS = BN + 8;
+  const float* tile = acc_to_tile<BN>(acc, base);
   const bool vec = T % 8 == 0 &&
                    ((reinterpret_cast<uintptr_t>(res) |
                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
@@ -802,6 +860,702 @@ int run_gemm_tf32(const float* w, const float* yhi, const float* ylo,
   return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// The backwards: K4's and K5's gradients under autograd
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void st(void* p, long long i, float v, int bf) {
+  if (bf)
+    static_cast<bf16*>(p)[i] = __float2bfloat16(v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
+
+template <typename TX>
+__device__ __forceinline__ TX from_f(float v);
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+
+// What the backward's kernels share.  A tile of dn leaves NS sums a
+// channel: sum dn and sum dn x^ (K5 also sum dz n and sum dz).
+template <typename TX>
+struct BwdArgs {
+  const TX* x;          // (B, C, T): K4's x, K5's h
+  const float* stats;   // the forward's mu (B*G), then rstd (B*G)
+  Vecs v;               // gamma, beta; emb (B, 2C) (K5) or null
+  TX* dn;               // (B, C, T): the gradient of n = gamma x^ + beta
+  float* part;          // (B, ntt, NS, C): each time tile's channel sums
+  int B, C, T, M, G, act, ntt;
+};
+
+// 16 bytes of TX values, loaded or stored as one piece
+template <typename TX>
+union Pack {
+  int4 v;
+  TX e[16 / sizeof(TX)];
+};
+
+// The da GEMM's epilogue: da of channels c0.. (ROWS rows) x steps t0..
+// (COLS columns) in an fp32 shared-memory tile (row stride COLS + 8) ->
+// dn, rounded to TX, and the tile's channel sums, all from fp32 values:
+// x^ = (x - mu) rstd, n = gamma x^ + beta, z = n (K5: n (1 + scale) +
+// shift), dz = da silu'(z) where act (else da), dn = dz (K5: dz (1 +
+// scale)).  prm: 8 floats a row of shared memory for the rows' parameters.
+// 256 threads (bar 1) take part: a thread a 16-byte piece of a row, its
+// x pieces all loaded before any is used, the row's pieces on neighbouring
+// lanes, their sums reduced by shuffles in a fixed order.
+template <typename TX, bool FILM, int ROWS, int COLS>
+__device__ void da_epilogue(const float* tile, float* prm, int c0, int t0,
+                            int b, int tt, const BwdArgs<TX>& a) {
+  constexpr int NS = FILM ? 4 : 2, E = 16 / sizeof(TX), CPR = COLS / E;
+  constexpr int TS = COLS + 8, U = ROWS * CPR / 256;
+  static_assert(ROWS * CPR % 256 == 0 && CPR <= 32, "whole warps a pass");
+  const int tid = threadIdx.x, per = a.C / a.G;
+  for (int r = tid; r < ROWS; r += 256) {
+    const int c = min(c0 + r, a.C - 1);   // rows past C are never stored
+    const int bg = b * a.G + c / per;
+    float* q = prm + 8 * r;
+    q[0] = a.stats[bg];
+    q[1] = a.stats[a.B * a.G + bg];
+    q[2] = ld(a.v.gamma, c, a.v.bf);
+    q[3] = ld(a.v.beta, c, a.v.bf);
+    q[4] = 1.f;
+    q[5] = 0.f;
+    if constexpr (FILM) {
+      const long long e = 2LL * b * a.C + c;
+      q[4] = 1.f + ld(a.v.emb, e, a.v.emb_bf);
+      q[5] = ld(a.v.emb, e + a.C, a.v.emb_bf);
+    }
+  }
+  consumers_sync();
+  const bool vec = a.T % E == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a.x) |
+                     reinterpret_cast<uintptr_t>(a.dn)) & 15) == 0;
+  Pack<TX> xin[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = tid + 256 * u, c = c0 + i / CPR, t = t0 + (i % CPR) * E;
+    if (vec && c < a.C && t < a.T)
+      xin[u].v = *reinterpret_cast<const int4*>(
+          a.x + ((long long)b * a.C + c) * a.T + t);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = tid + 256 * u, r = i / CPR, j0 = (i % CPR) * E;
+    const int c = c0 + r, t = t0 + j0;
+    float s[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) s[k] = 0.f;
+    if (c < a.C && t < a.T) {
+      const float* q = prm + 8 * r;
+      const long long o = ((long long)b * a.C + c) * a.T + t;
+      Pack<TX> out;
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const bool in = t + k < a.T;
+        const float xv = vec ? to_f(xin[u].e[k])
+                             : (in ? to_f(a.x[o + k]) : 0.f);
+        const float xh = (xv - q[0]) * q[1];
+        const float n = xh * q[2] + q[3];
+        const float z = FILM ? n * q[4] + q[5] : n;
+        float dz = tile[r * TS + j0 + k];
+        if (a.act) {
+          const float sg = 1.f / (1.f + expf(-z));
+          dz *= sg * (1.f + z * (1.f - sg));
+        }
+        const float dn = FILM ? dz * q[4] : dz;
+        out.e[k] = from_f<TX>(dn);
+        if (in) {
+          s[0] += dn;
+          s[1] += dn * xh;
+          if constexpr (FILM) {
+            s[2] += dz * n;
+            s[3] += dz;
+          }
+        }
+      }
+      if (vec) {
+        *reinterpret_cast<int4*>(a.dn + o) = out.v;
+      } else {
+#pragma unroll
+        for (int k = 0; k < E; ++k)
+          if (t + k < a.T) a.dn[o + k] = out.e[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NS; ++k)
+#pragma unroll
+      for (int o = CPR / 2; o > 0; o >>= 1)
+        s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
+    if (tid % CPR == 0 && c < a.C)
+#pragma unroll
+      for (int k = 0; k < NS; ++k)
+        a.part[(((long long)b * a.ntt + tt) * NS + k) * a.C + c] = s[k];
+  }
+}
+
+// bf16 da = W^T g as the forward's GEMM: the reversed, transposed weight
+// wb (taps, C, M) against the time-major upstream gt (B, T, M), tap s'
+// shifted by s' - 1 steps, K = M; a block's 128 channels x BN steps, then
+// da_epilogue over the tile.
+template <int TAPS, int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, BN == 64 ? 2 : 1)
+    bwd_da_wgmma(const __grid_constant__ CUtensorMap wmap,
+                 const __grid_constant__ CUtensorMap gmap,
+                 const BwdArgs<bf16> a) {
+  extern __shared__ unsigned char gemm_smem[];
+  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  const int n0 = blockIdx.x * BN, c0 = blockIdx.y * BM, b = blockIdx.z;
+  float acc[BN / 2];
+  if (!ring_mainloop<TAPS, BN>(&wmap, &gmap, a.M, c0, n0, b, base, acc))
+    return;
+  const float* tile = acc_to_tile<BN>(acc, base);
+  // the rows' parameters after the tile, in the ring
+  float* prm = reinterpret_cast<float*>(gemm_smem + (base - smem_u32(gemm_smem))
+                                        + BM * (BN + 8) * 4);
+  da_epilogue<bf16, TAPS == 3, BM, BN>(tile, prm, c0, n0, b, blockIdx.x, a);
+}
+
+constexpr int DW_BK = 64;                   // steps a K step
+constexpr int DW_BOX = 64 * DW_BK * 2;      // one 64-wide box, 8 KB
+constexpr int DW_STAGE = 4 * DW_BOX;        // gt's two boxes | Y's two
+constexpr int DW_BARS = STAGES * DW_STAGE;  // full[], then empty[]
+constexpr int DW_SMEM = DW_BARS + 2 * STAGES * 8 + 1024;
+
+// bf16 dW: part[q, tap] (M x C, fp32) = the sum over the q-th of `split`
+// slices of the (batch, 64-step tile) pairs of gt_b^T (M x steps) Y_b
+// (steps x C), Y shifted by tap - 1 steps (TAPS = 3).  Block (x, y, z) =
+// (128 channels, 128 rows of M, tap * split + q).  Both operands are
+// MN-major (M and C contiguous in the time-major arrays), both TMA boxes
+// 64 wide; each consumer warpgroup takes 64 rows and one m64n128 product a
+// 16-step slice (two m64n64 products read 33% more shared memory, which
+// about matches the tensor cores' time).
+template <int TAPS>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    bwd_dw_wgmma(const __grid_constant__ CUtensorMap gmap,
+                 const __grid_constant__ CUtensorMap ymap,
+                 float* __restrict__ part, int B, int M, int C, int T,
+                 int split) {
+  extern __shared__ unsigned char gemm_smem[];
+  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  const uint32_t full0 = base + DW_BARS, empty0 = full0 + STAGES * 8;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int c0 = blockIdx.x * 128, m0 = blockIdx.y * 128;
+  const int tap = blockIdx.z / split, q = blockIdx.z % split;
+  const int ntt = (T + DW_BK - 1) / DW_BK, kt = B * ntt;
+  const int k0 = (int)((long long)q * kt / split);
+  const int k1 = (int)((long long)(q + 1) * kt / split);
+  const int shift = TAPS == 3 ? tap - 1 : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    if (tid == 256) {
+      for (int it = k0; it < k1; ++it) {
+        const int i = it - k0, s = i % STAGES;
+        mbar_wait(empty0 + 8 * s, ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, DW_STAGE);
+        const int bb = it / ntt, t0 = (it - bb * ntt) * DW_BK;
+        const uint32_t sa = base + s * DW_STAGE, bar = full0 + 8 * s;
+        tma_load_3d(sa, &gmap, bar, m0, t0, bb);
+        tma_load_3d(sa + DW_BOX, &gmap, bar, m0 + 64, t0, bb);
+        tma_load_3d(sa + 2 * DW_BOX, &ymap, bar, c0, t0 + shift, bb);
+        tma_load_3d(sa + 3 * DW_BOX, &ymap, bar, c0 + 64, t0 + shift, bb);
+      }
+    }
+    return;
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int prev = 0;
+  for (int it = k0; it < k1; ++it) {
+    const int i = it - k0, s = i % STAGES;
+    mbar_wait(full0 + 8 * s, (i / STAGES) & 1);
+    const uint32_t sa = base + s * DW_STAGE + wg * DW_BOX;
+    const uint32_t sb = base + s * DW_STAGE + 2 * DW_BOX;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DW_BK / 16; ++kk)
+      wgmma_n128_tt(acc, desc_sw128(sa + kk * 2048, 16, 1024),
+                    desc_sw128(sb + kk * 2048, DW_BOX, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous step's products are done
+    if (i > 0 && tid % 128 == 0) mbar_arrive(empty0 + 8 * prev);
+    prev = s;
+  }
+  wgmma_wait<0>();
+
+  const int w = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = m0 + wg * 64 + w * 16 + lane / 4;
+  float* dst = part + (long long)(q * TAPS + tap) * M * C;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = r0 + 8 * h;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + 8 * j + 2 * (lane % 4);
+      if (c < C)
+        *reinterpret_cast<float2*>(dst + (long long)m * C + c) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+constexpr int FT = 64, FK = 16, FS = FT + 4;   // FS: A and B rows
+
+// The fp32 backward's GEMMs, on CUDA cores: a 64 x 64 tile a block of 256
+// threads (4 x 4 a thread), 16-deep K steps through shared memory.
+//   DW = false: the da tile (channels r0.. x steps n0..) = the sum over
+//     taps and K = M of wb[tap] (C x M) gt_b shifted by tap - 1 steps,
+//     then da_epilogue;
+//   DW = true: part[q, tap]'s tile (rows r0.. of M x channels n0..) = the
+//     sum over the q-th slice of the (batch, 16-step) pairs of gt_b^T
+//     Y_b, Y shifted by tap - 1 steps.
+template <bool DW, int TAPS>
+__global__ void __launch_bounds__(256)
+    bwd_gemm_f32(const float* __restrict__ wb, const float* __restrict__ gt,
+                 const float* __restrict__ y, const BwdArgs<float> a, float* __restrict__ part,
+                 int split) {
+  __shared__ __align__(16) float As[FK][FS];
+  __shared__ __align__(16) float Bs[FK][FS];
+  __shared__ __align__(16) float tile[DW ? 1 : FT * (FT + 8)];
+  __shared__ float prm[DW ? 1 : FT * 8];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int C = a.C, T = a.T, M = a.M;
+  const int n0 = blockIdx.x * FT, r0 = blockIdx.y * FT;
+  const int tap = DW ? blockIdx.z / split : 0, q = DW ? blockIdx.z % split : 0;
+  const int b = DW ? 0 : blockIdx.z;
+  const int ntk = (T + FK - 1) / FK, kc = (M + FK - 1) / FK;
+  const int kt = DW ? a.B * ntk : TAPS * kc;
+  const int k0 = DW ? (int)((long long)q * kt / split) : 0;
+  const int k1 = DW ? (int)((long long)(q + 1) * kt / split) : kt;
+  float acc[4][4] = {};
+  for (int it = k0; it < k1; ++it) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = tid + 256 * u;
+      if constexpr (DW) {
+        const int bb = it / ntk, k = e / FT, j = e % FT;
+        const int t = (it - bb * ntk) * FK + k;
+        const int ts = t + (TAPS == 3 ? tap - 1 : 0);
+        const int m = r0 + j, c = n0 + j;
+        As[k][j] = t < T && m < M ? gt[((long long)bb * T + t) * M + m] : 0.f;
+        float yv = 0.f;
+        if (t < T && ts >= 0 && ts < T && c < C) {
+          const long long o = ((long long)bb * T + ts) * C + c;
+          yv = y[o];
+        }
+        Bs[k][j] = yv;
+      } else {
+        const int tp = it / kc, k = e % FK, i = e / FK;
+        const int mk = (it - tp * kc) * FK + k;
+        const int c = r0 + i, ts = n0 + i + (TAPS == 3 ? tp - 1 : 0);
+        As[k][i] = c < C && mk < M ? wb[((long long)tp * C + c) * M + mk]
+                                   : 0.f;
+        Bs[k][i] = mk < M && ts >= 0 && ts < T
+                       ? gt[((long long)b * T + ts) * M + mk]
+                       : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < FK; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  if constexpr (DW) {
+    float* dst = part + (long long)(q * TAPS + tap) * M * C;
+    const int c = n0 + tx * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = r0 + ty * 4 + i;
+      if (m < M && c < C)
+        *reinterpret_cast<float4*>(dst + (long long)m * C + c) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        tile[(ty * 4 + i) * (FT + 8) + tx * 4 + j] = acc[i][j];
+    __syncthreads();
+    da_epilogue<float, TAPS == 3, FT, FT>(tile, prm, r0, n0, b, blockIdx.x,
+                                          a);
+  }
+}
+
+// The upstream g (B, M, T) -> gt (B, T, M), time-major (the GEMMs' layout:
+// K5's taps shift it along an outer coordinate), through a 64 x 64 tile
+// read and written in 16-byte pieces (element by element where T's rows
+// are off 16 bytes); each tile's row sums go to dbp (B, ceil(T/64), M),
+// db's partials.
+template <typename TX>
+__global__ void __launch_bounds__(256)
+    bwd_transpose(const TX* __restrict__ g, TX* __restrict__ gt,
+                  float* __restrict__ dbp, int M, int T) {
+  constexpr int E = 16 / sizeof(TX), CH = 64 / E, U = 64 * CH / 256;
+  __shared__ float s[64][65];
+  const int t0 = blockIdx.x * 64, m0 = blockIdx.y * 64, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const bool vec = T % E == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  Pack<TX> in[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = tid + 256 * u, m = m0 + i / CH, t = t0 + (i % CH) * E;
+    const long long o = ((long long)b * M + m) * T + t;
+    if (vec) {
+      in[u].v = m < M && t < T ? *reinterpret_cast<const int4*>(g + o)
+                               : make_int4(0, 0, 0, 0);
+    } else {
+#pragma unroll
+      for (int k = 0; k < E; ++k)
+        in[u].e[k] = m < M && t + k < T ? g[o + k] : from_f<TX>(0.f);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = tid + 256 * u, r = i / CH, j = (i % CH) * E;
+#pragma unroll
+    for (int k = 0; k < E; ++k) s[r][j + k] = to_f(in[u].e[k]);
+  }
+  __syncthreads();
+  if (tid < 64 && m0 + tid < M) {
+    float v = 0.f;
+    for (int j = 0; j < 64; ++j) v += s[tid][j];
+    dbp[((long long)b * gridDim.x + blockIdx.x) * M + m0 + tid] = v;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = tid + 256 * u, r = i / CH, j = (i % CH) * E;
+    const int t = t0 + r, m = m0 + j;   // M % 8 == 0: whole pieces
+    if (t < T && m < M) {
+      Pack<TX> out;
+#pragma unroll
+      for (int k = 0; k < E; ++k) out.e[k] = from_f<TX>(s[j + k][r]);
+      *reinterpret_cast<int4*>(gt + ((long long)b * T + t) * M + m) = out.v;
+    }
+  }
+}
+
+// a = the normalise kernel's Y, recomputed from the forward's statistics:
+// x (B, C, T) -> y (B, T, C) time-major, through a 64-channel x 64-step
+// tile, read and written in 16-byte pieces (element by element where T's
+// rows are off 16 bytes).  norm_value with the forward's mu, rstd and
+// channel parameters gives the bits the forward's GEMM read (fp32: Y,
+// which is Y_hi + Y_lo exactly).
+template <typename TX>
+__global__ void __launch_bounds__(256)
+    bwd_apply_norm(const TX* __restrict__ x, TX* __restrict__ y,
+                   const float* __restrict__ stats, Vecs v, int C, int T,
+                   int G, int B, int act) {
+  constexpr int E = 16 / sizeof(TX), CH = 64 / E, U = 64 * CH / 256;
+  __shared__ float s[64][65];
+  __shared__ float q4[64][4];
+  __shared__ float ms[64][2];
+  const int t0 = blockIdx.x * 64, c0 = blockIdx.y * 64, b = blockIdx.z;
+  const int tid = threadIdx.x, per = C / G;
+  const bool film = v.emb != nullptr;
+  if (tid < 64) {
+    const int c = min(c0 + tid, C - 1);
+    const long long e = 2LL * b * C + c;
+    const int bg = b * G + c / per;
+    q4[tid][0] = ld(v.gamma, c, v.bf);
+    q4[tid][1] = ld(v.beta, c, v.bf);
+    q4[tid][2] = film ? __fadd_rn(1.f, ld(v.emb, e, v.emb_bf)) : 1.f;
+    q4[tid][3] = film ? ld(v.emb, e + C, v.emb_bf) : 0.f;
+    ms[tid][0] = stats[bg];
+    ms[tid][1] = stats[B * G + bg];
+  }
+  const bool vec = T % E == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  Pack<TX> in[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = tid + 256 * u, c = c0 + i / CH, t = t0 + (i % CH) * E;
+    const long long o = ((long long)b * C + c) * T + t;
+    if (vec) {
+      in[u].v = c < C && t < T ? *reinterpret_cast<const int4*>(x + o)
+                               : make_int4(0, 0, 0, 0);
+    } else {
+#pragma unroll
+      for (int k = 0; k < E; ++k)
+        in[u].e[k] = c < C && t + k < T ? x[o + k] : from_f<TX>(0.f);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = tid + 256 * u, r = i / CH, j = (i % CH) * E;
+#pragma unroll
+    for (int k = 0; k < E; ++k)
+      s[r][j + k] = norm_value(in[u].e[k], q4[r], ms[r][0], ms[r][1], film,
+                               act);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = tid + 256 * u, r = i / CH, j = (i % CH) * E;
+    const int t = t0 + r, c = c0 + j;   // C % 8 == 0: whole pieces
+    if (t < T && c < C) {
+      Pack<TX> out;
+#pragma unroll
+      for (int k = 0; k < E; ++k) out.e[k] = from_f<TX>(s[j + k][r]);
+      *reinterpret_cast<int4*>(y + ((long long)b * T + t) * C + c) = out.v;
+    }
+  }
+}
+
+// dx (K5: dh) of one (batch, group) a block: the time tiles' channel sums
+// reduced in order, the group's means of gamma dn and gamma dn x^, then
+// dx = rstd (gamma dn - mean(gamma dn) - x^ mean(gamma dn x^)) over the
+// group's contiguous elements.  Also each channel's sum dn x^ and sum dn of
+// this batch (sgb (B, 2, C): dgamma's and dbeta's) and K5's d(emb) = [sum
+// dz n | sum dz].  Dynamic shared memory: NS x per sums, per gammas.
+template <typename TX, bool FILM>
+__global__ void __launch_bounds__(256)
+    bwd_norm(const BwdArgs<TX> a, TX* __restrict__ dx,
+             float* __restrict__ sgb, void* demb) {
+  constexpr int NS = FILM ? 4 : 2;
+  extern __shared__ float nsum[];
+  __shared__ float means[2];
+  const int bg = blockIdx.x, b = bg / a.G, per = a.C / a.G;
+  const int c0 = (bg % a.G) * per, tid = threadIdx.x;
+  float* gam = nsum + NS * per;
+  for (int i = tid; i < NS * per; i += 256) {
+    const int k = i / per, c = c0 + i % per;
+    float v = 0.f;
+    for (int tt = 0; tt < a.ntt; ++tt)
+      v += a.part[(((long long)b * a.ntt + tt) * NS + k) * a.C + c];
+    nsum[i] = v;
+  }
+  for (int r = tid; r < per; r += 256) gam[r] = ld(a.v.gamma, c0 + r, a.v.bf);
+  __syncthreads();
+  for (int r = tid; r < per; r += 256) {
+    const int c = c0 + r;
+    sgb[2LL * b * a.C + c] = nsum[per + r];
+    sgb[(2LL * b + 1) * a.C + c] = nsum[r];
+    if constexpr (FILM) {
+      st(demb, 2LL * b * a.C + c, nsum[2 * per + r], a.v.emb_bf);
+      st(demb, 2LL * b * a.C + a.C + c, nsum[3 * per + r], a.v.emb_bf);
+    }
+  }
+  if (tid == 0) {
+    float s0 = 0.f, s1 = 0.f;
+    for (int r = 0; r < per; ++r) {
+      s0 += gam[r] * nsum[r];
+      s1 += gam[r] * nsum[per + r];
+    }
+    const float cnt = (float)per * (float)a.T;
+    means[0] = s0 / cnt;
+    means[1] = s1 / cnt;
+  }
+  __syncthreads();
+  const float mu = a.stats[bg], rs = a.stats[a.B * a.G + bg];
+  const float m0 = means[0], m1 = means[1];
+  const long long base = ((long long)b * a.C + c0) * a.T;
+  const int n = per * a.T;
+  constexpr int E = 16 / sizeof(TX), U = 4;
+  if (a.T % E == 0 && ((reinterpret_cast<uintptr_t>(a.x) |
+                        reinterpret_cast<uintptr_t>(a.dn) |
+                        reinterpret_cast<uintptr_t>(dx)) & 15) == 0) {
+    // 16-byte pieces, U of x and of dn loaded before any is used; a piece
+    // lies in one channel (T % E == 0)
+    for (int p0 = tid; p0 < n / E; p0 += U * 256) {
+      Pack<TX> xv[U], dv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int p = p0 + u * 256;
+        if (p < n / E) {
+          xv[u].v = *reinterpret_cast<const int4*>(a.x + base + p * E);
+          dv[u].v = *reinterpret_cast<const int4*>(a.dn + base + p * E);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int p = p0 + u * 256;
+        if (p >= n / E) break;
+        const float ga = gam[p * E / a.T];
+        Pack<TX> out;
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+          const float xh = (to_f(xv[u].e[k]) - mu) * rs;
+          out.e[k] = from_f<TX>(rs * (ga * to_f(dv[u].e[k]) - m0 - xh * m1));
+        }
+        *reinterpret_cast<int4*>(dx + base + p * E) = out.v;
+      }
+    }
+    return;
+  }
+  for (int i = tid; i < n; i += 256) {
+    const float xh = (to_f(a.x[base + i]) - mu) * rs;
+    const float u = gam[i / a.T] * to_f(a.dn[base + i]);
+    dx[base + i] = from_f<TX>(rs * (u - m0 - xh * m1));
+  }
+}
+
+// The last sums, each in a fixed order: dW over the split slices, written
+// in the conv weight's layout (K4 (M, C); K5 (C, C, 3): [m][c][tap]) and
+// dgamma and dbeta over the batch, an element a thread, in the first
+// `wblocks` blocks; db over the upstream's nbp (batch, 64-step tile)
+// partials, a warp a row of M (its lanes' strided sums, then shuffles),
+// in the rest.
+template <typename TX>
+__global__ void __launch_bounds__(256)
+    bwd_reduce(const float* __restrict__ wpart, int split, int taps, int M,
+               int C, TX* __restrict__ dw, const float* __restrict__ dbp,
+               int nbp, void* db, const float* __restrict__ sgb, int B,
+               void* dgamma, void* dbeta, int vec_bf, int wblocks) {
+  const long long mc = (long long)M * C, nw = taps * mc;
+  if ((int)blockIdx.x >= wblocks) {
+    const int lane = threadIdx.x % 32;
+    const int m = ((int)blockIdx.x - wblocks) * 8 + threadIdx.x / 32;
+    if (m >= M) return;
+    float v = 0.f;
+    for (int k = lane; k < nbp; k += 32) v += dbp[(long long)k * M + m];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) st(db, m, v, vec_bf);
+    return;
+  }
+  const long long total = nw + 2LL * C;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
+       i += (long long)wblocks * 256) {
+    if (i < nw) {
+      float v = 0.f;
+      for (int q = 0; q < split; ++q) v += wpart[q * nw + i];
+      const long long tap = i / mc, e = i - tap * mc;
+      dw[taps == 1 ? e : e * 3 + tap] = from_f<TX>(v);
+    } else {
+      const int j = (int)(i - nw), which = j / C, c = j % C;
+      float v = 0.f;
+      for (int bb = 0; bb < B; ++bb) v += sgb[(2LL * bb + which) * C + c];
+      st(which ? dbeta : dgamma, c, v, vec_bf);
+    }
+  }
+}
+
+struct BwdIo {
+  const void *x, *wb, *g;
+  const float* stats;
+  Vecs v;
+  void *ybuf, *gt, *dn;
+  float *part, *dbp, *wpart, *sgb;
+  void *dx, *dw, *dgamma, *dbeta, *db, *demb;
+  int B, C, T, M, G, taps, act, bn, split;
+  float eps;
+};
+
+template <typename TX, int TAPS>
+int run_bwd(const BwdIo& o, cudaStream_t st) {
+  constexpr bool BF = sizeof(TX) == 2;
+  constexpr bool FILM = TAPS == 3;
+  constexpr int NS = FILM ? 4 : 2;
+  const int ntt = (o.T + o.bn - 1) / o.bn, ntg = (o.T + 63) / 64;
+  const int B = o.B, C = o.C, T = o.T, M = o.M;
+  // 1. a, recomputed from the forward's statistics: the bits the forward's
+  // GEMM read
+  bwd_apply_norm<TX><<<dim3(ntg, (C + 63) / 64, B), 256, 0, st>>>(
+      static_cast<const TX*>(o.x), static_cast<TX*>(o.ybuf), o.stats, o.v, C,
+      T, o.G, B, o.act);
+  // 2. the upstream time-major, and db's partials
+  bwd_transpose<TX><<<dim3(ntg, (M + 63) / 64, B), 256, 0, st>>>(
+      static_cast<const TX*>(o.g), static_cast<TX*>(o.gt), o.dbp, M, T);
+  const BwdArgs<TX> a{static_cast<const TX*>(o.x), o.stats, o.v,
+                      static_cast<TX*>(o.dn), o.part, B, C, T, M, o.G,
+                      o.act, ntt};
+  int rc = 0;
+  // 3. da, with dn and the time tiles' channel sums
+  if constexpr (BF) {
+    CUtensorMap wmap, gmap;
+    if ((rc = tensor_map_3d(&wmap, o.wb, M, C, TAPS, 2ull * M, 2ull * M * C,
+                            BK, BM)))
+      return rc;
+    if ((rc = tensor_map_3d(&gmap, o.gt, M, T, B, 2ull * M, 2ull * M * T, BK,
+                            o.bn)))
+      return rc;
+    const dim3 grid(ntt, (C + BM - 1) / BM, B);
+    if (o.bn == 64) {
+      rc = allow_smem<bwd_da_wgmma<TAPS, 64>>(Ring<64>::SMEM);
+      if (!rc)
+        bwd_da_wgmma<TAPS, 64><<<grid, GEMM_THREADS, Ring<64>::SMEM, st>>>(
+            wmap, gmap, a);
+    } else if (o.bn == 128) {
+      rc = allow_smem<bwd_da_wgmma<TAPS, 128>>(Ring<128>::SMEM);
+      if (!rc)
+        bwd_da_wgmma<TAPS, 128><<<grid, GEMM_THREADS, Ring<128>::SMEM, st>>>(
+            wmap, gmap, a);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    if (o.bn != FT) return static_cast<int>(cudaErrorInvalidValue);
+    bwd_gemm_f32<false, TAPS><<<dim3(ntt, (C + FT - 1) / FT, B), 256, 0,
+                                st>>>(static_cast<const float*>(o.wb),
+                                      static_cast<const float*>(o.gt),
+                                      nullptr, a, nullptr, 1);
+  }
+  if (rc) return rc;
+  // 4. dx, the batch's dgamma/dbeta sums, d(emb)
+  const int per = C / o.G;
+  const int nsmem = (NS + 1) * per * 4;
+  if ((rc = allow_smem<bwd_norm<TX, FILM>>(nsmem))) return rc;
+  bwd_norm<TX, FILM><<<B * o.G, 256, nsmem, st>>>(
+      a, static_cast<TX*>(o.dx), o.sgb, o.demb);
+  // 5. dW's split partials
+  if constexpr (BF) {
+    CUtensorMap gmap, ymap;
+    if ((rc = tensor_map_3d(&gmap, o.gt, M, T, B, 2ull * M, 2ull * M * T, 64,
+                            DW_BK)))
+      return rc;
+    if ((rc = tensor_map_3d(&ymap, o.ybuf, C, T, B, 2ull * C, 2ull * C * T,
+                            64, DW_BK)))
+      return rc;
+    if ((rc = allow_smem<bwd_dw_wgmma<TAPS>>(DW_SMEM))) return rc;
+    bwd_dw_wgmma<TAPS><<<dim3((C + 127) / 128, (M + 127) / 128,
+                              TAPS * o.split),
+                         GEMM_THREADS, DW_SMEM, st>>>(gmap, ymap, o.wpart, B,
+                                                      M, C, T, o.split);
+  } else {
+    const dim3 grid((C + FT - 1) / FT, (M + FT - 1) / FT, TAPS * o.split);
+    bwd_gemm_f32<true, TAPS><<<grid, 256, 0, st>>>(
+        nullptr, static_cast<const float*>(o.gt),
+        static_cast<const float*>(o.ybuf),
+        a, o.wpart, o.split);
+  }
+  // 6. dW, db, dgamma, dbeta
+  const long long total = (long long)TAPS * M * C + 2LL * C;
+  const int wblocks = (int)std::min<long long>((total + 255) / 256, 132 * 8);
+  bwd_reduce<TX><<<wblocks + (M + 7) / 8, 256, 0, st>>>(
+      o.wpart, o.split, TAPS, M, C, static_cast<TX*>(o.dw), o.dbp, B * ntg,
+      o.db, o.sgb, B, o.dgamma, o.dbeta, o.v.bf, wblocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The normalise kernel alone (each path's first kernel, for checks):
@@ -896,4 +1650,40 @@ extern "C" int tts_ts_res_block_out(const void* h, const void* x,
   return run_gemm(static_cast<const bf16*>(w), static_cast<bf16*>(ybuf), bias,
                   vec_bf, static_cast<const bf16*>(x),
                   static_cast<bf16*>(out), B, C, T, C, 3, bn, st);
+}
+
+// K4's and K5's backward: taps 1 is K4 (x; act as the forward's), taps 3
+// K5 (h, act 1, emb).  x: (B, C, T) contiguous; wb: (taps, C, M) in x's
+// type, 16-byte aligned: K4's W^T, K5's reversed taps, wb[s'] = W[:, :,
+// 2 - s']^T, so that tap s' shifts the upstream by s' - 1 steps as the
+// forward shifts Y; g: the upstream (B, M, T) contiguous; stats: the
+// forward's mu, then rstd (2*B*G fp32); gamma, beta: (C), bf16 if vec_bf
+// else fp32; emb: (B, 2C) [scale | shift] (K5; bf16 if emb_bf else fp32).
+// Scratch: ybuf (B, T, C) (a, time-major), gt (B, T, M) and dn (B, C, T)
+// in x's type; part (B, ntt, NS, C) with ntt = ceil(T / bn) and NS = 2 (K4)
+// or 4 (K5), dbp (B, ceil(T / 64), M), wpart (split, taps, M, C) and sgb
+// (B, 2, C), all fp32.  Out: dx (B, C, T) and dw (the weight's layout: K4
+// (M, C), K5 (C, C, 3)) in x's type; dgamma, dbeta (C) and db (M) in the
+// vectors' type; demb (B, 2C) in emb's (K5).  dtype: 0 = float32, 1 =
+// bfloat16; bn: the da GEMM's steps a block (bf16: 64 or 128; fp32: 64);
+// split: dW's K slices.  C % 8 == 0, M % 8 == 0, C % G == 0.
+extern "C" int tts_resblock_bwd(
+    const void* x, const void* gamma, const void* beta, const void* emb,
+    const void* wb, const void* g, const float* stats, void* ybuf,
+    void* gt, void* dn, float* part, float* dbp, float* wpart, float* sgb,
+    void* dx, void* dw, void* dgamma, void* dbeta, void* db, void* demb,
+    int B, int C, int T, int M, int G, int taps, int act, float eps,
+    int dtype, int vec_bf, int emb_bf, int bn, int split, void* stream) {
+  if ((taps != 1 && taps != 3) || split < 1 || (taps == 3 && emb == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdIo o{x, wb, g, stats,
+                Vecs{gamma, beta, nullptr, taps == 3 ? emb : nullptr, vec_bf,
+                     emb_bf},
+                ybuf, gt, dn, part, dbp, wpart, sgb, dx, dw, dgamma,
+                dbeta, db, demb, B, C, T, M, G, taps, taps == 3 ? 1 : act,
+                bn, split, eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return taps == 3 ? run_bwd<float, 3>(o, st) : run_bwd<float, 1>(o, st);
+  return taps == 3 ? run_bwd<bf16, 3>(o, st) : run_bwd<bf16, 1>(o, st);
 }

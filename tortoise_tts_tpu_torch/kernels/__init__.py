@@ -9,6 +9,7 @@
 | ``flash_decode`` | ``ops/pallas_decode_attn.py`` ``flash_decode_stacked``, and its shared-prefix form | ``csrc/flash_decode.cu`` |
 | ``gn_conv`` | ``ops/pallas_resblock.py`` ``fused_gn_conv1x1`` | ``csrc/resblock.cu`` |
 | ``ts_res_block`` | ``ops/pallas_resblock.py`` ``fused_ts_res_block`` | ``csrc/resblock.cu`` |
+| ``gn_conv`` and ``ts_res_block`` (``KERNEL_BWD``) | no Pallas kernel: the backwards of ``models/arch.py``'s and ``models/diffusion.py``'s ``custom_vjp`` (``jax.vjp`` of their XLA formulations) | ``csrc/resblock.cu`` |
 | ``flash_attention_bias`` | ``ops/pallas_attention.py`` ``flash_attention_bias_qkv_vt`` | ``csrc/flash_attention_bias.cu`` |
 | ``flash_attention_bias_kq`` | ``ops/pallas_attention.py`` ``flash_attention_bias_qkv_kq`` | ``csrc/flash_attention_bias_kq.cu`` |
 | ``flash_attention_bias_cm`` | ``ops/pallas_attention.py`` ``flash_attention_bias_cm`` and ``flash_attention_bias_qkv`` | ``csrc/flash_attention_bias_cm.cu`` |
@@ -36,6 +37,8 @@ KERNELS = {"flash_attention": flash_attention.KERNEL,
            "flash_decode": flash_decode.KERNEL,
            "flash_decode_shared": flash_decode.KERNEL_SHARED,
            "gn_conv": gn_conv.KERNEL, "ts_res_block": ts_res_block.KERNEL,
+           "gn_conv_bwd": gn_conv.KERNEL_BWD,
+           "ts_res_block_bwd": ts_res_block.KERNEL_BWD,
            "flash_attention_bias": flash_attention_bias.KERNEL,
            "snake": snake.KERNEL,
            "flash_attention_bias_kq": flash_attention_bias_kq.KERNEL,

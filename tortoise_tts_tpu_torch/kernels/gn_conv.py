@@ -16,9 +16,15 @@ that is a multiple of 8.
 
 ``gn_conv1x1`` runs the plain PyTorch version for CPU tensors and the
 kernel for CUDA tensors (it raises on what the kernel does not take).
-On CUDA the call is a ``torch.autograd.Function`` whose backward
-recomputes the plain version, as the JAX package's ``custom_vjp`` does
-(``arch.py:52-71``).  ``group_norm_act`` runs the normalise kernel
+Where autograd records a CUDA call (``records_grad``) the call is a
+``torch.autograd.Function``: the forward also writes each (batch,
+group)'s mean and rstd, and the backward is a kernel of its own,
+``KERNEL_BWD`` (``tts_resblock_bwd`` in ``csrc/resblock.cu``, one count a
+call), which replaces no Pallas kernel: the JAX package's ``custom_vjp``
+differentiates its XLA formulation (``arch.py:52-69``).  Its plain
+version is ``gn_conv1x1_bwd_plain``, the gradients written out, with the
+kernel's rounding points; ``bwd_plan`` is its launch.
+``group_norm_act`` runs the normalise kernel
 alone, for checks (``group_norm_split``: the fp32 kernel's Y_hi and
 Y_lo); ``group_norm_act_plain`` is its plain version, and ``tf32_split``
 of it the fp32 kernel's (Y_hi, Y_lo).  ``matmul_3xtf32`` is
@@ -32,11 +38,17 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+import torch.nn.functional as Fn
+
 from ..models.common import Params, conv1d, group_norm, silu
 from ._build import F, I, P, Kernel
+from .flash_attention import records_grad
 
 KERNEL = Kernel("resblock", "tts_gn_conv1x1",
                 [P] * 9 + [I] * 6 + [F, I, I, I, I, P])
+# K4's and K5's backward (one entry; ``ts_res_block`` has its own count)
+BWD_ARGTYPES = [P] * 20 + [I] * 7 + [F] + [I] * 5 + [P]
+KERNEL_BWD = Kernel("resblock", "tts_resblock_bwd", BWD_ARGTYPES)
 # the normalise kernel alone; its launches are not K4's
 NORMALISE = Kernel("resblock", "tts_group_norm_act",
                    [P] * 7 + [I] * 5 + [F, I, I, I, P])
@@ -160,6 +172,106 @@ def group_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor,
     return y
 
 
+def silu_grad(z: torch.Tensor) -> torch.Tensor:
+    """d silu(z) / dz = sigmoid(z) (1 + z (1 - sigmoid(z)))."""
+    sg = torch.sigmoid(z)
+    return sg * (1 + z * (1 - sg))
+
+
+def _normalised(x, gamma, beta, groups, stats):
+    """x^ = (x - mu) rstd and n = gamma x^ + beta, fp32 (B, C, T)."""
+    b, c, _ = x.shape
+    per = c // groups
+    mu, rstd = (v.float().reshape(b, groups, 1).repeat_interleave(per, dim=1)
+                for v in stats)
+    xh = (x.float() - mu) * rstd
+    return xh, xh * gamma.float()[:, None] + beta.float()[:, None]
+
+
+def _gn_backward(x, xh, dn, gamma, stats, groups):
+    """GroupNorm's backward from dn = dL/dn (fp32, n = gamma x^ + beta):
+    (dx, dgamma, dbeta) in fp32.  The channel sums take dn in fp32; dx
+    takes dn rounded to x's type, as the kernels store it: dx = rstd
+    (gamma dn - mean_g(gamma dn) - x^ mean_g(gamma dn x^))."""
+    b, c, t = x.shape
+    per = c // groups
+    s1, s2 = dn.sum(2), (dn * xh).sum(2)                 # (B, C)
+    gam = gamma.float()
+    m1 = (gam * s1).reshape(b, groups, per, 1).sum(2, keepdim=True) / (per * t)
+    m2 = (gam * s2).reshape(b, groups, per, 1).sum(2, keepdim=True) / (per * t)
+    rstd = stats[1].float().reshape(b, groups, 1, 1)
+    u = (gam[:, None] * dn.to(x.dtype).float()).reshape(b, groups, per, t)
+    dx = rstd * (u - m1 - xh.reshape(b, groups, per, t) * m2)
+    return dx.reshape(b, c, t), s2.sum(0), s1.sum(0)
+
+
+def gn_conv1x1_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
+                         beta: torch.Tensor, w: torch.Tensor,
+                         bias: torch.Tensor, g: torch.Tensor, groups: int,
+                         act: bool, eps: float = 1e-5,
+                         stats: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None):
+    """The gradients of ``gn_conv1x1`` for the upstream g (B, M, T),
+    written out as the kernel computes them: (dx, dgamma, dbeta, dw, db)
+    in x's, gamma's, beta's, w's and bias's types.  With x^ = (x - mu)
+    rstd and n = gamma x^ + beta (fp32, ``stats`` or the two-pass
+    statistics), a = the normalise kernel's rounded Y (act: silu(n)):
+    db = sum g, dW = sum_b g a^T, da = W^T g (w in x's type, sums in
+    fp32), dn = da silu'(n) (act) or da, then ``_gn_backward``."""
+    b, c, _ = x.shape
+    m = w.shape[0]
+    stats = stats if stats is not None else group_stats_plain(x, groups, eps)
+    xh, n = _normalised(x, gamma, beta, groups, stats)
+    a = group_norm_act_plain(x, gamma, beta, groups, act, eps, stats=stats)
+    gf = g.float()
+    wf = w.to(x.dtype).float().reshape(m, c)
+    dw = torch.einsum("bmt,bct->mc", gf, a.float())
+    dn = torch.einsum("mc,bmt->bct", wf, gf)
+    if act:
+        dn = dn * silu_grad(n)
+    dx, dgamma, dbeta = _gn_backward(x, xh, dn, gamma, stats, groups)
+    return (dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+            dw.reshape(w.shape).to(w.dtype), gf.sum((0, 2)).to(bias.dtype))
+
+
+def ts_res_block_out_bwd_plain(h: torch.Tensor, emb_out: torch.Tensor,
+                               gamma: torch.Tensor, beta: torch.Tensor,
+                               w: torch.Tensor, bias: torch.Tensor,
+                               g: torch.Tensor, groups: int,
+                               eps: float = 1e-5,
+                               stats: Optional[Tuple[torch.Tensor,
+                                                     torch.Tensor]] = None):
+    """The gradients of ``ts_res_block.ts_res_block_out`` for the upstream
+    g (B, C, T), written out as the kernel computes them: (dh, demb,
+    dgamma, dbeta, dw, db) in their inputs' types; dx is g itself.  With
+    n as in ``gn_conv1x1_bwd_plain``, z = n (1 + scale) + shift and a the
+    rounded silu(z): dW_s = sum_{b,t} g[:, t] a[:, t + s - 1]^T, da[:, t]
+    = sum_s W_s^T g[:, t - s + 1] (zero padding), dz = da silu'(z), dn =
+    dz (1 + scale), d(scale) = sum_t dz n, d(shift) = sum_t dz."""
+    c, t = h.shape[1], h.shape[2]
+    stats = stats if stats is not None else group_stats_plain(h, groups, eps)
+    scale = emb_out[:, :c].float()[..., None]
+    shift = emb_out[:, c:].float()[..., None]
+    xh, n = _normalised(h, gamma, beta, groups, stats)
+    z = n * (1 + scale) + shift
+    a = group_norm_act_plain(h, gamma, beta, groups, True, eps,
+                             emb_out[:, :c], emb_out[:, c:], stats)
+    gf = g.float()
+    wf = w.to(h.dtype).float()
+    ap, gp = Fn.pad(a.float(), (1, 1)), Fn.pad(gf, (1, 1))
+    dw = torch.stack([torch.einsum("bmt,bct->mc", gf, ap[..., s:s + t])
+                      for s in range(3)], dim=2)
+    da = sum(torch.einsum("mc,bmt->bct", wf[:, :, s], gp[..., 2 - s:2 - s + t])
+             for s in range(3))
+    dz = da * silu_grad(z)
+    dn = dz * (1 + scale)
+    demb = torch.cat([(dz * n).sum(2), dz.sum(2)], dim=1)
+    dh, dgamma, dbeta = _gn_backward(h, xh, dn, gamma, stats, groups)
+    return (dh.to(h.dtype), demb.to(emb_out.dtype), dgamma.to(gamma.dtype),
+            dbeta.to(beta.dtype), dw.to(w.dtype),
+            gf.sum((0, 2)).to(bias.dtype))
+
+
 def tf32_split(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 y as (hi, lo): hi = y rounded to TF32 as ``cvt.rna.tf32.f32``
     rounds (to nearest, ties away from zero; the 13 low bits cleared, on
@@ -278,38 +390,140 @@ def group_norm_split(x: torch.Tensor, gamma: torch.Tensor,
     return (buf[0].transpose(1, 2), buf[1].transpose(1, 2)), stats
 
 
-def _launch(x, gamma, beta, w, bias, groups, act, eps):
+class BwdPlan(NamedTuple):
+    """The backward's launch: ``bn`` time steps a block of the da GEMM,
+    and ``split`` K slices (of the B * T reduction) a dW tile."""
+    bn: int
+    split: int
+
+
+def bwd_plan(b: int, c: int, t: int, m: int, groups: int, taps: int,
+             dtype: torch.dtype) -> BwdPlan:
+    """Check a backward (B, C, T) -> (B, M, T) (``taps`` = 3: K5) against
+    what its kernels take, as ``plan``, and M % 8 == 0 (the time-major
+    upstream's rows are read in 16-byte pieces), and return its launch.
+    bf16: da's tile width by ``plan``'s rule over its C x T outputs; dW's
+    split the least waves of 128 x 128 tiles (one block an SM) times the
+    64-step K steps a slice.  fp32 (CUDA cores, 64 x 64 tiles): bn 64 and
+    a split that gives about four blocks an SM.  bf16's da tile: 64
+    steps (two blocks an SM, one's epilogue beside the other's products)
+    where the reduction taps * M is at most 1024 or where 128-step blocks
+    would fill less than half the SMs, else 128 (at (16, 1024, 2240) on
+    an H100: 0.255 against 0.320 ms for K4 -> 1024; 0.564 against 0.500
+    ms for the qkv head, ``tools/resblock_backward_profile.py``)."""
+    plan(b, c, t, m, groups, dtype, "resblock backward", taps)
+    if m % 8:
+        raise ValueError(f"resblock backward kernel needs M % 8 == 0, got "
+                         f"M={m}")
+    if dtype == torch.float32:
+        tiles = taps * -(-m // 64) * -(-c // 64)
+        return BwdPlan(64, max(1, min(b * -(-t // 16), 16,
+                                      -(-4 * SMS // tiles))))
+    wide = b * -(-c // GEMM_ROWS) * -(-t // 128)
+    tiles = taps * -(-m // 128) * -(-c // 128)
+    kt = b * -(-t // 64)
+    split = min(range(1, min(8, kt) + 1),
+                key=lambda s: (-(-tiles * s // SMS) * -(-kt // s), s))
+    return BwdPlan(128 if 2 * wide > SMS and taps * m > 1024 else 64, split)
+
+
+def _launch(x, gamma, beta, w, bias, groups, act, eps, with_stats=False):
+    """K4 on CUDA x: (out, (B * G * 2,) fp32 mu then rstd where
+    ``with_stats``, else None: the kernel writes no statistics)."""
     b, c, t = x.shape
     m = w.shape[0]
     p = plan(b, c, t, m, groups, x.dtype)
     x = x.contiguous()
     w = _aligned(w.to(x.dtype).reshape(m, c))
     out = torch.empty((b, m, t), dtype=x.dtype, device=x.device)
+    stats = (torch.empty(2 * b * groups, dtype=torch.float32, device=x.device)
+             if with_stats else None)
     buf = _scratch(x)
     (gamma, beta, bias), vec_bf = _vectors(gamma, beta, bias)
     KERNEL.launch(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                  w.data_ptr(), bias.data_ptr(), out.data_ptr(), None,
+                  w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                  stats.data_ptr() if with_stats else None,
                   *_ptrs(buf), b, c, t, m, groups, int(act), eps,
                   _DTYPES[x.dtype], vec_bf, p.bn, p.split, _stream(x))
-    return out
+    return out, stats
+
+
+def _launch_bwd(kernel, x, gamma, beta, bias, wb, g, stats, groups, act,
+                eps, emb=None):
+    """K4's (emb None) or K5's backward on CUDA x: (dx, dgamma, dbeta, dw,
+    db, demb).  wb: (taps, C, M), ``tts_resblock_bwd``'s weight; stats:
+    the forward's.  dw comes flat in the weight's layout, in x's type;
+    dgamma, dbeta and db in ``_vectors``' type; demb in emb's (or None)."""
+    b, c, t = x.shape
+    taps, m = wb.shape[0], wb.shape[2]
+    p = bwd_plan(b, c, t, m, groups, taps, x.dtype)
+    if g.shape != (b, m, t) or g.dtype != x.dtype \
+            or wb.shape != (taps, c, m) or wb.dtype != x.dtype \
+            or stats is None or stats.shape != (2 * b * groups,):
+        raise ValueError(f"resblock backward: upstream {tuple(g.shape)} "
+                         f"{g.dtype}, weight {tuple(wb.shape)} {wb.dtype} "
+                         f"and the forward's statistics must match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    x, g, wb = x.contiguous(), g.contiguous(), _aligned(wb)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ybuf = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
+    gt = torch.empty((b, t, m), dtype=x.dtype, device=x.device)
+    dn = torch.empty_like(x)
+    part = torch.empty((b, -(-t // p.bn), 2 if emb is None else 4, c), **f32)
+    dbp = torch.empty((b, -(-t // 64), m), **f32)
+    wpart = torch.empty((p.split, taps, m, c), **f32)
+    sgb = torch.empty((b, 2, c), **f32)
+    (gamma, beta, bias), vec_bf = _vectors(gamma, beta, bias)
+    (emb,), emb_bf = _vectors(emb) if emb is not None else ((None,), 0)
+    dx = torch.empty_like(x)
+    dw = torch.empty(taps * m * c, dtype=x.dtype, device=x.device)
+    dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(beta)
+    db = torch.empty_like(bias)
+    demb = torch.empty_like(emb) if emb is not None else None
+    kernel.launch(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                  None if emb is None else emb.data_ptr(), wb.data_ptr(),
+                  g.data_ptr(), stats.data_ptr(), ybuf.data_ptr(),
+                  gt.data_ptr(), dn.data_ptr(), part.data_ptr(), dbp.data_ptr(),
+                  wpart.data_ptr(), sgb.data_ptr(), dx.data_ptr(),
+                  dw.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+                  db.data_ptr(), None if demb is None else demb.data_ptr(),
+                  b, c, t, m, groups, taps, int(act), eps, _DTYPES[x.dtype],
+                  vec_bf, emb_bf, p.bn, p.split, _stream(x))
+    return dx, dgamma, dbeta, dw, db, demb
 
 
 class _GnConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, w, bias, groups, act, eps):
-        ctx.save_for_backward(x, gamma, beta, w, bias)
+        out, stats = _launch(x, gamma, beta, w, bias, groups, act, eps,
+                             with_stats=True)
+        ctx.save_for_backward(x, gamma, beta, w, bias, stats)
         ctx.cfg = (groups, act, eps)
-        return _launch(x, gamma, beta, w, bias, groups, act, eps)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        x, gamma, beta, w, bias = ins
-        with torch.enable_grad():
-            out = gn_conv1x1_plain(x, {"scale": gamma, "bias": beta},
-                                   {"w": w, "b": bias}, *ctx.cfg)
-        grads = torch.autograd.grad(out, ins, g, allow_unused=True)
-        return (*grads, None, None, None)
+        x, gamma, beta, w, bias, stats = ctx.saved_tensors
+        groups, act, eps = ctx.cfg
+        m, c = w.shape[0], x.shape[1]
+        wb = w.to(x.dtype).reshape(m, c).t().contiguous()[None]
+        dx, dga, dbe, dw, db, _ = _launch_bwd(KERNEL_BWD, x, gamma, beta,
+                                              bias, wb, g, stats, groups,
+                                              act, eps)
+        return (dx, dga.to(gamma.dtype), dbe.to(beta.dtype),
+                dw.view(w.shape).to(w.dtype), db.to(bias.dtype), None, None,
+                None)
+
+
+def _cuda_call(x, norm, conv, groups, act, eps):
+    """K4 on a CUDA x: the autograd Function where autograd records the
+    call (the forward then keeps the statistics), else the kernel alone."""
+    m = conv["w"].shape[0]
+    bias = conv["b"] if "b" in conv else torch.zeros(m, device=x.device)
+    args = (x, norm["scale"], norm["bias"], conv["w"], bias)
+    if records_grad(*args):
+        return _GnConv.apply(*args, groups, act, eps)
+    return _launch(*args, groups, act, eps)[0]
 
 
 def gn_conv1x1(x: torch.Tensor, norm: Params, conv: Params, groups: int,
@@ -321,7 +535,4 @@ def gn_conv1x1(x: torch.Tensor, norm: Params, conv: Params, groups: int,
         return gn_conv1x1_plain(x, norm, conv, groups, act, eps)
     if x.device.type != "cuda":
         raise ValueError(f"gn_conv1x1: no kernel for {x.device}")
-    m = conv["w"].shape[0]
-    bias = conv["b"] if "b" in conv else torch.zeros(m, device=x.device)
-    return _GnConv.apply(x, norm["scale"], norm["bias"], conv["w"], bias,
-                         groups, act, eps)
+    return _cuda_call(x, norm, conv, groups, act, eps)

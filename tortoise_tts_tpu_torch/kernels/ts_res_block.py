@@ -18,9 +18,14 @@ A CUDA call without ``w_taps`` raises.
 
 ``ts_res_block_out`` runs the plain PyTorch version for CPU tensors and
 the kernel for CUDA tensors (it raises on what the kernel does not take).
-On CUDA the call is a ``torch.autograd.Function`` whose backward
-recomputes the plain version, as the JAX package's ``custom_vjp`` does
-(``diffusion.py:77-98``).
+Where autograd records a CUDA call the call is a
+``torch.autograd.Function``: the forward also writes each (batch,
+group)'s mean and rstd, and the backward is ``KERNEL_BWD`` (K4's
+backward entry ``tts_resblock_bwd`` with three taps, counted here), which
+replaces no Pallas kernel: the JAX package's ``custom_vjp``
+differentiates its XLA formulation (``diffusion.py:77-98``).  It reads
+the live ``w``; the tap-major ``w_taps`` gets no gradient.  Its plain
+version is ``gn_conv.ts_res_block_out_bwd_plain``.
 """
 
 from __future__ import annotations
@@ -30,11 +35,13 @@ import torch.nn.functional as Fn
 
 from ..models.common import Params, conv1d, group_norm, silu
 from ._build import F, I, P, Kernel
-from .gn_conv import (_DTYPES, _aligned, _ptrs, _scratch, _stream,
-                      _vectors, group_norm_act_plain, plan)
+from .flash_attention import records_grad
+from .gn_conv import (BWD_ARGTYPES, _DTYPES, _aligned, _launch_bwd, _ptrs,
+                      _scratch, _stream, _vectors, group_norm_act_plain, plan)
 
 KERNEL = Kernel("resblock", "tts_ts_res_block_out",
                 [P] * 11 + [I] * 4 + [F, I, I, I, I, I, P])
+KERNEL_BWD = Kernel("resblock", "tts_resblock_bwd", BWD_ARGTYPES)
 
 
 def ts_res_block_out_plain(h: torch.Tensor, x: torch.Tensor,
@@ -77,7 +84,9 @@ def ts_res_block_out_taps_plain(h: torch.Tensor, x: torch.Tensor,
     return (acc + bias.float()[:, None] + x.float()).to(h.dtype)
 
 
-def _launch(h, x, emb_out, gamma, beta, w_taps, bias, groups, eps):
+def _launch(h, x, emb_out, gamma, beta, w_taps, bias, groups, eps,
+            with_stats=False):
+    """K5 on CUDA h: (out, the statistics as ``gn_conv._launch``'s)."""
     b, c, t = h.shape
     p = plan(b, c, t, c, groups, h.dtype, "ts_res_block_out", taps=3)
     if x.shape != h.shape or x.dtype != h.dtype or w_taps.shape != (3, c, c):
@@ -88,36 +97,55 @@ def _launch(h, x, emb_out, gamma, beta, w_taps, bias, groups, eps):
     h, x = h.contiguous(), x.contiguous()
     w_taps = _aligned(w_taps.to(h.dtype))
     out = torch.empty_like(h)
+    stats = (torch.empty(2 * b * groups, dtype=torch.float32, device=h.device)
+             if with_stats else None)
     buf = _scratch(h)
     (gamma, beta, bias), vec_bf = _vectors(gamma, beta, bias)
     (emb_out,), emb_bf = _vectors(emb_out)
     KERNEL.launch(h.data_ptr(), x.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), emb_out.data_ptr(), w_taps.data_ptr(),
-                  bias.data_ptr(), out.data_ptr(), None, *_ptrs(buf), b, c,
-                  t, groups, eps, _DTYPES[h.dtype], vec_bf, emb_bf, p.bn,
+                  bias.data_ptr(), out.data_ptr(),
+                  stats.data_ptr() if with_stats else None, *_ptrs(buf), b,
+                  c, t, groups, eps, _DTYPES[h.dtype], vec_bf, emb_bf, p.bn,
                   p.split, _stream(h))
-    return out
+    return out, stats
 
 
 class _TsResBlockOut(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, x, emb_out, gamma, beta, w, w_taps, bias, groups,
                 eps):
-        ctx.save_for_backward(h, x, emb_out, gamma, beta, w, bias)
+        out, stats = _launch(h, x, emb_out, gamma, beta, w_taps, bias,
+                             groups, eps, with_stats=True)
+        ctx.save_for_backward(h, emb_out, gamma, beta, w, bias, stats)
         ctx.cfg = (groups, eps)
-        return _launch(h, x, emb_out, gamma, beta, w_taps, bias, groups, eps)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        h, x, emb_out, gamma, beta, w, bias = ins
-        with torch.enable_grad():
-            out = ts_res_block_out_plain(
-                h, x, emb_out, {"scale": gamma, "bias": beta},
-                {"w": w, "b": bias}, *ctx.cfg)
-        grads = torch.autograd.grad(out, ins, g, allow_unused=True)
-        gh, gx, gemb, gga, gbe, gw, gb = grads
-        return gh, gx, gemb, gga, gbe, gw, None, gb, None, None
+        h, emb_out, gamma, beta, w, bias, stats = ctx.saved_tensors
+        groups, eps = ctx.cfg
+        # wb[s'] = w[:, :, 2 - s']^T: (3, C_in, C_out)
+        wb = w.to(h.dtype).flip(2).permute(2, 1, 0).contiguous()
+        dh, dga, dbe, dw, db, demb = _launch_bwd(
+            KERNEL_BWD, h, gamma, beta, bias, wb, g, stats, groups, True,
+            eps, emb=emb_out)
+        return (dh, g, demb.to(emb_out.dtype), dga.to(gamma.dtype),
+                dbe.to(beta.dtype), dw.view(w.shape).to(w.dtype), None,
+                db.to(bias.dtype), None, None)
+
+
+def _cuda_call(h, x, emb_out, norm, conv, groups, eps):
+    """K5 on a CUDA h: the autograd Function where autograd records the
+    call, else the kernel alone."""
+    bias = conv["b"] if "b" in conv else torch.zeros(h.shape[1],
+                                                     device=h.device)
+    args = (h, x, emb_out, norm["scale"], norm["bias"], conv["w"],
+            conv["w_taps"], bias)
+    if records_grad(*args):
+        return _TsResBlockOut.apply(*args, groups, eps)
+    return _launch(h, x, emb_out, norm["scale"], norm["bias"],
+                   conv["w_taps"], bias, groups, eps)[0]
 
 
 def ts_res_block_out(h: torch.Tensor, x: torch.Tensor, emb_out: torch.Tensor,
@@ -136,7 +164,4 @@ def ts_res_block_out(h: torch.Tensor, x: torch.Tensor, emb_out: torch.Tensor,
                          "tap-major; add it once with "
                          "ts_res_block.prepare_conv(conv) (the denoiser: "
                          "models.diffusion.prepare(params))")
-    c = h.shape[1]
-    bias = conv["b"] if "b" in conv else torch.zeros(c, device=h.device)
-    return _TsResBlockOut.apply(h, x, emb_out, norm["scale"], norm["bias"],
-                                conv["w"], conv["w_taps"], bias, groups, eps)
+    return _cuda_call(h, x, emb_out, norm, conv, groups, eps)
