@@ -3461,11 +3461,19 @@ TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "gn_conv",
                  "ts_res_block", "gn_conv_bwd", "ts_res_block_bwd")
 # K1's fp32 backward against the fp32 plain version, row by row
 K1_F32_BWD_TOL = 1e-4
-# the CUDA kernels of K4's and K5's backward (csrc/resblock.cu), in launch
-# order; fp32 takes bwd_gemm_f32 for both products
-RESBLOCK_BWD_KERNELS = ("bwd_apply_norm", "bwd_transpose", "bwd_da_wgmma",
-                        "bwd_norm", "bwd_dw_wgmma", "bwd_reduce",
-                        "bwd_gemm_f32")
+# the CUDA kernels of K4's and K5's backward (csrc/resblock.cu) in bf16 at
+# the training shape (T % 8 == 0), in launch order: K4 reads the upstream
+# as it comes, K5 (three taps) makes it time-major first; fp32 takes
+# bwd_transpose and bwd_gemm_f32 for both products
+RESBLOCK_BWD_KERNELS = {
+    "gn_conv_bwd": ("bwd_apply_norm", "bwd_da_wgmma", "bwd_norm",
+                    "bwd_dw_wgmma", "bwd_reduce"),
+    "ts_res_block_bwd": ("bwd_apply_norm", "bwd_transpose", "bwd_da_wgmma",
+                         "bwd_norm", "bwd_dw_wgmma", "bwd_reduce"),
+    "fp32": ("bwd_apply_norm", "bwd_transpose", "bwd_gemm_f32", "bwd_norm",
+             "bwd_reduce")}
+# the CUDA kernels of K1's backward in bf16, in launch order
+K1_BWD_KERNELS = ("bwd_dq_ws", "bwd_dkdv_ws")
 # the vocoder GAN step: B segments of T samples (T / 256 mel frames) of
 # the synthetic reference at 24 kHz, AdamW at VOC_LR (the BigVGAN
 # recipe's rate) for VOC_STEPS steps
@@ -3688,11 +3696,15 @@ def _k1_backward(torch, k1, shape, q, k, v) -> dict:
     sdpa = F.scaled_dot_product_attention(*xs, is_causal=True)
     t = {"ms": device_ms(torch, lambda _: k1.flash_attention_bwd(
              q, k, v, lse, up), n=10, warmup=2),
+         "kernels_ms": kernel_ms(torch, lambda: k1.flash_attention_bwd(
+             q, k, v, lse, up)),
          "plain_ms": device_ms(torch, lambda _: k1.flash_attention_bwd_plain(
              q, k, v, lse, up), n=3, warmup=1),
          "library_ms": device_ms(torch, lambda _: torch.autograd.grad(
              sdpa, xs, up, retain_graph=True), n=10, warmup=2)}
     del sdpa, xs
+    ran = sorted(t["kernels_ms"])
+    assert ran == sorted(K1_BWD_KERNELS), ran
     bms, by = bound_ms(7 * b * h * s * d * 2 + 4 * b * h * s,
                        5 * b * h * d * s * (s + 1))
     emit("train_grads", name="flash_attention_bwd", shape=list(shape),
@@ -3700,6 +3712,7 @@ def _k1_backward(torch, k1, shape, q, k, v) -> dict:
          max_abs_want=top, library="SDPA backward", bound_ms=bms,
          bound_by=by, **t)
     torch.cuda.empty_cache()
+    del t["kernels_ms"]
     return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t)
 
 
@@ -3819,6 +3832,8 @@ def _resblock_backward(torch, k4, k5, name, shape, autograd, bwd, plain,
                                warmup=1),
          "library_ms": device_ms(torch, lambda _: library(), n=10,
                                  warmup=2)}
+    ran = sorted(k.split("<")[0] for k in t["kernels_ms"])
+    assert ran == sorted(RESBLOCK_BWD_KERNELS[name]), (name, ran)
     bms, by = bound_ms(nbytes, flops)
     emit("train_grads", name=name, shape=list(shape), launches_a_call=1,
          same_bits=same, max_abs_err=err, rel_err=rel,
@@ -4413,7 +4428,8 @@ def eval_launches(tokens: int, steps: int = 30) -> dict:
 def _kernel_group(name: str) -> str:
     for key, group in (("flash_attn", "K1"), ("bwd_dq", "K1 backward"),
                        ("bwd_dkdv", "K1 backward"),
-                       *((k, "K4/K5 backward") for k in RESBLOCK_BWD_KERNELS),
+                       *((k, "K4/K5 backward") for k in sorted(
+                           set().union(*RESBLOCK_BWD_KERNELS.values()))),
                        ("attn_bias", "biased attention"), ("gn_conv", "K4"),
                        ("ts_res_block", "K5"), ("group_norm_act", "K4/K5 "
                                                 "normalise"),

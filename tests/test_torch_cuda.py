@@ -244,6 +244,14 @@ def test_qgemv_split_k_counters_cuda(cuda):
         _check_w8a8(x, wq, s, b, lnp)
 
 
+def _kernel_base(name):
+    """A CUDA kernel's demangled name without its namespace, template
+    arguments and parameters: "bwd_da_wgmma"."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    return name.split("(")[0].split("<")[0].split("::")[-1]
+
+
 def _cuda_kernel_names(fn):
     """The CUDA kernels one call of fn launches, by torch.profiler (after
     a pause and spin kernels: the profiler can drop a window's first
@@ -1271,7 +1279,7 @@ def _rel_close(got, want, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
-@pytest.mark.parametrize("b,s", [(2, 389), (1, 773), (2, 17)])
+@pytest.mark.parametrize("b,s", [(2, 389), (1, 773), (2, 17), (4, 773)])
 def test_flash_attention_backward_cuda(cuda, b, s, dtype, tol):
     """K1's autograd path (kernel forward with its log-sum-exp, then the
     backward kernel: one count on each, two CUDA kernels) against autograd
@@ -1280,7 +1288,9 @@ def test_flash_attention_backward_cuda(cuda, b, s, dtype, tol):
     views of the fused projection, as the trunk passes them; the same
     bits in two calls.  bf16 is held against the fp32 plain version (its
     gradients rounded once to bf16), not the bf16 one: the kernel keeps dP
-    in fp32, where the bf16 plain backward rounds it."""
+    in fp32, where the bf16 plain backward rounds it.  At (4, 773) the bf16
+    kernels' 448 work items outnumber the 132 blocks, so a block takes
+    several (its resident buffers reused)."""
     q, k, v, mask = _fused_qkv(cuda, b, 16, s, dtype, seed=s)
     for km in (None, mask):
         def kernel(q, k, v):
@@ -1303,9 +1313,29 @@ def test_flash_attention_backward_cuda(cuda, b, s, dtype, tol):
     o, lse = k1._launch(q, k, v, mask, True, with_lse=True)
     names = _cuda_kernel_names(
         lambda: k1.flash_attention_bwd(q, k, v, lse, o, mask))
-    kind = "tc" if dtype == torch.bfloat16 else "f32"
-    assert len(names) == 2 and f"bwd_dq_{kind}" in names[0] \
-        and f"bwd_dkdv_{kind}" in names[1], names
+    kind = "ws" if dtype == torch.bfloat16 else "f32"
+    assert [_kernel_base(n) for n in names] == [f"bwd_dq_{kind}",
+                                                f"bwd_dkdv_{kind}"], names
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_repeats_its_bits_cuda(cuda):
+    """At the AR step's (16, 16, 773, 64), where a block of the bf16
+    kernels takes about 14 work items and reuses its resident buffers,
+    forty calls give the first call's bits: a resident buffer released
+    right after the warpgroup's ldmatrix (a barrier between), not after
+    its products, was refilled while a read was still in flight and
+    changed some calls' dk and dv far past the training check's row
+    bound."""
+    g = torch.Generator(device=cuda).manual_seed(70)
+    shape = (16, 16, 773, 64)
+    q, k, v, up = (torch.randn(shape, generator=g, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    _, lse = k1._launch(q, k, v, None, True, with_lse=True)
+    first = k1.flash_attention_bwd(q, k, v, lse, up)
+    for _ in range(40):
+        again = k1.flash_attention_bwd(q, k, v, lse, up)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
@@ -1333,18 +1363,35 @@ def _f32(t):
     return t.float() if t.is_floating_point() else t
 
 
+def _resblock_bwd_names(dtype, taps, t):
+    """The CUDA kernels of one K4 (taps 1) or K5 (taps 3) backward call, in
+    launch order: K4 in bf16 at T % 8 == 0 reads the upstream as it comes,
+    every other backward first makes it time-major (bwd_transpose)."""
+    if dtype == torch.float32:
+        return ["bwd_apply_norm", "bwd_transpose", "bwd_gemm_f32",
+                "bwd_norm", "bwd_gemm_f32", "bwd_reduce"]
+    names = ["bwd_apply_norm", "bwd_da_wgmma", "bwd_norm", "bwd_dw_wgmma",
+             "bwd_reduce"]
+    if taps == 3 or t % 8:
+        names.insert(1, "bwd_transpose")
+    return names
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("act,m", [(True, 256), (False, 768)])
-def test_gn_conv_backward_cuda(cuda, monkeypatch, act, m, dtype, tol):
+@pytest.mark.parametrize("t", [283, 288])
+def test_gn_conv_backward_cuda(cuda, monkeypatch, act, m, t, dtype, tol):
     """K4's gradients of x, the norm's scale and bias and the conv's weight
     and bias, through the backward kernel (one launch a call, the same
     bits in two calls), against the plain version's computed in fp32
-    from the same inputs and upstream, at a ragged T."""
+    from the same inputs and upstream, at a ragged T (the upstream made
+    time-major first) and at T % 8 == 0 (read as it comes in bf16); the
+    backward's CUDA kernels, each once."""
     _fp32_exact(monkeypatch, dtype)
     g = torch.Generator(device=cuda).manual_seed(m)
-    b, c, t = 2, 256, 283
+    b, c = 2, 256
     x = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
     ga = 1 + 0.1 * torch.randn(c, generator=g, device=cuda)
     be = 0.1 * torch.randn(c, generator=g, device=cuda)
@@ -1365,6 +1412,13 @@ def test_gn_conv_backward_cuda(cuda, monkeypatch, act, m, dtype, tol):
     _rel_close(out_k, out_p, tol)
     for a, p in zip(g_k, g_p):
         _rel_close(a, p, tol)
+    _, st = k4._launch(x, ga, be, w, bi, 32, act, 1e-5, with_stats=True)
+    up = torch.randn(b, m, t, generator=g, device=cuda).to(dtype)
+    wb = w.reshape(m, c).t().contiguous()[None]
+    names = _cuda_kernel_names(lambda: k4._launch_bwd(
+        k4.KERNEL_BWD, x, ga, be, bi, wb, up, st, 32, act, 1e-5))
+    assert [_kernel_base(n) for n in names] == _resblock_bwd_names(
+        dtype, 1, t), names
 
 
 @pytest.mark.cuda
@@ -1396,8 +1450,10 @@ def test_ts_res_block_backward_reaches_the_live_weight_cuda(
     graph (as the diffusion train step prepares it): every gradient,
     the weight's included and nonzero, through the backward kernel (one
     launch a call, the same bits in two calls), against the plain
-    version's computed in fp32 from the same inputs and upstream; and two
-    SGD updates of the weight on the card equal the plain path's."""
+    version's computed in fp32 from the same inputs and upstream; the
+    backward's CUDA kernels, each once (the upstream made time-major
+    first); and two SGD updates of the weight on the card equal the plain
+    path's."""
     _fp32_exact(monkeypatch, dtype)
     g = torch.Generator(device=cuda).manual_seed(5)
     b, c, t = 2, 256, 130
@@ -1428,6 +1484,15 @@ def test_ts_res_block_backward_reaches_the_live_weight_cuda(
     for a, p in zip(g_k, g_p):
         _rel_close(a, p, tol)
     assert g_k[5].float().abs().max() > 0
+    with torch.no_grad():
+        _, st = k5._launch(h, x, emb, ga, be, k5.taps(w0), bi, 32, 1e-5,
+                           with_stats=True)
+    up = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
+    wb = w0.flip(2).permute(2, 1, 0).contiguous()
+    names = _cuda_kernel_names(lambda: k4._launch_bwd(
+        k5.KERNEL_BWD, h, ga, be, bi, wb, up, st, 32, True, 1e-5, emb=emb))
+    assert [_kernel_base(n) for n in names] == _resblock_bwd_names(
+        dtype, 3, t), names
     wk, wp = w0.clone(), w0.clone()
     for _ in range(2):
         for fn, w in ((kernel, wk), (plain, wp)):

@@ -151,3 +151,63 @@ def test_records_grad_only_under_autograd():
         assert not k1.records_grad(x)
     with torch.inference_mode():
         assert not k1.records_grad(x)
+
+
+PLAN_SHAPES = [(16, 16, 773), (8, 16, 389), (2, 3, 17), (1, 2, 129),
+               (1, 1, 64)]
+
+
+@pytest.mark.parametrize("b,h,s", PLAN_SHAPES)
+def test_bwd_plan_grid(b, h, s):
+    """The bf16 backward's launch: a work item is 128 rows of one (batch,
+    head), one block an SM and never more blocks than items (the C entry
+    refuses a grid outside 1 .. items)."""
+    p = k1.bwd_plan(b, h, s)
+    assert p.items == b * h * -(-s // k1.BWD_ROWS)
+    assert p.grid == min(p.items, k1.SMS)
+    # the row-data scratch holds a 64-row tile's LSE2 and Delta each, and
+    # the fp32 kernels' (B, H, S) Delta
+    assert k1.bwd_rowdata_floats(b, h, s) == \
+        b * h * -(-s // k1.BWD_TILE) * 2 * k1.BWD_TILE >= b * h * s
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["dq", "dkdv"])
+@pytest.mark.parametrize("b,h,s", PLAN_SHAPES)
+def test_bwd_items_cover_each_tile_once_heaviest_first(b, h, s, kind, causal):
+    """Each (128-row tile, (batch, head)) is one work item; items go
+    heaviest first (the blocks' round robin then ends evenly); each item
+    streams every 64-row tile its rows attend to: dq's two warpgroups the
+    key tiles up to the second one's diagonal (twice: Delta's pass, then
+    dQ's), dkdv's the query tiles from the first one's diagonal down."""
+    items = k1.bwd_items(b, h, s, kind, causal)
+    nt = -(-s // k1.BWD_TILE)
+    assert sorted((t, bh) for t, bh, _ in items) == sorted(
+        (t, bh) for t in range(-(-s // k1.BWD_ROWS)) for bh in range(b * h))
+    loads = [n for _, _, n in items]
+    assert loads == sorted(loads, reverse=True)
+    for t, _, n in items:
+        for wg in range(2):
+            first = 2 * t + wg          # the warpgroup's own 64-row tile
+            if first >= nt:
+                continue                # every row past S: nothing to do
+            if kind == "dq":
+                need = first + 1 if causal else nt
+                assert n == 2 * min(2 * t + 2 if causal else nt, nt) \
+                    and n // 2 >= need
+            else:
+                need = nt - first if causal else nt
+                assert n == nt - (2 * t if causal else 0) and n >= need
+
+
+@pytest.mark.parametrize("b,h,s", [(16, 16, 773), (8, 16, 389)])
+def test_bwd_items_balance_the_blocks(b, h, s):
+    """At the AR steps' shapes the blocks' round robin over the
+    heaviest-first items gives no block more than 1.05x the mean of the
+    streamed tiles."""
+    p = k1.bwd_plan(b, h, s)
+    for kind in ("dq", "dkdv"):
+        loads = [0] * p.grid
+        for w, (_, _, n) in enumerate(k1.bwd_items(b, h, s, kind)):
+            loads[w % p.grid] += n
+        assert max(loads) <= 1.05 * sum(loads) / p.grid, (kind, loads)

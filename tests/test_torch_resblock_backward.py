@@ -266,3 +266,22 @@ def test_stats_recorded_only_under_autograd(monkeypatch, which):
     out.backward(torch.zeros_like(out))
     assert len(bwd.calls) == 1
     assert bwd.calls[0][6] == fwd.calls[-1][stats_arg]
+
+
+@pytest.mark.parametrize("b,c,t,m,taps,dtype,transpose", [
+    (16, 1024, 2240, 3072, 1, torch.bfloat16, False),   # the qkv head
+    (16, 1024, 2240, 1024, 1, torch.bfloat16, False),   # the resblock in-half
+    (2, 1024, 896, 1024, 1, torch.bfloat16, False),
+    (2, 256, 283, 768, 1, torch.bfloat16, True),        # g's rows off 16 B
+    (2, 256, 130, 256, 1, torch.bfloat16, True),
+    (16, 1024, 2240, 1024, 3, torch.bfloat16, True),    # K5's taps
+    (16, 1024, 2240, 3072, 1, torch.float32, True),     # CUDA cores
+])
+def test_bwd_plan_transpose_choice(b, c, t, m, taps, dtype, transpose):
+    """The backward makes the upstream time-major first (bwd_transpose)
+    for K5 (its taps shift it along an outer TMA coordinate), in fp32, and
+    where T % 8 != 0; K4 in bf16 at T % 8 == 0 reads it as it comes.  The
+    tile width and split stay the plan's."""
+    p = k4.bwd_plan(b, c, t, m, 32, taps, dtype)
+    assert p.transpose is transpose
+    assert p.bn in (64, 128) and p.split >= 1

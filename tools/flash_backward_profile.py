@@ -2,7 +2,7 @@
 """Time K1's backward kernel (``csrc/flash_attention_bwd.cu``) of one or
 more checkouts at the AR train steps' shapes on a CUDA card, in turns.
 
-    python3 tools/flash_backward_profile.py [--repo DIR ...]
+    python3 tools/flash_backward_profile.py [--repo DIR ...] [--fp32]
 
 Imports ``tortoise_tts_tpu_torch`` from each ``--repo`` (default: this
 checkout) and times them in the order given, then in reverse (A, B, B, A),
@@ -13,7 +13,12 @@ spills), then one JSON line a turn and shape (bf16, causal, no key mask,
 backward's two CUDA kernels and their sum (torch.profiler over 10 calls,
 as ``chip_smoke.device_ms`` sums them), the fwd+bwd device ms of K1's
 autograd path, SDPA's fwd+bwd and its backward alone (autograd of a kept
-graph), and the backward's bound (``chip_smoke.bound_ms``).  Then the
+graph), and the backward's bound (``chip_smoke.bound_ms``); K1's forward
+alone (no autograd: no log-sum-exp) beside SDPA's and the forward's
+bound.  ``--fp32`` adds, for the first checkout, one line a shape of the
+fp32 backward (CUDA cores) beside SDPA's fp32 backward (TF32 off) and
+its bounds: the fp32 bytes, the five products at the FFMA rate (67
+TFLOP/s) and in 3xTF32 (three TF32 products each at 495).  Then the
 card's name and power limit.  Needs a CUDA card.
 """
 
@@ -77,6 +82,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", action="append", default=None,
                     help="checkout to time (repeatable; default: this one)")
+    ap.add_argument("--fp32", action="store_true",
+                    help="also time the fp32 backward of the first checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_backward_profile: no CUDA device", file=sys.stderr)
@@ -114,11 +121,53 @@ def main() -> int:
             line["bound_ms"], line["bound_by"] = cs.bound_ms(
                 7 * b * h * s * d * 2 + 4 * b * h * s,
                 5 * b * h * d * s * (s + 1))
+            with torch.no_grad():
+                line["fwd_ms"] = cs.device_ms(
+                    torch, lambda _: k1.flash_attention(q, k, v), n=10,
+                    warmup=2)
+                line["sdpa_fwd_ms"] = cs.device_ms(
+                    torch, lambda _: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True), n=10, warmup=2)
+            # q, k, v in, o out; S and P V over the causal half
+            line["fwd_bound_ms"], line["fwd_bound_by"] = cs.bound_ms(
+                4 * b * h * s * d * 2, 2 * b * h * d * s * (s + 1))
             print(json.dumps(line), flush=True)
             del sdpa, xs
             torch.cuda.empty_cache()
+    if args.fp32:
+        fp32_lines(mods[repos[0]], repos[0], dev)
     print(cs.nvidia_smi())
     return 0
+
+
+def fp32_lines(k1, repo: str, dev) -> None:
+    """The fp32 backward at each training shape beside SDPA's fp32
+    backward (TF32 off) and its bounds."""
+    F = torch.nn.functional
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for i, shape in enumerate(cs.K1_TRAIN_SHAPES):
+        b, h, s, d = shape
+        g = torch.Generator(device=dev).manual_seed(70 + i)
+        q, k, v, up = (torch.randn(shape, generator=g, device=dev)
+                       for _ in range(4))
+        with torch.no_grad():
+            _, lse = k1._launch(q, k, v, None, True, with_lse=True)
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa = F.scaled_dot_product_attention(*xs, is_causal=True)
+        flops = 5 * b * h * d * s * (s + 1)
+        nbytes = 7 * b * h * s * d * 4 + 4 * b * h * s
+        line = dict(
+            repo=repo, dtype="float32", shape=list(shape),
+            bwd_ms=cs.device_ms(torch, lambda _: k1.flash_attention_bwd(
+                q, k, v, lse, up), n=3, warmup=1),
+            sdpa_bwd_ms=cs.device_ms(torch, lambda _: torch.autograd.grad(
+                sdpa, xs, up, retain_graph=True), n=3, warmup=1),
+            bytes_bound_ms=cs.bound_ms(nbytes, 0)[0],
+            ffma_bound_ms=cs.bound_ms(0, flops, cs.FP32_FLOPS)[0],
+            tf32x3_bound_ms=cs.bound_ms(0, 3 * flops, cs.TF32_FLOPS)[0])
+        print(json.dumps(line), flush=True)
+        del sdpa, xs
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

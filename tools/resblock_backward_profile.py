@@ -21,7 +21,12 @@ upstream and W read, dx and dW written, or its two products).  Each turn
 also times the forwards alone at the default route's denoiser shapes
 (B=2, T=896: K4 -> 1024 and -> 3072, K5 with its prepared weight; no
 autograd), the serving rows a change to the shared source must leave as
-they were.  Then the card's name and power limit.  Needs a CUDA card.
+they were.  ``--fp32`` adds, for the first checkout, one line a shape of
+the fp32 backward (CUDA cores; autograd of the kernel path on a kept
+graph) beside the library's fp32 backward with TF32 off and the bounds:
+the fp32 bytes, the two products at the FFMA rate (67 TFLOP/s) and in
+3xTF32 (three TF32 products each at 495).  Then the card's name and
+power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -129,6 +134,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repo", action="append", default=None,
                     help="checkout to time (repeatable; default: this one)")
+    ap.add_argument("--fp32", action="store_true",
+                    help="also time the fp32 backward of the first checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("resblock_backward_profile: no CUDA device", file=sys.stderr)
@@ -193,8 +200,59 @@ def main() -> int:
             print(json.dumps(line), flush=True)
             del lib, xs
             torch.cuda.empty_cache()
+    if args.fp32:
+        fp32_lines(*mods[repos[0]], repos[0], dev)
     print(cs.nvidia_smi())
     return 0
+
+
+def fp32_lines(k4, k5, repo: str, dev) -> None:
+    """Each shape's fp32 backward, kernel path and library, on kept
+    graphs, TF32 off, beside its bounds."""
+    F = torch.nn.functional
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, m, taps, act in SHAPES:
+        x, ga, be, w, bi, emb, up = (None if v is None else v.float()
+                                     for v in inputs(dev, m, taps))
+        b, c, t = x.shape
+        if taps == 1:
+            def kernel(x, ga, be, w, bi, act=act):
+                return k4.gn_conv1x1(x, {"scale": ga, "bias": be},
+                                     {"w": w, "b": bi}, GROUPS, act)
+
+            def library(x, ga, be, w, bi, act=act):
+                y = F.group_norm(x, GROUPS, ga, be)
+                return F.conv1d(F.silu(y) if act else y, w, bi)
+            ins = (x, ga, be, w, bi)
+        else:
+            def kernel(h, ga, be, w, bi, emb):
+                return k5.ts_res_block_out(
+                    h, h, emb, {"scale": ga, "bias": be},
+                    k5.prepare_conv({"w": w, "b": bi}), GROUPS)
+
+            def library(h, ga, be, w, bi, emb):
+                sc, sh = emb[..., None].chunk(2, dim=1)
+                y = F.group_norm(h, GROUPS, ga, be)
+                return h + F.conv1d(F.silu(y * (1 + sc) + sh), w, bi,
+                                    padding=1)
+            ins = (x, ga, be, w, bi, emb)
+        line = dict(repo=repo, dtype="float32", name=name,
+                    shape=[b, c, t, m])
+        for key, fn in (("bwd_ms", kernel), ("library_bwd_ms", library)):
+            xs = [v.detach().requires_grad_() for v in ins]
+            out = fn(*xs)
+            line[key] = cs.device_ms(torch, lambda _: torch.autograd.grad(
+                out, xs, up, retain_graph=True), n=3, warmup=1)
+            del out, xs
+        flops = 4 * b * m * c * t * taps
+        line["bytes_bound_ms"] = cs.bound_ms(
+            4 * (2 * b * c * t + b * m * t + 2 * m * c * taps), 0)[0]
+        line["ffma_bound_ms"] = cs.bound_ms(0, flops, cs.FP32_FLOPS)[0]
+        line["tf32x3_bound_ms"] = cs.bound_ms(0, 3 * flops,
+                                              cs.TF32_FLOPS)[0]
+        print(json.dumps(line), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

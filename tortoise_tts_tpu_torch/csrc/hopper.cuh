@@ -113,7 +113,12 @@ __device__ __forceinline__ void wgmma_wait() {
 // D (64 x N, fp32, this warpgroup's registers) += A (64 x 16) * B (16 x N),
 // bf16 operands in shared memory, both K-major (B stored as N rows of K).
 // Thread t of the warpgroup holds, for j < N/8, d[4j + 2h + e] at row
-// 16 (t / 32) + (t % 32) / 4 + 8h, column 8j + 2 (t % 4) + e.
+// 16 (t / 32) + (t % 32) / 4 + 8h, column 8j + 2 (t % 4) + e.  TB = 1
+// takes B MN-major instead (the transpose bit): 16 rows of K, each N
+// contiguous elements in 64-element atoms (TMA boxes 64 wide) with the
+// 128-byte swizzle, descriptor desc_sw128(addr, lbo, 1024) (lbo the bytes
+// between the atoms, unused at N = 64), the k-th slice 2048 k bytes in.
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -123,7 +128,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -132,9 +137,11 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
+// wgmma_n64's m64n128 form (TB as there)
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
                                            uint64_t db) {
   asm volatile(
@@ -148,7 +155,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -165,7 +172,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
 // wgmma_n128 with both operands MN-major (both transpose bits set): A as 16
@@ -208,13 +215,13 @@ __device__ __forceinline__ void wgmma_n128_tt(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-template <int N>
+template <int N, int TB = 0>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
                                            uint64_t db) {
   if constexpr (N == 64)
-    wgmma_n64(d, da, db);
+    wgmma_n64<TB>(d, da, db);
   else
-    wgmma_n128(d, da, db);
+    wgmma_n128<TB>(d, da, db);
 }
 
 // D (64 x 64, fp32) = A (64 x 16, bf16, registers) * B (16 x 64, bf16,

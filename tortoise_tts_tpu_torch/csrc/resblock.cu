@@ -87,15 +87,22 @@
 //      norm_value, time-major (B, T, C), a 64 x 64 tile at a time.
 //   2. bwd_transpose: the upstream g (B, M, T) -> gt (B, T, M), so that
 //      K5's tap shifts are outer TMA coordinates, and db's partial sums.
+//      K4 (one tap) at T % 8 == 0 (16-byte rows of g, as TMA reads them)
+//      skips it: its GEMMs read g as it comes (the wrapper's bwd_plan
+//      says which), a pass over the upstream fewer.
 //   3. bwd_da_wgmma: da = W^T gt on the forward's TMA ring and wgmma main
 //      loop, over a per-call (taps, C, M) weight with the taps reversed;
 //      its epilogue applies silu'(z) (K5: times 1 + scale), writes dn and
 //      each 64- or 128-step tile's channel sums (dn, dn x^; K5: dz n, dz).
+//      Reading g itself, the upstream is an MN-major B (boxes of 64 steps
+//      x 64 rows of M, one or two a stage).
 //   4. bwd_norm: a (batch, group) a block: the tiles' sums in order, then
 //      dx = rstd (gamma dn - mean(gamma dn) - x^ mean(gamma dn x^)).
 //   5. bwd_dw_wgmma: dW partials over slices of the B T reduction, both
 //      operands MN-major from the time-major gt and a (m64n128, both
-//      transpose bits), fp32 partials.
+//      transpose bits), fp32 partials.  Reading g itself, A (M x steps) is
+//      K-major, and the blocks of the first 128 channels sum their A rows
+//      into each slice's db partials.
 //   6. bwd_reduce: dW over the slices, db, dgamma and dbeta.
 // fp32 takes the same passes with both products on CUDA cores
 // (bwd_gemm_f32, 64 x 64 tiles).
@@ -376,9 +383,11 @@ __device__ __forceinline__ void consumers_sync() {
 // The GEMM's main loop: acc (this consumer warpgroup's 64 of the BM rows x
 // BN steps) = the (taps, rows, K) weight's rows m0.. against Y_b's steps
 // n0.. (Y (B, T, K) time-major), K walked in BK-deep steps; TAPS = 3: tap
-// s against Y shifted by s - 1 steps.  Returns false in the producer
-// warpgroup, which has nothing left to do.  base: the ring, 1024-aligned.
-template <int TAPS, int BN>
+// s against Y shifted by s - 1 steps.  GT (TAPS = 1 only): Y is (B, K, T),
+// its map's boxes 64 steps wide, one or two a stage, read as an MN-major
+// B.  Returns false in the producer warpgroup, which has nothing left to
+// do.  base: the ring, 1024-aligned.
+template <int TAPS, int BN, bool GT = false>
 __device__ __forceinline__ bool ring_mainloop(const CUtensorMap* wmap,
                                               const CUtensorMap* ymap,
                                               int K, int m0, int n0, int b,
@@ -408,8 +417,15 @@ __device__ __forceinline__ bool ring_mainloop(const CUtensorMap* wmap,
         const int tap = it / kc, c0 = (it - tap * kc) * BK;
         const uint32_t sa = base + s * L::STAGE;
         tma_load_3d(sa, wmap, full0 + 8 * s, c0, m0, tap);
-        tma_load_3d(sa + A_BYTES, ymap, full0 + 8 * s, c0,
-                    n0 + (TAPS == 3 ? tap - 1 : 0), b);
+        if constexpr (GT) {
+#pragma unroll
+          for (int h = 0; h < BN / 64; ++h)
+            tma_load_3d(sa + A_BYTES + h * 8192, ymap, full0 + 8 * s,
+                        n0 + 64 * h, c0, b);
+        } else {
+          tma_load_3d(sa + A_BYTES, ymap, full0 + 8 * s, c0,
+                      n0 + (TAPS == 3 ? tap - 1 : 0), b);
+        }
       }
     }
     return false;
@@ -425,9 +441,14 @@ __device__ __forceinline__ bool ring_mainloop(const CUtensorMap* wmap,
     const uint32_t sb = base + s * L::STAGE + A_BYTES;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_bf16<BN>(acc, desc_sw128(sa + kk * 32, 16, 1024),
-                     desc_sw128(sb + kk * 32, 16, 1024));
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if constexpr (GT)
+        wgmma_bf16<BN, 1>(acc, desc_sw128(sa + kk * 32, 16, 1024),
+                          desc_sw128(sb + kk * 2048, 8192, 1024));
+      else
+        wgmma_bf16<BN>(acc, desc_sw128(sa + kk * 32, 16, 1024),
+                       desc_sw128(sb + kk * 32, 16, 1024));
+    }
     wgmma_commit();
     wgmma_wait<1>();   // the previous step's products are done
     if (it > 0 && tid % 128 == 0) mbar_arrive(empty0 + 8 * prev);
@@ -1003,9 +1024,10 @@ __device__ void da_epilogue(const float* tile, float* prm, int c0, int t0,
 
 // bf16 da = W^T g as the forward's GEMM: the reversed, transposed weight
 // wb (taps, C, M) against the time-major upstream gt (B, T, M), tap s'
-// shifted by s' - 1 steps, K = M; a block's 128 channels x BN steps, then
-// da_epilogue over the tile.
-template <int TAPS, int BN>
+// shifted by s' - 1 steps, K = M; GT (K4 at T % 8 == 0): against the
+// upstream g (B, M, T) as it comes, an MN-major B; a block's 128 channels
+// x BN steps, then da_epilogue over the tile.
+template <int TAPS, int BN, bool GT>
 __global__ void __launch_bounds__(GEMM_THREADS, BN == 64 ? 2 : 1)
     bwd_da_wgmma(const __grid_constant__ CUtensorMap wmap,
                  const __grid_constant__ CUtensorMap gmap,
@@ -1014,7 +1036,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, BN == 64 ? 2 : 1)
   const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
   const int n0 = blockIdx.x * BN, c0 = blockIdx.y * BM, b = blockIdx.z;
   float acc[BN / 2];
-  if (!ring_mainloop<TAPS, BN>(&wmap, &gmap, a.M, c0, n0, b, base, acc))
+  if (!ring_mainloop<TAPS, BN, GT>(&wmap, &gmap, a.M, c0, n0, b, base, acc))
     return;
   const float* tile = acc_to_tile<BN>(acc, base);
   // the rows' parameters after the tile, in the ring
@@ -1036,13 +1058,16 @@ constexpr int DW_SMEM = DW_BARS + 2 * STAGES * 8 + 1024;
 // MN-major (M and C contiguous in the time-major arrays), both TMA boxes
 // 64 wide; each consumer warpgroup takes 64 rows and one m64n128 product a
 // 16-step slice (two m64n64 products read 33% more shared memory, which
-// about matches the tensor cores' time).
-template <int TAPS>
+// about matches the tensor cores' time).  GT (K4 at T % 8 == 0): A is the
+// upstream g (B, M, T) as it comes, K-major (64 steps x 64 rows a box),
+// and the channel blocks (x) split the rows of their A tiles between them
+// to sum into dbp[q] (M): db's partial over the slice, in step order.
+template <int TAPS, bool GT>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
     bwd_dw_wgmma(const __grid_constant__ CUtensorMap gmap,
                  const __grid_constant__ CUtensorMap ymap,
-                 float* __restrict__ part, int B, int M, int C, int T,
-                 int split) {
+                 float* __restrict__ part, float* __restrict__ dbp, int B,
+                 int M, int C, int T, int split) {
   extern __shared__ unsigned char gemm_smem[];
   const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
   const uint32_t full0 = base + DW_BARS, empty0 = full0 + STAGES * 8;
@@ -1071,8 +1096,13 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
         mbar_expect_tx(full0 + 8 * s, DW_STAGE);
         const int bb = it / ntt, t0 = (it - bb * ntt) * DW_BK;
         const uint32_t sa = base + s * DW_STAGE, bar = full0 + 8 * s;
-        tma_load_3d(sa, &gmap, bar, m0, t0, bb);
-        tma_load_3d(sa + DW_BOX, &gmap, bar, m0 + 64, t0, bb);
+        if constexpr (GT) {
+          tma_load_3d(sa, &gmap, bar, t0, m0, bb);
+          tma_load_3d(sa + DW_BOX, &gmap, bar, t0, m0 + 64, bb);
+        } else {
+          tma_load_3d(sa, &gmap, bar, m0, t0, bb);
+          tma_load_3d(sa + DW_BOX, &gmap, bar, m0 + 64, t0, bb);
+        }
         tma_load_3d(sa + 2 * DW_BOX, &ymap, bar, c0, t0 + shift, bb);
         tma_load_3d(sa + 3 * DW_BOX, &ymap, bar, c0 + 64, t0 + shift, bb);
       }
@@ -1083,23 +1113,63 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // db's share (GT): block x of the gridDim.x channel blocks sums rows
+  // [x rpb, (x + 1) rpb) of the 128-row A tiles; a thread the 16-byte chunk
+  // tid % 8 of the rows lo + (tid % 128) / 8 + 16 k of its warpgroup's
+  const int rpb = (128 + gridDim.x - 1) / gridDim.x;
+  const int lo = max((int)blockIdx.x * rpb, wg * 64);
+  const int hi = min(((int)blockIdx.x + 1) * rpb, wg * 64 + 64);
+  const int ci = tid % 8, ri = lo + (tid % 128) / 8;
+  const bool sums = GT && lo < hi;
+  float dsum[4] = {0.f, 0.f, 0.f, 0.f};
   int prev = 0;
   for (int it = k0; it < k1; ++it) {
     const int i = it - k0, s = i % STAGES;
     mbar_wait(full0 + 8 * s, (i / STAGES) & 1);
     const uint32_t sa = base + s * DW_STAGE + wg * DW_BOX;
     const uint32_t sb = base + s * DW_STAGE + 2 * DW_BOX;
+    if (sums) {   // read before this step's products are issued: the
+                  // stage is released once they are done
+      const unsigned char* tile = gemm_smem + (sa - smem_u32(gemm_smem));
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int r = ri + 16 * k - wg * 64;   // the row in this A tile
+        if (ri + 16 * k < hi) {
+          const int4 v = *reinterpret_cast<const int4*>(
+              tile + r * 128 + ((ci ^ (r & 7)) << 4));
+          const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) dsum[k] += __bfloat162float(e[u]);
+        }
+      }
+    }
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DW_BK / 16; ++kk)
-      wgmma_n128_tt(acc, desc_sw128(sa + kk * 2048, 16, 1024),
-                    desc_sw128(sb + kk * 2048, DW_BOX, 1024));
+    for (int kk = 0; kk < DW_BK / 16; ++kk) {
+      if constexpr (GT)
+        wgmma_n128<1>(acc, desc_sw128(sa + kk * 32, 16, 1024),
+                      desc_sw128(sb + kk * 2048, DW_BOX, 1024));
+      else
+        wgmma_n128_tt(acc, desc_sw128(sa + kk * 2048, 16, 1024),
+                      desc_sw128(sb + kk * 2048, DW_BOX, 1024));
+    }
     wgmma_commit();
     wgmma_wait<1>();   // the previous step's products are done
     if (i > 0 && tid % 128 == 0) mbar_arrive(empty0 + 8 * prev);
     prev = s;
   }
   wgmma_wait<0>();
+  if (sums) {   // the row's 8 chunks, in a fixed order
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        dsum[k] += __shfl_xor_sync(0xffffffffu, dsum[k], o);
+      const int m = m0 + ri + 16 * k;
+      if (ci == 0 && ri + 16 * k < hi && m < M)
+        dbp[(long long)q * M + m] = dsum[k];
+    }
+  }
 
   const int w = (tid % 128) / 32, lane = tid % 32;
   const int r0 = m0 + wg * 64 + w * 16 + lane / 4;
@@ -1470,7 +1540,7 @@ struct BwdIo {
   float eps;
 };
 
-template <typename TX, int TAPS>
+template <typename TX, int TAPS, bool GT = false>
 int run_bwd(const BwdIo& o, cudaStream_t st) {
   constexpr bool BF = sizeof(TX) == 2;
   constexpr bool FILM = TAPS == 3;
@@ -1482,9 +1552,11 @@ int run_bwd(const BwdIo& o, cudaStream_t st) {
   bwd_apply_norm<TX><<<dim3(ntg, (C + 63) / 64, B), 256, 0, st>>>(
       static_cast<const TX*>(o.x), static_cast<TX*>(o.ybuf), o.stats, o.v, C,
       T, o.G, B, o.act);
-  // 2. the upstream time-major, and db's partials
-  bwd_transpose<TX><<<dim3(ntg, (M + 63) / 64, B), 256, 0, st>>>(
-      static_cast<const TX*>(o.g), static_cast<TX*>(o.gt), o.dbp, M, T);
+  // 2. the upstream time-major, and db's partials (GT: the GEMMs read it
+  // as it comes; dW's blocks take db's partials)
+  if (!GT)
+    bwd_transpose<TX><<<dim3(ntg, (M + 63) / 64, B), 256, 0, st>>>(
+        static_cast<const TX*>(o.g), static_cast<TX*>(o.gt), o.dbp, M, T);
   const BwdArgs<TX> a{static_cast<const TX*>(o.x), o.stats, o.v,
                       static_cast<TX*>(o.dn), o.part, B, C, T, M, o.G,
                       o.act, ntt};
@@ -1495,20 +1567,22 @@ int run_bwd(const BwdIo& o, cudaStream_t st) {
     if ((rc = tensor_map_3d(&wmap, o.wb, M, C, TAPS, 2ull * M, 2ull * M * C,
                             BK, BM)))
       return rc;
-    if ((rc = tensor_map_3d(&gmap, o.gt, M, T, B, 2ull * M, 2ull * M * T, BK,
-                            o.bn)))
+    if ((rc = GT ? tensor_map_3d(&gmap, o.g, T, M, B, 2ull * T,
+                                 2ull * T * M, 64, BK)
+                 : tensor_map_3d(&gmap, o.gt, M, T, B, 2ull * M,
+                                 2ull * M * T, BK, o.bn)))
       return rc;
     const dim3 grid(ntt, (C + BM - 1) / BM, B);
     if (o.bn == 64) {
-      rc = allow_smem<bwd_da_wgmma<TAPS, 64>>(Ring<64>::SMEM);
+      rc = allow_smem<bwd_da_wgmma<TAPS, 64, GT>>(Ring<64>::SMEM);
       if (!rc)
-        bwd_da_wgmma<TAPS, 64><<<grid, GEMM_THREADS, Ring<64>::SMEM, st>>>(
-            wmap, gmap, a);
+        bwd_da_wgmma<TAPS, 64, GT>
+            <<<grid, GEMM_THREADS, Ring<64>::SMEM, st>>>(wmap, gmap, a);
     } else if (o.bn == 128) {
-      rc = allow_smem<bwd_da_wgmma<TAPS, 128>>(Ring<128>::SMEM);
+      rc = allow_smem<bwd_da_wgmma<TAPS, 128, GT>>(Ring<128>::SMEM);
       if (!rc)
-        bwd_da_wgmma<TAPS, 128><<<grid, GEMM_THREADS, Ring<128>::SMEM, st>>>(
-            wmap, gmap, a);
+        bwd_da_wgmma<TAPS, 128, GT>
+            <<<grid, GEMM_THREADS, Ring<128>::SMEM, st>>>(wmap, gmap, a);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -1529,17 +1603,19 @@ int run_bwd(const BwdIo& o, cudaStream_t st) {
   // 5. dW's split partials
   if constexpr (BF) {
     CUtensorMap gmap, ymap;
-    if ((rc = tensor_map_3d(&gmap, o.gt, M, T, B, 2ull * M, 2ull * M * T, 64,
-                            DW_BK)))
+    if ((rc = GT ? tensor_map_3d(&gmap, o.g, T, M, B, 2ull * T,
+                                 2ull * T * M, DW_BK, 64)
+                 : tensor_map_3d(&gmap, o.gt, M, T, B, 2ull * M,
+                                 2ull * M * T, 64, DW_BK)))
       return rc;
     if ((rc = tensor_map_3d(&ymap, o.ybuf, C, T, B, 2ull * C, 2ull * C * T,
                             64, DW_BK)))
       return rc;
-    if ((rc = allow_smem<bwd_dw_wgmma<TAPS>>(DW_SMEM))) return rc;
-    bwd_dw_wgmma<TAPS><<<dim3((C + 127) / 128, (M + 127) / 128,
-                              TAPS * o.split),
-                         GEMM_THREADS, DW_SMEM, st>>>(gmap, ymap, o.wpart, B,
-                                                      M, C, T, o.split);
+    if ((rc = allow_smem<bwd_dw_wgmma<TAPS, GT>>(DW_SMEM))) return rc;
+    bwd_dw_wgmma<TAPS, GT><<<dim3((C + 127) / 128, (M + 127) / 128,
+                                  TAPS * o.split),
+                             GEMM_THREADS, DW_SMEM, st>>>(
+        gmap, ymap, o.wpart, o.dbp, B, M, C, T, o.split);
   } else {
     const dim3 grid((C + FT - 1) / FT, (M + FT - 1) / FT, TAPS * o.split);
     bwd_gemm_f32<true, TAPS><<<grid, 256, 0, st>>>(
@@ -1551,7 +1627,8 @@ int run_bwd(const BwdIo& o, cudaStream_t st) {
   const long long total = (long long)TAPS * M * C + 2LL * C;
   const int wblocks = (int)std::min<long long>((total + 255) / 256, 132 * 8);
   bwd_reduce<TX><<<wblocks + (M + 7) / 8, 256, 0, st>>>(
-      o.wpart, o.split, TAPS, M, C, static_cast<TX*>(o.dw), o.dbp, B * ntg,
+      o.wpart, o.split, TAPS, M, C, static_cast<TX*>(o.dw), o.dbp,
+      GT ? o.split : B * ntg,
       o.db, o.sgb, B, o.dgamma, o.dbeta, o.v.bf, wblocks);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1656,7 +1733,8 @@ extern "C" int tts_ts_res_block_out(const void* h, const void* x,
 // K5 (h, act 1, emb).  x: (B, C, T) contiguous; wb: (taps, C, M) in x's
 // type, 16-byte aligned: K4's W^T, K5's reversed taps, wb[s'] = W[:, :,
 // 2 - s']^T, so that tap s' shifts the upstream by s' - 1 steps as the
-// forward shifts Y; g: the upstream (B, M, T) contiguous; stats: the
+// forward shifts Y; g: the upstream (B, M, T) contiguous (16-byte
+// aligned where direct); stats: the
 // forward's mu, then rstd (2*B*G fp32); gamma, beta: (C), bf16 if vec_bf
 // else fp32; emb: (B, 2C) [scale | shift] (K5; bf16 if emb_bf else fp32).
 // Scratch: ybuf (B, T, C) (a, time-major), gt (B, T, M) and dn (B, C, T)
@@ -1666,15 +1744,19 @@ extern "C" int tts_ts_res_block_out(const void* h, const void* x,
 // (M, C), K5 (C, C, 3)) in x's type; dgamma, dbeta (C) and db (M) in the
 // vectors' type; demb (B, 2C) in emb's (K5).  dtype: 0 = float32, 1 =
 // bfloat16; bn: the da GEMM's steps a block (bf16: 64 or 128; fp32: 64);
-// split: dW's K slices.  C % 8 == 0, M % 8 == 0, C % G == 0.
+// split: dW's K slices.  direct (K4 in bf16 at T % 8 == 0 only): the GEMMs
+// read g as it comes (no gt: null) and dbp is (split, M), dW's blocks'
+// partials.  C % 8 == 0, M % 8 == 0, C % G == 0.
 extern "C" int tts_resblock_bwd(
     const void* x, const void* gamma, const void* beta, const void* emb,
     const void* wb, const void* g, const float* stats, void* ybuf,
     void* gt, void* dn, float* part, float* dbp, float* wpart, float* sgb,
     void* dx, void* dw, void* dgamma, void* dbeta, void* db, void* demb,
     int B, int C, int T, int M, int G, int taps, int act, float eps,
-    int dtype, int vec_bf, int emb_bf, int bn, int split, void* stream) {
-  if ((taps != 1 && taps != 3) || split < 1 || (taps == 3 && emb == nullptr))
+    int dtype, int vec_bf, int emb_bf, int bn, int split, int direct,
+    void* stream) {
+  if ((taps != 1 && taps != 3) || split < 1 || (taps == 3 && emb == nullptr)
+      || (direct && (taps != 1 || dtype != 1 || T % 8 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdIo o{x, wb, g, stats,
                 Vecs{gamma, beta, nullptr, taps == 3 ? emb : nullptr, vec_bf,
@@ -1685,5 +1767,6 @@ extern "C" int tts_resblock_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return taps == 3 ? run_bwd<float, 3>(o, st) : run_bwd<float, 1>(o, st);
+  if (direct) return run_bwd<bf16, 1, true>(o, st);
   return taps == 3 ? run_bwd<bf16, 3>(o, st) : run_bwd<bf16, 1>(o, st);
 }

@@ -19,8 +19,9 @@ computes what the JAX package's ``custom_vjp`` backward
 (``unified_voice.py:44-64``, XLA's ``jax.vjp`` of ``mha``) computes.  Its
 bound on an H100 at the AR steps' shapes is the five S x S products of
 the causal half or the bytes of q, k, v, dO, dq, dk, dv (0.050 ms of
-operations, 0.053 of bytes at (16, 16, 773, 64)); its design keeps every
-product of its two kernels on ``wgmma`` in bf16 (the source's header).
+operations, 0.053 of bytes at (16, 16, 773, 64)); in bf16 its two kernels
+are warp-specialised and persistent, TMA-fed, every product on ``wgmma``
+(the source's header), launched by ``bwd_plan``.
 A call under ``no_grad`` or ``inference_mode``, as every serving route
 makes it, writes no log-sum-exp.
 """
@@ -28,7 +29,7 @@ makes it, writes no log-sum-exp.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,7 +39,7 @@ from ._build import F, I, LL, P, Kernel
 KERNEL = Kernel("flash_attention", "tts_flash_attention_fwd",
                 [P] * 6 + [I] * 4 + [LL] * 12 + [I, F, I, I, I, P])
 KERNEL_BWD = Kernel("flash_attention_bwd", "tts_flash_attention_bwd",
-                    [P] * 10 + [I] * 4 + [LL] * 21 + [I, F, P])
+                    [P] * 10 + [I] * 4 + [LL] * 21 + [I, F, I, P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132           # streaming multiprocessors of an H100 SXM
 KEY_TILE = 64       # keys a shared-memory tile (KT in the source)
@@ -46,6 +47,8 @@ MAX_TILES = 8       # key tiles resident at once: 8 x 16 KB of K and V
 MAX_WAVES = 3       # blocks an SM that a key split may cost (see plan)
 SMEM_MAX = 232448   # dynamic shared memory a block may use on an H100
 MERGE_BYTES = 4 * 36 * 32 * 4   # 4 warps' partial softmax states
+BWD_TILE = 64       # rows a streamed tile of the bf16 backward (BT)
+BWD_ROWS = 128      # resident rows a work item: two warpgroups' (RT)
 
 
 def plan(b: int, h: int, s: int) -> Tuple[int, int, int]:
@@ -73,6 +76,52 @@ def smem_bytes(s: int, nbuf: int, masked: bool) -> int:
     mask's S bytes rounded up to 16."""
     tiles = max(2 * nbuf * KEY_TILE * 64 * 2, MERGE_BYTES)
     return tiles + (-(-s // 16) * 16 if masked else 0)
+
+
+class BwdPlan(NamedTuple):
+    """The bf16 backward's launch: ``items`` work items a kernel (128
+    resident rows of one (batch, head): query rows in ``bwd_dq_ws``, key
+    rows in ``bwd_dkdv_ws``) and both kernels' persistent grid."""
+    items: int
+    grid: int
+
+
+def bwd_plan(b: int, h: int, s: int) -> BwdPlan:
+    """One block an SM (each is two consumer warpgroups and a producer
+    warpgroup, 384 threads at 168 registers: one fits an SM), never more
+    blocks than work items; block i takes items i, i + grid, ... of
+    ``bwd_items``' order."""
+    items = b * h * -(-s // BWD_ROWS)
+    return BwdPlan(items, min(items, SMS))
+
+
+def bwd_items(b: int, h: int, s: int, kind: str, causal: bool = True
+              ) -> List[Tuple[int, int, int]]:
+    """The bf16 backward's work items in the kernels' order, as (tile,
+    (batch, head) index, streamed 64-row tiles): ``kind`` "dq" takes the
+    128-query tiles last first, streaming the key tiles up to its second
+    warpgroup's diagonal (twice: Delta's pass, then dQ's); "dkdv" the
+    128-key tiles first first, streaming the query tiles from its first
+    warpgroup's diagonal down.  Heaviest first, for the blocks' round
+    robin."""
+    bh, nq, nt = b * h, -(-s // BWD_ROWS), -(-s // BWD_TILE)
+    out = []
+    for w in range(bh * nq):
+        if kind == "dq":
+            t = nq - 1 - w // bh
+            n = 2 * (min(2 * t + 2, nt) if causal else nt)
+        else:
+            t = w // bh
+            n = nt - (2 * t if causal else 0)
+        out.append((t, w % bh, n))
+    return out
+
+
+def bwd_rowdata_floats(b: int, h: int, s: int) -> int:
+    """The backward's fp32 row-data scratch: each 64-row query tile's LSE
+    in base 2 and Delta (bf16), or Delta (B, H, S) in its first floats
+    (fp32)."""
+    return b * h * -(-s // BWD_TILE) * 2 * BWD_TILE
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -223,15 +272,17 @@ def _launch_bwd(q, k, v, lse, do, key_mask, causal):
     # (B, S, H, D) memory as (B, H, S, D) views, as the forward's output
     dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
                   .transpose(1, 2) for _ in range(3))
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    rows = torch.empty(bwd_rowdata_floats(b, h, s), dtype=torch.float32,
+                       device=q.device)
+    p = bwd_plan(b, h, s)
     KERNEL_BWD.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(),
+        lse.data_ptr(), rows.data_ptr(),
         mask.data_ptr() if mask is not None else None,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s,
         _DTYPES[q.dtype],
         *(st for t in (q, k, v, do, dq, dk, dv) for st in t.stride()[:3]),
-        int(causal), 1.0 / math.sqrt(d),
+        int(causal), 1.0 / math.sqrt(d), p.grid,
         torch.cuda.current_stream(q.device).cuda_stream)
     return dq, dk, dv
 

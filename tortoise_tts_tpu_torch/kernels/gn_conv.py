@@ -47,7 +47,7 @@ from .flash_attention import records_grad
 KERNEL = Kernel("resblock", "tts_gn_conv1x1",
                 [P] * 9 + [I] * 6 + [F, I, I, I, I, P])
 # K4's and K5's backward (one entry; ``ts_res_block`` has its own count)
-BWD_ARGTYPES = [P] * 20 + [I] * 7 + [F] + [I] * 5 + [P]
+BWD_ARGTYPES = [P] * 20 + [I] * 7 + [F] + [I] * 6 + [P]
 KERNEL_BWD = Kernel("resblock", "tts_resblock_bwd", BWD_ARGTYPES)
 # the normalise kernel alone; its launches are not K4's
 NORMALISE = Kernel("resblock", "tts_group_norm_act",
@@ -392,9 +392,12 @@ def group_norm_split(x: torch.Tensor, gamma: torch.Tensor,
 
 class BwdPlan(NamedTuple):
     """The backward's launch: ``bn`` time steps a block of the da GEMM,
-    and ``split`` K slices (of the B * T reduction) a dW tile."""
+    ``split`` K slices (of the B * T reduction) a dW tile, and
+    ``transpose``: whether the upstream goes time-major first
+    (``bwd_transpose``) or the GEMMs read it as it comes."""
     bn: int
     split: int
+    transpose: bool = True
 
 
 def bwd_plan(b: int, c: int, t: int, m: int, groups: int, taps: int,
@@ -410,7 +413,11 @@ def bwd_plan(b: int, c: int, t: int, m: int, groups: int, taps: int,
     where the reduction taps * M is at most 1024 or where 128-step blocks
     would fill less than half the SMs, else 128 (at (16, 1024, 2240) on
     an H100: 0.255 against 0.320 ms for K4 -> 1024; 0.564 against 0.500
-    ms for the qkv head, ``tools/resblock_backward_profile.py``)."""
+    ms for the qkv head, ``tools/resblock_backward_profile.py``).  The
+    upstream goes time-major first (``transpose``) where K5's three taps
+    shift it along an outer TMA coordinate, in fp32 (CUDA cores), and
+    where T % 8 != 0 (g's rows off 16 bytes, which TMA cannot read); K4
+    in bf16 at T % 8 == 0 reads it as it comes."""
     plan(b, c, t, m, groups, dtype, "resblock backward", taps)
     if m % 8:
         raise ValueError(f"resblock backward kernel needs M % 8 == 0, got "
@@ -424,7 +431,8 @@ def bwd_plan(b: int, c: int, t: int, m: int, groups: int, taps: int,
     kt = b * -(-t // 64)
     split = min(range(1, min(8, kt) + 1),
                 key=lambda s: (-(-tiles * s // SMS) * -(-kt // s), s))
-    return BwdPlan(128 if 2 * wide > SMS and taps * m > 1024 else 64, split)
+    return BwdPlan(128 if 2 * wide > SMS and taps * m > 1024 else 64, split,
+                   taps != 1 or t % 8 != 0)
 
 
 def _launch(x, gamma, beta, w, bias, groups, act, eps, with_stats=False):
@@ -464,13 +472,15 @@ def _launch_bwd(kernel, x, gamma, beta, bias, wb, g, stats, groups, act,
                          f"{g.dtype}, weight {tuple(wb.shape)} {wb.dtype} "
                          f"and the forward's statistics must match x "
                          f"{tuple(x.shape)} {x.dtype}")
-    x, g, wb = x.contiguous(), g.contiguous(), _aligned(wb)
+    x, g, wb = x.contiguous(), _aligned(g), _aligned(wb)
     f32 = dict(dtype=torch.float32, device=x.device)
     ybuf = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
-    gt = torch.empty((b, t, m), dtype=x.dtype, device=x.device)
+    gt = (torch.empty((b, t, m), dtype=x.dtype, device=x.device)
+          if p.transpose else None)
     dn = torch.empty_like(x)
     part = torch.empty((b, -(-t // p.bn), 2 if emb is None else 4, c), **f32)
-    dbp = torch.empty((b, -(-t // 64), m), **f32)
+    dbp = torch.empty((b, -(-t // 64), m) if p.transpose else (p.split, m),
+                      **f32)
     wpart = torch.empty((p.split, taps, m, c), **f32)
     sgb = torch.empty((b, 2, c), **f32)
     (gamma, beta, bias), vec_bf = _vectors(gamma, beta, bias)
@@ -483,12 +493,14 @@ def _launch_bwd(kernel, x, gamma, beta, bias, wb, g, stats, groups, act,
     kernel.launch(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                   None if emb is None else emb.data_ptr(), wb.data_ptr(),
                   g.data_ptr(), stats.data_ptr(), ybuf.data_ptr(),
-                  gt.data_ptr(), dn.data_ptr(), part.data_ptr(), dbp.data_ptr(),
+                  None if gt is None else gt.data_ptr(), dn.data_ptr(),
+                  part.data_ptr(), dbp.data_ptr(),
                   wpart.data_ptr(), sgb.data_ptr(), dx.data_ptr(),
                   dw.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
                   db.data_ptr(), None if demb is None else demb.data_ptr(),
                   b, c, t, m, groups, taps, int(act), eps, _DTYPES[x.dtype],
-                  vec_bf, emb_bf, p.bn, p.split, _stream(x))
+                  vec_bf, emb_bf, p.bn, p.split, int(not p.transpose),
+                  _stream(x))
     return dx, dgamma, dbeta, dw, db, demb
 
 
