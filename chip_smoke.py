@@ -272,8 +272,9 @@ W8A8 = "qgemv_w8a8"
 MODE_KERNEL = {"kq": "flash_attention_bias_kq",
                "flash_bias": "flash_attention_bias_cm"}
 SLICE5_KERNELS = tuple(MODE_KERNEL.values())
-# the biased attention kernels' sources (K6, K9a, K9b): no ptxas spill, and
-# each call one CUDA kernel, by name in bf16 (tensor cores)
+# the biased attention kernels' sources (K6, K9a, K9b): no ptxas spill (nor
+# in K1's backward's), and each call one CUDA kernel, by name in bf16
+# (tensor cores)
 BIAS_SOURCES = ("flash_attention_bias", "flash_attention_bias_kq",
                 "flash_attention_bias_cm")
 BIAS_CUDA_KERNELS = {"flash_attention_bias": "attn_bias_tc",
@@ -3461,19 +3462,27 @@ TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "gn_conv",
                  "ts_res_block", "gn_conv_bwd", "ts_res_block_bwd")
 # K1's fp32 backward against the fp32 plain version, row by row
 K1_F32_BWD_TOL = 1e-4
+# the CUDA kernels of K1's fp32 backward (3xTF32), in launch order
+K1_F32_BWD_KERNELS = ("bwd_split_f32", "bwd_dq_tf32", "bwd_dkdv_tf32")
 # the CUDA kernels of K4's and K5's backward (csrc/resblock.cu) in bf16 at
 # the training shape (T % 8 == 0), in launch order: K4 reads the upstream
-# as it comes, K5 (three taps) makes it time-major first; fp32 takes
-# bwd_transpose and bwd_gemm_f32 for both products
+# as it comes, K5 (three taps) makes it time-major first; fp32 (both)
+# splits it for its two 3xTF32 GEMMs
 RESBLOCK_BWD_KERNELS = {
     "gn_conv_bwd": ("bwd_apply_norm", "bwd_da_wgmma", "bwd_norm",
                     "bwd_dw_wgmma", "bwd_reduce"),
     "ts_res_block_bwd": ("bwd_apply_norm", "bwd_transpose", "bwd_da_wgmma",
                          "bwd_norm", "bwd_dw_wgmma", "bwd_reduce"),
-    "fp32": ("bwd_apply_norm", "bwd_transpose", "bwd_gemm_f32", "bwd_norm",
-             "bwd_reduce")}
+    "fp32": ("bwd_apply_norm", "bwd_split_upstream", "bwd_da_tf32",
+             "bwd_norm", "bwd_dw_tf32", "bwd_reduce")}
+# K4's and K5's fp32 backward against the fp32 plain one, each gradient
+# row by row (``_row_worst``; 3xTF32 keeps fp32 accuracy)
+RESBLOCK_F32_TOL = 1e-4
 # the CUDA kernels of K1's backward in bf16, in launch order
 K1_BWD_KERNELS = ("bwd_dq_ws", "bwd_dkdv_ws")
+# the fp32 training routes' micro-steps (the first is the warm-up)
+FP32_AR_STEPS = 3
+FP32_DIFF_STEPS = 2
 # the vocoder GAN step: B segments of T samples (T / 256 mel frames) of
 # the synthetic reference at 24 kHz, AdamW at VOC_LR (the BigVGAN
 # recipe's rate) for VOC_STEPS steps
@@ -3560,6 +3569,17 @@ def _rows(t):
         i -= 1
         n *= t.shape[i]
     return t.reshape(-1, n)
+
+
+def _row_worst(got, want, tol) -> float:
+    """The worst row's error norm over tol x (the row's norm + want's RMS
+    x the square root of the row's length), rows as ``_rows`` folds them:
+    above 1 fails (the fp32 checks' bound, as the card tests'
+    ``_rel_close``)."""
+    g, w = _rows(got.float()), _rows(want.float())
+    bound = tol * (w.norm(dim=1)
+                   + w.pow(2).mean().sqrt() * math.sqrt(w.shape[1]))
+    return float(((g - w).norm(dim=1) / bound).max())
 
 
 def _row_err(got, want) -> dict:
@@ -3716,11 +3736,19 @@ def _k1_backward(torch, k1, shape, q, k, v) -> dict:
     return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **t)
 
 
-def _k1_f32(torch, k1, dev, shape) -> None:
+def _k1_f32(torch, k1, dev, shape) -> dict:
     """K1's fp32 form differentiated at ``shape`` (forward and backward
     kernels, causal, no key mask) against the plain version's autograd:
     the output and each gradient row by row within K1_F32_BWD_TOL of the
-    row's norm plus K1_F32_BWD_TOL of the tensor's RMS an element."""
+    row's norm plus K1_F32_BWD_TOL of the tensor's RMS an element; the
+    backward kernel alone gives the same bits in two calls (one launch
+    count each, its CUDA kernels K1_F32_BWD_KERNELS); device ms of the
+    backward (by CUDA kernel), its plain version and SDPA's fp32 backward
+    (TF32 off), beside its bounds (``f32_bounds``: q, k, v, dO in, dq,
+    dk, dv out; the five products of the causal half); and of the
+    fp32 forward (``flash_attn_f32``) beside SDPA's fp32 forward."""
+    F = torch.nn.functional
+    b, h, s, d = shape
     g = torch.Generator(device=dev).manual_seed(12)
     q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
     up = torch.randn(shape, generator=g, device=dev)
@@ -3735,15 +3763,52 @@ def _k1_f32(torch, k1, dev, shape) -> None:
     worst = {}
     for nm, a, w in zip(("out", "dq", "dk", "dv"), (out_k, *g_k),
                         (out_p, *g_p)):
-        ga, wa = _rows(a), _rows(w)
-        n = wa.shape[1]
-        bound = K1_F32_BWD_TOL * (wa.norm(dim=1)
-                                  + wa.pow(2).mean().sqrt() * math.sqrt(n))
-        worst[nm] = float(((ga - wa).norm(dim=1) / bound).max())
+        worst[nm] = _row_worst(a, w, K1_F32_BWD_TOL)
         assert worst[nm] <= 1, (nm, worst[nm])
+    err = max(float((a - w).abs().max()) for a, w in zip(g_k, g_p))
+    del out_k, g_k, out_p, g_p
+    with torch.no_grad():
+        _, lse = k1._launch(q, k, v, None, True, with_lse=True)
+    n0 = k1.KERNEL_BWD.launches
+    with _no_plain(k1):
+        first = k1.flash_attention_bwd(q, k, v, lse, up)
+        again = k1.flash_attention_bwd(q, k, v, lse, up)
+    torch.cuda.synchronize()
+    assert k1.KERNEL_BWD.launches == n0 + 2
+    same = all(torch.equal(a, c) for a, c in zip(first, again))
+    assert same, "K1's fp32 backward: two calls differ"
+    del first, again
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa = F.scaled_dot_product_attention(*xs, is_causal=True)
+    parts = kernel_ms(torch, lambda: k1.flash_attention_bwd(q, k, v, lse,
+                                                            up), n=5)
+    assert sorted(parts) == sorted(K1_F32_BWD_KERNELS), parts
+    t = {"ms": device_ms(torch, lambda _: k1.flash_attention_bwd(
+             q, k, v, lse, up), n=5, warmup=1),
+         "plain_ms": device_ms(torch, lambda _: k1.flash_attention_bwd_plain(
+             q, k, v, lse, up), n=2, warmup=1),
+         "library_ms": device_ms(torch, lambda _: torch.autograd.grad(
+             sdpa, xs, up, retain_graph=True), n=5, warmup=1)}
+    del sdpa, xs
+    with torch.no_grad():
+        fwd = {"fwd_ms": device_ms(torch, lambda _: k1.flash_attention(
+                   q, k, v), n=5, warmup=1),
+               "fwd_library_ms": device_ms(
+                   torch, lambda _: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=True), n=5, warmup=1)}
+    bounds = f32_bounds(7 * b * h * s * d * 4 + 4 * b * h * s,
+                        5 * b * h * d * s * (s + 1))
+    fb = f32_bounds(4 * b * h * s * d * 4, 2 * b * h * d * s * (s + 1))
     emit("train_grads", name="flash_attention_fp32", shape=list(shape),
-         row_err=worst, tol=K1_F32_BWD_TOL)
+         row_err=worst, tol=K1_F32_BWD_TOL, launches_a_call=1,
+         same_bits=same, max_abs_err=err, kernels_ms=parts,
+         library="SDPA fp32 backward (TF32 off)", **bounds, **t, **fwd,
+         fwd_bound_ms=fb["bound_ms"], fwd_bound_by=fb["bound_by"],
+         fwd_library="SDPA fp32 forward")
     torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                library_ms=t["library_ms"], bound_ms=bounds["bound_ms"],
+                bound_by=bounds["bound_by"])
 
 
 def kernel_ms(torch, fn, n: int = 10, warmup: int = 2) -> dict:
@@ -3764,6 +3829,17 @@ def kernel_ms(torch, fn, n: int = 10, warmup: int = 2) -> dict:
         key = _short_name(e.name)
         out[key] = out.get(key, 0.0) + e.device_time / 1e3 / n
     return out
+
+
+def digest(torch, tensors) -> str:
+    """sha256 of the tensors' bits, in order (the first 16 hex digits): two
+    checkouts' outputs compare bit for bit across a tool's turns."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
 
 
 def _short_name(name: str) -> str:
@@ -3796,19 +3872,24 @@ def _no_resblock_plain(k4, k5):
 
 
 def _resblock_backward(torch, k4, k5, name, shape, autograd, bwd, plain,
-                       library, nbytes, flops) -> dict:
+                       library, nbytes, flops, fp32=False) -> dict:
     """K4's or K5's backward kernel alone (``bwd()``: one direct call on
     the forward's statistics and a seeded upstream, returning {gradient
-    name: tensor}), in bf16 at a training shape: one launch count a call
-    (of ``autograd()``, the kernel path's forward and backward, too, where
-    no plain version may run), the same bits in two calls, the largest
-    error of each gradient against the plain backward computed in fp32
-    from the same inputs (``plain(True)``; within 2% of the gradient's
-    largest value), and device ms, in sum and per CUDA kernel, beside the
-    bf16 plain backward's (``plain(False)``), the library's backward
-    (``library()``: autograd of F.group_norm + F.silu + F.conv1d on a kept
-    graph) and the bound."""
+    name: tensor}), in bf16 (``fp32``: in fp32) at a training shape: one
+    launch count a call (of ``autograd()``, the kernel path's forward and
+    backward, too, where no plain version may run), the same bits in two
+    calls, the largest error of each gradient against the plain backward
+    computed in fp32 from the same inputs (``plain(True)``; within 2% of
+    the gradient's largest value in bf16; in fp32 row by row within
+    RESBLOCK_F32_TOL, ``rel_err`` then the worst row's share of its
+    bound), and
+    device ms, in sum and per CUDA kernel (RESBLOCK_BWD_KERNELS' of the
+    name, or "fp32"), beside the plain backward's in the inputs' type
+    (``plain(False)``), the library's backward (``library()``: autograd
+    of F.group_norm + F.silu + F.conv1d on a kept graph) and the bound
+    (bf16: at 989 TFLOP/s; fp32: ``f32_bounds``)."""
     kernel = k5.KERNEL_BWD if name == "ts_res_block_bwd" else k4.KERNEL_BWD
+    tol = RESBLOCK_F32_TOL if fp32 else 2e-2
     n0 = kernel.launches
     with _no_resblock_plain(k4, k5):
         autograd()
@@ -3823,8 +3904,14 @@ def _resblock_backward(torch, k4, k5, name, shape, autograd, bwd, plain,
         d = float((got[k].float().reshape(-1) - w.float().reshape(-1)
                    ).abs().max())
         top = float(w.float().abs().max())
-        assert math.isfinite(d) and d <= 2e-2 * top, (name, k, d, top)
-        err[k], rel[k] = d, d / max(top, 1e-30)
+        assert math.isfinite(d), (name, k, d)
+        if fp32:
+            rel[k] = _row_worst(got[k].reshape(w.shape), w, tol)
+            assert rel[k] <= 1, (name, k, rel[k])
+        else:
+            rel[k] = d / max(top, 1e-30)
+            assert d <= tol * top, (name, k, d, top)
+        err[k] = d
     del got, again, want
     t = {"ms": device_ms(torch, lambda _: bwd(), n=10, warmup=2),
          "kernels_ms": kernel_ms(torch, bwd),
@@ -3833,22 +3920,25 @@ def _resblock_backward(torch, k4, k5, name, shape, autograd, bwd, plain,
          "library_ms": device_ms(torch, lambda _: library(), n=10,
                                  warmup=2)}
     ran = sorted(k.split("<")[0] for k in t["kernels_ms"])
-    assert ran == sorted(RESBLOCK_BWD_KERNELS[name]), (name, ran)
-    bms, by = bound_ms(nbytes, flops)
-    emit("train_grads", name=name, shape=list(shape), launches_a_call=1,
-         same_bits=same, max_abs_err=err, rel_err=rel,
-         library="F.group_norm + F.silu + F.conv1d backward", bound_ms=bms,
-         bound_by=by, **t)
+    want = RESBLOCK_BWD_KERNELS["fp32" if fp32 else name]
+    assert ran == sorted(want), (name, ran)
+    bounds = (f32_bounds(nbytes, flops) if fp32 else
+              dict(zip(("bound_ms", "bound_by"), bound_ms(nbytes, flops))))
+    emit("train_grads", name=name + ("_fp32" if fp32 else ""),
+         shape=list(shape), launches_a_call=1, same_bits=same,
+         max_abs_err=err, rel_err=rel,
+         library="F.group_norm + F.silu + F.conv1d backward"
+         + (" (fp32, TF32 off)" if fp32 else ""), tol=tol, **bounds, **t)
     torch.cuda.empty_cache()
-    return dict(max_abs_err=max(err.values()), bound_ms=bms, bound_by=by,
-                ms=t["ms"], plain_ms=t["plain_ms"],
-                library_ms=t["library_ms"])
+    return dict(max_abs_err=max(err.values()), bound_ms=bounds["bound_ms"],
+                bound_by=bounds["bound_by"], ms=t["ms"],
+                plain_ms=t["plain_ms"], library_ms=t["library_ms"])
 
 
 def _k4_backward(torch, k4, k5, x, norm, conv, groups, act, kernel) -> dict:
-    """``_resblock_backward`` of K4 at x's shape: bound by x, the upstream
-    and W read and dx, dW written (2 bytes each), or the two products (da
-    and dW, each the forward's 2 B M C T) at 989 TFLOP/s."""
+    """``_resblock_backward`` of K4 at x's shape, in x's type: bound by x,
+    the upstream and W read and dx, dW written, or the two products (da
+    and dW, each the forward's 2 B M C T)."""
     F = torch.nn.functional
     b, c, t = x.shape
     ga, be, w, bi = norm["scale"], norm["bias"], conv["w"], conv["b"]
@@ -3879,8 +3969,61 @@ def _k4_backward(torch, k4, k5, x, norm, conv, groups, act, kernel) -> dict:
         torch, k4, k5, "gn_conv_bwd", (b, c, t, m),
         lambda: _fwd_bwd(torch, kernel, (x, ga, be, w, bi), up), bwd, plain,
         lambda: torch.autograd.grad(lib, xs, up, retain_graph=True),
-        2 * (2 * b * c * t + b * m * t + 2 * m * c), 4 * b * m * c * t)
+        x.element_size() * (2 * b * c * t + b * m * t + 2 * m * c),
+        4 * b * m * c * t, fp32=x.dtype == torch.float32)
     del lib, y, xs
+    return r
+
+
+def _k5_backward(torch, k4, k5, h, x, emb, norm, conv, groups) -> dict:
+    """``_resblock_backward`` of K5 at h's shape, in h's type: the
+    train step's way (the tap-major weight made from the live weight in
+    the graph); bound by h, the upstream and W read and dh, dW written, or
+    its two products (K = 3C)."""
+    F = torch.nn.functional
+    b, c, t = h.shape
+    ga, be, w, bi = norm["scale"], norm["bias"], conv["w"], conv["b"]
+
+    def kernel(h, x, emb, ga, be, w, bi):
+        return k5.ts_res_block_out(h, x, emb, {"scale": ga, "bias": be},
+                                   k5.prepare_conv({"w": w, "b": bi}),
+                                   groups)
+
+    def library(h, x, emb, ga, be, w, bi):
+        sc, sh = emb[..., None].chunk(2, dim=1)
+        y = F.group_norm(h, groups, ga.to(h.dtype), be.to(h.dtype))
+        return x + F.conv1d(F.silu(y * (1 + sc) + sh), w, bi.to(h.dtype),
+                            padding=1)
+    inputs = (h, x, emb, ga, be, w, bi)
+    g = torch.Generator(device=h.device).manual_seed(14)
+    up = torch.randn(b, c, t, generator=g, device=h.device).to(h.dtype)
+    with torch.no_grad():
+        _, st = k5._launch(h, x, emb, ga, be, k5.taps(w), bi, groups, 1e-5,
+                           with_stats=True)
+    wb = w.flip(2).permute(2, 1, 0).contiguous()
+    names = ("h", "gamma", "beta", "w", "b", "emb")
+
+    def bwd():
+        return dict(zip(names, k4._launch_bwd(
+            k5.KERNEL_BWD, h, ga, be, bi, wb, up, st, groups, True, 1e-5,
+            emb=emb)))
+
+    def plain(f32):
+        f = (lambda v: v.float()) if f32 else (lambda v: v)
+        dh, demb, dga, dbe, dw, db = k4.ts_res_block_out_bwd_plain(
+            f(h), f(emb), ga, be, f(w), bi, f(up), groups,
+            stats=(st[:b * groups], st[b * groups:]))
+        return {"h": dh, "gamma": dga, "beta": dbe, "w": dw, "b": db,
+                "emb": demb}
+    xs = [v.detach().requires_grad_() for v in inputs]
+    lib = library(*xs)
+    r = _resblock_backward(
+        torch, k4, k5, "ts_res_block_bwd", (b, c, t),
+        lambda: _fwd_bwd(torch, kernel, inputs, up), bwd, plain,
+        lambda: torch.autograd.grad(lib, xs, up, retain_graph=True),
+        h.element_size() * (3 * b * c * t + 2 * 3 * c * c),
+        4 * b * c * 3 * c * t, fp32=h.dtype == torch.float32)
+    del lib, xs
     return r
 
 
@@ -3892,10 +4035,12 @@ def train_grads(torch, dev):
     in fp32), output and every input's gradient, and fwd+bwd device ms
     beside the library's (SDPA; F.group_norm + F.silu + F.conv1d; none for
     K7) and the bound; K1's backward kernel alone (``_k1_backward``) and
-    its fp32 form; K4's and K5's backward kernels alone
-    (``_resblock_backward``).  Returns the lines' numbers, K1's backward's
-    at the README yaml's shape under "flash_attention_bwd", K4's and K5's
-    under ("gn_conv_bwd", head) and ("ts_res_block_bwd", B)."""
+    its fp32 form at both shapes (``_k1_f32``); K4's and K5's backward
+    kernels alone (``_resblock_backward``), in bf16 and in fp32 (K4 ->
+    1024 and K5).  Returns the lines' numbers, K1's backward's at the
+    README yaml's shape under "flash_attention_bwd" (fp32:
+    ("flash_attention_bwd", "fp32")), K4's and K5's under ("gn_conv_bwd",
+    head) and ("ts_res_block_bwd", B) (fp32: (name, "fp32"))."""
     from tortoise_tts_tpu_torch.kernels import flash_attention as k1
     from tortoise_tts_tpu_torch.kernels import gn_conv as k4
     from tortoise_tts_tpu_torch.kernels import ts_res_block as k5
@@ -3925,7 +4070,10 @@ def train_grads(torch, dev):
         bwd = _k1_backward(torch, k1, (b, h, s, d), q, k, v)
         if i == 0:
             out["flash_attention_bwd"] = bwd
-    _k1_f32(torch, k1, dev, K1_TRAIN_SHAPES[1])
+    for i, shape in enumerate(K1_TRAIN_SHAPES):
+        r = _k1_f32(torch, k1, dev, shape)
+        if i == 0:
+            out[("flash_attention_bwd", "fp32")] = r
     b, c, t, groups = DIFF_TRAIN_B, 1024, DIFF_TRAIN_T, 32
     for i, (name, m, act) in enumerate((("resblock_in_half", c, True),
                                         ("attention_qkv_head", 3 * c,
@@ -3981,38 +4129,32 @@ def train_grads(torch, dev):
         k5_inputs, ("h", "x", "emb", "gamma", "beta", "w", "b"),
         2 * 7 * b * c * t + 2 * 2 * 3 * c * c, 6 * b * c * 3 * c * t,
         fp32_ref=True)
-    # K5's backward alone: bound by h, the upstream and W read and dh, dW
-    # written, or its two products (K = 3C)
-    ga, be, w, bi = norm["scale"], norm["bias"], conv["w"], conv["b"]
-    g = torch.Generator(device=dev).manual_seed(14)
-    up = torch.randn(b, c, t, generator=g, device=dev).to(h.dtype)
-    with torch.no_grad():
-        _, st = k5._launch(h, x, emb, ga, be, k5.taps(w), bi, groups, 1e-5,
-                           with_stats=True)
-    wb = w.flip(2).permute(2, 1, 0).contiguous()
-    k5_names = ("h", "gamma", "beta", "w", "b", "emb")
-
-    def k5_bwd():
-        r = k4._launch_bwd(k5.KERNEL_BWD, h, ga, be, bi, wb, up, st, groups,
-                           True, 1e-5, emb=emb)
-        return dict(zip(k5_names, r))
-
-    def k5_plain_bwd(f32):
-        f = (lambda v: v.float()) if f32 else (lambda v: v)
-        dh, demb, dga, dbe, dw, db = k4.ts_res_block_out_bwd_plain(
-            f(h), f(emb), ga, be, f(w), bi, f(up), groups,
-            stats=(st[:b * groups], st[b * groups:]))
-        return {"h": dh, "gamma": dga, "beta": dbe, "w": dw, "b": db,
-                "emb": demb}
-    xs = [v.detach().requires_grad_() for v in k5_inputs]
-    lib = k5_library(*xs)
-    out[("ts_res_block_bwd", b)] = _resblock_backward(
-        torch, k4, k5, "ts_res_block_bwd", (b, c, t),
-        lambda: _fwd_bwd(torch, k5_kernel, k5_inputs, up), k5_bwd,
-        k5_plain_bwd,
-        lambda: torch.autograd.grad(lib, xs, up, retain_graph=True),
-        2 * (3 * b * c * t + 2 * 3 * c * c), 4 * b * c * 3 * c * t)
-    del lib, xs
+    out[("ts_res_block_bwd", b)] = _k5_backward(torch, k4, k5, h, x, emb,
+                                                norm, conv, groups)
+    del h, x, emb, norm, conv
+    # fp32, the training step's weight_dtype float32: the 3xTF32 backwards
+    # against the fp32 plain ones, the library's with TF32 off
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        x, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, c, 1, 82,
+                                        torch.float32)
+        out[("gn_conv_bwd", "fp32")] = _k4_backward(
+            torch, k4, k5, x, norm, conv, groups, True,
+            lambda x, ga, be, w, bi: k4.gn_conv1x1(
+                x, {"scale": ga, "bias": be}, {"w": w, "b": bi}, groups,
+                True))
+        del x, norm, conv
+        h, norm, conv = _gn_conv_inputs(torch, dev, b, c, t, c, 3, 92,
+                                        torch.float32)
+        g = torch.Generator(device=dev).manual_seed(93)
+        x = torch.randn(b, c, t, generator=g, device=dev)
+        emb = 0.3 * torch.randn(b, 2 * c, generator=g, device=dev)
+        out[("ts_res_block_bwd", "fp32")] = _k5_backward(
+            torch, k4, k5, h, x, emb, norm, conv, groups)
+        del h, x, emb, norm, conv
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     # K7 at the vocoder step's shapes, bf16: the kernel forward with its
     # plain recompute backward against the plain version's autograd; no
     # library call computes it.  Bytes: the forward reads x and writes y,
@@ -4331,11 +4473,17 @@ def _fingerprint(torch, engines) -> dict:
             for n in engines.names()}
 
 
-def _run_train(torch, cfg, dev):
+class SkippedStep(Exception):
+    """A micro-step an engine skipped (an OOM), raised out of
+    ``train.main`` by ``_run_train(stop_on_skip=True)``: the trainer
+    retries a skipped batch's iteration with the next batch."""
+
+
+def _run_train(torch, cfg, dev, stop_on_skip: bool = False):
     """``train.main(cfg=...)`` with every ``Engines.step`` timed: (the
     engines, per-step records of wall seconds, launches, metrics, tokens
     and which engines' parameters the step moved, the peak memory in
-    GB)."""
+    GB).  ``stop_on_skip``: a skipped micro-step raises SkippedStep."""
     from tortoise_tts_tpu_torch import train
     from tortoise_tts_tpu_torch.engine import engines as eng_mod
     from tortoise_tts_tpu_torch.engine.factory import tokens_of
@@ -4348,6 +4496,8 @@ def _run_train(torch, cfg, dev):
         m, launches = _counted(torch, lambda: orig(self, batch,
                                                    fetch_metrics=True))
         s = time.perf_counter() - t0
+        if stop_on_skip and any(k.endswith(".skipped") for k in m):
+            raise SkippedStep(m)
         after = _fingerprint(torch, self)
         steps.append(dict(s=s, launches=launches, metrics=m,
                           tokens=tokens_of(batch),
@@ -4428,6 +4578,7 @@ def eval_launches(tokens: int, steps: int = 30) -> dict:
 def _kernel_group(name: str) -> str:
     for key, group in (("flash_attn", "K1"), ("bwd_dq", "K1 backward"),
                        ("bwd_dkdv", "K1 backward"),
+                       ("bwd_split_f32", "K1 backward"),
                        *((k, "K4/K5 backward") for k in sorted(
                            set().union(*RESBLOCK_BWD_KERNELS.values()))),
                        ("attn_bias", "biased attention"), ("gn_conv", "K4"),
@@ -4501,9 +4652,10 @@ def train_route(torch, dev, tmp: str):
     one's) and one ``run_eval`` sample; the README yaml (AR + diffusion
     co-trained at batch 16, buckets 256/512, halved until it fits; two
     updates of 4 micro-steps, the AR loss lower after the first); a
-    rank-128 LoRA run; one DVAE step.  Every step and the eval are
-    counted and checked against the launches the code implies.  Returns
-    the launch counts."""
+    rank-128 LoRA run; one DVAE step; the fp32 routes
+    (``fp32_train_routes``).  Every step and the eval are counted and
+    checked against the launches the code implies.  Returns the launch
+    counts."""
     import gc
     from tortoise_tts_tpu_torch import kernels, train
     from tortoise_tts_tpu_torch.data import Dataset
@@ -4669,6 +4821,77 @@ def train_route(torch, dev, tmp: str):
     rep = _route_report("dvae", steps, train_launches(), 1, warm=0)
     emit("train_route", route="dvae", **_shape(cfg), peak_mem_gb=peak,
          loss=steps[0]["metrics"]["dvae.loss"], **rep)
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(fp32_train_routes(torch, dev, tmp))
+    return counts
+
+
+def fp32_train_routes(torch, dev, tmp: str) -> dict:
+    """The training step at ``trainer.weight_dtype: float32`` through
+    ``train.main`` at full width (random fp32 weights): FP32_AR_STEPS
+    micro-steps of the AR finetune (batch 8, buckets 128/256: K1's fp32
+    forward and 3xTF32 backward), then FP32_DIFF_STEPS of the diffusion
+    engine alone at the README yaml's buckets (the frozen AR feeder's
+    latent pass, K4's and K5's fp32 forwards and 3xTF32 backwards) at the
+    largest batch of 16, 8, 4 that fits on the card; every micro-step
+    checked against the launches the code implies; ms a micro-step and
+    peak GB.  Returns the launch counts."""
+    import gc
+    from tortoise_tts_tpu_torch import kernels
+    from tortoise_tts_tpu_torch.models.diffusion import DiffusionConfig
+    from tortoise_tts_tpu_torch.models.unified_voice import \
+        UnifiedVoiceConfig
+    counts = {k: 0 for k in kernels.launch_counts()}
+    layers = UnifiedVoiceConfig().layers
+    f32 = {"weight_dtype": "float32", "save_frequency": 0}
+    one = {"gradient_accumulation_steps": 1, "warmup_steps": 0}
+    root = Path(tmp) / "train_ar_fp32"
+    data = _train_artifacts(root, 8, seed=5)
+    cfg = _train_cfg(root, data, [{"name": "autoregressive",
+                                   "training": True}], 8, FP32_AR_STEPS,
+                     hyperparameters=one, trainer=f32,
+                     dataset={"text_bucket": 128, "mel_bucket": 256,
+                              "load_mels": False})
+    engines, steps, peak = _run_train(torch, cfg, dev)
+    rep = _route_report("ar_finetune_fp32", steps, train_launches(ar=layers),
+                        1, warm=1)
+    emit("train_route", route="ar_finetune_fp32", dtype="float32",
+         **_shape(cfg), peak_mem_gb=peak,
+         losses=[st["metrics"]["autoregressive.loss"] for st in steps], **rep)
+    for st in steps:
+        for k, v in st["launches"].items():
+            counts[k] += v
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = Path(tmp) / "train_diffusion_fp32"
+    data = _train_artifacts(root, 16, seed=6)
+    expect = train_launches(diffusion=DiffusionConfig().num_layers,
+                            feeder=layers)
+    for batch in (16, 8, 4):
+        cfg = _train_cfg(root, data, [{"name": "diffusion",
+                                       "training": True}], batch,
+                         FP32_DIFF_STEPS, hyperparameters=one, trainer=f32)
+        try:
+            engines, steps, peak = _run_train(torch, cfg, dev,
+                                              stop_on_skip=True)
+            break
+        except (torch.cuda.OutOfMemoryError, SkippedStep):
+            emit("train_route_oom", route="diffusion_fp32", batch=batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise AssertionError("fp32 diffusion: batch 4 does not fit")
+    rep = _route_report("diffusion_fp32", steps, expect, 1, warm=1)
+    emit("train_route", route="diffusion_fp32", dtype="float32",
+         **_shape(cfg), peak_mem_gb=peak,
+         losses=[st["metrics"]["diffusion.loss"] for st in steps], **rep)
+    for st in steps:
+        for k, v in st["launches"].items():
+            counts[k] += v
     del engines
     gc.collect()
     torch.cuda.empty_cache()
@@ -5024,7 +5247,9 @@ def webui_route(torch, tts, ref: str, tmp: str) -> dict:
     thread) over the shipped-width ``TTS``: ``GET /``, ``POST /generate``
     with the default route's budgets and ``GET`` of its ``/audio/<name>``
     (no "error:" in the page, a non-silent wav), then ``GET /stream``
-    (the seconds to the first PCM bytes, the total).  Each request's
+    with seed 0 (the seconds to the first PCM bytes, the total; without a
+    seed the clock's could stop the random-weight decode within a few
+    tokens).  Each request's
     launches are read from 0; returns their sum."""
     import http.client
     import re
@@ -5072,7 +5297,8 @@ def webui_route(torch, tts, ref: str, tmp: str) -> dict:
         out["generate_audio_s"] = pcm.size / 24000
 
         kernels.reset_launches()
-        q = urllib.parse.urlencode({"text": TEXT, "references": ref})
+        q = urllib.parse.urlencode({"text": TEXT, "references": ref,
+                                    "seed": 0})
         t0 = time.perf_counter()
         conn.request("GET", "/stream?" + q)
         r = conn.getresponse()
@@ -5360,7 +5586,7 @@ def main() -> int:
             for n, log in logs.items()}
     emit("build", seconds=time.time() - t0, built=sorted(logs),
          ptxas=regs)
-    no_spills(BIAS_SOURCES)
+    no_spills(BIAS_SOURCES + ("flash_attention_bwd",))
 
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["TORTOISE_TPU_TOKENIZER"] = str(
@@ -5474,9 +5700,15 @@ def main() -> int:
          "tortoise_tts_tpu/models/diffusion.py:94",
          rg[("ts_res_block_bwd", DIFF_TRAIN_B)]),
     ]
+    # the training backwards' fp32 forms (3xTF32), at the same shapes
+    fp32 = {"flash_attention_bwd": rg[("flash_attention_bwd", "fp32")],
+            "gn_conv_bwd": rg[("gn_conv_bwd", "fp32")],
+            "ts_res_block_bwd": rg[("ts_res_block_bwd", "fp32")]}
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src + f, "replaces": rep,
-         "launches": counts[n], **r} for n, f, rep, r in rows]}))
+         "launches": counts[n], **r,
+         **{f"fp32_{k}": v for k, v in fp32.get(n, {}).items()}}
+        for n, f, rep, r in rows]}))
     emit("total", seconds=time.perf_counter() - T0)
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,7 @@ from tortoise_tts_tpu.ops.pallas_attention import (
     flash_attention_bias_cm as jax_bias_cm,
     flash_attention_bias_qkv as jax_bias_qkv,
     flash_attention_bias_qkv_kq as jax_bias_kq)
+from tests.torch_tiny import one_torch_thread  # noqa: F401
 from tortoise_tts_tpu_torch import bridge
 from tortoise_tts_tpu_torch import inference as tinf
 from tortoise_tts_tpu_torch.config import Config, Inference

@@ -24,6 +24,7 @@ from tortoise_tts_tpu.models import (LoadedModel as JLoaded, bigvgan as jbv,
                                      dvae as jdvae, rlg as jrlg,
                                      unified_voice as juv)
 from tortoise_tts_tpu.utils.io import write_wav
+from tests.torch_tiny import one_torch_thread  # noqa: F401
 from tortoise_tts_tpu_torch import bridge
 from tortoise_tts_tpu_torch import inference as tinf
 from tortoise_tts_tpu_torch.config import Config, Inference

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from tests.torch_pair import inject_jax_noise, make_pair
+from tests.torch_tiny import one_torch_thread  # noqa: F401
 from tortoise_tts_tpu.models import unified_voice as juv
 from tortoise_tts_tpu.ops.sampling import SamplingConfig as JSampling
 from tortoise_tts_tpu_torch import bridge

@@ -15,6 +15,7 @@ import torch
 from tortoise_tts_tpu.models import _bigvgan_random as jax_bigvgan_random
 from tortoise_tts_tpu.models import bigvgan as jbv
 from tortoise_tts_tpu.ops.pallas_snake import snake_resample2 as jax_snake
+from tests.torch_tiny import one_torch_thread  # noqa: F401
 from tortoise_tts_tpu_torch import bridge
 from tortoise_tts_tpu_torch.kernels import snake as k7
 from tortoise_tts_tpu_torch.models import _bigvgan_random

@@ -940,6 +940,30 @@ def test_step_graph_refuses_cpu_and_raises_on_failed_capture(cuda):
     torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+def test_step_graph_leaves_the_generators_usable_after_a_failed_capture_cuda(
+        cuda):
+    """A capture that fails (a host read) leaves no generator in capture
+    mode: afterwards the default generator and the step's own draw
+    outside a capture, and a new StepGraph over the same generator
+    captures and replays."""
+    from tortoise_tts_tpu_torch.utils.graphs import StepGraph
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        StepGraph(lambda: x.add_(float(torch.rand(1, generator=g,
+                                                  device=cuda))), cuda, [g])
+    torch.randn(4, device=cuda)
+    torch.randn(4, generator=g, device=cuda)
+    out = torch.zeros(4, device=cuda)
+    graph = StepGraph(lambda: out.copy_(torch.rand(4, generator=g,
+                                                   device=cuda)), cuda, [g])
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(out, first)
+
+
 class _Stop(Exception):
     pass
 
@@ -1313,9 +1337,9 @@ def test_flash_attention_backward_cuda(cuda, b, s, dtype, tol):
     o, lse = k1._launch(q, k, v, mask, True, with_lse=True)
     names = _cuda_kernel_names(
         lambda: k1.flash_attention_bwd(q, k, v, lse, o, mask))
-    kind = "ws" if dtype == torch.bfloat16 else "f32"
-    assert [_kernel_base(n) for n in names] == [f"bwd_dq_{kind}",
-                                                f"bwd_dkdv_{kind}"], names
+    want = (["bwd_dq_ws", "bwd_dkdv_ws"] if dtype == torch.bfloat16 else
+            ["bwd_split_f32", "bwd_dq_tf32", "bwd_dkdv_tf32"])
+    assert [_kernel_base(n) for n in names] == want, names
 
 
 @pytest.mark.cuda
@@ -1336,6 +1360,132 @@ def test_flash_attention_backward_repeats_its_bits_cuda(cuda):
     for _ in range(40):
         again = k1.flash_attention_bwd(q, k, v, lse, up)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked,calls", [
+    ((16, 16, 773, 64), False, 40),     # 3328 work items, ~25 a block
+    ((3, 16, 389, 64), True, 10)])      # 336 items over 132 blocks
+def test_flash_attention_backward_fp32_repeats_its_bits_cuda(
+        cuda, shape, masked, calls):
+    """The fp32 (3xTF32) backward, where its 64-row work items outnumber
+    the blocks and each block reuses its resident buffer and ring for
+    several: repeated calls give the first call's bits (every sum in a
+    fixed order, no atomics), with and without a key mask."""
+    g = torch.Generator(device=cuda).manual_seed(71)
+    q, k, v, up = (torch.randn(shape, generator=g, device=cuda)
+                   for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.rand(shape[0], shape[2], generator=g, device=cuda) > 0.2
+        mask[:, 0] = True
+    _, lse = k1._launch(q, k, v, mask, True, with_lse=True)
+    assert k1.bwd_plan(*shape[:3], torch.float32).items > k1.SMS
+    first = k1.flash_attention_bwd(q, k, v, lse, up, mask)
+    for _ in range(calls):
+        again = k1.flash_attention_bwd(q, k, v, lse, up, mask)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _on_a_new_thread(fn):
+    """fn() on a thread of its own, which has made no CUDA call before;
+    its result, or its exception raised here."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:   # re-raised on the calling thread
+            box["err"] = e
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tma_kernels_on_a_new_thread_cuda(cuda, dtype):
+    """Kernels whose C entry encodes TMA maps on the host (K1's backward,
+    K4's forward and backward) called first on a new thread, as autograd's
+    device thread calls a backward: the thread has made no CUDA call and
+    its allocations come from the caching allocator's free blocks, so no
+    runtime call has made a context current on it before the maps are
+    encoded.  Each gives the bits of the same call on this thread."""
+    g = torch.Generator(device=cuda).manual_seed(73)
+    shape = (2, 16, 389, 64)
+    q, k, v, up = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    _, lse = k1._launch(q, k, v, None, True, with_lse=True)
+    b, c, t = 2, 256, 288
+    x = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
+    ga = 1 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    be = 0.1 * torch.randn(c, generator=g, device=cuda)
+    w = (0.05 * torch.randn(c, c, 1, generator=g, device=cuda)).to(dtype)
+    bi = 0.05 * torch.randn(c, generator=g, device=cuda)
+    g4 = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
+    _, st = k4._launch(x, ga, be, w, bi, 32, True, 1e-5, with_stats=True)
+    wb = w.reshape(c, c).t().contiguous()[None]
+    calls = {
+        "K1 backward": lambda: k1.flash_attention_bwd(q, k, v, lse, up),
+        "K4 forward": lambda: k4._launch(x, ga, be, w, bi, 32, True,
+                                         1e-5)[:1],
+        "K4 backward": lambda: k4._launch_bwd(
+            k4.KERNEL_BWD, x, ga, be, bi, wb, g4, st, 32, True, 1e-5)[:5]}
+    for name, call in calls.items():
+        # copied out, so the call's blocks are free for the thread's
+        want = [r.cpu() for r in call()]
+        got = _on_a_new_thread(lambda: [r.cpu() for r in call()])
+        assert all(torch.equal(a, r) for a, r in zip(want, got)), name
+
+
+_PROFILED_THEN_AUTOGRAD = """
+import sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from tortoise_tts_tpu_torch.kernels import flash_attention as k1
+
+dtype = getattr(torch, sys.argv[1])
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(72)
+shape = (16, 16, 773, 64)
+q, k, v, up = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for _ in range(4))
+with torch.no_grad():
+    _, lse = k1._launch(q, k, v, None, True, with_lse=True)
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    for _ in range(3):
+        k1.flash_attention_bwd(q, k, v, lse, up)
+    torch.cuda.synchronize()
+# two direct calls' blocks freed at once: enough for the autograd path's
+# forward and backward, so its device thread allocates nothing anew
+held = [k1.flash_attention_bwd(q, k, v, lse, up) for _ in range(2)]
+direct = [r.cpu() for r in held[0]]
+del held
+xs = [t.detach().requires_grad_() for t in (q, k, v)]
+grads = torch.autograd.grad(k1.flash_attention(*xs), xs, up)
+assert all(torch.equal(a, r.cpu()) for a, r in zip(direct, grads))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_backward_after_a_profiled_window_cuda(cuda, dtype):
+    """In a fresh process at (16, 16, 773, 64): a torch.profiler window of
+    direct backward calls, then direct calls, then the autograd path (the
+    backward on autograd's device thread, its first CUDA work, every
+    allocation served from the direct calls' freed blocks): the autograd
+    path runs and gives the direct call's bits."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    r = subprocess.run([sys.executable, "-c", _PROFILED_THEN_AUTOGRAD,
+                        dtype], cwd=Path(__file__).resolve().parent.parent,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
 
 
 @pytest.mark.cuda
@@ -1366,10 +1516,12 @@ def _f32(t):
 def _resblock_bwd_names(dtype, taps, t):
     """The CUDA kernels of one K4 (taps 1) or K5 (taps 3) backward call, in
     launch order: K4 in bf16 at T % 8 == 0 reads the upstream as it comes,
-    every other backward first makes it time-major (bwd_transpose)."""
+    every other bf16 backward first makes it time-major (bwd_transpose);
+    fp32 splits it, time-major and as it comes (bwd_split_upstream), for
+    its two 3xTF32 GEMMs."""
     if dtype == torch.float32:
-        return ["bwd_apply_norm", "bwd_transpose", "bwd_gemm_f32",
-                "bwd_norm", "bwd_gemm_f32", "bwd_reduce"]
+        return ["bwd_apply_norm", "bwd_split_upstream", "bwd_da_tf32",
+                "bwd_norm", "bwd_dw_tf32", "bwd_reduce"]
     names = ["bwd_apply_norm", "bwd_da_wgmma", "bwd_norm", "bwd_dw_wgmma",
              "bwd_reduce"]
     if taps == 3 or t % 8:
@@ -1419,6 +1571,51 @@ def test_gn_conv_backward_cuda(cuda, monkeypatch, act, m, t, dtype, tol):
         k4.KERNEL_BWD, x, ga, be, bi, wb, up, st, 32, act, 1e-5))
     assert [_kernel_base(n) for n in names] == _resblock_bwd_names(
         dtype, 1, t), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps,t", [(1, 283), (3, 283), (3, 2240)])
+def test_resblock_backward_fp32_repeats_its_bits_cuda(cuda, monkeypatch,
+                                                     taps, t):
+    """K4's (taps 1) and K5's (taps 3) fp32 backward at a ragged T (g's
+    rows off 16 bytes: its split copy padded to whole rows) and at the
+    training step's T: ten calls give the first call's bits (dW's slices
+    summed in order, no atomics), and each gradient is within 1e-4 of the
+    fp32 plain backward's (row by row)."""
+    _fp32_exact(monkeypatch, torch.float32)
+    g = torch.Generator(device=cuda).manual_seed(taps * 1000 + t)
+    b, c = 2, 256
+    x = torch.randn(b, c, t, generator=g, device=cuda)
+    ga = 1 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    be = 0.1 * torch.randn(c, generator=g, device=cuda)
+    bi = 0.05 * torch.randn(c, generator=g, device=cuda)
+    w = 0.03 * torch.randn(c, c, taps, generator=g, device=cuda)
+    up = torch.randn(b, c, t, generator=g, device=cuda)
+    if taps == 1:
+        _, st = k4._launch(x, ga, be, w, bi, 32, True, 1e-5, with_stats=True)
+        wb, emb = w.reshape(c, c).t().contiguous()[None], None
+        want = k4.gn_conv1x1_bwd_plain(x, ga, be, w, bi, up, 32, True,
+                                       stats=(st[:b * 32], st[b * 32:]))
+        names = ("x", "gamma", "beta", "w", "b")
+    else:
+        emb = 0.3 * torch.randn(b, 2 * c, generator=g, device=cuda)
+        _, st = k5._launch(x, x, emb, ga, be, k5.taps(w), bi, 32, 1e-5,
+                           with_stats=True)
+        wb = w.flip(2).permute(2, 1, 0).contiguous()
+        dh, demb, dga, dbe, dw, db = k4.ts_res_block_out_bwd_plain(
+            x, emb, ga, be, w, bi, up, 32, stats=(st[:b * 32], st[b * 32:]))
+        want = (dh, dga, dbe, dw, db, demb)
+        names = ("h", "gamma", "beta", "w", "b", "emb")
+    kernel = k5.KERNEL_BWD if taps == 3 else k4.KERNEL_BWD
+
+    def call():
+        return k4._launch_bwd(kernel, x, ga, be, bi, wb, up, st, 32, True,
+                              1e-5, emb=emb)[:len(names)]
+    first = call()
+    for _ in range(10):
+        assert all(torch.equal(a, r) for a, r in zip(first, call()))
+    for nm, a, p in zip(names, first, want):
+        _rel_close(a.reshape(p.shape), p, 1e-4)
 
 
 @pytest.mark.cuda

@@ -165,8 +165,8 @@ def test_bwd_plan_grid(b, h, s):
     p = k1.bwd_plan(b, h, s)
     assert p.items == b * h * -(-s // k1.BWD_ROWS)
     assert p.grid == min(p.items, k1.SMS)
-    # the row-data scratch holds a 64-row tile's LSE2 and Delta each, and
-    # the fp32 kernels' (B, H, S) Delta
+    # the row-data scratch holds a 64-row tile's LSE2 and Delta each (the
+    # fp32 kernels' 32-row tiles in the same floats: test_bwd_plan_grid_fp32)
     assert k1.bwd_rowdata_floats(b, h, s) == \
         b * h * -(-s // k1.BWD_TILE) * 2 * k1.BWD_TILE >= b * h * s
 
@@ -211,3 +211,108 @@ def test_bwd_items_balance_the_blocks(b, h, s):
         for w, (_, _, n) in enumerate(k1.bwd_items(b, h, s, kind)):
             loads[w % p.grid] += n
         assert max(loads) <= 1.05 * sum(loads) / p.grid, (kind, loads)
+
+
+@pytest.mark.parametrize("b,h,s", PLAN_SHAPES)
+def test_bwd_plan_grid_fp32(b, h, s):
+    """The fp32 backward's launch: a work item is 64 rows of one (batch,
+    head), one block an SM and never more blocks than items; its scratch:
+    the row data of each 32-row query tile (LSE2 and Delta, 64 floats) in
+    the bf16 buffer's size, and the 14 split arrays of (B*H, Sp, 64)
+    floats, Sp = S rounded up to 64."""
+    p = k1.bwd_plan(b, h, s, torch.float32)
+    assert p.items == b * h * -(-s // k1.BWD_F32_ROWS)
+    assert p.grid == min(p.items, k1.SMS)
+    tiles = 2 * -(-s // k1.BWD_F32_ROWS)   # what bwd_dq_tf32 writes
+    assert tiles * 2 * k1.BWD_F32_TILE * b * h == \
+        k1.bwd_rowdata_floats(b, h, s)
+    sp = -(-s // 64) * 64
+    assert k1.bwd_split_floats(b, h, s) == 14 * b * h * sp * 64
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["dq", "dkdv"])
+@pytest.mark.parametrize("b,h,s", PLAN_SHAPES)
+def test_bwd_items_fp32_cover_each_tile_once(b, h, s, kind, causal):
+    """fp32: each (64-row tile, (batch, head)) is one work item, the
+    (batch, head)s in order and each one's items heaviest first; dq's
+    streams the 32-key tiles up to its last row's diagonal (twice),
+    dkdv's the 32-query tiles from its first row's diagonal down."""
+    items = k1.bwd_items(b, h, s, kind, causal, torch.float32)
+    nq, nt = -(-s // k1.BWD_F32_ROWS), -(-s // k1.BWD_F32_TILE)
+    assert sorted((t, bh) for t, bh, _ in items) == sorted(
+        (t, bh) for t in range(nq) for bh in range(b * h))
+    assert [bh for _, bh, _ in items] == sorted(bh for _, bh, _ in items)
+    for j in range(b * h):
+        loads = [n for _, bh, n in items if bh == j]
+        assert loads == sorted(loads, reverse=True)
+    for t, _, n in items:
+        first, last = 2 * t, min(2 * t + 1, nt - 1)   # its 32-row tiles
+        if kind == "dq":
+            assert n == 2 * (last + 1 if causal else nt)
+        else:
+            assert n == nt - (first if causal else 0)
+
+
+@pytest.mark.parametrize("b,h,s", [(16, 16, 773), (8, 16, 389)])
+def test_bwd_items_fp32_balance_the_blocks(b, h, s):
+    """At the AR steps' shapes the fp32 blocks' round robin gives no block
+    more than 1.05x the mean of the streamed tiles."""
+    p = k1.bwd_plan(b, h, s, torch.float32)
+    for kind in ("dq", "dkdv"):
+        loads = [0] * p.grid
+        for w, (_, _, n) in enumerate(k1.bwd_items(b, h, s, kind,
+                                                   dtype=torch.float32)):
+            loads[w % p.grid] += n
+        assert max(loads) <= 1.05 * sum(loads) / p.grid, (kind, loads)
+
+
+def _mm3(a, b):
+    """a @ b as the 3xTF32 products sum it (``gn_conv.matmul_3xtf32``)."""
+    from tortoise_tts_tpu_torch.kernels.gn_conv import matmul_3xtf32
+    return matmul_3xtf32(a, b)
+
+
+@pytest.mark.parametrize("s", [17, 130])
+def test_bwd_3xtf32_arithmetic_holds_fp32(s):
+    """The fp32 kernels' arithmetic in plain PyTorch: every product split
+    in 3xTF32 (S, dP, then dQ, dK, dV over 32-row tiles, each tile's
+    product summed apart and added in fp32) keeps the gradients within
+    1e-6 of the largest |value| of the fp32 plain backward's: well inside
+    the card check's 1e-4."""
+    rng = np.random.RandomState(s)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 2, s, 64)
+                                    .astype(np.float32)) for _ in range(4))
+    lse = k1.flash_attention_lse_plain(q, k)
+    want = k1.flash_attention_bwd_plain(q, k, v, lse, do)
+    scale = 1 / 8
+    sc = _mm3(q, k.transpose(-1, -2))
+    p = torch.exp(sc * scale - lse[..., None]).tril()
+    dp = _mm3(do, v.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    got = [torch.zeros_like(q) for _ in range(3)]
+    for t0 in range(0, s, k1.BWD_F32_TILE):
+        sl = slice(t0, t0 + k1.BWD_F32_TILE)
+        got[0] += _mm3(ds[..., sl], k[..., sl, :])
+        got[1] += _mm3(ds[..., sl, :].transpose(-1, -2), q[..., sl, :])
+        got[2] += _mm3(p[..., sl, :].transpose(-1, -2), do[..., sl, :])
+    got[0], got[1] = got[0] * scale, got[1] * scale
+    top = max(float(w.abs().max()) for w in want)
+    for a, w in zip(got, want):
+        assert float((a - w).abs().max()) <= 1e-6 * top
+
+
+def test_bwd_wrapper_refuses_before_any_launch():
+    """The backward wrapper's checks run before the launch, on any
+    device: head dim 64 only, one dtype, a (B, H, S) fp32 lse."""
+    q = torch.zeros(1, 2, 5, 64)
+    lse = torch.zeros(1, 2, 5)
+    before = k1.KERNEL_BWD.launches
+    with pytest.raises(ValueError, match="head dim"):
+        k1._launch_bwd(*(t[..., :32] for t in (q, q, q)), lse, q[..., :32],
+                       None, True)
+    with pytest.raises(TypeError):
+        k1._launch_bwd(q, q, q, lse, q.double(), None, True)
+    with pytest.raises(ValueError, match="lse"):
+        k1._launch_bwd(q, q, q, lse[..., 1:], q, None, True)
+    assert k1.KERNEL_BWD.launches == before

@@ -21,6 +21,7 @@ from tortoise_tts_tpu.models import (LoadedModel as JLoaded,
                                      hifigan as jhg, unified_voice as juv)
 from tortoise_tts_tpu.ops.sampling import SamplingConfig as JSampling
 from tortoise_tts_tpu.utils.io import write_wav
+from tests.torch_tiny import one_torch_thread  # noqa: F401
 from tortoise_tts_tpu_torch import bridge
 from tortoise_tts_tpu_torch import inference as tinf
 from tortoise_tts_tpu_torch.config import Config, Inference

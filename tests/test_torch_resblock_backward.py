@@ -275,13 +275,48 @@ def test_stats_recorded_only_under_autograd(monkeypatch, which):
     (2, 256, 283, 768, 1, torch.bfloat16, True),        # g's rows off 16 B
     (2, 256, 130, 256, 1, torch.bfloat16, True),
     (16, 1024, 2240, 1024, 3, torch.bfloat16, True),    # K5's taps
-    (16, 1024, 2240, 3072, 1, torch.float32, True),     # CUDA cores
+    (16, 1024, 2240, 3072, 1, torch.float32, True),     # fp32: split
 ])
 def test_bwd_plan_transpose_choice(b, c, t, m, taps, dtype, transpose):
     """The backward makes the upstream time-major first (bwd_transpose)
-    for K5 (its taps shift it along an outer TMA coordinate), in fp32, and
-    where T % 8 != 0; K4 in bf16 at T % 8 == 0 reads it as it comes.  The
-    tile width and split stay the plan's."""
+    for K5 (its taps shift it along an outer TMA coordinate), in fp32
+    (bwd_split_upstream: split, time-major and as it comes), and where
+    T % 8 != 0; K4 in bf16 at T % 8 == 0 reads it as it comes.  The tile
+    width and split stay the plan's."""
     p = k4.bwd_plan(b, c, t, m, 32, taps, dtype)
     assert p.transpose is transpose
     assert p.bn in (64, 128) and p.split >= 1
+
+
+@pytest.mark.parametrize("b,c,t,m,taps,bn,split", [
+    (16, 1024, 2240, 3072, 1, 128, 1),   # the qkv head: 384 dW tiles
+    (16, 1024, 2240, 1024, 1, 128, 1),   # the resblock in-half: 128
+    (16, 1024, 2240, 1024, 3, 128, 1),   # K5
+    (2, 256, 283, 768, 1, 64, 5),        # the card tests' ragged T
+    (2, 256, 130, 256, 3, 64, 5),
+    (1, 64, 1, 64, 3, 64, 1),            # one K step
+])
+def test_bwd_plan_fp32(b, c, t, m, taps, bn, split):
+    """fp32 (3xTF32): da's tile 128 steps where 128 x 128 tiles fill the
+    SMs, else 64; dW's K split the fewest waves of 128 x 64 tiles (one
+    block an SM) times the 32-step K steps a slice, the smaller split on
+    a tie; the split upstream's floats: g's hi and lo time-major (B, T, M)
+    and as it comes with T padded to 4."""
+    p = k4.bwd_plan(b, c, t, m, 32 if c % 32 == 0 else 8, taps,
+                    torch.float32)
+    assert (p.bn, p.split, p.transpose) == (bn, split, True)
+    tiles = taps * -(-m // k4.DW_F32_ROWS) * -(-c // k4.GEMM_ROWS)
+    kt = b * -(-t // k4.F32_K_STEP)
+    cost = [(-(-tiles * s // k4.SMS) * -(-kt // s), s)
+            for s in range(1, min(8, kt) + 1)]
+    assert min(cost)[1] == split
+    tp = -(-t // 4) * 4
+    assert k4.bwd_upstream_floats(b, m, t) == 2 * b * t * m + 2 * b * m * tp
+
+
+def test_bwd_plan_refuses_m_off_8():
+    """The backward's upstream rows are read in 16-byte pieces: M % 8 != 0
+    raises before any launch, in both types."""
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="M % 8"):
+            k4.bwd_plan(2, 64, 130, 12, 16, 1, dtype)

@@ -4,6 +4,7 @@ from the JAX package."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -183,6 +184,28 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         k2.qgemv(x, torch.zeros(64, 128, dtype=torch.int8, device="meta"),
                  torch.zeros(128, device="meta"))
+
+
+@pytest.mark.parametrize("rc,words", [
+    (1, "CUDA error 1 at launch"), (700, "CUDA error 700 at launch"),
+    (10001, "cuTensorMapEncodeTiled not found"),
+    (20201, "libcuda refused a TMA map (CUresult 201) at launch")])
+def test_launch_errors_in_words(rc, words):
+    """A C entry's non-zero code raises at launch, in words, and does not
+    count: a tensor map libcuda refused carries its CUresult (the codes
+    are csrc/hopper.cuh's)."""
+    from tortoise_tts_tpu_torch.kernels import _build
+    hdr = (PKG / "csrc" / "hopper.cuh").read_text()
+    for name in ("ERR_NO_ENCODER", "ERR_TENSOR_MAP"):
+        assert f"constexpr int {name} = {getattr(_build, name)};" in hdr
+    kern = _build.Kernel("none", "tts_none", [])
+    kern._fns["tts_none"] = lambda: rc
+    with pytest.raises(RuntimeError, match=re.escape(words)):
+        kern.launch()
+    assert kern.launches == 0
+    kern._fns["tts_none"] = lambda: 0
+    kern.launch()
+    assert kern.launches == 1
 
 
 def test_bridge_roundtrips_unified_voice():

@@ -299,3 +299,12 @@ def test_webui_stream_yields_wav(server):
     assert data[:44] == webui.wav_stream_header()
     pcm = _pcm(data)
     assert pcm.size > 500 and np.abs(pcm).max() > 0
+
+
+def test_webui_stream_takes_a_seed(server):
+    """/stream with a seed samples as ``TTS.stream`` with it: two requests
+    give the same bytes."""
+    url, _ = server
+    got = [urllib.request.urlopen(url + "/stream?text=hi&seed=3",
+                                  timeout=600).read() for _ in range(2)]
+    assert got[0] == got[1] and _pcm(got[0]).size > 500

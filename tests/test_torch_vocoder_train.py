@@ -25,6 +25,7 @@ from tortoise_tts_tpu.engine import state as jst
 from tortoise_tts_tpu.engine import train_step as jts
 from tortoise_tts_tpu.models import bigvgan as jbv
 from tortoise_tts_tpu.models import bigvgan_disc as jbvd
+from tests.torch_tiny import one_torch_thread  # noqa: F401
 from tortoise_tts_tpu_torch import bridge
 from tortoise_tts_tpu_torch.config import Config, Hyperparameters
 from tortoise_tts_tpu_torch.engine import optim

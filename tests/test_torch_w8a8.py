@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_tiny import UV, tiny_models
+from tests.torch_tiny import UV, one_torch_thread, tiny_models  # noqa: F401
 from tortoise_tts_tpu.models import unified_voice as juv
 from tortoise_tts_tpu.ops.pallas_gemv import (qgemv_stacked_w8a8,
                                               quantize_rowwise as jquant)

@@ -1,6 +1,8 @@
 """Tiny models of every kind the port's routes load, random from a seed,
-for CPU runs of ``TTS`` end to end (the W8A8 and CLI tests)."""
+for CPU runs of ``TTS`` end to end (the W8A8 and CLI tests), and
+``one_torch_thread``, a module fixture for files that run them."""
 
+import pytest
 import torch
 
 from tortoise_tts_tpu_torch.models import (LoadedModel, _bigvgan_random,
@@ -49,3 +51,16 @@ def tiny_models(seed: int = 0):
             "rlg_auto": rlg, "rlg_diffuser": rlg}
     return {n: LoadedModel(n, mods[n], cfgs[n], params[n], False)
             for n in mods}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's tiny models on one CPU thread (restored after): the
+    suite's workers share the cores, and torch's default pool, a thread
+    a core, oversubscribes them and runs small ops many times slower (a
+    W8A8 route test took 43 s beside another worker's JAX compile, 1.6 s
+    alone).  Imported by a test module, it applies to that module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -13,13 +13,17 @@ spills), then one JSON line a turn and shape (bf16, causal, no key mask,
 backward's two CUDA kernels and their sum (torch.profiler over 10 calls,
 as ``chip_smoke.device_ms`` sums them), the fwd+bwd device ms of K1's
 autograd path, SDPA's fwd+bwd and its backward alone (autograd of a kept
-graph), and the backward's bound (``chip_smoke.bound_ms``); K1's forward
+graph), and the backward's bound (``chip_smoke.bound_ms``), with a digest
+of its gradients' bits (``bwd_sha``, for bit-equality across checkouts); K1's
+forward
 alone (no autograd: no log-sum-exp) beside SDPA's and the forward's
-bound.  ``--fp32`` adds, for the first checkout, one line a shape of the
-fp32 backward (CUDA cores) beside SDPA's fp32 backward (TF32 off) and
-its bounds: the fp32 bytes, the five products at the FFMA rate (67
-TFLOP/s) and in 3xTF32 (three TF32 products each at 495).  Then the
-card's name and power limit.  Needs a CUDA card.
+bound.  ``--fp32`` adds, for every checkout in the same turns, one line a
+shape of the fp32 backward (its CUDA kernels apart and their sum) beside
+its plain version, SDPA's fp32 backward (TF32 off) and its bounds: the
+fp32 bytes, the five products at the FFMA rate (67 TFLOP/s) and in 3xTF32
+(three TF32 products each at 495); and of the fp32 forward
+(``flash_attn_f32``) beside SDPA's fp32 forward.  Then the card's name
+and power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -83,7 +87,7 @@ def main() -> int:
     ap.add_argument("--repo", action="append", default=None,
                     help="checkout to time (repeatable; default: this one)")
     ap.add_argument("--fp32", action="store_true",
-                    help="also time the fp32 backward of the first checkout")
+                    help="also time the fp32 backward of every checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_backward_profile: no CUDA device", file=sys.stderr)
@@ -109,6 +113,8 @@ def main() -> int:
                 repo=repo, turn=turn, shape=list(shape),
                 bwd_ms={key: round(val, 5) for key, val in parts.items()},
                 bwd_total_ms=sum(parts.values()),
+                bwd_sha=cs.digest(torch, k1.flash_attention_bwd(
+                    q, k, v, lse, up)),
                 fwd_bwd_ms=cs.device_ms(torch, lambda _: cs._fwd_bwd(
                     torch, lambda q, k, v: k1.flash_attention(q, k, v),
                     (q, k, v), up), n=10, warmup=2),
@@ -134,15 +140,16 @@ def main() -> int:
             print(json.dumps(line), flush=True)
             del sdpa, xs
             torch.cuda.empty_cache()
-    if args.fp32:
-        fp32_lines(mods[repos[0]], repos[0], dev)
+        if args.fp32:
+            fp32_lines(k1, repo, turn, dev)
     print(cs.nvidia_smi())
     return 0
 
 
-def fp32_lines(k1, repo: str, dev) -> None:
-    """The fp32 backward at each training shape beside SDPA's fp32
-    backward (TF32 off) and its bounds."""
+def fp32_lines(k1, repo: str, turn: int, dev) -> None:
+    """The fp32 backward at each training shape, by CUDA kernel, beside
+    its plain version, SDPA's fp32 backward (TF32 off) and its bounds; the
+    fp32 forward beside SDPA's fp32 forward."""
     F = torch.nn.functional
     torch.backends.cuda.matmul.allow_tf32 = False
     for i, shape in enumerate(cs.K1_TRAIN_SHAPES):
@@ -156,15 +163,29 @@ def fp32_lines(k1, repo: str, dev) -> None:
         sdpa = F.scaled_dot_product_attention(*xs, is_causal=True)
         flops = 5 * b * h * d * s * (s + 1)
         nbytes = 7 * b * h * s * d * 4 + 4 * b * h * s
+        parts = cs.kernel_ms(torch, lambda: k1.flash_attention_bwd(
+            q, k, v, lse, up), n=5, warmup=1)
         line = dict(
-            repo=repo, dtype="float32", shape=list(shape),
-            bwd_ms=cs.device_ms(torch, lambda _: k1.flash_attention_bwd(
-                q, k, v, lse, up), n=3, warmup=1),
+            repo=repo, turn=turn, dtype="float32", shape=list(shape),
+            bwd_kernels_ms=parts, bwd_ms=sum(parts.values()),
+            plain_ms=cs.device_ms(
+                torch, lambda _: k1.flash_attention_bwd_plain(
+                    q, k, v, lse, up), n=2, warmup=1),
             sdpa_bwd_ms=cs.device_ms(torch, lambda _: torch.autograd.grad(
                 sdpa, xs, up, retain_graph=True), n=3, warmup=1),
             bytes_bound_ms=cs.bound_ms(nbytes, 0)[0],
             ffma_bound_ms=cs.bound_ms(0, flops, cs.FP32_FLOPS)[0],
             tf32x3_bound_ms=cs.bound_ms(0, 3 * flops, cs.TF32_FLOPS)[0])
+        with torch.no_grad():
+            line["fwd_ms"] = cs.device_ms(
+                torch, lambda _: k1.flash_attention(q, k, v), n=5, warmup=1)
+            line["sdpa_fwd_ms"] = cs.device_ms(
+                torch, lambda _: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), n=5, warmup=1)
+        fl = 2 * b * h * d * s * (s + 1)
+        line["fwd_bytes_bound_ms"] = cs.bound_ms(4 * b * h * s * d * 4,
+                                                 0)[0]
+        line["fwd_ffma_bound_ms"] = cs.bound_ms(0, fl, cs.FP32_FLOPS)[0]
         print(json.dumps(line), flush=True)
         del sdpa, xs
         torch.cuda.empty_cache()

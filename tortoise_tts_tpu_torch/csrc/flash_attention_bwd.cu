@@ -18,7 +18,7 @@
 // two or three keys, none averaged away) carries into dQ at up to 1.5x
 // the training check's bound (measured on an H100).  Every sum runs in a
 // fixed order (no atomics): two calls give the same bits.  Two launches a
-// call:
+// call (fp32: three, bwd_split_f32 first):
 // - bwd_dq_*: a query tile walks the key tiles up to the diagonal twice,
 //   recomputing S and dP: first into its rows' Delta (written for the
 //   next kernel, beside the rows' LSE in base 2), then into dQ;
@@ -33,7 +33,7 @@
 // run nine products (S and dP three times: Delta's pass, dQ's, dK's and
 // dV's; 0.089 and 0.011 ms) and three exp2 passes over the causal half:
 // the price of a deterministic dQ without atomics or ordered adds and of
-// a Delta consistent with P.  What sets the time is keeping the tensor
+// a Delta consistent with P.  (fp32: below.)  What sets the time is keeping the tensor
 // cores fed between the products' dependent steps: the exp2s alone (16 an
 // SM a clock) take about as long as the products.
 //
@@ -81,9 +81,39 @@
 // Delta, LSE and the softmax stay fp32.  Rows past S take no weight;
 // nothing is padded in device memory but the row data.
 //
-// fp32 design (bwd_dq_f32, bwd_dkdv_f32): the same split on CUDA cores
-// (FFMA), 32-key (or 32-query) tiles in shared memory, a thread four
-// channels apart of one row: fp32 throughout, as the forward's fp32 form.
+// fp32 design (bwd_split_f32, bwd_dq_tf32, bwd_dkdv_tf32): the same
+// split of the work on the tensor cores in 3xTF32.  Each fp32 operand x is
+// split into hi = cvt.rna.tf32(x) (13 low bits cleared) and lo = x - hi
+// (exact), and each product sums lo hi + hi lo + hi hi in fp32 (lo lo,
+// about 2^-22 of a term, dropped): fp32 accuracy, where one TF32 product
+// rounds every input to 11 significant bits.  Bound: 3x the operations at
+// 495 TFLOP/s, 0.297 and 0.0377 ms at the two shapes (the nine products'
+// own floor 0.535 and 0.068), over fp32 bytes 0.106 and 0.027.
+// TF32 wgmma reads its shared-memory operands K-major only (no transpose
+// bits), and dQ += dS K, dK += dS^T Q, dV += P^T dO reduce over the rows
+// of the streamed tensor.  So a first launch, bwd_split_f32, writes every
+// operand once as the products read it: q, k, v and dO split, rows as
+// they come ((B*H, Sp, 64), Sp = S rounded up to 64, zeros past S), and
+// k, q and dO split and transposed ((B*H, 64, Sp): channel rows), each 8
+// rows reordered 0, 2, 4, 6, 1, 3, 5, 7 (an accumulator's n8 block holds
+// columns 2 t4 and 2 t4 + 1 where a register A slice holds t4 and t4 + 4).
+// Then the two kernels of the bf16 design's split, each a persistent grid
+// of one block an SM over heaviest-first work items of 64 resident rows:
+// a producer thread issues every copy by TMA (4-d maps over the split
+// arrays, 128-byte swizzle) into a ring of 32-row stages and the one
+// resident buffer (its next item's stages land first); two consumer
+// warpgroups share the residents and take the ring's uses in turn, each
+// running its tiles' products on wgmma while the other does its
+// arithmetic, their sums met in a fixed order at the end.  Registers
+// cannot hold the split residents (64 a tensor beside the accumulators),
+// so S and dP (S^T and dP^T) read both operands from shared memory
+// (m64n32k8, the residents as A); the dependent products take P, dS (P^T,
+// dS^T), split, as register A operands against the transposed tiles
+// (m64n64k8).  Each tile's
+// dependent products go to fresh accumulators added to dQ (dK, dV) in
+// fp32: the tensor cores' fp32 accumulation is not round-to-nearest, and
+// a chain over every tile would drift.  exp2 is ex2.approx.f32 (no flush
+// to zero); the limits are those of bf16, on the tiles that need them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -97,7 +127,6 @@ using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int D = 64;
-constexpr int THREADS = 128;          // the fp32 kernels' block
 constexpr float LOG2E = 1.4426950408889634f;
 
 // tensors by index in BwdArgs::st
@@ -110,8 +139,8 @@ struct BwdArgs {
   const void* dout;
   const float* lse;       // (B*H, S), natural log
   // bf16: (B*H, ceil(S/64), 2, 64): each 64-row query tile's LSE in base 2
-  // (+inf past S), then its Delta (0 past S), made by bwd_dq_ws; fp32:
-  // Delta (B*H, S) in its first B*H*S floats, made by bwd_dq_f32
+  // (+inf past S), then its Delta (0 past S), made by bwd_dq_ws; fp32: the
+  // same of each 32-row tile, (B*H, 2 ceil(S/64), 2, 32), by bwd_dq_tf32
   float* delta;
   const uint8_t* mask;    // (B, S) or null
   void* dq;
@@ -848,160 +877,724 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
-// --- fp32: CUDA-core FMAs ----------------------------------------------------
+// --- fp32: 3xTF32 tensor cores ----------------------------------------------
 
-constexpr int FB = 32;      // queries or keys a tile
-constexpr int FP = D + 1;   // padded row: conflict-free column reads
-constexpr int LANES = 4;    // threads a row, channels LANES apart
+constexpr int FR = 64;                 // resident rows a work item
+constexpr int FT = 32;                 // rows a streamed tile
+constexpr int F_BOX = FT * 32 * 4;     // a TMA box: 32 rows x 32 channels
+constexpr int F_PART = FR * D * 4;     // a resident part (hi or lo), 16 KB
+constexpr int F_RES = 4 * F_PART;      // [X_hi | X_lo | Y_hi | Y_lo]
+constexpr int F_NAT = 2 * F_BOX;       // a streamed tile's part, 8 KB
+constexpr int F_TR = D * FT * 4;       // a transposed tile's part, 8 KB
+constexpr int F_THREADS = WS_THREADS;  // two consumer warpgroups, a producer
+                                       // one (setmaxnreg, as bf16's)
+constexpr int F_ROWDATA = 2 * FT * 4;  // a query tile's LSE2 and Delta
+// bwd_dq_tf32's stage: [K_hi | K_lo | V_hi | V_lo | K^T_hi | K^T_lo]; after
+// the ring, the two warpgroups' Delta partials.  The rings' stages are
+// even in number: the warpgroups take the uses in turn, so a stage's
+// consecutive uses are one warpgroup's, which never waits on a phase two
+// ahead of the one it last released (an odd ring let one warpgroup pass
+// a parity wait for a use whose stage the other had not yet freed)
+constexpr int F_STAGES_DQ = 2;
+constexpr int F_STAGE_DQ = 4 * F_NAT + 2 * F_TR;
+constexpr int F_DELTA_DQ = F_RES + F_STAGES_DQ * F_STAGE_DQ;
+constexpr int F_BARS_DQ = F_DELTA_DQ + 2 * 128 * 2 * 4;
+constexpr int F_SMEM_DQ = F_BARS_DQ + 2 * (F_STAGES_DQ + 1) * 8 + 1024;
+// bwd_dkdv_tf32's stage: [Q_hi | Q_lo | dO_hi | dO_lo | Q^T_hi | Q^T_lo |
+// dO^T_hi | dO^T_lo], then each stage's row data after the ring
+constexpr int F_STAGES_KV = 2;
+constexpr int F_STAGE_KV = 4 * F_NAT + 4 * F_TR;
+constexpr int F_ROWS_KV = F_RES + F_STAGES_KV * F_STAGE_KV;
+constexpr int F_BARS_KV = F_ROWS_KV + F_STAGES_KV * F_ROWDATA;
+constexpr int F_SMEM_KV = F_BARS_KV + 2 * (F_STAGES_KV + 1) * 8 + 1024;
+// the split operands' arrays by index: natural (BH, Sp, 64) and
+// transposed (BH, 64, Sp), Sp = S rounded up to 64
+enum { NQH, NQL, NKH, NKL, NVH, NVL, NGH, NGL, NN };
+enum { TKH, TKL, TQH, TQL, TGH, TGL, TN };
 
-// rows r0 .. r0 + FB - 1 of an fp32 tensor into a padded tile, zeros
-// past S
-__device__ __forceinline__ void load_f32(float (&dst)[FB][FP],
-                                         const float* base, long long rs,
-                                         int r0, int S, int tid) {
-  for (int i = tid; i < FB * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    dst[r][c] = r0 + r < S ? base[(r0 + r) * rs + c] : 0.f;
+// What both fp32 kernels take: the split arrays as two TMA maps, 4-d
+// (64, Sp, BH, NN) and (Sp, 64, BH, TN), boxes of 32 x 32 and 32 x 64.
+struct F32Args {
+  CUtensorMap nat, tr;
+  BwdArgs a;
+  int BH;
+};
+
+// a box of `map` at (c0, c1, c2, c3), innermost first, into `dst`
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// rows row0 .. row0 + n - 1 (n 32 or 64) of natural array `arr` of (batch,
+// head) bh, both 32-channel halves: [ch 0-31 | ch 32-63], each n rows of
+// 128 bytes
+__device__ __forceinline__ void tma_nat(const F32Args& p, uint32_t dst,
+                                        uint32_t bar, int arr, int row0,
+                                        int n, int bh) {
+  for (int c = 0; c < 2; ++c)
+    for (int r = 0; r < n; r += FT)
+      tma_4d(dst + c * n * 128 + r * 128, &p.nat, bar, 32 * c, row0 + r, bh,
+             arr);
+}
+
+// D (64 x 32, fp32) += A (64 x 8) B (8 x 32), tf32, both K-major in
+// shared memory (as wgmma_tf32_rs's B); D's layout is wgmma_n64's, four n8
+// blocks
+__device__ __forceinline__ void wgmma_tf32_ss32(float (&d)[16], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// 2^x (MUFU, no flush: weights under 2^-126 stay)
+__device__ __forceinline__ float exp2_f32(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// issue x (64 x 32) += A B^T over 64 channels, A the resident part pair at
+// `a` (64 rows: [ch 0-31 | ch 32-63] of 8 KB each, hi then lo 16 KB on),
+// B the streamed pair at `b` (32 rows, 4 KB halves, lo 8 KB on): per
+// 8-channel slice lo hi + hi lo + hi hi
+__device__ __forceinline__ void issue_ss(float (&x)[16], uint32_t a,
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t ao = a + (kk / 4) * 8192 + 32 * (kk % 4);
+    const uint32_t bo = b + (kk / 4) * 4096 + 32 * (kk % 4);
+    const uint64_t ah = desc(ao), al = desc(ao + F_PART);
+    const uint64_t bh = desc(bo), bl = desc(bo + F_NAT);
+    wgmma_tf32_ss32(x, al, bh);
+    wgmma_tf32_ss32(x, ah, bl);
+    wgmma_tf32_ss32(x, ah, bh);
   }
 }
 
-__device__ __forceinline__ float dot_f32(const float* x, const float* y) {
-  float acc = 0.f;
-#pragma unroll 16
-  for (int c = 0; c < D; ++c) acc = fmaf(x[c], y[c], acc);
-  return acc;
+// issue x (64 x 64) += A B over 32 rows: A the split accumulator slices
+// (hi, lo) in registers, B a transposed pair at `b` (64 channel rows of 32
+// reordered rows, lo 8 KB on)
+__device__ __forceinline__ void issue_rs(float (&x)[32],
+                                         const uint32_t (&hi)[4][4],
+                                         const uint32_t (&lo)[4][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bh = desc(b + 32 * kk), bl = desc(b + F_TR + 32 * kk);
+    wgmma_tf32_rs<64>(x, lo[kk], bh);
+    wgmma_tf32_rs<64>(x, hi[kk], bl);
+    wgmma_tf32_rs<64>(x, hi[kk], bh);
+  }
 }
 
-// One block: FB queries of one (batch, head), the key tiles up to the
-// diagonal twice (step i < nk into Delta, step nk + i into dQ).  Thread
-// tid: query row tid / 4, keys and channels tid % 4 + 4 u.
-__global__ void __launch_bounds__(THREADS)
-    bwd_dq_f32(const __grid_constant__ BwdArgs a) {
-  __shared__ float Qs[FB][FP], Gs[FB][FP], Ks[FB][FP], Vs[FB][FP];
-  __shared__ float Ss[FB][FB + 1];
-  const int S = a.S, nt = (S + FB - 1) / FB;
-  const int qt = nt - 1 - blockIdx.x, q0 = qt * FB;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int tid = threadIdx.x, r = tid / LANES, sub = tid % LANES;
-  const int row = q0 + r;
-  load_f32(Qs, rows_of<float>(a.q, a, TQ, b, h), a.st[TQ][2], q0, S, tid);
-  load_f32(Gs, rows_of<float>(a.dout, a, TDO, b, h), a.st[TDO][2], q0, S,
-           tid);
-  const float lse = row < S ? a.lse[(long long)bh * S + row] : INFINITY;
-  const uint8_t* mrow = a.mask ? a.mask + (long long)b * S : nullptr;
-  const float* kb = rows_of<float>(a.k, a, TK, b, h);
-  const float* vb = rows_of<float>(a.v, a, TV, b, h);
-  const int nk = a.causal ? qt + 1 : nt;
-  float acc[D / LANES];
+// an accumulator's n8 block kk, split, as the k8 slice kk of a register A
+// operand: its columns 2 t4 and 2 t4 + 1 are the slice's t4 and t4 + 4 (the
+// transposed arrays hold each 8 rows in the order 0, 2, 4, 6, 1, 3, 5, 7)
+__device__ __forceinline__ void to_a_tf32(const float (&x)[16],
+                                          uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4]) {
 #pragma unroll
-  for (int i = 0; i < D / LANES; ++i) acc[i] = 0.f;
-  float dl = 0.f;   // Delta: this thread's share, then the row's
-  for (int i = 0; i < 2 * nk; ++i) {
-    const bool delta_pass = i < nk;
-    const int k0 = (delta_pass ? i : i - nk) * FB;
-    __syncthreads();   // the previous tile's reads are done
-    load_f32(Ks, kb, a.st[TK][2], k0, S, tid);
-    load_f32(Vs, vb, a.st[TV][2], k0, S, tid);
-    __syncthreads();
+  for (int kk = 0; kk < 4; ++kk) {
+    tf32_split(x[4 * kk], hi[kk][0], lo[kk][0]);
+    tf32_split(x[4 * kk + 2], hi[kk][1], lo[kk][1]);
+    tf32_split(x[4 * kk + 1], hi[kk][2], lo[kk][2]);
+    tf32_split(x[4 * kk + 3], hi[kk][3], lo[kk][3]);
+  }
+}
+
+// a barrier of the two consumer warpgroups alone (the producer is busy
+// or gone)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_u(uint32_t (&a)[N][4]) {
 #pragma unroll
-    for (int u = 0; u < FB / LANES; ++u) {
-      const int c = sub + LANES * u, key = k0 + c;
-      const float s = dot_f32(Qs[r], Ks[c]);
-      const float dp = dot_f32(Gs[r], Vs[c]);
-      const bool ok = key < S && !(a.causal && key > row) &&
-                      (!mrow || mrow[key]);
-      const float p = ok ? expf(fmaf(s, a.scale, -lse)) : 0.f;
-      if (delta_pass)
-        dl = fmaf(p, dp, dl);
-      else
-        Ss[r][c] = p * (dp - dl);
-    }
-    if (delta_pass) {
-      if (i == nk - 1) {   // the row's four shares
-        dl += __shfl_xor_sync(0xffffffffu, dl, 1);
-        dl += __shfl_xor_sync(0xffffffffu, dl, 2);
-        if (sub == 0 && row < S) a.delta[(long long)bh * S + row] = dl;
+  for (int kk = 0; kk < N; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i]));
+}
+
+// The ring of NS stages and the one resident buffer of an fp32 kernel:
+// full and empty mbarriers a stage (each ring use is one consumer
+// warpgroup's), rfull and rempty (both warpgroups) for the residents.
+template <int NS>
+struct FBars {
+  static_assert(NS % 2 == 0, "each stage one warpgroup's");
+  uint32_t base, full0, empty0, rfull, rempty;
+  int sb;
+  __device__ FBars(uint32_t base_, int stage_bytes, int off_bars)
+      : base(base_), full0(base_ + off_bars), empty0(full0 + 8 * NS),
+        rfull(empty0 + 8 * NS), rempty(rfull + 8), sb(stage_bytes) {}
+  __device__ uint32_t stage(int it) const {
+    return base + F_RES + (it % NS) * sb;
+  }
+  __device__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < NS; ++s) {
+        mbar_init(full0 + 8 * s, 1);
+        mbar_init(empty0 + 8 * s, 1);
       }
-      continue;
+      mbar_init(rfull, 1);
+      mbar_init(rempty, 2);
+      fence_barrier_init();
     }
     __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < FB; ++c) {
-      const float ds = Ss[r][c];
-#pragma unroll
-      for (int e = 0; e < D / LANES; ++e)
-        acc[e] = fmaf(ds, Ks[c][sub + LANES * e], acc[e]);
-    }
   }
-  if (row < S) {
-    float* out = rows_of<float>(a.dq, a, TDQ, b, h) + row * a.st[TDQ][2];
+  __device__ uint32_t acquire(int it, int bytes) const {
+    const int s = it % NS;
+    mbar_wait(empty0 + 8 * s, ((it / NS) & 1) ^ 1);
+    mbar_expect_tx(full0 + 8 * s, bytes);
+    return stage(it);
+  }
+  __device__ uint32_t full(int it) const { return full0 + 8 * (it % NS); }
+  __device__ void acquire_res(int n) const {
+    mbar_wait(rempty, (n & 1) ^ 1);
+    mbar_expect_tx(rfull, F_RES);
+  }
+  __device__ void wait(int it) const {
+    mbar_wait(full0 + 8 * (it % NS), (it / NS) & 1);
+  }
+  __device__ void wait_res(int n) const { mbar_wait(rfull, n & 1); }
+  // a warpgroup's first thread, once every product that read the stage
+  // (or, at the item's end, the residents) is done: the products are the
+  // warpgroup's own, so its every thread has issued them and read what it
+  // reads by hand
+  __device__ void release(int it) const {
+    if ((threadIdx.x & 127) == 0) mbar_arrive(empty0 + 8 * (it % NS));
+  }
+  __device__ void release_res() const {
+    if ((threadIdx.x & 127) == 0) mbar_arrive(rempty);
+  }
+};
+
+// The split operands from q, k, v and dO: natural hi and lo of each (rows
+// past S zero) and transposed hi and lo of k, q and dO.  Block (x, y): 32
+// rows of (batch, head) y; every element read once, in 16-byte pieces
+// where a tensor's rows are on 16 bytes (else element by element), and
+// written in 16-byte pieces.
+__global__ void __launch_bounds__(256)
+    bwd_split_f32(const BwdArgs a, float* __restrict__ nat,
+                  float* __restrict__ tr, int BH, int Sp) {
+  __shared__ float tile[D][FT + 1];
+  const int r0 = blockIdx.x * FT, bh = blockIdx.y, b = bh / a.H,
+            h = bh % a.H, tid = threadIdx.x;
+  const long long plane = (long long)Sp * D;
 #pragma unroll
-    for (int i = 0; i < D / LANES; ++i)
-      out[sub + LANES * i] = acc[i] * a.scale;
+  for (int xi = 0; xi < 4; ++xi) {   // TQ, TK, TV, TDO
+    const void* src = xi == 0 ? a.q : xi == 1 ? a.k : xi == 2 ? a.v : a.dout;
+    const int trof = xi == 0 ? TQH : xi == 1 ? TKH : xi == 3 ? TGH : -1;
+    const float* x = rows_of<float>(src, a, xi, b, h);
+    const long long rs = a.st[xi][2];
+    const bool vec =
+        (rs & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    float* nh = nat + ((long long)(2 * xi) * BH + bh) * plane;
+    float* nl = nh + (long long)BH * plane;
+    if (trof >= 0) __syncthreads();   // the tile's last reads are done
+#pragma unroll
+    for (int u = 0; u < FT * D / 4 / 256; ++u) {
+      const int i = tid + 256 * u, r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const int row = r0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < a.S) {
+        const float* e = x + row * rs + c;
+        v = vec ? *reinterpret_cast<const float4*>(e)
+                : make_float4(e[0], e[1], e[2], e[3]);
+      }
+      uint4 hi, lo;
+      tf32_split4(v, hi, lo);
+      *reinterpret_cast<uint4*>(nh + (long long)row * D + c) = hi;
+      *reinterpret_cast<uint4*>(nl + (long long)row * D + c) = lo;
+      if (trof >= 0) {
+        tile[c][r] = v.x;
+        tile[c + 1][r] = v.y;
+        tile[c + 2][r] = v.z;
+        tile[c + 3][r] = v.w;
+      }
+    }
+    if (trof < 0) continue;
+    __syncthreads();
+    float* th = tr + ((long long)trof * BH + bh) * plane;
+    float* tl = th + (long long)BH * plane;
+#pragma unroll
+    for (int u = 0; u < D * FT / 4 / 256; ++u) {
+      // positions p .. p + 3 of a channel row; position q of each 8 holds
+      // row 2 q (q < 4) or 2 (q - 4) + 1
+      const int i = tid + 256 * u, c = i / (FT / 4), p = (i % (FT / 4)) * 4;
+      float e[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int q = (p + k) & 7;
+        e[k] = tile[c][(p & ~7) + (q < 4 ? 2 * q : 2 * (q - 4) + 1)];
+      }
+      uint4 hi, lo;
+      tf32_split4(make_float4(e[0], e[1], e[2], e[3]), hi, lo);
+      *reinterpret_cast<uint4*>(th + (long long)c * Sp + r0 + p) = hi;
+      *reinterpret_cast<uint4*>(tl + (long long)c * Sp + r0 + p) = lo;
+    }
   }
 }
 
-// One block: FB keys of one (batch, head), the query tiles from the
-// diagonal down.  Thread tid: key row tid / 4, queries and channels
-// tid % 4 + 4 u.
-__global__ void __launch_bounds__(THREADS)
-    bwd_dkdv_f32(const __grid_constant__ BwdArgs a) {
-  __shared__ float Ks[FB][FP], Vs[FB][FP], Qs[FB][FP], Gs[FB][FP];
-  __shared__ float Ps[FB][FB + 1], Ss[FB][FB + 1];
-  __shared__ float Ls[FB], Dl[FB];
-  const int S = a.S, nt = (S + FB - 1) / FB;
-  const int kt = blockIdx.x, k0 = kt * FB;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int tid = threadIdx.x, r = tid / LANES, sub = tid % LANES;
-  load_f32(Ks, rows_of<float>(a.k, a, TK, b, h), a.st[TK][2], k0, S, tid);
-  load_f32(Vs, rows_of<float>(a.v, a, TV, b, h), a.st[TV][2], k0, S, tid);
-  const uint8_t* mrow = a.mask ? a.mask + (long long)b * S : nullptr;
-  const int key = k0 + r;
-  const bool kin = key < S && (!mrow || mrow[key]);
-  const float* qb = rows_of<float>(a.q, a, TQ, b, h);
-  const float* gb = rows_of<float>(a.dout, a, TDO, b, h);
-  float dk[D / LANES], dv[D / LANES];
+// bwd_dq_tf32's work item w: the 64-query tile t of (batch, head) bh, (batch,
+// head)-major and the last tile first within one, so the blocks that run
+// together stream the split K and V of a few (batch, head)s from L2 (in
+// bf16's order they streamed 132 of them, 169 MB at (16, 16, 773), from
+// device memory: 1.36 and 1.10 ms for the two kernels against 0.78 and
+// 0.72 on an H100); the 32-key tiles it streams (twice): up to its
+// diagonal
+struct DqItemF {
+  int t, bh, nkb;
+  __device__ DqItemF(int w, int nq, int nt, int causal)
+      : t(nq - 1 - w % nq), bh(w / nq),
+        nkb(causal ? min(2 * t + 2, nt) : nt) {}
+};
+
+// bit 2 j + e: whether key k + 8 j + e (j < 4, e < 2) is valid under the
+// key mask row m (all set without one)
+__device__ __forceinline__ uint32_t key_bits32(const uint8_t* m, int k,
+                                               int S) {
+  if (m == nullptr) return 0xFFu;
+  uint32_t bits = 0;
 #pragma unroll
-  for (int i = 0; i < D / LANES; ++i) dk[i] = dv[i] = 0.f;
-  for (int j = a.causal ? kt : 0; j < nt; ++j) {
-    const int q0 = j * FB;
-    __syncthreads();   // the previous tile's reads are done
-    load_f32(Qs, qb, a.st[TQ][2], q0, S, tid);
-    load_f32(Gs, gb, a.st[TDO][2], q0, S, tid);
-    if (tid < FB) {
-      const int row = q0 + tid;
-      Ls[tid] = row < S ? a.lse[(long long)bh * S + row] : INFINITY;
-      Dl[tid] = row < S ? a.delta[(long long)bh * S + row] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < FB / LANES; ++u) {
-      const int c = sub + LANES * u;
-      const float s = dot_f32(Ks[r], Qs[c]);
-      const float dp = dot_f32(Vs[r], Gs[c]);
-      const bool ok = kin && !(a.causal && key > q0 + c);
-      const float p = ok ? expf(fmaf(s, a.scale, -Ls[c])) : 0.f;
-      Ps[r][c] = p;
-      Ss[r][c] = p * (dp - Dl[c]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < FB; ++c) {
-      const float p = Ps[r][c], ds = Ss[r][c];
-#pragma unroll
-      for (int i = 0; i < D / LANES; ++i) {
-        dv[i] = fmaf(p, Gs[c][sub + LANES * i], dv[i]);
-        dk[i] = fmaf(ds, Qs[c][sub + LANES * i], dk[i]);
+  for (int j = 0; j < 4; ++j) {
+    const int key = k + 8 * j;
+    if (key < S && m[key]) bits |= 1u << (2 * j);
+    if (key + 1 < S && m[key + 1]) bits |= 2u << (2 * j);
+  }
+  return bits;
+}
+
+// One block an SM (162 KB of shared memory); each walks work items
+// blockIdx.x, + gridDim.x, ...  Step i < nkb of an item adds key tile i
+// to its rows' Delta, step nkb + i key tile i to dQ, each tile's dS K in
+// a fresh accumulator added to dQ in fp32.  S and dP read both operands
+// from shared memory (the residents as A), dQ's A is dS in registers.
+// The two consumer warpgroups share the residents and take the ring's
+// uses in turn (warpgroup u % 2 the u-th), so one's arithmetic runs beside
+// the other's products; each sums its tiles apart, and the two sums meet
+// in a fixed order (Delta's through shared memory before dQ's pass, dQ's
+// through the resident buffer at the item's end: warpgroup 0's plus
+// warpgroup 1's).
+__global__ void __launch_bounds__(F_THREADS, 1)
+    bwd_dq_tf32(const __grid_constant__ F32Args p) {
+  const BwdArgs& a = p.a;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float* const res = reinterpret_cast<float*>(smem_raw + (base - raw));
+  float* const parts = res + F_DELTA_DQ / 4;
+  const FBars<F_STAGES_DQ> br(base, F_STAGE_DQ, F_BARS_DQ);
+  br.init();
+  const int S = a.S, nt = (S + FT - 1) / FT, nq = (S + FR - 1) / FR;
+  const int items = p.BH * nq, tid = threadIdx.x;
+
+  if (tid >= CONSUMERS) {   // the producer: one thread issues every copy
+    regs_dec<PRODUCER_REGS>();
+    if (tid == CONSUMERS) {
+      int it = 0, n = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+        const DqItemF m(w, nq, nt, a.causal);
+        const int steps = 2 * m.nkb, pre = min(F_STAGES_DQ - 1, steps);
+        for (int i = 0; i <= steps; ++i) {
+          if (i == pre) {   // the residents, once the last item's are free
+            br.acquire_res(n);
+            tma_nat(p, base, br.rfull, NQH, m.t * FR, FR, m.bh);
+            tma_nat(p, base + F_PART, br.rfull, NQL, m.t * FR, FR, m.bh);
+            tma_nat(p, base + 2 * F_PART, br.rfull, NGH, m.t * FR, FR, m.bh);
+            tma_nat(p, base + 3 * F_PART, br.rfull, NGL, m.t * FR, FR, m.bh);
+            continue;
+          }
+          const int s = i < pre ? i : i - 1;
+          const bool dq_pass = s >= m.nkb;
+          const int kt = dq_pass ? s - m.nkb : s;
+          const uint32_t st =
+              br.acquire(it, dq_pass ? F_STAGE_DQ : 4 * F_NAT);
+          const uint32_t bar = br.full(it);
+          ++it;
+          tma_nat(p, st, bar, NKH, kt * FT, FT, m.bh);
+          tma_nat(p, st + F_NAT, bar, NKL, kt * FT, FT, m.bh);
+          tma_nat(p, st + 2 * F_NAT, bar, NVH, kt * FT, FT, m.bh);
+          tma_nat(p, st + 3 * F_NAT, bar, NVL, kt * FT, FT, m.bh);
+          if (dq_pass) {
+            tma_4d(st + 4 * F_NAT, &p.tr, bar, kt * FT, 0, m.bh, TKH);
+            tma_4d(st + 4 * F_NAT + F_TR, &p.tr, bar, kt * FT, 0, m.bh, TKL);
+          }
+        }
       }
     }
+    return;
   }
-  if (key < S) {
-    float* kout = rows_of<float>(a.dk, a, TDK, b, h) + key * a.st[TDK][2];
-    float* vout = rows_of<float>(a.dv, a, TDV, b, h) + key * a.st[TDV][2];
+
+  regs_inc<CONSUMER_REGS>();
+  // warp-uniform to the compiler (a shuffle): a branch on it is not
+  // divergent, so ptxas keeps the products unserialised
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0), ct = tid & 127;
+  const int w = ct >> 5, lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  const float sl2 = a.scale * LOG2E;
+  int it = 0, n = 0;
+  for (int wi = blockIdx.x; wi < items; wi += gridDim.x, ++n) {
+    const DqItemF m(wi, nq, nt, a.causal);
+    const int b = m.bh / a.H, h = m.bh % a.H, q0 = m.t * FR;
+    const int r0 = q0 + 16 * w + g, r1 = r0 + 8;
+    const float* lrow = a.lse + (long long)m.bh * S;
+    // LSE in base 2, +inf past S (P = 0 there)
+    const float l0 = r0 < S ? lrow[r0] * LOG2E : INFINITY;
+    const float l1 = r1 < S ? lrow[r1] * LOG2E : INFINITY;
+    const uint8_t* mrow = a.mask ? a.mask + (long long)b * S : nullptr;
+    // S = Q K^T and dP = dO V^T of the tile in ring use i
+    auto sdp = [&](float (&s)[16], float (&dp)[16], int i) {
+      const uint32_t st = br.stage(i);
+      zero(s);
+      zero(dp);
+      acc_fence(s);
+      acc_fence(dp);
+      wgmma_fence();
+      issue_ss(s, base, st);
+      issue_ss(dp, base + 2 * F_PART, st + 2 * F_NAT);
+      wgmma_commit();
+      wgmma_wait<0>();
+      acc_fence(s);
+      acc_fence(dp);
+    };
+    // P = 2^(s scale log2 e - LSE2) in place: s[4j + 2hh + e] is query row
+    // r0 + 8 hh, key k0 + 8 j + 2 t4 + e.  A key counts where its offset
+    // 8 j + e is at most the row's limit (the row itself where causal,
+    // S - 1) less k0 + 2 t4, and its mask bit is set: no branch a value,
+    // and none of it on a tile where every key counts
+    auto probs = [&](float (&s)[16], int kt) {
+      const int k0 = kt * FT, base_key = k0 + 2 * t4;
+      if (!mrow && k0 + FT <= S && !(a.causal && k0 + FT - 1 > q0)) {
 #pragma unroll
-    for (int i = 0; i < D / LANES; ++i) {
-      kout[sub + LANES * i] = dk[i] * a.scale;
-      vout[sub + LANES * i] = dv[i];
+        for (int x = 0; x < 16; ++x)
+          s[x] = exp2_f32(fmaf(s[x], sl2, -((x & 2) ? l1 : l0)));
+        return;
+      }
+      const int lim0 = (a.causal ? min(r0, S - 1) : S - 1) - base_key;
+      const int lim1 = (a.causal ? min(r1, S - 1) : S - 1) - base_key;
+      const uint32_t bits = key_bits32(mrow, base_key, S);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * hh + e;
+            const float pv = exp2_f32(fmaf(s[x], sl2, -(hh ? l1 : l0)));
+            const bool ok = 8 * j + e <= (hh ? lim1 : lim0) &&
+                            ((bits >> (2 * j + e)) & 1u);
+            s[x] = ok ? pv : 0.f;
+          }
+    };
+    br.wait_res(n);
+
+    // Delta's pass: Delta += rowsum(P dP), in a fixed order, over this
+    // warpgroup's tiles
+    float dl0 = 0.f, dl1 = 0.f;
+    for (int kt = 0; kt < m.nkb; ++kt, ++it) {
+      if ((it & 1) != wg) continue;
+      float s[16], dp[16];
+      br.wait(it);
+      sdp(s, dp, it);
+      br.release(it);
+      probs(s, kt);
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        if (x & 2)
+          dl1 = fmaf(s[x], dp[x], dl1);
+        else
+          dl0 = fmaf(s[x], dp[x], dl0);
+      }
+    }
+    dl0 += __shfl_xor_sync(0xffffffffu, dl0, 1);
+    dl0 += __shfl_xor_sync(0xffffffffu, dl0, 2);
+    dl1 += __shfl_xor_sync(0xffffffffu, dl1, 1);
+    dl1 += __shfl_xor_sync(0xffffffffu, dl1, 2);
+    parts[2 * (128 * wg + ct)] = dl0;
+    parts[2 * (128 * wg + ct) + 1] = dl1;
+    consumers_sync();
+    dl0 = parts[2 * ct] + parts[2 * (128 + ct)];
+    dl1 = parts[2 * ct + 1] + parts[2 * (128 + ct) + 1];
+    if (wg == 0 && t4 == 0) {   // the rows' data, for bwd_dkdv_tf32: a
+                                // 32-row tile's LSE2, then its Delta
+      const int nt2 = 2 * nq;
+      float* rd0 = a.delta + ((long long)m.bh * nt2 + r0 / FT) * (2 * FT);
+      float* rd1 = a.delta + ((long long)m.bh * nt2 + r1 / FT) * (2 * FT);
+      rd0[r0 % FT] = l0;
+      rd0[FT + r0 % FT] = dl0;
+      rd1[r1 % FT] = l1;
+      rd1[FT + r1 % FT] = dl1;
+    }
+
+    // dQ's pass: dS = P (dP - Delta), then dQ += dS K (K^T's rows as B)
+    float dq[32];
+    zero(dq);
+    for (int kt = 0; kt < m.nkb; ++kt, ++it) {
+      if ((it & 1) != wg) continue;
+      float s[16], dp[16];
+      br.wait(it);
+      sdp(s, dp, it);
+      probs(s, kt);
+#pragma unroll
+      for (int x = 0; x < 16; ++x) s[x] *= dp[x] - ((x & 2) ? dl1 : dl0);
+      uint32_t dh[4][4], dlo[4][4];
+      to_a_tf32(s, dh, dlo);
+      float part[32];
+      zero(part);
+      acc_fence(part);
+      fence_u(dh);
+      fence_u(dlo);
+      wgmma_fence();
+      issue_rs(part, dh, dlo, br.stage(it) + 4 * F_NAT);
+      wgmma_commit();
+      wgmma_wait<0>();
+      acc_fence(part);
+      fence_u(dh);
+      fence_u(dlo);
+      br.release(it);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dq[x] += part[x];
+    }
+    // warpgroup 1's dQ to warpgroup 0 over the residents, once every
+    // product of the item is done
+    consumers_sync();
+    if (wg == 1) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) res[128 * x + ct] = dq[x];
+    }
+    consumers_sync();
+    if (wg == 0) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dq[x] += res[128 * x + ct];
+    }
+    fence_proxy_async();   // the residents' next copy comes after
+    br.release_res();
+    if (wg == 1) continue;
+
+    float* out = rows_of<float>(a.dq, a, TDQ, b, h);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = hh ? r1 : r0;
+      if (row >= S) continue;
+      float* orow = out + row * a.st[TDQ][2] + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j) =
+            make_float2(dq[4 * j + 2 * hh] * a.scale,
+                        dq[4 * j + 2 * hh + 1] * a.scale);
+    }
+  }
+}
+
+// One block an SM (194 KB); each walks work items blockIdx.x, + gridDim.x,
+// ...: the 64-key tile t of (batch, head) bh, (batch, head)-major and the
+// first tile first within one (DqItemF's reason), the
+// 32-query tiles from its diagonal down, each with its row data.  S^T and
+// dP^T read both operands from shared memory (K and V resident as A);
+// dV += P^T dO and dK += dS^T Q take P^T and dS^T from registers, each
+// tile's in fresh accumulators added in fp32.  The two consumer
+// warpgroups take the ring's uses in turn, as in bwd_dq_tf32, and their
+// dK and dV meet at the item's end over the resident buffer.
+__global__ void __launch_bounds__(F_THREADS, 1)
+    bwd_dkdv_tf32(const __grid_constant__ F32Args p) {
+  const BwdArgs& a = p.a;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const float* rows0 =
+      reinterpret_cast<const float*>(smem_raw + (base - raw) + F_ROWS_KV);
+  float* const res = reinterpret_cast<float*>(smem_raw + (base - raw));
+  const FBars<F_STAGES_KV> br(base, F_STAGE_KV, F_BARS_KV);
+  br.init();
+  const int S = a.S, nt = (S + FT - 1) / FT, nq = (S + FR - 1) / FR;
+  const int items = p.BH * nq, tid = threadIdx.x;
+
+  if (tid >= CONSUMERS) {
+    regs_dec<PRODUCER_REGS>();
+    if (tid == CONSUMERS) {
+      int it = 0, n = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
+        const int t = w % nq, bh = w / nq;   // as DqItemF's order
+        const int j0 = a.causal ? 2 * t : 0, steps = nt - j0;
+        const int pre = min(F_STAGES_KV - 1, steps);
+        for (int i = 0; i <= steps; ++i) {
+          if (i == pre) {
+            br.acquire_res(n);
+            tma_nat(p, base, br.rfull, NKH, t * FR, FR, bh);
+            tma_nat(p, base + F_PART, br.rfull, NKL, t * FR, FR, bh);
+            tma_nat(p, base + 2 * F_PART, br.rfull, NVH, t * FR, FR, bh);
+            tma_nat(p, base + 3 * F_PART, br.rfull, NVL, t * FR, FR, bh);
+            continue;
+          }
+          const int j = j0 + (i < pre ? i : i - 1);
+          const uint32_t st = br.acquire(it, F_STAGE_KV + F_ROWDATA);
+          const uint32_t bar = br.full(it);
+          tma_nat(p, st, bar, NQH, j * FT, FT, bh);
+          tma_nat(p, st + F_NAT, bar, NQL, j * FT, FT, bh);
+          tma_nat(p, st + 2 * F_NAT, bar, NGH, j * FT, FT, bh);
+          tma_nat(p, st + 3 * F_NAT, bar, NGL, j * FT, FT, bh);
+          const uint32_t t0 = st + 4 * F_NAT;
+          tma_4d(t0, &p.tr, bar, j * FT, 0, bh, TQH);
+          tma_4d(t0 + F_TR, &p.tr, bar, j * FT, 0, bh, TQL);
+          tma_4d(t0 + 2 * F_TR, &p.tr, bar, j * FT, 0, bh, TGH);
+          tma_4d(t0 + 3 * F_TR, &p.tr, bar, j * FT, 0, bh, TGL);
+          bulk_load(base + F_ROWS_KV + (it % F_STAGES_KV) * F_ROWDATA,
+                    a.delta + ((long long)bh * 2 * nq + j) * (2 * FT),
+                    F_ROWDATA, bar);
+          ++it;
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<CONSUMER_REGS>();
+  // warp-uniform to the compiler (a shuffle): a branch on it is not
+  // divergent, so ptxas keeps the products unserialised
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0), ct = tid & 127;
+  const int w = ct >> 5, lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  const float sl2 = a.scale * LOG2E;
+  int it = 0, n = 0;
+  for (int wi = blockIdx.x; wi < items; wi += gridDim.x, ++n) {
+    const int t = wi % nq, bh = wi / nq, b = bh / a.H, h = bh % a.H;
+    const int k0 = t * FR, j0 = a.causal ? 2 * t : 0;
+    // this thread's key rows kr and kr + 8: in range and valid
+    const int kr = k0 + 16 * w + g;
+    const uint8_t* mrow = a.mask ? a.mask + (long long)b * S : nullptr;
+    const bool kin0 = kr < S && (!mrow || mrow[kr]);
+    const bool kin1 = kr + 8 < S && (!mrow || mrow[kr + 8]);
+    const bool edge = mrow || k0 + FR > S;
+    br.wait_res(n);
+    float dk[32], dv[32];
+    zero(dk);
+    zero(dv);
+    for (int j = j0; j < nt; ++j, ++it) {
+      if ((it & 1) != wg) continue;
+      const uint32_t st = br.stage(it);
+      float s[16], dp[16];
+      br.wait(it);
+      zero(s);
+      zero(dp);
+      acc_fence(s);
+      acc_fence(dp);
+      wgmma_fence();
+      issue_ss(s, base, st);                            // S^T = K Q^T
+      issue_ss(dp, base + 2 * F_PART, st + 2 * F_NAT);  // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      acc_fence(s);
+      acc_fence(dp);
+      // P^T and dS^T: s[4 jj + 2 hh + e] is key kr + 8 hh, query 32 j +
+      // 8 jj + 2 t4 + e.  A query counts where its offset 8 jj + e is at
+      // least the key's (the key itself where causal; past 32 where the
+      // key is past S or masked) less 32 j + 2 t4: no branch a value, and
+      // none of it on a tile where every query counts
+      const float* rd = rows0 + (it % F_STAGES_KV) * (2 * FT);
+      const int qb = j * FT + 2 * t4;
+      const bool lim = edge || (a.causal && j * FT < k0 + FR - 1);
+      const int lo0 = kin0 ? (a.causal ? kr - qb : -FT) : 2 * FT;
+      const int lo1 = kin1 ? (a.causal ? kr + 8 - qb : -FT) : 2 * FT;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float2 lse2 =
+            *reinterpret_cast<const float2*>(rd + 8 * jj + 2 * t4);
+        const float2 dl =
+            *reinterpret_cast<const float2*>(rd + FT + 8 * jj + 2 * t4);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * jj + 2 * hh + e;
+            float pv = exp2_f32(fmaf(s[x], sl2, -(e ? lse2.y : lse2.x)));
+            if (lim) pv = 8 * jj + e >= (hh ? lo1 : lo0) ? pv : 0.f;
+            s[x] = pv;
+            dp[x] = pv * (dp[x] - (e ? dl.y : dl.x));
+          }
+      }
+      uint32_t ph[4][4], pl[4][4], dh[4][4], dlo[4][4];
+      to_a_tf32(s, ph, pl);
+      to_a_tf32(dp, dh, dlo);
+      float pv_[32], pk_[32];
+      zero(pv_);
+      zero(pk_);
+      acc_fence(pv_);
+      acc_fence(pk_);
+      fence_u(ph);
+      fence_u(pl);
+      fence_u(dh);
+      fence_u(dlo);
+      wgmma_fence();
+      issue_rs(pv_, ph, pl, st + 4 * F_NAT + 2 * F_TR);   // P^T dO
+      issue_rs(pk_, dh, dlo, st + 4 * F_NAT);             // dS^T Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      acc_fence(pv_);
+      acc_fence(pk_);
+      fence_u(ph);
+      fence_u(pl);
+      fence_u(dh);
+      fence_u(dlo);
+      br.release(it);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        dv[x] += pv_[x];
+        dk[x] += pk_[x];
+      }
+    }
+    // warpgroup 1's dK and dV to warpgroup 0 over the residents, once
+    // every product of the item is done
+    consumers_sync();
+    if (wg == 1) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        res[128 * x + ct] = dk[x];
+        res[128 * (32 + x) + ct] = dv[x];
+      }
+    }
+    consumers_sync();
+    if (wg == 0) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        dk[x] += res[128 * x + ct];
+        dv[x] += res[128 * (32 + x) + ct];
+      }
+    }
+    fence_proxy_async();   // the residents' next copy comes after
+    br.release_res();
+    if (wg == 1) continue;
+
+    float* dkb = rows_of<float>(a.dk, a, TDK, b, h);
+    float* dvb = rows_of<float>(a.dv, a, TDV, b, h);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = kr + 8 * hh;
+      if (row >= S) continue;
+      float* krow = dkb + row * a.st[TDK][2] + 2 * t4;
+      float* vrow = dvb + row * a.st[TDV][2] + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<float2*>(krow + 8 * j) =
+            make_float2(dk[4 * j + 2 * hh] * a.scale,
+                        dk[4 * j + 2 * hh + 1] * a.scale);
+        *reinterpret_cast<float2*>(vrow + 8 * j) =
+            make_float2(dv[4 * j + 2 * hh], dv[4 * j + 2 * hh + 1]);
+      }
     }
   }
 }
@@ -1017,7 +1610,7 @@ int smem_attr(const void* fn, int bytes) {
 int rows_map(WsArgs& p, int t, const void* base, int B, int H, int S,
              const long long (&st)[3]) {
   EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return ERR_NO_DRIVER;
+  if (fn == nullptr) return ERR_NO_ENCODER;
   const bool hf = st[1] < st[2];
   p.hfirst[t] = hf;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -1034,7 +1627,25 @@ int rows_map(WsArgs& p, int t, const void* base, int B, int H, int S,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+  return map_result(r);
+}
+
+// an fp32 4-d TMA map over `base` with the 128-byte swizzle: dims
+// innermost first, strides in bytes of dims 1-3, a box of (box0, box1, 1,
+// 1) elements (box0: 32, one 128-byte row)
+int split_map(CUtensorMap* map, const float* base,
+              const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+              cuuint32_t box0, cuuint32_t box1) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_NO_ENCODER;
+  const cuuint32_t box[4] = {box0, box1, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base),
+         dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return map_result(r);
 }
 
 }  // namespace
@@ -1044,18 +1655,20 @@ int rows_map(WsArgs& p, int t, const void* base, int B, int H, int S,
 // contiguous; bf16 rows on 16 bytes (base pointers and strides).  lse:
 // (B, H, S) fp32, contiguous, the forward's natural log-sum-exp; delta: an
 // fp32 scratch of B*H*ceil(S/64)*128 floats, 16-byte aligned (the row
-// data the first launch writes for the second).  mask: (B, S) uint8 or
-// null.  grid: bf16's persistent grid (kernels/flash_attention.bwd_plan),
-// from 1 to B*H*ceil(S/128) blocks (the work items); fp32 ignores it.
-// Two launches on `stream`.
+// data the first launch writes for the second).  split (fp32 only): an
+// fp32 scratch of 14*B*H*Sp*64 floats, Sp = S rounded up to 64, 16-byte
+// aligned (the split operands).  mask: (B, S) uint8 or null.  grid: the
+// persistent grid (kernels/flash_attention.bwd_plan), from 1 to the work
+// items, B*H*ceil(S/128) in bf16 and B*H*ceil(S/64) in fp32.  Two
+// launches on `stream` in bf16, three in fp32.
 
 extern "C" int tts_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, void* delta, const void* mask, void* dq, void* dk,
-    void* dv, int B, int H, int S, int dtype, long long qsb, long long qsh,
-    long long qss, long long ksb, long long ksh, long long kss,
-    long long vsb, long long vsh, long long vss, long long gsb,
-    long long gsh, long long gss, long long dqsb,
+    const void* lse, void* delta, void* split, const void* mask, void* dq,
+    void* dk, void* dv, int B, int H, int S, int dtype, long long qsb,
+    long long qsh, long long qss, long long ksb, long long ksh,
+    long long kss, long long vsb, long long vsh, long long vss,
+    long long gsb, long long gsh, long long gss, long long dqsb,
     long long dqsh, long long dqss, long long dksb, long long dksh,
     long long dkss, long long dvsb, long long dvsh, long long dvss,
     int causal, float scale, int grid, void* stream) {
@@ -1089,12 +1702,40 @@ extern "C" int tts_flash_attention_bwd(
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc) return rc;
     bwd_dkdv_ws<<<grid, WS_THREADS, SMEM_DKDV, st>>>(p);
-  } else {
-    const dim3 grid((S + FB - 1) / FB, B * H);
-    bwd_dq_f32<<<grid, THREADS, 0, st>>>(a);
-    const int rc = static_cast<int>(cudaGetLastError());
-    if (rc) return rc;
-    bwd_dkdv_f32<<<grid, THREADS, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
+  const int BH = B * H, Sp = (S + FR - 1) / FR * FR;
+  const int items = BH * ((S + FR - 1) / FR);
+  if (grid < 1 || grid > items || split == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const int attr = [] {
+    const int rc = smem_attr(reinterpret_cast<const void*>(bwd_dq_tf32),
+                             F_SMEM_DQ);
+    return rc ? rc
+              : smem_attr(reinterpret_cast<const void*>(bwd_dkdv_tf32),
+                          F_SMEM_KV);
+  }();
+  if (attr) return attr;
+  F32Args p{};
+  p.a = a;
+  p.BH = BH;
+  float* nat = static_cast<float*>(split);
+  float* tr = nat + (long long)NN * BH * Sp * D;
+  const cuuint64_t plane = 4ull * Sp * D;
+  if (const int rc = split_map(&p.nat, nat, {D, (cuuint64_t)Sp,
+                                             (cuuint64_t)BH, NN},
+                               {4ull * D, plane, plane * BH}, 32, FT))
+    return rc;
+  if (const int rc = split_map(&p.tr, tr, {(cuuint64_t)Sp, D,
+                                           (cuuint64_t)BH, TN},
+                               {4ull * Sp, plane, plane * BH}, FT, D))
+    return rc;
+  bwd_split_f32<<<dim3(Sp / FT, BH), 256, 0, st>>>(a, nat, tr, BH, Sp);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc) return rc;
+  bwd_dq_tf32<<<grid, F_THREADS, F_SMEM_DQ, st>>>(p);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc) return rc;
+  bwd_dkdv_tf32<<<grid, F_THREADS, F_SMEM_KV, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

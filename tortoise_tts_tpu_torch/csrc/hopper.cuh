@@ -16,8 +16,14 @@
 namespace hopper {
 
 // error codes of the host helpers, above every cudaError_t value
-constexpr int ERR_NO_DRIVER = 10001;    // cuTensorMapEncodeTiled not found
-constexpr int ERR_TENSOR_MAP = 10002;   // the driver refused a tensor map
+// (kernels/_build.describe reads them)
+constexpr int ERR_NO_ENCODER = 10001;    // cuTensorMapEncodeTiled not found
+constexpr int ERR_TENSOR_MAP = 20000;   // plus the CUresult of a refused map
+
+// 0, or ERR_TENSOR_MAP plus libcuda's code for a refused tensor map
+inline int map_result(CUresult r) {
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + static_cast<int>(r);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -426,6 +432,22 @@ __device__ __forceinline__ float tf32_hi(float v) {
   return __uint_as_float(r & 0xFFFFE000u);
 }
 
+// x's 3xTF32 split: hi = tf32_hi(x) and lo = x - hi, as bit patterns
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  const float h = tf32_hi(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
+}
+
+// tf32_split of four values, a 16-byte piece each
+__device__ __forceinline__ void tf32_split4(float4 x, uint4& hi, uint4& lo) {
+  tf32_split(x.x, hi.x, lo.x);
+  tf32_split(x.y, hi.y, lo.y);
+  tf32_split(x.z, hi.z, lo.z);
+  tf32_split(x.w, hi.w, lo.w);
+}
+
 // --- tensor maps (host) ----------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -435,6 +457,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
+// The encoder, with the current device's primary context made current on
+// the calling thread: libcuda refuses a map on a thread with no current
+// context.  Such a thread is one whose CUDA runtime calls so far needed
+// none, as PyTorch's autograd device thread is when a backward is its
+// first CUDA work (device 0 is already the current device, so PyTorch
+// skips cudaSetDevice, and its allocations come from the caching
+// allocator's free blocks).  cudaSetDevice binds the primary context.
 inline EncodeTiled encode_tiled() {
   static EncodeTiled fn = [] {
     void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
@@ -443,6 +472,8 @@ inline EncodeTiled encode_tiled() {
                      dlsym(lib, "cuTensorMapEncodeTiled"))
                : nullptr;
   }();
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaSetDevice(dev);
   return fn;
 }
 
@@ -456,7 +487,7 @@ inline int tensor_map_3d(
     uint32_t box1,
     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return ERR_NO_DRIVER;
+  if (fn == nullptr) return ERR_NO_ENCODER;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {stride1, stride2};
   const cuuint32_t box[3] = {box0, box1, 1};
@@ -466,7 +497,7 @@ inline int tensor_map_3d(
          dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+  return map_result(r);
 }
 
 }  // namespace hopper

@@ -104,8 +104,24 @@
 //      K-major, and the blocks of the first 128 channels sum their A rows
 //      into each slice's db partials.
 //   6. bwd_reduce: dW over the slices, db, dgamma and dbeta.
-// fp32 takes the same passes with both products on CUDA cores
-// (bwd_gemm_f32, 64 x 64 tiles).
+// fp32 takes the same passes with both products on the tensor cores in
+// 3xTF32, as the forward's fp32 GEMM (bound: 3x the operations at 495
+// TFLOP/s, 0.911 ms for K4 -> 1024 at (16, 1024, 2240), 2.73 for the qkv
+// head and K5; the fp32 bytes 0.13-0.23 ms).  TF32 wgmma reads its shared
+// operands K-major only, so:
+//   2. bwd_split_upstream replaces the transpose: g split into TF32 hi and
+//      lo parts, time-major (gt_hi, gt_lo (B, T, M)) and as it comes
+//      (g_hi, g_lo (B, M, Tp), Tp = T rounded up to 4, zeros past T: TMA
+//      rows on 16 bytes at any T), with db's partials;
+//   3. bwd_da_tf32: da = W^T gt on the forward's main loop
+//      (tf32_mainloop: wb split in registers, gt_hi and gt_lo K-major by
+//      TMA, tap s' shifted by s' - 1 steps), then da_epilogue;
+//   5. bwd_dw_tf32: dW^T = a g^T over slices of the B T reduction, g_hi
+//      and g_lo as the K-major B (64 rows of M x 32 steps a box), the
+//      time-major a as the register A operand, each thread's fragments
+//      read across the stage's steps and split (the tap shift an outer
+//      coordinate of a); each stage's products in a fresh accumulator
+//      added in fp32, the partials stored transposed.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -666,27 +682,24 @@ struct RingF {
   static_assert(BM * TS * 4 <= BARS, "the epilogue tile fits the ring");
 };
 
-// out[b] = W * Y_b + bias (+ res[b]) in fp32 from Y_hi and Y_lo (B, T, C)
-// on the 3xTF32 products; TAPS = 3: tap s of the (3, M, C) weight against
-// Y shifted by s - 1 steps.  Block (x, y, z) = (n tile * split + K slice,
-// m tile, b); the `split` blocks of a cluster share the output tile and
-// each walks its own K slice.
+// The 3xTF32 GEMM's main loop: acc (this consumer warpgroup's 64 of the
+// BM rows x BN steps) = the (taps, rows, K) fp32 weight's rows m0..
+// against Y_b's steps n0.. from Y_hi and Y_lo (B, T, K), the K steps k0 ..
+// k1 - 1 of the TAPS * ceil(K / TK), each TK deep; TAPS = 3: tap s against
+// Y shifted by s - 1 steps.  Every thread of the block calls it (the
+// producer warpgroup's issue the copies, then return with acc untouched).
+// base: the ring, 1024-aligned.
 template <int TAPS, int BN>
-__device__ __forceinline__ void conv_gemm_tf32(
+__device__ __forceinline__ void tf32_mainloop(
     const CUtensorMap* wmap, const CUtensorMap* hmap, const CUtensorMap* lmap,
-    const void* bias, int bias_bf, const float* __restrict__ res,
-    float* __restrict__ out, int M, int C, int T, int split) {
-  namespace cg = cooperative_groups;
-  using L = RingF<BN>;
+    int K, int m0, int n0, int b, int k0, int k1, uint32_t base,
+    float (&acc)[BN / 2]) {
   extern __shared__ unsigned char gemm_smem[];
-  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  using L = RingF<BN>;
   unsigned char* const ring = gemm_smem + (base - smem_u32(gemm_smem));
   const uint32_t full0 = base + L::BARS, empty0 = full0 + STAGES * 8;
   const int tid = threadIdx.x, wg = tid / 128;
-  const int ks = blockIdx.x % split, n0 = (blockIdx.x / split) * BN;
-  const int m0 = blockIdx.y * BM, b = blockIdx.z;
-  const int kc = (C + TK - 1) / TK, kt = TAPS * kc;
-  const int k0 = ks * kt / split, k1 = (ks + 1) * kt / split;
+  const int kc = (K + TK - 1) / TK;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -697,7 +710,6 @@ __device__ __forceinline__ void conv_gemm_tf32(
   }
   __syncthreads();
 
-  float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   if (wg == 2) {   // producer: one thread keeps the ring full
@@ -753,6 +765,31 @@ __device__ __forceinline__ void conv_gemm_tf32(
       if (tid % 128 == 0) mbar_arrive(empty0 + 8 * s);
     }
   }
+}
+
+// out[b] = W * Y_b + bias (+ res[b]) in fp32 from Y_hi and Y_lo (B, T, C)
+// on the 3xTF32 products; TAPS = 3: tap s of the (3, M, C) weight against
+// Y shifted by s - 1 steps.  Block (x, y, z) = (n tile * split + K slice,
+// m tile, b); the `split` blocks of a cluster share the output tile and
+// each walks its own K slice.
+template <int TAPS, int BN>
+__device__ __forceinline__ void conv_gemm_tf32(
+    const CUtensorMap* wmap, const CUtensorMap* hmap, const CUtensorMap* lmap,
+    const void* bias, int bias_bf, const float* __restrict__ res,
+    float* __restrict__ out, int M, int C, int T, int split) {
+  namespace cg = cooperative_groups;
+  using L = RingF<BN>;
+  extern __shared__ unsigned char gemm_smem[];
+  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  unsigned char* const ring = gemm_smem + (base - smem_u32(gemm_smem));
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int ks = blockIdx.x % split, n0 = (blockIdx.x / split) * BN;
+  const int m0 = blockIdx.y * BM, b = blockIdx.z;
+  const int kt = TAPS * ((C + TK - 1) / TK);
+  const int k0 = ks * kt / split, k1 = (ks + 1) * kt / split;
+
+  float acc[BN / 2];
+  tf32_mainloop<TAPS, BN>(wmap, hmap, lmap, C, m0, n0, b, k0, k1, base, acc);
 
   // Epilogue: every block's partial tile to its shared memory over the
   // ring (every stage consumed), then each block of the cluster sums its
@@ -1188,95 +1225,229 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   }
 }
 
-constexpr int FT = 64, FK = 16, FS = FT + 4;   // FS: A and B rows
+// fp32 da = W^T g on the forward's 3xTF32 main loop (tf32_mainloop): the
+// reversed, transposed weight wb (taps, C, M), split in registers, against
+// the split time-major upstream gt_hi, gt_lo (B, T, M), tap s' shifted by
+// s' - 1 steps, K = M; a block's 128 channels x BN steps, then
+// da_epilogue over the tile.
+template <int TAPS, int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    bwd_da_tf32(const __grid_constant__ CUtensorMap wmap,
+                const __grid_constant__ CUtensorMap hmap,
+                const __grid_constant__ CUtensorMap lmap,
+                const BwdArgs<float> a) {
+  extern __shared__ unsigned char gemm_smem[];
+  static_assert(BM * (BN + 8) * 4 + BM * 32 <= RingF<BN>::BARS,
+                "the tile and its rows' parameters fit the ring");
+  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  const int n0 = blockIdx.x * BN, c0 = blockIdx.y * BM, b = blockIdx.z;
+  float acc[BN / 2];
+  tf32_mainloop<TAPS, BN>(&wmap, &hmap, &lmap, a.M, c0, n0, b, 0,
+                          TAPS * ((a.M + TK - 1) / TK), base, acc);
+  if (threadIdx.x >= 256) return;   // the producer warpgroup
+  const float* tile = acc_to_tile<BN>(acc, base);
+  float* prm = reinterpret_cast<float*>(gemm_smem + (base - smem_u32(gemm_smem))
+                                        + BM * (BN + 8) * 4);
+  da_epilogue<float, TAPS == 3, BM, BN>(tile, prm, c0, n0, b, blockIdx.x, a);
+}
 
-// The fp32 backward's GEMMs, on CUDA cores: a 64 x 64 tile a block of 256
-// threads (4 x 4 a thread), 16-deep K steps through shared memory.
-//   DW = false: the da tile (channels r0.. x steps n0..) = the sum over
-//     taps and K = M of wb[tap] (C x M) gt_b shifted by tap - 1 steps,
-//     then da_epilogue;
-//   DW = true: part[q, tap]'s tile (rows r0.. of M x channels n0..) = the
-//     sum over the q-th slice of the (batch, 16-step) pairs of gt_b^T
-//     Y_b, Y shifted by tap - 1 steps.
-template <bool DW, int TAPS>
-__global__ void __launch_bounds__(256)
-    bwd_gemm_f32(const float* __restrict__ wb, const float* __restrict__ gt,
-                 const float* __restrict__ y, const BwdArgs<float> a, float* __restrict__ part,
-                 int split) {
-  __shared__ __align__(16) float As[FK][FS];
-  __shared__ __align__(16) float Bs[FK][FS];
-  __shared__ __align__(16) float tile[DW ? 1 : FT * (FT + 8)];
-  __shared__ float prm[DW ? 1 : FT * 8];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int C = a.C, T = a.T, M = a.M;
-  const int n0 = blockIdx.x * FT, r0 = blockIdx.y * FT;
-  const int tap = DW ? blockIdx.z / split : 0, q = DW ? blockIdx.z % split : 0;
-  const int b = DW ? 0 : blockIdx.z;
-  const int ntk = (T + FK - 1) / FK, kc = (M + FK - 1) / FK;
-  const int kt = DW ? a.B * ntk : TAPS * kc;
-  const int k0 = DW ? (int)((long long)q * kt / split) : 0;
-  const int k1 = DW ? (int)((long long)(q + 1) * kt / split) : kt;
-  float acc[4][4] = {};
-  for (int it = k0; it < k1; ++it) {
+constexpr int DWF_BN = 64;                     // rows of M a block
+constexpr int DWF_A = BM * TK * 4;             // a's tile, four 4 KB boxes
+constexpr int DWF_B = DWF_BN * TK * 4;         // a g box (hi or lo), 8 KB
+constexpr int DWF_STAGE = DWF_A + 2 * DWF_B;   // a | g_hi | g_lo
+constexpr int DWF_STAGES = 6;
+constexpr int DWF_BARS = DWF_STAGES * DWF_STAGE;
+constexpr int DWF_SMEM = DWF_BARS + 2 * DWF_STAGES * 8 + 1024;
+
+// fp32 dW^T: part[q, tap] (M x C, fp32), transposed, = the sum over the
+// q-th of `split` slices of the (batch, 32-step tile) pairs of Y_b^T
+// (C x steps, Y shifted by tap - 1 steps) g_b^T (steps x M), in 3xTF32.
+// Block (x, y, z) = (128 channels, 64 rows of M, tap * split + q).  TF32
+// wgmma reads shared operands K-major only, so the reduction over the
+// steps takes g as it comes, split (g_hi, g_lo (B, M, Tp): 64 rows of 32
+// steps a box, K-major), and the time-major a (B, T, C) as the register A
+// operand: each consumer thread reads its fragments of its warpgroup's 64
+// channels across the stage's 32 steps from shared memory and splits them
+// (the tap shift is an outer TMA coordinate of a).  Each stage's products
+// go to a fresh accumulator added to the slice's in fp32: the tensor
+// cores' accumulation is not round-to-nearest, and a slice chains up to
+// 1120 stages.
+template <int TAPS>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    bwd_dw_tf32(const __grid_constant__ CUtensorMap ymap,
+                const __grid_constant__ CUtensorMap hmap,
+                const __grid_constant__ CUtensorMap lmap,
+                float* __restrict__ part, int B, int M, int C, int T,
+                int split) {
+  extern __shared__ unsigned char gemm_smem[];
+  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  const unsigned char* const ring = gemm_smem + (base - smem_u32(gemm_smem));
+  const uint32_t full0 = base + DWF_BARS, empty0 = full0 + DWF_STAGES * 8;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int c0 = blockIdx.x * BM, m0 = blockIdx.y * DWF_BN;
+  const int tap = blockIdx.z / split, q = blockIdx.z % split;
+  const int ntt = (T + TK - 1) / TK, kt = B * ntt;
+  const int k0 = (int)((long long)q * kt / split);
+  const int k1 = (int)((long long)(q + 1) * kt / split);
+  const int shift = TAPS == 3 ? tap - 1 : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < DWF_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    if (tid == 256) {
+      for (int it = k0; it < k1; ++it) {
+        const int i = it - k0, s = i % DWF_STAGES;
+        mbar_wait(empty0 + 8 * s, ((i / DWF_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, DWF_STAGE);
+        const int bb = it / ntt, t0 = (it - bb * ntt) * TK;
+        const uint32_t sa = base + s * DWF_STAGE, bar = full0 + 8 * s;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int e = tid + 256 * u;
-      if constexpr (DW) {
-        const int bb = it / ntk, k = e / FT, j = e % FT;
-        const int t = (it - bb * ntk) * FK + k;
-        const int ts = t + (TAPS == 3 ? tap - 1 : 0);
-        const int m = r0 + j, c = n0 + j;
-        As[k][j] = t < T && m < M ? gt[((long long)bb * T + t) * M + m] : 0.f;
-        float yv = 0.f;
-        if (t < T && ts >= 0 && ts < T && c < C) {
-          const long long o = ((long long)bb * T + ts) * C + c;
-          yv = y[o];
-        }
-        Bs[k][j] = yv;
-      } else {
-        const int tp = it / kc, k = e % FK, i = e / FK;
-        const int mk = (it - tp * kc) * FK + k;
-        const int c = r0 + i, ts = n0 + i + (TAPS == 3 ? tp - 1 : 0);
-        As[k][i] = c < C && mk < M ? wb[((long long)tp * C + c) * M + mk]
-                                   : 0.f;
-        Bs[k][i] = mk < M && ts >= 0 && ts < T
-                       ? gt[((long long)b * T + ts) * M + mk]
-                       : 0.f;
+        for (int j = 0; j < BM / 32; ++j)
+          tma_load_3d(sa + j * 4096, &ymap, bar, c0 + 32 * j, t0 + shift, bb);
+        tma_load_3d(sa + DWF_A, &hmap, bar, t0, m0, bb);
+        tma_load_3d(sa + DWF_A + DWF_B, &lmap, bar, t0, m0, bb);
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < FK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
-  if constexpr (DW) {
-    float* dst = part + (long long)(q * TAPS + tap) * M * C;
-    const int c = n0 + tx * 4;
+
+  const int w = (tid % 128) / 32, lane = tid % 32, kq = lane % 4;
+  // this thread's A rows (channels within the block's 128) r0 and r0 + 8
+  const int r0 = wg * 64 + w * 16 + lane / 4;
+  float acc[32];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = r0 + ty * 4 + i;
-      if (m < M && c < C)
-        *reinterpret_cast<float4*>(dst + (long long)m * C + c) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int it = k0; it < k1; ++it) {
+    const int i = it - k0, s = i % DWF_STAGES;
+    mbar_wait(full0 + 8 * s, (i / DWF_STAGES) & 1);
+    const unsigned char* at = ring + s * DWF_STAGE;
+    // a's element (step k, channel r): box r / 32, row k, 16-byte chunk
+    // (r % 32) / 4 at chunk ((r % 32) / 4) ^ (k % 8)
+    uint32_t hi[TK / 8][4], lo[TK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < TK / 8; ++kk)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = r0 + 8 * (u & 1), k = 8 * kk + kq + 4 * (u >> 1);
+        const float v = *reinterpret_cast<const float*>(
+            at + (r >> 5) * 4096 + k * 128 +
+            ((((r & 31) >> 2) ^ (k & 7)) << 4) + (r & 3) * 4);
+        const float h = tf32_hi(v);
+        hi[kk][u] = __float_as_uint(h);
+        lo[kk][u] = __float_as_uint(__fsub_rn(v, h));
+      }
+    const uint32_t sh = base + s * DWF_STAGE + DWF_A, sl = sh + DWF_B;
+    float fresh[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) fresh[x] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 8; ++kk) {
+      wgmma_tf32_rs<64>(fresh, lo[kk], desc_sw128(sh + kk * 32, 16, 1024));
+      wgmma_tf32_rs<64>(fresh, hi[kk], desc_sw128(sl + kk * 32, 16, 1024));
+      wgmma_tf32_rs<64>(fresh, hi[kk], desc_sw128(sh + kk * 32, 16, 1024));
     }
-  } else {
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(fresh);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < TK / 8; ++kk) {
+      reg_fence(hi[kk]);
+      reg_fence(lo[kk]);
+    }
+    if (tid % 128 == 0) mbar_arrive(empty0 + 8 * s);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        tile[(ty * 4 + i) * (FT + 8) + tx * 4 + j] = acc[i][j];
-    __syncthreads();
-    da_epilogue<float, TAPS == 3, FT, FT>(tile, prm, r0, n0, b, blockIdx.x,
-                                          a);
+    for (int x = 0; x < 32; ++x) acc[x] += fresh[x];
+  }
+
+  // acc[4 j + 2 h + e] is channel c0 + r0 + 8 h, row m0 + 8 j + 2 (lane %
+  // 4) + e of M: stored transposed, eight channels of a row contiguous
+  float* dst = part + (long long)(q * TAPS + tap) * M * C;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = c0 + r0 + 8 * h;
+    if (c >= C) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * j + 2 * kq + e;
+        if (m < M) dst[(long long)m * C + c] = acc[4 * j + 2 * h + e];
+      }
+  }
+}
+
+// fp32: the upstream g (B, M, T) split for the 3xTF32 GEMMs, through a 64 x
+// 64 tile read in 16-byte pieces (element by element where T's rows are
+// off 16 bytes): gt_hi and gt_lo (B, T, M), time-major (da's B: K5's taps
+// shift it along an outer coordinate), and g_hi and g_lo (B, M, Tp), Tp = T
+// rounded up to 4, zeros past T (dW's B: rows on 16 bytes, as TMA reads
+// them, at any T); each tile's row sums to dbp (B, ceil(T/64), M), db's
+// partials, as bwd_transpose.
+__global__ void __launch_bounds__(256)
+    bwd_split_upstream(const float* __restrict__ g, float* __restrict__ gth,
+                       float* __restrict__ gtl, float* __restrict__ gh,
+                       float* __restrict__ gl, float* __restrict__ dbp,
+                       int M, int T, int Tp) {
+  __shared__ float s[64][65];
+  const int t0 = blockIdx.x * 64, m0 = blockIdx.y * 64, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const bool vec = T % 4 == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  float4 in[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = tid + 256 * u, m = m0 + i / 16, t = t0 + (i % 16) * 4;
+    const long long o = ((long long)b * M + m) * T + t;
+    if (vec) {
+      in[u] = m < M && t < T ? *reinterpret_cast<const float4*>(g + o)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      float e[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) e[k] = m < M && t + k < T ? g[o + k] : 0.f;
+      in[u] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+    if (m < M && t < Tp) {
+      uint4 hi, lo;
+      tf32_split4(in[u], hi, lo);
+      const long long p = ((long long)b * M + m) * Tp + t;
+      *reinterpret_cast<uint4*>(gh + p) = hi;
+      *reinterpret_cast<uint4*>(gl + p) = lo;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = tid + 256 * u, r = i / 16, j = (i % 16) * 4;
+    s[r][j] = in[u].x;
+    s[r][j + 1] = in[u].y;
+    s[r][j + 2] = in[u].z;
+    s[r][j + 3] = in[u].w;
+  }
+  __syncthreads();
+  if (tid < 64 && m0 + tid < M) {
+    float v = 0.f;
+    for (int j = 0; j < 64; ++j) v += s[tid][j];
+    dbp[((long long)b * gridDim.x + blockIdx.x) * M + m0 + tid] = v;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = tid + 256 * u, r = i / 16, j = (i % 16) * 4;
+    const int t = t0 + r, m = m0 + j;   // M % 8 == 0: whole pieces
+    if (t < T && m < M) {
+      uint4 hi, lo;
+      tf32_split4(make_float4(s[j][r], s[j + 1][r], s[j + 2][r],
+                              s[j + 3][r]), hi, lo);
+      const long long p = ((long long)b * T + t) * M + m;
+      *reinterpret_cast<uint4*>(gth + p) = hi;
+      *reinterpret_cast<uint4*>(gtl + p) = lo;
+    }
   }
 }
 
@@ -1553,10 +1724,21 @@ int run_bwd(const BwdIo& o, cudaStream_t st) {
       static_cast<const TX*>(o.x), static_cast<TX*>(o.ybuf), o.stats, o.v, C,
       T, o.G, B, o.act);
   // 2. the upstream time-major, and db's partials (GT: the GEMMs read it
-  // as it comes; dW's blocks take db's partials)
-  if (!GT)
-    bwd_transpose<TX><<<dim3(ntg, (M + 63) / 64, B), 256, 0, st>>>(
-        static_cast<const TX*>(o.g), static_cast<TX*>(o.gt), o.dbp, M, T);
+  // as it comes; dW's blocks take db's partials); fp32: split, both
+  // time-major and as it comes, in gt's four arrays
+  const long long ngt = (long long)B * T * M;
+  const int Tp = (T + 3) / 4 * 4;
+  float* const gth = static_cast<float*>(o.gt);
+  float* const gh = gth + 2 * ngt;
+  if constexpr (BF) {
+    if (!GT)
+      bwd_transpose<TX><<<dim3(ntg, (M + 63) / 64, B), 256, 0, st>>>(
+          static_cast<const TX*>(o.g), static_cast<TX*>(o.gt), o.dbp, M, T);
+  } else {
+    bwd_split_upstream<<<dim3(ntg, (M + 63) / 64, B), 256, 0, st>>>(
+        static_cast<const float*>(o.g), gth, gth + ngt, gh,
+        gh + (long long)B * M * Tp, o.dbp, M, T, Tp);
+  }
   const BwdArgs<TX> a{static_cast<const TX*>(o.x), o.stats, o.v,
                       static_cast<TX*>(o.dn), o.part, B, C, T, M, o.G,
                       o.act, ntt};
@@ -1587,11 +1769,29 @@ int run_bwd(const BwdIo& o, cudaStream_t st) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
-    if (o.bn != FT) return static_cast<int>(cudaErrorInvalidValue);
-    bwd_gemm_f32<false, TAPS><<<dim3(ntt, (C + FT - 1) / FT, B), 256, 0,
-                                st>>>(static_cast<const float*>(o.wb),
-                                      static_cast<const float*>(o.gt),
-                                      nullptr, a, nullptr, 1);
+    constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    CUtensorMap wmap, hmap, lmap;
+    if ((rc = tensor_map_3d(&wmap, o.wb, M, C, TAPS, 4ull * M, 4ull * M * C,
+                            TK, BM, F32)) ||
+        (rc = tensor_map_3d(&hmap, gth, M, T, B, 4ull * M, 4ull * M * T, TK,
+                            o.bn, F32)) ||
+        (rc = tensor_map_3d(&lmap, gth + ngt, M, T, B, 4ull * M,
+                            4ull * M * T, TK, o.bn, F32)))
+      return rc;
+    const dim3 grid(ntt, (C + BM - 1) / BM, B);
+    if (o.bn == 64) {
+      rc = allow_smem<bwd_da_tf32<TAPS, 64>>(RingF<64>::SMEM);
+      if (!rc)
+        bwd_da_tf32<TAPS, 64><<<grid, GEMM_THREADS, RingF<64>::SMEM, st>>>(
+            wmap, hmap, lmap, a);
+    } else if (o.bn == 128) {
+      rc = allow_smem<bwd_da_tf32<TAPS, 128>>(RingF<128>::SMEM);
+      if (!rc)
+        bwd_da_tf32<TAPS, 128><<<grid, GEMM_THREADS, RingF<128>::SMEM, st>>>(
+            wmap, hmap, lmap, a);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (rc) return rc;
   // 4. dx, the batch's dgamma/dbeta sums, d(emb)
@@ -1617,11 +1817,20 @@ int run_bwd(const BwdIo& o, cudaStream_t st) {
                              GEMM_THREADS, DW_SMEM, st>>>(
         gmap, ymap, o.wpart, o.dbp, B, M, C, T, o.split);
   } else {
-    const dim3 grid((C + FT - 1) / FT, (M + FT - 1) / FT, TAPS * o.split);
-    bwd_gemm_f32<true, TAPS><<<grid, 256, 0, st>>>(
-        nullptr, static_cast<const float*>(o.gt),
-        static_cast<const float*>(o.ybuf),
-        a, o.wpart, o.split);
+    constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    CUtensorMap ymap, hmap, lmap;
+    if ((rc = tensor_map_3d(&ymap, o.ybuf, C, T, B, 4ull * C, 4ull * C * T,
+                            32, TK, F32)) ||
+        (rc = tensor_map_3d(&hmap, gh, Tp, M, B, 4ull * Tp, 4ull * Tp * M,
+                            TK, DWF_BN, F32)) ||
+        (rc = tensor_map_3d(&lmap, gh + (long long)B * M * Tp, Tp, M, B,
+                            4ull * Tp, 4ull * Tp * M, TK, DWF_BN, F32)))
+      return rc;
+    if ((rc = allow_smem<bwd_dw_tf32<TAPS>>(DWF_SMEM))) return rc;
+    bwd_dw_tf32<TAPS><<<dim3((C + BM - 1) / BM, (M + DWF_BN - 1) / DWF_BN,
+                             TAPS * o.split),
+                        GEMM_THREADS, DWF_SMEM, st>>>(
+        ymap, hmap, lmap, o.wpart, B, M, C, T, o.split);
   }
   // 6. dW, db, dgamma, dbeta
   const long long total = (long long)TAPS * M * C + 2LL * C;
@@ -1743,8 +1952,9 @@ extern "C" int tts_ts_res_block_out(const void* h, const void* x,
 // (B, 2, C), all fp32.  Out: dx (B, C, T) and dw (the weight's layout: K4
 // (M, C), K5 (C, C, 3)) in x's type; dgamma, dbeta (C) and db (M) in the
 // vectors' type; demb (B, 2C) in emb's (K5).  dtype: 0 = float32, 1 =
-// bfloat16; bn: the da GEMM's steps a block (bf16: 64 or 128; fp32: 64);
-// split: dW's K slices.  direct (K4 in bf16 at T % 8 == 0 only): the GEMMs
+// bfloat16; bn: the da GEMM's steps a block (64 or 128); split: dW's K
+// slices.  fp32: gt is gt_hi, gt_lo (B, T, M) and g_hi, g_lo (B, M, Tp),
+// Tp = T rounded up to 4, in one fp32 scratch (bwd_split_upstream).  direct (K4 in bf16 at T % 8 == 0 only): the GEMMs
 // read g as it comes (no gt: null) and dbp is (split, M), dW's blocks'
 // partials.  C % 8 == 0, M % 8 == 0, C % G == 0.
 extern "C" int tts_resblock_bwd(

@@ -33,6 +33,20 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
 
 _lock = threading.Lock()
 
+# csrc/hopper.cuh's host error codes, above every cudaError_t value
+ERR_NO_ENCODER = 10001    # cuTensorMapEncodeTiled not found in libcuda
+ERR_TENSOR_MAP = 20000   # plus the CUresult of a tensor map libcuda refused
+
+
+def describe(rc: int) -> str:
+    """A C entry's non-zero return code in words."""
+    if rc == ERR_NO_ENCODER:
+        return "cuTensorMapEncodeTiled not found in libcuda"
+    if ERR_TENSOR_MAP < rc < ERR_TENSOR_MAP + 1000:
+        return (f"libcuda refused a TMA map (CUresult "
+                f"{rc - ERR_TENSOR_MAP})")
+    return f"CUDA error {rc}"
+
 
 def find_nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
@@ -122,7 +136,7 @@ class Kernel:
         symbol = entry or self.symbol
         rc = self._load(symbol)(*args)
         if rc != 0:
-            raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
+            raise RuntimeError(f"{symbol}: {describe(rc)} at launch")
         self.launches += 1
 
 

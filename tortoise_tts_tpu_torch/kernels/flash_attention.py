@@ -21,7 +21,10 @@ bound on an H100 at the AR steps' shapes is the five S x S products of
 the causal half or the bytes of q, k, v, dO, dq, dk, dv (0.050 ms of
 operations, 0.053 of bytes at (16, 16, 773, 64)); in bf16 its two kernels
 are warp-specialised and persistent, TMA-fed, every product on ``wgmma``
-(the source's header), launched by ``bwd_plan``.
+(the source's header), launched by ``bwd_plan``; in fp32 the same two
+on ``wgmma`` in 3xTF32 (hi and lo TF32 parts of every operand, three
+products summed), after ``bwd_split_f32`` writes the split operands as
+the products read them, three launches and one count a call.
 A call under ``no_grad`` or ``inference_mode``, as every serving route
 makes it, writes no log-sum-exp.
 """
@@ -39,7 +42,7 @@ from ._build import F, I, LL, P, Kernel
 KERNEL = Kernel("flash_attention", "tts_flash_attention_fwd",
                 [P] * 6 + [I] * 4 + [LL] * 12 + [I, F, I, I, I, P])
 KERNEL_BWD = Kernel("flash_attention_bwd", "tts_flash_attention_bwd",
-                    [P] * 10 + [I] * 4 + [LL] * 21 + [I, F, I, P])
+                    [P] * 11 + [I] * 4 + [LL] * 21 + [I, F, I, P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132           # streaming multiprocessors of an H100 SXM
 KEY_TILE = 64       # keys a shared-memory tile (KT in the source)
@@ -49,6 +52,9 @@ SMEM_MAX = 232448   # dynamic shared memory a block may use on an H100
 MERGE_BYTES = 4 * 36 * 32 * 4   # 4 warps' partial softmax states
 BWD_TILE = 64       # rows a streamed tile of the bf16 backward (BT)
 BWD_ROWS = 128      # resident rows a work item: two warpgroups' (RT)
+BWD_F32_TILE = 32   # rows a streamed tile of the fp32 backward (FT)
+BWD_F32_ROWS = 64   # resident rows a work item: one warpgroup's (FR)
+BWD_F32_ARRAYS = 14  # the fp32 split operands: 8 as they come, 6 transposed
 
 
 def plan(b: int, h: int, s: int) -> Tuple[int, int, int]:
@@ -79,49 +85,73 @@ def smem_bytes(s: int, nbuf: int, masked: bool) -> int:
 
 
 class BwdPlan(NamedTuple):
-    """The bf16 backward's launch: ``items`` work items a kernel (128
-    resident rows of one (batch, head): query rows in ``bwd_dq_ws``, key
-    rows in ``bwd_dkdv_ws``) and both kernels' persistent grid."""
+    """The backward's launch: ``items`` work items a kernel (resident rows
+    of one (batch, head): query rows in ``bwd_dq_*``, key rows in
+    ``bwd_dkdv_*``; 128 in bf16, 64 in fp32) and both kernels' persistent
+    grid."""
     items: int
     grid: int
 
 
-def bwd_plan(b: int, h: int, s: int) -> BwdPlan:
-    """One block an SM (each is two consumer warpgroups and a producer
-    warpgroup, 384 threads at 168 registers: one fits an SM), never more
-    blocks than work items; block i takes items i, i + grid, ... of
-    ``bwd_items``' order."""
-    items = b * h * -(-s // BWD_ROWS)
+def _bwd_rows(dtype: torch.dtype) -> Tuple[int, int]:
+    """(resident rows a work item, rows a streamed tile) of the backward
+    in ``dtype``."""
+    if dtype == torch.bfloat16:
+        return BWD_ROWS, BWD_TILE
+    return BWD_F32_ROWS, BWD_F32_TILE
+
+
+def bwd_plan(b: int, h: int, s: int, dtype: torch.dtype = torch.bfloat16
+             ) -> BwdPlan:
+    """One block an SM (bf16: two consumer warpgroups and a producer
+    warpgroup, 384 threads at 168 registers; fp32: two consumer
+    warpgroups and a producer warp with 162-194 KB of shared memory: one
+    fits an SM), never more blocks than work items; block i takes items
+    i, i + grid, ... of ``bwd_items``' order."""
+    items = b * h * -(-s // _bwd_rows(dtype)[0])
     return BwdPlan(items, min(items, SMS))
 
 
-def bwd_items(b: int, h: int, s: int, kind: str, causal: bool = True
+def bwd_items(b: int, h: int, s: int, kind: str, causal: bool = True,
+              dtype: torch.dtype = torch.bfloat16
               ) -> List[Tuple[int, int, int]]:
-    """The bf16 backward's work items in the kernels' order, as (tile,
-    (batch, head) index, streamed 64-row tiles): ``kind`` "dq" takes the
-    128-query tiles last first, streaming the key tiles up to its second
-    warpgroup's diagonal (twice: Delta's pass, then dQ's); "dkdv" the
-    128-key tiles first first, streaming the query tiles from its first
-    warpgroup's diagonal down.  Heaviest first, for the blocks' round
-    robin."""
-    bh, nq, nt = b * h, -(-s // BWD_ROWS), -(-s // BWD_TILE)
+    """The backward's work items in the kernels' order, as (tile, (batch,
+    head) index, streamed tiles), a tile of rows R and streamed tiles of
+    R / 2 (bf16: 128 and 64; fp32: 64 and 32): ``kind`` "dq" takes the
+    query tiles last first, streaming the key tiles up to the last
+    resident row's diagonal (twice: Delta's pass, then dQ's); "dkdv" the
+    key tiles first first, streaming the query tiles from the first
+    resident row's diagonal down.  Heaviest first, for the blocks' round
+    robin: in bf16 over all items, in fp32 within each (batch, head),
+    which go in order (the blocks that run together then share their
+    streamed tiles in L2)."""
+    rows, tile = _bwd_rows(dtype)
+    bh, nq, nt = b * h, -(-s // rows), -(-s // tile)
     out = []
     for w in range(bh * nq):
+        i, j = (w // bh, w % bh) if dtype == torch.bfloat16 else \
+            (w % nq, w // nq)
+        t = nq - 1 - i if kind == "dq" else i
         if kind == "dq":
-            t = nq - 1 - w // bh
             n = 2 * (min(2 * t + 2, nt) if causal else nt)
         else:
-            t = w // bh
             n = nt - (2 * t if causal else 0)
-        out.append((t, w % bh, n))
+        out.append((t, j, n))
     return out
 
 
 def bwd_rowdata_floats(b: int, h: int, s: int) -> int:
-    """The backward's fp32 row-data scratch: each 64-row query tile's LSE
-    in base 2 and Delta (bf16), or Delta (B, H, S) in its first floats
-    (fp32)."""
+    """The backward's fp32 row-data scratch: each 64-row (bf16) or 32-row
+    (fp32) query tile's LSE in base 2 and Delta."""
     return b * h * -(-s // BWD_TILE) * 2 * BWD_TILE
+
+
+def bwd_split_floats(b: int, h: int, s: int) -> int:
+    """The fp32 backward's split operands (``bwd_split_f32``): q, k, v and
+    dO as TF32 hi and lo parts, rows as they come, and k, q and dO
+    transposed, each (B*H, Sp, 64) floats with Sp = S rounded up to 64."""
+    sp = -(-s // BWD_F32_ROWS) * BWD_F32_ROWS
+    return BWD_F32_ARRAYS * b * h * sp * 64
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -262,8 +292,10 @@ def _launch_bwd(q, k, v, lse, do, key_mask, causal):
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
                          f"({b}, {h}, {s}) float32 tensor on {q.device}")
-    # bf16: 16-byte copies and loads of every row
-    elems = 8 if q.dtype == torch.bfloat16 else 1
+    # bf16: 16-byte copies and loads of every row (fp32: bwd_split_f32
+    # reads element by element)
+    bf16 = q.dtype == torch.bfloat16
+    elems = 8 if bf16 else 1
     if not all(_aligned(t, elems) for t in (q, k, v, do)):
         raise ValueError(
             f"flash_attention_bwd kernel needs q, k, v, do rows aligned "
@@ -272,12 +304,14 @@ def _launch_bwd(q, k, v, lse, do, key_mask, causal):
     # (B, S, H, D) memory as (B, H, S, D) views, as the forward's output
     dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
                   .transpose(1, 2) for _ in range(3))
-    rows = torch.empty(bwd_rowdata_floats(b, h, s), dtype=torch.float32,
-                       device=q.device)
-    p = bwd_plan(b, h, s)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    rows = torch.empty(bwd_rowdata_floats(b, h, s), **f32)
+    split = None if bf16 else torch.empty(bwd_split_floats(b, h, s), **f32)
+    p = bwd_plan(b, h, s, q.dtype)
     KERNEL_BWD.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), rows.data_ptr(),
+        None if split is None else split.data_ptr(),
         mask.data_ptr() if mask is not None else None,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s,
         _DTYPES[q.dtype],

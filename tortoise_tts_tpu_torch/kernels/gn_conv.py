@@ -70,6 +70,8 @@ F32_SPLITS = (1, 2, 4, 8)
 MIN_SLICE_STEPS = 4
 A_COST = 32
 SPLIT_COST = 600
+# the fp32 backward's dW GEMM: rows of M a block (DWF_BN in resblock.cu)
+DW_F32_ROWS = 64
 
 
 class Plan(NamedTuple):
@@ -407,32 +409,45 @@ def bwd_plan(b: int, c: int, t: int, m: int, groups: int, taps: int,
     upstream's rows are read in 16-byte pieces), and return its launch.
     bf16: da's tile width by ``plan``'s rule over its C x T outputs; dW's
     split the least waves of 128 x 128 tiles (one block an SM) times the
-    64-step K steps a slice.  fp32 (CUDA cores, 64 x 64 tiles): bn 64 and
-    a split that gives about four blocks an SM.  bf16's da tile: 64
+    64-step K steps a slice.  fp32 (3xTF32): da's tile 128 steps where the
+    128 x 128 tiles fill the SMs, else 64; dW's split the least waves of
+    128 x 64 tiles times the 32-step K steps a slice.  bf16's da tile: 64
     steps (two blocks an SM, one's epilogue beside the other's products)
     where the reduction taps * M is at most 1024 or where 128-step blocks
     would fill less than half the SMs, else 128 (at (16, 1024, 2240) on
     an H100: 0.255 against 0.320 ms for K4 -> 1024; 0.564 against 0.500
     ms for the qkv head, ``tools/resblock_backward_profile.py``).  The
     upstream goes time-major first (``transpose``) where K5's three taps
-    shift it along an outer TMA coordinate, in fp32 (CUDA cores), and
-    where T % 8 != 0 (g's rows off 16 bytes, which TMA cannot read); K4
-    in bf16 at T % 8 == 0 reads it as it comes."""
+    shift it along an outer TMA coordinate, in fp32 (split into TF32 hi
+    and lo parts, time-major and as it comes, ``bwd_upstream_floats``),
+    and where T % 8 != 0 (g's rows off 16 bytes, which TMA cannot read);
+    K4 in bf16 at T % 8 == 0 reads it as it comes."""
     plan(b, c, t, m, groups, dtype, "resblock backward", taps)
     if m % 8:
         raise ValueError(f"resblock backward kernel needs M % 8 == 0, got "
                          f"M={m}")
-    if dtype == torch.float32:
-        tiles = taps * -(-m // 64) * -(-c // 64)
-        return BwdPlan(64, max(1, min(b * -(-t // 16), 16,
-                                      -(-4 * SMS // tiles))))
     wide = b * -(-c // GEMM_ROWS) * -(-t // 128)
+    if dtype == torch.float32:
+        tiles = taps * -(-m // DW_F32_ROWS) * -(-c // GEMM_ROWS)
+        return BwdPlan(128 if wide >= SMS else 64,
+                       _dw_split(tiles, b * -(-t // F32_K_STEP)))
     tiles = taps * -(-m // 128) * -(-c // 128)
-    kt = b * -(-t // 64)
-    split = min(range(1, min(8, kt) + 1),
-                key=lambda s: (-(-tiles * s // SMS) * -(-kt // s), s))
-    return BwdPlan(128 if 2 * wide > SMS and taps * m > 1024 else 64, split,
-                   taps != 1 or t % 8 != 0)
+    return BwdPlan(128 if 2 * wide > SMS and taps * m > 1024 else 64,
+                   _dw_split(tiles, b * -(-t // 64)), taps != 1 or t % 8 != 0)
+
+
+def _dw_split(tiles: int, kt: int) -> int:
+    """dW's K slices: the fewest waves of ``tiles`` output tiles (one
+    block an SM) times the ``kt`` K steps a slice, 1 to 8."""
+    return min(range(1, min(8, kt) + 1),
+               key=lambda s: (-(-tiles * s // SMS) * -(-kt // s), s))
+
+
+def bwd_upstream_floats(b: int, m: int, t: int) -> int:
+    """The fp32 backward's split upstream (``bwd_split_upstream``): g's
+    TF32 hi and lo parts time-major, (B, T, M) each, then as it comes, (B,
+    M, Tp) each with Tp = T rounded up to 4."""
+    return 2 * b * t * m + 2 * b * m * -(-t // 4) * 4
 
 
 def _launch(x, gamma, beta, w, bias, groups, act, eps, with_stats=False):
@@ -475,8 +490,10 @@ def _launch_bwd(kernel, x, gamma, beta, bias, wb, g, stats, groups, act,
     x, g, wb = x.contiguous(), _aligned(g), _aligned(wb)
     f32 = dict(dtype=torch.float32, device=x.device)
     ybuf = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
-    gt = (torch.empty((b, t, m), dtype=x.dtype, device=x.device)
-          if p.transpose else None)
+    gt = (None if not p.transpose else
+          torch.empty(bwd_upstream_floats(b, m, t), **f32)
+          if x.dtype == torch.float32 else
+          torch.empty((b, t, m), dtype=x.dtype, device=x.device))
     dn = torch.empty_like(x)
     part = torch.empty((b, -(-t // p.bn), 2 if emb is None else 4, c), **f32)
     dbp = torch.empty((b, -(-t // 64), m) if p.transpose else (p.split, m),

@@ -24,10 +24,11 @@ nothing, are taken back off, and every replay adds them again:
 counts captures, replays and the seconds spent capturing.
 
 Only CUDA tensors take this path; a failed capture or replay raises, and
-nothing falls back to the eager loop.  Temporaries of the captured step
-come from the graph's private memory pool, held as long as the
-``StepGraph``; so is the step function, and with it every tensor it
-reads.
+nothing falls back to the eager loop.  A failed capture leaves no
+generator in capture mode (``_end_generator_capture``).  Temporaries of
+the captured step come from the graph's private memory pool, held as
+long as the ``StepGraph``; so is the step function, and with it every
+tensor it reads.
 """
 
 from __future__ import annotations
@@ -68,6 +69,22 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
     return _STREAMS[index]
 
 
+def _end_generator_capture(generators: Sequence[torch.Generator],
+                           device: torch.device) -> None:
+    """Take the default CUDA generator and ``generators`` out of capture
+    mode after a capture whose ``capture_end`` raised before it could: a
+    generator left in it refuses every later draw outside a capture ("Offset
+    increment outside graph capture").  A one-kernel capture of a throwaway
+    graph over the same generators, on the current (capture) stream,
+    begins and ends cleanly."""
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    graph.capture_begin()
+    torch.zeros(1, device=device)
+    graph.capture_end()
+
+
 class StepGraph:
     """``step`` run once eagerly (a real step), then captured; ``replay``
     runs it again.  ``generators``: every generator ``step`` draws from."""
@@ -95,7 +112,8 @@ class StepGraph:
                     try:
                         self.graph.capture_end()
                     except RuntimeError:
-                        pass   # the capture is invalid; the step's error wins
+                        # the capture is invalid; the step's error wins
+                        _end_generator_capture(generators, device)
                     raise
                 self.graph.capture_end()
                 after = kernels.launch_counts()

@@ -13,9 +13,10 @@ Harvard-sentence prompt (webui.py:166-199):
 - ``GET /``: the form; ``POST /generate``: one ``TTS.inference`` call,
   its wav written under the audio directory and linked as
   ``/audio/<name>``; a generation error is shown in the page;
-- ``GET /stream?text=...&references=...``: chunked 16-bit WAV from
-  ``TTS.stream`` as the decode advances (an error is logged and closes
-  the connection, so the response ends without its closing chunk).
+- ``GET /stream?text=...&references=...[&seed=N]``: chunked 16-bit WAV
+  from ``TTS.stream`` as the decode advances (no seed: one from the
+  clock, as ``TTS.stream`` takes it; an error is logged and closes the
+  connection, so the response ends without its closing chunk).
 
 The generated wavs go to ``<temporary directory>/tortoise_tts_tpu_torch_
 webui`` (``tempfile.gettempdir()``, so ``TMPDIR`` moves it) unless
@@ -140,6 +141,7 @@ def _make_handler(tts, out_dir: Path | None = None):
             q = urllib.parse.parse_qs(urllib.parse.urlparse(self.path).query)
             text = q.get("text", [random_prompt()])[0]
             refs = q.get("references", [None])[0]
+            seed = q.get("seed", [""])[0]
             self.send_response(200)
             self.send_header("Content-Type", "audio/wav")
             self.send_header("Transfer-Encoding", "chunked")
@@ -151,7 +153,8 @@ def _make_handler(tts, out_dir: Path | None = None):
 
             try:
                 chunk(wav_stream_header())
-                for wav in tts.stream(text, refs):
+                for wav in tts.stream(text, refs,
+                                      seed=int(seed) if seed else None):
                     pcm = np.clip(np.asarray(wav), -1, 1)
                     chunk((pcm * 32767).astype("<i2").tobytes())
                 chunk(b"")
