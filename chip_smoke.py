@@ -3462,17 +3462,28 @@ TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "gn_conv",
                  "ts_res_block", "gn_conv_bwd", "ts_res_block_bwd")
 # K1's fp32 backward against the fp32 plain version, row by row
 K1_F32_BWD_TOL = 1e-4
+# K1's fp32 forward (3xTF32) against the fp32 plain version, row by row
+# (``_row_worst``), and its log-sum-exp element by element: the card
+# test's 1e-5 (``test_flash_attention_kernel_cuda``)
+K1_F32_FWD_TOL = 1e-5
+# K1's fp32 forward is timed at the AR training shapes (causal, no key
+# mask, as the train step calls it), the prefill (key-masked text padding)
+# and the latent pass (no mask), the serving routes' shapes at B=1
+K1_F32_FWD_SHAPES = (((16, 16, 773, 64), False), ((8, 16, 389, 64), False),
+                     ((1, 16, 68, 64), True), ((1, 16, 269, 64), False))
 # the CUDA kernels of K1's fp32 backward (3xTF32), in launch order
 K1_F32_BWD_KERNELS = ("bwd_split_f32", "bwd_dq_tf32", "bwd_dkdv_tf32")
 # the CUDA kernels of K4's and K5's backward (csrc/resblock.cu) in bf16 at
 # the training shape (T % 8 == 0), in launch order: K4 reads the upstream
-# as it comes, K5 (three taps) makes it time-major first; fp32 (both)
-# splits it for its two 3xTF32 GEMMs
+# as it comes, K5 (three taps) makes it time-major first and takes da on
+# the persistent ping-pong kernel (the forward's tap-major weight); fp32
+# (both) splits it for its two 3xTF32 GEMMs
 RESBLOCK_BWD_KERNELS = {
     "gn_conv_bwd": ("bwd_apply_norm", "bwd_da_wgmma", "bwd_norm",
                     "bwd_dw_wgmma", "bwd_reduce"),
-    "ts_res_block_bwd": ("bwd_apply_norm", "bwd_transpose", "bwd_da_wgmma",
-                         "bwd_norm", "bwd_dw_wgmma", "bwd_reduce"),
+    "ts_res_block_bwd": ("bwd_apply_norm", "bwd_transpose",
+                         "bwd_da_pingpong", "bwd_norm", "bwd_dw_wgmma",
+                         "bwd_reduce"),
     "fp32": ("bwd_apply_norm", "bwd_split_upstream", "bwd_da_tf32",
              "bwd_norm", "bwd_dw_tf32", "bwd_reduce")}
 # K4's and K5's fp32 backward against the fp32 plain one, each gradient
@@ -3745,8 +3756,8 @@ def _k1_f32(torch, k1, dev, shape) -> dict:
     count each, its CUDA kernels K1_F32_BWD_KERNELS); device ms of the
     backward (by CUDA kernel), its plain version and SDPA's fp32 backward
     (TF32 off), beside its bounds (``f32_bounds``: q, k, v, dO in, dq,
-    dk, dv out; the five products of the causal half); and of the
-    fp32 forward (``flash_attn_f32``) beside SDPA's fp32 forward."""
+    dk, dv out; the five products of the causal half).  The fp32
+    forward alone: ``_k1_f32_forward``."""
     F = torch.nn.functional
     b, h, s, d = shape
     g = torch.Generator(device=dev).manual_seed(12)
@@ -3790,25 +3801,80 @@ def _k1_f32(torch, k1, dev, shape) -> dict:
          "library_ms": device_ms(torch, lambda _: torch.autograd.grad(
              sdpa, xs, up, retain_graph=True), n=5, warmup=1)}
     del sdpa, xs
-    with torch.no_grad():
-        fwd = {"fwd_ms": device_ms(torch, lambda _: k1.flash_attention(
-                   q, k, v), n=5, warmup=1),
-               "fwd_library_ms": device_ms(
-                   torch, lambda _: F.scaled_dot_product_attention(
-                       q, k, v, is_causal=True), n=5, warmup=1)}
     bounds = f32_bounds(7 * b * h * s * d * 4 + 4 * b * h * s,
                         5 * b * h * d * s * (s + 1))
-    fb = f32_bounds(4 * b * h * s * d * 4, 2 * b * h * d * s * (s + 1))
     emit("train_grads", name="flash_attention_fp32", shape=list(shape),
          row_err=worst, tol=K1_F32_BWD_TOL, launches_a_call=1,
          same_bits=same, max_abs_err=err, kernels_ms=parts,
-         library="SDPA fp32 backward (TF32 off)", **bounds, **t, **fwd,
-         fwd_bound_ms=fb["bound_ms"], fwd_bound_by=fb["bound_by"],
-         fwd_library="SDPA fp32 forward")
+         library="SDPA fp32 backward (TF32 off)", **bounds, **t)
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                 library_ms=t["library_ms"], bound_ms=bounds["bound_ms"],
                 bound_by=bounds["bound_by"])
+
+
+def _k1_f32_forward(torch, k1, dev, shape, masked) -> dict:
+    """K1's fp32 forward (``flash_attn_f32``, 3xTF32) alone at ``shape``,
+    causal, with a key mask where ``masked`` (the prefill's padded text
+    tail): one launch a call of one CUDA kernel, the same bits in two
+    calls, the output row by row within K1_F32_FWD_TOL of the plain
+    version's (fp32) and the log-sum-exp within K1_F32_FWD_TOL an element;
+    device ms beside the plain version's and SDPA's fp32 forward (TF32
+    off; the same boolean mask where masked) and the bounds (q, k, v in,
+    o out; S and P V over the causal half in 3xTF32).  One
+    ``kernel_fp32_fwd`` line; returns its numbers."""
+    F = torch.nn.functional
+    b, h, s, d = shape
+    g = torch.Generator(device=dev).manual_seed(13 + s)
+    q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    mask = allowed = None
+    if masked:
+        mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+        mask[:, s // 3:s - 1] = False
+        allowed = mask[:, None, None, :] & torch.ones(
+            s, s, dtype=torch.bool, device=dev).tril()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            n0 = k1.KERNEL.launches
+            out, lse = k1._launch(q, k, v, mask, True, with_lse=True)
+            again, lse2 = k1._launch(q, k, v, mask, True, with_lse=True)
+            torch.cuda.synchronize()
+            assert k1.KERNEL.launches == n0 + 2, k1.KERNEL.launches - n0
+            same = torch.equal(out, again) and torch.equal(lse, lse2)
+            assert same, "K1's fp32 forward: two calls differ"
+            want = k1.flash_attention_plain(q, k, v, mask)
+            row = _row_worst(out, want, K1_F32_FWD_TOL)
+            assert row <= 1, ("K1 fp32 forward", shape, row)
+            lse_err = float((lse - k1.flash_attention_lse_plain(
+                q, k, mask)).abs().max())
+            assert lse_err <= K1_F32_FWD_TOL, ("K1 fp32 lse", lse_err)
+            err = float((out - want).abs().max())
+            del out, again, lse, lse2, want
+            ran = kernel_ms(torch, lambda: k1.flash_attention(q, k, v, mask),
+                            n=5, warmup=1)
+            assert len(ran) == 1 and "flash_attn_f32" in next(iter(ran)), ran
+            t = {"ms": device_ms(torch, lambda _: k1.flash_attention(
+                     q, k, v, mask), n=10, warmup=2),
+                 "plain_ms": device_ms(torch, lambda _: k1.flash_attention_plain(
+                     q, k, v, mask), n=3, warmup=1),
+                 "library_ms": device_ms(
+                     torch, lambda _: F.scaled_dot_product_attention(
+                         q, k, v, attn_mask=allowed, is_causal=not masked),
+                     n=10, warmup=2)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    bounds = f32_bounds(4 * b * h * s * d * 4 + (b * s if masked else 0),
+                        2 * b * h * d * s * (s + 1))
+    line = dict(shape=list(shape), masked=masked, row_err=row,
+                lse_err=lse_err, tol=K1_F32_FWD_TOL, max_abs_err=err,
+                same_bits=same, launches_a_call=1,
+                library="SDPA fp32 forward (TF32 off)", **bounds, **t,
+                vs_library=t["ms"] / t["library_ms"])
+    emit("kernel_fp32_fwd", name="flash_attention", **line)
+    torch.cuda.empty_cache()
+    return line
 
 
 def kernel_ms(torch, fn, n: int = 10, warmup: int = 2) -> dict:
@@ -4000,7 +4066,9 @@ def _k5_backward(torch, k4, k5, h, x, emb, norm, conv, groups) -> dict:
     with torch.no_grad():
         _, st = k5._launch(h, x, emb, ga, be, k5.taps(w), bi, groups, 1e-5,
                            with_stats=True)
-    wb = w.flip(2).permute(2, 1, 0).contiguous()
+    # bf16: the forward's tap-major weight; fp32: its reversed transpose
+    bf16 = h.dtype == torch.bfloat16
+    wb = k5.taps(w) if bf16 else w.flip(2).permute(2, 1, 0).contiguous()
     names = ("h", "gamma", "beta", "w", "b", "emb")
 
     def bwd():
@@ -4035,11 +4103,13 @@ def train_grads(torch, dev):
     in fp32), output and every input's gradient, and fwd+bwd device ms
     beside the library's (SDPA; F.group_norm + F.silu + F.conv1d; none for
     K7) and the bound; K1's backward kernel alone (``_k1_backward``) and
-    its fp32 form at both shapes (``_k1_f32``); K4's and K5's backward
+    its fp32 form at both shapes (``_k1_f32``), K1's fp32 forward alone
+    at K1_F32_FWD_SHAPES (``_k1_f32_forward``); K4's and K5's backward
     kernels alone (``_resblock_backward``), in bf16 and in fp32 (K4 ->
     1024 and K5).  Returns the lines' numbers, K1's backward's at the
     README yaml's shape under "flash_attention_bwd" (fp32:
-    ("flash_attention_bwd", "fp32")), K4's and K5's under ("gn_conv_bwd",
+    ("flash_attention_bwd", "fp32"); the fp32 forward's lines under
+    ("flash_attention", "fp32")), K4's and K5's under ("gn_conv_bwd",
     head) and ("ts_res_block_bwd", B) (fp32: (name, "fp32"))."""
     from tortoise_tts_tpu_torch.kernels import flash_attention as k1
     from tortoise_tts_tpu_torch.kernels import gn_conv as k4
@@ -4074,6 +4144,9 @@ def train_grads(torch, dev):
         r = _k1_f32(torch, k1, dev, shape)
         if i == 0:
             out[("flash_attention_bwd", "fp32")] = r
+    out[("flash_attention", "fp32")] = [
+        _k1_f32_forward(torch, k1, dev, shape, masked)
+        for shape, masked in K1_F32_FWD_SHAPES]
     b, c, t, groups = DIFF_TRAIN_B, 1024, DIFF_TRAIN_T, 32
     for i, (name, m, act) in enumerate((("resblock_in_half", c, True),
                                         ("attention_qkv_head", 3 * c,
@@ -5586,7 +5659,7 @@ def main() -> int:
             for n, log in logs.items()}
     emit("build", seconds=time.time() - t0, built=sorted(logs),
          ptxas=regs)
-    no_spills(BIAS_SOURCES + ("flash_attention_bwd",))
+    no_spills(BIAS_SOURCES + ("flash_attention", "flash_attention_bwd"))
 
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["TORTOISE_TPU_TOKENIZER"] = str(
@@ -5701,7 +5774,16 @@ def main() -> int:
          rg[("ts_res_block_bwd", DIFF_TRAIN_B)]),
     ]
     # the training backwards' fp32 forms (3xTF32), at the same shapes
-    fp32 = {"flash_attention_bwd": rg[("flash_attention_bwd", "fp32")],
+    fwd32 = rg[("flash_attention", "fp32")]
+    fp32 = {"flash_attention": {
+                **{f"fwd_{k}": fwd32[0][k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "max_abs_err", "shape")},
+                "fwd_shapes": [{k: r[k] for k in (
+                    "shape", "masked", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "max_abs_err", "vs_library")}
+                    for r in fwd32]},
+            "flash_attention_bwd": rg[("flash_attention_bwd", "fp32")],
             "gn_conv_bwd": rg[("gn_conv_bwd", "fp32")],
             "ts_res_block_bwd": rg[("ts_res_block_bwd", "fp32")]}
     print(json.dumps({"kernels": [

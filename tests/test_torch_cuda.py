@@ -1442,6 +1442,42 @@ def test_tma_kernels_on_a_new_thread_cuda(cuda, dtype):
         assert all(torch.equal(a, r) for a, r in zip(want, got)), name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 16, 773, 64), (8, 16, 389, 64)])
+def test_flash_attention_fp32_forward_training_shapes_cuda(cuda, shape):
+    """K1's fp32 forward (3xTF32, persistent: at these shapes the 64-query
+    work items outnumber the blocks, so each block takes several and
+    reuses its stage) on views of a fused qkv with a key mask, at the AR
+    training steps' shapes: the output row by row within 1e-5 of the
+    plain fp32 version's (``_rel_close``), the log-sum-exp within 1e-5 an
+    element, and five more calls give the first call's bits."""
+    b, h, s, _ = shape
+    q, k, v, mask = _fused_qkv(cuda, b, h, s, torch.float32, seed=s)
+    assert k1.fwd_f32_plan(b, h, s).items > k1.fwd_f32_plan(b, h, s).grid
+    out, lse = k1._launch(q, k, v, mask, True, with_lse=True)
+    _rel_close(out, k1.flash_attention_plain(q, k, v, mask), 1e-5)
+    torch.testing.assert_close(
+        lse, k1.flash_attention_lse_plain(q, k, mask), atol=1e-5, rtol=0)
+    for _ in range(5):
+        again, lse2 = k1._launch(q, k, v, mask, True, with_lse=True)
+        assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_fp32_forward_on_a_new_thread_cuda(cuda):
+    """K1's fp32 forward encodes its TMA maps on the host at every call:
+    called first on a new thread (no CUDA call made there, as autograd's
+    device thread), it gives the bits of the same call on this thread."""
+    q, k, v, mask = _fused_qkv(cuda, 2, 16, 389, torch.float32, seed=5)
+
+    def call():
+        return [r.cpu() for r in k1._launch(q, k, v, mask, True,
+                                            with_lse=True)]
+    want = call()
+    got = _on_a_new_thread(call)
+    assert all(torch.equal(a, r) for a, r in zip(want, got))
+
+
 _PROFILED_THEN_AUTOGRAD = """
 import sys
 import torch
@@ -1516,7 +1552,8 @@ def _f32(t):
 def _resblock_bwd_names(dtype, taps, t):
     """The CUDA kernels of one K4 (taps 1) or K5 (taps 3) backward call, in
     launch order: K4 in bf16 at T % 8 == 0 reads the upstream as it comes,
-    every other bf16 backward first makes it time-major (bwd_transpose);
+    every other bf16 backward first makes it time-major (bwd_transpose),
+    and K5's da is bwd_da_pingpong;
     fp32 splits it, time-major and as it comes (bwd_split_upstream), for
     its two 3xTF32 GEMMs."""
     if dtype == torch.float32:
@@ -1524,6 +1561,8 @@ def _resblock_bwd_names(dtype, taps, t):
                 "bwd_norm", "bwd_dw_tf32", "bwd_reduce"]
     names = ["bwd_apply_norm", "bwd_da_wgmma", "bwd_norm", "bwd_dw_wgmma",
              "bwd_reduce"]
+    if taps == 3:   # K5's da: the persistent ping-pong kernel
+        names[1] = "bwd_da_pingpong"
     if taps == 3 or t % 8:
         names.insert(1, "bwd_transpose")
     return names
@@ -1619,6 +1658,47 @@ def test_resblock_backward_fp32_repeats_its_bits_cuda(cuda, monkeypatch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t", [(4, 1024, 2240), (16, 1024, 283)])
+def test_ts_res_block_backward_bf16_repeats_its_bits_cuda(cuda, b, c, t):
+    """K5's bf16 backward as autograd calls it (the forward's tap-major
+    weight, da on the persistent ``bwd_da_pingpong``) at the training T
+    and at a ragged T (g's rows off 16 bytes, the last 128-step tile
+    partial), where the 128 x 128 da tiles outnumber the blocks and both
+    warpgroups take several: five more calls give the first call's bits
+    (every sum in a fixed order, no atomics), each gradient is within the
+    bf16 row bound of the plain backward's (fp32 inside), and the call is
+    its six CUDA kernels in order."""
+    g = torch.Generator(device=cuda).manual_seed(t)
+    h, x, up = (torch.randn(b, c, t, generator=g, device=cuda)
+                .to(torch.bfloat16) for _ in range(3))
+    emb = (0.3 * torch.randn(b, 2 * c, generator=g, device=cuda)
+           ).to(torch.bfloat16)
+    ga = 1 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    be = 0.1 * torch.randn(c, generator=g, device=cuda)
+    bi = 0.05 * torch.randn(c, generator=g, device=cuda)
+    w = (0.03 * torch.randn(c, c, 3, generator=g, device=cuda)
+         ).to(torch.bfloat16)
+    wt = k5.taps(w)
+    _, st = k5._launch(h, x, emb, ga, be, wt, bi, 32, 1e-5, with_stats=True)
+
+    def call():
+        return k4._launch_bwd(k5.KERNEL_BWD, h, ga, be, bi, wt, up, st, 32,
+                              True, 1e-5, emb=emb)
+    first = call()
+    for _ in range(5):
+        assert all(torch.equal(a, r) for a, r in zip(first, call()))
+    dh, demb, dga, dbe, dw, db = k4.ts_res_block_out_bwd_plain(
+        h.float(), emb.float(), ga, be, w.float(), bi, up.float(), 32,
+        stats=(st[:b * 32], st[b * 32:]))
+    for a, p in zip(first, (dh, dga, dbe, dw, db, demb)):
+        _rel_close(a.reshape(p.shape), p.to(a.dtype), 2e-2)
+    names = _cuda_kernel_names(call)
+    assert [_kernel_base(n) for n in names] == [
+        "bwd_apply_norm", "bwd_transpose", "bwd_da_pingpong", "bwd_norm",
+        "bwd_dw_wgmma", "bwd_reduce"], names
+
+
+@pytest.mark.cuda
 def test_resblock_backward_refuses_cuda(cuda):
     """A backward the kernel does not take (an upstream of M rows, M % 8
     != 0: read in 16-byte pieces) raises, and the count does not move;
@@ -1685,7 +1765,8 @@ def test_ts_res_block_backward_reaches_the_live_weight_cuda(
         _, st = k5._launch(h, x, emb, ga, be, k5.taps(w0), bi, 32, 1e-5,
                            with_stats=True)
     up = torch.randn(b, c, t, generator=g, device=cuda).to(dtype)
-    wb = w0.flip(2).permute(2, 1, 0).contiguous()
+    bf16 = dtype == torch.bfloat16
+    wb = k5.taps(w0) if bf16 else w0.flip(2).permute(2, 1, 0).contiguous()
     names = _cuda_kernel_names(lambda: k4._launch_bwd(
         k5.KERNEL_BWD, h, ga, be, bi, wb, up, st, 32, True, 1e-5, emb=emb))
     assert [_kernel_base(n) for n in names] == _resblock_bwd_names(

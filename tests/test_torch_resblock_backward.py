@@ -320,3 +320,52 @@ def test_bwd_plan_refuses_m_off_8():
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError, match="M % 8"):
             k4.bwd_plan(2, 64, 130, 12, 16, 1, dtype)
+
+
+def test_k5_da_from_the_tap_major_weight():
+    """K5's bf16 da reads the forward's tap-major weight with its taps
+    reversed and transposed (``ts_res_block.da_taps_plain``): the same
+    products, bit for bit, as the reversed, transposed copy the backward
+    made before (wb[s'] = W[:, :, 2 - s']^T against the upstream shifted
+    by s' - 1), and the convolution's input gradient (autograd of conv1d)
+    within fp32's sums."""
+    rng = np.random.RandomState(5)
+    w = _t(0.1 * rng.randn(C, C, 3)).float()
+    g = _t(rng.randn(B, C, 37)).float()
+    wb = w.flip(2).permute(2, 1, 0).contiguous()
+    gp = torch.nn.functional.pad(g, (1, 1))
+    flipped = sum(torch.matmul(wb[s], gp[..., s:s + 37]) for s in range(3))
+    got = k5.da_taps_plain(k5.taps(w), g)
+    assert torch.equal(got, flipped)
+    y = torch.zeros(B, C, 37, requires_grad=True)
+    (want,) = torch.autograd.grad(
+        torch.nn.functional.conv1d(y, w, padding=1), y, g)
+    _close(got.numpy(), want.numpy(), "da")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_backward_takes_the_tap_major_weight(monkeypatch, dtype):
+    """K5's CUDA dispatch on CPU tensors, launches recorded: in bf16 the
+    backward passes the forward's tap-major weight itself (no per-call
+    copy) with the 128-step da tiles of ``bwd_da_pingpong``; in fp32 a
+    reversed, transposed copy of ``w``."""
+    fwd, bwd = _Recorder(), _Recorder()
+    monkeypatch.setattr(k5.KERNEL, "launch", fwd)
+    monkeypatch.setattr(k5.KERNEL_BWD, "launch", bwd)
+    monkeypatch.setattr(k4, "_stream", lambda x: 0)
+    monkeypatch.setattr(k5, "_stream", lambda x: 0)
+    rng = np.random.RandomState(4)
+    pn, pc = _params(rng, C, 3)
+    x = _t(_x(rng, 40)).to(dtype).requires_grad_()
+    norm = {k: _t(v) for k, v in pn.items()}
+    conv = k5.prepare_conv({k: _t(v).to(dtype) if k == "w" else _t(v)
+                            for k, v in pc.items()})
+    emb = _t(0.3 * rng.randn(B, 2 * C)).float()
+    out = k5._cuda_call(x, x, emb, norm, conv, G, 1e-5)
+    out.backward(torch.zeros_like(out))
+    (args,) = bwd.calls
+    bf16 = dtype == torch.bfloat16
+    assert (args[4] == conv["w_taps"].data_ptr()) is bf16
+    if bf16:
+        assert args[-4] == 128
+

@@ -17,13 +17,21 @@ graph), and the backward's bound (``chip_smoke.bound_ms``), with a digest
 of its gradients' bits (``bwd_sha``, for bit-equality across checkouts); K1's
 forward
 alone (no autograd: no log-sum-exp) beside SDPA's and the forward's
-bound.  ``--fp32`` adds, for every checkout in the same turns, one line a
+bound, with its output's digest (``fwd_sha``); one line a turn of K1's
+bf16 forward at the serving shapes (the prefill and the latent pass at
+B=1: ``serving_sha``, ``serving_ms``).  ``--fp32`` adds, for every checkout in the same turns, one line a
 shape of the fp32 backward (its CUDA kernels apart and their sum) beside
 its plain version, SDPA's fp32 backward (TF32 off) and its bounds: the
 fp32 bytes, the five products at the FFMA rate (67 TFLOP/s) and in 3xTF32
-(three TF32 products each at 495); and of the fp32 forward
-(``flash_attn_f32``) beside SDPA's fp32 forward.  Then the card's name
-and power limit.  Needs a CUDA card.
+(three TF32 products each at 495); and one line a shape of
+``chip_smoke.K1_F32_FWD_SHAPES`` (the training shapes, the prefill with
+its key mask, the latent pass) of the fp32 forward alone (no autograd):
+its CUDA kernels' device ms, SDPA's fp32 forward (TF32 off) and the
+bounds (fp32 bytes; S and P V over the causal half in 3xTF32 and at the
+FFMA rate), a digest of its output's bits (``fwd_sha``), and, where the
+checkout has the persistent fp32 forward (``fwd_f32_plan``), its device
+ms in each work-item order.  Then the card's name and power limit.  Needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -128,6 +136,8 @@ def main() -> int:
                 7 * b * h * s * d * 2 + 4 * b * h * s,
                 5 * b * h * d * s * (s + 1))
             with torch.no_grad():
+                line["fwd_sha"] = cs.digest(torch, [k1.flash_attention(
+                    q, k, v)])
                 line["fwd_ms"] = cs.device_ms(
                     torch, lambda _: k1.flash_attention(q, k, v), n=10,
                     warmup=2)
@@ -140,16 +150,43 @@ def main() -> int:
             print(json.dumps(line), flush=True)
             del sdpa, xs
             torch.cuda.empty_cache()
+        serving_line(k1, repo, turn, dev)
         if args.fp32:
             fp32_lines(k1, repo, turn, dev)
     print(cs.nvidia_smi())
     return 0
 
 
+def serving_line(k1, repo: str, turn: int, dev) -> None:
+    """K1's bf16 forward at the serving shapes of ``K1_F32_FWD_SHAPES``
+    (the prefill with its key mask, the latent pass; B=1): a digest of
+    each output's bits (``serving_sha``, for bit-equality across
+    checkouts) and its device ms."""
+    line = dict(repo=repo, turn=turn, serving_sha={}, serving_ms={})
+    for shape, masked in cs.K1_F32_FWD_SHAPES:
+        b, h, s, d = shape
+        if b != 1:
+            continue
+        g = torch.Generator(device=dev).manual_seed(90 + s)
+        q, k, v = (torch.randn(shape, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        mask = None
+        if masked:
+            mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+            mask[:, s // 3:s - 1] = False
+        with torch.no_grad():
+            line["serving_sha"][str(s)] = cs.digest(
+                torch, [k1.flash_attention(q, k, v, mask)])
+            line["serving_ms"][str(s)] = cs.device_ms(
+                torch, lambda _: k1.flash_attention(q, k, v, mask))
+    print(json.dumps(line), flush=True)
+
+
 def fp32_lines(k1, repo: str, turn: int, dev) -> None:
     """The fp32 backward at each training shape, by CUDA kernel, beside
     its plain version, SDPA's fp32 backward (TF32 off) and its bounds; the
-    fp32 forward beside SDPA's fp32 forward."""
+    fp32 forward at ``chip_smoke.K1_F32_FWD_SHAPES`` beside SDPA's fp32
+    forward."""
     F = torch.nn.functional
     torch.backends.cuda.matmul.allow_tf32 = False
     for i, shape in enumerate(cs.K1_TRAIN_SHAPES):
@@ -176,18 +213,49 @@ def fp32_lines(k1, repo: str, turn: int, dev) -> None:
             bytes_bound_ms=cs.bound_ms(nbytes, 0)[0],
             ffma_bound_ms=cs.bound_ms(0, flops, cs.FP32_FLOPS)[0],
             tf32x3_bound_ms=cs.bound_ms(0, 3 * flops, cs.TF32_FLOPS)[0])
-        with torch.no_grad():
-            line["fwd_ms"] = cs.device_ms(
-                torch, lambda _: k1.flash_attention(q, k, v), n=5, warmup=1)
-            line["sdpa_fwd_ms"] = cs.device_ms(
-                torch, lambda _: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), n=5, warmup=1)
-        fl = 2 * b * h * d * s * (s + 1)
-        line["fwd_bytes_bound_ms"] = cs.bound_ms(4 * b * h * s * d * 4,
-                                                 0)[0]
-        line["fwd_ffma_bound_ms"] = cs.bound_ms(0, fl, cs.FP32_FLOPS)[0]
         print(json.dumps(line), flush=True)
         del sdpa, xs
+        torch.cuda.empty_cache()
+    for shape, masked in cs.K1_F32_FWD_SHAPES:
+        b, h, s, d = shape
+        g = torch.Generator(device=dev).manual_seed(80 + s)
+        q, k, v = (torch.randn(shape, generator=g, device=dev)
+                   for _ in range(3))
+        mask = allowed = None
+        if masked:
+            mask = torch.ones(b, s, dtype=torch.bool, device=dev)
+            mask[:, s // 3:s - 1] = False
+            allowed = mask[:, None, None, :] & torch.ones(
+                s, s, dtype=torch.bool, device=dev).tril()
+        fl = 2 * b * h * d * s * (s + 1)
+        with torch.no_grad():
+            parts = cs.kernel_ms(torch, lambda: k1.flash_attention(
+                q, k, v, mask), n=10, warmup=2)
+            line = dict(
+                repo=repo, turn=turn, dtype="float32",
+                shape=list(shape), masked=masked, fwd_kernels_ms=parts,
+                fwd_ms=sum(parts.values()),
+                fwd_sha=cs.digest(torch, [k1.flash_attention(q, k, v,
+                                                             mask)]),
+                sdpa_fwd_ms=cs.device_ms(
+                    torch, lambda _: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=allowed, is_causal=not masked),
+                    n=10, warmup=2),
+                fwd_bytes_bound_ms=cs.bound_ms(4 * b * h * s * d * 4, 0)[0],
+                fwd_tf32x3_bound_ms=cs.bound_ms(0, 3 * fl,
+                                                cs.TF32_FLOPS)[0],
+                fwd_ffma_bound_ms=cs.bound_ms(0, fl, cs.FP32_FLOPS)[0])
+            plan = getattr(k1, "fwd_f32_plan", None)
+            for order in ((0, 1) if plan else ()):
+                k1.fwd_f32_plan = (lambda b_, h_, s_, o=order:
+                                   plan(b_, h_, s_)._replace(order=o))
+                try:
+                    line[f"fwd_ms_order{order}"] = cs.device_ms(
+                        torch, lambda _: k1.flash_attention(q, k, v, mask),
+                        n=10, warmup=2)
+                finally:
+                    k1.fwd_f32_plan = plan
+        print(json.dumps(line), flush=True)
         torch.cuda.empty_cache()
 
 

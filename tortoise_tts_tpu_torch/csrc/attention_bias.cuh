@@ -138,12 +138,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t a) {
       : "r"(a));
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -152,24 +146,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return make_float2(__uint_as_float(x << 16),
                      __uint_as_float(x & 0xffff0000u));
-}
-
-// mbar_wait that faults (an illegal instruction, reported at the next
-// synchronisation) instead of spinning forever if a phase never completes
-// (about 10 s of cycles): a lost arrival must not hang the card
-__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1LL << 34)) __trap();
-  } while (!done);
 }
 
 // Warp 0's copy of one 64 x 64 tile into the swizzled layout, where TMA

@@ -51,11 +51,29 @@
 // in flash_attn_mma after the WK warps' merge, so the merged row's max and
 // sum.  K1's backward (flash_attention_bwd.cu) reads it.
 //
-// fp32 (flash_attn_f32) keeps CUDA-core FMAs: TF32 would round the fp32
-// parity runs' inputs.  One block of 64 threads per (16-query tile,
-// batch*head); four threads share a query row, each owning 16 of its 64
-// channels; K/V tiles of 64 keys are staged in shared memory and read by
-// broadcast; a score is the four partial dots summed by two shuffles.
+// fp32 (flash_attn_f32, the fp32 training step and fp32 serving runs):
+// the tensor cores in 3xTF32.  Each fp32 operand x is split into hi =
+// cvt.rna.tf32(x) (13 low bits cleared) and lo = x - hi (exact), and each
+// product sums lo hi + hi lo + hi hi in fp32 (lo lo, about 2^-22 of a
+// term, dropped): fp32 accuracy, where one TF32 product would round every
+// input to 11 significant bits.  Bound on an H100 at the AR training
+// shapes (16, 16, 773, 64) and (8, 16, 389, 64): the two S x S x 64
+// products of the causal half, three TF32 products each at 495 TFLOP/s,
+// 0.119 and 0.0151 ms; fp32 bytes (q, k, v in, o out) take 0.0605 and
+// 0.0152.  The design is K6's fp32 block (attention_bias.cuh,
+// attn_bias_f32_block) with K and V in each other's roles: K's rows come
+// channel-contiguous, already the K-major B operand of S = Q K^T, so K is
+// only split where it lies; V is split and transposed to channel rows, the
+// K-major B of O = P V (TF32 wgmma has no transpose bits).  One launch, no
+// scratch: a persistent grid of one-warpgroup blocks, two an SM
+// (kernels/flash_attention.fwd_f32_plan), each taking 64-query work items
+// in a fixed order and walking only the key tiles at or under the
+// diagonal; one thread keeps the next step's K and V tiles in flight by
+// TMA (4-d maps over the strided views, 128-byte swizzle).  The causal
+// test runs on the diagonal tile only, the key mask on every tile where
+// there is one, S's edge on the last tile.  The details are at
+// f32::flash_attn_f32.
+#include "hopper.cuh"
 #include "small_m_gemm.cuh"
 
 #include <math.h>
@@ -435,112 +453,433 @@ __global__ void __launch_bounds__(128, 1)
   }
 }
 
-// --- fp32: CUDA-core FMAs ---------------------------------------------------
+// --- fp32: 3xTF32 tensor cores ------------------------------------------------
 
-constexpr int LANES = 4;        // threads per query row
-constexpr int DL = D / LANES;   // channels per thread
-constexpr int BQ = 16;          // queries per block
-constexpr int THREADS_F32 = BQ * LANES;
-constexpr int CH = 16;          // keys per online-softmax rescale
+namespace f32 {
 
-__global__ void __launch_bounds__(THREADS_F32)
-    flash_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const uint8_t* __restrict__ mask, float* __restrict__ o,
-                   float* __restrict__ lse, int H, int S, long long qsb,
-                   long long qsh, long long qss, long long ksb, long long ksh,
-                   long long kss, long long vsb, long long vsh, long long vss,
-                   long long osb, long long osh, long long oss, int causal,
-                   float scale) {
-  __shared__ float Ks[KT][D + 1];
-  __shared__ float Vs[KT][D + 1];
-  __shared__ uint8_t Ms[KT];
+using hopper::desc_sw128;
+using hopper::ex2;
+using hopper::fence_barrier_init;
+using hopper::fence_proxy_async;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::reg_fence;
+using hopper::tf32_split;
+using hopper::wait_or_trap;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_tf32_rs;
+using hopper::wgmma_wait;
 
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BQ;
-  const int sub = threadIdx.x % LANES;
-  const int qi = q0 + threadIdx.x / LANES;
-  const bool active = qi < S;
+constexpr int BT = 64;                  // queries an item, keys a step
+constexpr int BOX = 32 * BT * 4;        // one TMA box: 32 channels x 64 rows
+constexpr int TILE = 2 * BOX;           // a 64 x 64 fp32 tile, 16 KB
+// shared memory past its 1024-byte aligned base: the raw step (K and V as
+// copied), K's split (hi, lo), V's split and transposed (V^T hi, lo), the
+// step's 64 key-mask bytes, the step's mbarrier
+constexpr int K_RAW = 0, V_RAW = TILE, K_HI = 2 * TILE, K_LO = 3 * TILE;
+constexpr int VT_HI = 4 * TILE, VT_LO = 5 * TILE;
+constexpr int MASK_OFF = 6 * TILE, BAR_OFF = MASK_OFF + BT;
+constexpr int SMEM = BAR_OFF + 8 + 1024;
+constexpr int THREADS = 128;            // one warpgroup
+constexpr int MIN_BLOCKS = 2;           // blocks an SM: 255 registers
 
-  float qr[DL], acc[DL];
-  const float* qp = q + b * qsb + h * qsh + (long long)(active ? qi : 0) * qss;
-#pragma unroll
-  for (int i = 0; i < DL; ++i) {
-    qr[i] = qp[LANES * i + sub];
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
+// K and V as TMA maps over the (B, H, S, 64) fp32 views: four dimensions
+// (64, S, H, B), or (64, H, S, B) where the head stride is the smaller
+// (hfirst: the fused qkv), boxes of 32 channels x 64 rows
+struct FwdArgs {
+  CUtensorMap kmap, vmap;
+  const float* q;
+  const uint8_t* mask;    // (B, S) or null
+  float* o;
+  float* lse;             // (B, H, S) or null
+  int H, S, BH, causal, items, order, khf, vhf;
+  long long qsb, qsh, qss, osb, osh, oss;
+  float scale;
+};
 
-  const int kend = causal ? min(S, q0 + BQ) : S;
-  const float* kb = k + b * ksb + h * ksh;
-  const float* vb = v + b * vsb + h * vsh;
-  for (int k0 = 0; k0 < kend; k0 += KT) {
-    __syncthreads();
-    // pairs of channels, consecutive threads on consecutive pairs of a row
-#pragma unroll 4
-    for (int idx = threadIdx.x; idx < KT * D / 2; idx += THREADS_F32) {
-      const int r = idx / (D / 2), c2 = 2 * (idx % (D / 2));
-      const int j = k0 + r;
-      float2 kv = make_float2(0.f, 0.f), vv = kv;
-      if (j < kend) {
-        kv = *reinterpret_cast<const float2*>(kb + (long long)j * kss + c2);
-        vv = *reinterpret_cast<const float2*>(vb + (long long)j * vss + c2);
-      }
-      Ks[r][c2] = kv.x;
-      Ks[r][c2 + 1] = kv.y;
-      Vs[r][c2] = vv.x;
-      Vs[r][c2 + 1] = vv.y;
-    }
-    if (threadIdx.x < KT) {
-      const int j = k0 + threadIdx.x;
-      Ms[threadIdx.x] = j < S ? (mask ? mask[(long long)b * S + j] : 1) : 0;
-    }
-    __syncthreads();
-    const int nk = min(KT, kend - k0);
-    for (int c = 0; c < nk; c += CH) {
-      // entry c is always < nk, so every chunk has a finite score and
-      // the running max never stays -inf
-      float s[CH];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < CH; ++u) {
-        const int jj = c + u;
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < DL; ++i)
-          dot = fmaf(qr[i], Ks[jj][LANES * i + sub], dot);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        const bool in_range = jj < nk;
-        const bool ok = in_range && Ms[jj] != 0 && (!causal || k0 + jj <= qi);
-        s[u] = ok ? dot * scale : (in_range ? NEG_INF : -INFINITY);
-        cmax = fmaxf(cmax, s[u]);
-      }
-      const float mn = fmaxf(m, cmax);
-      const float alpha = expf(m - mn);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < DL; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int u = 0; u < CH; ++u) {
-        const float p = expf(s[u] - mn);
-        l += p;
-#pragma unroll
-        for (int i = 0; i < DL; ++i)
-          acc[i] = fmaf(p, Vs[c + u][LANES * i + sub], acc[i]);
-      }
-      m = mn;
-    }
-  }
-  if (active) {
-    const float inv = 1.f / l;
-    float* op = o + b * osb + h * osh + (long long)qi * oss;
-#pragma unroll
-    for (int i = 0; i < DL; ++i) op[LANES * i + sub] = acc[i] * inv;
-    if (lse && sub == 0) lse[(long long)blockIdx.y * S + qi] = m + logf(l);
+// byte offset of element (r, c) of a 64 x 64 fp32 tile kept as two boxes
+// of 32 columns with the 128-byte swizzle (16-byte chunk c / 4 of row r,
+// within its box, at chunk (c / 4 ^ r) % 8), as TMA writes it
+__device__ __forceinline__ uint32_t sw32(int r, int c) {
+  return (c >> 5) * BOX + r * 128 + ((((c >> 2) ^ r) & 7) << 4) +
+         (c & 3) * 4;
+}
+
+// x's hi and lo parts to dst_hi and dst_lo, 16 bytes each
+__device__ __forceinline__ void split_store(unsigned char* dst_hi,
+                                            unsigned char* dst_lo,
+                                            float x0, float x1, float x2,
+                                            float x3) {
+  uint4 hi, lo;
+  tf32_split(x0, hi.x, lo.x);
+  tf32_split(x1, hi.y, lo.y);
+  tf32_split(x2, hi.z, lo.z);
+  tf32_split(x3, hi.w, lo.w);
+  *reinterpret_cast<uint4*>(dst_hi) = hi;
+  *reinterpret_cast<uint4*>(dst_lo) = lo;
+}
+
+// Work item w: (64-query tile qt, (batch, head) bh).  order 0: (batch,
+// head)-major, each (batch, head)'s tiles heaviest (last) first; 1: the
+// heaviest tiles of every (batch, head) first
+// (kernels/flash_attention.fwd_f32_items mirrors this).
+__device__ __forceinline__ void item_of(const FwdArgs& a, int w, int& qt,
+                                        int& bh) {
+  const int nq = (a.S + BT - 1) / BT;
+  if (a.order == 0) {
+    bh = w / nq;
+    qt = nq - 1 - w % nq;
+  } else {
+    qt = nq - 1 - w / a.BH;
+    bh = w % a.BH;
   }
 }
+
+// rows row .. row + 63 of (batch b, head h), both 32-channel boxes
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         int hf, uint32_t bar, int row, int h,
+                                         int b) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+            dst + c * BOX),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(32 * c),
+        "r"(hf ? h : row), "r"(hf ? row : h), "r"(b)
+        : "memory");
+}
+
+// One 64-key step's online softmax for a consumer thread (rows g and g + 8
+// of its warp's 16, keys 8 j + 2 t4 + {0, 1}): x = s * scale, where CHECK
+// a key at or past S at -inf and a masked or causally excluded key at the
+// finite -1e9 (as the plain version); then p = 2^(x log2 e - m) in place.
+// The base m (log2 units) moves, and O and l are rescaled, only where a
+// row's max passes it by 8, so p <= 2^8.
+template <bool CHECK>
+__device__ __forceinline__ void softmax_step(float (&sc)[32], float (&o)[32],
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, const FwdArgs& a,
+                                             const uint8_t* ms, bool masked,
+                                             int k0, int q0, int r, int t4) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float x = sc[i] * a.scale;
+    if (CHECK) {
+      const int col = 8 * (i / 4) + 2 * t4 + (i & 1);
+      const int row = q0 + r + 8 * ((i >> 1) & 1);
+      const bool out = (a.causal && k0 + col > row) || (masked && !ms[col]);
+      x = k0 + col >= a.S ? -INFINITY : (out ? NEG_INF : x);
+    }
+    sc[i] = x;
+    if (i & 2)
+      mx1 = fmaxf(mx1, x);
+    else
+      mx0 = fmaxf(mx0, x);
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  mx0 *= LOG2E;   // finite: the step's first key is below S
+  mx1 *= LOG2E;
+  const bool up0 = mx0 > m0 + 8.f, up1 = mx1 > m1 + 8.f;
+  if (__any_sync(0xffffffffu, up0 || up1)) {
+    const float n0 = up0 ? mx0 : m0, n1 = up1 ? mx1 : m1;
+    const float al0 = ex2(m0 - n0), al1 = ex2(m1 - n1);   // 0 from -inf
+    m0 = n0;
+    m1 = n1;
+    l0 *= al0;
+    l1 *= al1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[4 * j] *= al0;
+      o[4 * j + 1] *= al0;
+      o[4 * j + 2] *= al1;
+      o[4 * j + 3] *= al1;
+    }
+  }
+  const float nb0 = -m0, nb1 = -m1;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float p = ex2(fmaf(sc[i], LOG2E, i & 2 ? nb1 : nb0));
+    sc[i] = p;
+    if (i & 2)
+      l1 += p;
+    else
+      l0 += p;
+  }
+}
+
+// The persistent fp32 kernel: block i takes work items i, i + grid, ...
+// (item_of).  An item is one (batch, head)'s 64-query tile, held by the
+// block's warpgroup (each warp 16 rows), walking the key tiles 0 .. qt
+// (causal) or all.  Thread 0 keeps one raw stage in flight: the next step's
+// K and V tiles (the next item's first when this item ends) are issued as
+// soon as this step's are split.
+//
+// Per step: the raw K and V arrive (TMA, rows past S as zeros); every
+// thread splits its share of K as it lies (the K-major B of S = Q K^T) and
+// of V transposed to channel rows (the K-major B of O = P V), each row's
+// 8-key groups reordered 0, 2, 4, 6, 1, 3, 5, 7 (a P accumulator's two
+// columns of each 8-key group are its A slice's columns t4 and t4 + 4),
+// in units of 4 keys x 4 channels whose reads and writes each fall on 8
+// distinct 16-byte chunks a quarter-warp; threads 0-63 bring the step's
+// key-mask bytes; a barrier frees the raw stage; S = Q K^T (24 wgmma,
+// Q's split A slices in registers since the item began); the softmax; P
+// V (24 wgmma, P split in registers) into a fresh accumulator added to O
+// in fp32.  Each step's products are lo hi + hi lo + hi hi of the TF32
+// splits (lo lo dropped).
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    flash_attn_f32(const __grid_constant__ FwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint8_t* ms = sm + MASK_OFF;
+  const uint32_t full = base + BAR_OFF;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int r = 16 * (tid / 32) + lane / 4, t4 = lane % 4;
+  const int S = a.S, nq = (S + BT - 1) / BT;
+
+  if (tid == 0) {
+    mbar_init(full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // step j of item w: K and V rows 64 j .. 64 j + 63 into the raw stage
+  auto fill = [&](int w, int j) {
+    int qt, bh;
+    item_of(a, w, qt, bh);
+    const int b = bh / a.H, h = bh % a.H;
+    mbar_expect_tx(full, 2 * TILE);
+    tma_tile(base + K_RAW, &a.kmap, a.khf, full, BT * j, h, b);
+    tma_tile(base + V_RAW, &a.vmap, a.vhf, full, BT * j, h, b);
+  };
+  if (tid == 0 && (int)blockIdx.x < a.items) fill(blockIdx.x, 0);
+  uint32_t phase = 0;
+
+  for (int w = blockIdx.x; w < a.items; w += gridDim.x) {
+    int qt, bh;
+    item_of(a, w, qt, bh);
+    const int b = bh / a.H, h = bh % a.H, q0 = BT * qt;
+    const int steps = a.causal ? qt + 1 : nq;
+    const uint8_t* mrow = a.mask ? a.mask + (long long)b * S : nullptr;
+
+    // Q's A slices for the item, split: slice kk's a[i] is channel 8 kk +
+    // t4 + 4 (i / 2) of row r + 8 (i % 2) (zero past S)
+    uint32_t qh[8][4], ql[8][4];
+    {
+      const float* qb = a.q + b * a.qsb + h * a.qsh;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = q0 + r + 8 * (i % 2);
+          const float x =
+              row < S ? qb[(long long)row * a.qss + 8 * kk + t4 + 4 * (i / 2)]
+                      : 0.f;
+          tf32_split(x, qh[kk][i], ql[kk][i]);
+        }
+    }
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    // the exponent base (log2 units) and this thread's share of the row
+    // sums, of rows r and r + 8
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    for (int j = 0; j < steps; ++j) {
+      const int k0 = BT * j;
+      // this step's raw tiles are in, and every warp is done with the
+      // previous step's products (their split operands are rewritten)
+      wait_or_trap(full, phase);
+      phase ^= 1;
+      __syncthreads();
+      // K as it lies: the same swizzled layout, split
+#pragma unroll
+      for (int it = 0; it < 8; ++it) {
+        const int off = 16 * (tid + THREADS * it);
+        const float4 x = *reinterpret_cast<const float4*>(sm + K_RAW + off);
+        split_store(sm + K_HI + off, sm + K_LO + off, x.x, x.y, x.z, x.w);
+      }
+      // V transposed: unit u (of 256) is keys 8 G + par + {0, 2, 4, 6} and
+      // channels 4 c4 + {0..3}; a quarter-warp's 8 units (z = u / 8)
+      // differ in par, c4's bits 1-2 and G's bits 0-1, so the raw rows' and
+      // V^T rows' 16-byte chunks it touches are 8 distinct ones
+#pragma unroll
+      for (int it = 0; it < 2; ++it) {
+        const int u = tid + THREADS * it, qq = u & 7, z = u >> 3;
+        const int par = qq & 1;
+        const int c4 = (qq & 6) | ((z >> 2) & 1) | (((z >> 3) & 1) << 3);
+        const int G = (((qq >> 1) ^ z) & 3) | (((z >> 4) & 1) << 2);
+        float vr[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              sm + V_RAW + sw32(8 * G + par + 2 * i, 4 * c4));
+          vr[i][0] = x.x;
+          vr[i][1] = x.y;
+          vr[i][2] = x.z;
+          vr[i][3] = x.w;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t at = sw32(4 * c4 + c, 8 * G + 4 * par);
+          split_store(sm + VT_HI + at, sm + VT_LO + at, vr[0][c], vr[1][c],
+                      vr[2][c], vr[3][c]);
+        }
+      }
+      if (mrow && tid < BT)
+        sm[MASK_OFF + tid] = k0 + tid < S ? mrow[k0 + tid] : 0;
+      fence_proxy_async();   // the split operands, for wgmma
+      __syncthreads();       // and the raw stage is free
+      if (tid == 0) {
+        if (j + 1 < steps)
+          fill(w, j + 1);
+        else if (w + (int)gridDim.x < a.items)
+          fill(w + gridDim.x, 0);
+      }
+
+      // S = Q K^T: per 8-channel slice lo hi + hi lo + hi hi
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t so = (kk / 4) * BOX + 32 * (kk % 4);
+        const uint64_t dh = desc_sw128(base + K_HI + so, 16, 1024);
+        const uint64_t dl = desc_sw128(base + K_LO + so, 16, 1024);
+        wgmma_tf32_rs<64>(sc, ql[kk], dh);
+        wgmma_tf32_rs<64>(sc, qh[kk], dl);
+        wgmma_tf32_rs<64>(sc, qh[kk], dh);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(sc);
+
+      // causal on the diagonal tile, the key mask on every tile, S's edge
+      // on the last
+      if ((a.causal && j == qt) || mrow || k0 + BT > S)
+        softmax_step<true>(sc, o, m0, m1, l0, l1, a, ms, mrow != nullptr,
+                           k0, q0, r, t4);
+      else
+        softmax_step<false>(sc, o, m0, m1, l0, l1, a, ms, false, k0, q0, r,
+                            t4);
+
+      // O += P V: accumulator block kk's columns 2 t4 and 2 t4 + 1 are the
+      // A slice's columns t4 and t4 + 4, the keys V^T's rows hold there.
+      // The step's products go to a fresh accumulator, added to O in fp32:
+      // the tensor cores' accumulation is not round-to-nearest.
+      uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        tf32_split(sc[4 * kk], ph[kk][0], pl[kk][0]);
+        tf32_split(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
+        tf32_split(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
+        tf32_split(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
+      }
+      float po[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) po[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t so = (kk / 4) * BOX + 32 * (kk % 4);
+        const uint64_t dh = desc_sw128(base + VT_HI + so, 16, 1024);
+        const uint64_t dl = desc_sw128(base + VT_LO + so, 16, 1024);
+        wgmma_tf32_rs<64>(po, pl[kk], dh);
+        wgmma_tf32_rs<64>(po, ph[kk], dl);
+        wgmma_tf32_rs<64>(po, ph[kk], dh);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(po);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        reg_fence(ph[kk]);
+        reg_fence(pl[kk]);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] += po[i];
+    }
+
+    // O / l into the (B, S, H, 64) rows; each row's log-sum-exp
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+    const int r0 = q0 + r, r1 = r0 + 8;
+    float* ob = a.o + b * a.osb + h * a.osh + 2 * t4;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      if (r0 < S)
+        *reinterpret_cast<float2*>(ob + (long long)r0 * a.oss + 8 * jj) =
+            make_float2(o[4 * jj] * i0, o[4 * jj + 1] * i0);
+      if (r1 < S)
+        *reinterpret_cast<float2*>(ob + (long long)r1 * a.oss + 8 * jj) =
+            make_float2(o[4 * jj + 2] * i1, o[4 * jj + 3] * i1);
+    }
+    if (a.lse && t4 == 0) {   // m is base 2, of the scaled scores
+      float* lp = a.lse + (long long)bh * S;
+      if (r0 < S) lp[r0] = (m0 + log2f(l0)) * LN2;
+      if (r1 < S) lp[r1] = (m1 + log2f(l1)) * LN2;
+    }
+  }
+}
+
+// tensor t's TMA map: an fp32 (B, H, S, 64) view with (batch, head, row)
+// strides st in elements, as four dimensions whose strides grow; *hf: the
+// head dimension comes before the rows
+int rows_map(CUtensorMap* map, int* hf, const float* base, int B, int H,
+             int S, long long sb, long long sh, long long ss) {
+  hopper::EncodeTiled fn = hopper::encode_tiled();
+  if (fn == nullptr) return hopper::ERR_NO_ENCODER;
+  *hf = sh < ss;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(*hf ? H : S),
+                              static_cast<cuuint64_t>(*hf ? S : H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {4ull * (*hf ? sh : ss),
+                                 4ull * (*hf ? ss : sh), 4ull * sb};
+  const cuuint32_t box[4] = {32, *hf ? 1u : BT, *hf ? BT : 1u, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  return hopper::map_result(
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base),
+         dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+int launch(FwdArgs& p, const float* k, const float* v, int B,
+           const long long (&ks)[3], const long long (&vs)[3], int grid,
+           cudaStream_t st) {
+  if (grid < 1 || grid > p.items)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (int rc = rows_map(&p.kmap, &p.khf, k, B, p.H, p.S, ks[0], ks[1], ks[2]))
+    return rc;
+  if (int rc = rows_map(&p.vmap, &p.vhf, v, B, p.H, p.S, vs[0], vs[1], vs[2]))
+    return rc;
+  static const int attr = [] {
+    int rc = static_cast<int>(cudaFuncSetAttribute(
+        flash_attn_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM));
+    if (!rc)
+      rc = static_cast<int>(cudaFuncSetAttribute(
+          flash_attn_f32, cudaFuncAttributePreferredSharedMemoryCarveout,
+          100));
+    return rc;
+  }();
+  if (attr) return attr;
+  flash_attn_f32<<<grid, THREADS, SMEM, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
 
 template <int WK, bool LSE>
 int launch_mma(const Args& a, int B, int qtiles, int smem, cudaStream_t st) {
@@ -567,18 +906,21 @@ int launch_mma(const Args& a, int B, int qtiles, int smem, cudaStream_t st) {
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
 // (head-dim) stride of every tensor is 1.  bf16: k and v rows 16-byte
 // aligned (base pointers and the b, h, s strides), q's even; float32: k
-// and v aligned to two elements with even strides.  mask: (B, S) uint8
-// or null.  lse: (B, H, S) fp32 or null (written when given).  bf16
-// launch plan (kernels/flash_attention.plan): `wk` warps
-// (1, 2 or 4) share each 16-query tile's keys, so a block of 4 warps
-// holds 4 / wk query tiles; `qtiles` = ceil(S / (16 * 4 / wk)) blocks a
-// (batch, head); `nbuf` key tiles resident in shared memory.
+// and v rows 16-byte aligned (TMA), q any.  mask: (B, S) uint8 or null.
+// lse: (B, H, S) fp32 or null (written when given).  bf16 launch plan
+// (kernels/flash_attention.plan): `wk` warps (1, 2 or 4) share each
+// 16-query tile's keys, so a block of 4 warps holds 4 / wk query tiles;
+// `qtiles` = ceil(S / (16 * 4 / wk)) blocks a (batch, head); `nbuf` key
+// tiles resident in shared memory.  float32 launch plan
+// (kernels/flash_attention.fwd_f32_plan): `grid` persistent blocks, from
+// 1 to the B * H * ceil(S / 64) work items, taken in item order `order`.
 extern "C" int tts_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* mask, void* o,
     void* lse, int B, int H, int S, int dtype, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh, long long oss,
-    int causal, float scale, int wk, int qtiles, int nbuf, void* stream) {
+    int causal, float scale, int wk, int qtiles, int nbuf, int grid,
+    int order, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
   if (dtype == 1) {
@@ -594,12 +936,27 @@ extern "C" int tts_flash_attention_fwd(
                    : wk == 2 ? launch_mma<2>(a, B, qtiles, smem, st)
                              : launch_mma<1>(a, B, qtiles, smem, st);
     if (rc) return rc;
-  } else {
-    flash_attn_f32<<<dim3((S + BQ - 1) / BQ, B * H), THREADS_F32, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), mk, static_cast<float*>(o),
-        static_cast<float*>(lse), H, S, qsb, qsh, qss, ksb, ksh, kss, vsb,
-        vsh, vss, osb, osh, oss, causal, scale);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  f32::FwdArgs p{};
+  p.q = static_cast<const float*>(q);
+  p.mask = mk;
+  p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.H = H;
+  p.S = S;
+  p.BH = B * H;
+  p.causal = causal;
+  p.items = B * H * ((S + f32::BT - 1) / f32::BT);
+  p.order = order;
+  p.qsb = qsb;
+  p.qsh = qsh;
+  p.qss = qss;
+  p.osb = osb;
+  p.osh = osh;
+  p.oss = oss;
+  p.scale = scale;
+  return f32::launch(p, static_cast<const float*>(k),
+                     static_cast<const float*>(v), B, {ksb, ksh, kss},
+                     {vsb, vsh, vss}, grid, st);
 }

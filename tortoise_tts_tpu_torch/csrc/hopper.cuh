@@ -69,6 +69,31 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_wait that faults (an illegal instruction, reported at the next
+// synchronisation) instead of spinning forever if a phase never completes
+// (about 10 s of cycles): a lost arrival must not hang the card
+__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1LL << 34)) __trap();
+  } while (!done);
+}
+
+// 2^x by the MUFU unit (ex2.approx.ftz: results under 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // --- TMA -------------------------------------------------------------------
 
 // a 3-d box of `map` at (c0, c1, c2), innermost first, into shared memory
@@ -146,8 +171,11 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
-// wgmma_n64's m64n128 form (TB as there)
-template <int TB = 0>
+// wgmma_n64's m64n128 form (TB as there).  TA = 1 takes A MN-major
+// instead (its transpose bit): 16 rows of K, each 64 M-contiguous elements
+// (a TMA box 64 wide) with the 128-byte swizzle, descriptor desc_sw128(addr,
+// 16, 1024), the k-th slice 2048 k bytes in.
+template <int TB = 0, int TA = 0>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
                                            uint64_t db) {
   asm volatile(
@@ -161,7 +189,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -178,7 +206,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TB));
+      : "l"(da), "l"(db), "r"(1), "n"(TB), "n"(TA));
 }
 
 // wgmma_n128 with both operands MN-major (both transpose bits set): A as 16

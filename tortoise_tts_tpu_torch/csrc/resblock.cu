@@ -90,12 +90,21 @@
 //      K4 (one tap) at T % 8 == 0 (16-byte rows of g, as TMA reads them)
 //      skips it: its GEMMs read g as it comes (the wrapper's bwd_plan
 //      says which), a pass over the upstream fewer.
-//   3. bwd_da_wgmma: da = W^T gt on the forward's TMA ring and wgmma main
-//      loop, over a per-call (taps, C, M) weight with the taps reversed;
-//      its epilogue applies silu'(z) (K5: times 1 + scale), writes dn and
-//      each 64- or 128-step tile's channel sums (dn, dn x^; K5: dz n, dz).
-//      Reading g itself, the upstream is an MN-major B (boxes of 64 steps
-//      x 64 rows of M, one or two a stage).
+//   3. bwd_da_wgmma (K4): da = W^T g on the forward's TMA ring and wgmma
+//      main loop, over W^T (1, C, M); its epilogue applies silu'(z) where
+//      act, writes dn and each 64- or 128-step tile's channel sums (dn, dn
+//      x^).  Reading g itself, the upstream is an MN-major B (boxes of 64
+//      steps x 64 rows of M, one or two a stage).  K5 (bf16):
+//      bwd_da_pingpong, persistent and warp-specialised, on the forward's
+//      tap-major weight (no per-call copy: the taps reversed by the TMA
+//      coordinate, transposed by wgmma's transpose bit), two consumer
+//      warpgroups taking whole 128 x 128 tiles in turn, each epilogue (x
+//      (1 + scale) silu'(z) into dn, and the channel sums dn, dn x^, dz n,
+//      dz) straight from the accumulators beside the other's products.
+//      The taps still need gt: TMA refuses a box whose innermost start is
+//      off 16 bytes (an illegal instruction on an H100 at an odd step,
+//      swizzled or not), so a tap's one-step shift cannot be an inner
+//      coordinate of g as it comes.
 //   4. bwd_norm: a (batch, group) a block: the tiles' sums in order, then
 //      dx = rstd (gamma dn - mean(gamma dn) - x^ mean(gamma dn x^)).
 //   5. bwd_dw_wgmma: dW partials over slices of the B T reduction, both
@@ -1059,12 +1068,12 @@ __device__ void da_epilogue(const float* tile, float* prm, int c0, int t0,
   }
 }
 
-// bf16 da = W^T g as the forward's GEMM: the reversed, transposed weight
-// wb (taps, C, M) against the time-major upstream gt (B, T, M), tap s'
-// shifted by s' - 1 steps, K = M; GT (K4 at T % 8 == 0): against the
-// upstream g (B, M, T) as it comes, an MN-major B; a block's 128 channels
-// x BN steps, then da_epilogue over the tile.
-template <int TAPS, int BN, bool GT>
+// K4's bf16 da = W^T g as the forward's GEMM: the transposed weight wb
+// (1, C, M) against the time-major upstream gt (B, T, M), K = M; GT (T %
+// 8 == 0): against the upstream g (B, M, T) as it comes, an MN-major B; a
+// block's 128 channels x BN steps, then da_epilogue over the tile.  (K5's
+// is bwd_da_pingpong, below.)
+template <int BN, bool GT>
 __global__ void __launch_bounds__(GEMM_THREADS, BN == 64 ? 2 : 1)
     bwd_da_wgmma(const __grid_constant__ CUtensorMap wmap,
                  const __grid_constant__ CUtensorMap gmap,
@@ -1073,13 +1082,252 @@ __global__ void __launch_bounds__(GEMM_THREADS, BN == 64 ? 2 : 1)
   const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
   const int n0 = blockIdx.x * BN, c0 = blockIdx.y * BM, b = blockIdx.z;
   float acc[BN / 2];
-  if (!ring_mainloop<TAPS, BN, GT>(&wmap, &gmap, a.M, c0, n0, b, base, acc))
+  if (!ring_mainloop<1, BN, GT>(&wmap, &gmap, a.M, c0, n0, b, base, acc))
     return;
   const float* tile = acc_to_tile<BN>(acc, base);
   // the rows' parameters after the tile, in the ring
   float* prm = reinterpret_cast<float*>(gemm_smem + (base - smem_u32(gemm_smem))
                                         + BM * (BN + 8) * 4);
-  da_epilogue<bf16, TAPS == 3, BM, BN>(tile, prm, c0, n0, b, blockIdx.x, a);
+  da_epilogue<bf16, false, BM, BN>(tile, prm, c0, n0, b, blockIdx.x, a);
+}
+
+// K5's bf16 da (three taps), persistent and warp-specialised, one block
+// an SM.  Block i walks the 128-channel x 128-step output tiles t = i, i +
+// gridDim.x, ... (batch-major, then the time tiles, then the channel
+// blocks: the blocks that run together read one batch's upstream).  One
+// producer thread keeps a ring of PP_STAGES stages full by TMA: per K
+// step, the two 64-channel x 64-row boxes of w_taps[2 - s'] (the
+// forward's tap-major weight, read MN-major by wgmma's transpose bit: no
+// transposed, reversed copy of it) and the time-major upstream's box of
+// 128 steps shifted by s' - 1.  Two consumer warpgroups take the block's
+// tiles in turn (ping-pong), each a whole 128 x 128 tile (two m64n128
+// products a 16-deep slice, 128 accumulators a thread): a warpgroup
+// starts a tile's main loop once the other has issued its last products
+// (a named barrier each way), so their ring uses never overlap and no
+// parity wait can pass a phase early, and its epilogue then runs beside
+// the other's main loop, straight from the accumulators: x's 32 values of
+// a half tile loaded first (their loads in flight together), then
+// silu'(z) (1 + scale) into dn (bf16 pairs, the upstream's element order)
+// and each row's channel sums over the tile's steps (dn, dn x^, dz n, dz:
+// a thread's 32 values in order, then its quad's four partials by
+// shuffles), the four rows' parameters loaded before the main loop.
+// On an H100 the epilogue's global loads and stores, not its arithmetic,
+// hold it above its main loop's time (PERF.md); a cluster of two
+// blocks sharing the weight tile by TMA multicast, other ring depths,
+// streaming cache hints and x and dn staged through shared memory for
+// whole-row copies were no faster there.
+constexpr int PP_BN = 128;                    // steps a tile
+constexpr int PP_STAGES = 6;
+constexpr int PP_A = BM * BK * 2;             // two 64 x 64 weight boxes
+constexpr int PP_STAGE = PP_A + PP_BN * BK * 2;
+constexpr int PP_BARS = PP_STAGES * PP_STAGE;  // full[], then empty[]
+constexpr int PP_SMEM = PP_BARS + 2 * PP_STAGES * 8 + 1024;
+constexpr int PP_PRODUCER_REGS = 40;          // setmaxnreg: 40 x 128 +
+constexpr int PP_CONSUMER_REGS = 232;         // 232 x 256 = 168 x 384
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// the warpgroups' turns: warpgroup w arrives on barrier 2 + w once it has
+// issued a tile's last products; the other waits there before its next
+__device__ __forceinline__ void turn_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// tile t: (batch b, 128-step tile tt, 128-channel block cb)
+__device__ __forceinline__ void pp_tile(int t, int nt, int nc, int& b,
+                                        int& tt, int& cb) {
+  b = t / (nt * nc);
+  tt = (t / nc) % nt;
+  cb = t % nc;
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    bwd_da_pingpong(const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ CUtensorMap gmap,
+                    const BwdArgs<bf16> a) {
+  extern __shared__ unsigned char gemm_smem[];
+  const uint32_t base = (smem_u32(gemm_smem) + 1023) & ~1023u;
+  const uint32_t full0 = base + PP_BARS, empty0 = full0 + PP_STAGES * 8;
+  const int tid = threadIdx.x;
+  // warp-uniform to the compiler (a shuffle): a branch on it does not
+  // serialise the products
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int C = a.C, T = a.T;
+  const int nc = (C + BM - 1) / BM, nt = (T + PP_BN - 1) / PP_BN;
+  const int tiles = a.B * nt * nc, kc = (a.M + BK - 1) / BK, kt = 3 * kc;
+
+  if (tid == 0) {
+    for (int s = 0; s < PP_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 1);   // the one warpgroup that used it
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {   // producer
+    regs_dec<PP_PRODUCER_REGS>();
+    if (tid == 256) {
+      int n = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int b, tt, cb;
+        pp_tile(t, nt, nc, b, tt, cb);
+        for (int it = 0; it < kt; ++it, ++n) {
+          const int s = n % PP_STAGES;
+          mbar_wait(empty0 + 8 * s, ((n / PP_STAGES) & 1) ^ 1);
+          mbar_expect_tx(full0 + 8 * s, PP_STAGE);
+          const int tap = it / kc, k0 = (it - tap * kc) * BK;
+          const uint32_t sa = base + s * PP_STAGE, bar = full0 + 8 * s;
+          tma_load_3d(sa, &wmap, bar, BM * cb, k0, 2 - tap);
+          tma_load_3d(sa + PP_A / 2, &wmap, bar, BM * cb + 64, k0, 2 - tap);
+          tma_load_3d(sa + PP_A, &gmap, bar, k0, PP_BN * tt + tap - 1, b);
+        }
+      }
+    }
+    return;
+  }
+  regs_inc<PP_CONSUMER_REGS>();
+
+  const int w = (tid & 127) >> 5, lane = tid & 31, g = lane >> 2;
+  const int t4 = lane & 3, per = C / a.G;
+  const bool pairs = T % 2 == 0 &&
+                     ((reinterpret_cast<uintptr_t>(a.x) |
+                       reinterpret_cast<uintptr_t>(a.dn)) & 3) == 0;
+  int j = wg;   // the block's tile index: this warpgroup takes j, j + 2, ...
+  for (int t = blockIdx.x + wg * gridDim.x; t < tiles;
+       t += 2 * gridDim.x, j += 2) {
+    int b, tt, cb;
+    pp_tile(t, nt, nc, b, tt, cb);
+    const int c0 = BM * cb, n0 = PP_BN * tt;
+    // this thread's rows c0 + 64 h + 16 w + g + 8 hh (i = 2 h + hh): mu,
+    // rstd, gamma, beta, 1 + scale, shift
+    float q[4][6];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = min(c0 + 64 * (i / 2) + 16 * w + g + 8 * (i % 2), C - 1);
+      const int bg = b * a.G + c / per;
+      const long long e = 2LL * b * C + c;
+      q[i][0] = a.stats[bg];
+      q[i][1] = a.stats[a.B * a.G + bg];
+      q[i][2] = ld(a.v.gamma, c, a.v.bf);
+      q[i][3] = ld(a.v.beta, c, a.v.bf);
+      q[i][4] = 1.f + ld(a.v.emb, e, a.v.emb_bf);
+      q[i][5] = ld(a.v.emb, e + C, a.v.emb_bf);
+    }
+
+    float acc[2][64];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+    if (j > 0) turn_wait(3 - wg);   // the other's last tile is issued
+    int n = j * kt, prev = 0;
+    for (int it = 0; it < kt; ++it, ++n) {
+      const int s = n % PP_STAGES;
+      mbar_wait(full0 + 8 * s, (n / PP_STAGES) & 1);
+      const uint32_t sa = base + s * PP_STAGE, sb = sa + PP_A;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = desc_sw128(sb + kk * 32, 16, 1024);
+        wgmma_n128<0, 1>(acc[0], desc_sw128(sa + kk * 2048, 16, 1024), db);
+        wgmma_n128<0, 1>(acc[1],
+                         desc_sw128(sa + PP_A / 2 + kk * 2048, 16, 1024), db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();   // the previous step's products are done
+      if (it > 0 && (tid & 127) == 0) mbar_arrive(empty0 + 8 * prev);
+      prev = s;
+    }
+    if (t + (int)gridDim.x < tiles) turn_arrive(2 + wg);
+    wgmma_wait<0>();
+    if ((tid & 127) == 0) mbar_arrive(empty0 + 8 * prev);
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
+
+    // the epilogue: acc[h][4 jj + 2 hh + e] is row 2 h + hh, step n0 + 8
+    // jj + 2 t4 + e; x's values of a half tile first, so their loads are
+    // in flight together, then dn and the sums
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      __nv_bfloat162 xr[2][16];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int c = c0 + 64 * h + 16 * w + g + 8 * hh;
+        const bf16* xrow = a.x + ((long long)b * C + min(c, C - 1)) * T;
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          const int t0 = n0 + 8 * jj + 2 * t4;
+          if (c < C && pairs && t0 < T) {
+            xr[hh][jj] = *reinterpret_cast<const __nv_bfloat162*>(xrow + t0);
+          } else {
+            const bf16 z0 = __float2bfloat16(0.f);
+            xr[hh][jj] =
+                __halves2bfloat162(c < C && t0 < T ? xrow[t0] : z0,
+                                   c < C && t0 + 1 < T ? xrow[t0 + 1] : z0);
+          }
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 2 * h + hh;
+        const int c = c0 + 64 * h + 16 * w + g + 8 * hh;
+        const bool row = c < C;
+        bf16* dnrow = a.dn + ((long long)b * C + c) * T;
+        float sm[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          const int t0 = n0 + 8 * jj + 2 * t4;
+          const float xv[2] = {__low2float(xr[hh][jj]),
+                               __high2float(xr[hh][jj])};
+          float dn[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float xh = (xv[e] - q[i][0]) * q[i][1];
+            const float nv = xh * q[i][2] + q[i][3];
+            const float z = nv * q[i][4] + q[i][5];
+            float dz = acc[h][4 * jj + 2 * hh + e];
+            const float sg = __frcp_rn(1.f + __expf(-z));
+            dz *= sg * (1.f + z * (1.f - sg));
+            dn[e] = dz * q[i][4];
+            if (row && t0 + e < T) {
+              sm[0] += dn[e];
+              sm[1] += dn[e] * xh;
+              sm[2] += dz * nv;
+              sm[3] += dz;
+            }
+          }
+          if (row && pairs && t0 < T) {
+            *reinterpret_cast<__nv_bfloat162*>(dnrow + t0) =
+                __floats2bfloat162_rn(dn[0], dn[1]);
+          } else if (row) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (t0 + e < T) dnrow[t0 + e] = __float2bfloat16(dn[e]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          sm[k] += __shfl_xor_sync(0xffffffffu, sm[k], 1);
+          sm[k] += __shfl_xor_sync(0xffffffffu, sm[k], 2);
+        }
+        if (row && t4 == 0)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            a.part[(((long long)b * a.ntt + tt) * 4 + k) * C + c] = sm[k];
+      }
+    }
+  }
 }
 
 constexpr int DW_BK = 64;                   // steps a K step
@@ -1711,6 +1959,26 @@ struct BwdIo {
   float eps;
 };
 
+// K5's bf16 da by bwd_da_pingpong: wb is the tap-major w_taps (3, M, C),
+// read through its transposed boxes; gt the time-major upstream; a
+// persistent grid of one block an SM
+int da_pingpong(const BwdIo& o, const BwdArgs<bf16>& a, cudaStream_t st) {
+  const int B = o.B, C = o.C, T = o.T, M = o.M;
+  CUtensorMap wmap, gmap;
+  int rc;
+  if ((rc = tensor_map_3d(&wmap, o.wb, C, M, 3, 2ull * C, 2ull * C * M, 64,
+                          BK)) ||
+      (rc = tensor_map_3d(&gmap, o.gt, M, T, B, 2ull * M, 2ull * M * T, BK,
+                          PP_BN)))
+    return rc;
+  if (o.bn != PP_BN) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = B * ((T + PP_BN - 1) / PP_BN) * ((C + BM - 1) / BM);
+  if ((rc = allow_smem<bwd_da_pingpong>(PP_SMEM))) return rc;
+  bwd_da_pingpong<<<std::min(tiles, 132), GEMM_THREADS, PP_SMEM, st>>>(
+      wmap, gmap, a);
+  return 0;
+}
+
 template <typename TX, int TAPS, bool GT = false>
 int run_bwd(const BwdIo& o, cudaStream_t st) {
   constexpr bool BF = sizeof(TX) == 2;
@@ -1744,7 +2012,9 @@ int run_bwd(const BwdIo& o, cudaStream_t st) {
                       o.act, ntt};
   int rc = 0;
   // 3. da, with dn and the time tiles' channel sums
-  if constexpr (BF) {
+  if constexpr (BF && TAPS == 3) {
+    rc = da_pingpong(o, a, st);
+  } else if constexpr (BF) {
     CUtensorMap wmap, gmap;
     if ((rc = tensor_map_3d(&wmap, o.wb, M, C, TAPS, 2ull * M, 2ull * M * C,
                             BK, BM)))
@@ -1756,14 +2026,14 @@ int run_bwd(const BwdIo& o, cudaStream_t st) {
       return rc;
     const dim3 grid(ntt, (C + BM - 1) / BM, B);
     if (o.bn == 64) {
-      rc = allow_smem<bwd_da_wgmma<TAPS, 64, GT>>(Ring<64>::SMEM);
+      rc = allow_smem<bwd_da_wgmma<64, GT>>(Ring<64>::SMEM);
       if (!rc)
-        bwd_da_wgmma<TAPS, 64, GT>
+        bwd_da_wgmma<64, GT>
             <<<grid, GEMM_THREADS, Ring<64>::SMEM, st>>>(wmap, gmap, a);
     } else if (o.bn == 128) {
-      rc = allow_smem<bwd_da_wgmma<TAPS, 128, GT>>(Ring<128>::SMEM);
+      rc = allow_smem<bwd_da_wgmma<128, GT>>(Ring<128>::SMEM);
       if (!rc)
-        bwd_da_wgmma<TAPS, 128, GT>
+        bwd_da_wgmma<128, GT>
             <<<grid, GEMM_THREADS, Ring<128>::SMEM, st>>>(wmap, gmap, a);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1940,9 +2210,9 @@ extern "C" int tts_ts_res_block_out(const void* h, const void* x,
 
 // K4's and K5's backward: taps 1 is K4 (x; act as the forward's), taps 3
 // K5 (h, act 1, emb).  x: (B, C, T) contiguous; wb: (taps, C, M) in x's
-// type, 16-byte aligned: K4's W^T, K5's reversed taps, wb[s'] = W[:, :,
-// 2 - s']^T, so that tap s' shifts the upstream by s' - 1 steps as the
-// forward shifts Y; g: the upstream (B, M, T) contiguous (16-byte
+// type, 16-byte aligned: K4's W^T, K5's (fp32) reversed taps, wb[s'] =
+// W[:, :, 2 - s']^T, so that tap s' shifts the upstream by s' - 1 steps as
+// the forward shifts Y (K5 in bf16: mode 2, the tap-major weight, below); g: the upstream (B, M, T) contiguous (16-byte
 // aligned where direct); stats: the
 // forward's mu, then rstd (2*B*G fp32); gamma, beta: (C), bf16 if vec_bf
 // else fp32; emb: (B, 2C) [scale | shift] (K5; bf16 if emb_bf else fp32).
@@ -1954,9 +2224,12 @@ extern "C" int tts_ts_res_block_out(const void* h, const void* x,
 // vectors' type; demb (B, 2C) in emb's (K5).  dtype: 0 = float32, 1 =
 // bfloat16; bn: the da GEMM's steps a block (64 or 128); split: dW's K
 // slices.  fp32: gt is gt_hi, gt_lo (B, T, M) and g_hi, g_lo (B, M, Tp),
-// Tp = T rounded up to 4, in one fp32 scratch (bwd_split_upstream).  direct (K4 in bf16 at T % 8 == 0 only): the GEMMs
-// read g as it comes (no gt: null) and dbp is (split, M), dW's blocks'
-// partials.  C % 8 == 0, M % 8 == 0, C % G == 0.
+// Tp = T rounded up to 4, in one fp32 scratch (bwd_split_upstream).
+// direct (K4 in bf16 at T % 8 == 0 only): the GEMMs read g as it comes
+// (no gt: null) and dbp is (split, M), dW's blocks' partials.  K5 in bf16
+// (bn 128): wb is the forward's tap-major weight w_taps (3, M, C),
+// w_taps[s] = W[:, :, s], and da runs on bwd_da_pingpong.  C % 8 == 0, M
+// % 8 == 0, C % G == 0.
 extern "C" int tts_resblock_bwd(
     const void* x, const void* gamma, const void* beta, const void* emb,
     const void* wb, const void* g, const float* stats, void* ybuf,
@@ -1966,7 +2239,8 @@ extern "C" int tts_resblock_bwd(
     int dtype, int vec_bf, int emb_bf, int bn, int split, int direct,
     void* stream) {
   if ((taps != 1 && taps != 3) || split < 1 || (taps == 3 && emb == nullptr)
-      || (direct && (taps != 1 || dtype != 1 || T % 8 != 0)))
+      || (direct && (taps != 1 || dtype != 1 || T % 8 != 0))
+      || (taps == 3 && dtype == 1 && bn != PP_BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdIo o{x, wb, g, stats,
                 Vecs{gamma, beta, nullptr, taps == 3 ? emb : nullptr, vec_bf,

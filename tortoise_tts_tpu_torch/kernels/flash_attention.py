@@ -4,9 +4,13 @@ and the latent pass).
 Replaces the TPU kernel ``tortoise_tts_tpu/ops/pallas_attention.py``
 ``flash_attention`` (``_attn_kernel``).  The CUDA source is
 ``csrc/flash_attention.cu``; its header gives the bound on an H100 and
-the design: in bf16 one ``flash_attn_mma`` launch (tensor cores), in fp32
-one ``flash_attn_f32`` launch (CUDA cores).  ``plan`` is the bf16
-kernel's launch plan.
+the design: in bf16 one ``flash_attn_mma`` launch (tensor cores,
+``mma.sync``), in fp32 one ``flash_attn_f32`` launch (tensor cores in
+3xTF32 on ``wgmma``: persistent, TMA-fed, the TF32 splits made in shared
+memory).  ``plan`` is the bf16 kernel's launch plan, ``fwd_f32_plan``
+the fp32 kernel's (``fwd_f32_items`` its work items in order), and
+``flash_attention_3xtf32`` the fp32 kernel's arithmetic in plain
+PyTorch.
 
 ``flash_attention`` runs the plain PyTorch version for CPU tensors (and
 autograd of it) and the kernel for CUDA tensors (it raises on what the
@@ -40,7 +44,7 @@ from ..ops.attention import NEG_INF, mha
 from ._build import F, I, LL, P, Kernel
 
 KERNEL = Kernel("flash_attention", "tts_flash_attention_fwd",
-                [P] * 6 + [I] * 4 + [LL] * 12 + [I, F, I, I, I, P])
+                [P] * 6 + [I] * 4 + [LL] * 12 + [I, F, I, I, I, I, I, P])
 KERNEL_BWD = Kernel("flash_attention_bwd", "tts_flash_attention_bwd",
                     [P] * 11 + [I] * 4 + [LL] * 21 + [I, F, I, P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,6 +59,9 @@ BWD_ROWS = 128      # resident rows a work item: two warpgroups' (RT)
 BWD_F32_TILE = 32   # rows a streamed tile of the fp32 backward (FT)
 BWD_F32_ROWS = 64   # resident rows a work item: one warpgroup's (FR)
 BWD_F32_ARRAYS = 14  # the fp32 split operands: 8 as they come, 6 transposed
+FWD_F32_TILE = 64   # queries a work item and keys a step of the fp32 forward
+FWD_F32_BLOCKS = 2  # its blocks an SM (96 KB of shared memory each)
+FWD_F32_ROUNDS = 4  # items a block up to which it takes the heaviest first
 
 
 def plan(b: int, h: int, s: int) -> Tuple[int, int, int]:
@@ -82,6 +89,47 @@ def smem_bytes(s: int, nbuf: int, masked: bool) -> int:
     mask's S bytes rounded up to 16."""
     tiles = max(2 * nbuf * KEY_TILE * 64 * 2, MERGE_BYTES)
     return tiles + (-(-s // 16) * 16 if masked else 0)
+
+
+class FwdF32Plan(NamedTuple):
+    """The fp32 forward's launch: ``items`` work items (one (batch,
+    head)'s 64-query tile each), the persistent ``grid`` and the items'
+    ``order`` (``fwd_f32_items``)."""
+    items: int
+    grid: int
+    order: int
+
+
+def fwd_f32_plan(b: int, h: int, s: int) -> FwdF32Plan:
+    """FWD_F32_BLOCKS blocks an SM, never more blocks than work items;
+    block i takes items i, i + grid, ... (``fwd_f32_items``).  The order
+    is heaviest tiles first (1) where each block takes two to
+    FWD_F32_ROUNDS items, so the last round is the light tiles'; else
+    (batch, head)-major (0), whose blocks that run together read one
+    (batch, head)'s K and V.  On an H100 (``tools/flash_backward_profile.py
+    --fp32``, the chosen order first): (8, 16, 389) 0.0695-0.0697 against
+    0.0772-0.0794 ms; (16, 16, 773) 0.3626-0.3631 against 0.3651-0.3678;
+    (1, 16, 269) 0.0167 against 0.0171."""
+    items = b * h * -(-s // FWD_F32_TILE)
+    grid = min(items, FWD_F32_BLOCKS * SMS)
+    return FwdF32Plan(items, grid,
+                      int(grid < items <= FWD_F32_ROUNDS * grid))
+
+
+def fwd_f32_items(b: int, h: int, s: int, causal: bool = True,
+                  order: int = 0) -> List[Tuple[int, int, int]]:
+    """The fp32 forward's work items in the kernel's order, as (64-query
+    tile, (batch, head) index, key tiles walked): ``order`` 0 takes each
+    (batch, head)'s tiles heaviest (last) first, one (batch, head) after
+    another; 1 the last tiles of every (batch, head) first.  A causal item
+    walks the key tiles 0 .. its own (the diagonal), else every one."""
+    bh, nq = b * h, -(-s // FWD_F32_TILE)
+    out = []
+    for w in range(bh * nq):
+        t, j = (nq - 1 - w % nq, w // nq) if order == 0 else \
+            (nq - 1 - w // bh, w % bh)
+        out.append((t, j, t + 1 if causal else nq))
+    return out
 
 
 class BwdPlan(NamedTuple):
@@ -193,6 +241,54 @@ def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.logsumexp(s, dim=-1)
 
 
+def flash_attention_3xtf32(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor,
+                           key_mask: Optional[torch.Tensor] = None,
+                           causal: bool = True
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 kernel's arithmetic in plain PyTorch: for each 64-query
+    tile, the 64-key steps up to its diagonal (causal) or all, each step's
+    S = Q K^T and P V by ``gn_conv.matmul_3xtf32`` (three TF32 products of
+    the operands' splits, lo lo dropped), P V summed apart and added to O
+    in fp32, the online softmax in base 2 whose base moves only where a
+    row's max passes it by 8.  q, k, v: (B, H, S, D) fp32; key_mask: (B,
+    S) bool.  Returns (o, lse), lse the natural log-sum-exp (B, H, S)."""
+    from .gn_conv import matmul_3xtf32   # gn_conv imports this module
+    b, h, s, d = q.shape
+    t = FWD_F32_TILE
+    scale, log2e = 1.0 / math.sqrt(d), 1.0 / math.log(2.0)
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    for q0 in range(0, s, t):
+        qt = q[:, :, q0:q0 + t]
+        rows = torch.arange(q0, q0 + qt.shape[2], device=q.device)
+        acc = torch.zeros_like(qt)
+        m = torch.full(qt.shape[:3], -math.inf, device=q.device)
+        lsum = torch.zeros(qt.shape[:3], device=q.device)
+        for k0 in range(0, min(q0 + t, s) if causal else s, t):
+            kt, vt = k[:, :, k0:k0 + t], v[:, :, k0:k0 + t]
+            x = matmul_3xtf32(qt, kt.transpose(-1, -2)) * scale
+            keys = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+            out = torch.zeros(x.shape[-2:], dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                out = keys[None, :] > rows[:, None]
+            if key_mask is not None:
+                out = out | ~key_mask.to(torch.bool)[:, None, None,
+                                                     k0:k0 + t]
+            x = x.masked_fill(out, NEG_INF)
+            mx = x.amax(-1) * log2e
+            new = torch.where(mx > m + 8, mx, m)
+            alpha = torch.exp2(m - new)
+            m = new
+            p = torch.exp2(x * log2e - m[..., None])
+            lsum = lsum * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + matmul_3xtf32(p, vt)
+        o[:, :, q0:q0 + t] = acc / lsum[..., None]
+        lse[:, :, q0:q0 + t] = (m + torch.log2(lsum)) * math.log(2.0)
+    return o, lse
+
+
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, lse: torch.Tensor,
                               do: torch.Tensor,
@@ -256,8 +352,9 @@ def _launch(q, k, v, key_mask, causal, with_lse=False):
     mask = _check_qkv("flash_attention", q, (k, v), key_mask)
     b, h, s, d = q.shape
     bf16 = q.dtype == torch.bfloat16
-    # bf16: 16-byte copies of k and v rows, 4-byte reads of q; fp32: pairs
-    kv_elems, q_elems = (8, 2) if bf16 else (2, 1)
+    # bf16: 16-byte copies of k and v rows, 4-byte reads of q; fp32: TMA
+    # reads k and v (16-byte base and strides), q element by element
+    kv_elems, q_elems = (8, 2) if bf16 else (4, 1)
     if not all(_aligned(t, kv_elems) for t in (k, v)) \
             or not _aligned(q, q_elems):
         raise ValueError(
@@ -265,6 +362,7 @@ def _launch(q, k, v, key_mask, causal, with_lse=False):
             f"{kv_elems * q.element_size()} bytes and q to "
             f"{q_elems * q.element_size()} (base pointers and strides)")
     wk, tiles, nbuf = plan(b, h, s)
+    f32 = fwd_f32_plan(b, h, s)
     if bf16 and smem_bytes(s, nbuf, mask is not None) > SMEM_MAX:
         raise ValueError(f"flash_attention kernel: S={s} key mask does not "
                          f"fit in shared memory")
@@ -280,7 +378,7 @@ def _launch(q, k, v, key_mask, causal, with_lse=False):
                   b, h, s, _DTYPES[q.dtype],
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *out.stride()[:3], int(causal), 1.0 / math.sqrt(d),
-                  wk, tiles, nbuf,
+                  wk, tiles, nbuf, f32.grid, f32.order,
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out, lse
 

@@ -416,7 +416,9 @@ def bwd_plan(b: int, c: int, t: int, m: int, groups: int, taps: int,
     where the reduction taps * M is at most 1024 or where 128-step blocks
     would fill less than half the SMs, else 128 (at (16, 1024, 2240) on
     an H100: 0.255 against 0.320 ms for K4 -> 1024; 0.564 against 0.500
-    ms for the qkv head, ``tools/resblock_backward_profile.py``).  The
+    ms for the qkv head, ``tools/resblock_backward_profile.py``); K5's
+    (three taps) always 128: its da is ``bwd_da_pingpong``, whose
+    warpgroups each take whole 128 x 128 tiles in turn.  The
     upstream goes time-major first (``transpose``) where K5's three taps
     shift it along an outer TMA coordinate, in fp32 (split into TF32 hi
     and lo parts, time-major and as it comes, ``bwd_upstream_floats``),
@@ -432,7 +434,8 @@ def bwd_plan(b: int, c: int, t: int, m: int, groups: int, taps: int,
         return BwdPlan(128 if wide >= SMS else 64,
                        _dw_split(tiles, b * -(-t // F32_K_STEP)))
     tiles = taps * -(-m // 128) * -(-c // 128)
-    return BwdPlan(128 if 2 * wide > SMS and taps * m > 1024 else 64,
+    wide_bn = taps == 3 or (2 * wide > SMS and taps * m > 1024)
+    return BwdPlan(128 if wide_bn else 64,
                    _dw_split(tiles, b * -(-t // 64)), taps != 1 or t % 8 != 0)
 
 
@@ -474,14 +477,19 @@ def _launch(x, gamma, beta, w, bias, groups, act, eps, with_stats=False):
 def _launch_bwd(kernel, x, gamma, beta, bias, wb, g, stats, groups, act,
                 eps, emb=None):
     """K4's (emb None) or K5's backward on CUDA x: (dx, dgamma, dbeta, dw,
-    db, demb).  wb: (taps, C, M), ``tts_resblock_bwd``'s weight; stats:
-    the forward's.  dw comes flat in the weight's layout, in x's type;
-    dgamma, dbeta and db in ``_vectors``' type; demb in emb's (or None)."""
+    db, demb).  wb: ``tts_resblock_bwd``'s weight, (taps, C, M): K4's W^T,
+    K5's reversed taps W[:, :, 2 - s]^T in fp32; K5 in bf16 takes the
+    forward's tap-major weight instead, (3, M, C), w_taps[s] = W[:, :, s],
+    that ``bwd_da_pingpong`` reads transposed.  stats: the forward's.  dw
+    comes flat in the weight's layout, in x's type; dgamma, dbeta and db
+    in ``_vectors``' type; demb in emb's (or None)."""
     b, c, t = x.shape
-    taps, m = wb.shape[0], wb.shape[2]
+    wtaps = wb.shape[0] == 3 and x.dtype == torch.bfloat16
+    taps, m = wb.shape[0], wb.shape[1 if wtaps else 2]
     p = bwd_plan(b, c, t, m, groups, taps, x.dtype)
     if g.shape != (b, m, t) or g.dtype != x.dtype \
-            or wb.shape != (taps, c, m) or wb.dtype != x.dtype \
+            or wb.shape != ((taps, m, c) if wtaps else (taps, c, m)) \
+            or wb.dtype != x.dtype \
             or stats is None or stats.shape != (2 * b * groups,):
         raise ValueError(f"resblock backward: upstream {tuple(g.shape)} "
                          f"{g.dtype}, weight {tuple(wb.shape)} {wb.dtype} "

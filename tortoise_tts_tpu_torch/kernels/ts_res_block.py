@@ -23,9 +23,12 @@ Where autograd records a CUDA call the call is a
 group)'s mean and rstd, and the backward is ``KERNEL_BWD`` (K4's
 backward entry ``tts_resblock_bwd`` with three taps, counted here), which
 replaces no Pallas kernel: the JAX package's ``custom_vjp``
-differentiates its XLA formulation (``diffusion.py:77-98``).  It reads
-the live ``w``; the tap-major ``w_taps`` gets no gradient.  Its plain
-version is ``gn_conv.ts_res_block_out_bwd_plain``.
+differentiates its XLA formulation (``diffusion.py:77-98``).  In bf16
+it reads the forward's tap-major ``w_taps`` (its da, ``bwd_da_pingpong``,
+reverses the taps by TMA coordinate and transposes them by ``wgmma``'s
+transpose bit: no per-call weight copy); in fp32 a reversed, transposed
+copy of ``w``.  ``w`` gets the weight's gradient, ``w_taps`` none.  Its
+plain version is ``gn_conv.ts_res_block_out_bwd_plain``.
 """
 
 from __future__ import annotations
@@ -84,6 +87,18 @@ def ts_res_block_out_taps_plain(h: torch.Tensor, x: torch.Tensor,
     return (acc + bias.float()[:, None] + x.float()).to(h.dtype)
 
 
+def da_taps_plain(w_taps: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The bf16 backward's da product (``bwd_da_pingpong``) in plain
+    PyTorch, in fp32: the sum over taps s' of w_taps[2 - s']^T (the
+    tap-major weight read transposed, its taps reversed) times the
+    upstream g (B, C, T) shifted by s' - 1 steps (zeros outside [0, T)):
+    the gradient of the k=3 convolution's input, (B, C, T)."""
+    t = g.shape[-1]
+    gp = Fn.pad(g.float(), (1, 1))
+    return sum(torch.matmul(w_taps[2 - s].float().t(), gp[..., s:s + t])
+               for s in range(3))
+
+
 def _launch(h, x, emb_out, gamma, beta, w_taps, bias, groups, eps,
             with_stats=False):
     """K5 on CUDA h: (out, the statistics as ``gn_conv._launch``'s)."""
@@ -117,16 +132,19 @@ class _TsResBlockOut(torch.autograd.Function):
                 eps):
         out, stats = _launch(h, x, emb_out, gamma, beta, w_taps, bias,
                              groups, eps, with_stats=True)
-        ctx.save_for_backward(h, emb_out, gamma, beta, w, bias, stats)
+        ctx.save_for_backward(h, emb_out, gamma, beta, w, w_taps, bias,
+                              stats)
         ctx.cfg = (groups, eps)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        h, emb_out, gamma, beta, w, bias, stats = ctx.saved_tensors
+        h, emb_out, gamma, beta, w, w_taps, bias, stats = ctx.saved_tensors
         groups, eps = ctx.cfg
-        # wb[s'] = w[:, :, 2 - s']^T: (3, C_in, C_out)
-        wb = w.to(h.dtype).flip(2).permute(2, 1, 0).contiguous()
+        if h.dtype == torch.bfloat16:   # the forward's tap-major weight
+            wb = _aligned(w_taps.to(h.dtype))
+        else:      # wb[s'] = w[:, :, 2 - s']^T: (3, C_in, C_out)
+            wb = w.to(h.dtype).flip(2).permute(2, 1, 0).contiguous()
         dh, dga, dbe, dw, db, demb = _launch_bwd(
             KERNEL_BWD, h, gamma, beta, bias, wb, g, stats, groups, True,
             eps, emb=emb_out)
